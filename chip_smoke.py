@@ -1,0 +1,622 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and hold its kernels against
+their plain PyTorch versions.
+
+    python3 chip_smoke.py [--seed N] [--profile] [--json PATH]
+
+Phases, each of which fails the run on any error:
+
+1. print the card's name and power limit (``nvidia-smi``);
+2. build the port's CUDA kernel from ``k8s_gpu_tpu_torch/csrc`` with
+   ``nvcc``;
+3. each kernel against its plain version at the shapes the main path
+   gives it, in float32 and bf16 and with an int8 pool (a bf16 or int8
+   run is also held against the plain version in float32 on the same
+   values), with the error, the kernel's time, the plain version's
+   time, the time of a PyTorch library call computing the same function,
+   and the least time the card could take (bytes over 3.35 TB/s or
+   operations over the type's peak, whichever is larger);
+4. the main path: the 302M flagship (vocab 16384, d_model 1024, 16
+   layers, 8 heads of 128, d_ff 4096, max_seq 2048, bf16, random weights
+   from ``--seed``) behind the port's ``LmServer`` on the paged pool with
+   ``attn_impl="paged_kernel"``, answering HTTP ``/generate`` requests of
+   a mixed-length serving traffic mix plus a pair that shares a 512-token
+   prefix.  Every request must return its budget of tokens, a repeated
+   greedy request the same stream, and the kernel counts are read just
+   around this phase: every kernel of the path launched, no fall-back;
+5. a check of the output by the repo's own means: the paged-kernel engine
+   against the gather engine on one prompt (finite logits that agree).
+
+It prints a ``{"kernels": [...]}`` line, then as its last line
+``{"ok": true, "device": {...}}``.  Without CUDA, or without the port
+beside it, it exits non-zero and prints no result.  ``--json PATH``
+also writes every measured number to PATH.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per second
+# Kernel against its plain version on the same inputs (max abs error).
+# float32: both compute in f32 and differ only in summation order.  bf16
+# and int8: the plain version rounds scores and probabilities to bf16 and
+# the kernel keeps them in f32; the worst reading at the flagship shapes
+# was 6.8e-3 (outputs there are about 0.03 in size), so this limit only
+# ties the two together.  The tight check of those types is against the
+# plain version in float32 on the same values: the kernel then differs
+# only by rounding its output to bf16, at most half a bf16 step
+# (2**-8 of the value), held at F32_REF_RTOL.
+F32_TOL = 1e-4
+BF16_TOL = 1e-2
+F32_REF_ATOL, F32_REF_RTOL = 1e-5, 2.0 ** -7
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call over ``iters`` calls, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+# -- phase 3: paged attention against its plain version ---------------------
+
+def _type_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _pa_case(torch, gen, *, B, Sq, H, KH, Dh, page, t_hi, dtype, quant,
+             ragged, dev):
+    """Pool, tables and positions for one kernel case.  Row b owns its own
+    blocks; with ``ragged`` rows own different page counts and dead table
+    entries point at trash block 0.  Returns the operands and the mask of
+    blocks some row owns."""
+    MP = t_hi // page
+    NB = 1 + B * MP
+    q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev).to(dtype)
+    pages = torch.zeros(B, MP, dtype=torch.int32)
+    start = torch.zeros(B, dtype=torch.int32)
+    kv_start = torch.zeros(B, dtype=torch.int32)
+    for b in range(B):
+        live = max(1, MP - (b % 4) * (MP // 4)) if ragged else MP
+        pages[b, :live] = torch.arange(1 + b * MP, 1 + b * MP + live)
+        start[b] = live * page - Sq - (b % 3)
+        kv_start[b] = (b % 2) * (page // 2) if ragged else 0
+    owned = torch.zeros(NB, dtype=torch.bool)
+    owned[pages[pages > 0].long()] = True
+    kf = torch.randn(NB, KH, page, Dh, generator=gen, device=dev)
+    vf = torch.randn(NB, KH, page, Dh, generator=gen, device=dev)
+    ops = {"q": q, "pages": pages.to(dev), "start": start.to(dev),
+           "kv_start": kv_start.to(dev)}
+    if quant:
+        from k8s_gpu_tpu_torch.serve.engine import _quantize_kv
+
+        kq, ks = _quantize_kv(kf)
+        vq, vs = _quantize_kv(vf)
+        ops.update(k=kq, v=vq, k_scale=ks, v_scale=vs)
+    else:
+        ops.update(k=kf.to(dtype), v=vf.to(dtype), k_scale=None,
+                   v_scale=None)
+    return ops, owned.to(dev)
+
+
+def _poisoned(ops, owned):
+    """A copy whose trash block 0 holds large values and whose unowned
+    blocks hold NaN (in the scales of an int8 pool)."""
+    out = dict(ops)
+    foreign = ~owned
+    foreign[0] = False
+    if ops["k_scale"] is None:
+        for key in ("k", "v"):
+            t = ops[key].clone()
+            t[0] = 1e4
+            t[foreign] = float("nan")
+            out[key] = t
+    else:
+        for key in ("k_scale", "v_scale"):
+            t = ops[key].clone()
+            t[0] = 1e4
+            t[foreign] = float("nan")
+            out[key] = t
+    return out
+
+
+def _pa_bound(ops, *, page, t_hi, Dh):
+    """Least time for this call on this data: the blocks some row needs
+    (a block shared by rows counts once) plus q and the output, over the
+    memory rate; the unmasked positions' 4*Dh flops per query row and
+    head over the peak of q's type."""
+    q, pages = ops["q"], ops["pages"].cpu()
+    start, kv_start = ops["start"].cpu(), ops["kv_start"].cpu()
+    B, Sq, H, _ = q.shape
+    KH = ops["k"].shape[1]
+    need: set[int] = set()
+    positions = 0
+    for b in range(B):
+        lo = int(kv_start[b])
+        for j in range(Sq):
+            hi = min(int(start[b]) + j, t_hi - 1)
+            positions += max(0, hi - lo + 1)
+        last = min(int(start[b]) + Sq - 1, t_hi - 1)
+        for p in range(lo // page, last // page + 1):
+            need.add(int(pages[b, p]))
+    per_block = 2 * KH * page * Dh * ops["k"].element_size()
+    if ops["k_scale"] is not None:
+        per_block += 2 * KH * page * 4
+    nbytes = len(need) * per_block + 2 * q.numel() * q.element_size()
+    flops = 4.0 * positions * H * Dh
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS[_type_name(q.dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _pa_library(torch, ops, *, page, t_hi):
+    """Gather + scaled_dot_product_attention: a yardstick only, never
+    called by the port."""
+    import torch.nn.functional as F
+
+    q, k_pool, v_pool = ops["q"], ops["k"], ops["v"]
+    B, Sq, H, Dh = q.shape
+    KH = k_pool.shape[1]
+    p_hi = t_hi // page
+    tbl = ops["pages"][:, :p_hi].long()
+    k = k_pool[tbl].transpose(1, 2).reshape(B, KH, p_hi * page, Dh)
+    v = v_pool[tbl].transpose(1, 2).reshape(B, KH, p_hi * page, Dh)
+    if ops["k_scale"] is not None:
+        ks = ops["k_scale"][tbl].transpose(1, 2).reshape(B, KH, -1)
+        vs = ops["v_scale"][tbl].transpose(1, 2).reshape(B, KH, -1)
+        k = k.to(q.dtype) * ks[..., None].to(q.dtype)
+        v = v.to(q.dtype) * vs[..., None].to(q.dtype)
+    if H != KH:
+        k = k.repeat_interleave(H // KH, dim=1)
+        v = v.repeat_interleave(H // KH, dim=1)
+    t = torch.arange(p_hi * page, device=q.device)
+    q_pos = ops["start"].long()[:, None] + torch.arange(Sq, device=q.device)
+    mask = ((t[None, None] <= q_pos[..., None])
+            & (t[None, None] >= ops["kv_start"].long()[:, None, None]))
+    o = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask[:, None], scale=Dh ** -0.5)
+    return o.transpose(1, 2)
+
+
+def check_paged_attention(torch, seed: int) -> list[dict]:
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # name, B, Sq, H, KH, Dh, page, t_hi, q dtype, int8 pool, ragged
+        ("decode_f32", 8, 1, 8, 8, 128, 64, 2048, f32, False, False),
+        ("decode_bf16", 8, 1, 8, 8, 128, 64, 2048, bf16, False, False),
+        ("decode_int8", 8, 1, 8, 8, 128, 64, 2048, bf16, True, False),
+        ("window_f32", 1, 512, 8, 8, 128, 64, 2048, f32, False, False),
+        ("window_bf16", 1, 512, 8, 8, 128, 64, 2048, bf16, False, False),
+        ("window_int8", 1, 512, 8, 8, 128, 64, 2048, bf16, True, False),
+        ("gqa_ragged_f32", 8, 1, 32, 8, 128, 64, 2048, f32, False, True),
+        ("gqa_ragged_bf16", 8, 1, 32, 8, 128, 64, 2048, bf16, False, True),
+        ("gqa_ragged_int8", 8, 4, 32, 8, 128, 64, 2048, bf16, True, True),
+    ]
+    results = []
+    for name, B, Sq, H, KH, Dh, page, t_hi, dtype, quant, ragged in cases:
+        ops, owned = _pa_case(
+            torch, gen, B=B, Sq=Sq, H=H, KH=KH, Dh=Dh, page=page, t_hi=t_hi,
+            dtype=dtype, quant=quant, ragged=ragged, dev=dev)
+        args = (ops["q"], ops["k"], ops["v"], ops["pages"], ops["start"],
+                ops["kv_start"])
+        kw = dict(page=page, t_hi=t_hi, k_scale=ops["k_scale"],
+                  v_scale=ops["v_scale"])
+        before = pa.launch_count
+        out = pa.paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        if pa.launch_count != before + 1:
+            raise RuntimeError(f"{name}: the kernel was not launched")
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"{name}: non-finite kernel output")
+        ref = pa.paged_attention_reference(*args, **kw)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = F32_TOL if dtype == f32 else BF16_TOL
+        if not err <= tol:
+            raise RuntimeError(
+                f"{name}: kernel vs plain max_abs_err {err} > {tol}")
+        err_f32 = err
+        if dtype != f32:
+            # bf16 -> f32 is exact; an int8 pool and the tables stay.
+            wide = [a.float() if a.is_floating_point() else a for a in args]
+            ref32 = pa.paged_attention_reference(*wide, **kw)
+            diff = (out.float() - ref32).abs()
+            err_f32 = float(diff.max())
+            if not bool((diff <= F32_REF_ATOL
+                         + F32_REF_RTOL * ref32.abs()).all()):
+                raise RuntimeError(
+                    f"{name}: kernel vs float32 plain version beyond atol "
+                    f"{F32_REF_ATOL} + rtol {F32_REF_RTOL} (max abs "
+                    f"{err_f32})")
+        if ragged:
+            bad = _poisoned(ops, owned)
+            out_p = pa.paged_attention(
+                bad["q"], bad["k"], bad["v"], bad["pages"], bad["start"],
+                bad["kv_start"], page=page, t_hi=t_hi,
+                k_scale=bad["k_scale"], v_scale=bad["v_scale"])
+            if not torch.equal(out_p, out):
+                raise RuntimeError(
+                    f"{name}: trash or unowned blocks changed the output")
+        ms = time_cuda(torch, lambda: pa.paged_attention(*args, **kw), 50)
+        plain_ms = time_cuda(
+            torch, lambda: pa.paged_attention_reference(*args, **kw), 30)
+        lib_ms = time_cuda(
+            torch, lambda: _pa_library(torch, ops, page=page, t_hi=t_hi), 30)
+        bound_ms, bound_by = _pa_bound(ops, page=page, t_hi=t_hi, Dh=Dh)
+        row = {
+            "case": name, "B": B, "Sq": Sq, "H": H, "KH": KH, "Dh": Dh,
+            "page": page, "t_hi": t_hi, "q": _type_name(dtype),
+            "kv": "int8" if quant else _type_name(dtype),
+            "max_abs_err": err, "tol": tol, "max_abs_err_vs_f32": err_f32,
+            "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print(json.dumps(row), flush=True)
+        results.append(row)
+    return results
+
+
+def _syncer(torch, dev):
+    """Wait for the card; nothing to wait for on the CPU (rehearsals)."""
+    return torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+
+# -- phase 4: the main path ---------------------------------------------------
+
+# (prompt tokens, max_new) of a mixed serving mix, short chat turns to long
+# documents (the reference benchmark's paged-pool traffic).
+TRAFFIC = [(33, 48), (120, 64), (500, 128), (1000, 200),
+           (64, 32), (250, 96), (33, 48), (700, 150)]
+PAGE = 64
+LAYERS = 16   # the flagship's full depth
+
+
+def flagship_config(torch, layers: int):
+    from k8s_gpu_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(
+        vocab_size=16384, d_model=1024, n_layers=layers, n_heads=8,
+        n_kv_heads=0, d_head=128, d_ff=4096, max_seq=2048,
+        dtype=torch.bfloat16, attn_impl="paged_kernel",
+    )
+
+
+def flagship_tokenizer(vocab_size: int):
+    """BPE trained on the repo's README, then extended with byte-pair
+    merges up to the model's vocabulary so every id a random-weight model
+    emits decodes to text."""
+    from k8s_gpu_tpu_torch.data.tokenizer import BpeTokenizer
+
+    with open(os.path.join(ROOT, "README.md"), "rb") as fh:
+        text = fh.read()[:6000]
+    merges = BpeTokenizer.train(text, 384).merges
+    k = 0
+    while 256 + len(merges) < vocab_size:
+        merges.append((k % 256, (k // 256) % 256))
+        k += 1
+    return BpeTokenizer(merges)
+
+
+def _post(port: int, path: str, body: dict, timeout: float = 600.0):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def _stream(port: int, body: dict, out: dict, timeout: float = 600.0):
+    """POST /generate with "stream": true; records the ids, the client's
+    time to first token and the end time into ``out``."""
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate",
+        data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    ids, ttft, summary = [], None, None
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            ev = json.loads(line)
+            if "id" in ev:
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                ids.append(ev["id"])
+            else:
+                summary = ev
+    out.update(ids=ids, ttft_s=ttft, t_end=time.perf_counter(),
+               summary=summary)
+
+
+def _profile_summary(torch, prof, wall_s: float) -> dict:
+    """Device busy share and the largest items of a profiled window: the
+    kernels by device time and the host operators by self CPU time."""
+    kernels, host = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            kernels.append((dev_us, e.key, e.count))
+        else:
+            host.append((e.self_cpu_time_total, e.key, e.count))
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    return {
+        "wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / (wall_s * 1e3),
+        "top_kernels": [{"name": n[:120], "count": c, "ms": t / 1e3}
+                        for t, n, c in sorted(kernels, reverse=True)[:12]],
+        "top_host_ops": [{"name": n[:120], "count": c, "self_ms": t / 1e3}
+                         for t, n, c in sorted(host, reverse=True)[:12]],
+    }
+
+
+def run_main_path(torch, seed: int, layers: int, device="cuda",
+                  profile: bool = False) -> dict:
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import LmServer
+    from k8s_gpu_tpu_torch.serve.scheduler import prompt_bucket
+
+    cfg = flagship_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    sync = _syncer(torch, model.device)
+    tok = flagship_tokenizer(cfg.vocab_size)
+    rng = torch.Generator().manual_seed(seed)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    used = sum(-(-(prompt_bucket(p, cfg.max_seq) + n) // PAGE) * PAGE
+               for p, n in TRAFFIC)
+    n_blocks = max(1 + cfg.max_seq // PAGE, used // PAGE + 8)
+    prefix = ids(512)
+    pair = [(prefix + ids(40), 64), (prefix + ids(90), 64)]
+    mix = [(ids(p), n) for p, n in TRAFFIC]
+
+    srv = LmServer(model, params, tok, slots=8, paged_blocks=n_blocks,
+                   page_size=PAGE, attn_impl="paged_kernel",
+                   max_new_tokens_cap=256, device=device).start()
+    try:
+        code, tk = _post(srv.port, "/tokenize", {"text": "serve the pool"})
+        if code != 200 or not tk["ids"]:
+            raise RuntimeError(f"/tokenize failed: {code} {tk}")
+        sync()
+        prof = None
+        if profile:
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            prof = torch.profiler.profile(activities=acts)
+            prof.__enter__()
+        pa.reset_counts()
+        t0 = time.perf_counter()
+        # The pair's first request registers the shared prefix blocks;
+        # the rest, the pair's second among them, then arrive together.
+        first = {}
+        _stream(srv.port, {"prompt_ids": pair[0][0],
+                           "max_new_tokens": pair[0][1]}, first)
+        jobs = mix + [pair[1]]
+        outs = [dict() for _ in jobs]
+        threads = [threading.Thread(
+            target=_stream, args=(srv.port, {"prompt_ids": p,
+                                             "max_new_tokens": n}, o))
+            for (p, n), o in zip(jobs, outs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        sync()
+        wall = time.perf_counter() - t0
+        launches, fallbacks = pa.launch_count, pa.fallback_count
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            profiled = _profile_summary(torch, prof, wall)
+        admissions = dict(srv.batcher.admission_paths)
+        rounds = srv.batcher._round_count
+        outs = [first] + outs
+        budgets = [pair[0][1]] + [n for _, n in jobs]
+        for i, (o, n) in enumerate(zip(outs, budgets)):
+            if len(o.get("ids", [])) != n or not (o["summary"] or {}).get(
+                    "done"):
+                raise RuntimeError(
+                    f"request {i}: {len(o.get('ids', []))} of {n} tokens, "
+                    f"summary {o.get('summary')}")
+        if admissions.get("paged_shared", 0) < 1:
+            raise RuntimeError(f"no shared-prefix admission: {admissions}")
+        # The same greedy request twice more, alone: the same stream.  (In
+        # bf16 a row's numbers depend on the batch it shares — the matrix
+        # products pick kernels by batch size — so the stream it gave
+        # inside the mix is compared by its common prefix only.)
+        again = []
+        for _ in range(2):
+            code, body = _post(srv.port, "/generate",
+                               {"prompt_ids": mix[1][0],
+                                "max_new_tokens": mix[1][1]})
+            if code != 200:
+                raise RuntimeError(f"repeated request failed: {code}")
+            again.append(body["ids"])
+        if again[0] != again[1]:
+            raise RuntimeError("a repeated greedy request changed its stream")
+        in_mix = outs[2]["ids"]
+        common = next((i for i, (a, b) in enumerate(zip(in_mix, again[0]))
+                       if a != b), len(in_mix))
+        code, text = _post(srv.port, "/generate",
+                           {"prompt": "the pool serves", "max_new_tokens": 8,
+                            "temperature": 0.8, "top_p": 0.9, "seed": 7})
+        if code != 200 or len(text["ids"]) != 8:
+            raise RuntimeError(f"sampled text request failed: {code}")
+    finally:
+        srv.stop()
+    if launches <= 0 or fallbacks != 0:
+        raise RuntimeError(f"paged_attention launches {launches}, "
+                           f"fall-backs {fallbacks} on the main path")
+    n_tok = sum(len(o["ids"]) for o in outs)
+    ttfts = sorted(o["ttft_s"] for o in outs)
+    extra = {"profile": profiled} if profile else {}
+    return {**extra,
+        "layers": layers, "requests": len(outs), "generated_tokens": n_tok,
+        "wall_s": wall, "tokens_per_s": n_tok / wall,
+        "ttft_s_p50": ttfts[len(ttfts) // 2], "ttft_s_max": ttfts[-1],
+        "rounds": rounds, "admissions": admissions,
+        "repeat_common_prefix_with_mix": common,
+        "paged_attention_launches": launches,
+        "paged_attention_fallbacks": fallbacks, "paged_blocks": n_blocks,
+    }
+
+
+# -- phase 5: the output against the gather read -----------------------------
+
+LOGIT_TOL = 0.25  # bf16 logits after 16 layers, two attention reads
+
+
+def check_outputs(torch, seed: int, layers: int, device="cuda") -> dict:
+    """The flagship engine with the kernel read against the same engine
+    with the gather read, on one 300-token prompt and one decode step:
+    finite logits of the right shape that agree within LOGIT_TOL.  Also
+    measures kernel launches per decode step."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve.engine import (
+        InferenceEngine, _empty_cache_paged,
+    )
+
+    cfg = flagship_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    dev = model.device
+    sync = _syncer(torch, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = 300
+    rng = torch.Generator().manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 512), generator=rng)
+    prompt[:, n:] = 0
+    prompt = prompt.to(dev, torch.int32)
+    pages = torch.zeros(1, cfg.max_seq // PAGE, **i32)
+    pages[0, :8] = torch.arange(1, 9)
+    zero = torch.zeros(1, **i32)
+    out = {}
+    for impl in ("paged_kernel", "gather"):
+        eng = InferenceEngine(model, attn_impl=impl, device=dev)
+        cache = _empty_cache_paged(cfg, 9, PAGE, False, dev)
+        _, logits = eng.extend_multi(params, cache, prompt, zero, zero, zero,
+                                     pages=pages, page=PAGE)
+        tok = logits[:, n - 1].argmax(-1).to(torch.int32)
+        pos = torch.full((1,), n, **i32)
+        before = pa.launch_count
+        _, step = eng.decode_step_multi(params, cache, tok, pos, pos, zero,
+                                        t_hi=512, pages=pages, page=PAGE)
+        sync()
+        out[impl] = (logits[:, :n], step, pa.launch_count - before)
+    (lk, sk, per_step), (lg, sg, _) = out["paged_kernel"], out["gather"]
+    if lk.shape != (1, n, cfg.vocab_size) or sk.shape != (1, cfg.vocab_size):
+        raise RuntimeError(f"logit shapes {tuple(lk.shape)} {tuple(sk.shape)}")
+    if not (bool(torch.isfinite(lk).all()) and bool(torch.isfinite(sk).all())):
+        raise RuntimeError("non-finite logits")
+    err = max(float((lk - lg).abs().max()), float((sk - sg).abs().max()))
+    if not err <= LOGIT_TOL:
+        raise RuntimeError(f"kernel vs gather logits differ by {err}")
+    if per_step != layers:
+        raise RuntimeError(f"{per_step} kernel launches per decode step, "
+                           f"expected {layers}")
+    agree = float((lk.argmax(-1) == lg.argmax(-1)).float().mean())
+    return {"logit_max_abs_err": err, "logit_tol": LOGIT_TOL,
+            "argmax_agreement": agree, "launches_per_decode_step": per_step}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--json", metavar="PATH",
+                    help="also write the detailed results as JSON here")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the main path with torch.profiler (its "
+                         "times then include the tracing cost)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from k8s_gpu_tpu_torch.ops import _build
+
+    gpu = gpu_line()
+    print(gpu, flush=True)
+    t0 = time.perf_counter()
+    _build.load("paged_attention")
+    build_s = time.perf_counter() - t0
+    print(f"built paged_attention in {build_s:.1f} s", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kern = check_paged_attention(torch, args.seed)
+    main_path = run_main_path(torch, args.seed, LAYERS, profile=args.profile)
+    print(json.dumps({"main_path": main_path}), flush=True)
+    outputs = check_outputs(torch, args.seed, LAYERS)
+    print(json.dumps({"outputs": outputs}), flush=True)
+
+    decode = next(r for r in kern if r["case"] == "decode_bf16")
+    kernels = {"kernels": [{
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "k8s_gpu_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "k8s_gpu_tpu/ops/paged_attention.py:102",
+        "launches": main_path["paged_attention_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kern),
+        "ms": decode["ms"],
+        "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"],
+        "bound_by": decode["bound_by"],
+        "library_ms": decode["library_ms"],
+    }]}
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)),
+                    exist_ok=True)
+        with open(args.json, "w") as fh:
+            json.dump({"gpu": gpu, "build_s": build_s, "kernel_cases": kern,
+                       "main_path": main_path, "outputs": outputs,
+                       "device": device, **kernels}, fh, indent=1)
+    print(gpu, flush=True)
+    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,195 @@
+"""Decoder-only transformer LM: the port of
+``k8s_gpu_tpu/models/transformer.py`` for the dense serving model.
+
+Parameters are a plain dict of tensors with the reference's layout and
+names: layers stacked on a leading ``[L, ...]`` axis under ``"blocks"``,
+so weights cross from the JAX package leaf for leaf (``convert.py``).  A
+weight leaf is a tensor or the int8 serving form ``{"q": int8, "s": f32
+scale}``.  The bf16 cast points are the reference's: for example
+``_rmsnorm`` casts to ``x.dtype`` before multiplying by the scale.
+
+Not ported yet: MoE, flash/ring/ulysses attention, the pipeline
+schedules and ``loss`` (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..device import resolve_device
+
+
+def wt(w, dt):
+    """A weight leaf at compute dtype: plain tensors cast, int8 ``{q, s}``
+    leaves dequantize (``q * s``) at ``dt``."""
+    if isinstance(w, dict):
+        return w["q"].to(dt) * w["s"].to(dt)
+    return w.to(dt)
+
+
+def emb_lookup(w, tokens, dt):
+    """Embedding gather for plain or int8 tables — gather the int8 rows
+    first, then scale by the gathered per-row scales."""
+    tokens = tokens.long()
+    if isinstance(w, dict):
+        return w["q"][tokens].to(dt) * w["s"][tokens].to(dt)
+    return w.to(dt)[tokens]
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    """The serving fields of the reference's config, same names."""
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    d_head: int = 64
+    n_kv_heads: int = 0        # 0 = n_heads (plain multi-head attention)
+    d_ff: int = 1376
+    max_seq: int = 2048
+    rope_theta: float = 10000.0
+    dtype: torch.dtype = torch.bfloat16
+    # Paged-KV attention read for serving: "gather" or "paged_kernel".
+    attn_impl: str = "gather"
+
+    @property
+    def kv_heads(self) -> int:
+        kh = self.n_kv_heads or self.n_heads
+        if self.n_heads % kh != 0:
+            raise ValueError(
+                f"n_heads {self.n_heads} must be a multiple of "
+                f"n_kv_heads {kh}"
+            )
+        return kh
+
+
+def layer_params(blocks: dict, layer: int) -> dict:
+    """One layer's leaves (views) of the stacked ``[L, ...]`` blocks."""
+    return {
+        name: ({k: v[layer] for k, v in leaf.items()}
+               if isinstance(leaf, dict) else leaf[layer])
+        for name, leaf in blocks.items()
+    }
+
+
+class TransformerLM:
+    def __init__(self, cfg: TransformerConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        half = cfg.d_head // 2
+        self._freqs = cfg.rope_theta ** (
+            -torch.arange(0, half, dtype=torch.float32, device=self.device)
+            / half
+        )
+
+    # -- parameters --------------------------------------------------------
+    def init(self, seed: int = 0) -> dict:
+        """Random parameters with the reference's shapes and scales, drawn
+        from a generator seeded with ``seed``, stored in ``cfg.dtype``
+        (norm scales stay f32, as the reference keeps them)."""
+        cfg = self.cfg
+        D, H, Dh, F, L, V = (cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff,
+                             cfg.n_layers, cfg.vocab_size)
+        KH = cfg.kv_heads
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        def norm(shape, scale):
+            x = torch.randn(shape, generator=gen, device=self.device)
+            return (x * scale).to(cfg.dtype)
+
+        def ones(shape):
+            return torch.ones(shape, dtype=torch.float32, device=self.device)
+
+        return {
+            "embed": norm((V, D), 0.02),
+            "final_norm": ones((D,)),
+            "head": norm((D, V), D ** -0.5),
+            "blocks": {
+                "ln1": ones((L, D)),
+                "ln2": ones((L, D)),
+                "wq": norm((L, D, H, Dh), D ** -0.5),
+                "wk": norm((L, D, KH, Dh), D ** -0.5),
+                "wv": norm((L, D, KH, Dh), D ** -0.5),
+                "wo": norm((L, H, Dh, D), (H * Dh) ** -0.5),
+                "wi_gate": norm((L, D, F), D ** -0.5),
+                "wi_up": norm((L, D, F), D ** -0.5),
+                "wo_mlp": norm((L, F, D), F ** -0.5),
+            },
+        }
+
+    # -- building blocks ---------------------------------------------------
+    @staticmethod
+    def _rmsnorm(x, scale):
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        return (x * torch.rsqrt(var + 1e-6)).to(x.dtype) * scale.to(x.dtype)
+
+    def _rope(self, x, positions):
+        """x [B, S, H, Dh]; ``positions`` [S] (shared across the batch) or
+        [B, S] (per row)."""
+        angles = positions[..., :, None].float() * self._freqs  # [..,S,half]
+        if angles.ndim == 2:
+            angles = angles[None]
+        cos = torch.cos(angles)[:, :, None, :]                 # [1|B,S,1,half]
+        sin = torch.sin(angles)[:, :, None, :]
+        x1, x2 = x.float().chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+        return out.to(x.dtype)
+
+    def _repeat_kv(self, t):
+        """[B, KH, S, Dh] -> [B, H, S, Dh] for plain attention."""
+        g = self.cfg.n_heads // self.cfg.kv_heads
+        return t if g == 1 else t.repeat_interleave(g, dim=1)
+
+    @staticmethod
+    def _plain_causal_attention(q, k, v):
+        """[B, H, S, Dh] causal attention in f32, output in q.dtype."""
+        scale = q.shape[-1] ** -0.5
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+        sq, sk = s.shape[-2], s.shape[-1]
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(sk, device=q.device)[None, :])
+        s = torch.where(mask, s, -1e30)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+    def _attention(self, x, lp, positions):
+        dt = self.cfg.dtype
+        q = torch.einsum("bsd,dhk->bshk", x, wt(lp["wq"], dt))
+        k = torch.einsum("bsd,dhk->bshk", x, wt(lp["wk"], dt))
+        v = torch.einsum("bsd,dhk->bshk", x, wt(lp["wv"], dt))
+        q = self._rope(q, positions)
+        k = self._rope(k, positions)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))       # [B,H,S,Dh]
+        o = self._plain_causal_attention(
+            q, self._repeat_kv(k), self._repeat_kv(v))
+        o = o.transpose(1, 2)                                   # [B,S,H,Dh]
+        return torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], dt))
+
+    def _dense_mlp(self, x, lp):
+        dt = self.cfg.dtype
+        g = torch.einsum("bsd,df->bsf", x, wt(lp["wi_gate"], dt))
+        u = torch.einsum("bsd,df->bsf", x, wt(lp["wi_up"], dt))
+        return torch.einsum(
+            "bsf,fd->bsd", torch.nn.functional.silu(g) * u,
+            wt(lp["wo_mlp"], dt),
+        )
+
+    def _block(self, x, lp, positions):
+        x = x + self._attention(self._rmsnorm(x, lp["ln1"]), lp, positions)
+        return x + self._dense_mlp(self._rmsnorm(x, lp["ln2"]), lp)
+
+    # -- forward -----------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, params, tokens):
+        """tokens [B, S] int -> (logits [B, S, V] f32, aux loss 0)."""
+        cfg = self.cfg
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = emb_lookup(params["embed"], tokens, cfg.dtype)
+        for layer in range(cfg.n_layers):
+            x = self._block(x, layer_params(params["blocks"], layer),
+                            positions)
+        x = self._rmsnorm(x, params["final_norm"])
+        logits = torch.einsum("bsd,dv->bsv", x, wt(params["head"], cfg.dtype))
+        return logits.float(), torch.zeros((), device=tokens.device)

@@ -1,0 +1,9 @@
+"""Serving plane of the port: engine, batcher and HTTP server on the
+paged KV pool."""
+
+from .batcher import ContinuousBatcher, Overloaded, RequestHandle
+from .engine import InferenceEngine, SamplingConfig
+from .server import LmServer
+
+__all__ = ["ContinuousBatcher", "InferenceEngine", "LmServer",
+           "Overloaded", "RequestHandle", "SamplingConfig"]

@@ -1,0 +1,150 @@
+"""Continuous batching on the paged KV pool: the port of
+``k8s_gpu_tpu/serve/batcher.py``, composed of the scheduler, allocator
+and executor mixins.
+
+A fixed pool of ``slots`` decode rows shares one paged KV pool of
+``paged_blocks`` blocks of ``page_size`` positions through per-slot page
+tables (block 0 is the trash block).  Prefix sharing is block-granular
+and automatic: full prompt pages are chain-hashed and registered, a
+later prompt with the same chain maps its table to the same blocks and
+computes only its suffix, and a partial tail block is recomputed into a
+private block.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .allocator import AllocatorMixin
+from .engine import InferenceEngine, _empty_cache_paged
+from .executor import ExecutorMixin
+from .kv_blocks import BlockPool
+from .scheduler import (
+    Overloaded, RequestHandle, SchedulerMixin, prompt_bucket,
+)
+
+__all__ = ["ContinuousBatcher", "Overloaded", "RequestHandle",
+           "prompt_bucket"]
+
+# Options of the reference batcher that this slice does not port, and the
+# ROADMAP item that will.
+_NOT_PORTED = {
+    "mesh": "queue 1 item 11 (parallel plane)",
+    "adapters": "queue 1 item 8 (LoRA adapters)",
+    "constraints": "queue 1 item 8 (constrained decoding)",
+    "draft": "queue 1 item 7 (speculative decoding)",
+}
+
+
+class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
+    """Fixed-slot continuous batching over one InferenceEngine, on
+    ``device`` (the card unless the caller asks for the CPU).
+
+    ``eos_id`` retires a request early; ``logprobs`` collects per-token
+    log-probabilities; ``kv_quant`` stores the pool int8; ``attn_impl``
+    picks the paged read ("gather" or "paged_kernel"); ``max_pending`` >
+    0 bounds the unadmitted queue (``submit`` raises ``Overloaded`` at
+    the bound).  This slice needs ``paged_blocks`` > 0 and
+    ``prefix_cache=True``."""
+
+    def __init__(self, model, params, *, slots: int = 8, mesh=None,
+                 max_seq: int | None = None, eos_id: int = -1,
+                 steps_per_round: int = 8, pipeline_depth: int = 2,
+                 adapters=None, constraints=None, logprobs: bool = False,
+                 draft=None, kv_quant: bool = False,
+                 attn_impl: str | None = None, paged_blocks: int = 0,
+                 page_size: int = 64, prefix_cache: bool = True,
+                 max_pending: int = 0, device="cuda"):
+        given = {"mesh": mesh, "adapters": adapters,
+                 "constraints": constraints, "draft": draft}
+        for name, value in given.items():
+            if value is not None:
+                raise NotImplementedError(
+                    f"ContinuousBatcher({name}=...) is not ported yet "
+                    f"(ROADMAP {_NOT_PORTED[name]})"
+                )
+        if int(paged_blocks) <= 0:
+            raise NotImplementedError(
+                "the dense KV pool is not ported yet (ROADMAP queue 1 "
+                "item 4): pass paged_blocks > 0"
+            )
+        if not prefix_cache:
+            raise NotImplementedError(
+                "prefix_cache=False (the unshared paged admission) is not "
+                "ported yet (ROADMAP queue 1 item 4)"
+            )
+        self.device = resolve_device(device)
+        self.engine = InferenceEngine(
+            model, max_seq=max_seq, kv_quant=kv_quant, attn_impl=attn_impl,
+            device=self.device,
+        )
+        self.params = params
+        self.slots = slots
+        self.eos_id = eos_id
+        self.collect_logprobs = bool(logprobs)
+        self.steps_per_round = max(1, int(steps_per_round))
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self.solo_buckets = [self.steps_per_round * m
+                             for m in (1, 2, 3, 4, 6, 8)]
+
+        self.page_size = max(8, int(page_size))
+        max_seq = self.engine.max_seq
+        if max_seq % self.page_size:
+            raise ValueError(f"max_seq {max_seq} must be a multiple of "
+                             f"page_size {self.page_size}")
+        self._max_pages = max_seq // self.page_size
+        if int(paged_blocks) < 1 + self._max_pages:
+            raise ValueError(
+                f"paged_blocks={paged_blocks} cannot hold one max-length "
+                f"request plus the trash block (need >= "
+                f"{1 + self._max_pages})"
+            )
+        self.paged_blocks = int(paged_blocks)
+        self._pool = BlockPool(self.paged_blocks)
+        self._pages = np.zeros((slots, self._max_pages), np.int32)
+        self._overflow: collections.deque = collections.deque()
+
+        i32 = dict(dtype=torch.int32, device=self.device)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self._dev = {
+            "cache": _empty_cache_paged(
+                self.engine.cfg, self.paged_blocks, self.page_size,
+                self.engine.kv_quant, self.device,
+            ),
+            "token": torch.zeros(slots, **i32),
+            "pos": torch.zeros(slots, **i32),
+            "start": torch.zeros(slots, **i32),   # kv_start, always 0
+            "temps": torch.zeros(slots, **f32),
+            "top_p": torch.zeros(slots, **f32),
+        }
+        # Host mirrors of the per-slot sampling state.
+        self._temps = [0.0] * slots
+        self._gens: list = [None] * slots
+
+        self._active: list = [None] * slots
+        self.max_pending = max(0, int(max_pending))
+        self._pending: queue.Queue = queue.Queue(maxsize=self.max_pending)
+        self._dead = False
+        # Serializes submit() against the end-of-life drain.
+        self._lifecycle = threading.Lock()
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._round_count = 0
+        self._warmed = False
+        # Admissions by path ("paged_cold" / "paged_shared"): shows which
+        # requests mapped a shared prefix.
+        self.admission_paths: collections.Counter = collections.Counter()
+        self._thread = threading.Thread(
+            target=self._run, name="continuous-batcher", daemon=True
+        )
+
+    def _run(self) -> None:
+        # Autograd state is per thread: the scheduler thread needs its own.
+        with torch.inference_mode():
+            self._loop()

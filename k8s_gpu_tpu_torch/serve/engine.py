@@ -1,0 +1,422 @@
+"""KV-cache inference engine: the port of ``k8s_gpu_tpu/serve/engine.py``.
+
+Two caches, the reference's layouts:
+
+- the dense cache ``[L, B, KH, max_seq, Dh]`` behind ``prefill``,
+  ``decode_step`` and ``generate`` (one batch, one shared position);
+- the paged pool ``[L, NB, KH, page, Dh]`` behind ``decode_step_multi``
+  and ``extend_multi``: physical blocks shared by all rows through
+  per-row page tables, block 0 the trash block.
+
+With ``kv_quant`` a cache holds int8 K/V plus one f32 scale per
+(layer, row or block, head, position) in ``k_s``/``v_s``.
+
+Where the reference returns an updated cache from a pure function, the
+port writes into the cache tensors in place and returns the same dict:
+a decode step never copies the pool.  Work on the card is ordered by its
+stream, so a write a later step reads has landed by then.
+
+``attn_impl`` picks the paged read: ``"gather"`` materializes the first
+``t_hi`` positions of every row and runs ``_attend_cached``;
+``"paged_kernel"`` runs the CUDA kernel of ``ops/paged_attention.py``,
+which walks the page tables itself.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..device import resolve_device
+from ..models.transformer import (
+    TransformerLM, emb_lookup, layer_params, wt,
+)
+from ..ops.paged_attention import paged_attention
+
+
+@dataclass(frozen=True)
+class SamplingConfig:
+    temperature: float = 0.0  # 0 = greedy
+    top_k: int = 0            # 0 = full vocab
+    top_p: float = 0.0        # 0 or 1 = off; else nucleus sampling
+    eos_id: int = -1          # -1 = never stop early
+    pad_id: int = 0
+
+
+@dataclass
+class DecodeOutput:
+    tokens: torch.Tensor         # [B, max_new_tokens] (pad after EOS)
+    lengths: torch.Tensor        # [B] tokens generated before EOS/budget
+    prompt_logits: torch.Tensor  # [B, V] logits at the last prompt position
+
+
+def nucleus_mask(scaled, top_p):
+    """Nucleus (top-p) mask on temperature-scaled logits.  ``top_p``
+    scalar or [B]; values outside (0, 1) keep everything, and such rows
+    come back bit-identical.  A token survives iff the mass of strictly
+    better tokens is below top_p, so the nucleus always holds the argmax."""
+    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=scaled.device)
+    eff = torch.where((top_p > 0.0) & (top_p < 1.0), top_p, 1.0)
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    probs = torch.softmax(srt, dim=-1)
+    before = torch.cumsum(probs, dim=-1) - probs
+    keep = before < eff[..., None]
+    n_keep = keep.sum(dim=-1, keepdim=True)
+    thresh = torch.gather(srt, -1, n_keep - 1)
+    masked = torch.where(scaled < thresh, -torch.inf, scaled)
+    return torch.where(eff[..., None] < 1.0, masked, scaled)
+
+
+def gumbel_sample(logits, generator):
+    """One categorical draw per row of ``logits`` [..., V] with the noise
+    taken from ``generator`` (on the logits' device)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    g = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    return torch.argmax(logits.float() + g, dim=-1)
+
+
+def _empty_cache(cfg, batch: int, max_seq: int, kv_quant: bool, device):
+    shape = (cfg.n_layers, batch, cfg.kv_heads, max_seq, cfg.d_head)
+    return _zeros_cache(shape, cfg.dtype, kv_quant, device)
+
+
+def _empty_cache_paged(cfg, n_blocks: int, page: int, kv_quant: bool,
+                       device):
+    """Paged KV pool ``[L, NB, KH, page, Dh]``; block 0 is the trash block
+    that retired rows' table entries point at."""
+    shape = (cfg.n_layers, n_blocks, cfg.kv_heads, page, cfg.d_head)
+    return _zeros_cache(shape, cfg.dtype, kv_quant, device)
+
+
+def _zeros_cache(shape, dtype, kv_quant: bool, device):
+    if kv_quant:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(shape[:-1], dtype=torch.float32,
+                               device=device),
+            "v_s": torch.zeros(shape[:-1], dtype=torch.float32,
+                               device=device),
+        }
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def _quantize_kv(x):
+    """x [..., Dh] -> (int8 values, f32 scale [...]): symmetric
+    per-vector absmax quantization, one scale per head-dim vector."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+class InferenceEngine:
+    """Prefill + decode for a TransformerLM, on ``device`` (the card
+    unless the caller asks for the CPU; must match the model's)."""
+
+    def __init__(self, model: TransformerLM, max_seq: int | None = None,
+                 kv_quant: bool = False, attn_impl: str | None = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(
+                f"model on {model.device}, engine asked for {self.device}"
+            )
+        self.model = model
+        self.cfg = model.cfg
+        self.max_seq = max_seq or self.cfg.max_seq
+        self.kv_quant = bool(kv_quant)
+        self.attn_impl = attn_impl or self.cfg.attn_impl
+        if self.attn_impl not in ("gather", "paged_kernel"):
+            raise ValueError(
+                f"attn_impl={self.attn_impl!r} — expected 'gather' or "
+                "'paged_kernel'"
+            )
+
+    def _arange(self, n):
+        return torch.arange(n, dtype=torch.int32, device=self.device)
+
+    # -- cache-aware blocks ------------------------------------------------
+    def _attend_cached(self, q, k_cache, v_cache, kv_len_mask,
+                       k_scale=None, v_scale=None):
+        """q [B, Sq, H, Dh]; caches [B, KH, T, Dh]; kv_len_mask [B, Sq, T]
+        True where attention is allowed.  GQA groups the query heads
+        against their shared K/V head by a reshape."""
+        if k_scale is not None:
+            k_cache = k_cache.to(q.dtype) * k_scale[..., None].to(q.dtype)
+            v_cache = v_cache.to(q.dtype) * v_scale[..., None].to(q.dtype)
+        cfg = self.cfg
+        scale = cfg.d_head ** -0.5
+        H, KH = cfg.n_heads, cfg.kv_heads
+        if H == KH:
+            s = torch.einsum("bqhd,bhkd->bhqk", q, k_cache) * scale
+            s = torch.where(kv_len_mask[:, None], s, -1e30)
+            p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+            return torch.einsum("bhqk,bhkd->bqhd", p, v_cache)
+        B, Sq = q.shape[0], q.shape[1]
+        qg = q.reshape(B, Sq, KH, H // KH, cfg.d_head)
+        s = torch.einsum("bqhgd,bhtd->bhgqt", qg, k_cache) * scale
+        s = torch.where(kv_len_mask[:, None, None], s, -1e30)
+        p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+        o = torch.einsum("bhgqt,bhtd->bqhgd", p, v_cache)
+        return o.reshape(B, Sq, H, cfg.d_head)
+
+    @staticmethod
+    def _cache_store(arr, val, start: int, layer: int):
+        """Write ``val`` [B, KH, Sq, *rest] into the dense cache ``arr``
+        [L, B, KH, T, *rest] at position ``start`` (a host int shared by
+        every row), in place."""
+        arr[layer, :, :, start:start + val.shape[2]] = val.to(arr.dtype)
+
+    @staticmethod
+    def _paged_store(arr, val, pages, pos, page: int, layer: int):
+        """Scatter ``val`` [B, KH, Sq, *rest] into the paged pool ``arr``
+        [L, NB, KH, page, *rest] through page tables ``pages`` [B, MP] at
+        positions ``pos`` [B] (the window starts when Sq > 1), in place.
+        Logical position p of row b lives at (pages[b, p // page],
+        p % page).  Positions past the table (p >= MP * page) go to block
+        0, the trash block, and are never clamped onto the table's last
+        entry, which may be a live (shared) block."""
+        B, sq = val.shape[0], val.shape[2]
+        mp = pages.shape[1]
+        if sq == 1:
+            q_pos = pos.long()[:, None]                          # [B, 1]
+        else:
+            q_pos = pos.long()[:, None] + torch.arange(sq, device=pos.device)
+        p_idx = q_pos // page
+        rows = torch.arange(B, device=pos.device)[:, None]
+        blk = torch.where(
+            p_idx < mp, pages[rows, p_idx.clamp(max=mp - 1)].long(), 0
+        )                                                        # [B, Sq]
+        off = q_pos % page                                       # [B, Sq]
+        arr[layer][blk, :, off] = val.transpose(1, 2).to(arr.dtype)
+
+    @staticmethod
+    def _paged_read(arr, tbl, layer: int):
+        """Row-contiguous view [B, KH, P*page, *rest] of the pages in
+        ``tbl`` [B, P]: the page table already cut to the read bound, so
+        the four pool leaves gather through one operand."""
+        sel = arr[layer][tbl]                        # [B, P, KH, page, ...]
+        sel = sel.transpose(1, 2)                    # [B, KH, P, page, ...]
+        return sel.reshape(sel.shape[0], sel.shape[1],
+                           sel.shape[2] * sel.shape[3], *sel.shape[4:])
+
+    def _block_cached(self, x, lp, cache, positions, start, mask, layer,
+                      pages=None, page: int = 0, kv_start=None):
+        """One block over the query slice x [B, Sq, D], writing the
+        slice's K/V into layer ``layer`` of ``cache`` at ``start`` (a host
+        int for the dense cache, a [B] tensor for the paged pool)."""
+        m = self.model
+        dt = self.cfg.dtype
+        h = m._rmsnorm(x, lp["ln1"])
+        q = torch.einsum("bsd,dhk->bshk", h, wt(lp["wq"], dt))
+        k = torch.einsum("bsd,dhk->bshk", h, wt(lp["wk"], dt))
+        v = torch.einsum("bsd,dhk->bshk", h, wt(lp["wv"], dt))
+        q = m._rope(q, positions)
+        k = m._rope(k, positions).transpose(1, 2)    # [B, KH, Sq, Dh]
+        v = v.transpose(1, 2)
+        if self.kv_quant:
+            kq, ks = _quantize_kv(k)
+            vq, vs = _quantize_kv(v)
+            writes = {"k": kq, "v": vq, "k_s": ks, "v_s": vs}
+        else:
+            writes = {"k": k, "v": v}
+        T_eff = mask.shape[-1]
+        if pages is not None:
+            for name, val in writes.items():
+                self._paged_store(cache[name], val, pages, start, page,
+                                  layer)
+            if self.attn_impl == "paged_kernel":
+                o = paged_attention(
+                    q, cache["k"][layer], cache["v"][layer], pages, start,
+                    kv_start, page=page, t_hi=T_eff,
+                    k_scale=cache["k_s"][layer] if self.kv_quant else None,
+                    v_scale=cache["v_s"][layer] if self.kv_quant else None,
+                )
+            else:
+                tbl = pages[:, :T_eff // page].long()  # bound hoisted once
+                reads = {name: self._paged_read(cache[name], tbl, layer)
+                         for name in writes}
+                o = self._attend_cached(q, reads["k"], reads["v"], mask,
+                                        reads.get("k_s"), reads.get("v_s"))
+        else:
+            for name, val in writes.items():
+                self._cache_store(cache[name], val, start, layer)
+            reads = {name: cache[name][layer, :, :, :T_eff]
+                     for name in writes}
+            o = self._attend_cached(q, reads["k"], reads["v"], mask,
+                                    reads.get("k_s"), reads.get("v_s"))
+        return self._block_epilogue(x, o, lp)
+
+    def _block_epilogue(self, x, o, lp):
+        """Attention output projection + MLP, shared by both caches."""
+        m = self.model
+        x = x + torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], self.cfg.dtype))
+        return x + m._dense_mlp(m._rmsnorm(x, lp["ln2"]), lp)
+
+    def _run_blocks(self, params, x, cache, positions, start, mask,
+                    pages=None, page: int = 0, kv_start=None):
+        for layer in range(self.cfg.n_layers):
+            x = self._block_cached(
+                x, layer_params(params["blocks"], layer), cache, positions,
+                start, mask, layer, pages=pages, page=page,
+                kv_start=kv_start,
+            )
+        return self._head(params, x), cache
+
+    def _head(self, params, x):
+        """Final RMSNorm + vocabulary projection, logits in f32."""
+        x = self.model._rmsnorm(x, params["final_norm"])
+        return torch.einsum(
+            "bsd,dv->bsv", x, wt(params["head"], self.cfg.dtype)
+        ).float()
+
+    # -- dense cache: one batch at one shared position --------------------
+    @torch.no_grad()
+    def prefill(self, params, tokens, pad_left: int = 0):
+        """tokens [B, S] -> (cache, last_logits [B, V]).  ``pad_left``
+        leading positions are padding: excluded from attention, and RoPE
+        starts at the first real token."""
+        B, S = tokens.shape
+        cache = _empty_cache(self.cfg, B, self.max_seq, self.kv_quant,
+                             self.device)
+        x = emb_lookup(params["embed"], tokens, self.cfg.dtype)
+        q_idx = self._arange(S)
+        positions = (q_idx - pad_left).clamp_min(0)
+        t = q_idx[None, :]
+        mask = ((t <= q_idx[:, None]) & (t >= pad_left)).expand(B, S, S)
+        logits, cache = self._run_blocks(params, x, cache, positions, 0, mask)
+        return cache, logits[:, -1]
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, pos: int, token, rope_pos=None,
+                    kv_start: int = 0, t_hi: int | None = None):
+        """token [B] at cache position ``pos`` -> (cache, logits [B, V]).
+        ``rope_pos`` defaults to ``pos``; slots below ``kv_start`` are
+        masked; ``t_hi`` bounds the attention read."""
+        B = token.shape[0]
+        x = emb_lookup(params["embed"], token, self.cfg.dtype)[:, None]
+        rope = pos if rope_pos is None else rope_pos
+        T = t_hi if t_hi is not None else self.max_seq
+        t = self._arange(T)
+        mask = ((t <= pos) & (t >= kv_start))[None, None].expand(B, 1, T)
+        logits, cache = self._run_blocks(
+            params, x, cache,
+            torch.full((1,), rope, dtype=torch.int32, device=self.device),
+            pos, mask,
+        )
+        return cache, logits[:, 0]
+
+    # -- paged pool: every row at its own position -------------------------
+    @torch.no_grad()
+    def decode_step_multi(self, params, cache, token, pos, rope_pos,
+                          kv_start, t_hi=None, pages=None, page: int = 0):
+        """One decode step where row b sits at its own position: token,
+        pos, rope_pos, kv_start [B] int32.  Row b attends to slots
+        [kv_start[b], pos[b]] and writes its K/V at pos[b].  ``pages``
+        [B, MP] int32 + ``page``: the paged pool; ``t_hi`` bounds the read
+        and rounds up to whole pages.  Returns (cache, logits [B, V])."""
+        self._require_paged(pages)
+        x = emb_lookup(params["embed"], token, self.cfg.dtype)[:, None]
+        T = t_hi if t_hi is not None else self.max_seq
+        T = -(-T // page) * page
+        t = self._arange(T)
+        mask = ((t[None, :] <= pos[:, None])
+                & (t[None, :] >= kv_start[:, None]))[:, None, :]  # [B,1,T]
+        logits, cache = self._run_blocks(
+            params, x, cache, rope_pos[:, None], pos, mask, pages=pages,
+            page=page, kv_start=kv_start,
+        )
+        return cache, logits[:, 0]
+
+    @torch.no_grad()
+    def extend_multi(self, params, cache, tokens, start, rope_start,
+                     kv_start, t_hi=None, pages=None, page: int = 0):
+        """Multi-token forward where row b writes its own window: tokens
+        [B, W]; start/rope_start/kv_start [B] int32.  Query start[b] + j
+        attends to [kv_start[b], start[b] + j].  Window writes scatter
+        through the page tables (positions past the table land in the
+        trash block).  Returns (cache, logits [B, W, V])."""
+        self._require_paged(pages)
+        B, W = tokens.shape
+        q_pos = start[:, None] + self._arange(W)[None]            # [B, W]
+        T = t_hi if t_hi is not None else self.max_seq
+        T = -(-T // page) * page
+        t = self._arange(T)
+        mask = ((t[None, None, :] <= q_pos[:, :, None])
+                & (t[None, None, :] >= kv_start[:, None, None]))  # [B,W,T]
+        x = emb_lookup(params["embed"], tokens, self.cfg.dtype)
+        rope = rope_start[:, None] + self._arange(W)[None]
+        logits, cache = self._run_blocks(
+            params, x, cache, rope, start, mask, pages=pages, page=page,
+            kv_start=kv_start,
+        )
+        return cache, logits
+
+    @staticmethod
+    def _require_paged(pages):
+        if pages is None:
+            raise NotImplementedError(
+                "per-row decode on the dense cache is not ported yet "
+                "(ROADMAP queue 1 item 4): pass pages= for the paged pool"
+            )
+
+    # -- sampling ----------------------------------------------------------
+    @staticmethod
+    def warp_logits(logits, sampling: SamplingConfig):
+        """Temperature, top-k and top-p as one logits transform."""
+        x = logits.float() / sampling.temperature
+        if sampling.top_k > 0:
+            top = torch.topk(x, sampling.top_k, dim=-1).values
+            x = torch.where(x < top[..., -1:], -torch.inf, x)
+        if 0.0 < sampling.top_p < 1.0:
+            x = nucleus_mask(x, sampling.top_p)
+        return x
+
+    @staticmethod
+    def _sample(logits, generator, sampling: SamplingConfig):
+        if sampling.temperature <= 0:
+            return torch.argmax(logits, dim=-1)
+        return gumbel_sample(
+            InferenceEngine.warp_logits(logits, sampling), generator)
+
+    # -- generate ----------------------------------------------------------
+    @torch.no_grad()
+    def generate(self, params, prompt, *, max_new_tokens: int = 32,
+                 sampling: SamplingConfig = SamplingConfig(),
+                 seed: int = 0, pad_left: int = 0) -> DecodeOutput:
+        """prompt [B, S] -> DecodeOutput on the dense cache.  Requires
+        S + max_new_tokens <= max_seq; ``seed`` seeds the sampling
+        generator."""
+        B, S = prompt.shape
+        if S + max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"prompt {S} + max_new {max_new_tokens} exceeds max_seq "
+                f"{self.max_seq}"
+            )
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        cache, last_logits = self.prefill(params, prompt, pad_left)
+        first = self._sample(last_logits, gen, sampling)
+        valid = first != sampling.eos_id
+        done = ~valid
+        toks = [torch.where(valid, first, sampling.pad_id)]
+        lengths = valid.int()
+        feed = torch.where(done, sampling.pad_id, first)
+        t_hi = min(S + max_new_tokens, self.max_seq)
+        for i in range(max_new_tokens - 1):
+            cache, logits = self.decode_step(
+                params, cache, S + i, feed, rope_pos=S + i - pad_left,
+                kv_start=pad_left, t_hi=t_hi,
+            )
+            nxt = self._sample(logits, gen, sampling)
+            valid = ~done & (nxt != sampling.eos_id)
+            feed = torch.where(done, sampling.pad_id, nxt)
+            done = done | (nxt == sampling.eos_id)
+            toks.append(torch.where(valid, nxt, sampling.pad_id))
+            lengths = lengths + valid.int()
+        return DecodeOutput(tokens=torch.stack(toks, dim=1), lengths=lengths,
+                            prompt_logits=last_logits)
