@@ -7,16 +7,20 @@ their plain PyTorch versions.
 Phases, each of which fails the run on any error:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the port's CUDA kernel from ``k8s_gpu_tpu_torch/csrc`` with
-   ``nvcc``;
-3. each kernel against its plain version at the shapes the main path
+2. build the port's CUDA kernels from ``k8s_gpu_tpu_torch/csrc`` with
+   ``nvcc``, one process per source, side by side;
+3. each kernel against its plain version at the shapes its main path
    gives it, in float32 and bf16 and with an int8 pool (a bf16 or int8
    run is also held against the plain version in float32 on the same
    values), with the error, the kernel's time, the plain version's
    time, the time of a PyTorch library call computing the same function,
    and the least time the card could take (bytes over 3.35 TB/s or
-   operations over the type's peak, whichever is larger);
-4. the main path: the 302M flagship (vocab 16384, d_model 1024, 16
+   operations over the type's peak, whichever is larger): the paged
+   attention kernel, then the three flash-attention kernels (forward, dq,
+   dk/dv), each alone on the same inputs and together through autograd
+   with an lse cotangent, at the flagship training shape and at an odd
+   and a non-causal one;
+4. the serving main path: the 302M flagship (vocab 16384, d_model 1024, 16
    layers, 8 heads of 128, d_ff 4096, max_seq 2048, bf16, random weights
    from ``--seed``) behind the port's ``LmServer`` on the paged pool with
    ``attn_impl="paged_kernel"``, answering HTTP ``/generate`` requests of
@@ -25,7 +29,18 @@ Phases, each of which fails the run on any error:
    greedy request the same stream, and the kernel counts are read just
    around this phase: every kernel of the path launched, no fall-back;
 5. a check of the output by the repo's own means: the paged-kernel engine
-   against the gather engine on one prompt (finite logits that agree).
+   against the gather engine on one prompt (finite logits that agree);
+6. the training main path: the same flagship with f32 master weights,
+   bf16 compute, flash attention and full remat, batch 24 of 2048 random
+   tokens from ``--seed``, through the port's ``Trainer``: one warm-up
+   step, then timed steps on the same batch (step time, tokens/s, MFU);
+   every loss finite, the last below the first, and the flash kernels'
+   launch counts read just around the timed steps: 2 forward (remat) and
+   1 dq and 1 dk/dv per layer and step, no plain-version call;
+7. a check of the training output by the repo's own means: the loss and
+   every gradient of one step with flash attention against the same with
+   plain attention, at full depth in bf16 (batch 2) and at 2 layers in
+   float32.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port
@@ -37,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -49,6 +65,7 @@ sys.path.insert(0, ROOT)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per second
+KERNEL_SOURCES = ("paged_attention", "flash_attention")
 # Kernel against its plain version on the same inputs (max abs error).
 # float32: both compute in f32 and differ only in summation order.  bf16
 # and int8: the plain version rounds scores and probabilities to bf16 and
@@ -290,6 +307,198 @@ def check_paged_attention(torch, seed: int) -> list[dict]:
     return results
 
 
+# -- phase 3b: flash attention against its plain version ---------------------
+
+# file:line of each flash kernel's TPU original.
+FLASH_KERNELS = {"flash_fwd": 111, "flash_bwd_dq": 165, "flash_bwd_dkv": 214}
+# Flash kernels against their plain versions.  Each kernel alone, on the
+# same inputs as its plain version (reference_attention_lse's forward,
+# reference_bwd_dq, reference_bwd_dkv): both compute in f32 and round
+# their outputs once, so against the plain version in float32 on the same
+# values an output may differ by half a step of its type plus summation
+# order, |x - r| <= 2^-7 |r| + 1e-4 max|r| (float32: 1e-4 max|r|); against
+# the plain version in the same type by one step of the largest value,
+# max|x - r| <= 2^-6 max|r|.  All three through autograd (out, lse and
+# the gradients with a non-zero lse cotangent) against the autograd of
+# the float32 plain version, relative to the largest value of each: 1e-4
+# in float32; in bf16 out 2^-7, lse 1e-5, gradients 2^-6 (the backward
+# also takes delta from the bf16-rounded output).
+FLASH_SAME_TYPE_REL = 2.0 ** -6
+FLASH_F32_RTOL, FLASH_F32_ATOL_REL = 2.0 ** -7, 1e-4
+FLASH_E2E_REL = {"float32": {}, "bfloat16": {"out": 2.0 ** -7, "lse": 1e-5}}
+FLASH_E2E_DEFAULT = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+
+
+def _flash_bound(kind, B, H, S, D, dtype, causal):
+    """Least time of one kernel call: the visible (query, key) pairs'
+    4 D (forward), 6 D (dq) or 8 D (dk/dv) flops over the type's peak,
+    against each input read once and each output written once over the
+    memory rate."""
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    flops = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[kind]
+    flops *= D * pairs
+    el = 2 if dtype == "bfloat16" else 4
+    mat, rows = B * H * S * D * el, B * H * S * 4
+    nbytes = {"flash_fwd": 3 * mat + mat + rows,
+              "flash_bwd_dq": 4 * mat + 2 * rows + mat,
+              "flash_bwd_dkv": 4 * mat + 2 * rows + 2 * mat}[kind]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _sdpa_ms(torch, q, k, v, causal):
+    """scaled_dot_product_attention forward, and its backward (fwd+bwd
+    through autograd minus the fwd): yardsticks only, never called by the
+    port.  The backward time stands against dq and dk/dv together."""
+    import torch.nn.functional as F
+
+    with torch.no_grad():
+        fwd = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), 10)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    g = torch.ones_like(q)
+
+    def both():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        torch.autograd.grad(o, (qg, kg, vg), g)
+
+    return fwd, time_cuda(torch, both, 10) - fwd
+
+
+def _max_rel(x, r):
+    return float((x.float() - r.float()).abs().max() / r.float().abs().max())
+
+
+def check_flash_attention(torch, seed: int) -> list[dict]:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = [
+        # name, B, H, S, D, dtype, causal, lse cotangent, timed
+        ("flagship_bf16", 24, 8, 2048, 128, "bfloat16", True, False, True),
+        ("f32_b2", 2, 8, 2048, 128, "float32", True, True, False),
+        ("odd_s_bf16", 2, 8, 1000, 128, "bfloat16", True, True, False),
+        ("noncausal_f32", 2, 8, 1000, 128, "float32", False, True, False),
+    ]
+    results = []
+    for case in cases:
+        row = _flash_case(torch, gen, dev, *case)
+        print(json.dumps(row), flush=True)
+        results.append(row)
+        _free(torch)
+    return results
+
+
+def _flash_case(torch, gen, dev, name, B, H, S, D, tname, causal, with_glse,
+                timed) -> dict:
+    from k8s_gpu_tpu_torch.ops import attention as fa
+
+    dtype = getattr(torch, tname)
+    shape = (B, H, S, D)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for _ in range(4))
+    g_lse = (torch.randn(shape[:3], generator=gen, device=dev)
+             if with_glse else torch.zeros(shape[:3], device=dev))
+    row = {"case": name, "B": B, "H": H, "S": S, "D": D, "dtype": tname,
+           "causal": causal, "lse_cotangent": with_glse, "kernels": {}}
+
+    # Each kernel alone against its plain version on the same inputs.
+    fa.reset_counts()
+    out, lse = fa.flash_forward(q, k, v, causal)
+    delta = ((g.float() * out.float()).sum(-1) - g_lse).contiguous()
+    dq = fa.flash_backward_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = fa.flash_backward_dkv(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    if fa.launch_counts != dict.fromkeys(FLASH_KERNELS, 1):
+        raise RuntimeError(f"{name}: launches {fa.launch_counts}")
+    plain = {
+        "flash_fwd": lambda *a: fa.reference_attention_lse(*a[:3], causal),
+        "flash_bwd_dq": lambda *a: (fa.reference_bwd_dq(*a, lse, delta,
+                                                        causal),),
+        "flash_bwd_dkv": lambda *a: fa.reference_bwd_dkv(*a, lse, delta,
+                                                         causal),
+    }
+    got = {"flash_fwd": (out, lse), "flash_bwd_dq": (dq,),
+           "flash_bwd_dkv": (dk, dv)}
+    wide = [t.float() for t in (q, k, v, g)]
+    for kname in FLASH_KERNELS:
+        same = plain[kname](q, k, v, g)
+        err = max(float((x.float() - r.float()).abs().max())
+                  for x, r in zip(got[kname], same))
+        for x, r in zip(got[kname], same):
+            if not _max_rel(x, r) <= FLASH_SAME_TYPE_REL:
+                raise RuntimeError(
+                    f"{name} {kname}: kernel vs plain in {tname} "
+                    f"{_max_rel(x, r)} of the largest value > "
+                    f"{FLASH_SAME_TYPE_REL}")
+        del same
+        err32 = 0.0
+        rtol = FLASH_F32_RTOL if tname == "bfloat16" else 0.0
+        for x, r in zip(got[kname], plain[kname](*wide)):
+            diff = (x.float() - r).abs()
+            err32 = max(err32, float(diff.max()))
+            limit = rtol * r.abs() + FLASH_F32_ATOL_REL * r.abs().max()
+            if not bool((diff <= limit).all()):
+                raise RuntimeError(
+                    f"{name} {kname}: kernel vs float32 plain version "
+                    f"beyond {rtol}|r| + {FLASH_F32_ATOL_REL} max|r| "
+                    f"(max abs {float(diff.max())})")
+        row["kernels"][kname] = {"max_abs_err": err,
+                                 "max_abs_err_vs_f32": err32}
+
+    # All three through autograd, against the float32 plain version's.
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o, l = fa.flash_attention_lse(qg, kg, vg, causal)
+    torch.autograd.backward((o, l), (g, g_lse))
+    q32, k32, v32 = (t.detach().requires_grad_() for t in wide[:3])
+    o32, l32 = fa.reference_attention_lse(q32, k32, v32, causal)
+    torch.autograd.backward((o32, l32), (wide[3], g_lse))
+    e2e = {}
+    for oname, x, r in (("out", o, o32), ("lse", l, l32),
+                        ("dq", qg.grad, q32.grad), ("dk", kg.grad, k32.grad),
+                        ("dv", vg.grad, v32.grad)):
+        if not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{name}: non-finite {oname}")
+        e2e[oname] = _max_rel(x.detach(), r.detach())
+        tol = FLASH_E2E_REL[tname].get(oname, FLASH_E2E_DEFAULT[tname])
+        if not e2e[oname] <= tol:
+            raise RuntimeError(f"{name}: autograd {oname} vs float32 plain "
+                               f"{e2e[oname]} > {tol} of the largest value")
+    row["autograd_rel_err_vs_f32"] = e2e
+    del qg, kg, vg, q32, k32, v32, o, l, o32, l32, wide
+    _free(torch)
+    if not timed:
+        return row
+
+    lib_fwd, lib_bwd = _sdpa_ms(torch, q, k, v, causal)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_forward(q, k, v, causal), lib_fwd),
+        "flash_bwd_dq": (lambda: fa.flash_backward_dq(q, k, v, g, lse, delta,
+                                                      causal), lib_bwd),
+        "flash_bwd_dkv": (lambda: fa.flash_backward_dkv(q, k, v, g, lse,
+                                                        delta, causal),
+                          lib_bwd),
+    }
+    for kname, (kernel, lib_ms) in calls.items():
+        with torch.no_grad():
+            ms = time_cuda(torch, kernel, 10, warmup=2)
+            plain_ms = time_cuda(torch, lambda: plain[kname](q, k, v, g), 3,
+                                 warmup=1)
+        bound_ms, bound_by = _flash_bound(kname, B, H, S, D, tname, causal)
+        row["kernels"][kname].update(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by)
+    return row
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _syncer(torch, dev):
     """Wait for the card; nothing to wait for on the CPU (rehearsals)."""
     return torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -363,6 +572,15 @@ def _stream(port: int, body: dict, out: dict, timeout: float = 600.0):
                summary=summary)
 
 
+# Device kernels by class, by substrings of their names (first match).
+PROFILE_CLASSES = (
+    ("flash_fwd", ("flash_fwd",)), ("flash_bwd_dq", ("flash_bwd_dq",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("paged_attention", ("paged_attention",)),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
+)
+
+
 def _profile_summary(torch, prof, wall_s: float) -> dict:
     """Device busy share and the largest items of a profiled window: the
     kernels by device time and the host operators by self CPU time."""
@@ -375,9 +593,15 @@ def _profile_summary(torch, prof, wall_s: float) -> dict:
         else:
             host.append((e.self_cpu_time_total, e.key, e.count))
     busy_ms = sum(k[0] for k in kernels) / 1e3
+    by_class: dict[str, float] = {}
+    for dev_us, key, _ in kernels:
+        cls = next((c for c, marks in PROFILE_CLASSES
+                    if any(m in key.lower() for m in marks)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
     return {
         "wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (wall_s * 1e3),
+        "device_ms_by_class": by_class,
         "top_kernels": [{"name": n[:120], "count": c, "ms": t / 1e3}
                         for t, n, c in sorted(kernels, reverse=True)[:12]],
         "top_host_ops": [{"name": n[:120], "count": c, "self_ms": t / 1e3}
@@ -558,13 +782,179 @@ def check_outputs(torch, seed: int, layers: int, device="cuda") -> dict:
             "argmax_agreement": agree, "launches_per_decode_step": per_step}
 
 
+# -- phase 6: the training main path ---------------------------------------
+
+TRAIN_BATCH = 24   # 24 x 2048 tokens a step, the reference bench's batch
+TRAIN_STEPS = 5    # timed steps after one warm-up step
+
+
+def flagship_train_config(torch, layers: int, dtype=None):
+    """The reference bench's flagship training configuration
+    (``bench.py:178-183``) with the port's own flash tile: bf16 compute,
+    flash attention, full remat."""
+    from k8s_gpu_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(
+        vocab_size=16384, d_model=1024, n_layers=layers, n_heads=8,
+        n_kv_heads=0, d_head=128, d_ff=4096, max_seq=2048,
+        dtype=dtype or torch.bfloat16, use_flash=True, remat=True,
+        remat_policy="full",
+    )
+
+
+def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
+                   device="cuda", profile: bool = False) -> dict:
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.runner import (
+        device_peak_flops, model_flops_per_step, tree_leaves,
+    )
+
+    cfg = flagship_train_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    trainer = Trainer(model, TrainConfig(warmup_steps=1), device=device)
+    trainer.init(seed)
+    sync = _syncer(torch, model.device)
+    n_params = sum(p.numel() for p in tree_leaves(trainer.params))
+    rng = torch.Generator().manual_seed(seed + 2)
+    toks = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq + 1),
+                         generator=rng).to(model.device)
+    x, y = toks[:, :-1], toks[:, 1:]
+    if model.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = trainer.step(x, y)                 # warm-up, learning rate 0
+    warm_s = time.perf_counter() - t0
+    sync()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    losses = [trainer.step(x, y, sync=False) for _ in range(steps)]
+    sync()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(fa.launch_counts), fa.plain_count
+    losses = [first] + [float(t) for t in losses]
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if model.device.type == "cuda" else None)
+    profiled = None
+    if profile:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t1 = time.perf_counter()
+            trainer.step(x, y)
+            sync()
+            prof_wall = time.perf_counter() - t1
+        profiled = _profile_summary(torch, prof, prof_wall)
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"loss did not fall: {losses}")
+    step_s = wall / steps
+    flops = model_flops_per_step(cfg, n_params, batch)
+    peak = device_peak_flops()
+    result = {
+        "layers": layers, "batch": batch, "seq": cfg.max_seq,
+        "n_params": n_params, "losses": losses, "warmup_step_s": warm_s,
+        "timed_steps": steps, "step_ms": step_s * 1e3,
+        "tokens_per_s": batch * cfg.max_seq / step_s,
+        "model_flops_per_step": flops, "peak_flops": peak,
+        "mfu": flops / step_s / peak if peak else None,
+        "peak_memory_gb": peak_gb, "launches": launches,
+        "plain_calls": plain,
+    }
+    if profiled is not None:
+        result["profile"] = profiled
+    if model.device.type == "cuda":
+        want = {"flash_fwd": 2 * layers * steps,
+                "flash_bwd_dq": layers * steps,
+                "flash_bwd_dkv": layers * steps}
+        if launches != want or plain != 0:
+            raise RuntimeError(f"flash launches {launches}, plain calls "
+                               f"{plain} on the training path; expected "
+                               f"{want} and 0")
+    return result
+
+
+# -- phase 7: the training output against plain attention ---------------------
+
+# One step's loss and gradients with flash attention against the same with
+# plain attention (same params, same batch).  bf16 at full depth: the two
+# attention paths round to bf16 at different points and the difference
+# compounds through 16 layers of bf16 activations; the gradient error is
+# ||g_flash - g_plain|| / ||g_plain|| per leaf.  float32 at 2 layers: the
+# paths differ only in summation order.
+TRAIN_TOL = {"bfloat16": {"loss": 1e-2, "grad": 5e-2},
+             "float32": {"loss": 1e-5, "grad": 1e-4}}
+
+
+def _leaf_names(tree, prefix="") -> list[str]:
+    """Paths of a nested dict's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def _loss_and_grads(torch, model, params, x, y):
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves
+
+    loss = model.loss(params, x, y)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    return loss.item(), grads
+
+
+def check_train_outputs(torch, seed: int, layers: int,
+                        device="cuda") -> dict:
+    """``layers`` deep in bf16, 2 layers in float32."""
+    import dataclasses
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.train import Trainer
+
+    out = {}
+    for tname, depth in (("bfloat16", layers), ("float32", 2)):
+        cfg = flagship_train_config(torch, depth, getattr(torch, tname))
+        runs = {}
+        params = None
+        for use_flash in (True, False):
+            model = TransformerLM(dataclasses.replace(cfg,
+                                                      use_flash=use_flash),
+                                  device=device)
+            if params is None:
+                trainer = Trainer(model, device=device)
+                trainer.init(seed + 3)
+                params = trainer.params
+                rng = torch.Generator().manual_seed(seed + 4)
+                toks = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq + 1),
+                                     generator=rng).to(model.device)
+            runs[use_flash] = _loss_and_grads(torch, model, params,
+                                              toks[:, :-1], toks[:, 1:])
+        (lf, gf), (lp, gp) = runs[True], runs[False]
+        rel = {n: float((a.float() - b.float()).norm() / b.float().norm())
+               for n, a, b in zip(_leaf_names(params), gf, gp)}
+        tol = TRAIN_TOL[tname]
+        if not (math.isfinite(lf) and abs(lf - lp) <= tol["loss"]):
+            raise RuntimeError(f"{tname}: flash loss {lf} vs plain {lp}")
+        if not max(rel.values()) <= tol["grad"]:
+            raise RuntimeError(f"{tname}: gradient rel errors {rel} > "
+                               f"{tol['grad']}")
+        out[tname] = {"layers": depth, "loss_flash": lf, "loss_plain": lp,
+                      "loss_diff": abs(lf - lp), "grad_rel_err": rel,
+                      "tol": tol}
+        del runs, gf, gp, params
+        _free(torch)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", metavar="PATH",
                     help="also write the detailed results as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the main path with torch.profiler (its "
+                    help="trace the serving main path and one extra "
+                         "training step with torch.profiler (the serving "
                          "times then include the tracing cost)")
     args = ap.parse_args(argv)
 
@@ -573,21 +963,32 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from concurrent.futures import ThreadPoolExecutor
+
     from k8s_gpu_tpu_torch.ops import _build
 
     gpu = gpu_line()
     print(gpu, flush=True)
     t0 = time.perf_counter()
-    _build.load("paged_attention")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.load, KERNEL_SOURCES))
     build_s = time.perf_counter() - t0
-    print(f"built paged_attention in {build_s:.1f} s", flush=True)
+    print(f"built {', '.join(KERNEL_SOURCES)} in {build_s:.1f} s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kern = check_paged_attention(torch, args.seed)
+    flash = check_flash_attention(torch, args.seed)
     main_path = run_main_path(torch, args.seed, LAYERS, profile=args.profile)
     print(json.dumps({"main_path": main_path}), flush=True)
     outputs = check_outputs(torch, args.seed, LAYERS)
     print(json.dumps({"outputs": outputs}), flush=True)
+    _free(torch)
+    train = run_train_path(torch, args.seed, LAYERS, TRAIN_BATCH, TRAIN_STEPS,
+                           profile=args.profile)
+    print(json.dumps({"train_path": train}), flush=True)
+    _free(torch)
+    train_outputs = check_train_outputs(torch, args.seed, LAYERS)
+    print(json.dumps({"train_outputs": train_outputs}), flush=True)
 
     decode = next(r for r in kern if r["case"] == "decode_bf16")
     kernels = {"kernels": [{
@@ -603,6 +1004,20 @@ def main(argv=None) -> int:
         "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
     }]}
+    top = next(r for r in flash if r["case"] == "flagship_bf16")
+    for name, line in FLASH_KERNELS.items():
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "k8s_gpu_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"k8s_gpu_tpu/ops/attention.py:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": max(r["kernels"][name]["max_abs_err"]
+                               for r in flash),
+            **{key: top["kernels"][name][key]
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")},
+        })
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.json:
@@ -610,8 +1025,10 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.json, "w") as fh:
             json.dump({"gpu": gpu, "build_s": build_s, "kernel_cases": kern,
-                       "main_path": main_path, "outputs": outputs,
-                       "device": device, **kernels}, fh, indent=1)
+                       "flash_cases": flash, "main_path": main_path,
+                       "outputs": outputs, "train_path": train,
+                       "train_outputs": train_outputs, "device": device,
+                       **kernels}, fh, indent=1)
     print(gpu, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -6,6 +6,8 @@ tensors on a given device.  bf16 leaves arrive as ``ml_dtypes`` arrays,
 which ``torch.from_numpy`` rejects: they are viewed as ``uint16`` and
 reinterpreted as ``torch.bfloat16``, bit for bit.  int8 ``{"q", "s"}``
 leaves pass through as pairs, each half converted on its own.
+``params_to_numpy`` goes the other way, so tests can hold parameters,
+gradients and optimizer state against the reference's.
 """
 
 from __future__ import annotations
@@ -36,3 +38,15 @@ def params_from_numpy(tree, device, dtype=None):
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
     return tensor_from_numpy(tree, device, dtype)
+
+
+def params_to_numpy(tree):
+    """Nested dict of tensors (parameters, gradients, optimizer moments)
+    -> the same nesting of numpy arrays on the host, detached.  bf16
+    leaves widen to float32, exactly (numpy has no bfloat16)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

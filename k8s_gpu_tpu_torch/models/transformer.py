@@ -8,8 +8,14 @@ weight leaf is a tensor or the int8 serving form ``{"q": int8, "s": f32
 scale}``.  The bf16 cast points are the reference's: for example
 ``_rmsnorm`` casts to ``x.dtype`` before multiplying by the scale.
 
-Not ported yet: MoE, flash/ring/ulysses attention, the pipeline
-schedules and ``loss`` (ROADMAP queue 1).
+Training runs through ``loss``: the same forward with gradients, causal
+attention through ``ops.attention.flash_attention`` when ``use_flash``
+(the CUDA kernels on the card), and each block under
+``torch.utils.checkpoint`` when ``remat`` (the backward recomputes the
+block, flash forward included, as ``jax.checkpoint`` does).
+
+Not ported yet (ROADMAP.md): MoE, ``remat_policy="save_attn"``, the
+flash-v2 knobs, ring/ulysses attention and the pipeline schedules.
 """
 
 from __future__ import annotations
@@ -17,8 +23,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..ops.attention import flash_attention
 
 
 def wt(w, dt):
@@ -40,7 +48,8 @@ def emb_lookup(w, tokens, dt):
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """The serving fields of the reference's config, same names."""
+    """The dense model's fields of the reference's config, same names and
+    defaults."""
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -50,7 +59,18 @@ class TransformerConfig:
     d_ff: int = 1376
     max_seq: int = 2048
     rope_theta: float = 10000.0
+    # MoE is not ported: only 0 or 1 (a dense MLP) is taken.
+    num_experts: int = 0
     dtype: torch.dtype = torch.bfloat16
+    # Checkpoint each block in training; "full" recomputes the whole block
+    # in the backward ("save_attn" is not ported).
+    remat: bool = True
+    remat_policy: str = "full"
+    # Flash attention (the CUDA kernels) in the training/eval forward;
+    # 0 = the kernels' own tile (ops/attention.py:flash_plan).
+    use_flash: bool = True
+    flash_block_q: int = 0
+    flash_block_k: int = 0
     # Paged-KV attention read for serving: "gather" or "paged_kernel".
     attn_impl: str = "gather"
 
@@ -76,6 +96,17 @@ def layer_params(blocks: dict, layer: int) -> dict:
 
 class TransformerLM:
     def __init__(self, cfg: TransformerConfig, device="cuda"):
+        if cfg.num_experts > 1:
+            raise NotImplementedError(
+                "MoE (num_experts > 1) is not ported yet: ROADMAP.md queue 1 "
+                "item 10")
+        if cfg.remat and cfg.remat_policy == "save_attn":
+            raise NotImplementedError(
+                'remat_policy="save_attn" is not ported yet: ROADMAP.md '
+                "queue 1 item 9")
+        if cfg.remat and cfg.remat_policy != "full":
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                             "expected 'full' or 'save_attn'")
         self.cfg = cfg
         self.device = resolve_device(device)
         half = cfg.d_head // 2
@@ -85,11 +116,14 @@ class TransformerLM:
         )
 
     # -- parameters --------------------------------------------------------
-    def init(self, seed: int = 0) -> dict:
+    def init(self, seed: int = 0, dtype=None) -> dict:
         """Random parameters with the reference's shapes and scales, drawn
-        from a generator seeded with ``seed``, stored in ``cfg.dtype``
-        (norm scales stay f32, as the reference keeps them)."""
+        from a generator seeded with ``seed``, stored in ``dtype`` (default
+        ``cfg.dtype``, what serving holds; the trainer asks for float32
+        master weights, as the reference's ``init`` makes them).  Norm
+        scales stay f32, as the reference keeps them."""
         cfg = self.cfg
+        dtype = cfg.dtype if dtype is None else dtype
         D, H, Dh, F, L, V = (cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff,
                              cfg.n_layers, cfg.vocab_size)
         KH = cfg.kv_heads
@@ -97,7 +131,7 @@ class TransformerLM:
 
         def norm(shape, scale):
             x = torch.randn(shape, generator=gen, device=self.device)
-            return (x * scale).to(cfg.dtype)
+            return (x * scale).to(dtype)
 
         def ones(shape):
             return torch.ones(shape, dtype=torch.float32, device=self.device)
@@ -162,8 +196,13 @@ class TransformerLM:
         q = self._rope(q, positions)
         k = self._rope(k, positions)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))       # [B,H,S,Dh]
-        o = self._plain_causal_attention(
-            q, self._repeat_kv(k), self._repeat_kv(v))
+        k, v = self._repeat_kv(k), self._repeat_kv(v)
+        if self.cfg.use_flash:
+            o = flash_attention(q, k, v, causal=True,
+                                block_q=self.cfg.flash_block_q or None,
+                                block_k=self.cfg.flash_block_k or None)
+        else:
+            o = self._plain_causal_attention(q, k, v)
         o = o.transpose(1, 2)                                   # [B,S,H,Dh]
         return torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], dt))
 
@@ -183,13 +222,37 @@ class TransformerLM:
     # -- forward -----------------------------------------------------------
     @torch.no_grad()
     def forward(self, params, tokens):
-        """tokens [B, S] int -> (logits [B, S, V] f32, aux loss 0)."""
+        """tokens [B, S] int -> (logits [B, S, V] f32, aux loss 0), without
+        gradients (serving, evaluation)."""
+        return self.forward_train(params, tokens)
+
+    def forward_train(self, params, tokens):
+        """``forward`` with gradients: under grad mode each block is
+        checkpointed when ``cfg.remat``.  The stacked ``[L, ...]`` leaves
+        are split with ``unbind``, whose backward stacks the layers'
+        gradients in one write."""
         cfg = self.cfg
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = emb_lookup(params["embed"], tokens, cfg.dtype)
+        layers = {name: ({k: v.unbind(0) for k, v in leaf.items()}
+                         if isinstance(leaf, dict) else leaf.unbind(0))
+                  for name, leaf in params["blocks"].items()}
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in range(cfg.n_layers):
-            x = self._block(x, layer_params(params["blocks"], layer),
-                            positions)
+            lp = layer_params(layers, layer)
+            if remat:
+                x = checkpoint(self._block, x, lp, positions,
+                               use_reentrant=False)
+            else:
+                x = self._block(x, lp, positions)
         x = self._rmsnorm(x, params["final_norm"])
         logits = torch.einsum("bsd,dv->bsv", x, wt(params["head"], cfg.dtype))
         return logits.float(), torch.zeros((), device=tokens.device)
+
+    def loss(self, params, tokens, targets):
+        """Next-token cross-entropy (mean) + 0.01 x the MoE aux loss (0 for
+        the dense model), differentiable in ``params``."""
+        logits, aux = self.forward_train(params, tokens)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+        return nll.mean() + 0.01 * aux

@@ -49,7 +49,8 @@ def _build(name: str) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(lib.name + f".{os.getpid()}.tmp")
+    tmp = lib.with_name(
+        f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
@@ -63,9 +64,13 @@ def _build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            lib = _loaded[name] = ctypes.CDLL(str(_build(name)))
-        return lib
+    """The ctypes handle of ``csrc/<name>.cu``, built on first use.
+    Libraries of different names may be loaded from several threads at
+    once, so their builds run side by side; two builds of one name race
+    harmlessly (each writes its own file, then renames it)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = _build(name)
+        with _lock:
+            lib = _loaded.setdefault(name, ctypes.CDLL(str(path)))
+    return lib
