@@ -19,7 +19,11 @@ Phases, each of which fails the run on any error:
    attention kernel, then the three flash-attention kernels (forward, dq,
    dk/dv), each alone on the same inputs and together through autograd
    with an lse cotangent, at the flagship training shape and at an odd
-   and a non-causal one;
+   and a non-causal one; then (3c) the three flash-v2 kernels the same
+   way, with rope in the kernel, K/V at their KV heads and P = 2 query
+   tiles a block, at the v2 training shape (q [24, 8, 2048, 128], k, v
+   [24, 2, 2048, 128] bf16), the reference bench's MHA A/B shape, f32, an
+   odd S whose tiles straddle group members, non-causal at P = 1, and MQA;
 4. the serving main path: the 302M flagship (vocab 16384, d_model 1024, 16
    layers, 8 heads of 128, d_ff 4096, max_seq 2048, bf16, random weights
    from ``--seed``) behind the port's ``LmServer`` on the paged pool with
@@ -36,11 +40,16 @@ Phases, each of which fails the run on any error:
    step, then timed steps on the same batch (step time, tokens/s, MFU);
    every loss finite, the last below the first, and the flash kernels'
    launch counts read just around the timed steps: 2 forward (remat) and
-   1 dq and 1 dk/dv per layer and step, no plain-version call;
+   1 dq and 1 dk/dv per layer and step, no plain-version call; then (6b)
+   the v2 training path: the same with ``n_kv_heads=2`` and the three v2
+   knobs on (``flash_fuse_rope``, ``flash_kv_grouped``,
+   ``flash_q_pipeline=2``), held to the same launch counts of the v2
+   kernels and to 0 v1 launches;
 7. a check of the training output by the repo's own means: the loss and
    every gradient of one step with flash attention against the same with
    plain attention, at full depth in bf16 (batch 2) and at 2 layers in
-   float32.
+   float32; then (7b) the same for the v2 configuration against the same
+   GQA configuration with the knobs off (v1, rope outside, K/V repeated).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port
@@ -65,7 +74,8 @@ sys.path.insert(0, ROOT)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per second
-KERNEL_SOURCES = ("paged_attention", "flash_attention")
+KERNEL_SOURCES = ("paged_attention", "flash_attention",
+                  "flash_attention_v2")
 # Kernel against its plain version on the same inputs (max abs error).
 # float32: both compute in f32 and differ only in summation order.  bf16
 # and int8: the plain version rounds scores and probabilities to bf16 and
@@ -311,6 +321,9 @@ def check_paged_attention(torch, seed: int) -> list[dict]:
 
 # file:line of each flash kernel's TPU original.
 FLASH_KERNELS = {"flash_fwd": 111, "flash_bwd_dq": 165, "flash_bwd_dkv": 214}
+FLASH_V2_KERNELS = {"flash_v2_fwd": 426, "flash_v2_bwd_dq": 482,
+                    "flash_v2_bwd_dkv": 541}
+ROPE_THETA = 10000.0
 # Flash kernels against their plain versions.  Each kernel alone, on the
 # same inputs as its plain version (reference_attention_lse's forward,
 # reference_bwd_dq, reference_bwd_dkv): both compute in f32 and round
@@ -322,26 +335,31 @@ FLASH_KERNELS = {"flash_fwd": 111, "flash_bwd_dq": 165, "flash_bwd_dkv": 214}
 # the gradients with a non-zero lse cotangent) against the autograd of
 # the float32 plain version, relative to the largest value of each: 1e-4
 # in float32; in bf16 out 2^-7, lse 1e-5, gradients 2^-6 (the backward
-# also takes delta from the bf16-rounded output).
+# also takes delta from the bf16-rounded output).  The v2 kernels are held
+# to the same limits: their plain versions rotate the f32-widened q and k
+# with the same f32 angle (position x exp(i c)) and the card's f32
+# exp/sin/cos, as the kernels do, so the rotation adds rounding only.
 FLASH_SAME_TYPE_REL = 2.0 ** -6
 FLASH_F32_RTOL, FLASH_F32_ATOL_REL = 2.0 ** -7, 1e-4
 FLASH_E2E_REL = {"float32": {}, "bfloat16": {"out": 2.0 ** -7, "lse": 1e-5}}
 FLASH_E2E_DEFAULT = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 
 
-def _flash_bound(kind, B, H, S, D, dtype, causal):
-    """Least time of one kernel call: the visible (query, key) pairs'
-    4 D (forward), 6 D (dq) or 8 D (dk/dv) flops over the type's peak,
-    against each input read once and each output written once over the
-    memory rate."""
+def _flash_bound(kind, B, H, S, D, dtype, causal, KH=None):
+    """Least time of one kernel call: the visible (query, key) pairs of
+    the H query heads, 4 D (forward), 6 D (dq) or 8 D (dk/dv) flops each,
+    over the type's peak, against each input read once and each output
+    written once over the memory rate (q, dO, out, dq at H heads; k, v,
+    dk, dv at KH; lse, delta f32 rows).  v1 and v2 kernels alike."""
+    step = kind.removeprefix("flash_").removeprefix("v2_")
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    flops = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[kind]
-    flops *= D * pairs
+    flops = {"fwd": 4, "bwd_dq": 6, "bwd_dkv": 8}[step] * D * pairs
     el = 2 if dtype == "bfloat16" else 4
-    mat, rows = B * H * S * D * el, B * H * S * 4
-    nbytes = {"flash_fwd": 3 * mat + mat + rows,
-              "flash_bwd_dq": 4 * mat + 2 * rows + mat,
-              "flash_bwd_dkv": 4 * mat + 2 * rows + 2 * mat}[kind]
+    qm, kvm = B * H * S * D * el, B * (KH or H) * S * D * el
+    rows = B * H * S * 4
+    nbytes = {"fwd": 2 * qm + 2 * kvm + rows,             # q, k, v -> out, lse
+              "bwd_dq": 3 * qm + 2 * kvm + 2 * rows,      # + dO, delta -> dq
+              "bwd_dkv": 2 * qm + 4 * kvm + 2 * rows}[step]  # -> dk, dv
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -351,17 +369,19 @@ def _flash_bound(kind, B, H, S, D, dtype, causal):
 def _sdpa_ms(torch, q, k, v, causal):
     """scaled_dot_product_attention forward, and its backward (fwd+bwd
     through autograd minus the fwd): yardsticks only, never called by the
-    port.  The backward time stands against dq and dk/dv together."""
+    port.  The backward time stands against dq and dk/dv together.  K/V
+    with fewer heads than q go in as they are (``enable_gqa``)."""
     import torch.nn.functional as F
 
+    kw = {"enable_gqa": True} if k.shape[1] != q.shape[1] else {}
     with torch.no_grad():
         fwd = time_cuda(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal), 10)
+            q, k, v, is_causal=causal, **kw), 10)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     g = torch.ones_like(q)
 
     def both():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, **kw)
         torch.autograd.grad(o, (qg, kg, vg), g)
 
     return fwd, time_cuda(torch, both, 10) - fwd
@@ -371,58 +391,120 @@ def _max_rel(x, r):
     return float((x.float() - r.float()).abs().max() / r.float().abs().max())
 
 
+def _counts(fa, launched: dict) -> dict:
+    """Every flash kernel's launch count: those in ``launched``, 0 for the
+    rest."""
+    return {**dict.fromkeys(fa.launch_counts, 0), **launched}
+
+
+def _flash_api(fa, causal, v2):
+    """The kernel names, the kernels (forward, dq, dk/dv), their plain
+    versions and the autograd entry of v1 (``v2`` None) or of v2 (``v2`` =
+    (rope_theta, q_pipeline)), each taking (q, k, v) or (q, k, v, dO, lse,
+    delta)."""
+    if v2 is None:
+        return (tuple(FLASH_KERNELS),
+                (lambda q, k, v: fa.flash_forward(q, k, v, causal),
+                 lambda *a: fa.flash_backward_dq(*a, causal),
+                 lambda *a: fa.flash_backward_dkv(*a, causal)),
+                (lambda q, k, v: fa.reference_attention_lse(q, k, v, causal),
+                 lambda *a: fa.reference_bwd_dq(*a, causal),
+                 lambda *a: fa.reference_bwd_dkv(*a, causal)),
+                lambda q, k, v: fa.flash_attention_lse(q, k, v, causal))
+    theta, pipeline = v2
+    return (tuple(FLASH_V2_KERNELS),
+            (lambda q, k, v: fa.flash_v2_forward(q, k, v, causal, theta,
+                                                 pipeline),
+             lambda *a: fa.flash_v2_backward_dq(*a, causal, theta, pipeline),
+             lambda *a: fa.flash_v2_backward_dkv(*a, causal, theta)),
+            (lambda q, k, v: fa.reference_attention_v2_lse(q, k, v, causal,
+                                                           theta),
+             lambda *a: fa.reference_bwd_dq_v2(*a, causal, theta),
+             lambda *a: fa.reference_bwd_dkv_v2(*a, causal, theta)),
+            lambda q, k, v: fa.flash_attention_v2_lse(
+                q, k, v, causal=causal, rope_theta=theta,
+                q_pipeline=pipeline))
+
+
 def check_flash_attention(torch, seed: int) -> list[dict]:
+    cases = [
+        # name, B, H, KH, S, D, dtype, causal, lse cotangent, timed
+        ("flagship_bf16", 24, 8, 8, 2048, 128, "bfloat16", True, False, True),
+        ("f32_b2", 2, 8, 8, 2048, 128, "float32", True, True, False),
+        ("odd_s_bf16", 2, 8, 8, 1000, 128, "bfloat16", True, True, False),
+        ("noncausal_f32", 2, 8, 8, 1000, 128, "float32", False, True, False),
+    ]
+    return _flash_cases(torch, seed, [(c, None) for c in cases])
+
+
+def check_flash_v2(torch, seed: int) -> list[dict]:
+    """Phase 3c: every case with an lse cotangent and rope in the kernel."""
+    cases = [
+        # name, B, H, KH, S, D, dtype, causal, lse cotangent, timed; P
+        (("train_gqa_bf16", 24, 8, 2, 2048, 128, "bfloat16", True, True,
+          True), 2),
+        (("bench_mha_bf16", 24, 8, 8, 2048, 128, "bfloat16", True, True,
+          True), 2),
+        (("f32_g4", 2, 8, 2, 2048, 128, "float32", True, True, False), 2),
+        (("odd_s_g4_bf16", 2, 8, 2, 1000, 128, "bfloat16", True, True,
+          False), 2),
+        (("noncausal_p1_f32", 2, 8, 2, 1000, 128, "float32", False, True,
+          False), 1),
+        (("mqa_bf16", 2, 8, 1, 2048, 128, "bfloat16", True, True, False), 2),
+    ]
+    return _flash_cases(torch, seed + 5,
+                        [(c, (ROPE_THETA, p)) for c, p in cases])
+
+
+def _flash_cases(torch, seed, cases) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    cases = [
-        # name, B, H, S, D, dtype, causal, lse cotangent, timed
-        ("flagship_bf16", 24, 8, 2048, 128, "bfloat16", True, False, True),
-        ("f32_b2", 2, 8, 2048, 128, "float32", True, True, False),
-        ("odd_s_bf16", 2, 8, 1000, 128, "bfloat16", True, True, False),
-        ("noncausal_f32", 2, 8, 1000, 128, "float32", False, True, False),
-    ]
     results = []
-    for case in cases:
-        row = _flash_case(torch, gen, dev, *case)
+    for case, v2 in cases:
+        row = _flash_case(torch, gen, dev, *case, v2=v2)
         print(json.dumps(row), flush=True)
         results.append(row)
         _free(torch)
     return results
 
 
-def _flash_case(torch, gen, dev, name, B, H, S, D, tname, causal, with_glse,
-                timed) -> dict:
+def _flash_case(torch, gen, dev, name, B, H, KH, S, D, tname, causal,
+                with_glse, timed, v2=None) -> dict:
     from k8s_gpu_tpu_torch.ops import attention as fa
 
     dtype = getattr(torch, tname)
-    shape = (B, H, S, D)
-    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                  for _ in range(4))
-    g_lse = (torch.randn(shape[:3], generator=gen, device=dev)
-             if with_glse else torch.zeros(shape[:3], device=dev))
-    row = {"case": name, "B": B, "H": H, "S": S, "D": D, "dtype": tname,
-           "causal": causal, "lse_cotangent": with_glse, "kernels": {}}
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v, g = (rand(B, H, S, D), rand(B, KH, S, D), rand(B, KH, S, D),
+                  rand(B, H, S, D))
+    g_lse = (torch.randn((B, H, S), generator=gen, device=dev)
+             if with_glse else torch.zeros((B, H, S), device=dev))
+    row = {"case": name, "B": B, "H": H, "KH": KH, "S": S, "D": D,
+           "dtype": tname, "causal": causal, "lse_cotangent": with_glse,
+           "kernels": {}}
+    if v2 is not None:
+        row.update(rope_theta=v2[0], q_pipeline=v2[1])
+    names, kernels, plains, entry = _flash_api(fa, causal, v2)
 
     # Each kernel alone against its plain version on the same inputs.
     fa.reset_counts()
-    out, lse = fa.flash_forward(q, k, v, causal)
+    out, lse = kernels[0](q, k, v)
     delta = ((g.float() * out.float()).sum(-1) - g_lse).contiguous()
-    dq = fa.flash_backward_dq(q, k, v, g, lse, delta, causal)
-    dk, dv = fa.flash_backward_dkv(q, k, v, g, lse, delta, causal)
+    dq = kernels[1](q, k, v, g, lse, delta)
+    dk, dv = kernels[2](q, k, v, g, lse, delta)
     torch.cuda.synchronize()
-    if fa.launch_counts != dict.fromkeys(FLASH_KERNELS, 1):
+    if fa.launch_counts != _counts(fa, dict.fromkeys(names, 1)):
         raise RuntimeError(f"{name}: launches {fa.launch_counts}")
     plain = {
-        "flash_fwd": lambda *a: fa.reference_attention_lse(*a[:3], causal),
-        "flash_bwd_dq": lambda *a: (fa.reference_bwd_dq(*a, lse, delta,
-                                                        causal),),
-        "flash_bwd_dkv": lambda *a: fa.reference_bwd_dkv(*a, lse, delta,
-                                                         causal),
+        names[0]: lambda *a: plains[0](*a[:3]),
+        names[1]: lambda *a: (plains[1](*a, lse, delta),),
+        names[2]: lambda *a: plains[2](*a, lse, delta),
     }
-    got = {"flash_fwd": (out, lse), "flash_bwd_dq": (dq,),
-           "flash_bwd_dkv": (dk, dv)}
+    got = {names[0]: (out, lse), names[1]: (dq,), names[2]: (dk, dv)}
     wide = [t.float() for t in (q, k, v, g)]
-    for kname in FLASH_KERNELS:
+    for kname in names:
         same = plain[kname](q, k, v, g)
         err = max(float((x.float() - r.float()).abs().max())
                   for x, r in zip(got[kname], same))
@@ -449,10 +531,10 @@ def _flash_case(torch, gen, dev, name, B, H, S, D, tname, causal, with_glse,
 
     # All three through autograd, against the float32 plain version's.
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    o, l = fa.flash_attention_lse(qg, kg, vg, causal)
+    o, l = entry(qg, kg, vg)
     torch.autograd.backward((o, l), (g, g_lse))
     q32, k32, v32 = (t.detach().requires_grad_() for t in wide[:3])
-    o32, l32 = fa.reference_attention_lse(q32, k32, v32, causal)
+    o32, l32 = plains[0](q32, k32, v32)
     torch.autograd.backward((o32, l32), (wide[3], g_lse))
     e2e = {}
     for oname, x, r in (("out", o, o32), ("lse", l, l32),
@@ -471,21 +553,22 @@ def _flash_case(torch, gen, dev, name, B, H, S, D, tname, causal, with_glse,
     if not timed:
         return row
 
-    lib_fwd, lib_bwd = _sdpa_ms(torch, q, k, v, causal)
-    calls = {
-        "flash_fwd": (lambda: fa.flash_forward(q, k, v, causal), lib_fwd),
-        "flash_bwd_dq": (lambda: fa.flash_backward_dq(q, k, v, g, lse, delta,
-                                                      causal), lib_bwd),
-        "flash_bwd_dkv": (lambda: fa.flash_backward_dkv(q, k, v, g, lse,
-                                                        delta, causal),
-                          lib_bwd),
-    }
-    for kname, (kernel, lib_ms) in calls.items():
+    # The library call on q and k rotated beforehand (the rotation is not
+    # in its time).
+    qr, kr = ((fa.rope_rotate(q, v2[0]), fa.rope_rotate(k, v2[0]))
+              if v2 is not None else (q, k))
+    lib_fwd, lib_bwd = _sdpa_ms(torch, qr, kr, v, causal)
+    del qr, kr
+    args = {names[0]: (q, k, v), names[1]: (q, k, v, g, lse, delta),
+            names[2]: (q, k, v, g, lse, delta)}
+    for kname, kernel, lib_ms in zip(names, kernels,
+                                     (lib_fwd, lib_bwd, lib_bwd)):
         with torch.no_grad():
-            ms = time_cuda(torch, kernel, 10, warmup=2)
+            ms = time_cuda(torch, lambda: kernel(*args[kname]), 10, warmup=2)
             plain_ms = time_cuda(torch, lambda: plain[kname](q, k, v, g), 3,
                                  warmup=1)
-        bound_ms, bound_by = _flash_bound(kname, B, H, S, D, tname, causal)
+        bound_ms, bound_by = _flash_bound(kname, B, H, S, D, tname, causal,
+                                          KH)
         row["kernels"][kname].update(ms=ms, plain_ms=plain_ms,
                                      library_ms=lib_ms, bound_ms=bound_ms,
                                      bound_by=bound_by)
@@ -576,6 +659,9 @@ def _stream(port: int, body: dict, out: dict, timeout: float = 600.0):
 PROFILE_CLASSES = (
     ("flash_fwd", ("flash_fwd",)), ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("flash_v2_fwd", ("flash_v2_fwd",)),
+    ("flash_v2_bwd_dq", ("flash_v2_bwd_dq",)),
+    ("flash_v2_bwd_dkv", ("flash_v2_bwd_dkv",)),
     ("paged_attention", ("paged_attention",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
 )
@@ -788,22 +874,33 @@ TRAIN_BATCH = 24   # 24 x 2048 tokens a step, the reference bench's batch
 TRAIN_STEPS = 5    # timed steps after one warm-up step
 
 
-def flagship_train_config(torch, layers: int, dtype=None):
+# The v2 training configuration: the flagship with 2 KV heads (G = 4, the
+# geometry the reference's v2 kernels were written for) and the three v2
+# knobs on.
+V2_KNOBS = dict(flash_fuse_rope=True, flash_kv_grouped=True,
+                flash_q_pipeline=2)
+V2_OFF = dict(flash_fuse_rope=False, flash_kv_grouped=False,
+              flash_q_pipeline=0)
+
+
+def flagship_train_config(torch, layers: int, dtype=None, v2=False):
     """The reference bench's flagship training configuration
     (``bench.py:178-183``) with the port's own flash tile: bf16 compute,
-    flash attention, full remat."""
+    flash attention, full remat; with ``v2``, ``n_kv_heads=2`` and the v2
+    knobs on."""
     from k8s_gpu_tpu_torch.models import TransformerConfig
 
     return TransformerConfig(
         vocab_size=16384, d_model=1024, n_layers=layers, n_heads=8,
-        n_kv_heads=0, d_head=128, d_ff=4096, max_seq=2048,
+        n_kv_heads=2 if v2 else 0, d_head=128, d_ff=4096, max_seq=2048,
         dtype=dtype or torch.bfloat16, use_flash=True, remat=True,
-        remat_policy="full",
+        remat_policy="full", **(V2_KNOBS if v2 else {}),
     )
 
 
 def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
-                   device="cuda", profile: bool = False) -> dict:
+                   device="cuda", profile: bool = False,
+                   v2: bool = False) -> dict:
     from k8s_gpu_tpu_torch.models import TransformerLM
     from k8s_gpu_tpu_torch.ops import attention as fa
     from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
@@ -811,7 +908,7 @@ def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
         device_peak_flops, model_flops_per_step, tree_leaves,
     )
 
-    cfg = flagship_train_config(torch, layers)
+    cfg = flagship_train_config(torch, layers, v2=v2)
     model = TransformerLM(cfg, device=device)
     trainer = Trainer(model, TrainConfig(warmup_steps=1), device=device)
     trainer.init(seed)
@@ -855,7 +952,8 @@ def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
     peak = device_peak_flops()
     result = {
         "layers": layers, "batch": batch, "seq": cfg.max_seq,
-        "n_params": n_params, "losses": losses, "warmup_step_s": warm_s,
+        "n_kv_heads": cfg.kv_heads, "v2_knobs": v2, "n_params": n_params,
+        "losses": losses, "warmup_step_s": warm_s,
         "timed_steps": steps, "step_ms": step_s * 1e3,
         "tokens_per_s": batch * cfg.max_seq / step_s,
         "model_flops_per_step": flops, "peak_flops": peak,
@@ -866,9 +964,9 @@ def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
     if profiled is not None:
         result["profile"] = profiled
     if model.device.type == "cuda":
-        want = {"flash_fwd": 2 * layers * steps,
-                "flash_bwd_dq": layers * steps,
-                "flash_bwd_dkv": layers * steps}
+        fwd, dq, dkv = FLASH_V2_KERNELS if v2 else FLASH_KERNELS
+        want = _counts(fa, {fwd: 2 * layers * steps, dq: layers * steps,
+                            dkv: layers * steps})
         if launches != want or plain != 0:
             raise RuntimeError(f"flash launches {launches}, plain calls "
                                f"{plain} on the training path; expected "
@@ -886,6 +984,17 @@ def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
 # paths differ only in summation order.
 TRAIN_TOL = {"bfloat16": {"loss": 1e-2, "grad": 5e-2},
              "float32": {"loss": 1e-5, "grad": 1e-4}}
+# Phase 7b: the v2 configuration against the same GQA configuration with
+# the knobs off (v1, rope outside the kernel, K/V repeated).  bf16 at full
+# depth: v1 rounds the rotated q and k to bf16 and v2 keeps them in f32,
+# one bf16 rounding (2^-9 relative) compounding through 16 layers as in
+# phase 7.  float32 at 2 layers: v1's frequencies (pow) and v2's (exp)
+# differ by an ulp, which at position 2047 turns the angle by up to ~1e-4
+# rad, so q and k differ by up to ~1e-4 of their size at late positions;
+# over all positions the gradients moved by 2e-5 of their norm in a CPU
+# run of this check, held at 10x that.
+V2_TRAIN_TOL = {"bfloat16": {"loss": 1e-2, "grad": 5e-2},
+                "float32": {"loss": 1e-5, "grad": 2e-4}}
 
 
 def _leaf_names(tree, prefix="") -> list[str]:
@@ -904,22 +1013,33 @@ def _loss_and_grads(torch, model, params, x, y):
     return loss.item(), grads
 
 
-def check_train_outputs(torch, seed: int, layers: int,
-                        device="cuda") -> dict:
-    """``layers`` deep in bf16, 2 layers in float32."""
+def check_train_outputs(torch, seed: int, layers: int, device="cuda",
+                        v2: bool = False) -> dict:
+    """``layers`` deep in bf16, 2 layers in float32: flash against plain
+    attention, or with ``v2`` the v2 configuration against the same with
+    the knobs off.  On the card, each side's flash launches are those of
+    its own kernels only."""
     import dataclasses
 
     from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import attention as fa
     from k8s_gpu_tpu_torch.train import Trainer
 
+    if v2:
+        sides = (("v2", V2_KNOBS, FLASH_V2_KERNELS),
+                 ("v1", V2_OFF, FLASH_KERNELS))
+        tols = V2_TRAIN_TOL
+    else:
+        sides = (("flash", {}, FLASH_KERNELS),
+                 ("plain", dict(use_flash=False), {}))
+        tols = TRAIN_TOL
     out = {}
     for tname, depth in (("bfloat16", layers), ("float32", 2)):
-        cfg = flagship_train_config(torch, depth, getattr(torch, tname))
+        cfg = flagship_train_config(torch, depth, getattr(torch, tname), v2)
         runs = {}
         params = None
-        for use_flash in (True, False):
-            model = TransformerLM(dataclasses.replace(cfg,
-                                                      use_flash=use_flash),
+        for side, knobs, kernels in sides:
+            model = TransformerLM(dataclasses.replace(cfg, **knobs),
                                   device=device)
             if params is None:
                 trainer = Trainer(model, device=device)
@@ -928,21 +1048,30 @@ def check_train_outputs(torch, seed: int, layers: int,
                 rng = torch.Generator().manual_seed(seed + 4)
                 toks = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq + 1),
                                      generator=rng).to(model.device)
-            runs[use_flash] = _loss_and_grads(torch, model, params,
-                                              toks[:, :-1], toks[:, 1:])
-        (lf, gf), (lp, gp) = runs[True], runs[False]
+            fa.reset_counts()
+            runs[side] = _loss_and_grads(torch, model, params,
+                                         toks[:, :-1], toks[:, 1:])
+            launched = dict(fa.launch_counts)
+            want = _counts(fa, {n: c * depth for n, c in
+                                zip(kernels, (2, 1, 1))})
+            if model.device.type == "cuda" and launched != want:
+                raise RuntimeError(f"{tname} {side}: launches {launched}, "
+                                   f"expected {want}")
+        (la, ga), (lb, gb) = (runs[side] for side, _, _ in sides)
         rel = {n: float((a.float() - b.float()).norm() / b.float().norm())
-               for n, a, b in zip(_leaf_names(params), gf, gp)}
-        tol = TRAIN_TOL[tname]
-        if not (math.isfinite(lf) and abs(lf - lp) <= tol["loss"]):
-            raise RuntimeError(f"{tname}: flash loss {lf} vs plain {lp}")
+               for n, a, b in zip(_leaf_names(params), ga, gb)}
+        tol = tols[tname]
+        names = [side for side, _, _ in sides]
+        if not (math.isfinite(la) and abs(la - lb) <= tol["loss"]):
+            raise RuntimeError(f"{tname}: {names[0]} loss {la} vs "
+                               f"{names[1]} {lb}")
         if not max(rel.values()) <= tol["grad"]:
             raise RuntimeError(f"{tname}: gradient rel errors {rel} > "
                                f"{tol['grad']}")
-        out[tname] = {"layers": depth, "loss_flash": lf, "loss_plain": lp,
-                      "loss_diff": abs(lf - lp), "grad_rel_err": rel,
-                      "tol": tol}
-        del runs, gf, gp, params
+        out[tname] = {"layers": depth, f"loss_{names[0]}": la,
+                      f"loss_{names[1]}": lb, "loss_diff": abs(la - lb),
+                      "grad_rel_err": rel, "tol": tol}
+        del runs, ga, gb, params
         _free(torch)
     return out
 
@@ -978,6 +1107,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     kern = check_paged_attention(torch, args.seed)
     flash = check_flash_attention(torch, args.seed)
+    flash_v2 = check_flash_v2(torch, args.seed)
     main_path = run_main_path(torch, args.seed, LAYERS, profile=args.profile)
     print(json.dumps({"main_path": main_path}), flush=True)
     outputs = check_outputs(torch, args.seed, LAYERS)
@@ -987,8 +1117,14 @@ def main(argv=None) -> int:
                            profile=args.profile)
     print(json.dumps({"train_path": train}), flush=True)
     _free(torch)
+    train_v2 = run_train_path(torch, args.seed, LAYERS, TRAIN_BATCH,
+                              TRAIN_STEPS, profile=args.profile, v2=True)
+    print(json.dumps({"train_path_v2": train_v2}), flush=True)
+    _free(torch)
     train_outputs = check_train_outputs(torch, args.seed, LAYERS)
     print(json.dumps({"train_outputs": train_outputs}), flush=True)
+    train_v2_outputs = check_train_outputs(torch, args.seed, LAYERS, v2=True)
+    print(json.dumps({"train_v2_outputs": train_v2_outputs}), flush=True)
 
     decode = next(r for r in kern if r["case"] == "decode_bf16")
     kernels = {"kernels": [{
@@ -1004,20 +1140,24 @@ def main(argv=None) -> int:
         "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
     }]}
-    top = next(r for r in flash if r["case"] == "flagship_bf16")
-    for name, line in FLASH_KERNELS.items():
-        kernels["kernels"].append({
-            "name": name,
-            "route": "cuda",
-            "source": "k8s_gpu_tpu_torch/csrc/flash_attention.cu",
-            "replaces": f"k8s_gpu_tpu/ops/attention.py:{line}",
-            "launches": train["launches"][name],
-            "max_abs_err": max(r["kernels"][name]["max_abs_err"]
-                               for r in flash),
-            **{key: top["kernels"][name][key]
-               for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms")},
-        })
+    for rows, top, lines, source, run in (
+            (flash, "flagship_bf16", FLASH_KERNELS, "flash_attention", train),
+            (flash_v2, "train_gqa_bf16", FLASH_V2_KERNELS,
+             "flash_attention_v2", train_v2)):
+        timed = next(r for r in rows if r["case"] == top)
+        for name, line in lines.items():
+            kernels["kernels"].append({
+                "name": name,
+                "route": "cuda",
+                "source": f"k8s_gpu_tpu_torch/csrc/{source}.cu",
+                "replaces": f"k8s_gpu_tpu/ops/attention.py:{line}",
+                "launches": run["launches"][name],
+                "max_abs_err": max(r["kernels"][name]["max_abs_err"]
+                                   for r in rows),
+                **{key: timed["kernels"][name][key]
+                   for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+            })
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.json:
@@ -1025,9 +1165,12 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.json, "w") as fh:
             json.dump({"gpu": gpu, "build_s": build_s, "kernel_cases": kern,
-                       "flash_cases": flash, "main_path": main_path,
-                       "outputs": outputs, "train_path": train,
-                       "train_outputs": train_outputs, "device": device,
+                       "flash_cases": flash, "flash_v2_cases": flash_v2,
+                       "main_path": main_path, "outputs": outputs,
+                       "train_path": train, "train_path_v2": train_v2,
+                       "train_outputs": train_outputs,
+                       "train_v2_outputs": train_v2_outputs,
+                       "device": device,
                        **kernels}, fh, indent=1)
     print(gpu, flush=True)
     print(json.dumps(kernels), flush=True)

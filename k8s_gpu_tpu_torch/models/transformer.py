@@ -10,12 +10,16 @@ scale}``.  The bf16 cast points are the reference's: for example
 
 Training runs through ``loss``: the same forward with gradients, causal
 attention through ``ops.attention.flash_attention`` when ``use_flash``
-(the CUDA kernels on the card), and each block under
-``torch.utils.checkpoint`` when ``remat`` (the backward recomputes the
-block, flash forward included, as ``jax.checkpoint`` does).
+(the CUDA kernels on the card), or ``flash_attention_v2`` when a flash-v2
+knob is on (``flash_fuse_rope``, ``flash_kv_grouped`` with GQA,
+``flash_q_pipeline`` > 1: rope in the kernels, K/V at their KV heads, P
+query tiles per block), and each block under ``torch.utils.checkpoint``
+when ``remat`` (the backward recomputes the block, flash forward
+included, as ``jax.checkpoint`` does).
 
-Not ported yet (ROADMAP.md): MoE, ``remat_policy="save_attn"``, the
-flash-v2 knobs, ring/ulysses attention and the pipeline schedules.
+Not ported yet (ROADMAP.md): MoE, ``remat_policy="save_attn"``,
+ring/ulysses attention (the sequence-sharded plane) and the pipeline
+schedules.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import flash_attention
+from ..ops.attention import flash_attention, flash_attention_v2
 
 
 def wt(w, dt):
@@ -71,6 +75,14 @@ class TransformerConfig:
     use_flash: bool = True
     flash_block_q: int = 0
     flash_block_k: int = 0
+    # Flash-v2 knobs of the training path (ops/attention.py:
+    # flash_attention_v2): rope applied in the kernels, K/V streamed at
+    # their KV heads (with n_kv_heads < n_heads), and P > 1 query tiles per
+    # block (0/1 = off).  On the card a P the kernels are not compiled for
+    # raises.
+    flash_fuse_rope: bool = False
+    flash_kv_grouped: bool = False
+    flash_q_pipeline: int = 0
     # Paged-KV attention read for serving: "gather" or "paged_kernel".
     attn_impl: str = "gather"
 
@@ -189,18 +201,33 @@ class TransformerLM:
         return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
     def _attention(self, x, lp, positions):
-        dt = self.cfg.dtype
+        cfg = self.cfg
+        dt = cfg.dtype
+        grouped = cfg.flash_kv_grouped and cfg.n_heads // cfg.kv_heads > 1
         q = torch.einsum("bsd,dhk->bshk", x, wt(lp["wq"], dt))
         k = torch.einsum("bsd,dhk->bshk", x, wt(lp["wk"], dt))
         v = torch.einsum("bsd,dhk->bshk", x, wt(lp["wv"], dt))
-        q = self._rope(q, positions)
-        k = self._rope(k, positions)
+        # Flash-v2 derives rope positions from the tile it works on, so it
+        # takes only the dense arange positions of one unsplit sequence.
+        use_v2 = (cfg.use_flash and positions.ndim == 1
+                  and (cfg.flash_fuse_rope or grouped
+                       or cfg.flash_q_pipeline > 1))
+        fuse_rope = use_v2 and cfg.flash_fuse_rope
+        if not fuse_rope:
+            q = self._rope(q, positions)
+            k = self._rope(k, positions)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))       # [B,H,S,Dh]
-        k, v = self._repeat_kv(k), self._repeat_kv(v)
-        if self.cfg.use_flash:
-            o = flash_attention(q, k, v, causal=True,
-                                block_q=self.cfg.flash_block_q or None,
-                                block_k=self.cfg.flash_block_k or None)
+        if not (use_v2 and grouped):
+            k, v = self._repeat_kv(k), self._repeat_kv(v)
+        blocks = dict(block_q=cfg.flash_block_q or None,
+                      block_k=cfg.flash_block_k or None)
+        if use_v2:
+            o = flash_attention_v2(
+                q, k, v, causal=True,
+                rope_theta=cfg.rope_theta if fuse_rope else None,
+                q_pipeline=max(1, cfg.flash_q_pipeline), **blocks)
+        elif cfg.use_flash:
+            o = flash_attention(q, k, v, causal=True, **blocks)
         else:
             o = self._plain_causal_attention(q, k, v)
         o = o.transpose(1, 2)                                   # [B,S,H,Dh]

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` file is one kernel library with a plain C interface
 (no PyTorch headers, so a build takes seconds).  ``load(name)`` compiles
 a library for ``sm_90a`` at first use into ``build/torch_kernels/`` at
 the root of the checkout, under a name that carries a hash of its
-source, so an edited source never loads a stale build.
+source and of the ``csrc`` headers it includes, so an edited source or
+header never loads a stale build.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine that has no ``nvcc``.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,10 +43,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _source_bytes(path: Path, seen: set[Path]) -> bytes:
+    """``path`` followed by every ``csrc`` header it includes with quotes,
+    recursively, each once: what the library's hash covers."""
+    seen.add(path)
+    data = path.read_bytes()
+    for inc in re.findall(rb'^\s*#include\s+"([^"]+)"', data, re.M):
+        header = CSRC / inc.decode()
+        if header not in seen:
+            data += _source_bytes(header, seen)
+    return data
+
+
 def _build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(_source_bytes(src, set())).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib

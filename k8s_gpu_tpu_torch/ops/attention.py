@@ -1,26 +1,37 @@
-"""Flash attention v1: the plain PyTorch version and the wrappers of the
-hand-written CUDA kernels (``csrc/flash_attention.cu``).
+"""Flash attention v1 and v2: the plain PyTorch versions and the wrappers
+of the hand-written CUDA kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_v2.cu``).
 
-Counterpart of ``k8s_gpu_tpu/ops/attention.py``'s v1 path: the forward
+Counterpart of ``k8s_gpu_tpu/ops/attention.py``.  v1: the forward
 (``_fwd_kernel``) emits the output and the per-row logsumexp, and the
 backward recomputes probability tiles from (q, k, lse) in two kernels, one
 for dq (``_bwd_dq_kernel``) and one for dk/dv (``_bwd_dkv_kernel``), tied
 together by one ``torch.autograd.Function`` in place of the reference's
 ``custom_vjp``.  The lse is a differentiable output: its cotangent enters
 the backward as ``delta - g_lse`` (ring attention merges hops on it).
+v2 (``_fwd_kernel_v2``, ``_bwd_dq_kernel_v2``, ``_bwd_dkv_kernel_v2``)
+computes the same with three knobs: RoPE applied in the kernels at
+positions ``arange(S)`` (dq and dk leave through the transpose rotation,
+in the unrotated basis), K/V at their own ``[B, KH, S, D]`` heads with the
+G = H/KH query heads of a KV head sharing each staged K/V tile (dk/dv summed
+over the group in one block), and a ``q_pipeline`` of P query tiles per
+block.
 
-``flash_attention_lse`` takes the plain version only for tensors on the
-CPU (each such call adds one to ``plain_count``); on CUDA tensors it
-launches the kernels, or raises ``ValueError`` for a head width, type or
-tile the kernels do not take.  The kernels mask the tail of a sequence
-that does not fill a tile, so the reference's ``seq_indivisible`` and
-``degenerate_seq`` oracle fall-backs have no counterpart on the card.
-Each kernel launch adds one to its entry in ``launch_counts``.
+``flash_attention_lse`` and ``flash_attention_v2_lse`` take the plain
+versions only for tensors on the CPU (each such call adds one to
+``plain_count``); on CUDA tensors they launch the kernels, or raise
+``ValueError`` for a head width, type, tile or pipeline the kernels do not
+take.  The kernels mask the tail of a sequence that does not fill a tile,
+so the reference's ``seq_indivisible``, ``degenerate_seq``,
+``sublane_misaligned`` and ``pipeline_indivisible`` fall-backs have no
+counterpart on the card, and nothing demotes v2 to v1 or to the plain
+version.  Each kernel launch adds one to its entry in ``launch_counts``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -33,10 +44,15 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches and plain-version calls since the last reset_counts().
-launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                 "flash_v2_fwd": 0, "flash_v2_bwd_dq": 0,
+                 "flash_v2_bwd_dkv": 0}
 plain_count = 0
+# The query-tile pipeline factors the v2 kernels are compiled for.
+Q_PIPELINES = (1, 2)
 
 _lib = None
+_lib_v2 = None
 
 
 def reset_counts() -> None:
@@ -98,6 +114,97 @@ def reference_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+# -- the plain version of v2 --------------------------------------------------
+
+def _rotate(x, cos, sin):
+    """Half-split rotation of the last axis: (x1 cos - x2 sin,
+    x1 sin + x2 cos)."""
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def rope_rotate(x, theta, *, sign: float = 1.0):
+    """Rotary embedding over the trailing ``[..., S, D]`` axes at positions
+    ``arange(S)``, the reference's ``rope_rotate``: frequencies
+    ``theta ** (-i / half)``, f32 compute, cast back to ``x``'s type.
+    ``sign=-1`` applies the transpose rotation."""
+    s, d = x.shape[-2], x.shape[-1]
+    half = d // 2
+    ar = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    freqs = theta ** (-ar / half)
+    pos = torch.arange(s, dtype=torch.float32, device=x.device)
+    angles = pos[:, None] * freqs                               # [S, half]
+    return _rotate(x.float(), torch.cos(angles),
+                   torch.sin(angles) * sign).to(x.dtype)
+
+
+def rope_block(x, pos0, theta, sign: float = 1.0):
+    """The kernels' rotation of an f32 tile ``[..., rows, D]`` whose row
+    ``i`` sits at sequence position ``pos0 + i`` (the reference's
+    ``_rope_block``): frequencies ``exp(i * c)`` with ``c = -ln(theta) /
+    half`` computed in double and rounded once to f32, as the Pallas
+    constant is.  Returns f32."""
+    rows, d = x.shape[-2], x.shape[-1]
+    half = d // 2
+    c = torch.tensor(-math.log(theta) / half, dtype=torch.float32,
+                     device=x.device)
+    freqs = torch.exp(
+        torch.arange(half, dtype=torch.float32, device=x.device) * c)
+    pos = (pos0 + torch.arange(rows, device=x.device)).float()
+    angles = pos[:, None] * freqs                               # [rows, half]
+    return _rotate(x, torch.cos(angles), torch.sin(angles) * sign)
+
+
+def _v2_inputs(q, k, v, rope_theta):
+    """The v1 plain version's inputs for v2: q and k widened to f32 and,
+    with ``rope_theta``, rotated at positions ``arange(S)`` (never rounded
+    back to the input type, as in the kernels); k and v repeated from the
+    KH heads to the H = KH * G query heads (head h reads KV head h // G)."""
+    grp = q.shape[1] // k.shape[1]
+    qf, kf = q.float(), k.float()
+    if rope_theta is not None:
+        qf, kf = rope_block(qf, 0, rope_theta), rope_block(kf, 0, rope_theta)
+    return (qf, kf.repeat_interleave(grp, dim=1),
+            v.float().repeat_interleave(grp, dim=1))
+
+
+def reference_attention_v2_lse(q, k, v, causal: bool = True,
+                               rope_theta: float | None = None):
+    """q [B, H, S, D], k and v [B, KH, S, D] -> (out [B, H, S, D] in
+    q.dtype, lse [B, H, S] f32), differentiable by autograd: the v2
+    forward kernel's plain version."""
+    out, lse = reference_attention_lse(*_v2_inputs(q, k, v, rope_theta),
+                                       causal)
+    return out.to(q.dtype), lse
+
+
+def reference_bwd_dq_v2(q, k, v, dout, lse, delta, causal: bool = True,
+                        rope_theta: float | None = None):
+    """The v2 dq kernel's function from the same residuals: dq in the
+    rotated basis, then through the transpose rotation into the unrotated
+    one, in q's type."""
+    dq = reference_bwd_dq(*_v2_inputs(q, k, v, rope_theta), dout, lse,
+                          delta, causal)
+    if rope_theta is not None:
+        dq = rope_block(dq, 0, rope_theta, sign=-1.0)
+    return dq.to(q.dtype)
+
+
+def reference_bwd_dkv_v2(q, k, v, dout, lse, delta, causal: bool = True,
+                         rope_theta: float | None = None):
+    """The v2 dk/dv kernel's function: dk and dv of the H query heads
+    summed over the G heads of each KV head, dk through the transpose
+    rotation, in k's and v's types."""
+    dk, dv = reference_bwd_dkv(*_v2_inputs(q, k, v, rope_theta), dout, lse,
+                               delta, causal)
+    B, KH, S, D = k.shape
+    dk = dk.view(B, KH, -1, S, D).sum(2)
+    dv = dv.view(B, KH, -1, S, D).sum(2)
+    if rope_theta is not None:
+        dk = rope_block(dk, 0, rope_theta, sign=-1.0)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 # -- the plan ---------------------------------------------------------------
 
 def flash_plan(d_head: int, dtype, block_q: int | None = None,
@@ -125,14 +232,44 @@ def flash_plan(d_head: int, dtype, block_q: int | None = None,
     return bq, bk, reason
 
 
+def flash_v2_plan(d_head: int, dtype, q_pipeline: int = 1,
+                  block_q: int | None = None, block_k: int | None = None):
+    """(bq, bk, reason) for the v2 kernels: v1's tile, head width and type
+    rules, plus a ``q_pipeline`` they are compiled for (``Q_PIPELINES``).
+    The reference's further v2 rules do not carry over: a query tile never
+    straddles two folded group members (each member's ragged last tile is
+    masked on its own) and the items missing from the last block of P are
+    masked, so any S, G and P in ``Q_PIPELINES`` run."""
+    bq, bk, reason = flash_plan(d_head, dtype, block_q, block_k)
+    if reason is None and q_pipeline not in Q_PIPELINES:
+        reason = (f"q_pipeline {q_pipeline}: the kernels are compiled for "
+                  f"P in {Q_PIPELINES}")
+    return bq, bk, reason
+
+
 def describe_train_attention(cfg) -> str:
     """One-line name of the attention path the training step of a
-    ``TransformerConfig`` runs on the card."""
+    ``TransformerConfig``-shaped config runs on the card, with the
+    reference's knob list for v2 (duck-typed, as the reference's)."""
     if not getattr(cfg, "use_flash", False):
         return "plain-causal (use_flash off)"
-    bq, bk, reason = flash_plan(cfg.d_head, cfg.dtype,
-                                cfg.flash_block_q or None,
-                                cfg.flash_block_k or None)
+    blocks = (getattr(cfg, "flash_block_q", 0) or None,
+              getattr(cfg, "flash_block_k", 0) or None)
+    heads = int(getattr(cfg, "n_heads", 1))
+    kh = int(getattr(cfg, "kv_heads", heads) or heads)
+    grp = heads // kh if getattr(cfg, "flash_kv_grouped", False) else 1
+    rope = bool(getattr(cfg, "flash_fuse_rope", False))
+    pipeline = max(1, int(getattr(cfg, "flash_q_pipeline", 0)))
+    if grp > 1 or rope or pipeline > 1:
+        bq, bk, reason = flash_v2_plan(cfg.d_head, cfg.dtype, pipeline,
+                                       *blocks)
+        if reason is not None:
+            return f"flash-v2 rejected on the card ({reason})"
+        knobs = ",".join(name for name, on in (
+            ("rope", rope), (f"gqa={grp}", grp > 1),
+            (f"pipeline={pipeline}", pipeline > 1)) if on)
+        return f"flash-v2[{knobs}] blocks {bq}x{bk}"
+    bq, bk, reason = flash_plan(cfg.d_head, cfg.dtype, *blocks)
     if reason is None:
         return f"flash-v1 blocks {bq}x{bk}"
     return f"flash-v1 rejected on the card ({reason})"
@@ -140,25 +277,45 @@ def describe_train_attention(cfg) -> str:
 
 # -- the kernels ------------------------------------------------------------
 
+def _load(name: str, tails: dict):
+    """The ctypes handle of ``csrc/<name>.cu``: its ``<name>_fwd``,
+    ``_bwd_dq`` and ``_bwd_dkv`` entries take 5, 7 and 8 pointers, then
+    the arguments in ``tails[kind]`` (the forward's where ``kind`` is
+    missing), and return an int code that ``<name>_error_string``
+    names."""
+    from . import _build
+
+    lib = _build.load(name)
+    for kind, n_ptrs in (("fwd", 5), ("bwd_dq", 7), ("bwd_dkv", 8)):
+        fn = getattr(lib, f"{name}_{kind}")
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                       + tails.get(kind, tails["fwd"]))
+        fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
 def _kernel():
     global _lib
     if _lib is None:
-        from . import _build
-
-        lib = _build.load("flash_attention")
         # BH, S, D, causal, scale, dtype code, stream
-        tail = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_void_p]
-        lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 5 + tail
-        lib.flash_attention_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
-        lib.flash_attention_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + tail
-        for fn in (lib.flash_attention_fwd, lib.flash_attention_bwd_dq,
-                   lib.flash_attention_bwd_dkv):
-            fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _load("flash_attention", {"fwd": [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]})
     return _lib
+
+
+def _kernel_v2():
+    global _lib_v2
+    if _lib_v2 is None:
+        # BKH, G, S, D, causal, scale, rope, rope_c, [pipeline,] dtype, stream
+        head = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_float]
+        tail = [ctypes.c_int, ctypes.c_void_p]
+        _lib_v2 = _load("flash_attention_v2", {
+            "fwd": head + [ctypes.c_int] + tail, "bwd_dkv": head + tail})
+    return _lib_v2
 
 
 def _check(ref, named: dict, f32_rows: dict | None = None):
@@ -185,16 +342,48 @@ def _check(ref, named: dict, f32_rows: dict | None = None):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _raise_on(rc: int, what: str, lib) -> None:
+def _check_v2(q, k, q_like: dict, kv_like: dict, f32_rows=None):
+    """``_check`` for the v2 kernels: the ``q_like`` tensors against q
+    [B, H, S, D], the ``kv_like`` against k [B, KH, S, D] on q's device in
+    q's type, with KH dividing H and the forward/dq grid in range."""
+    _check(q, q_like, f32_rows)
+    _check(k, kv_like)
+    B, H, S, D = q.shape
+    if k.device != q.device or k.dtype != q.dtype:
+        raise ValueError(f"k is {k.dtype} on {k.device}, q {q.dtype} on "
+                         f"{q.device}")
+    if k.shape[0] != B or k.shape[2:] != q.shape[2:] or H % k.shape[1]:
+        raise ValueError(f"k {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}: [B, KH, S, D] with KH | H")
+    if H // k.shape[1] * -(-S // KERNEL_TILE) > 65535:
+        raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel grid")
+
+
+def _raise_on(rc: int, what: str, errors) -> None:
     if rc != 0:
-        msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg}")
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{errors(rc).decode()}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _common(q, causal):
     B, H, S, D = q.shape
     return (B * H, S, D, int(causal), D ** -0.5, _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _stream(q))
+
+
+def _common_v2(q, k, causal, rope_theta):
+    """BKH, G, S, D, causal, scale, rope, rope_c: ``rope_c`` is
+    -ln(theta) / (D / 2) in double, which ctypes rounds once to f32."""
+    B, H, S, D = q.shape
+    KH = k.shape[1]
+    rope_c = (-math.log(rope_theta) / (D // 2) if rope_theta is not None
+              else 0.0)
+    return (B * KH, H // KH, S, D, int(causal), D ** -0.5,
+            int(rope_theta is not None), rope_c)
 
 
 def flash_forward(q, k, v, causal: bool):
@@ -207,7 +396,7 @@ def flash_forward(q, k, v, causal: bool):
     rc = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  out.data_ptr(), lse.data_ptr(),
                                  *_common(q, causal))
-    _raise_on(rc, "flash_fwd", lib)
+    _raise_on(rc, "flash_fwd", lib.flash_attention_error_string)
     launch_counts["flash_fwd"] += 1
     return out, lse
 
@@ -222,7 +411,7 @@ def flash_backward_dq(q, k, v, dout, lse, delta, causal: bool):
     rc = lib.flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_common(q, causal))
-    _raise_on(rc, "flash_bwd_dq", lib)
+    _raise_on(rc, "flash_bwd_dq", lib.flash_attention_error_string)
     launch_counts["flash_bwd_dq"] += 1
     return dq
 
@@ -238,15 +427,83 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, causal: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_common(q, causal))
-    _raise_on(rc, "flash_bwd_dkv", lib)
+    _raise_on(rc, "flash_bwd_dkv", lib.flash_attention_error_string)
     launch_counts["flash_bwd_dkv"] += 1
     return dk, dv
 
 
+def flash_v2_forward(q, k, v, causal: bool, rope_theta=None,
+                     q_pipeline: int = 1):
+    """v2 forward kernel: contiguous q [B, H, S, D] and k, v [B, KH, S, D]
+    on the card -> (out [B, H, S, D] in q.dtype, lse [B, H, S] f32), with
+    q and k rotated in the kernel when ``rope_theta``."""
+    _check_v2(q, k, {"q": q}, {"k": k, "v": v})
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    lib = _kernel_v2()
+    rc = lib.flash_attention_v2_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *_common_v2(q, k, causal, rope_theta), q_pipeline,
+        _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on(rc, "flash_v2_fwd", lib.flash_attention_v2_error_string)
+    launch_counts["flash_v2_fwd"] += 1
+    return out, lse
+
+
+def flash_v2_backward_dq(q, k, v, dout, lse, delta, causal: bool,
+                         rope_theta=None, q_pipeline: int = 1):
+    """v2 dq kernel: dq accumulated in the rotated basis, written through
+    the transpose rotation; dq [B, H, S, D] in q.dtype."""
+    _check_v2(q, k, {"q": q, "dout": dout}, {"k": k, "v": v},
+              {"lse": lse, "delta": delta})
+    dq = torch.empty_like(q)
+    lib = _kernel_v2()
+    rc = lib.flash_attention_v2_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_common_v2(q, k, causal, rope_theta), q_pipeline,
+        _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on(rc, "flash_v2_bwd_dq", lib.flash_attention_v2_error_string)
+    launch_counts["flash_v2_bwd_dq"] += 1
+    return dq
+
+
+def flash_v2_backward_dkv(q, k, v, dout, lse, delta, causal: bool,
+                          rope_theta=None):
+    """v2 dk/dv kernel: dk and dv [B, KH, S, D] summed over the G query
+    heads of each KV head in one block, dk through the transpose
+    rotation."""
+    _check_v2(q, k, {"q": q, "dout": dout}, {"k": k, "v": v},
+              {"lse": lse, "delta": delta})
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _kernel_v2()
+    rc = lib.flash_attention_v2_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_common_v2(q, k, causal, rope_theta), _DTYPE_CODES[q.dtype],
+        _stream(q))
+    _raise_on(rc, "flash_v2_bwd_dkv", lib.flash_attention_v2_error_string)
+    launch_counts["flash_v2_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _delta(out, g_out, g_lse):
+    """(dO in out's type, delta = rowsum(dO * O) - g_lse in f32), in plain
+    torch (elementwise, as the reference keeps it outside its kernels); a
+    missing cotangent reads as zero."""
+    if g_out is None:
+        g_out = torch.zeros_like(out)
+    g_out = g_out.to(out.dtype).contiguous()
+    delta = (g_out.float() * out.float()).sum(dim=-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return g_out, delta.contiguous()
+
+
 class _FlashAttention(torch.autograd.Function):
-    """(out, lse) from the forward kernel; the backward takes
-    delta = rowsum(dO * O) - g_lse in plain torch (elementwise, as the
-    reference keeps it outside its kernels) and launches dq and dk/dv."""
+    """(out, lse) from the forward kernel; the backward takes ``_delta``
+    and launches dq and dk/dv."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -259,16 +516,34 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        if g_out is None:
-            g_out = torch.zeros_like(out)
-        g_out = g_out.to(out.dtype).contiguous()
-        delta = (g_out.float() * out.float()).sum(dim=-1)
-        if g_lse is not None:
-            delta = delta - g_lse.float()
-        delta = delta.contiguous()
+        g_out, delta = _delta(out, g_out, g_lse)
         dq = flash_backward_dq(q, k, v, g_out, lse, delta, ctx.causal)
         dk, dv = flash_backward_dkv(q, k, v, g_out, lse, delta, ctx.causal)
         return dq, dk, dv, None
+
+
+class _FlashAttentionV2(torch.autograd.Function):
+    """The v2 twin of ``_FlashAttention`` (the reference's ``_flash_v2``
+    ``custom_vjp``): K/V at [B, KH, S, D], rope and the pipeline as kernel
+    arguments, gradients in the unrotated basis."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, rope_theta, q_pipeline):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        out, lse = flash_v2_forward(q, k, v, causal, rope_theta, q_pipeline)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, rope_theta)
+        ctx.q_pipeline = q_pipeline
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        g_out, delta = _delta(out, g_out, g_lse)
+        dq = flash_v2_backward_dq(q, k, v, g_out, lse, delta, *ctx.args,
+                                  ctx.q_pipeline)
+        dk, dv = flash_v2_backward_dkv(q, k, v, g_out, lse, delta, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_lse(q, k, v, causal: bool = True,
@@ -294,3 +569,55 @@ def flash_attention(q, k, v, causal: bool = True,
                     block_q: int | None = None, block_k: int | None = None):
     """Blockwise attention, q, k, v [B, H, S, D] -> [B, H, S, D]."""
     return flash_attention_lse(q, k, v, causal, block_q, block_k)[0]
+
+
+def flash_attention_v2_lse(q, k, v, *, causal: bool = True,
+                           rope_theta: float | None = None,
+                           block_q: int | None = None,
+                           block_k: int | None = None,
+                           q_pipeline: int = 1):
+    """v2 entry, the reference's signature and errors: q [B, H, S, D]
+    against K/V at [B, KH, S, D] (KH | H; KH == H is plain multi-head
+    attention) -> (out [B, H, S, D], lse [B, H, S] f32), differentiable in
+    q, k, v through both outputs.
+
+    ``rope_theta`` rotates q and k in the kernels at positions
+    ``arange(S)`` (gradients land in the unrotated basis); ``q_pipeline``
+    P > 1 runs P query tiles per block against each staged K/V tile.  With
+    no knob active (KH == H, P == 1, no rope) the call is the v1 entry's.
+    On the card a head width, type, tile or P the kernels do not take
+    raises ``ValueError``."""
+    global plain_count
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    if h % kh != 0:
+        raise ValueError(
+            f"query heads {h} must be a multiple of KV heads {kh}")
+    if v.shape != k.shape:
+        raise ValueError(f"k/v shape mismatch: {tuple(k.shape)} vs "
+                         f"{tuple(v.shape)}")
+    if rope_theta is not None and d % 2 != 0:
+        raise ValueError(f"fused rope needs an even head dim, got d={d}")
+    pipeline = max(1, q_pipeline)
+    if h == kh and pipeline == 1 and rope_theta is None:
+        return flash_attention_lse(q, k, v, causal, block_q, block_k)
+    if q.device.type != "cuda":
+        plain_count += 1
+        return reference_attention_v2_lse(q, k, v, causal, rope_theta)
+    _, _, reason = flash_v2_plan(d, q.dtype, pipeline, block_q, block_k)
+    if reason is not None:
+        raise ValueError(f"flash attention v2 kernels do not take q "
+                         f"{tuple(q.shape)} {q.dtype}: {reason}")
+    return _FlashAttentionV2.apply(
+        q, k, v, causal,
+        float(rope_theta) if rope_theta is not None else None, pipeline)
+
+
+def flash_attention_v2(q, k, v, *, causal: bool = True,
+                       rope_theta: float | None = None,
+                       block_q: int | None = None, block_k: int | None = None,
+                       q_pipeline: int = 1):
+    """v2 blockwise attention -> [B, H, S, D].  See flash_attention_v2_lse."""
+    return flash_attention_v2_lse(
+        q, k, v, causal=causal, rope_theta=rope_theta, block_q=block_q,
+        block_k=block_k, q_pipeline=q_pipeline)[0]

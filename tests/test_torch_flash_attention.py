@@ -184,7 +184,8 @@ def test_cuda_kernels_match_plain_version(cuda, dtype, d):
     fa.reset_counts()
     got, ref = _vs_f32_plain(*_inputs(3, dtype, (2, 3, 100, d)), True, cuda)
     assert fa.launch_counts == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                                "flash_bwd_dkv": 1}
+                                "flash_bwd_dkv": 1, "flash_v2_fwd": 0,
+                                "flash_v2_bwd_dq": 0, "flash_v2_bwd_dkv": 0}
     assert fa.plain_count == 0
     for name, r, x in zip(("out", "lse", "dq", "dk", "dv"), ref, got):
         if dtype == "float32":
