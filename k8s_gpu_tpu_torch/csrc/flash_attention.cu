@@ -18,8 +18,11 @@
 // (4.13e11), against 404-607 MB of bytes: 0.21-0.42 ms at the 989 TFLOP/s
 // bf16 tensor-core peak, twice the memory bound.
 //
-// What this first version does about it (right and simple first; the
-// tensor cores, TMA and warp specialisation are later work):
+// The bf16 forward runs on the tensor cores (flash_fwd_mma_kernel, device
+// code in flash_mma.cuh: mma.sync bf16 products, a cp.async K/V ring, the
+// online softmax on the accumulator fragments).  The float32 forward and
+// both backward kernels are the first version on the CUDA cores in f32
+// (TMA, wgmma and warp specialisation are later work):
 // - One block of 256 threads per (query tile of 64 rows, bh) for the
 //   forward and dq, per (key tile of 64 rows, bh) for dk/dv.  The TPU's
 //   sequential grid axis becomes a loop inside the block; blocks run in no
@@ -42,7 +45,10 @@
 // The staging, product and dispatch helpers are in flash_common.cuh,
 // shared with the v2 kernels (flash_attention_v2.cu).
 
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -125,6 +131,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (row < S) lse[static_cast<size_t>(bh) * S + row] = m[i] + logf(l[i]);
     }
   }
+}
+
+// The bf16 forward: one group of 4 warps per (query tile, bh), longest
+// causal tiles first, as flash_fwd_kernel.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int S, int causal, float scale) {
+  const int n_tiles = (S + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;
+  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
+  mma_fwd_tile<D, 1, false>(q + base, nullptr, k + base, nullptr, v + base,
+                            out + base, lse + static_cast<size_t>(blockIdx.x) * S,
+                            qt * kTile, S, causal ? qt + 1 : n_tiles, S, causal,
+                            scale);
 }
 
 template <typename T, int D>
@@ -284,12 +306,21 @@ struct Fwd {
   static int run(const void* q, const void* k, const void* v, void* out,
                  void* lse, int BH, int S, int causal, float scale,
                  cudaStream_t st) {
-    constexpr int smem = fwd_smem<D>();
-    if (int rc = prepare(flash_fwd_kernel<T, D>, smem)) return rc;
-    flash_fwd_kernel<T, D><<<grid(BH, S), kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), S, causal, scale);
+    if constexpr (std::is_same_v<T, bf16>) {
+      constexpr int smem = mma_fwd_smem<D, 1, false>();
+      if (int rc = prepare(flash_fwd_mma_kernel<D>, smem)) return rc;
+      flash_fwd_mma_kernel<D><<<grid(BH, S), kMmaThreads, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(out),
+          static_cast<float*>(lse), S, causal, scale);
+    } else {
+      constexpr int smem = fwd_smem<D>();
+      if (int rc = prepare(flash_fwd_kernel<T, D>, smem)) return rc;
+      flash_fwd_kernel<T, D><<<grid(BH, S), kThreads, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out),
+          static_cast<float*>(lse), S, causal, scale);
+    }
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -326,6 +357,15 @@ struct BwdDkv {
   }
 };
 
+// The forward's dynamic shared memory, in bytes.
+template <typename T, int D>
+struct FwdSmem {
+  static int run() {
+    if constexpr (std::is_same_v<T, bf16>) return mma_fwd_smem<D, 1, false>();
+    else return fwd_smem<D>();
+  }
+};
+
 }  // namespace
 
 // Each returns 0, a cudaError_t from preparing or launching, or -1 for a
@@ -358,6 +398,11 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int dtype, void* stream) {
   return dispatch<BwdDkv>(dtype, D, q, k, v, dout, lse, delta, dk, dv, BH, S,
                           causal, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The forward instance's dynamic shared memory in bytes, or -1.
+extern "C" int flash_attention_fwd_smem(int D, int dtype) {
+  return dispatch<FwdSmem>(dtype, D);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

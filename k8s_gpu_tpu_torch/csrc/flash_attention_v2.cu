@@ -10,8 +10,8 @@
 // rows at g * S), k, v [B * KH, S, D].  With rope, q and k are widened to
 // f32 and rotated at each row's own sequence position s (half-split, angle
 // s * exp(i * c) for i < D / 2, c = -ln(theta) / (D / 2) given by the caller
-// in f32), and never rounded back to the input type.  Scores s = q.k * D^-0.5
-// in f32, masked with -1e30; the forward emits out in the input type and
+// in f32), and never rounded back to the input type (the bf16 forward keeps
+// them exact as two bf16 halves).  Scores s = q.k * D^-0.5 in f32, masked with -1e30; the forward emits out in the input type and
 // lse in f32 [B * H, S]; the backward recomputes p from lse, takes delta =
 // rowsum(dO * O) - g_lse from the caller, accumulates dq and dk in the
 // rotated basis and writes them through the transpose rotation (the angle
@@ -22,8 +22,11 @@
 // (forward), 6 D (dq) and 8 D (dk/dv) flops per visible (query, key) pair of
 // the H query heads; K/V and dK/dV move at KH heads.
 //
-// What this first version does about it (v1's design on the CUDA cores in
-// f32; tensor cores and async copies are later work):
+// The bf16 forward runs on the tensor cores (flash_v2_fwd_mma_kernel,
+// flash_mma.cuh): P groups of 4 warps a block over the same (tile, member)
+// items, Q and each K tile rotated in registers while they are staged, V
+// on a cp.async ring.  The float32 forward and both backward kernels are
+// v1's first design on the CUDA cores in f32:
 // - K/V are read at [B, KH, S, D]; nothing repeats them.  A forward or dq
 //   block owns P (query tile, member) items of one KV head, ordered member
 //   first (item i = tile * G + g).  With G >= P its P query tiles are P
@@ -48,18 +51,16 @@
 //   members and, for each, over the query tiles from the diagonal on.  No
 //   atomics: the gradients are deterministic.
 
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
 constexpr int kMaxHalf = 64;         // D / 2 of the widest instance
 constexpr int kNoPipelineInstance = -2;
-
-// freqs[i] = exp(i * c) for the D / 2 rotary frequencies.
-template <int D, int kN>
-__device__ __forceinline__ void rope_freqs(float* freqs, float c, int tid) {
-  for (int i = tid; i < D / 2; i += kN) freqs[i] = expf(static_cast<float>(i) * c);
-}
+constexpr int kNoScratch = -3;
 
 // load_tile (rows [row0, row0 + 64) of an [S, D] slab -> f32 smem), each row
 // r rotated at sequence position row0 + r when rope.
@@ -268,6 +269,73 @@ flash_v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The rotation of the bf16 forward, once per call: the rows of q
+// [q_rows, D] and then of k [k_rows, D], row r of each rotated at position
+// r % S as load_tile_rope rotates them and each value split into bf16
+// halves hi + lo (split8): q's halves at out and out + q_rows * D, k's
+// after them.  One thread per pair of 16-byte chunks (c, c + D/2).
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_v2_rope_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           bf16* __restrict__ out, size_t q_rows, size_t k_rows,
+                           int S, float rope_c) {
+  constexpr int kPerRow = D / 16;
+  size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bf16* x = q;
+  bf16* hi = out;
+  bf16* lo = out + q_rows * D;
+  if (i >= q_rows * kPerRow) {
+    i -= q_rows * kPerRow;
+    if (i >= k_rows * kPerRow) return;
+    x = k;
+    hi = out + 2 * q_rows * D;
+    lo = hi + k_rows * D;
+  }
+  const size_t row = i / kPerRow;
+  const int c = static_cast<int>(i % kPerRow) * 8;
+  const float pos = static_cast<float>(row % S);
+  const size_t off = row * D + c;
+  const uint4 a = *reinterpret_cast<const uint4*>(x + off);
+  const uint4 b = *reinterpret_cast<const uint4*>(x + off + D / 2);
+  float x1[8], x2[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    float sn, cs;
+    sincosf(pos * expf(static_cast<float>(c + u) * rope_c), &sn, &cs);
+    const float e1 = bf16_at(a, u), e2 = bf16_at(b, u);
+    x1[u] = e1 * cs - e2 * sn;
+    x2[u] = e1 * sn + e2 * cs;
+  }
+  uint4 h1, l1, h2, l2;
+  split8(x1, h1, l1);
+  split8(x2, h2, l2);
+  *reinterpret_cast<uint4*>(hi + off) = h1;
+  *reinterpret_cast<uint4*>(hi + off + D / 2) = h2;
+  *reinterpret_cast<uint4*>(lo + off) = l1;
+  *reinterpret_cast<uint4*>(lo + off + D / 2) = l2;
+}
+
+// The bf16 forward: P groups of 4 warps a block, one (tile, member) item
+// each, as flash_v2_fwd_kernel's P groups of 256 threads.  With rope, q
+// and k are the hi halves of the rotated values and q_lo, k_lo the lo
+// halves; without, q_lo and k_lo are null.
+template <int D, int P>
+__global__ void __launch_bounds__(P * kMmaThreads)
+flash_v2_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ q_lo,
+                        const bf16* __restrict__ k, const bf16* __restrict__ k_lo,
+                        const bf16* __restrict__ v, bf16* __restrict__ out,
+                        float* __restrict__ lse, int G, int S, int causal,
+                        float scale) {
+  const Item it(G, S, causal, P, threadIdx.x / kMmaThreads);
+  const size_t bkh = blockIdx.x;
+  const size_t kv_base = bkh * S * D;
+  const size_t row_base = (bkh * G + it.g) * S;
+  mma_fwd_tile<D, P, true>(q + row_base * D, q_lo ? q_lo + row_base * D : nullptr,
+                           k + kv_base, k_lo ? k_lo + kv_base : nullptr,
+                           v + kv_base, out + row_base * D, lse + row_base,
+                           it.qt * kTile, it.q_lim, it.kt_end, S, causal, scale);
+}
+
 template <typename T, int D, int P>
 __global__ void __launch_bounds__(P * kThreads)
 flash_v2_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -462,26 +530,61 @@ dim3 items_grid(int BKH, int G, int S, int P) {
 template <typename T, int D>
 struct FwdV2 {
   template <int P>
-  static int launch(const void* q, const void* k, const void* v, void* out,
-                    void* lse, int BKH, int G, int S, int causal, float scale,
-                    int rope, float rope_c, cudaStream_t st) {
-    constexpr int smem = fwd_v2_smem<D, P>();
-    static_assert(smem <= 232448, "forward exceeds a block's shared memory");
-    if (int rc = prepare(flash_v2_fwd_kernel<T, D, P>, smem)) return rc;
-    flash_v2_fwd_kernel<T, D, P><<<items_grid(BKH, G, S, P), P * kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), G, S, causal, scale, rope, rope_c);
+  static int launch(const void* q, const void* q_lo, const void* k,
+                    const void* k_lo, const void* v, void* out, void* lse,
+                    int BKH, int G, int S, int causal, float scale, int rope,
+                    float rope_c, cudaStream_t st) {
+    if constexpr (std::is_same_v<T, bf16>) {
+      constexpr int smem = mma_fwd_smem<D, P, true>();
+      static_assert(smem <= 232448, "forward exceeds a block's shared memory");
+      if (int rc = prepare(flash_v2_fwd_mma_kernel<D, P>, smem)) return rc;
+      flash_v2_fwd_mma_kernel<D, P><<<items_grid(BKH, G, S, P), P * kMmaThreads, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(q_lo),
+          static_cast<const bf16*>(k), static_cast<const bf16*>(k_lo),
+          static_cast<const bf16*>(v), static_cast<bf16*>(out),
+          static_cast<float*>(lse), G, S, causal, scale);
+    } else {
+      constexpr int smem = fwd_v2_smem<D, P>();
+      static_assert(smem <= 232448, "forward exceeds a block's shared memory");
+      if (int rc = prepare(flash_v2_fwd_kernel<T, D, P>, smem)) return rc;
+      flash_v2_fwd_kernel<T, D, P><<<items_grid(BKH, G, S, P), P * kThreads, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out),
+          static_cast<float*>(lse), G, S, causal, scale, rope, rope_c);
+    }
     return static_cast<int>(cudaGetLastError());
   }
+  // bf16 with rope: q and k are first rotated and split into the scratch
+  // buffer, 2 * (BKH * G + BKH) * S * D values: q's hi and lo halves,
+  // then k's.
   static int run(const void* q, const void* k, const void* v, void* out,
-                 void* lse, int BKH, int G, int S, int causal, float scale,
-                 int rope, float rope_c, int pipeline, cudaStream_t st) {
-    switch (pipeline) {
-      case 1: return launch<1>(q, k, v, out, lse, BKH, G, S, causal, scale, rope, rope_c, st);
-      case 2: return launch<2>(q, k, v, out, lse, BKH, G, S, causal, scale, rope, rope_c, st);
+                 void* lse, void* scratch, int BKH, int G, int S, int causal,
+                 float scale, int rope, float rope_c, int pipeline,
+                 cudaStream_t st) {
+    if (pipeline != 1 && pipeline != 2) return kNoPipelineInstance;
+    const void* q_lo = nullptr;
+    const void* k_lo = nullptr;
+    if constexpr (std::is_same_v<T, bf16>) {
+      if (rope) {
+        if (scratch == nullptr) return kNoScratch;
+        const size_t q_rows = static_cast<size_t>(BKH) * G * S;
+        const size_t k_rows = static_cast<size_t>(BKH) * S;
+        bf16* qh = static_cast<bf16*>(scratch);
+        bf16* kh = qh + 2 * q_rows * D;
+        const size_t n_pairs = (q_rows + k_rows) * (D / 16);
+        flash_v2_rope_split_kernel<D><<<static_cast<unsigned>((n_pairs + 255) / 256), 256, 0, st>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k), qh, q_rows,
+            k_rows, S, rope_c);
+        if (int rc = static_cast<int>(cudaGetLastError())) return rc;
+        q = qh;
+        q_lo = qh + q_rows * D;
+        k = kh;
+        k_lo = kh + k_rows * D;
+      }
     }
-    return kNoPipelineInstance;
+    return pipeline == 1
+        ? launch<1>(q, q_lo, k, k_lo, v, out, lse, BKH, G, S, causal, scale, rope, rope_c, st)
+        : launch<2>(q, q_lo, k, k_lo, v, out, lse, BKH, G, S, causal, scale, rope, rope_c, st);
   }
 };
 
@@ -534,21 +637,36 @@ struct BwdDkvV2 {
   }
 };
 
+// The forward's dynamic shared memory, in bytes.
+template <typename T, int D>
+struct FwdSmemV2 {
+  static int run(int pipeline) {
+    if (pipeline != 1 && pipeline != 2) return kNoPipelineInstance;
+    if constexpr (std::is_same_v<T, bf16>)
+      return pipeline == 1 ? mma_fwd_smem<D, 1, true>() : mma_fwd_smem<D, 2, true>();
+    else
+      return pipeline == 1 ? fwd_v2_smem<D, 1>() : fwd_v2_smem<D, 2>();
+  }
+};
+
 }  // namespace
 
 // Each returns 0, a cudaError_t from preparing or launching, -1 for a
-// type/head width without an instance or -2 for a pipeline without one.
-// Type codes: 0 float32, 1 bfloat16.  q, dout, out, dq: [BKH * G, S, D]
-// contiguous; k, v, dk, dv: [BKH, S, D]; lse, delta: [BKH * G, S] float32.
-// rope 0/1 and rope_c = -ln(theta) / (D / 2).  Nothing is synchronised or
-// allocated here.
+// type/head width without an instance, -2 for a pipeline without one or
+// -3 for a bf16 rope forward without its scratch.  Type codes: 0 float32,
+// 1 bfloat16.  q, dout, out, dq: [BKH * G, S, D] contiguous; k, v, dk, dv:
+// [BKH, S, D]; lse, delta: [BKH * G, S] float32; scratch (the bf16 rope
+// forward's, else null): 2 * (BKH * G + BKH) * S * D bf16 values.  rope 0/1
+// and rope_c = -ln(theta) / (D / 2).  Nothing is synchronised or allocated
+// here.
 extern "C" int flash_attention_v2_fwd(const void* q, const void* k, const void* v,
-                                      void* out, void* lse, int BKH, int G, int S,
-                                      int D, int causal, float scale, int rope,
-                                      float rope_c, int pipeline, int dtype,
-                                      void* stream) {
-  return dispatch<FwdV2>(dtype, D, q, k, v, out, lse, BKH, G, S, causal, scale,
-                         rope, rope_c, pipeline, static_cast<cudaStream_t>(stream));
+                                      void* out, void* lse, void* scratch,
+                                      int BKH, int G, int S, int D, int causal,
+                                      float scale, int rope, float rope_c,
+                                      int pipeline, int dtype, void* stream) {
+  return dispatch<FwdV2>(dtype, D, q, k, v, out, lse, scratch, BKH, G, S, causal,
+                         scale, rope, rope_c, pipeline,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_v2_bwd_dq(const void* q, const void* k,
@@ -575,8 +693,14 @@ extern "C" int flash_attention_v2_bwd_dkv(const void* q, const void* k,
                             static_cast<cudaStream_t>(stream));
 }
 
+// The forward instance's dynamic shared memory in bytes, -1 or -2.
+extern "C" int flash_attention_v2_fwd_smem(int D, int pipeline, int dtype) {
+  return dispatch<FwdSmemV2>(dtype, D, pipeline);
+}
+
 extern "C" const char* flash_attention_v2_error_string(int code) {
   if (code == -1) return "no kernel instance for this dtype/head width";
   if (code == kNoPipelineInstance) return "no kernel instance for this q_pipeline";
+  if (code == kNoScratch) return "the bf16 rope forward needs its scratch buffer";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

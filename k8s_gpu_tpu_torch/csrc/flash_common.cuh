@@ -1,7 +1,10 @@
 // Device code shared by the flash-attention kernels (flash_attention.cu,
 // flash_attention_v2.cu): the tile geometry, type conversions, half-warp
 // reductions, tile staging in padded f32 shared memory, the two 64-row
-// tile products on the CUDA cores, and the per-(type, head width) dispatch.
+// tile products on the CUDA cores, the rotary helpers and the per-(type,
+// head width) dispatch.  The CUDA-core products serve every backward kernel
+// and the float32 forwards; the bf16 forwards run on the tensor cores
+// (flash_mma.cuh).
 //
 // A block's threads are counted in groups of kThreads = 256, 16 x 16: a
 // thread (tr, tc) of a group owns rows 4 tr + i and columns tc + 16 j of a
@@ -195,6 +198,13 @@ __device__ __forceinline__ void store_tile(T* __restrict__ dst, const float (&ac
 __device__ __forceinline__ bool visible(int qi, int kj, int S, bool causal) {
   return qi < S && kj < S && (!causal || kj <= qi);
 }
+
+// freqs[i] = exp(i * c) for the D / 2 rotary frequencies.
+template <int D, int kN>
+__device__ __forceinline__ void rope_freqs(float* freqs, float c, int tid) {
+  for (int i = tid; i < D / 2; i += kN) freqs[i] = expf(static_cast<float>(i) * c);
+}
+
 
 template <typename Kernel>
 int prepare(Kernel kernel, int smem) {

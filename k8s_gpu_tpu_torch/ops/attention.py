@@ -213,10 +213,11 @@ def flash_plan(d_head: int, dtype, block_q: int | None = None,
     they cannot (None when they can).
 
     The TPU's rules do not carry over: blocks there were 512x512 and had
-    to meet Mosaic's (sublane, 128) tiling.  On the card a block of 256
-    threads owns a 64x64 score tile (4x4 scores a thread), K/V tiles are
-    staged in f32 shared memory, and the ragged tail of a sequence is
-    masked in-kernel, so any sequence length runs.  ``block_q``/``block_k``
+    to meet Mosaic's (sublane, 128) tiling.  On the card every kernel
+    walks 64-row query tiles against 64-row K/V tiles (the bf16 forwards
+    on the tensor cores, 16 query rows a warp; the rest on the CUDA cores,
+    4x4 scores a thread), and the ragged tail of a sequence is masked
+    in-kernel, so any sequence length runs.  ``block_q``/``block_k``
     may name the tile, which must then be the compiled 64."""
     bq = block_q or KERNEL_TILE
     bk = block_k or KERNEL_TILE
@@ -277,16 +278,16 @@ def describe_train_attention(cfg) -> str:
 
 # -- the kernels ------------------------------------------------------------
 
-def _load(name: str, tails: dict):
+def _load(name: str, tails: dict, fwd_ptrs: int = 5):
     """The ctypes handle of ``csrc/<name>.cu``: its ``<name>_fwd``,
-    ``_bwd_dq`` and ``_bwd_dkv`` entries take 5, 7 and 8 pointers, then
-    the arguments in ``tails[kind]`` (the forward's where ``kind`` is
-    missing), and return an int code that ``<name>_error_string``
-    names."""
+    ``_bwd_dq`` and ``_bwd_dkv`` entries take ``fwd_ptrs``, 7 and 8
+    pointers, then the arguments in ``tails[kind]`` (the forward's where
+    ``kind`` is missing), and return an int code that
+    ``<name>_error_string`` names."""
     from . import _build
 
     lib = _build.load(name)
-    for kind, n_ptrs in (("fwd", 5), ("bwd_dq", 7), ("bwd_dkv", 8)):
+    for kind, n_ptrs in (("fwd", fwd_ptrs), ("bwd_dq", 7), ("bwd_dkv", 8)):
         fn = getattr(lib, f"{name}_{kind}")
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs
                        + tails.get(kind, tails["fwd"]))
@@ -309,12 +310,14 @@ def _kernel():
 def _kernel_v2():
     global _lib_v2
     if _lib_v2 is None:
-        # BKH, G, S, D, causal, scale, rope, rope_c, [pipeline,] dtype, stream
+        # [fwd: scratch,] BKH, G, S, D, causal, scale, rope, rope_c,
+        # [pipeline,] dtype, stream
         head = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_float]
         tail = [ctypes.c_int, ctypes.c_void_p]
         _lib_v2 = _load("flash_attention_v2", {
-            "fwd": head + [ctypes.c_int] + tail, "bwd_dkv": head + tail})
+            "fwd": head + [ctypes.c_int] + tail, "bwd_dkv": head + tail},
+            fwd_ptrs=6)
     return _lib_v2
 
 
@@ -436,14 +439,22 @@ def flash_v2_forward(q, k, v, causal: bool, rope_theta=None,
                      q_pipeline: int = 1):
     """v2 forward kernel: contiguous q [B, H, S, D] and k, v [B, KH, S, D]
     on the card -> (out [B, H, S, D] in q.dtype, lse [B, H, S] f32), with
-    q and k rotated in the kernel when ``rope_theta``."""
+    q and k rotated in the kernel when ``rope_theta``.  In bf16 with rope
+    the call first rotates q and k once into a scratch buffer of their
+    bf16 hi and lo halves (2 * (q + k) values), which the tensor-core
+    forward stages."""
     _check_v2(q, k, {"q": q}, {"k": k, "v": v})
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    scratch = (torch.empty(2 * (q.numel() + k.numel()), dtype=q.dtype,
+                           device=q.device)
+               if q.dtype == torch.bfloat16 and rope_theta is not None
+               else None)
     lib = _kernel_v2()
     rc = lib.flash_attention_v2_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *_common_v2(q, k, causal, rope_theta), q_pipeline,
+        lse.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        *_common_v2(q, k, causal, rope_theta), q_pipeline,
         _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on(rc, "flash_v2_fwd", lib.flash_attention_v2_error_string)
     launch_counts["flash_v2_fwd"] += 1

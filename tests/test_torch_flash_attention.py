@@ -204,6 +204,32 @@ def test_cuda_non_causal_long_sequence(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 65, 100, 1000])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cuda_bf16_forward_on_tensor_cores(cuda, d, s, causal):
+    """The bf16 forward kernel (mma.sync products, p rounded to bf16
+    before P.V) alone against the plain version in float32 on the same
+    values, element by element: out within 2^-7 |r| (its own rounding) +
+    2^-8 (P.|V|) (the rounding of each p: bf16's unit roundoff times
+    sum_j p_j |v_j| / l) + 1e-4 max|r| (summation order); lse within 1e-5
+    of its largest value (the products are exact, the sums f32)."""
+    q, k, v = (torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+               for x in _inputs(6, "bfloat16", (2, 3, s, d))[:3])
+    fa.reset_counts()
+    out, lse = fa.flash_forward(*(t.to(torch.bfloat16) for t in (q, k, v)),
+                                causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_fwd"] == 1 and fa.plain_count == 0
+    ref, ref_lse = fa.reference_attention_lse(q, k, v, causal)
+    pv = fa.reference_attention_lse(q, k, v.abs(), causal)[0]
+    limit = 2.0 ** -7 * ref.abs() + 2.0 ** -8 * pv + 1e-4 * ref.abs().max()
+    assert bool(((out.float() - ref).abs() <= limit).all())
+    assert float((lse - ref_lse).abs().max()) <= (
+        1e-5 * float(ref_lse.abs().max()))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "blocks"])
 def test_cuda_rejects_what_the_kernels_do_not_take(cuda, case):
     shape, dtype, kw = (1, 2, 64, 64), torch.bfloat16, {}

@@ -288,6 +288,45 @@ def test_cuda_kernels_match_plain_version(cuda, dtype, d, h, kh, s,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h,kh,pipeline,causal,rope", [
+    (4, 4, 2, True, True),    # G 1: a block's two tiles are neighbours
+    (4, 2, 1, True, True),    # G 2
+    (4, 1, 2, True, True),    # G 4 (MQA)
+    (4, 1, 1, False, True),
+    (4, 2, 2, False, False),  # no rope: the lo halves are zero
+])
+@pytest.mark.parametrize("s", [1, 63, 65, 100, 1000])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cuda_bf16_forward_on_tensor_cores(cuda, d, s, h, kh, pipeline,
+                                           causal, rope):
+    """The bf16 v2 forward kernel (q and k rotated in f32 and kept as bf16
+    hi + lo halves, S from three mma.sync products, p rounded to bf16
+    before P.V) alone against the plain version in float32 on the same
+    values, element by element: out within 2^-7 |r| + 2^-8 (P.|V|) + 1e-4
+    max|r|, as v1's; lse within 1e-5 of its largest value plus the split's
+    bound on a score, 3 * 2^-16 * scale * sum_i |q_i k_i| at the row's
+    largest (each half holds x to 2^-16 of |x|, and lo_q lo_k is
+    dropped)."""
+    theta = THETA if rope else None
+    q, k, v = (torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+               for x in _inputs(7, "bfloat16", kh, (2, h, s, d))[:3])
+    fa.reset_counts()
+    out, lse = fa.flash_v2_forward(
+        *(t.to(torch.bfloat16) for t in (q, k, v)), causal, theta, pipeline)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_v2_fwd"] == 1 and fa.plain_count == 0
+    ref, ref_lse = fa.reference_attention_v2_lse(q, k, v, causal, theta)
+    pv = fa.reference_attention_v2_lse(q, k, v.abs(), causal, theta)[0]
+    limit = 2.0 ** -7 * ref.abs() + 2.0 ** -8 * pv + 1e-4 * ref.abs().max()
+    assert bool(((out.float() - ref).abs() <= limit).all())
+    qr, kr, _ = fa._v2_inputs(q, k, v, theta)
+    split = 3 * 2.0 ** -16 * d ** -0.5 * torch.einsum(
+        "bhqd,bhkd->bhqk", qr.abs(), kr.abs()).amax(-1)
+    assert bool(((lse - ref_lse).abs()
+                 <= 1e-5 * ref_lse.abs().max() + split).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["pipeline", "head_dim", "dtype", "blocks"])
 def test_cuda_rejects_what_the_kernels_do_not_take(cuda, case):
     shape, dtype, kw = (1, 4, 64, 64), torch.bfloat16, {"q_pipeline": 2}

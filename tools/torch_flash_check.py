@@ -3,25 +3,35 @@
     python3 tools/torch_flash_check.py
 
 Builds ``k8s_gpu_tpu_torch/csrc/flash_attention.cu`` and
-``flash_attention_v2.cu`` once each with ``-Xptxas -v`` and prints each
-kernel instance's registers, shared memory and spills, then runs the v1
-kernels through ``flash_attention_lse``'s autograd and the v2 kernels
-through ``flash_attention_v2_lse``'s (with an lse cotangent; v2 with rope,
-GQA and both pipeline factors) against the float32 plain versions at
-small shapes for every head width, and times the forward, dq and dk/dv
-kernels of both at the training shape (q [24, 8, 2048, 128] bf16,
-causal; v2 with k, v [24, 2, 2048, 128], rope and P = 2).  A shorter loop
-than ``chip_smoke.py`` for kernel work; it prints relative errors and
-does not judge them.
+``flash_attention_v2.cu`` with ``-Xptxas -v`` (both reports and both
+libraries side by side) and prints every kernel instance's registers and
+spills, then one row per forward instance (v1 per head width and type, v2
+also per pipeline factor) with its registers, spills, dynamic shared
+memory and design (``mma``: the bf16 tensor-core forward; ``fma``: the
+float32 forward on the CUDA cores).  Then it runs the v1 kernels through
+``flash_attention_lse``'s autograd and the v2 kernels through
+``flash_attention_v2_lse``'s (with an lse cotangent; v2 with rope, GQA and
+both pipeline factors) against the float32 plain versions at small shapes
+for every head width in both types, and times the kernels at the training
+shape (q [24, 8, 2048, 128] bf16, causal; v2 with k, v [24, 2, 2048, 128],
+rope and P = 2): each forward beside its useful TFLOP/s (4 D flops per
+visible (query, key) pair) and the SDPA forward on the same shape (v2:
+``enable_gqa`` on q and k rotated beforehand), then dq and dk/dv.  A
+shorter loop than ``chip_smoke.py`` for kernel work; it prints relative
+errors and does not judge them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -30,18 +40,73 @@ import torch  # noqa: E402
 from k8s_gpu_tpu_torch.ops import _build  # noqa: E402
 from k8s_gpu_tpu_torch.ops import attention as fa  # noqa: E402
 
+SOURCES = ("flash_attention", "flash_attention_v2")
 
-def ptxas_report(name: str) -> None:
+
+def ptxas_report(name: str) -> list[dict]:
+    """One row per kernel instance of ``csrc/<name>.cu``: its demangled
+    name, registers and spill bytes, from ``nvcc -Xptxas -v``."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
         proc = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
              os.path.join(tmp, "lib.so"), str(_build.CSRC / f"{name}.cu")],
             capture_output=True, text=True)
-    print(name, "nvcc rc", proc.returncode, "s", round(time.time() - t0, 1))
-    print("\n".join(line for line in proc.stderr.splitlines()
-                    if "Compiling entry" in line or "registers" in line
-                    or "spill" in line or "error" in line))
+    print(name, "nvcc rc", proc.returncode, "s", round(time.time() - t0, 1),
+          flush=True)
+    if proc.returncode:
+        print(proc.stderr[-6000:])
+    rows: list[dict] = []
+    for line in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            rows.append({"kernel": m.group(1), "spill": 0})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and rows:
+            rows[-1]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    if shutil.which("c++filt") and rows:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True,
+            text=True).stdout.splitlines()
+        for row, pretty in zip(rows, names):
+            pretty = pretty.replace("(anonymous namespace)::", "")
+            row["kernel"] = pretty.split("(")[0].removeprefix("void ")
+    return rows
+
+
+def forward_table(reports: dict) -> None:
+    """Registers, spills, shared memory and design of every forward
+    instance, matched by kernel name and template arguments."""
+    lib1, lib2 = fa._kernel(), fa._kernel_v2()
+    lib1.flash_attention_fwd_smem.argtypes = [ctypes.c_int] * 2
+    lib2.flash_attention_v2_fwd_smem.argtypes = [ctypes.c_int] * 3
+    print("forward instance, registers, spill bytes, dynamic smem bytes, "
+          "design")
+    for dtype, code in fa._DTYPE_CODES.items():
+        design = "mma" if dtype == torch.bfloat16 else "fma"
+        for d in fa.HEAD_DIMS:
+            for source, pipelines in (("flash_attention", (None,)),
+                                      ("flash_attention_v2", fa.Q_PIPELINES)):
+                for p in pipelines:
+                    if p is None:
+                        kern = ("flash_fwd_mma_kernel<%d>" % d
+                                if design == "mma"
+                                else "flash_fwd_kernel<float, %d>" % d)
+                        smem = lib1.flash_attention_fwd_smem(d, code)
+                    else:
+                        kern = ("flash_v2_fwd_mma_kernel<%d, %d>" % (d, p)
+                                if design == "mma" else
+                                "flash_v2_fwd_kernel<float, %d, %d>" % (d, p))
+                        smem = lib2.flash_attention_v2_fwd_smem(d, p, code)
+                    row = next((r for r in reports[source]
+                                if r["kernel"].endswith(kern)), {})
+                    print(f"  {kern}: {row.get('registers')} registers, "
+                          f"{row.get('spill')} spill bytes, {smem} smem, "
+                          f"{design}", flush=True)
 
 
 def rel_errors(B, H, S, D, dtype, causal, KH=None, rope=None,
@@ -70,7 +135,7 @@ def rel_errors(B, H, S, D, dtype, causal, KH=None, rope=None,
                 for a, b in zip(got, ref)]
 
 
-def time_ms(fn, iters=2) -> float:
+def time_ms(fn, iters=5) -> float:
     fn()
     torch.cuda.synchronize()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -82,56 +147,91 @@ def time_ms(fn, iters=2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def sdpa_ms(q, k, v) -> float:
+    """The SDPA forward, causal: a yardstick only, never called by the
+    port."""
+    import torch.nn.functional as F
+
+    kw = {"enable_gqa": True} if k.shape[1] != q.shape[1] else {}
+    with torch.no_grad():
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, **kw), 10)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_flash_check: CUDA is not available", file=sys.stderr)
         return 1
-    for name in ("flash_attention", "flash_attention_v2"):
-        ptxas_report(name)
     t0 = time.time()
-    fa._kernel()
-    fa._kernel_v2()
-    print("build s", round(time.time() - t0, 1), flush=True)
-    cases = [(2, 2, 100, d, torch.float32, True) for d in fa.HEAD_DIMS]
+    with ThreadPoolExecutor(2 * len(SOURCES)) as pool:
+        jobs = [pool.submit(ptxas_report, n) for n in SOURCES]
+        builds = [pool.submit(_build.load, n) for n in SOURCES]
+        reports = dict(zip(SOURCES, (j.result() for j in jobs)))
+        for b in builds:
+            b.result()
+    print("reports and builds s", round(time.time() - t0, 1), flush=True)
+    for name, rows in reports.items():
+        for row in rows:
+            print(f"  {name}: {row['kernel']}: {row.get('registers')} "
+                  f"registers, {row['spill']} spill bytes")
+    forward_table(reports)
+    cases = [(2, 3, 100, d, t, True) for d in fa.HEAD_DIMS
+             for t in (torch.float32, torch.bfloat16)]
     cases += [(2, 3, 1000, 128, torch.float32, False),
-              (2, 3, 1000, 64, torch.bfloat16, True)]
+              (2, 3, 1000, 64, torch.bfloat16, False)]
     for case in cases:
         errs = rel_errors(*case)
         print(*case, "rel errs out lse dq dk dv",
               ["%.2e" % e for e in errs], flush=True)
-    v2_cases = [((2, 4, 100, d, torch.float32, True), dict(KH=1, rope=1e4,
-                                                           pipeline=p))
-                for d in fa.HEAD_DIMS for p in fa.Q_PIPELINES]
+    v2_cases = [((2, 4, 100, d, t, True), dict(KH=1, rope=1e4, pipeline=p))
+                for d in fa.HEAD_DIMS for p in fa.Q_PIPELINES
+                for t in (torch.float32, torch.bfloat16)]
     v2_cases += [((2, 8, 1000, 128, torch.bfloat16, True),
                   dict(KH=2, rope=1e4, pipeline=2)),
                  ((2, 3, 130, 64, torch.float32, False),
+                  dict(KH=3, rope=None, pipeline=2)),
+                 ((2, 3, 130, 64, torch.bfloat16, False),
                   dict(KH=3, rope=None, pipeline=2))]
     for case, kw in v2_cases:
         errs = rel_errors(*case, **kw)
         print("v2", *case, kw, "rel errs out lse dq dk dv",
               ["%.2e" % e for e in errs], flush=True)
     B, H, S, D = 24, 8, 2048, 128
+    flops = 4 * D * B * H * S * (S + 1) // 2
     q, k, v = (torch.randn(B, H, S, D, device="cuda", dtype=torch.bfloat16)
                for _ in range(3))
+    k2, v2 = k[:, :2].contiguous(), v[:, :2].contiguous()
+    for name, fn, lib in (
+        ("fwd", lambda: fa.flash_forward(q, k, v, True),
+         lambda: sdpa_ms(q, k, v)),
+        ("v2 fwd", lambda: fa.flash_v2_forward(q, k2, v2, True, 1e4, 2),
+         lambda: sdpa_ms(fa.rope_rotate(q, 1e4), fa.rope_rotate(k2, 1e4),
+                         v2)),
+        ("v2 fwd P 1", lambda: fa.flash_v2_forward(q, k2, v2, True, 1e4, 1),
+         None),
+        ("v2 fwd no rope", lambda: fa.flash_v2_forward(q, k2, v2, True, None,
+                                                       2),
+         lambda: sdpa_ms(q, k2, v2)),
+    ):
+        ms = time_ms(fn, 10)
+        print(name, "ms", ms, "TFLOP/s", flops / ms / 1e9,
+              *(("SDPA fwd ms", lib()) if lib else ()), flush=True)
     out, lse = fa.flash_forward(q, k, v, True)
     delta = torch.randn(B, H, S, device="cuda")
     for name, fn in (
-        ("fwd", lambda: fa.flash_forward(q, k, v, True)),
         ("dq", lambda: fa.flash_backward_dq(q, k, v, out, lse, delta, True)),
         ("dkv", lambda: fa.flash_backward_dkv(q, k, v, out, lse, delta,
                                               True)),
     ):
-        print(name, "ms", time_ms(fn), flush=True)
-    k2, v2 = k[:, :2].contiguous(), v[:, :2].contiguous()
+        print(name, "ms", time_ms(fn, 2), flush=True)
     out, lse = fa.flash_v2_forward(q, k2, v2, True, 1e4, 2)
     for name, fn in (
-        ("v2 fwd", lambda: fa.flash_v2_forward(q, k2, v2, True, 1e4, 2)),
         ("v2 dq", lambda: fa.flash_v2_backward_dq(q, k2, v2, out, lse, delta,
                                                   True, 1e4, 2)),
         ("v2 dkv", lambda: fa.flash_v2_backward_dkv(q, k2, v2, out, lse,
                                                     delta, True, 1e4)),
     ):
-        print(name, "ms", time_ms(fn), flush=True)
+        print(name, "ms", time_ms(fn, 2), flush=True)
     return 0
 
 
