@@ -17,10 +17,10 @@ Phases, each of which fails the run on any error:
    and the least time the card could take (bytes over 3.35 TB/s or
    operations over the type's peak, whichever is larger): the paged
    attention kernel, then the three flash-attention kernels (forward, dq,
-   dk/dv; the bf16 forward on the tensor cores, held with a term for its
-   rounding of p to bf16), each alone on the same inputs and together
-   through autograd with an lse cotangent, at the flagship training
-   shape and at an odd and a non-causal one; then (3c) the three
+   dk/dv; in bf16 all three on the tensor cores, held with terms for
+   their roundings of p and ds to bf16), each alone on the same inputs
+   and together through autograd with an lse cotangent, at the flagship
+   training shape and at an odd and a non-causal one; then (3c) the three
    flash-v2 kernels the same way, with rope in the kernel, K/V at their
    KV heads and P = 2 query tiles a block, at the v2 training shape (q
    [24, 8, 2048, 128], k, v [24, 2, 2048, 128] bf16), the reference
@@ -339,11 +339,17 @@ ROPE_THETA = 10000.0
 # each probability to bf16 before the P.V product, which moves an output
 # by at most 2^-8 sum_j p_j |v_j| / l (bf16's unit roundoff on each p_j):
 # their out is held at 2^-7 |r| + 2^-8 (P.|V|) + 1e-4 max|r|, P.|V| being
-# the float32 plain version's softmax applied to |v|.  All three through autograd (out, lse and
-# the gradients with a non-zero lse cotangent) against the autograd of
-# the float32 plain version, relative to the largest value of each: 1e-4
-# in float32; in bf16 out 2^-7, lse 1e-5, gradients 2^-6 (the backward
-# also takes delta from the bf16-rounded output).  The v2 kernels are held
+# the float32 plain version's softmax applied to |v|.  The v1 bf16
+# backward (tensor cores) rounds p before dv = p^T dO and ds before dq =
+# ds k and dk = ds^T q, which moves dq, dk, dv by at most 2^-8 |dS||K|,
+# 2^-8 |dS|^T|Q| and 2^-8 P^T|dO| (the same unit roundoff on each factor):
+# those terms (reference_bwd_rounding, from _probs_ds of the float32
+# values) are added to its limits the same way.  All three through
+# autograd (out, lse and the gradients with a non-zero lse cotangent)
+# against the autograd of the float32 plain version, relative to the
+# largest value of each: 1e-4 in float32; in bf16 out 2^-7, lse 1e-5,
+# gradients 2^-6 (the backward also takes delta from the bf16-rounded
+# output).  The v2 kernels are held
 # to the same limits: their plain versions rotate the f32-widened q and k
 # with the same f32 angle (position x exp(i c)) and the card's f32
 # exp/sin/cos, as the kernels do, so the rotation adds rounding only.
@@ -404,10 +410,12 @@ def _sdpa_ms(torch, q, k, v, causal):
 
 def _flash_design(kname, tname) -> str:
     """Which design of a flash kernel runs for an input type: the bf16
-    forwards on the tensor cores (``cuda-mma``, csrc/flash_mma.cuh), every
-    other instance on the CUDA cores in f32 (``cuda-fma``)."""
-    fwd = kname in ("flash_fwd", "flash_v2_fwd")
-    return "cuda-mma" if fwd and tname == "bfloat16" else "cuda-fma"
+    forwards and v1's bf16 backward on the tensor cores (``cuda-mma``,
+    csrc/flash_mma.cuh and csrc/flash_mma_bwd.cuh), every other instance
+    on the CUDA cores in f32 (``cuda-fma``)."""
+    mma = kname in ("flash_fwd", "flash_v2_fwd", "flash_bwd_dq",
+                    "flash_bwd_dkv")
+    return "cuda-mma" if mma and tname == "bfloat16" else "cuda-fma"
 
 
 def _max_rel(x, r):
@@ -527,6 +535,15 @@ def _flash_case(torch, gen, dev, name, B, H, KH, S, D, tname, causal,
     }
     got = {names[0]: (out, lse), names[1]: (dq,), names[2]: (dk, dv)}
     wide = [t.float() for t in (q, k, v, g)]
+    # The tensor-core kernels' roundings of p (and ds) to bf16, per output.
+    rounding = {}
+    if _flash_design(names[0], tname) == "cuda-mma":
+        rounding[names[0]] = (FLASH_P_ROUNDING
+                              * plains[0](*wide[:2], wide[2].abs())[0], 0.0)
+    if _flash_design(names[1], tname) == "cuda-mma":
+        dq_t, dk_t, dv_t = fa.reference_bwd_rounding(*wide, lse, delta,
+                                                     causal)
+        rounding.update({names[1]: (dq_t,), names[2]: (dk_t, dv_t)})
     for kname in names:
         same = plain[kname](q, k, v, g)
         err = max(float((x.float() - r.float()).abs().max())
@@ -540,23 +557,19 @@ def _flash_case(torch, gen, dev, name, B, H, KH, S, D, tname, causal,
         del same
         err32 = 0.0
         rtol = FLASH_F32_RTOL if tname == "bfloat16" else 0.0
-        # The bf16 forward's out: + 2^-8 (P.|V|) for the rounding of p.
-        p_term, p_note = 0.0, ""
-        if kname == names[0] and tname == "bfloat16":
-            p_term = (FLASH_P_ROUNDING
-                      * plains[0](*wide[:2], wide[2].abs())[0])
-            p_note = " + 2^-8 P.|V| (out)"
-        for i, (x, r) in enumerate(zip(got[kname], plain[kname](*wide))):
+        note = " + the 2^-8 rounding term" if kname in rounding else ""
+        terms = rounding.pop(kname, (0.0,) * len(got[kname]))
+        for x, r, term in zip(got[kname], plain[kname](*wide), terms):
             diff = (x.float() - r).abs()
             err32 = max(err32, float(diff.max()))
             limit = (rtol * r.abs() + FLASH_F32_ATOL_REL * r.abs().max()
-                     + (p_term if i == 0 else 0.0))
+                     + term)
             if not bool((diff <= limit).all()):
                 raise RuntimeError(
                     f"{name} {kname}: kernel vs float32 plain version "
                     f"beyond {rtol}|r| + {FLASH_F32_ATOL_REL} max|r|"
-                    f"{p_note} (max abs {float(diff.max())})")
-        del p_term
+                    f"{note} (max abs {float(diff.max())})")
+        del terms
         row["kernels"][kname] = {"max_abs_err": err,
                                  "max_abs_err_vs_f32": err32}
 

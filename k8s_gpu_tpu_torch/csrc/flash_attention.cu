@@ -18,11 +18,14 @@
 // (4.13e11), against 404-607 MB of bytes: 0.21-0.42 ms at the 989 TFLOP/s
 // bf16 tensor-core peak, twice the memory bound.
 //
-// The bf16 forward runs on the tensor cores (flash_fwd_mma_kernel, device
-// code in flash_mma.cuh: mma.sync bf16 products, a cp.async K/V ring, the
-// online softmax on the accumulator fragments).  The float32 forward and
-// both backward kernels are the first version on the CUDA cores in f32
-// (TMA, wgmma and warp specialisation are later work):
+// The bf16 instances run on the tensor cores: the forward
+// (flash_fwd_mma_kernel, device code in flash_mma.cuh: mma.sync bf16
+// products, a cp.async K/V ring, the online softmax on the accumulator
+// fragments) and the two backward kernels (flash_bwd_dq_mma_kernel and
+// flash_bwd_dkv_mma_kernel, device code in flash_mma_bwd.cuh: the same
+// primitives, p and ds rounded to bf16 before the products that take
+// them).  The float32 instances are the first version on the CUDA cores in
+// f32 (TMA, wgmma and warp specialisation are later work):
 // - One block of 256 threads per (query tile of 64 rows, bh) for the
 //   forward and dq, per (key tile of 64 rows, bh) for dk/dv.  The TPU's
 //   sequential grid axis becomes a loop inside the block; blocks run in no
@@ -49,6 +52,7 @@
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
+#include "flash_mma_bwd.cuh"
 
 namespace {
 
@@ -147,6 +151,38 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             out + base, lse + static_cast<size_t>(blockIdx.x) * S,
                             qt * kTile, S, causal ? qt + 1 : n_tiles, S, causal,
                             scale);
+}
+
+// The bf16 backward: one group of 4 warps per (query tile, bh), longest
+// causal tiles first, for dq; per (key tile, bh) for dk/dv.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int S, int causal, float scale) {
+  const int n_tiles = (S + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;
+  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
+  const size_t rows = static_cast<size_t>(blockIdx.x) * S;
+  mma_bwd_dq_tile<D>(q + base, k + base, v + base, dout + base, lse + rows,
+                     delta + rows, dq + base, qt * kTile, causal ? qt + 1 : n_tiles,
+                     S, causal, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
+                         int causal, float scale) {
+  const int kt = blockIdx.y;
+  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
+  const size_t rows = static_cast<size_t>(blockIdx.x) * S;
+  mma_bwd_dkv_tile<D>(q + base, k + base, v + base, dout + base, lse + rows,
+                      delta + rows, dk + base, dv + base, kt * kTile,
+                      causal ? kt : 0, S, causal, scale);
 }
 
 template <typename T, int D>
@@ -330,13 +366,23 @@ struct BwdDq {
   static int run(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, void* dq, int BH, int S,
                  int causal, float scale, cudaStream_t st) {
-    constexpr int smem = dq_smem<D>();
-    if (int rc = prepare(flash_bwd_dq_kernel<T, D>, smem)) return rc;
-    flash_bwd_dq_kernel<T, D><<<grid(BH, S), kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), S, causal, scale);
+    if constexpr (std::is_same_v<T, bf16>) {
+      constexpr int smem = mma_bwd_dq_smem<D>();
+      if (int rc = prepare(flash_bwd_dq_mma_kernel<D>, smem)) return rc;
+      flash_bwd_dq_mma_kernel<D><<<grid(BH, S), kMmaThreads, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<bf16*>(dq), S, causal, scale);
+    } else {
+      constexpr int smem = dq_smem<D>();
+      if (int rc = prepare(flash_bwd_dq_kernel<T, D>, smem)) return rc;
+      flash_bwd_dq_kernel<T, D><<<grid(BH, S), kThreads, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dq), S, causal, scale);
+    }
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -346,13 +392,23 @@ struct BwdDkv {
   static int run(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, void* dk, void* dv, int BH,
                  int S, int causal, float scale, cudaStream_t st) {
-    constexpr int smem = dkv_smem<D>();
-    if (int rc = prepare(flash_bwd_dkv_kernel<T, D>, smem)) return rc;
-    flash_bwd_dkv_kernel<T, D><<<grid(BH, S), kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), S, causal, scale);
+    if constexpr (std::is_same_v<T, bf16>) {
+      constexpr int smem = mma_bwd_dkv_smem<D>();
+      if (int rc = prepare(flash_bwd_dkv_mma_kernel<D>, smem)) return rc;
+      flash_bwd_dkv_mma_kernel<D><<<grid(BH, S), kMmaThreads, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, causal, scale);
+    } else {
+      constexpr int smem = dkv_smem<D>();
+      if (int rc = prepare(flash_bwd_dkv_kernel<T, D>, smem)) return rc;
+      flash_bwd_dkv_kernel<T, D><<<grid(BH, S), kThreads, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dk), static_cast<T*>(dv), S, causal, scale);
+    }
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -363,6 +419,16 @@ struct FwdSmem {
   static int run() {
     if constexpr (std::is_same_v<T, bf16>) return mma_fwd_smem<D, 1, false>();
     else return fwd_smem<D>();
+  }
+};
+
+// The dq (dkv = 0) or dk/dv (dkv = 1) kernel's dynamic shared memory.
+template <typename T, int D>
+struct BwdSmem {
+  static int run(int dkv) {
+    if constexpr (std::is_same_v<T, bf16>)
+      return dkv ? mma_bwd_dkv_smem<D>() : mma_bwd_dq_smem<D>();
+    else return dkv ? dkv_smem<D>() : dq_smem<D>();
   }
 };
 
@@ -403,6 +469,12 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 // The forward instance's dynamic shared memory in bytes, or -1.
 extern "C" int flash_attention_fwd_smem(int D, int dtype) {
   return dispatch<FwdSmem>(dtype, D);
+}
+
+// A backward instance's dynamic shared memory in bytes (dq: dkv = 0,
+// dk/dv: dkv = 1), or -1.
+extern "C" int flash_attention_bwd_smem(int D, int dtype, int dkv) {
+  return dispatch<BwdSmem>(dtype, D, dkv);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

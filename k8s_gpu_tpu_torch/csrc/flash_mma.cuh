@@ -1,7 +1,9 @@
 // The bf16 flash-attention forward on Hopper's tensor cores, shared by the
 // v1 forward (flash_attention.cu, flash_fwd_mma_kernel) and the v2 forward
 // (flash_attention_v2.cu, flash_v2_fwd_mma_kernel).  The float32 instances
-// of both forwards stay on the CUDA cores (flash_common.cuh).
+// of both forwards stay on the CUDA cores (flash_common.cuh).  Its
+// primitives (padded tiles, cp.async staging, ldmatrix offsets, mma.sync,
+// the 16-byte epilogue) also serve the v1 bf16 backward (flash_mma_bwd.cuh).
 //
 // The function is the one of the kernels it replaces (_fwd_kernel and
 // _fwd_kernel_v2 of k8s_gpu_tpu/ops/attention.py): out in bf16 and lse =
@@ -123,6 +125,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// The A operand of 16 columns (n-tiles n, n + 1) of a 16-row accumulator
+// tile, rounded to bf16: the accumulator layout is the A-operand layout.
+__device__ __forceinline__ void pack_a(const float (&c0)[4], const float (&c1)[4],
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// A lane's ldmatrix offset in a 16-row block of a padded tile: for an A
+// operand (16 rows x 16 columns) or a B operand read transposed (16
+// k-rows x 16 n-columns: b[0], b[1] the first 8 columns, b[2], b[3] the
+// next); and for a B operand read as it is (16 n-rows x 16 k-columns:
+// b[0], b[1] the first 8 rows, b[2], b[3] the next).
+template <int D>
+__device__ __forceinline__ uint32_t a_lane_off(int lane) {
+  return (lane % 8 + (lane / 8) % 2 * 8) * MmaTile<D>::kRowBytes + lane / 16 * 16;
+}
+template <int D>
+__device__ __forceinline__ uint32_t b_lane_off(int lane) {
+  return (lane % 8 + lane / 16 * 8) * MmaTile<D>::kRowBytes + (lane / 8) % 2 * 16;
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -149,6 +175,33 @@ __device__ __forceinline__ void split8(const float (&x)[8], uint4& hi, uint4& lo
   }
   hi = make_uint4(h[0], h[1], h[2], h[3]);
   lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// A warp's 16xD f32 accumulator tile, row h of each thread's pair times
+// mul[h] -> bf16 rows [row_lo, row_lo + 16) of out that are below lim,
+// through the warp's own 16 rows of a padded tile (rows no other warp
+// reads), in 16-byte stores.
+template <int D>
+__device__ __forceinline__ void store_warp_rows(char* rows, const float (&acc)[D / 8][4],
+                                                const float (&mul)[2],
+                                                bf16* __restrict__ out, int row_lo,
+                                                int lim, int lane) {
+  using M = MmaTile<D>;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    char* p = rows + (lane / 4) * M::kRowBytes + (n * 8 + lane % 4 * 2) * 2;
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(acc[n][0] * mul[0], acc[n][1] * mul[0]);
+    *reinterpret_cast<uint32_t*>(p + 8 * M::kRowBytes) =
+        pack_bf16(acc[n][2] * mul[1], acc[n][3] * mul[1]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * M::kChunks; i += 32) {
+    const int r = i / M::kChunks, c = i % M::kChunks;
+    if (row_lo + r < lim)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(row_lo + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(rows + r * M::kRowBytes + c * 16);
+  }
 }
 
 // Rows [row0, row0 + 64) of an [S, D] slab -> a padded tile by cp.async over
@@ -208,11 +261,9 @@ __device__ __forceinline__ void mma_fwd_tile(
   // Per-lane ldmatrix offsets: a Q tile (A fragments, 16 rows x 16
   // columns a load), a K tile (S = Q K^T: 16 keys x 16 columns) and a V
   // tile (P V: 16 keys x 16 columns, transposed).
-  const uint32_t q_addr = smem_u32(qs) +
-                          (warp * 16 + lane % 8 + (lane / 8) % 2 * 8) * M::kRowBytes +
-                          lane / 16 * 16;
-  const uint32_t k_off = (lane % 8 + lane / 16 * 8) * M::kRowBytes + (lane / 8) % 2 * 16;
-  const uint32_t v_off = (lane % 8 + (lane / 8) % 2 * 8) * M::kRowBytes + lane / 16 * 16;
+  const uint32_t q_addr = smem_u32(qs) + warp * 16 * M::kRowBytes + a_lane_off<D>(lane);
+  const uint32_t k_off = b_lane_off<D>(lane);
+  const uint32_t v_off = a_lane_off<D>(lane);
   uint32_t qf[D / 16][4];  // the warp's 16 Q rows (hi plane), per 16 columns
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(q_addr + kk * 32, qf[kk]);
@@ -312,10 +363,8 @@ __device__ __forceinline__ void mma_fwd_tile(
       const uint32_t vb = smem_u32(vs + cur * M::kBytes) + v_off;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t a[4];
+        pack_a(s[2 * kk], s[2 * kk + 1], a);
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t b[4];
@@ -335,21 +384,7 @@ __device__ __forceinline__ void mma_fwd_tile(
     l_r[h] = quad_sum(l_r[h]);
     inv[h] = 1.f / l_r[h];
   }
-  char* const orow = qs + warp * 16 * M::kRowBytes;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    char* p = orow + (lane / 4) * M::kRowBytes + (n * 8 + lane % 4 * 2) * 2;
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(o[n][0] * inv[0], o[n][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(p + 8 * M::kRowBytes) =
-        pack_bf16(o[n][2] * inv[1], o[n][3] * inv[1]);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * M::kChunks; i += 32) {
-    const int r = i / M::kChunks, c = i % M::kChunks;
-    if (row_lo + r < q_lim)
-      *reinterpret_cast<uint4*>(out + static_cast<size_t>(row_lo + r) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(orow + r * M::kRowBytes + c * 16);
-  }
+  store_warp_rows<D>(qs + warp * 16 * M::kRowBytes, o, inv, out, row_lo, q_lim, lane);
   if (lane % 4 == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)

@@ -114,6 +114,21 @@ def reference_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def reference_bwd_rounding(q, k, v, dout, lse, delta, causal: bool = True):
+    """(dq, dk, dv) f32 bounds of what the bf16 backward kernels' two
+    roundings move each element by: p rounded to bf16 before dv = p^T dO
+    and ds before dq = ds k and dk = ds^T q, each factor to bf16's unit
+    roundoff 2^-8, so an element moves by at most 2^-8 times the same sum
+    over absolute values: 2^-8 |ds| |k|, 2^-8 |ds|^T |q| and
+    2^-8 p^T |dO| (p >= 0), from the same residuals."""
+    p, ds = _probs_ds(q, k, v, dout, lse, delta, causal)
+    ds = ds.abs()
+    u = 2.0 ** -8
+    return (u * torch.einsum("bhqk,bhkd->bhqd", ds, k.float().abs()),
+            u * torch.einsum("bhqk,bhqd->bhkd", ds, q.float().abs()),
+            u * torch.einsum("bhqk,bhqd->bhkd", p, dout.float().abs()))
+
+
 # -- the plain version of v2 --------------------------------------------------
 
 def _rotate(x, cos, sin):
@@ -215,10 +230,12 @@ def flash_plan(d_head: int, dtype, block_q: int | None = None,
     The TPU's rules do not carry over: blocks there were 512x512 and had
     to meet Mosaic's (sublane, 128) tiling.  On the card every kernel
     walks 64-row query tiles against 64-row K/V tiles (the bf16 forwards
-    on the tensor cores, 16 query rows a warp; the rest on the CUDA cores,
-    4x4 scores a thread), and the ragged tail of a sequence is masked
-    in-kernel, so any sequence length runs.  ``block_q``/``block_k``
-    may name the tile, which must then be the compiled 64."""
+    and v1's bf16 backward on the tensor cores, 16 query or key rows a
+    warp, v1's dk/dv taking each query tile in two halves of 32; the rest
+    on the CUDA cores, 4x4 scores a thread), and the ragged tail of a
+    sequence is masked in-kernel, so any sequence length runs.
+    ``block_q``/``block_k`` may name the tile, which must then be the
+    compiled 64."""
     bq = block_q or KERNEL_TILE
     bk = block_k or KERNEL_TILE
     if (bq, bk) != (KERNEL_TILE, KERNEL_TILE):

@@ -115,6 +115,33 @@ def test_plain_backward_kernels_match_autograd(causal):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 64])
+def test_bf16_backward_rounding_within_its_bound(d, causal):
+    """The bf16 backward kernels round p to bf16 before dv = p^T dO and ds
+    before dq = ds k and dk = ds^T q.  Done so in plain torch on bf16
+    values (f32 otherwise), each gradient stays within
+    ``reference_bwd_rounding``'s term (2^-8 of the same product over
+    absolute values) of the f32 plain versions, plus 1e-6 of the largest
+    value for f32 summation order; and the rounding does move them."""
+    q, k, v, g, g_lse = (torch.from_numpy(np.asarray(x, np.float32))
+                         for x in _inputs(8, "bfloat16", (2, 3, 100, d)))
+    out, lse = fa.reference_attention_lse(q, k, v, causal)
+    delta = (g * out).sum(-1) - g_lse
+    p, ds = fa._probs_ds(q, k, v, g, lse, delta, causal)
+    p16, ds16 = (x.to(torch.bfloat16).float() for x in (p, ds))
+    got = (torch.einsum("bhqk,bhkd->bhqd", ds16, k),
+           torch.einsum("bhqk,bhqd->bhkd", ds16, q),
+           torch.einsum("bhqk,bhqd->bhkd", p16, g))
+    ref = (fa.reference_bwd_dq(q, k, v, g, lse, delta, causal),
+           *fa.reference_bwd_dkv(q, k, v, g, lse, delta, causal))
+    terms = fa.reference_bwd_rounding(q, k, v, g, lse, delta, causal)
+    for name, x, r, t in zip(("dq", "dk", "dv"), got, ref, terms):
+        diff = (x - r).abs()
+        assert bool((diff <= t + 1e-6 * r.abs().max()).all()), name
+        assert float(diff.max()) > 1e-6 * float(r.abs().max()), name
+
+
 def test_plan_and_describe():
     assert fa.flash_plan(128, torch.bfloat16) == (64, 64, None)
     assert fa.flash_plan(16, torch.float32, 64, 64) == (64, 64, None)
@@ -227,6 +254,36 @@ def test_cuda_bf16_forward_on_tensor_cores(cuda, d, s, causal):
     assert bool(((out.float() - ref).abs() <= limit).all())
     assert float((lse - ref_lse).abs().max()) <= (
         1e-5 * float(ref_lse.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 65, 100, 1000])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cuda_bf16_backward_on_tensor_cores(cuda, d, s, causal):
+    """The bf16 dq and dk/dv kernels (mma.sync products, p rounded to
+    bf16 before dv += p^T dO, ds before dq += ds k and dk += ds^T q) alone
+    against the plain versions in float32 on the same values and the same
+    lse and delta, element by element: within 2^-7 |r| (the output's own
+    rounding) + ``reference_bwd_rounding``'s term (2^-8 |dS||K|,
+    2^-8 |dS|^T|Q|, 2^-8 P^T|dO|) + 1e-4 max|r| (summation order)."""
+    q, k, v, g, g_lse = (torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+                         for x in _inputs(7, "bfloat16", (2, 3, s, d)))
+    out, lse = fa.reference_attention_lse(q, k, v, causal)
+    delta = ((g * out).sum(-1) - g_lse).contiguous()
+    fa.reset_counts()
+    low = [t.to(torch.bfloat16) for t in (q, k, v, g)]
+    dq = fa.flash_backward_dq(*low, lse, delta, causal)
+    dk, dv = fa.flash_backward_dkv(*low, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_bwd_dq"] == 1
+    assert fa.launch_counts["flash_bwd_dkv"] == 1 and fa.plain_count == 0
+    ref = (fa.reference_bwd_dq(q, k, v, g, lse, delta, causal),
+           *fa.reference_bwd_dkv(q, k, v, g, lse, delta, causal))
+    terms = fa.reference_bwd_rounding(q, k, v, g, lse, delta, causal)
+    for name, x, r, t in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, terms):
+        limit = 2.0 ** -7 * r.abs() + t + 1e-4 * r.abs().max()
+        assert bool(((x.float() - r).abs() <= limit).all()), name
 
 
 @pytest.mark.gpu

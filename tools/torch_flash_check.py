@@ -6,9 +6,10 @@ Builds ``k8s_gpu_tpu_torch/csrc/flash_attention.cu`` and
 ``flash_attention_v2.cu`` with ``-Xptxas -v`` (both reports and both
 libraries side by side) and prints every kernel instance's registers and
 spills, then one row per forward instance (v1 per head width and type, v2
-also per pipeline factor) with its registers, spills, dynamic shared
-memory and design (``mma``: the bf16 tensor-core forward; ``fma``: the
-float32 forward on the CUDA cores).  Then it runs the v1 kernels through
+also per pipeline factor) and one per v1 backward instance (dq, dk/dv per
+head width and type) with its registers, spills, dynamic shared memory
+and design (``mma``: a bf16 tensor-core kernel; ``fma``: an f32 one on
+the CUDA cores).  Then it runs the v1 kernels through
 ``flash_attention_lse``'s autograd and the v2 kernels through
 ``flash_attention_v2_lse``'s (with an lse cotangent; v2 with rope, GQA and
 both pipeline factors) against the float32 plain versions at small shapes
@@ -16,7 +17,10 @@ for every head width in both types, and times the kernels at the training
 shape (q [24, 8, 2048, 128] bf16, causal; v2 with k, v [24, 2, 2048, 128],
 rope and P = 2): each forward beside its useful TFLOP/s (4 D flops per
 visible (query, key) pair) and the SDPA forward on the same shape (v2:
-``enable_gqa`` on q and k rotated beforehand), then dq and dk/dv.  A
+``enable_gqa`` on q and k rotated beforehand), then dq and dk/dv of both
+paths over 10 calls each, with delta = rowsum(dO * out) of a random dO,
+beside their TFLOP/s (6 D and 8 D flops a pair) and the SDPA backward's
+(fwd + bwd through autograd minus the fwd, 14 D flops a pair).  A
 shorter loop than ``chip_smoke.py`` for kernel work; it prints relative
 errors and does not judge them.
 """
@@ -109,6 +113,27 @@ def forward_table(reports: dict) -> None:
                           f"{design}", flush=True)
 
 
+def backward_table(reports: dict) -> None:
+    """Registers, spills, shared memory and design of every v1 backward
+    instance."""
+    lib = fa._kernel()
+    lib.flash_attention_bwd_smem.argtypes = [ctypes.c_int] * 3
+    print("v1 backward instance, registers, spill bytes, dynamic smem bytes, "
+          "design")
+    for dtype, code in fa._DTYPE_CODES.items():
+        design = "mma" if dtype == torch.bfloat16 else "fma"
+        for d in fa.HEAD_DIMS:
+            for dkv, kind in enumerate(("dq", "dkv")):
+                kern = (f"flash_bwd_{kind}_mma_kernel<{d}>" if design == "mma"
+                        else f"flash_bwd_{kind}_kernel<float, {d}>")
+                smem = lib.flash_attention_bwd_smem(d, code, dkv)
+                row = next((r for r in reports["flash_attention"]
+                            if r["kernel"].endswith(kern)), {})
+                print(f"  {kern}: {row.get('registers')} registers, "
+                      f"{row.get('spill')} spill bytes, {smem} smem, "
+                      f"{design}", flush=True)
+
+
 def rel_errors(B, H, S, D, dtype, causal, KH=None, rope=None,
                pipeline=1) -> list[float]:
     """v1 when ``KH`` is None, else v2 with K/V at KH heads."""
@@ -158,6 +183,22 @@ def sdpa_ms(q, k, v) -> float:
             q, k, v, is_causal=True, **kw), 10)
 
 
+def sdpa_bwd_ms(q, k, v) -> float:
+    """The SDPA backward, causal: fwd + bwd through autograd minus the
+    fwd, a yardstick only."""
+    import torch.nn.functional as F
+
+    kw = {"enable_gqa": True} if k.shape[1] != q.shape[1] else {}
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    g = torch.ones_like(q)
+
+    def both():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, **kw)
+        torch.autograd.grad(o, (qg, kg, vg), g)
+
+    return time_ms(both, 10) - sdpa_ms(q, k, v)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_flash_check: CUDA is not available", file=sys.stderr)
@@ -175,6 +216,7 @@ def main() -> int:
             print(f"  {name}: {row['kernel']}: {row.get('registers')} "
                   f"registers, {row['spill']} spill bytes")
     forward_table(reports)
+    backward_table(reports)
     cases = [(2, 3, 100, d, t, True) for d in fa.HEAD_DIMS
              for t in (torch.float32, torch.bfloat16)]
     cases += [(2, 3, 1000, 128, torch.float32, False),
@@ -216,22 +258,26 @@ def main() -> int:
         ms = time_ms(fn, 10)
         print(name, "ms", ms, "TFLOP/s", flops / ms / 1e9,
               *(("SDPA fwd ms", lib()) if lib else ()), flush=True)
-    out, lse = fa.flash_forward(q, k, v, True)
-    delta = torch.randn(B, H, S, device="cuda")
-    for name, fn in (
-        ("dq", lambda: fa.flash_backward_dq(q, k, v, out, lse, delta, True)),
-        ("dkv", lambda: fa.flash_backward_dkv(q, k, v, out, lse, delta,
-                                              True)),
+    go = torch.randn_like(q)
+    d_pairs = flops // 4             # D x the visible pairs
+    for label, kk, vv, fwd, bwd in (
+        ("", k, v, lambda: fa.flash_forward(q, k, v, True),
+         (lambda *a: fa.flash_backward_dq(*a, True),
+          lambda *a: fa.flash_backward_dkv(*a, True))),
+        ("v2 ", k2, v2, lambda: fa.flash_v2_forward(q, k2, v2, True, 1e4, 2),
+         (lambda *a: fa.flash_v2_backward_dq(*a, True, 1e4, 2),
+          lambda *a: fa.flash_v2_backward_dkv(*a, True, 1e4))),
     ):
-        print(name, "ms", time_ms(fn, 2), flush=True)
-    out, lse = fa.flash_v2_forward(q, k2, v2, True, 1e4, 2)
-    for name, fn in (
-        ("v2 dq", lambda: fa.flash_v2_backward_dq(q, k2, v2, out, lse, delta,
-                                                  True, 1e4, 2)),
-        ("v2 dkv", lambda: fa.flash_v2_backward_dkv(q, k2, v2, out, lse,
-                                                    delta, True, 1e4)),
-    ):
-        print(name, "ms", time_ms(fn, 2), flush=True)
+        out, lse = fwd()
+        delta = (go.float() * out.float()).sum(-1).contiguous()
+        args = (q, kk, vv, go, lse, delta)
+        sdpa = sdpa_bwd_ms(*((fa.rope_rotate(q, 1e4), fa.rope_rotate(kk, 1e4))
+                            if label else (q, kk)), vv)
+        for name, fn, per in (("dq", bwd[0], 6), ("dkv", bwd[1], 8)):
+            ms = time_ms(lambda: fn(*args), 10)
+            print(f"{label}{name} ms", ms, "TFLOP/s", per * d_pairs / ms / 1e9,
+                  "SDPA bwd ms", sdpa, "TFLOP/s", 14 * d_pairs / sdpa / 1e9,
+                  flush=True)
     return 0
 
 
