@@ -25,7 +25,9 @@ Phases, each of which fails the run on any error:
    KV heads and P = 2 query tiles a block, at the v2 training shape (q
    [24, 8, 2048, 128], k, v [24, 2, 2048, 128] bf16), the reference
    bench's MHA A/B shape, f32, an odd S whose tiles straddle group
-   members, non-causal at P = 1, and MQA;
+   members, non-causal at P = 1, and MQA (in bf16 the backward pair takes
+   one rotate-and-split pre-pass, timed on its own, and is held with the
+   terms of ``reference_bwd_rounding_v2``);
 4. the serving main path: the 302M flagship (vocab 16384, d_model 1024, 16
    layers, 8 heads of 128, d_ff 4096, max_seq 2048, bf16, random weights
    from ``--seed``) behind the port's ``LmServer`` on the paged pool with
@@ -46,7 +48,9 @@ Phases, each of which fails the run on any error:
    the v2 training path: the same with ``n_kv_heads=2`` and the three v2
    knobs on (``flash_fuse_rope``, ``flash_kv_grouped``,
    ``flash_q_pipeline=2``), held to the same launch counts of the v2
-   kernels and to 0 v1 launches;
+   kernels, 3 pre-pass launches per layer and step and 0 v1 launches;
+   then the same GQA configuration with the knobs off (v1 kernels, rope
+   outside, K/V repeated), timed as a yardstick of the knobs;
 7. a check of the training output by the repo's own means: the loss and
    every gradient of one step with flash attention against the same with
    plain attention, at full depth in bf16 (batch 2) and at 2 layers in
@@ -344,15 +348,19 @@ ROPE_THETA = 10000.0
 # ds k and dk = ds^T q, which moves dq, dk, dv by at most 2^-8 |dS||K|,
 # 2^-8 |dS|^T|Q| and 2^-8 P^T|dO| (the same unit roundoff on each factor):
 # those terms (reference_bwd_rounding, from _probs_ds of the float32
-# values) are added to its limits the same way.  All three through
-# autograd (out, lse and the gradients with a non-zero lse cotangent)
-# against the autograd of the float32 plain version, relative to the
-# largest value of each: 1e-4 in float32; in bf16 out 2^-7, lse 1e-5,
-# gradients 2^-6 (the backward also takes delta from the bf16-rounded
-# output).  The v2 kernels are held
-# to the same limits: their plain versions rotate the f32-widened q and k
-# with the same f32 angle (position x exp(i c)) and the card's f32
-# exp/sin/cos, as the kernels do, so the rotation adds rounding only.
+# values) are added to its limits the same way.  The v2 bf16 backward
+# also takes its scores from the rotated q and k split into bf16 hi + lo
+# halves (three products, off by at most 3 2^-16 scale sum_i |q_i k_i|),
+# takes dS K and dS^T Q on the hi planes and rotates dq and dk back:
+# reference_bwd_rounding_v2's terms (which are v1's at G 1 without rope).
+# All three through autograd (out, lse and the gradients with a non-zero
+# lse cotangent) against the autograd of the float32 plain version,
+# relative to the largest value of each: 1e-4 in float32; in bf16 out
+# 2^-7, lse 1e-5, gradients 2^-6 (the backward also takes delta from the
+# bf16-rounded output).  The v2 kernels are held to the same limits:
+# their plain versions rotate the f32-widened q and k with the same f32
+# angle (position x exp(i c)) and the card's f32 exp/sin/cos, as the
+# kernels do, so the rotation adds rounding only.
 FLASH_SAME_TYPE_REL = 2.0 ** -6
 FLASH_F32_RTOL, FLASH_F32_ATOL_REL = 2.0 ** -7, 1e-4
 FLASH_P_ROUNDING = 2.0 ** -8
@@ -408,14 +416,40 @@ def _sdpa_ms(torch, q, k, v, causal):
     return fwd, time_cuda(torch, both, 10) - fwd
 
 
-def _flash_design(kname, tname) -> str:
-    """Which design of a flash kernel runs for an input type: the bf16
-    forwards and v1's bf16 backward on the tensor cores (``cuda-mma``,
-    csrc/flash_mma.cuh and csrc/flash_mma_bwd.cuh), every other instance
-    on the CUDA cores in f32 (``cuda-fma``)."""
-    mma = kname in ("flash_fwd", "flash_v2_fwd", "flash_bwd_dq",
-                    "flash_bwd_dkv")
-    return "cuda-mma" if mma and tname == "bfloat16" else "cuda-fma"
+def _flash_design(tname) -> str:
+    """Which design of the flash kernels runs for an input type: every
+    bf16 instance (v1 and v2, forward, dq and dk/dv) on the tensor cores
+    (``cuda-mma``, csrc/flash_mma.cuh and csrc/flash_mma_bwd.cuh), every
+    float32 one on the CUDA cores (``cuda-fma``)."""
+    return "cuda-mma" if tname == "bfloat16" else "cuda-fma"
+
+
+# The pre-pass against its plain version (reference_rope_split), each
+# plane pair read back as hi + lo: each side holds the rotated value to
+# 2^-16 of it (its split), so the two differ by at most 2^-15 of it, plus
+# the rounding of the two f32 rotations, held at 2^-20 of the largest value
+# (16 f32 ulps; a wrong angle or sign is off by O(1)).
+ROPE_SPLIT_RTOL, ROPE_SPLIT_ATOL_REL = 2.0 ** -15, 2.0 ** -20
+
+
+def _check_rope_split(fa, q, k, planes, theta, name) -> float:
+    """Max abs error of the pre-pass's hi + lo against the plain
+    version's, held at ROPE_SPLIT_RTOL |r| + ROPE_SPLIT_ATOL_REL max|r|."""
+    plain = fa.reference_rope_split(q, k, theta)
+    err = 0.0
+    for lo_at, size in ((0, q.numel()), (2 * q.numel(), k.numel())):
+        got, ref = (p[lo_at:lo_at + size].float()
+                    + p[lo_at + size:lo_at + 2 * size].float()
+                    for p in (planes, plain))
+        diff = (got - ref).abs()
+        err = max(err, float(diff.max()))
+        limit = ROPE_SPLIT_RTOL * ref.abs() + ROPE_SPLIT_ATOL_REL * float(
+            ref.abs().max())
+        if not bool((diff <= limit).all()):
+            raise RuntimeError(f"{name}: rope pre-pass vs plain version "
+                               f"beyond {ROPE_SPLIT_RTOL}|r| + "
+                               f"{ROPE_SPLIT_ATOL_REL} max|r| (max abs {err})")
+    return err
 
 
 def _max_rel(x, r):
@@ -432,12 +466,12 @@ def _flash_api(fa, causal, v2):
     """The kernel names, the kernels (forward, dq, dk/dv), their plain
     versions and the autograd entry of v1 (``v2`` None) or of v2 (``v2`` =
     (rope_theta, q_pipeline)), each taking (q, k, v) or (q, k, v, dO, lse,
-    delta)."""
+    delta); the backward kernels also take v2's pre-pass ``planes``."""
     if v2 is None:
         return (tuple(FLASH_KERNELS),
                 (lambda q, k, v: fa.flash_forward(q, k, v, causal),
-                 lambda *a: fa.flash_backward_dq(*a, causal),
-                 lambda *a: fa.flash_backward_dkv(*a, causal)),
+                 lambda *a, planes=None: fa.flash_backward_dq(*a, causal),
+                 lambda *a, planes=None: fa.flash_backward_dkv(*a, causal)),
                 (lambda q, k, v: fa.reference_attention_lse(q, k, v, causal),
                  lambda *a: fa.reference_bwd_dq(*a, causal),
                  lambda *a: fa.reference_bwd_dkv(*a, causal)),
@@ -446,8 +480,10 @@ def _flash_api(fa, causal, v2):
     return (tuple(FLASH_V2_KERNELS),
             (lambda q, k, v: fa.flash_v2_forward(q, k, v, causal, theta,
                                                  pipeline),
-             lambda *a: fa.flash_v2_backward_dq(*a, causal, theta, pipeline),
-             lambda *a: fa.flash_v2_backward_dkv(*a, causal, theta)),
+             lambda *a, planes=None: fa.flash_v2_backward_dq(
+                 *a, causal, theta, pipeline, planes),
+             lambda *a, planes=None: fa.flash_v2_backward_dkv(
+                 *a, causal, theta, planes)),
             (lambda q, k, v: fa.reference_attention_v2_lse(q, k, v, causal,
                                                            theta),
              lambda *a: fa.reference_bwd_dq_v2(*a, causal, theta),
@@ -519,15 +555,23 @@ def _flash_case(torch, gen, dev, name, B, H, KH, S, D, tname, causal,
         row.update(rope_theta=v2[0], q_pipeline=v2[1])
     names, kernels, plains, entry = _flash_api(fa, causal, v2)
 
-    # Each kernel alone against its plain version on the same inputs.
+    # Each kernel alone against its plain version on the same inputs; the
+    # v2 backward pair in bf16 shares one pre-pass, as in autograd.
     fa.reset_counts()
     out, lse = kernels[0](q, k, v)
     delta = ((g.float() * out.float()).sum(-1) - g_lse).contiguous()
-    dq = kernels[1](q, k, v, g, lse, delta)
-    dk, dv = kernels[2](q, k, v, g, lse, delta)
+    planes = fa._v2_planes(q, k, v2[0], None) if v2 is not None else None
+    dq = kernels[1](q, k, v, g, lse, delta, planes=planes)
+    dk, dv = kernels[2](q, k, v, g, lse, delta, planes=planes)
     torch.cuda.synchronize()
     if fa.launch_counts != _counts(fa, dict.fromkeys(names, 1)):
         raise RuntimeError(f"{name}: launches {fa.launch_counts}")
+    prepasses = fa.prepass_counts["flash_v2_rope_split"]
+    if prepasses != (2 if planes is not None else 0):
+        raise RuntimeError(f"{name}: {prepasses} pre-pass launches")
+    if planes is not None:
+        row["rope_split_max_abs_err"] = _check_rope_split(fa, q, k, planes,
+                                                          v2[0], name)
     plain = {
         names[0]: lambda *a: plains[0](*a[:3]),
         names[1]: lambda *a: (plains[1](*a, lse, delta),),
@@ -535,15 +579,18 @@ def _flash_case(torch, gen, dev, name, B, H, KH, S, D, tname, causal,
     }
     got = {names[0]: (out, lse), names[1]: (dq,), names[2]: (dk, dv)}
     wide = [t.float() for t in (q, k, v, g)]
-    # The tensor-core kernels' roundings of p (and ds) to bf16, per output.
+    # The tensor-core kernels' roundings of p (and ds, and v2's split and
+    # hi-plane operands) to bf16, per output.
     rounding = {}
-    if _flash_design(names[0], tname) == "cuda-mma":
+    if _flash_design(tname) == "cuda-mma":
         rounding[names[0]] = (FLASH_P_ROUNDING
                               * plains[0](*wide[:2], wide[2].abs())[0], 0.0)
-    if _flash_design(names[1], tname) == "cuda-mma":
-        dq_t, dk_t, dv_t = fa.reference_bwd_rounding(*wide, lse, delta,
-                                                     causal)
+        dq_t, dk_t, dv_t = (
+            fa.reference_bwd_rounding(*wide, lse, delta, causal)
+            if v2 is None else
+            fa.reference_bwd_rounding_v2(*wide, lse, delta, causal, v2[0]))
         rounding.update({names[1]: (dq_t,), names[2]: (dk_t, dv_t)})
+        del dq_t, dk_t, dv_t
     for kname in names:
         same = plain[kname](q, k, v, g)
         err = max(float((x.float() - r.float()).abs().max())
@@ -557,7 +604,7 @@ def _flash_case(torch, gen, dev, name, B, H, KH, S, D, tname, causal,
         del same
         err32 = 0.0
         rtol = FLASH_F32_RTOL if tname == "bfloat16" else 0.0
-        note = " + the 2^-8 rounding term" if kname in rounding else ""
+        note = " + the rounding term" if kname in rounding else ""
         terms = rounding.pop(kname, (0.0,) * len(got[kname]))
         for x, r, term in zip(got[kname], plain[kname](*wide), terms):
             diff = (x.float() - r).abs()
@@ -605,10 +652,13 @@ def _flash_case(torch, gen, dev, name, B, H, KH, S, D, tname, causal,
     del qr, kr
     args = {names[0]: (q, k, v), names[1]: (q, k, v, g, lse, delta),
             names[2]: (q, k, v, g, lse, delta)}
+    kw = {names[0]: {}, names[1]: {"planes": planes},
+          names[2]: {"planes": planes}}
     for kname, kernel, lib_ms in zip(names, kernels,
                                      (lib_fwd, lib_bwd, lib_bwd)):
         with torch.no_grad():
-            ms = time_cuda(torch, lambda: kernel(*args[kname]), 10, warmup=2)
+            ms = time_cuda(torch, lambda: kernel(*args[kname], **kw[kname]),
+                           10, warmup=2)
             plain_ms = time_cuda(torch, lambda: plain[kname](q, k, v, g), 3,
                                  warmup=1)
         bound_ms, bound_by = _flash_bound(kname, B, H, S, D, tname, causal,
@@ -618,7 +668,11 @@ def _flash_case(torch, gen, dev, name, B, H, KH, S, D, tname, causal,
                                      library_ms=lib_ms, bound_ms=bound_ms,
                                      bound_by=bound_by,
                                      tflops=flops / ms / 1e9,
-                                     design=_flash_design(kname, tname))
+                                     design=_flash_design(tname))
+    if planes is not None:
+        # The pre-pass alone: once per forward and once per backward.
+        row["rope_split_ms"] = time_cuda(
+            torch, lambda: fa.flash_v2_rope_split(q, k, v2[0]), 10, warmup=2)
     return row
 
 
@@ -706,7 +760,8 @@ def _stream(port: int, body: dict, out: dict, timeout: float = 600.0):
 PROFILE_CLASSES = (
     ("flash_fwd", ("flash_fwd",)), ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
-    ("flash_v2_fwd", ("flash_v2_fwd", "flash_v2_rope_split")),
+    ("flash_v2_rope_split", ("flash_v2_rope_split",)),
+    ("flash_v2_fwd", ("flash_v2_fwd",)),
     ("flash_v2_bwd_dq", ("flash_v2_bwd_dq",)),
     ("flash_v2_bwd_dkv", ("flash_v2_bwd_dkv",)),
     ("paged_attention", ("paged_attention",)),
@@ -947,7 +1002,12 @@ def flagship_train_config(torch, layers: int, dtype=None, v2=False):
 
 def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
                    device="cuda", profile: bool = False,
-                   v2: bool = False) -> dict:
+                   v2: bool = False, knobs: bool = True) -> dict:
+    """Phase 6 (v1), 6b (``v2``: the GQA configuration with its knobs on)
+    or, with ``v2`` and not ``knobs``, the same GQA configuration on the v1
+    kernels with rope outside and K/V repeated."""
+    import dataclasses
+
     from k8s_gpu_tpu_torch.models import TransformerLM
     from k8s_gpu_tpu_torch.ops import attention as fa
     from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
@@ -956,6 +1016,9 @@ def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
     )
 
     cfg = flagship_train_config(torch, layers, v2=v2)
+    if not knobs:
+        cfg = dataclasses.replace(cfg, **V2_OFF)
+    v2_kernels = v2 and knobs
     model = TransformerLM(cfg, device=device)
     trainer = Trainer(model, TrainConfig(warmup_steps=1), device=device)
     trainer.init(seed)
@@ -977,6 +1040,7 @@ def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
     sync()
     wall = time.perf_counter() - t0
     launches, plain = dict(fa.launch_counts), fa.plain_count
+    prepasses = fa.prepass_counts["flash_v2_rope_split"]
     losses = [first] + [float(t) for t in losses]
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9
                if model.device.type == "cuda" else None)
@@ -999,25 +1063,30 @@ def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
     peak = device_peak_flops()
     result = {
         "layers": layers, "batch": batch, "seq": cfg.max_seq,
-        "n_kv_heads": cfg.kv_heads, "v2_knobs": v2, "n_params": n_params,
+        "n_kv_heads": cfg.kv_heads, "v2_knobs": v2_kernels,
+        "n_params": n_params,
         "losses": losses, "warmup_step_s": warm_s,
         "timed_steps": steps, "step_ms": step_s * 1e3,
         "tokens_per_s": batch * cfg.max_seq / step_s,
         "model_flops_per_step": flops, "peak_flops": peak,
         "mfu": flops / step_s / peak if peak else None,
         "peak_memory_gb": peak_gb, "launches": launches,
-        "plain_calls": plain,
+        "prepass_launches": prepasses, "plain_calls": plain,
     }
     if profiled is not None:
         result["profile"] = profiled
     if model.device.type == "cuda":
-        fwd, dq, dkv = FLASH_V2_KERNELS if v2 else FLASH_KERNELS
+        fwd, dq, dkv = FLASH_V2_KERNELS if v2_kernels else FLASH_KERNELS
         want = _counts(fa, {fwd: 2 * layers * steps, dq: layers * steps,
                             dkv: layers * steps})
-        if launches != want or plain != 0:
-            raise RuntimeError(f"flash launches {launches}, plain calls "
-                               f"{plain} on the training path; expected "
-                               f"{want} and 0")
+        # v2 in bf16 with rope: a pre-pass in each forward (2, remat) and
+        # one for the backward pair.
+        want_pre = 3 * layers * steps if v2_kernels else 0
+        if launches != want or plain != 0 or prepasses != want_pre:
+            raise RuntimeError(f"flash launches {launches}, pre-passes "
+                               f"{prepasses}, plain calls {plain} on the "
+                               f"training path; expected {want}, "
+                               f"{want_pre} and 0")
     return result
 
 
@@ -1168,6 +1237,10 @@ def main(argv=None) -> int:
                               TRAIN_STEPS, profile=args.profile, v2=True)
     print(json.dumps({"train_path_v2": train_v2}), flush=True)
     _free(torch)
+    train_gqa_v1 = run_train_path(torch, args.seed, LAYERS, TRAIN_BATCH,
+                                  TRAIN_STEPS, v2=True, knobs=False)
+    print(json.dumps({"train_path_gqa_v1": train_gqa_v1}), flush=True)
+    _free(torch)
     train_outputs = check_train_outputs(torch, args.seed, LAYERS)
     print(json.dumps({"train_outputs": train_outputs}), flush=True)
     train_v2_outputs = check_train_outputs(torch, args.seed, LAYERS, v2=True)
@@ -1215,6 +1288,7 @@ def main(argv=None) -> int:
                        "flash_cases": flash, "flash_v2_cases": flash_v2,
                        "main_path": main_path, "outputs": outputs,
                        "train_path": train, "train_path_v2": train_v2,
+                       "train_path_gqa_v1": train_gqa_v1,
                        "train_outputs": train_outputs,
                        "train_v2_outputs": train_v2_outputs,
                        "device": device,

@@ -165,9 +165,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qt = n_tiles - 1 - blockIdx.y;
   const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
   const size_t rows = static_cast<size_t>(blockIdx.x) * S;
-  mma_bwd_dq_tile<D>(q + base, k + base, v + base, dout + base, lse + rows,
-                     delta + rows, dq + base, qt * kTile, causal ? qt + 1 : n_tiles,
-                     S, causal, scale);
+  mma_bwd_dq_tile<D, 1, false>(q + base, nullptr, k + base, nullptr, v + base,
+                               dout + base, lse + rows, delta + rows, dq + base,
+                               qt * kTile, S, causal ? qt + 1 : n_tiles, S, causal,
+                               scale, 0.f);
 }
 
 template <int D>
@@ -180,9 +181,10 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kt = blockIdx.y;
   const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
   const size_t rows = static_cast<size_t>(blockIdx.x) * S;
-  mma_bwd_dkv_tile<D>(q + base, k + base, v + base, dout + base, lse + rows,
-                      delta + rows, dk + base, dv + base, kt * kTile,
-                      causal ? kt : 0, S, causal, scale);
+  mma_bwd_dkv_tile<D, 1, false>(q + base, nullptr, k + base, nullptr, v + base,
+                                dout + base, lse + rows, delta + rows, dk + base,
+                                dv + base, kt * kTile, causal ? kt : 0, 1, S, causal,
+                                scale, 0.f);
 }
 
 template <typename T, int D>

@@ -22,11 +22,16 @@
 // (forward), 6 D (dq) and 8 D (dk/dv) flops per visible (query, key) pair of
 // the H query heads; K/V and dK/dV move at KH heads.
 //
-// The bf16 forward runs on the tensor cores (flash_v2_fwd_mma_kernel,
-// flash_mma.cuh): P groups of 4 warps a block over the same (tile, member)
-// items, Q and each K tile rotated in registers while they are staged, V
-// on a cp.async ring.  The float32 forward and both backward kernels are
-// v1's first design on the CUDA cores in f32:
+// The bf16 kernels run on the tensor cores: the forward
+// (flash_v2_fwd_mma_kernel, flash_mma.cuh) and dq
+// (flash_v2_bwd_dq_mma_kernel, flash_mma_bwd.cuh) with P groups of 4 warps
+// a block over the same (tile, member) items sharing a cp.async K/V ring,
+// dk/dv (flash_v2_bwd_dkv_mma_kernel, flash_mma_bwd.cuh) with one stream of
+// the G members' query tiles through its ring.  With rope all three take q
+// and k rotated and split into bf16 hi and lo planes by one pre-pass
+// (flash_v2_rope_split_kernel, its own entry): the caller runs it once per
+// forward and once per backward, for both backward kernels.  The float32
+// kernels are v1's first design on the CUDA cores in f32:
 // - K/V are read at [B, KH, S, D]; nothing repeats them.  A forward or dq
 //   block owns P (query tile, member) items of one KV head, ordered member
 //   first (item i = tile * G + g).  With G >= P its P query tiles are P
@@ -55,12 +60,18 @@
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
+#include "flash_mma_bwd.cuh"
 
 namespace {
 
 constexpr int kMaxHalf = 64;         // D / 2 of the widest instance
 constexpr int kNoPipelineInstance = -2;
-constexpr int kNoScratch = -3;
+constexpr int kNoPlanes = -3;
+// Key tiles a block of the bf16 dk/dv: two 64-row tiles (8 warps) share
+// one Q/dO ring, as two 4-warp blocks of v1 share an SM; one tile a block
+// (4 warps, one block an SM by its 158 KB at D 128) ran 1.6x slower at
+// the flagship training shape on an H100.
+constexpr int kDkvKeyTiles = 2;
 
 // load_tile (rows [row0, row0 + 64) of an [S, D] slab -> f32 smem), each row
 // r rotated at sequence position row0 + r when rope.
@@ -269,11 +280,11 @@ flash_v2_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The rotation of the bf16 forward, once per call: the rows of q
-// [q_rows, D] and then of k [k_rows, D], row r of each rotated at position
-// r % S as load_tile_rope rotates them and each value split into bf16
-// halves hi + lo (split8): q's halves at out and out + q_rows * D, k's
-// after them.  One thread per pair of 16-byte chunks (c, c + D/2).
+// The rotation of the bf16 kernels, once per forward or backward: the rows
+// of q [q_rows, D] and then of k [k_rows, D], row r of each rotated at
+// position r % S as load_tile_rope rotates them and each value split into
+// bf16 halves hi + lo (split8): q's halves at out and out + q_rows * D,
+// k's after them.  One thread per pair of 16-byte chunks (c, c + D/2).
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_v2_rope_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -334,6 +345,51 @@ flash_v2_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ q_l
                            k + kv_base, k_lo ? k_lo + kv_base : nullptr,
                            v + kv_base, out + row_base * D, lse + row_base,
                            it.qt * kTile, it.q_lim, it.kt_end, S, causal, scale);
+}
+
+// The bf16 dq: P groups of 4 warps a block, one (tile, member) item each,
+// sharing one K/V ring.  With rope, q and k are the hi planes of the
+// rotated values and q_lo, k_lo the lo planes; without, q_lo and k_lo are
+// null.
+template <int D, int P>
+__global__ void __launch_bounds__(P * kMmaThreads)
+flash_v2_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ q_lo,
+                           const bf16* __restrict__ k, const bf16* __restrict__ k_lo,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dq, int G, int S, int causal, float scale,
+                           float rope_c) {
+  const Item it(G, S, causal, P, threadIdx.x / kMmaThreads);
+  const size_t bkh = blockIdx.x;
+  const size_t kv_base = bkh * S * D;
+  const size_t row_base = (bkh * G + it.g) * S;
+  mma_bwd_dq_tile<D, P, true>(q + row_base * D, q_lo ? q_lo + row_base * D : nullptr,
+                              k + kv_base, k_lo ? k_lo + kv_base : nullptr, v + kv_base,
+                              dout + row_base * D, lse + row_base, delta + row_base,
+                              dq + row_base * D, it.qt * kTile, it.q_lim, it.kt_end, S,
+                              causal, scale, rope_c);
+}
+
+// The bf16 dk/dv: one block of KT x 4 warps per (KT key tiles, b kh)
+// (KT = kDkvKeyTiles), summing over the G members; causal: the longest
+// blocks (key tile 0) first.  q_lo, k_lo as for dq.
+template <int D, int KT>
+__global__ void __launch_bounds__(KT * kMmaThreads)
+flash_v2_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ q_lo,
+                            const bf16* __restrict__ k, const bf16* __restrict__ k_lo,
+                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int G, int S,
+                            int causal, float scale, float rope_c) {
+  const int kt = blockIdx.y * KT;
+  const size_t bkh = blockIdx.x;
+  const size_t kv_base = bkh * S * D;
+  const size_t row_base = bkh * G * S;  // member 0's rows
+  mma_bwd_dkv_tile<D, KT, true>(q + row_base * D, q_lo ? q_lo + row_base * D : nullptr,
+                                k + kv_base, k_lo ? k_lo + kv_base : nullptr, v + kv_base,
+                                dout + row_base * D, lse + row_base, delta + row_base,
+                                dk + kv_base, dv + kv_base, kt * kTile, causal ? kt : 0, G,
+                                S, causal, scale, rope_c);
 }
 
 template <typename T, int D, int P>
@@ -527,6 +583,44 @@ dim3 items_grid(int BKH, int G, int S, int P) {
   return dim3(BKH, (items + P - 1) / P);
 }
 
+// The bf16 kernels with rope read q and k from the pre-pass's planes (see
+// flash_v2_rope_split_kernel: q's hi and lo planes, then k's): q, k become
+// the hi planes and q_lo, k_lo the lo planes.  Otherwise q and k stay and
+// q_lo, k_lo are null.  0, or kNoPlanes.
+template <typename T>
+int use_planes(const void* planes, int rope, int BKH, int G, int S, int D,
+               const void*& q, const void*& q_lo, const void*& k, const void*& k_lo) {
+  q_lo = k_lo = nullptr;
+  if (!std::is_same_v<T, bf16> || !rope) return 0;
+  if (planes == nullptr) return kNoPlanes;
+  const size_t q_rows = static_cast<size_t>(BKH) * G * S;
+  const size_t k_rows = static_cast<size_t>(BKH) * S;
+  const bf16* base = static_cast<const bf16*>(planes);
+  q = base;
+  q_lo = base + q_rows * D;
+  k = base + 2 * q_rows * D;
+  k_lo = base + (2 * q_rows + k_rows) * D;
+  return 0;
+}
+
+template <typename T, int D>
+struct RopeSplitV2 {
+  static int run(const void* q, const void* k, void* planes, int BKH, int G, int S,
+                 float rope_c, cudaStream_t st) {
+    if constexpr (!std::is_same_v<T, bf16>) {
+      return -1;
+    } else {
+      const size_t q_rows = static_cast<size_t>(BKH) * G * S;
+      const size_t k_rows = static_cast<size_t>(BKH) * S;
+      const size_t n_pairs = (q_rows + k_rows) * (D / 16);
+      flash_v2_rope_split_kernel<D><<<static_cast<unsigned>((n_pairs + 255) / 256), 256, 0, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<bf16*>(planes),
+          q_rows, k_rows, S, rope_c);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+};
+
 template <typename T, int D>
 struct FwdV2 {
   template <int P>
@@ -554,34 +648,14 @@ struct FwdV2 {
     }
     return static_cast<int>(cudaGetLastError());
   }
-  // bf16 with rope: q and k are first rotated and split into the scratch
-  // buffer, 2 * (BKH * G + BKH) * S * D values: q's hi and lo halves,
-  // then k's.
+  // bf16 with rope: q and k come as the pre-pass's planes.
   static int run(const void* q, const void* k, const void* v, void* out,
-                 void* lse, void* scratch, int BKH, int G, int S, int causal,
+                 void* lse, const void* planes, int BKH, int G, int S, int causal,
                  float scale, int rope, float rope_c, int pipeline,
                  cudaStream_t st) {
     if (pipeline != 1 && pipeline != 2) return kNoPipelineInstance;
-    const void* q_lo = nullptr;
-    const void* k_lo = nullptr;
-    if constexpr (std::is_same_v<T, bf16>) {
-      if (rope) {
-        if (scratch == nullptr) return kNoScratch;
-        const size_t q_rows = static_cast<size_t>(BKH) * G * S;
-        const size_t k_rows = static_cast<size_t>(BKH) * S;
-        bf16* qh = static_cast<bf16*>(scratch);
-        bf16* kh = qh + 2 * q_rows * D;
-        const size_t n_pairs = (q_rows + k_rows) * (D / 16);
-        flash_v2_rope_split_kernel<D><<<static_cast<unsigned>((n_pairs + 255) / 256), 256, 0, st>>>(
-            static_cast<const bf16*>(q), static_cast<const bf16*>(k), qh, q_rows,
-            k_rows, S, rope_c);
-        if (int rc = static_cast<int>(cudaGetLastError())) return rc;
-        q = qh;
-        q_lo = qh + q_rows * D;
-        k = kh;
-        k_lo = kh + k_rows * D;
-      }
-    }
+    const void *q_lo, *k_lo;
+    if (int rc = use_planes<T>(planes, rope, BKH, G, S, D, q, q_lo, k, k_lo)) return rc;
     return pipeline == 1
         ? launch<1>(q, q_lo, k, k_lo, v, out, lse, BKH, G, S, causal, scale, rope, rope_c, st)
         : launch<2>(q, q_lo, k, k_lo, v, out, lse, BKH, G, S, causal, scale, rope, rope_c, st);
@@ -591,49 +665,82 @@ struct FwdV2 {
 template <typename T, int D>
 struct BwdDqV2 {
   template <int P>
-  static int launch(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* delta, void* dq, int BKH, int G,
-                    int S, int causal, float scale, int rope, float rope_c,
-                    cudaStream_t st) {
-    constexpr int smem = dq_v2_smem<D, P>();
-    static_assert(smem <= 232448, "dq exceeds a block's shared memory");
-    if (int rc = prepare(flash_v2_bwd_dq_kernel<T, D, P>, smem)) return rc;
-    flash_v2_bwd_dq_kernel<T, D, P><<<items_grid(BKH, G, S, P), P * kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), G, S, causal, scale, rope, rope_c);
+  static int launch(const void* q, const void* q_lo, const void* k, const void* k_lo,
+                    const void* v, const void* dout, const void* lse, const void* delta,
+                    void* dq, int BKH, int G, int S, int causal, float scale, int rope,
+                    float rope_c, cudaStream_t st) {
+    if constexpr (std::is_same_v<T, bf16>) {
+      constexpr int smem = mma_bwd_dq_smem<D, P, true>();
+      static_assert(smem <= 232448, "dq exceeds a block's shared memory");
+      if (int rc = prepare(flash_v2_bwd_dq_mma_kernel<D, P>, smem)) return rc;
+      flash_v2_bwd_dq_mma_kernel<D, P><<<items_grid(BKH, G, S, P), P * kMmaThreads, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(q_lo),
+          static_cast<const bf16*>(k), static_cast<const bf16*>(k_lo),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<bf16*>(dq), G, S, causal, scale, rope_c);
+    } else {
+      constexpr int smem = dq_v2_smem<D, P>();
+      static_assert(smem <= 232448, "dq exceeds a block's shared memory");
+      if (int rc = prepare(flash_v2_bwd_dq_kernel<T, D, P>, smem)) return rc;
+      flash_v2_bwd_dq_kernel<T, D, P><<<items_grid(BKH, G, S, P), P * kThreads, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dq), G, S, causal, scale, rope, rope_c);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   static int run(const void* q, const void* k, const void* v, const void* dout,
-                 const void* lse, const void* delta, void* dq, int BKH, int G,
-                 int S, int causal, float scale, int rope, float rope_c,
+                 const void* lse, const void* delta, void* dq, const void* planes,
+                 int BKH, int G, int S, int causal, float scale, int rope, float rope_c,
                  int pipeline, cudaStream_t st) {
-    switch (pipeline) {
-      case 1: return launch<1>(q, k, v, dout, lse, delta, dq, BKH, G, S, causal, scale, rope, rope_c, st);
-      case 2: return launch<2>(q, k, v, dout, lse, delta, dq, BKH, G, S, causal, scale, rope, rope_c, st);
-    }
-    return kNoPipelineInstance;
+    if (pipeline != 1 && pipeline != 2) return kNoPipelineInstance;
+    const void *q_lo, *k_lo;
+    if (int rc = use_planes<T>(planes, rope, BKH, G, S, D, q, q_lo, k, k_lo)) return rc;
+    return pipeline == 1
+        ? launch<1>(q, q_lo, k, k_lo, v, dout, lse, delta, dq, BKH, G, S, causal, scale,
+                    rope, rope_c, st)
+        : launch<2>(q, q_lo, k, k_lo, v, dout, lse, delta, dq, BKH, G, S, causal, scale,
+                    rope, rope_c, st);
   }
 };
 
 template <typename T, int D>
 struct BwdDkvV2 {
   static int run(const void* q, const void* k, const void* v, const void* dout,
-                 const void* lse, const void* delta, void* dk, void* dv, int BKH,
-                 int G, int S, int causal, float scale, int rope, float rope_c,
-                 cudaStream_t st) {
-    constexpr int smem = dkv_v2_smem<D>();
-    static_assert(smem <= 232448, "dk/dv exceeds a block's shared memory");
-    if (int rc = prepare(flash_v2_bwd_dkv_kernel<T, D>, smem)) return rc;
-    const dim3 grid(BKH, (S + kTile - 1) / kTile);
-    flash_v2_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), G, S, causal, scale, rope,
-        rope_c);
-    return static_cast<int>(cudaGetLastError());
+                 const void* lse, const void* delta, void* dk, void* dv,
+                 const void* planes, int BKH, int G, int S, int causal, float scale,
+                 int rope, float rope_c, cudaStream_t st) {
+    if constexpr (std::is_same_v<T, bf16>) {
+      constexpr int kKT = kDkvKeyTiles;
+      constexpr int smem = mma_bwd_dkv_smem<D, kKT, true>();
+      static_assert(smem <= 232448, "dk/dv exceeds a block's shared memory");
+      const void *q_lo, *k_lo;
+      if (int rc = use_planes<T>(planes, rope, BKH, G, S, D, q, q_lo, k, k_lo)) return rc;
+      if (int rc = prepare(flash_v2_bwd_dkv_mma_kernel<D, kKT>, smem)) return rc;
+      const int n_tiles = (S + kTile - 1) / kTile;
+      const dim3 grid(BKH, (n_tiles + kKT - 1) / kKT);
+      flash_v2_bwd_dkv_mma_kernel<D, kKT><<<grid, kKT * kMmaThreads, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(q_lo),
+          static_cast<const bf16*>(k), static_cast<const bf16*>(k_lo),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), G, S, causal, scale, rope_c);
+      return static_cast<int>(cudaGetLastError());
+    } else {
+      constexpr int smem = dkv_v2_smem<D>();
+      static_assert(smem <= 232448, "dk/dv exceeds a block's shared memory");
+      if (int rc = prepare(flash_v2_bwd_dkv_kernel<T, D>, smem)) return rc;
+      const dim3 grid(BKH, (S + kTile - 1) / kTile);
+      flash_v2_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dk), static_cast<T*>(dv), G, S, causal, scale, rope,
+          rope_c);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
 };
 
@@ -649,22 +756,46 @@ struct FwdSmemV2 {
   }
 };
 
+// A backward instance's dynamic shared memory: dq (dkv = 0) at a pipeline
+// factor, or dk/dv (dkv = 1).
+template <typename T, int D>
+struct BwdSmemV2 {
+  static int run(int dkv, int pipeline) {
+    if constexpr (std::is_same_v<T, bf16>) {
+      if (dkv) return mma_bwd_dkv_smem<D, kDkvKeyTiles, true>();
+      if (pipeline != 1 && pipeline != 2) return kNoPipelineInstance;
+      return pipeline == 1 ? mma_bwd_dq_smem<D, 1, true>() : mma_bwd_dq_smem<D, 2, true>();
+    } else {
+      if (dkv) return dkv_v2_smem<D>();
+      if (pipeline != 1 && pipeline != 2) return kNoPipelineInstance;
+      return pipeline == 1 ? dq_v2_smem<D, 1>() : dq_v2_smem<D, 2>();
+    }
+  }
+};
+
 }  // namespace
 
 // Each returns 0, a cudaError_t from preparing or launching, -1 for a
 // type/head width without an instance, -2 for a pipeline without one or
-// -3 for a bf16 rope forward without its scratch.  Type codes: 0 float32,
-// 1 bfloat16.  q, dout, out, dq: [BKH * G, S, D] contiguous; k, v, dk, dv:
-// [BKH, S, D]; lse, delta: [BKH * G, S] float32; scratch (the bf16 rope
-// forward's, else null): 2 * (BKH * G + BKH) * S * D bf16 values.  rope 0/1
-// and rope_c = -ln(theta) / (D / 2).  Nothing is synchronised or allocated
-// here.
+// -3 for a bf16 rope kernel without the pre-pass's planes.  Type codes: 0
+// float32, 1 bfloat16.  q, dout, out, dq: [BKH * G, S, D] contiguous; k, v, dk, dv:
+// [BKH, S, D]; lse, delta: [BKH * G, S] float32; planes (the bf16 rope
+// kernels', else null): 2 * (BKH * G + BKH) * S * D bf16 values written by
+// flash_attention_v2_rope_split.  rope 0/1 and rope_c = -ln(theta) /
+// (D / 2).  Nothing is synchronised or allocated here.
+extern "C" int flash_attention_v2_rope_split(const void* q, const void* k, void* planes,
+                                             int BKH, int G, int S, int D, float rope_c,
+                                             void* stream) {
+  return dispatch<RopeSplitV2>(kBF16, D, q, k, planes, BKH, G, S, rope_c,
+                               static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int flash_attention_v2_fwd(const void* q, const void* k, const void* v,
-                                      void* out, void* lse, void* scratch,
+                                      void* out, void* lse, const void* planes,
                                       int BKH, int G, int S, int D, int causal,
                                       float scale, int rope, float rope_c,
                                       int pipeline, int dtype, void* stream) {
-  return dispatch<FwdV2>(dtype, D, q, k, v, out, lse, scratch, BKH, G, S, causal,
+  return dispatch<FwdV2>(dtype, D, q, k, v, out, lse, planes, BKH, G, S, causal,
                          scale, rope, rope_c, pipeline,
                          static_cast<cudaStream_t>(stream));
 }
@@ -672,24 +803,24 @@ extern "C" int flash_attention_v2_fwd(const void* q, const void* k, const void* 
 extern "C" int flash_attention_v2_bwd_dq(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* delta,
-                                         void* dq, int BKH, int G, int S, int D,
-                                         int causal, float scale, int rope,
+                                         void* dq, const void* planes, int BKH, int G,
+                                         int S, int D, int causal, float scale, int rope,
                                          float rope_c, int pipeline, int dtype,
                                          void* stream) {
-  return dispatch<BwdDqV2>(dtype, D, q, k, v, dout, lse, delta, dq, BKH, G, S,
-                           causal, scale, rope, rope_c, pipeline,
+  return dispatch<BwdDqV2>(dtype, D, q, k, v, dout, lse, delta, dq, planes, BKH, G,
+                           S, causal, scale, rope, rope_c, pipeline,
                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_v2_bwd_dkv(const void* q, const void* k,
                                           const void* v, const void* dout,
                                           const void* lse, const void* delta,
-                                          void* dk, void* dv, int BKH, int G,
-                                          int S, int D, int causal, float scale,
-                                          int rope, float rope_c, int dtype,
-                                          void* stream) {
-  return dispatch<BwdDkvV2>(dtype, D, q, k, v, dout, lse, delta, dk, dv, BKH, G,
-                            S, causal, scale, rope, rope_c,
+                                          void* dk, void* dv, const void* planes,
+                                          int BKH, int G, int S, int D, int causal,
+                                          float scale, int rope, float rope_c,
+                                          int dtype, void* stream) {
+  return dispatch<BwdDkvV2>(dtype, D, q, k, v, dout, lse, delta, dk, dv, planes,
+                            BKH, G, S, causal, scale, rope, rope_c,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -698,9 +829,15 @@ extern "C" int flash_attention_v2_fwd_smem(int D, int pipeline, int dtype) {
   return dispatch<FwdSmemV2>(dtype, D, pipeline);
 }
 
+// A backward instance's dynamic shared memory in bytes (dq: dkv = 0 at a
+// pipeline factor; dk/dv: dkv = 1), -1 or -2.
+extern "C" int flash_attention_v2_bwd_smem(int D, int dtype, int dkv, int pipeline) {
+  return dispatch<BwdSmemV2>(dtype, D, dkv, pipeline);
+}
+
 extern "C" const char* flash_attention_v2_error_string(int code) {
   if (code == -1) return "no kernel instance for this dtype/head width";
   if (code == kNoPipelineInstance) return "no kernel instance for this q_pipeline";
-  if (code == kNoScratch) return "the bf16 rope forward needs its scratch buffer";
+  if (code == kNoPlanes) return "the bf16 rope kernels need the pre-pass's planes";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

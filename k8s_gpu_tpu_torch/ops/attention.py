@@ -25,7 +25,10 @@ take.  The kernels mask the tail of a sequence that does not fill a tile,
 so the reference's ``seq_indivisible``, ``degenerate_seq``,
 ``sublane_misaligned`` and ``pipeline_indivisible`` fall-backs have no
 counterpart on the card, and nothing demotes v2 to v1 or to the plain
-version.  Each kernel launch adds one to its entry in ``launch_counts``.
+version.  Each kernel launch adds one to its entry in ``launch_counts``;
+the pre-pass that rotates q and k and splits them into bf16 halves for
+the bf16 v2 kernels with rope (``flash_v2_rope_split``, once per forward
+and once per backward) counts in ``prepass_counts``.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                  "flash_v2_fwd": 0, "flash_v2_bwd_dq": 0,
                  "flash_v2_bwd_dkv": 0}
+prepass_counts = {"flash_v2_rope_split": 0}
 plain_count = 0
 # The query-tile pipeline factors the v2 kernels are compiled for.
 Q_PIPELINES = (1, 2)
@@ -57,8 +61,9 @@ _lib_v2 = None
 
 def reset_counts() -> None:
     global plain_count
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, prepass_counts):
+        for name in counts:
+            counts[name] = 0
     plain_count = 0
 
 
@@ -159,15 +164,20 @@ def rope_block(x, pos0, theta, sign: float = 1.0):
     ``_rope_block``): frequencies ``exp(i * c)`` with ``c = -ln(theta) /
     half`` computed in double and rounded once to f32, as the Pallas
     constant is.  Returns f32."""
-    rows, d = x.shape[-2], x.shape[-1]
+    angles = _rope_angles(x.shape[-2], x.shape[-1], pos0, theta, x.device)
+    return _rotate(x, torch.cos(angles), torch.sin(angles) * sign)
+
+
+def _rope_angles(rows, d, pos0, theta, device):
+    """The kernels' angles [rows, D/2]: position ``pos0 + i`` times
+    ``exp(i * c)``, all f32."""
     half = d // 2
     c = torch.tensor(-math.log(theta) / half, dtype=torch.float32,
-                     device=x.device)
-    freqs = torch.exp(
-        torch.arange(half, dtype=torch.float32, device=x.device) * c)
-    pos = (pos0 + torch.arange(rows, device=x.device)).float()
-    angles = pos[:, None] * freqs                               # [rows, half]
-    return _rotate(x, torch.cos(angles), torch.sin(angles) * sign)
+                     device=device)
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=device)
+                      * c)
+    pos = (pos0 + torch.arange(rows, device=device)).float()
+    return pos[:, None] * freqs
 
 
 def _v2_inputs(q, k, v, rope_theta):
@@ -181,6 +191,20 @@ def _v2_inputs(q, k, v, rope_theta):
         qf, kf = rope_block(qf, 0, rope_theta), rope_block(kf, 0, rope_theta)
     return (qf, kf.repeat_interleave(grp, dim=1),
             v.float().repeat_interleave(grp, dim=1))
+
+
+def reference_rope_split(q, k, rope_theta):
+    """The rotate-and-split pre-pass's plain version: q [B, H, S, D] and k
+    [B, KH, S, D] rotated in f32 at positions ``arange(S)`` (``rope_block``)
+    and split into bf16 halves hi = bf16(x), lo = bf16(x - hi), as one flat
+    bf16 buffer: q's hi and lo planes, then k's."""
+    planes = []
+    for x in (q, k):
+        r = rope_block(x.float(), 0, rope_theta)
+        hi = r.to(torch.bfloat16)
+        planes += [hi.reshape(-1), (r - hi.float()).to(torch.bfloat16)
+                   .reshape(-1)]
+    return torch.cat(planes)
 
 
 def reference_attention_v2_lse(q, k, v, causal: bool = True,
@@ -220,6 +244,63 @@ def reference_bwd_dkv_v2(q, k, v, dout, lse, delta, causal: bool = True,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _rotate_bound(t, theta):
+    """A bound on |R^T e| from a bound t on |e| element-wise: the transpose
+    rotation at positions ``arange(S)`` mixes columns c and c + D/2, so
+    (|cos| t1 + |sin| t2, |sin| t1 + |cos| t2)."""
+    angles = _rope_angles(t.shape[-2], t.shape[-1], 0, theta, t.device)
+    cos, sin = torch.cos(angles).abs(), torch.sin(angles).abs()
+    t1, t2 = t.chunk(2, dim=-1)
+    return torch.cat([cos * t1 + sin * t2, sin * t1 + cos * t2], dim=-1)
+
+
+def reference_bwd_rounding_v2(q, k, v, dout, lse, delta, causal: bool = True,
+                              rope_theta: float | None = None):
+    """(dq [B, H, S, D], dk, dv [B, KH, S, D]) f32 bounds of what the bf16
+    v2 backward kernels' roundings move each element by, from the same
+    residuals:
+
+    1. ``reference_bwd_rounding``'s terms on ``_v2_inputs`` (q, k rotated
+       in f32 and k, v repeated to the query heads).  With rope, dS K and
+       dS^T Q take the bf16 hi plane of the rotated operand, a second
+       rounding to 2^-8, so their factor is 2^-7 + 2^-16; p (for dv) and,
+       without rope, ds stay at 2^-8.
+    2. With rope, the scores come from the hi + lo halves, off by at most
+       delta = 3 2^-16 scale sum_i |q_i k_i| (taken at each row's largest),
+       which moves each p and ds by a factor of up to e^delta - 1: per row,
+       u + (e^delta - 1)(1 + u) in place of u.
+    3. dq and dk leave through the transpose rotation, so their terms go
+       through |R^T| (``_rotate_bound``).
+    4. dk and dv are summed over the G query heads of each KV head.
+
+    At G 1 without rope this is ``reference_bwd_rounding``."""
+    qf, kf, vf = _v2_inputs(q, k, v, rope_theta)
+    p, ds = _probs_ds(qf, kf, vf, dout, lse, delta, causal)
+    ds = ds.abs()
+    qa, ka, dout_a = qf.abs(), kf.abs(), dout.float().abs()
+    u = 2.0 ** -8
+    if rope_theta is None:
+        terms = [u * torch.einsum("bhqk,bhkd->bhqd", ds, ka),
+                 u * torch.einsum("bhqk,bhqd->bhkd", ds, qa),
+                 u * torch.einsum("bhqk,bhqd->bhkd", p, dout_a)]
+    else:
+        u_hi = 2.0 ** -7 + 2.0 ** -16
+        dlt = 3 * 2.0 ** -16 * q.shape[-1] ** -0.5 * torch.einsum(
+            "bhqd,bhkd->bhqk", qa, ka).amax(-1, keepdim=True)
+        grow = torch.expm1(dlt)                                  # [B, H, S, 1]
+        ds_w = ds * (u_hi + grow * (1 + u_hi))
+        p_w = p * (u + grow * (1 + u))
+        terms = [torch.einsum("bhqk,bhkd->bhqd", ds_w, ka),
+                 torch.einsum("bhqk,bhqd->bhkd", ds_w, qa),
+                 torch.einsum("bhqk,bhqd->bhkd", p_w, dout_a)]
+        terms[0] = _rotate_bound(terms[0], rope_theta)
+    B, KH, S, D = k.shape
+    dk_t, dv_t = (t.view(B, KH, -1, S, D).sum(2) for t in terms[1:])
+    if rope_theta is not None:
+        dk_t = _rotate_bound(dk_t, rope_theta)
+    return terms[0], dk_t, dv_t
+
+
 # -- the plan ---------------------------------------------------------------
 
 def flash_plan(d_head: int, dtype, block_q: int | None = None,
@@ -229,10 +310,10 @@ def flash_plan(d_head: int, dtype, block_q: int | None = None,
 
     The TPU's rules do not carry over: blocks there were 512x512 and had
     to meet Mosaic's (sublane, 128) tiling.  On the card every kernel
-    walks 64-row query tiles against 64-row K/V tiles (the bf16 forwards
-    and v1's bf16 backward on the tensor cores, 16 query or key rows a
-    warp, v1's dk/dv taking each query tile in two halves of 32; the rest
-    on the CUDA cores, 4x4 scores a thread), and the ragged tail of a
+    walks 64-row query tiles against 64-row K/V tiles (the bf16 kernels
+    on the tensor cores, 16 query or key rows a warp, dk/dv taking each
+    query tile in two halves of 32; the float32 ones on the CUDA cores,
+    4x4 scores a thread), and the ragged tail of a
     sequence is masked in-kernel, so any sequence length runs.
     ``block_q``/``block_k`` may name the tile, which must then be the
     compiled 64."""
@@ -295,16 +376,18 @@ def describe_train_attention(cfg) -> str:
 
 # -- the kernels ------------------------------------------------------------
 
-def _load(name: str, tails: dict, fwd_ptrs: int = 5):
+def _load(name: str, tails: dict, ptrs: dict | None = None):
     """The ctypes handle of ``csrc/<name>.cu``: its ``<name>_fwd``,
-    ``_bwd_dq`` and ``_bwd_dkv`` entries take ``fwd_ptrs``, 7 and 8
-    pointers, then the arguments in ``tails[kind]`` (the forward's where
-    ``kind`` is missing), and return an int code that
-    ``<name>_error_string`` names."""
+    ``_bwd_dq`` and ``_bwd_dkv`` entries (and any other ``kind`` in
+    ``ptrs``) take ``ptrs[kind]`` pointers (5, 7 and 8 by default), then
+    the arguments in ``tails[kind]`` (the forward's where ``kind`` is
+    missing), and return an int code that ``<name>_error_string``
+    names."""
     from . import _build
 
     lib = _build.load(name)
-    for kind, n_ptrs in (("fwd", fwd_ptrs), ("bwd_dq", 7), ("bwd_dkv", 8)):
+    ptrs = ptrs or {"fwd": 5, "bwd_dq": 7, "bwd_dkv": 8}
+    for kind, n_ptrs in ptrs.items():
         fn = getattr(lib, f"{name}_{kind}")
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs
                        + tails.get(kind, tails["fwd"]))
@@ -327,14 +410,17 @@ def _kernel():
 def _kernel_v2():
     global _lib_v2
     if _lib_v2 is None:
-        # [fwd: scratch,] BKH, G, S, D, causal, scale, rope, rope_c,
-        # [pipeline,] dtype, stream
+        # (pointers, planes,) BKH, G, S, D, causal, scale, rope, rope_c,
+        # [pipeline,] dtype, stream; the pre-pass: (q, k, planes,) BKH, G,
+        # S, D, rope_c, stream
         head = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_float]
-        tail = [ctypes.c_int, ctypes.c_void_p]
+        tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         _lib_v2 = _load("flash_attention_v2", {
-            "fwd": head + [ctypes.c_int] + tail, "bwd_dkv": head + tail},
-            fwd_ptrs=6)
+            "fwd": head + tail, "bwd_dkv": head + tail[1:],
+            "rope_split": [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                ctypes.c_void_p]},
+            {"fwd": 6, "bwd_dq": 8, "bwd_dkv": 9, "rope_split": 3})
     return _lib_v2
 
 
@@ -452,43 +538,87 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, causal: bool):
     return dk, dv
 
 
+def flash_v2_rope_split(q, k, rope_theta):
+    """The pre-pass of the bf16 v2 kernels with rope: contiguous bf16 q
+    [B, H, S, D] and k [B, KH, S, D] on the card rotated in f32 at
+    positions ``arange(S)`` and split into bf16 halves hi + lo (hi =
+    bf16(x), lo = bf16(x - hi)), in one launch -> a flat bf16 buffer of
+    2 * (q + k) values: q's hi and lo planes, then k's.  Tensors on the
+    CPU take the plain version (``reference_rope_split``)."""
+    global plain_count
+    if rope_theta is None:
+        raise ValueError("the rope pre-pass needs rope_theta")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the rope pre-pass takes bfloat16, got {q.dtype}")
+    if q.device.type != "cuda":
+        plain_count += 1
+        return reference_rope_split(q, k, rope_theta)
+    _check_v2(q, k, {"q": q}, {"k": k})
+    planes = torch.empty(2 * (q.numel() + k.numel()), dtype=q.dtype,
+                         device=q.device)
+    bkh, grp, s, d, _, _, _, rope_c = _common_v2(q, k, True, rope_theta)
+    lib = _kernel_v2()
+    rc = lib.flash_attention_v2_rope_split(
+        q.data_ptr(), k.data_ptr(), planes.data_ptr(), bkh, grp, s, d, rope_c,
+        _stream(q))
+    _raise_on(rc, "flash_v2_rope_split", lib.flash_attention_v2_error_string)
+    prepass_counts["flash_v2_rope_split"] += 1
+    return planes
+
+
+def _v2_planes(q, k, rope_theta, planes):
+    """The pre-pass's planes where the kernels take them (bf16 with rope):
+    ``planes`` as given, or made here; else None."""
+    if q.dtype != torch.bfloat16 or rope_theta is None:
+        return None
+    if planes is None:
+        return flash_v2_rope_split(q, k, rope_theta)
+    if (planes.dtype != q.dtype or planes.device != q.device
+            or planes.numel() != 2 * (q.numel() + k.numel())
+            or not planes.is_contiguous()):
+        raise ValueError(f"planes: expected {2 * (q.numel() + k.numel())} "
+                         f"contiguous {q.dtype} values on {q.device}")
+    return planes
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def flash_v2_forward(q, k, v, causal: bool, rope_theta=None,
                      q_pipeline: int = 1):
     """v2 forward kernel: contiguous q [B, H, S, D] and k, v [B, KH, S, D]
     on the card -> (out [B, H, S, D] in q.dtype, lse [B, H, S] f32), with
     q and k rotated in the kernel when ``rope_theta``.  In bf16 with rope
-    the call first rotates q and k once into a scratch buffer of their
-    bf16 hi and lo halves (2 * (q + k) values), which the tensor-core
-    forward stages."""
+    the call first runs the pre-pass (``flash_v2_rope_split``), whose
+    planes the tensor-core forward stages."""
     _check_v2(q, k, {"q": q}, {"k": k, "v": v})
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    scratch = (torch.empty(2 * (q.numel() + k.numel()), dtype=q.dtype,
-                           device=q.device)
-               if q.dtype == torch.bfloat16 and rope_theta is not None
-               else None)
+    planes = _v2_planes(q, k, rope_theta, None)
     lib = _kernel_v2()
     rc = lib.flash_attention_v2_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-        *_common_v2(q, k, causal, rope_theta), q_pipeline,
-        _DTYPE_CODES[q.dtype], _stream(q))
+        lse.data_ptr(), _ptr(planes), *_common_v2(q, k, causal, rope_theta),
+        q_pipeline, _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on(rc, "flash_v2_fwd", lib.flash_attention_v2_error_string)
     launch_counts["flash_v2_fwd"] += 1
     return out, lse
 
 
 def flash_v2_backward_dq(q, k, v, dout, lse, delta, causal: bool,
-                         rope_theta=None, q_pipeline: int = 1):
+                         rope_theta=None, q_pipeline: int = 1, planes=None):
     """v2 dq kernel: dq accumulated in the rotated basis, written through
-    the transpose rotation; dq [B, H, S, D] in q.dtype."""
+    the transpose rotation; dq [B, H, S, D] in q.dtype.  In bf16 with rope
+    it takes the pre-pass's ``planes``, made here when not given."""
     _check_v2(q, k, {"q": q, "dout": dout}, {"k": k, "v": v},
               {"lse": lse, "delta": delta})
+    planes = _v2_planes(q, k, rope_theta, planes)
     dq = torch.empty_like(q)
     lib = _kernel_v2()
     rc = lib.flash_attention_v2_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(planes),
         *_common_v2(q, k, causal, rope_theta), q_pipeline,
         _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on(rc, "flash_v2_bwd_dq", lib.flash_attention_v2_error_string)
@@ -497,20 +627,21 @@ def flash_v2_backward_dq(q, k, v, dout, lse, delta, causal: bool,
 
 
 def flash_v2_backward_dkv(q, k, v, dout, lse, delta, causal: bool,
-                          rope_theta=None):
+                          rope_theta=None, planes=None):
     """v2 dk/dv kernel: dk and dv [B, KH, S, D] summed over the G query
     heads of each KV head in one block, dk through the transpose
-    rotation."""
+    rotation.  ``planes`` as for dq."""
     _check_v2(q, k, {"q": q, "dout": dout}, {"k": k, "v": v},
               {"lse": lse, "delta": delta})
+    planes = _v2_planes(q, k, rope_theta, planes)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _kernel_v2()
     rc = lib.flash_attention_v2_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_common_v2(q, k, causal, rope_theta), _DTYPE_CODES[q.dtype],
-        _stream(q))
+        _ptr(planes), *_common_v2(q, k, causal, rope_theta),
+        _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on(rc, "flash_v2_bwd_dkv", lib.flash_attention_v2_error_string)
     launch_counts["flash_v2_bwd_dkv"] += 1
     return dk, dv
@@ -568,9 +699,12 @@ class _FlashAttentionV2(torch.autograd.Function):
     def backward(ctx, g_out, g_lse):
         q, k, v, out, lse = ctx.saved_tensors
         g_out, delta = _delta(out, g_out, g_lse)
+        # One pre-pass (bf16 with rope) for both kernels.
+        planes = _v2_planes(q, k, ctx.args[1], None)
         dq = flash_v2_backward_dq(q, k, v, g_out, lse, delta, *ctx.args,
-                                  ctx.q_pipeline)
-        dk, dv = flash_v2_backward_dkv(q, k, v, g_out, lse, delta, *ctx.args)
+                                  ctx.q_pipeline, planes)
+        dk, dv = flash_v2_backward_dkv(q, k, v, g_out, lse, delta, *ctx.args,
+                                       planes)
         return dq, dk, dv, None, None, None
 
 

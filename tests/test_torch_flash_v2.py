@@ -142,6 +142,162 @@ def test_plain_backward_kernels_match_autograd(kh, causal, rope):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5)
 
 
+def _split(x):
+    """x = hi + lo in bf16 halves, as the kernels' pre-pass splits it."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _emulated_bf16_backward(q, k, v, g, lse, delta, causal, theta,
+                            lo=True):
+    """The bf16 v2 backward kernels' arithmetic in plain f32 torch: with
+    rope, q and k rotated and split into hi + lo, the scores from three
+    products (from the hi planes alone when not ``lo``) and dS K, dS^T Q on
+    the hi planes; p and ds rounded to bf16; dk and dv summed over each KV
+    head's G query heads; dq and dk through the transpose rotation."""
+    grp = q.shape[1] // k.shape[1]
+    qf, kf = q.float(), k.float()
+    if theta is not None:
+        (q_hi, q_lo), (k_hi, k_lo) = (_split(fa.rope_block(x, 0, theta))
+                                      for x in (qf, kf))
+        if not lo:
+            q_lo, k_lo = torch.zeros_like(q_lo), torch.zeros_like(k_lo)
+    else:
+        q_hi, k_hi = qf, kf
+        q_lo, k_lo = torch.zeros_like(qf), torch.zeros_like(kf)
+    k_hi, k_lo, vr = (x.repeat_interleave(grp, dim=1)
+                      for x in (k_hi, k_lo, v))
+    mm = lambda a, b: torch.einsum("bhqd,bhkd->bhqk", a, b)  # noqa: E731
+    s = ((mm(q_hi, k_hi) + mm(q_hi, k_lo) + mm(q_lo, k_hi))
+         * q.shape[-1] ** -0.5)
+    if causal:
+        n = s.shape[-1]
+        s = torch.where(torch.ones(n, n, dtype=torch.bool).tril(), s,
+                        fa.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (mm(g, vr) - delta[..., None]) * q.shape[-1] ** -0.5
+    p16, ds16 = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds16, k_hi)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds16, q_hi)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p16, g)
+    b, kh, s_len, d = k.shape
+    dk, dv = (x.view(b, kh, grp, s_len, d).sum(2) for x in (dk, dv))
+    if theta is not None:
+        dq, dk = (fa.rope_block(x, 0, theta, sign=-1.0) for x in (dq, dk))
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("kh", [4, 2, 1])  # G 1 / 2 / 4
+def test_bf16_backward_rounding_within_its_bound(kh, rope, causal, d):
+    """The bf16 v2 backward kernels' roundings, emulated in plain torch on
+    bf16 values (``_emulated_bf16_backward``), move each gradient by no
+    more than ``reference_bwd_rounding_v2``'s term plus 1e-6 of the
+    largest value (f32 summation order) from the f32 plain versions; and
+    the rounding does move them.  With rope, dq goes past v1's plain 2^-8
+    term on the rotated, repeated inputs: the split's and the hi plane's
+    terms are needed."""
+    theta = THETA if rope else None
+    q, k, v, g, g_lse = (torch.from_numpy(np.asarray(x, np.float32)) for x in
+                         _inputs(9 + kh, "bfloat16", kh, (2, 4, 100, d)))
+    out, lse = fa.reference_attention_v2_lse(q, k, v, causal, theta)
+    delta = (g * out).sum(-1) - g_lse
+    got = _emulated_bf16_backward(q, k, v, g, lse, delta, causal, theta)
+    ref = (fa.reference_bwd_dq_v2(q, k, v, g, lse, delta, causal, theta),
+           *fa.reference_bwd_dkv_v2(q, k, v, g, lse, delta, causal, theta))
+    terms = fa.reference_bwd_rounding_v2(q, k, v, g, lse, delta, causal,
+                                         theta)
+    for name, x, r, t in zip(("dq", "dk", "dv"), got, ref, terms):
+        assert x.shape == r.shape == t.shape, name
+        diff = (x - r).abs()
+        assert bool((diff <= t + 1e-6 * r.abs().max()).all()), name
+        assert float(diff.max()) > 1e-6 * float(r.abs().max()), name
+    if rope:
+        v1_dq = fa.reference_bwd_rounding(*fa._v2_inputs(q, k, v, theta), g,
+                                          lse, delta, causal)[0]
+        slack = 1e-6 * ref[0].abs().max()
+        assert bool(((got[0] - ref[0]).abs() > v1_dq + slack).any())
+
+
+def _beyond_bound(got, q, k, v, g, lse, delta, causal, theta):
+    """Per gradient (dq, dk, dv), the largest ratio of its distance from
+    the f32 plain version to 2^-7 |r| + ``reference_bwd_rounding_v2``'s
+    term + 1e-4 max|r|, the limit the bf16 kernels are held to."""
+    ref = (fa.reference_bwd_dq_v2(q, k, v, g, lse, delta, causal, theta),
+           *fa.reference_bwd_dkv_v2(q, k, v, g, lse, delta, causal, theta))
+    terms = fa.reference_bwd_rounding_v2(q, k, v, g, lse, delta, causal,
+                                         theta)
+    return [float(((x.float() - r).abs()
+                   / (2.0 ** -7 * r.abs() + t + 1e-4 * r.abs().max())).max())
+            for x, r, t in zip(got, ref, terms)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kh", [4, 2, 1])  # G 1 / 2 / 4
+def test_bf16_backward_needs_the_lo_products(kh, causal, d):
+    """With rope, the scores' lo products are what keeps the bf16 backward
+    within its bound once scores spread: at q and k twice as wide as unit
+    normals (scores of standard deviation 4), the emulated kernels stay
+    within ``reference_bwd_rounding_v2``'s limit, and the same arithmetic
+    with the scores from the hi planes alone goes past it in every
+    gradient (each rounded rotated value is off by up to 2^-8, so each
+    score by up to 2^-8 scale sum_i |q_i k_i|, which the bound's split term
+    does not cover)."""
+    q, k, v, g, g_lse = (torch.from_numpy(np.asarray(x, np.float32)) for x in
+                         _inputs(30 + kh, "bfloat16", kh, (2, 4, 100, d)))
+    q, k = 2 * q, 2 * k  # exact: still bf16 values
+    out, lse = fa.reference_attention_v2_lse(q, k, v, causal, THETA)
+    delta = (g * out).sum(-1) - g_lse
+    args = (q, k, v, g, lse, delta, causal, THETA)
+    split = _beyond_bound(_emulated_bf16_backward(*args), *args)
+    hi_only = _beyond_bound(_emulated_bf16_backward(*args, lo=False), *args)
+    assert max(split) <= 1.0, split
+    assert min(hi_only) > 1.0, hi_only
+
+
+def test_rope_split_plain_version():
+    """The pre-pass's plain version, which ``flash_v2_rope_split`` takes for
+    CPU tensors: q's hi and lo planes, then k's, each hi the rotated value
+    rounded to bf16 and hi + lo within 2^-16 of it."""
+    q, k, _, _, _ = (torch.from_numpy(np.asarray(x, np.float32)) for x in
+                     _inputs(22, "bfloat16", 2, (2, 4, 70, 32)))
+    q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    fa.reset_counts()
+    planes = fa.flash_v2_rope_split(q, k, THETA)
+    assert fa.plain_count == 1 and fa.prepass_counts[
+        "flash_v2_rope_split"] == 0
+    assert planes.dtype == torch.bfloat16
+    assert planes.numel() == 2 * (q.numel() + k.numel())
+    n = q.numel()
+    for x, (hi, lo) in ((q, (planes[:n], planes[n:2 * n])),
+                        (k, (planes[2 * n:2 * n + k.numel()],
+                             planes[2 * n + k.numel():]))):
+        r = fa.rope_block(x.float(), 0, THETA).reshape(-1)
+        assert torch.equal(hi, r.to(torch.bfloat16))
+        rebuilt = hi.float() + lo.float()
+        assert bool(((rebuilt - r).abs() <= 2.0 ** -16 * r.abs()).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_rounding_bound_reduces_to_v1(causal):
+    """At G 1 without rope the v2 bound is ``reference_bwd_rounding``'s,
+    value for value; with rope it is larger."""
+    q, k, v, g, g_lse = (torch.from_numpy(np.asarray(x, np.float32)) for x in
+                         _inputs(21, "bfloat16", 4, (1, 4, 70, 16)))
+    out, lse = fa.reference_attention_lse(q, k, v, causal)
+    delta = (g * out).sum(-1) - g_lse
+    v1 = fa.reference_bwd_rounding(q, k, v, g, lse, delta, causal)
+    v2 = fa.reference_bwd_rounding_v2(q, k, v, g, lse, delta, causal)
+    for a, b in zip(v1, v2):
+        assert torch.equal(a, b)
+    roped = fa.reference_bwd_rounding_v2(q, k, v, g, lse, delta, causal,
+                                         THETA)
+    assert all(float(t.sum()) > float(a.sum()) for t, a in zip(roped, v1))
+
+
 def test_validation_errors():
     """The reference's errors (``tests/test_flash_v2.py``), on the CPU."""
     q, k, v, _, _ = (torch.from_numpy(x) for x in _inputs(13, "float32", 4))
@@ -324,6 +480,92 @@ def test_cuda_bf16_forward_on_tensor_cores(cuda, d, s, h, kh, pipeline,
         "bhqd,bhkd->bhqk", qr.abs(), kr.abs()).amax(-1)
     assert bool(((lse - ref_lse).abs()
                  <= 1e-5 * ref_lse.abs().max() + split).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kh,pipeline,causal,rope", [
+    (4, 4, 2, True, True),    # G 1: a block's two tiles are neighbours
+    (4, 2, 1, True, True),    # G 2
+    (4, 1, 2, True, True),    # G 4 (MQA)
+    (4, 1, 1, False, True),
+    (4, 2, 2, False, False),  # no rope: no lo planes, no rotation
+])
+@pytest.mark.parametrize("s", [1, 63, 65, 100, 1000])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cuda_bf16_backward_on_tensor_cores(cuda, d, s, h, kh, pipeline,
+                                            causal, rope):
+    """The bf16 v2 dq and dk/dv kernels (tensor cores; with rope one
+    pre-pass of hi + lo planes for both, three products for the scores,
+    dS K and dS^T Q on the hi planes, the transpose rotation on the f32
+    accumulators) alone against the plain versions in float32 on the same
+    values and the same lse and delta, element by element: within 2^-7 |r|
+    (the output's own rounding) + ``reference_bwd_rounding_v2``'s term +
+    1e-4 max|r| (summation order)."""
+    theta = THETA if rope else None
+    q, k, v, g, g_lse = (torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+                         for x in _inputs(8, "bfloat16", kh, (2, h, s, d)))
+    out, lse = fa.reference_attention_v2_lse(q, k, v, causal, theta)
+    delta = ((g * out).sum(-1) - g_lse).contiguous()
+    fa.reset_counts()
+    low = [t.to(torch.bfloat16) for t in (q, k, v, g)]
+    planes = fa.flash_v2_rope_split(*low[:2], theta) if rope else None
+    dq = fa.flash_v2_backward_dq(*low, lse, delta, causal, theta, pipeline,
+                                 planes)
+    dk, dv = fa.flash_v2_backward_dkv(*low, lse, delta, causal, theta,
+                                      planes)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_v2_bwd_dq"] == 1
+    assert fa.launch_counts["flash_v2_bwd_dkv"] == 1 and fa.plain_count == 0
+    assert fa.prepass_counts["flash_v2_rope_split"] == int(rope)
+    ref = (fa.reference_bwd_dq_v2(q, k, v, g, lse, delta, causal, theta),
+           *fa.reference_bwd_dkv_v2(q, k, v, g, lse, delta, causal, theta))
+    terms = fa.reference_bwd_rounding_v2(q, k, v, g, lse, delta, causal,
+                                         theta)
+    for name, x, r, t in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, terms):
+        limit = 2.0 ** -7 * r.abs() + t + 1e-4 * r.abs().max()
+        assert bool(((x.float() - r).abs() <= limit).all()), name
+
+
+def _hi_planes_only(planes, q, k):
+    """The pre-pass's planes (q's hi and lo, then k's) with both lo planes
+    zeroed: the kernels then take the scores from the hi planes alone."""
+    planes = planes.clone()
+    planes[q.numel():2 * q.numel()] = 0
+    planes[2 * q.numel() + k.numel():] = 0
+    return planes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kh,pipeline,causal", [
+    (4, 4, 2, True), (4, 2, 1, True), (4, 1, 2, False)])
+@pytest.mark.parametrize("s", [100, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_bf16_backward_takes_the_lo_products(cuda, d, s, h, kh,
+                                                  pipeline, causal):
+    """The bf16 v2 dq and dk/dv kernels compute the scores' lo products:
+    at q and k twice as wide as unit normals (scores of standard deviation
+    4, where ``test_bf16_backward_needs_the_lo_products`` shows them
+    needed) every gradient stays within 2^-7 |r| +
+    ``reference_bwd_rounding_v2``'s term + 1e-4 max|r| of the f32 plain
+    version, and the same kernels given the pre-pass's planes with the lo
+    halves zeroed go past that limit in every gradient."""
+    q, k, v, g, g_lse = (torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+                         for x in _inputs(31, "bfloat16", kh, (2, h, s, d)))
+    q, k = 2 * q, 2 * k  # exact: still bf16 values
+    out, lse = fa.reference_attention_v2_lse(q, k, v, causal, THETA)
+    delta = ((g * out).sum(-1) - g_lse).contiguous()
+    low = [t.to(torch.bfloat16) for t in (q, k, v, g)]
+    planes = fa.flash_v2_rope_split(*low[:2], THETA)
+    ratios = []
+    for given in (planes, _hi_planes_only(planes, *low[:2])):
+        dq = fa.flash_v2_backward_dq(*low, lse, delta, causal, THETA,
+                                     pipeline, given)
+        dk, dv = fa.flash_v2_backward_dkv(*low, lse, delta, causal, THETA,
+                                          given)
+        ratios.append(_beyond_bound((dq, dk, dv), q, k, v, g, lse, delta,
+                                    causal, THETA))
+    assert max(ratios[0]) <= 1.0, ratios
+    assert min(ratios[1]) > 1.0, ratios
 
 
 @pytest.mark.gpu

@@ -6,11 +6,12 @@ Builds ``k8s_gpu_tpu_torch/csrc/flash_attention.cu`` and
 ``flash_attention_v2.cu`` with ``-Xptxas -v`` (both reports and both
 libraries side by side) and prints every kernel instance's registers and
 spills, then one row per forward instance (v1 per head width and type, v2
-also per pipeline factor) and one per v1 backward instance (dq, dk/dv per
-head width and type) with its registers, spills, dynamic shared memory
-and design (``mma``: a bf16 tensor-core kernel; ``fma``: an f32 one on
-the CUDA cores).  Then it runs the v1 kernels through
-``flash_attention_lse``'s autograd and the v2 kernels through
+also per pipeline factor) and one per backward instance (v1 dq, dk/dv per
+head width and type; v2 dq also per pipeline factor, v2 dk/dv, and the
+rope pre-pass) with its registers,
+spills, dynamic shared memory and design (``mma``: a bf16 tensor-core
+kernel; ``fma``: an f32 one on the CUDA cores).  Then it runs the v1
+kernels through ``flash_attention_lse``'s autograd and the v2 kernels through
 ``flash_attention_v2_lse``'s (with an lse cotangent; v2 with rope, GQA and
 both pipeline factors) against the float32 plain versions at small shapes
 for every head width in both types, and times the kernels at the training
@@ -18,11 +19,16 @@ shape (q [24, 8, 2048, 128] bf16, causal; v2 with k, v [24, 2, 2048, 128],
 rope and P = 2): each forward beside its useful TFLOP/s (4 D flops per
 visible (query, key) pair) and the SDPA forward on the same shape (v2:
 ``enable_gqa`` on q and k rotated beforehand), then dq and dk/dv of both
-paths over 10 calls each, with delta = rowsum(dO * out) of a random dO,
-beside their TFLOP/s (6 D and 8 D flops a pair) and the SDPA backward's
-(fwd + bwd through autograd minus the fwd, 14 D flops a pair).  A
-shorter loop than ``chip_smoke.py`` for kernel work; it prints relative
-errors and does not judge them.
+paths (the median of 5 means over 10 calls), with delta = rowsum(dO *
+out) of a random dO, beside their TFLOP/s (6 D and 8 D flops a pair) and
+the SDPA backward's (fwd + bwd through autograd minus the fwd, 14 D flops
+a pair): v2 with
+rope (one pre-pass for the pair, timed alone too) and without, dq at P 1
+and 2.  Last, the v2 pair's split control at the training shape
+(``split_control``): how far each gradient sits from its limit with the
+pre-pass's planes and with their lo halves zeroed, at unit-normal q and k
+and at twice that width.  A shorter loop than ``chip_smoke.py`` for kernel
+work; it prints relative errors and ratios and does not judge them.
 """
 
 from __future__ import annotations
@@ -113,25 +119,51 @@ def forward_table(reports: dict) -> None:
                           f"{design}", flush=True)
 
 
+def _row(reports, source, kern) -> dict:
+    return next((r for r in reports[source] if r["kernel"].endswith(kern)),
+                {})
+
+
 def backward_table(reports: dict) -> None:
-    """Registers, spills, shared memory and design of every v1 backward
-    instance."""
+    """Registers, spills, shared memory and design of every backward
+    instance: v1's, then v2's (dq per pipeline factor) and the rope
+    pre-pass."""
     lib = fa._kernel()
     lib.flash_attention_bwd_smem.argtypes = [ctypes.c_int] * 3
-    print("v1 backward instance, registers, spill bytes, dynamic smem bytes, "
+    lib2 = fa._kernel_v2()
+    lib2.flash_attention_v2_bwd_smem.argtypes = [ctypes.c_int] * 4
+    print("backward instance, registers, spill bytes, dynamic smem bytes, "
           "design")
     for dtype, code in fa._DTYPE_CODES.items():
-        design = "mma" if dtype == torch.bfloat16 else "fma"
+        mma = dtype == torch.bfloat16
+        design = "mma" if mma else "fma"
         for d in fa.HEAD_DIMS:
+            rows = []
             for dkv, kind in enumerate(("dq", "dkv")):
-                kern = (f"flash_bwd_{kind}_mma_kernel<{d}>" if design == "mma"
+                kern = (f"flash_bwd_{kind}_mma_kernel<{d}>" if mma
                         else f"flash_bwd_{kind}_kernel<float, {d}>")
-                smem = lib.flash_attention_bwd_smem(d, code, dkv)
-                row = next((r for r in reports["flash_attention"]
-                            if r["kernel"].endswith(kern)), {})
+                rows.append(("flash_attention", kern,
+                             lib.flash_attention_bwd_smem(d, code, dkv)))
+            for p in fa.Q_PIPELINES:
+                kern = (f"flash_v2_bwd_dq_mma_kernel<{d}, {p}>" if mma
+                        else f"flash_v2_bwd_dq_kernel<float, {d}, {p}>")
+                rows.append(("flash_attention_v2", kern,
+                             lib2.flash_attention_v2_bwd_smem(d, code, 0, p)))
+            kern = (f"flash_v2_bwd_dkv_mma_kernel<{d}, 2>" if mma
+                    else f"flash_v2_bwd_dkv_kernel<float, {d}>")
+            rows.append(("flash_attention_v2", kern,
+                         lib2.flash_attention_v2_bwd_smem(d, code, 1, 1)))
+            for source, kern, smem in rows:
+                row = _row(reports, source, kern)
                 print(f"  {kern}: {row.get('registers')} registers, "
                       f"{row.get('spill')} spill bytes, {smem} smem, "
                       f"{design}", flush=True)
+            if mma:
+                row = _row(reports, "flash_attention_v2",
+                           f"flash_v2_rope_split_kernel<{d}>")
+                print(f"  flash_v2_rope_split_kernel<{d}>: "
+                      f"{row.get('registers')} registers, {row.get('spill')} "
+                      f"spill bytes, 0 smem, pre-pass", flush=True)
 
 
 def rel_errors(B, H, S, D, dtype, causal, KH=None, rope=None,
@@ -199,6 +231,56 @@ def sdpa_bwd_ms(q, k, v) -> float:
     return time_ms(both, 10) - sdpa_ms(q, k, v)
 
 
+def timed_bwd(label, fn, per, d_pairs, sdpa) -> None:
+    """A backward kernel's mean over 10 calls, the median of 5 such rounds
+    (the rounds' least and largest beside it), with its TFLOP/s (``per`` D
+    flops a visible pair: dq 6, dk/dv 8) beside the SDPA backward's
+    (14 D)."""
+    rounds = sorted(time_ms(fn, 10) for _ in range(5))
+    ms = rounds[2]
+    print(f"{label} ms", ms, "TFLOP/s", per * d_pairs / ms / 1e9,
+          "SDPA bwd ms", sdpa, "TFLOP/s", 14 * d_pairs / sdpa / 1e9,
+          "rounds min max", rounds[0], rounds[-1], flush=True)
+
+
+def split_control(q, k, v, go, theta=1e4) -> None:
+    """The v2 backward pair (rope, P 2) held to its limit, 2^-7 |r| +
+    ``reference_bwd_rounding_v2``'s term + 1e-4 max|r| against the f32
+    plain versions, at q and k as given and twice as wide (scores of 4x
+    the standard deviation): the worst ratio of error to limit per
+    gradient, with the pre-pass's planes and with their lo halves zeroed
+    (the scores from the hi planes alone)."""
+    for width in (1, 2):
+        qw, kw = width * q, width * k   # exact: still bf16 values
+        out, lse = fa.flash_v2_forward(qw, kw, v, True, theta, 2)
+        delta = (go.float() * out.float()).sum(-1).contiguous()
+        del out
+        planes = fa.flash_v2_rope_split(qw, kw, theta)
+        hi_only = planes.clone()
+        hi_only[q.numel():2 * q.numel()] = 0
+        hi_only[2 * q.numel() + k.numel():] = 0
+        wide = [t.float() for t in (qw, kw, v, go)]
+        with torch.no_grad():
+            ref = (fa.reference_bwd_dq_v2(*wide, lse, delta, True, theta),
+                   *fa.reference_bwd_dkv_v2(*wide, lse, delta, True, theta))
+            terms = fa.reference_bwd_rounding_v2(*wide, lse, delta, True,
+                                                 theta)
+        del wide
+        for label, given in (("planes", planes), ("lo zeroed", hi_only)):
+            got = (fa.flash_v2_backward_dq(qw, kw, v, go, lse, delta, True,
+                                           theta, 2, given),
+                   *fa.flash_v2_backward_dkv(qw, kw, v, go, lse, delta, True,
+                                             theta, given))
+            ratios = [float(((x.float() - r).abs() / (
+                2.0 ** -7 * r.abs() + t + 1e-4 * r.abs().max())).max())
+                for x, r, t in zip(got, ref, terms)]
+            print(f"v2 split control, q and k x{width}, {label}: worst "
+                  "|err| / limit dq dk dv", ["%.3f" % x for x in ratios],
+                  flush=True)
+        del ref, terms, planes, hi_only
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_flash_check: CUDA is not available", file=sys.stderr)
@@ -260,24 +342,34 @@ def main() -> int:
               *(("SDPA fwd ms", lib()) if lib else ()), flush=True)
     go = torch.randn_like(q)
     d_pairs = flops // 4             # D x the visible pairs
-    for label, kk, vv, fwd, bwd in (
-        ("", k, v, lambda: fa.flash_forward(q, k, v, True),
-         (lambda *a: fa.flash_backward_dq(*a, True),
-          lambda *a: fa.flash_backward_dkv(*a, True))),
-        ("v2 ", k2, v2, lambda: fa.flash_v2_forward(q, k2, v2, True, 1e4, 2),
-         (lambda *a: fa.flash_v2_backward_dq(*a, True, 1e4, 2),
-          lambda *a: fa.flash_v2_backward_dkv(*a, True, 1e4))),
-    ):
-        out, lse = fwd()
+    out, lse = fa.flash_forward(q, k, v, True)
+    delta = (go.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, go, lse, delta)
+    sdpa = sdpa_bwd_ms(q, k, v)
+    timed_bwd("dq", lambda: fa.flash_backward_dq(*args, True), 6, d_pairs,
+              sdpa)
+    timed_bwd("dkv", lambda: fa.flash_backward_dkv(*args, True), 8, d_pairs,
+              sdpa)
+    for rope in (1e4, None):
+        out, lse = fa.flash_v2_forward(q, k2, v2, True, rope, 2)
         delta = (go.float() * out.float()).sum(-1).contiguous()
-        args = (q, kk, vv, go, lse, delta)
-        sdpa = sdpa_bwd_ms(*((fa.rope_rotate(q, 1e4), fa.rope_rotate(kk, 1e4))
-                            if label else (q, kk)), vv)
-        for name, fn, per in (("dq", bwd[0], 6), ("dkv", bwd[1], 8)):
-            ms = time_ms(lambda: fn(*args), 10)
-            print(f"{label}{name} ms", ms, "TFLOP/s", per * d_pairs / ms / 1e9,
-                  "SDPA bwd ms", sdpa, "TFLOP/s", 14 * d_pairs / sdpa / 1e9,
+        args = (q, k2, v2, go, lse, delta)
+        planes = fa._v2_planes(q, k2, rope, None)
+        if planes is not None:
+            print("v2 rope pre-pass ms",
+                  time_ms(lambda: fa.flash_v2_rope_split(q, k2, rope), 10),
                   flush=True)
+        sdpa = sdpa_bwd_ms(*((fa.rope_rotate(q, rope),
+                              fa.rope_rotate(k2, rope)) if rope else (q, k2)),
+                           v2)
+        label = "v2 rope" if rope else "v2 no rope"
+        for p in fa.Q_PIPELINES:
+            timed_bwd(f"{label} dq P {p}", lambda: fa.flash_v2_backward_dq(
+                *args, True, rope, p, planes), 6, d_pairs, sdpa)
+        timed_bwd(f"{label} dkv", lambda: fa.flash_v2_backward_dkv(
+            *args, True, rope, planes), 8, d_pairs, sdpa)
+    del args, planes, out, lse, delta
+    split_control(q, k2, v2, go)
     return 0
 
 
