@@ -16,7 +16,14 @@ Phases, each of which fails the run on any error:
    time, the time of a PyTorch library call computing the same function,
    and the least time the card could take (bytes over 3.35 TB/s or
    operations over the type's peak, whichever is larger): the paged
-   attention kernel, then the three flash-attention kernels (forward, dq,
+   attention kernel (decode, admission windows, ragged GQA rows and a
+   cold admission of a 512-token window from position 0, each with its
+   route's design, ``cuda-splitk``, ``cuda-mma`` or ``cuda-fma``, the
+   splits its row tiles took as the kernel counted them (held against
+   the planner's ``tile_splits``) and the grid's splits a tile; the
+   ragged and cold cases also with poisoned trash and unowned blocks;
+   decode_bf16 timed again on three pools made anew, the yardstick's
+   spread), then the three flash-attention kernels (forward, dq,
    dk/dv; in bf16 all three on the tensor cores, held with terms for
    their roundings of p and ds to bf16), each alone on the same inputs
    and together through autograd with an lse cotangent, at the flagship
@@ -59,7 +66,10 @@ Phases, each of which fails the run on any error:
 
 It prints a ``{"kernels": [...]}`` line (each flash entry also with its
 useful TFLOP/s and ``design``: ``cuda-mma`` for the tensor-core instance
-that was timed, ``cuda-fma`` for one on the CUDA cores), then as its last
+that was timed, ``cuda-fma`` for one on the CUDA cores; the paged entry
+with the decode case's design, the most splits a row tile took and the
+grid's splits a tile, and the same with the ms, bound and library ms of
+the window and cold-admission cases beside them), then as its last
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 port beside it, it exits non-zero and prints no result.  ``--json PATH``
 also writes every measured number to PATH.
@@ -89,10 +99,11 @@ KERNEL_SOURCES = ("paged_attention", "flash_attention",
 # and int8: the plain version rounds scores and probabilities to bf16 and
 # the kernel keeps them in f32; the worst reading at the flagship shapes
 # was 6.8e-3 (outputs there are about 0.03 in size), so this limit only
-# ties the two together.  The tight check of those types is against the
-# plain version in float32 on the same values: the kernel then differs
-# only by rounding its output to bf16, at most half a bf16 step
-# (2**-8 of the value), held at F32_REF_RTOL.
+# ties the two together (where outputs are larger: one bf16 step of the
+# largest value, FLASH_SAME_TYPE_REL).  The tight check of those types is
+# against the plain version in float32 on the same values: the kernel
+# then differs only by rounding its output to bf16, at most half a bf16
+# step (2**-8 of the value), held at F32_REF_RTOL.
 F32_TOL = 1e-4
 BF16_TOL = 1e-2
 F32_REF_ATOL, F32_REF_RTOL = 1e-5, 2.0 ** -7
@@ -129,11 +140,14 @@ def _type_name(dtype) -> str:
 
 
 def _pa_case(torch, gen, *, B, Sq, H, KH, Dh, page, t_hi, dtype, quant,
-             ragged, dev):
-    """Pool, tables and positions for one kernel case.  Row b owns its own
-    blocks; with ``ragged`` rows own different page counts and dead table
-    entries point at trash block 0.  Returns the operands and the mask of
-    blocks some row owns."""
+             layout, dev):
+    """Pool, tables and positions for one kernel case.  ``full``: row b
+    owns its own blocks and its window ends the cache; ``ragged``: rows
+    own different page counts and dead table entries point at trash
+    block 0; ``cold``: a cold admission, the window [0, Sq) in the row's
+    first Sq / page blocks, trash past them and other tenants' blocks in
+    the pool.  Returns the operands and the mask of blocks some row
+    owns."""
     MP = t_hi // page
     NB = 1 + B * MP
     q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev).to(dtype)
@@ -141,10 +155,16 @@ def _pa_case(torch, gen, *, B, Sq, H, KH, Dh, page, t_hi, dtype, quant,
     start = torch.zeros(B, dtype=torch.int32)
     kv_start = torch.zeros(B, dtype=torch.int32)
     for b in range(B):
-        live = max(1, MP - (b % 4) * (MP // 4)) if ragged else MP
+        if layout == "cold":
+            live = -(-Sq // page)
+        elif layout == "ragged":
+            live = max(1, MP - (b % 4) * (MP // 4))
+        else:
+            live = MP
         pages[b, :live] = torch.arange(1 + b * MP, 1 + b * MP + live)
-        start[b] = live * page - Sq - (b % 3)
-        kv_start[b] = (b % 2) * (page // 2) if ragged else 0
+        if layout != "cold":
+            start[b] = live * page - Sq - (b % 3)
+        kv_start[b] = (b % 2) * (page // 2) if layout == "ragged" else 0
     owned = torch.zeros(NB, dtype=torch.bool)
     owned[pages[pages > 0].long()] = True
     kf = torch.randn(NB, KH, page, Dh, generator=gen, device=dev)
@@ -243,6 +263,9 @@ def _pa_library(torch, ops, *, page, t_hi):
     return o.transpose(1, 2)
 
 
+PA_SPREAD_RUNS = 3  # decode_bf16 timed again on pools made anew
+
+
 def check_paged_attention(torch, seed: int) -> list[dict]:
     from k8s_gpu_tpu_torch.ops import paged_attention as pa
 
@@ -250,26 +273,35 @@ def check_paged_attention(torch, seed: int) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(seed)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
-        # name, B, Sq, H, KH, Dh, page, t_hi, q dtype, int8 pool, ragged
-        ("decode_f32", 8, 1, 8, 8, 128, 64, 2048, f32, False, False),
-        ("decode_bf16", 8, 1, 8, 8, 128, 64, 2048, bf16, False, False),
-        ("decode_int8", 8, 1, 8, 8, 128, 64, 2048, bf16, True, False),
-        ("window_f32", 1, 512, 8, 8, 128, 64, 2048, f32, False, False),
-        ("window_bf16", 1, 512, 8, 8, 128, 64, 2048, bf16, False, False),
-        ("window_int8", 1, 512, 8, 8, 128, 64, 2048, bf16, True, False),
-        ("gqa_ragged_f32", 8, 1, 32, 8, 128, 64, 2048, f32, False, True),
-        ("gqa_ragged_bf16", 8, 1, 32, 8, 128, 64, 2048, bf16, False, True),
-        ("gqa_ragged_int8", 8, 4, 32, 8, 128, 64, 2048, bf16, True, True),
+        # name, B, Sq, H, KH, Dh, page, t_hi, q dtype, int8 pool, layout
+        ("decode_f32", 8, 1, 8, 8, 128, 64, 2048, f32, False, "full"),
+        ("decode_bf16", 8, 1, 8, 8, 128, 64, 2048, bf16, False, "full"),
+        ("decode_int8", 8, 1, 8, 8, 128, 64, 2048, bf16, True, "full"),
+        ("window_f32", 1, 512, 8, 8, 128, 64, 2048, f32, False, "full"),
+        ("window_bf16", 1, 512, 8, 8, 128, 64, 2048, bf16, False, "full"),
+        ("window_int8", 1, 512, 8, 8, 128, 64, 2048, bf16, True, "full"),
+        ("gqa_ragged_f32", 8, 1, 32, 8, 128, 64, 2048, f32, False, "ragged"),
+        ("gqa_ragged_bf16", 8, 1, 32, 8, 128, 64, 2048, bf16, False,
+         "ragged"),
+        ("gqa_ragged_int8", 8, 4, 32, 8, 128, 64, 2048, bf16, True,
+         "ragged"),
+        # What _admit_paged_dev gives the kernel on a cold admission: a
+        # 512-token window from position 0, read bound max_seq.
+        ("admit_cold_bf16", 1, 512, 8, 8, 128, 64, 2048, bf16, False,
+         "cold"),
     ]
     results = []
-    for name, B, Sq, H, KH, Dh, page, t_hi, dtype, quant, ragged in cases:
+    for name, B, Sq, H, KH, Dh, page, t_hi, dtype, quant, layout in cases:
         ops, owned = _pa_case(
             torch, gen, B=B, Sq=Sq, H=H, KH=KH, Dh=Dh, page=page, t_hi=t_hi,
-            dtype=dtype, quant=quant, ragged=ragged, dev=dev)
+            dtype=dtype, quant=quant, layout=layout, dev=dev)
         args = (ops["q"], ops["k"], ops["v"], ops["pages"], ops["start"],
                 ops["kv_start"])
         kw = dict(page=page, t_hi=t_hi, k_scale=ops["k_scale"],
                   v_scale=ops["v_scale"])
+        cut = pa.plan(ops["q"].shape, dtype, KH, page=page, t_hi=t_hi,
+                      n_sms=pa.sm_count(dev))
+        design = cut.design
         before = pa.launch_count
         out = pa.paged_attention(*args, **kw)
         torch.cuda.synchronize()
@@ -277,26 +309,50 @@ def check_paged_attention(torch, seed: int) -> list[dict]:
             raise RuntimeError(f"{name}: the kernel was not launched")
         if not bool(torch.isfinite(out).all()):
             raise RuntimeError(f"{name}: non-finite kernel output")
+        # The splits each row tile took, as the kernel counted them, held
+        # against the planner's mirror (tile_splits); the grid has
+        # cut.splits blocks a tile.
+        again, used = pa._launch(*args, page, t_hi, ops["k_scale"],
+                                 ops["v_scale"], count_splits=True)
+        want = pa.tile_splits(
+            ops["start"].tolist(), ops["kv_start"].tolist(), Sq=Sq,
+            G=H // KH, rows=cut.rows, splits=cut.splits,
+            min_pages=cut.min_pages, page=page, t_hi=t_hi)
+        if used.tolist() != [[row] * KH for row in want]:
+            raise RuntimeError(f"{name}: the kernel's splits a tile "
+                               f"{used.tolist()} differ from the planner's")
+        if not torch.equal(again, out):
+            raise RuntimeError(f"{name}: two calls differ")
+        tiles = [n for row in want for n in row]
+        splits = max(tiles)
+        split_hist = {str(n): tiles.count(n) for n in sorted(set(tiles))}
         ref = pa.paged_attention_reference(*args, **kw)
         err = float((out.float() - ref.float()).abs().max())
-        tol = F32_TOL if dtype == f32 else BF16_TOL
+        # A window from position 0 has rows that see a few positions, so
+        # outputs the size of V (~4): one bf16 step there exceeds BF16_TOL.
+        tol = F32_TOL if dtype == f32 else max(
+            BF16_TOL, FLASH_SAME_TYPE_REL * float(ref.float().abs().max()))
         if not err <= tol:
             raise RuntimeError(
                 f"{name}: kernel vs plain max_abs_err {err} > {tol}")
         err_f32 = err
         if dtype != f32:
-            # bf16 -> f32 is exact; an int8 pool and the tables stay.
+            # bf16 -> f32 is exact; an int8 pool and the tables stay.  The
+            # tensor-core route also rounds p * v_scale to bf16 before
+            # P V: its limit adds that rounding's bound.
             wide = [a.float() if a.is_floating_point() else a for a in args]
             ref32 = pa.paged_attention_reference(*wide, **kw)
             diff = (out.float() - ref32).abs()
             err_f32 = float(diff.max())
-            if not bool((diff <= F32_REF_ATOL
-                         + F32_REF_RTOL * ref32.abs()).all()):
+            lim = F32_REF_ATOL + F32_REF_RTOL * ref32.abs()
+            if design == "cuda-mma":
+                lim = lim + pa.reference_p_rounding(*args, **kw)
+            if not bool((diff <= lim).all()):
                 raise RuntimeError(
                     f"{name}: kernel vs float32 plain version beyond atol "
-                    f"{F32_REF_ATOL} + rtol {F32_REF_RTOL} (max abs "
-                    f"{err_f32})")
-        if ragged:
+                    f"{F32_REF_ATOL} + rtol {F32_REF_RTOL} (+ the p "
+                    f"rounding on the tensor cores; max abs {err_f32})")
+        if layout != "full":
             bad = _poisoned(ops, owned)
             out_p = pa.paged_attention(
                 bad["q"], bad["k"], bad["v"], bad["pages"], bad["start"],
@@ -315,11 +371,32 @@ def check_paged_attention(torch, seed: int) -> list[dict]:
             "case": name, "B": B, "Sq": Sq, "H": H, "KH": KH, "Dh": Dh,
             "page": page, "t_hi": t_hi, "q": _type_name(dtype),
             "kv": "int8" if quant else _type_name(dtype),
+            "design": design, "splits": splits, "split_tiles": split_hist,
+            "grid_splits": cut.splits,
             "max_abs_err": err, "tol": tol, "max_abs_err_vs_f32": err_f32,
             "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        if name == "decode_bf16":
+            # The yardstick's reading moves from run to run: time kernel
+            # and yardstick again, each time on a pool made anew.
+            del ops, args, out, ref
+            spread = []
+            for _ in range(PA_SPREAD_RUNS):
+                o2, _ = _pa_case(
+                    torch, gen, B=B, Sq=Sq, H=H, KH=KH, Dh=Dh, page=page,
+                    t_hi=t_hi, dtype=dtype, quant=quant, layout=layout,
+                    dev=dev)
+                a2 = (o2["q"], o2["k"], o2["v"], o2["pages"], o2["start"],
+                      o2["kv_start"])
+                spread.append({
+                    "ms": time_cuda(
+                        torch, lambda: pa.paged_attention(*a2, **kw), 50),
+                    "library_ms": time_cuda(torch, lambda: _pa_library(
+                        torch, o2, page=page, t_hi=t_hi), 30)})
+                del o2, a2
+            row["remade_pool_runs"] = spread
         print(json.dumps(row), flush=True)
         results.append(row)
     return results
@@ -1246,7 +1323,8 @@ def main(argv=None) -> int:
     train_v2_outputs = check_train_outputs(torch, args.seed, LAYERS, v2=True)
     print(json.dumps({"train_v2_outputs": train_v2_outputs}), flush=True)
 
-    decode = next(r for r in kern if r["case"] == "decode_bf16")
+    case = {r["case"]: r for r in kern}
+    decode = case["decode_bf16"]
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -1259,6 +1337,17 @@ def main(argv=None) -> int:
         "bound_ms": decode["bound_ms"],
         "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
+        "design": decode["design"],
+        # Splits: the most a row tile took in this run; grid_splits: the
+        # blocks the grid gave each tile.
+        "splits": decode["splits"],
+        "grid_splits": decode["grid_splits"],
+        # The admission windows, on the tensor cores.
+        **{f"{key}_{field}": case[name][field]
+           for key, name in (("window", "window_bf16"),
+                             ("admit_cold", "admit_cold_bf16"))
+           for field in ("ms", "bound_ms", "library_ms", "design",
+                         "splits", "grid_splits")},
     }]}
     for rows, top, lines, source, run in (
             (flash, "flagship_bf16", FLASH_KERNELS, "flash_attention", train),
