@@ -21,7 +21,9 @@ Phases, each of which fails the run on any error:
    route's design, ``cuda-splitk``, ``cuda-mma`` or ``cuda-fma``, the
    splits its row tiles took as the kernel counted them (held against
    the planner's ``tile_splits``) and the grid's splits a tile; the
-   ragged and cold cases also with poisoned trash and unowned blocks;
+   ragged, cold and ``left_pad_bf16`` cases also with poisoned trash and
+   unowned blocks, ``left_pad_bf16`` being decode with every row's
+   visible range from 324 and NaN in the five blocks below it;
    decode_bf16 timed again on three pools made anew, the yardstick's
    spread), then the three flash-attention kernels (forward, dq,
    dk/dv; in bf16 all three on the tensor cores, held with terms for
@@ -43,8 +45,21 @@ Phases, each of which fails the run on any error:
    prefix.  Every request must return its budget of tokens, a repeated
    greedy request the same stream, and the kernel counts are read just
    around this phase: every kernel of the path launched, no fall-back;
+   then (4b) the same flagship behind ``LmServer`` with its defaults, the
+   dense KV pool (the reference's default deployment): a solo request
+   (the fused cold start), ``/precache`` of a 512-token prefix, then the
+   prefix itself, its pair and the mix together; every admission path
+   (``cold_fused``, ``cold``, ``prefix_exact``, ``prefix_suffix``) must
+   appear, and no paged kernel runs; then (4c) the paged pool with
+   ``prefix_cache=False`` through ``ContinuousBatcher``: every admission a
+   left-padded prefill spliced into blocks (the 700-token prompt decodes
+   with kv_start 324), all ``cold``, the kernel counts read just around
+   the phase;
 5. a check of the output by the repo's own means: the paged-kernel engine
    against the gather engine on one prompt (finite logits that agree);
+   then (5b) the 700-token prompt left-padded to 1024: its row decoded
+   on the dense cache and, spliced into blocks, through the paged kernel
+   (logits within the same limit);
 6. the training main path: the same flagship with f32 master weights,
    bf16 compute, flash attention and full remat, batch 24 of 2048 random
    tokens from ``--seed``, through the port's ``Trainer``: one warm-up
@@ -85,6 +100,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -146,8 +162,10 @@ def _pa_case(torch, gen, *, B, Sq, H, KH, Dh, page, t_hi, dtype, quant,
     own different page counts and dead table entries point at trash
     block 0; ``cold``: a cold admission, the window [0, Sq) in the row's
     first Sq / page blocks, trash past them and other tenants' blocks in
-    the pool.  Returns the operands and the mask of blocks some row
-    owns."""
+    the pool; ``left_pad``: ``full`` with every row's visible range
+    starting at LEFT_PAD, as a left-padded admission leaves it.  Returns
+    the operands and the mask of blocks some row sees: a block wholly
+    below a row's kv_start is not seen."""
     MP = t_hi // page
     NB = 1 + B * MP
     q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev).to(dtype)
@@ -164,9 +182,12 @@ def _pa_case(torch, gen, *, B, Sq, H, KH, Dh, page, t_hi, dtype, quant,
         pages[b, :live] = torch.arange(1 + b * MP, 1 + b * MP + live)
         if layout != "cold":
             start[b] = live * page - Sq - (b % 3)
-        kv_start[b] = (b % 2) * (page // 2) if layout == "ragged" else 0
+        kv_start[b] = ((b % 2) * (page // 2) if layout == "ragged"
+                       else LEFT_PAD if layout == "left_pad" else 0)
     owned = torch.zeros(NB, dtype=torch.bool)
-    owned[pages[pages > 0].long()] = True
+    for b in range(B):
+        seen = pages[b, int(kv_start[b]) // page:]
+        owned[seen[seen > 0].long()] = True
     kf = torch.randn(NB, KH, page, Dh, generator=gen, device=dev)
     vf = torch.randn(NB, KH, page, Dh, generator=gen, device=dev)
     ops = {"q": q, "pages": pages.to(dev), "start": start.to(dev),
@@ -264,6 +285,9 @@ def _pa_library(torch, ops, *, page, t_hi):
 
 
 PA_SPREAD_RUNS = 3  # decode_bf16 timed again on pools made anew
+# kv_start of a 700-token prompt left-padded to its 1024 bucket (the
+# serving mix's, on the unshared paged pool): five whole pages below it.
+LEFT_PAD = 1024 - 700
 
 
 def check_paged_attention(torch, seed: int) -> list[dict]:
@@ -289,6 +313,10 @@ def check_paged_attention(torch, seed: int) -> list[dict]:
         # 512-token window from position 0, read bound max_seq.
         ("admit_cold_bf16", 1, 512, 8, 8, 128, 64, 2048, bf16, False,
          "cold"),
+        # Decode on the unshared paged pool: every row's visible range
+        # starts at LEFT_PAD; the blocks wholly below it hold NaN.
+        ("left_pad_bf16", 8, 1, 8, 8, 128, 64, 2048, bf16, False,
+         "left_pad"),
     ]
     results = []
     for name, B, Sq, H, KH, Dh, page, t_hi, dtype, quant, layout in cases:
@@ -806,8 +834,11 @@ def _post(port: int, path: str, body: dict, timeout: float = 600.0):
         f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"},
     )
-    with urllib.request.urlopen(req, timeout=timeout) as r:
-        return r.status, json.loads(r.read())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
 
 
 def _stream(port: int, body: dict, out: dict, timeout: float = 600.0):
@@ -833,6 +864,50 @@ def _stream(port: int, body: dict, out: dict, timeout: float = 600.0):
                summary=summary)
 
 
+def _serve_together(port: int, jobs) -> list[dict]:
+    """Stream every (prompt ids, max_new) of ``jobs`` from /generate at
+    once, one client thread each."""
+    outs = [dict() for _ in jobs]
+    threads = [threading.Thread(
+        target=_stream, args=(port, {"prompt_ids": p, "max_new_tokens": n},
+                              o))
+        for (p, n), o in zip(jobs, outs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    return outs
+
+
+def _check_budgets(outs, budgets) -> None:
+    """Every request got its budget and ended normally (an HTTP stream's
+    summary says done; a batcher handle was not aborted)."""
+    for i, (o, n) in enumerate(zip(outs, budgets)):
+        done = (o.get("summary") or {}).get("done", not o.get("aborted"))
+        if len(o.get("ids", [])) != n or not done:
+            raise RuntimeError(
+                f"request {i}: {len(o.get('ids', []))} of {n} tokens, "
+                f"summary {o.get('summary')}")
+
+
+def _serving_jobs(torch, rng, vocab: int, prefix):
+    """The pair sharing ``prefix`` and the TRAFFIC mix, ids drawn from
+    ``rng``."""
+    def ids(n):
+        return torch.randint(0, vocab, (n,), generator=rng).tolist()
+
+    pair = [(prefix + ids(40), 64), (prefix + ids(90), 64)]
+    return pair, [(ids(p), n) for p, n in TRAFFIC]
+
+
+def _burst_numbers(outs, wall: float) -> dict:
+    n_tok = sum(len(o["ids"]) for o in outs)
+    ttfts = sorted(o["ttft_s"] for o in outs)
+    return {"requests": len(outs), "generated_tokens": n_tok,
+            "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ttft_s_p50": ttfts[len(ttfts) // 2], "ttft_s_max": ttfts[-1]}
+
+
 # Device kernels by class, by substrings of their names (first match).
 PROFILE_CLASSES = (
     ("flash_fwd", ("flash_fwd",)), ("flash_bwd_dq", ("flash_bwd_dq",)),
@@ -844,6 +919,15 @@ PROFILE_CLASSES = (
     ("paged_attention", ("paged_attention",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
 )
+
+
+def _start_profile(torch):
+    """A torch.profiler over host and card, entered: __exit__ it."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    prof.__enter__()
+    return prof
 
 
 def _profile_summary(torch, prof, wall_s: float) -> dict:
@@ -887,16 +971,11 @@ def run_main_path(torch, seed: int, layers: int, device="cuda",
     sync = _syncer(torch, model.device)
     tok = flagship_tokenizer(cfg.vocab_size)
     rng = torch.Generator().manual_seed(seed)
-
-    def ids(n):
-        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
-
     used = sum(-(-(prompt_bucket(p, cfg.max_seq) + n) // PAGE) * PAGE
                for p, n in TRAFFIC)
     n_blocks = max(1 + cfg.max_seq // PAGE, used // PAGE + 8)
-    prefix = ids(512)
-    pair = [(prefix + ids(40), 64), (prefix + ids(90), 64)]
-    mix = [(ids(p), n) for p, n in TRAFFIC]
+    prefix = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
+    pair, mix = _serving_jobs(torch, rng, cfg.vocab_size, prefix)
 
     srv = LmServer(model, params, tok, slots=8, paged_blocks=n_blocks,
                    page_size=PAGE, attn_impl="paged_kernel",
@@ -906,12 +985,7 @@ def run_main_path(torch, seed: int, layers: int, device="cuda",
         if code != 200 or not tk["ids"]:
             raise RuntimeError(f"/tokenize failed: {code} {tk}")
         sync()
-        prof = None
-        if profile:
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            prof = torch.profiler.profile(activities=acts)
-            prof.__enter__()
+        prof = _start_profile(torch) if profile else None
         pa.reset_counts()
         t0 = time.perf_counter()
         # The pair's first request registers the shared prefix blocks;
@@ -920,15 +994,7 @@ def run_main_path(torch, seed: int, layers: int, device="cuda",
         _stream(srv.port, {"prompt_ids": pair[0][0],
                            "max_new_tokens": pair[0][1]}, first)
         jobs = mix + [pair[1]]
-        outs = [dict() for _ in jobs]
-        threads = [threading.Thread(
-            target=_stream, args=(srv.port, {"prompt_ids": p,
-                                             "max_new_tokens": n}, o))
-            for (p, n), o in zip(jobs, outs)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
+        outs = _serve_together(srv.port, jobs)
         sync()
         wall = time.perf_counter() - t0
         launches, fallbacks = pa.launch_count, pa.fallback_count
@@ -938,13 +1004,7 @@ def run_main_path(torch, seed: int, layers: int, device="cuda",
         admissions = dict(srv.batcher.admission_paths)
         rounds = srv.batcher._round_count
         outs = [first] + outs
-        budgets = [pair[0][1]] + [n for _, n in jobs]
-        for i, (o, n) in enumerate(zip(outs, budgets)):
-            if len(o.get("ids", [])) != n or not (o["summary"] or {}).get(
-                    "done"):
-                raise RuntimeError(
-                    f"request {i}: {len(o.get('ids', []))} of {n} tokens, "
-                    f"summary {o.get('summary')}")
+        _check_budgets(outs, [pair[0][1]] + [n for _, n in jobs])
         if admissions.get("paged_shared", 0) < 1:
             raise RuntimeError(f"no shared-prefix admission: {admissions}")
         # The same greedy request twice more, alone: the same stream.  (In
@@ -974,18 +1034,179 @@ def run_main_path(torch, seed: int, layers: int, device="cuda",
     if launches <= 0 or fallbacks != 0:
         raise RuntimeError(f"paged_attention launches {launches}, "
                            f"fall-backs {fallbacks} on the main path")
-    n_tok = sum(len(o["ids"]) for o in outs)
-    ttfts = sorted(o["ttft_s"] for o in outs)
     extra = {"profile": profiled} if profile else {}
-    return {**extra,
-        "layers": layers, "requests": len(outs), "generated_tokens": n_tok,
-        "wall_s": wall, "tokens_per_s": n_tok / wall,
-        "ttft_s_p50": ttfts[len(ttfts) // 2], "ttft_s_max": ttfts[-1],
+    return {**extra, **_burst_numbers(outs, wall),
+        "layers": layers,
         "rounds": rounds, "admissions": admissions,
         "repeat_common_prefix_with_mix": common,
         "paged_attention_launches": launches,
         "paged_attention_fallbacks": fallbacks, "paged_blocks": n_blocks,
     }
+
+
+# -- phase 4b: the dense pool, the reference's default deployment ------------
+
+def _prefix_text(tok, n: int = 512) -> str:
+    """Text from the README that the tokenizer encodes to exactly ``n``
+    ids (what ``/precache`` takes is text)."""
+    with open(os.path.join(ROOT, "README.md"), "rb") as fh:
+        ids = tok.encode(fh.read()[:8000].decode("ascii", "ignore"))
+    for k in range(n, min(ids.size, n + 64)):
+        text = tok.decode(ids[:k].tolist())
+        if tok.encode(text).size == n:
+            return text
+    raise RuntimeError(f"no README prefix encodes to {n} ids")
+
+
+def run_dense_path(torch, seed: int, layers: int, device="cuda",
+                   profile: bool = False) -> dict:
+    """The flagship behind ``LmServer`` with its defaults: the dense pool
+    [L, 8, KH, max_seq, Dh].  A solo request on the idle server (the
+    fused cold start), then ``/precache`` of a 512-token prefix, then
+    the prefix itself (``prefix_exact``), its pair (``prefix_suffix``)
+    and the TRAFFIC mix (``cold``) together.  Every request must get its
+    budget, every path must appear, a repeated greedy request must keep
+    its stream, and no paged kernel runs."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import LmServer
+
+    cfg = flagship_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    sync = _syncer(torch, model.device)
+    tok = flagship_tokenizer(cfg.vocab_size)
+    text = _prefix_text(tok)
+    prefix = tok.encode(text).tolist()
+    pair, mix = _serving_jobs(torch, torch.Generator().manual_seed(seed + 2),
+                              cfg.vocab_size, prefix)
+    repeat = {"prompt_ids": mix[1][0], "max_new_tokens": mix[1][1]}
+    srv = LmServer(model, params, tok, slots=8, max_new_tokens_cap=256,
+                   device=device).start()
+    try:
+        if srv.batcher.paged:
+            raise RuntimeError("LmServer's default is not the dense pool")
+        sync()
+        pa.reset_counts()
+        solo = {}
+        t0 = time.perf_counter()
+        _stream(srv.port, repeat, solo)
+        solo_s = time.perf_counter() - t0
+        paths = dict(srv.batcher.admission_paths)
+        if paths != {"cold_fused": 1}:
+            raise RuntimeError(f"the solo request took {paths}")
+        code, body = _post(srv.port, "/precache", {"prompt": text})
+        if code != 200 or body.get("cached_tokens") != len(prefix):
+            raise RuntimeError(f"/precache: {code} {body}")
+        code, body = _post(srv.port, "/precache", {"prompt": ""})
+        if code != 400:
+            raise RuntimeError(f"/precache of an empty prompt gave {code}")
+        jobs = [(prefix, 64)] + pair + mix
+        prof = _start_profile(torch) if profile else None
+        rounds0 = srv.batcher._round_count
+        t1 = time.perf_counter()
+        outs = _serve_together(srv.port, jobs)
+        sync()
+        wall = time.perf_counter() - t1
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        rounds = srv.batcher._round_count - rounds0
+        _check_budgets([solo] + outs, [mix[1][1]] + [n for _, n in jobs])
+        again = [_post(srv.port, "/generate", repeat)[1]["ids"]
+                 for _ in range(2)]
+        admissions = dict(srv.batcher.admission_paths)
+    finally:
+        srv.stop()
+    for path in ("cold_fused", "cold", "prefix_suffix", "prefix_exact"):
+        if admissions.get(path, 0) < 1:
+            raise RuntimeError(f"no {path} admission: {admissions}")
+    if not again[0] == again[1] == solo["ids"]:
+        raise RuntimeError("a repeated greedy request changed its stream")
+    if pa.launch_count or pa.fallback_count:
+        raise RuntimeError("the dense pool went through the paged kernel")
+    extra = {"profile": _profile_summary(torch, prof, wall)} if profile \
+        else {}
+    return {**extra, **_burst_numbers(outs, wall),
+            "layers": layers, "solo_request_s": solo_s,
+            "solo_ttft_s": solo["ttft_s"], "rounds": rounds,
+            "admissions": admissions, "prefix_tokens": len(prefix)}
+
+
+# -- phase 4c: the unshared paged pool through the paged kernel ---------------
+
+def _consume(handle, t0: float, out: dict) -> None:
+    ids, ttft = [], None
+    for tok in handle:
+        if ttft is None:
+            ttft = time.perf_counter() - t0
+        ids.append(tok)
+    out.update(ids=ids, ttft_s=ttft, aborted=handle.aborted)
+
+
+def run_unshared_paged_path(torch, seed: int, layers: int, device="cuda",
+                            profile: bool = False) -> dict:
+    """The flagship on the paged pool with ``prefix_cache=False`` (the
+    reference's replay A/B candidate) and the paged kernel, through
+    ``ContinuousBatcher``: the pair and the TRAFFIC mix together.  Every
+    admission is a left-padded prefill spliced into fresh blocks, so
+    rows decode with kv_start = pad (324 for the 700-token prompt) and
+    RoPE positions behind their cache positions.  Every request must get
+    its budget and be admitted ``cold``, the kernel must launch, and
+    nothing may fall back."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher
+    from k8s_gpu_tpu_torch.serve.scheduler import prompt_bucket
+
+    cfg = flagship_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    sync = _syncer(torch, model.device)
+    rng = torch.Generator().manual_seed(seed + 3)
+    prefix = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
+    pair, mix = _serving_jobs(torch, rng, cfg.vocab_size, prefix)
+    jobs = pair + mix
+    used = sum(-(-(prompt_bucket(len(p), cfg.max_seq) + n) // PAGE)
+               for p, n in jobs)
+    n_blocks = max(1 + cfg.max_seq // PAGE, used + 1)
+    b = ContinuousBatcher(model, params, slots=8, paged_blocks=n_blocks,
+                          page_size=PAGE, attn_impl="paged_kernel",
+                          prefix_cache=False, device=device).start()
+    try:
+        sync()
+        prof = _start_profile(torch) if profile else None
+        pa.reset_counts()
+        t0 = time.perf_counter()
+        handles = [b.submit(p, max_new_tokens=n) for p, n in jobs]
+        outs = [dict() for _ in jobs]
+        threads = [threading.Thread(target=_consume, args=(h, t0, o))
+                   for h, o in zip(handles, outs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        sync()
+        wall = time.perf_counter() - t0
+        launches, fallbacks = pa.launch_count, pa.fallback_count
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        admissions = dict(b.admission_paths)
+        rounds = b._round_count
+    finally:
+        b.stop()
+    _check_budgets(outs, [n for _, n in jobs])
+    if admissions != {"cold": len(jobs)}:
+        raise RuntimeError(f"admissions {admissions}: not all cold")
+    if device != "cpu" and (launches <= 0 or fallbacks != 0):
+        raise RuntimeError(f"paged_attention launches {launches}, "
+                           f"fall-backs {fallbacks} on the unshared pool")
+    extra = {"profile": _profile_summary(torch, prof, wall)} if profile \
+        else {}
+    return {**extra, **_burst_numbers(outs, wall),
+            "layers": layers, "rounds": rounds, "admissions": admissions,
+            "paged_attention_launches": launches,
+            "paged_attention_fallbacks": fallbacks, "paged_blocks": n_blocks,
+            "left_pad_of_700": prompt_bucket(700, cfg.max_seq) - 700}
 
 
 # -- phase 5: the output against the gather read -----------------------------
@@ -1045,6 +1266,88 @@ def check_outputs(torch, seed: int, layers: int, device="cuda") -> dict:
     agree = float((lk.argmax(-1) == lg.argmax(-1)).float().mean())
     return {"logit_max_abs_err": err, "logit_tol": LOGIT_TOL,
             "argmax_agreement": agree, "launches_per_decode_step": per_step}
+
+
+# -- phase 5b: a left-padded row, dense read against the paged kernel --------
+
+LEFT_PAD_PROMPT = 700     # the mix's prompt whose bucket (1024) pads 324
+LEFT_PAD_STEPS = 4
+
+
+def check_left_pad_outputs(torch, seed: int, layers: int,
+                           device="cuda") -> dict:
+    """One 700-token prompt left-padded to its 1024 bucket and prefilled
+    once; its row then decodes LEFT_PAD_STEPS steps twice from the same
+    K/V: on the dense cache (the engine's plain read) and spliced into
+    pool blocks as the unshared paged admission does (the paged kernel,
+    kv_start = pad, RoPE = position - pad).  Finite logits of the right
+    shape that agree within LOGIT_TOL, and one kernel launch a layer and
+    step on the paged side."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve.engine import (
+        InferenceEngine, _empty_cache_paged,
+    )
+    from k8s_gpu_tpu_torch.serve.scheduler import prompt_bucket
+
+    cfg = flagship_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    dev = model.device
+    sync = _syncer(torch, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = LEFT_PAD_PROMPT
+    bucket = prompt_bucket(n, cfg.max_seq)
+    pad = bucket - n
+    rng = torch.Generator().manual_seed(seed + 4)
+    padded = torch.zeros(1, bucket, dtype=torch.int32)
+    padded[0, pad:] = torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+    dense = InferenceEngine(model, device=dev)
+    row, last = dense.prefill(params, padded.to(dev), pad)
+    # The row into fresh blocks 1.., page by page (executor._splice_paged).
+    n_pages = -(-(bucket + LEFT_PAD_STEPS) // PAGE)
+    pool = _empty_cache_paged(cfg, 1 + n_pages, PAGE, False, dev)
+    pages = torch.zeros(1, cfg.max_seq // PAGE, **i32)
+    pages[0, :n_pages] = torch.arange(1, 1 + n_pages)
+    q_pos = torch.arange(bucket, device=dev)
+    for name, arr in pool.items():
+        arr[:, pages[0, q_pos // PAGE].long(), :, q_pos % PAGE] = (
+            row[name][:, 0, :, :bucket].movedim(2, 0))
+    paged = InferenceEngine(model, attn_impl="paged_kernel", device=dev)
+    tok = last.argmax(-1).to(torch.int32)
+    start = torch.full((1,), pad, **i32)
+    t_hi = cfg.max_seq
+    errs, launches, agree = [], 0, 0
+    for step in range(LEFT_PAD_STEPS):
+        pos = torch.full((1,), bucket + step, **i32)
+        rope = pos - pad
+        _, ld = dense.decode_step_multi(params, row, tok, pos, rope, start,
+                                        t_hi=t_hi)
+        before = pa.launch_count
+        _, lp = paged.decode_step_multi(params, pool, tok, pos, rope, start,
+                                        t_hi=t_hi, pages=pages, page=PAGE)
+        sync()
+        launches += pa.launch_count - before
+        if ld.shape != (1, cfg.vocab_size) or lp.shape != ld.shape:
+            raise RuntimeError(f"logit shapes {tuple(ld.shape)} "
+                               f"{tuple(lp.shape)}")
+        if not (bool(torch.isfinite(ld).all())
+                and bool(torch.isfinite(lp).all())):
+            raise RuntimeError("non-finite logits")
+        errs.append(float((ld - lp).abs().max()))
+        agree += int(ld.argmax(-1) == lp.argmax(-1))
+        tok = ld.argmax(-1).to(torch.int32)
+    err = max(errs)
+    if not err <= LOGIT_TOL:
+        raise RuntimeError(f"dense vs paged-kernel logits differ by {err}")
+    if dev.type == "cuda" and launches != layers * LEFT_PAD_STEPS:
+        raise RuntimeError(f"{launches} kernel launches over "
+                           f"{LEFT_PAD_STEPS} decode steps, expected "
+                           f"{layers * LEFT_PAD_STEPS}")
+    return {"prompt": n, "bucket": bucket, "kv_start": pad,
+            "logit_max_abs_err": err, "logit_tol": LOGIT_TOL,
+            "logit_err_by_step": errs, "argmax_agreement": agree,
+            "steps": LEFT_PAD_STEPS, "paged_attention_launches": launches}
 
 
 # -- phase 6: the training main path ---------------------------------------
@@ -1303,8 +1606,18 @@ def main(argv=None) -> int:
     flash_v2 = check_flash_v2(torch, args.seed)
     main_path = run_main_path(torch, args.seed, LAYERS, profile=args.profile)
     print(json.dumps({"main_path": main_path}), flush=True)
+    _free(torch)
+    dense = run_dense_path(torch, args.seed, LAYERS, profile=args.profile)
+    print(json.dumps({"dense_path": dense}), flush=True)
+    _free(torch)
+    unshared = run_unshared_paged_path(torch, args.seed, LAYERS,
+                                       profile=args.profile)
+    print(json.dumps({"unshared_paged_path": unshared}), flush=True)
+    _free(torch)
     outputs = check_outputs(torch, args.seed, LAYERS)
     print(json.dumps({"outputs": outputs}), flush=True)
+    left_pad = check_left_pad_outputs(torch, args.seed, LAYERS)
+    print(json.dumps({"left_pad_outputs": left_pad}), flush=True)
     _free(torch)
     train = run_train_path(torch, args.seed, LAYERS, TRAIN_BATCH, TRAIN_STEPS,
                            profile=args.profile)
@@ -1331,6 +1644,8 @@ def main(argv=None) -> int:
         "source": "k8s_gpu_tpu_torch/csrc/paged_attention.cu",
         "replaces": "k8s_gpu_tpu/ops/paged_attention.py:102",
         "launches": main_path["paged_attention_launches"],
+        # Phase 4c's run: the unshared paged pool (left-padded rows).
+        "launches_unshared_pool": unshared["paged_attention_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kern),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -1345,7 +1660,8 @@ def main(argv=None) -> int:
         # The admission windows, on the tensor cores.
         **{f"{key}_{field}": case[name][field]
            for key, name in (("window", "window_bf16"),
-                             ("admit_cold", "admit_cold_bf16"))
+                             ("admit_cold", "admit_cold_bf16"),
+                             ("left_pad", "left_pad_bf16"))
            for field in ("ms", "bound_ms", "library_ms", "design",
                          "splits", "grid_splits")},
     }]}
@@ -1375,7 +1691,9 @@ def main(argv=None) -> int:
         with open(args.json, "w") as fh:
             json.dump({"gpu": gpu, "build_s": build_s, "kernel_cases": kern,
                        "flash_cases": flash, "flash_v2_cases": flash_v2,
-                       "main_path": main_path, "outputs": outputs,
+                       "main_path": main_path, "dense_path": dense,
+                       "unshared_paged_path": unshared,
+                       "outputs": outputs, "left_pad_outputs": left_pad,
                        "train_path": train, "train_path_v2": train_v2,
                        "train_path_gqa_v1": train_gqa_v1,
                        "train_outputs": train_outputs,

@@ -1,5 +1,5 @@
 """Serving plane of the port: engine, batcher and HTTP server on the
-paged KV pool."""
+dense or the paged KV pool."""
 
 from .batcher import ContinuousBatcher, Overloaded, RequestHandle
 from .engine import InferenceEngine, SamplingConfig

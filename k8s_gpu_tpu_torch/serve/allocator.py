@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from .kv_blocks import chunk_hashes, shareable_depth
-from .scheduler import _Request
+from .scheduler import _Request, prompt_bucket
 
 
 class AllocatorMixin:
@@ -16,6 +16,7 @@ class AllocatorMixin:
     admission and the host page table."""
 
     def _blocks_needed(self, n_tokens: int, max_new: int) -> int:
+        """Blocks for ``n_tokens`` of prompt (or bucket) plus the budget."""
         return -(-(n_tokens + max_new) // self.page_size)
 
     def _set_page_row(self, slot: int, blocks: list[int]):
@@ -31,16 +32,28 @@ class AllocatorMixin:
         return self._pool.allocatable_blocks()
 
     def _paged_plan(self, req: _Request) -> bool:
-        """Blocks for one admission, scheduler thread only.  Acquires the
-        longest chain of cached full prompt pages (at least one suffix
-        token must remain so the extend yields first-token logits), then
-        allocates the private tail.  Acquire before alloc: the allocation
-        may evict LRU blocks, and the refcount pins the matched prefix.
-        On success ``req.blocks`` holds shared-then-fresh ids and
-        ``req.prefix_tokens`` the shared token count; False (block
-        pressure) holds no references."""
+        """Blocks for one admission, scheduler thread only.  Unshared
+        (``prefix_cache=False``): fresh blocks for the left-padded
+        bucket plus the budget, and ``req.prefix_tokens`` None, which
+        sends the admission through the dense-row splice.  Shared:
+        acquires the longest chain of cached full prompt pages (at least
+        one suffix token must remain so the extend yields first-token
+        logits), then allocates the private tail.  Acquire before alloc:
+        the allocation may evict LRU blocks, and the refcount pins the
+        matched prefix.  On success ``req.blocks`` holds shared-then-fresh
+        ids and ``req.prefix_tokens`` the shared token count; False
+        (block pressure) holds no references."""
         page = self.page_size
         n = int(req.ids.size)
+        if not self._paged_share:
+            bucket = prompt_bucket(n, self.engine.max_seq)
+            blocks = self._pool.alloc(self._blocks_needed(bucket,
+                                                          req.max_new))
+            if blocks is None:
+                return False
+            req.blocks = blocks
+            req.prefix_tokens = None
+            return True
         hashes = chunk_hashes(req.ids, page)
         shared: list[int] = []
         for h in hashes[: shareable_depth(n, page)]:

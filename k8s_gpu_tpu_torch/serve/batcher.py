@@ -1,14 +1,22 @@
-"""Continuous batching on the paged KV pool: the port of
-``k8s_gpu_tpu/serve/batcher.py``, composed of the scheduler, allocator
-and executor mixins.
+"""Continuous batching: the port of ``k8s_gpu_tpu/serve/batcher.py``,
+composed of the scheduler, allocator and executor mixins.
 
-A fixed pool of ``slots`` decode rows shares one paged KV pool of
-``paged_blocks`` blocks of ``page_size`` positions through per-slot page
-tables (block 0 is the trash block).  Prefix sharing is block-granular
-and automatic: full prompt pages are chain-hashed and registered, a
-later prompt with the same chain maps its table to the same blocks and
-computes only its suffix, and a partial tail block is recomputed into a
-private block.
+A fixed pool of ``slots`` decode rows, on one of two KV pools:
+
+- dense (``paged_blocks=0``, the default): ``[L, slots, KH, max_seq,
+  Dh]``, one row a slot.  A request is prefilled left-padded to its
+  bucket into its slot's row; ``precache_prefix`` keeps prefilled
+  prefixes in a small LRU of rows, and a prompt that starts with one
+  computes only its suffix;
+- paged (``paged_blocks`` > 0): ``paged_blocks`` blocks of
+  ``page_size`` positions shared by all slots through per-slot page
+  tables (block 0 is the trash block).  With ``prefix_cache`` prefix
+  sharing is block-granular and automatic: full prompt pages are
+  chain-hashed and registered, a later prompt with the same chain maps
+  its table to the same blocks and computes only its suffix, and a
+  partial tail block is recomputed into a private block.  Without it
+  every admission is a left-padded prefill whose row splices into fresh
+  blocks.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import torch
 
 from ..device import resolve_device
 from .allocator import AllocatorMixin
-from .engine import InferenceEngine, _empty_cache_paged
+from .engine import InferenceEngine, _empty_cache, _empty_cache_paged
 from .executor import ExecutorMixin
 from .kv_blocks import BlockPool
 from .scheduler import (
@@ -48,10 +56,12 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
 
     ``eos_id`` retires a request early; ``logprobs`` collects per-token
     log-probabilities; ``kv_quant`` stores the pool int8; ``attn_impl``
-    picks the paged read ("gather" or "paged_kernel"); ``max_pending`` >
+    picks the paged read ("gather" or "paged_kernel"; the dense pool's
+    read is the engine's plain one either way); ``paged_blocks`` > 0
+    picks the paged pool; ``prefix_cache=False`` turns off both prefix
+    planes (the dense entry cache and block sharing); ``max_pending`` >
     0 bounds the unadmitted queue (``submit`` raises ``Overloaded`` at
-    the bound).  This slice needs ``paged_blocks`` > 0 and
-    ``prefix_cache=True``."""
+    the bound)."""
 
     def __init__(self, model, params, *, slots: int = 8, mesh=None,
                  max_seq: int | None = None, eos_id: int = -1,
@@ -69,16 +79,6 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
                     f"ContinuousBatcher({name}=...) is not ported yet "
                     f"(ROADMAP {_NOT_PORTED[name]})"
                 )
-        if int(paged_blocks) <= 0:
-            raise NotImplementedError(
-                "the dense KV pool is not ported yet (ROADMAP queue 1 "
-                "item 4): pass paged_blocks > 0"
-            )
-        if not prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=False (the unshared paged admission) is not "
-                "ported yet (ROADMAP queue 1 item 4)"
-            )
         self.device = resolve_device(device)
         self.engine = InferenceEngine(
             model, max_seq=max_seq, kv_quant=kv_quant, attn_impl=attn_impl,
@@ -94,35 +94,54 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
                              for m in (1, 2, 3, 4, 6, 8)]
 
         self.page_size = max(8, int(page_size))
-        max_seq = self.engine.max_seq
-        if max_seq % self.page_size:
-            raise ValueError(f"max_seq {max_seq} must be a multiple of "
-                             f"page_size {self.page_size}")
-        self._max_pages = max_seq // self.page_size
-        if int(paged_blocks) < 1 + self._max_pages:
-            raise ValueError(
-                f"paged_blocks={paged_blocks} cannot hold one max-length "
-                f"request plus the trash block (need >= "
-                f"{1 + self._max_pages})"
-            )
-        self.paged_blocks = int(paged_blocks)
-        self._pool = BlockPool(self.paged_blocks)
-        self._pages = np.zeros((slots, self._max_pages), np.int32)
+        self.paged = int(paged_blocks) > 0
+        cfg, max_seq = self.engine.cfg, self.engine.max_seq
+        # Block-pressure deferrals (always empty on the dense pool).
         self._overflow: collections.deque = collections.deque()
+        if self.paged:
+            if max_seq % self.page_size:
+                raise ValueError(f"max_seq {max_seq} must be a multiple of "
+                                 f"page_size {self.page_size}")
+            self._max_pages = max_seq // self.page_size
+            if int(paged_blocks) < 1 + self._max_pages:
+                raise ValueError(
+                    f"paged_blocks={paged_blocks} cannot hold one "
+                    f"max-length request plus the trash block (need >= "
+                    f"{1 + self._max_pages})"
+                )
+            self.paged_blocks = int(paged_blocks)
+            self._pool = BlockPool(self.paged_blocks)
+            self._pages = np.zeros((slots, self._max_pages), np.int32)
+            cache = _empty_cache_paged(cfg, self.paged_blocks,
+                                       self.page_size, self.engine.kv_quant,
+                                       self.device)
+        else:
+            cache = _empty_cache(cfg, slots, max_seq, self.engine.kv_quant,
+                                 self.device)
+        moe = cfg.num_experts > 1
+        # Block-granular prefix sharing: base model, non-MoE only.
+        self._paged_share = self.paged and bool(prefix_cache) and not moe
 
         i32 = dict(dtype=torch.int32, device=self.device)
         f32 = dict(dtype=torch.float32, device=self.device)
         self._dev = {
-            "cache": _empty_cache_paged(
-                self.engine.cfg, self.paged_blocks, self.page_size,
-                self.engine.kv_quant, self.device,
-            ),
+            "cache": cache,
             "token": torch.zeros(slots, **i32),
-            "pos": torch.zeros(slots, **i32),
-            "start": torch.zeros(slots, **i32),   # kv_start, always 0
+            "pos": torch.zeros(slots, **i32),      # cache position
+            "rope": torch.zeros(slots, **i32),     # RoPE position
+            "start": torch.zeros(slots, **i32),    # kv_start (left pad)
             "temps": torch.zeros(slots, **f32),
             "top_p": torch.zeros(slots, **f32),
         }
+        # Dense prefix-entry cache: prompt-prefix bytes -> a prefilled
+        # [L, 1, KH, max_seq, ...] row, its last logits and its length.
+        # Read-only once inserted; LRU-bounded (each entry owns a row of
+        # device memory).  prefix_cache=False turns off both prefix
+        # planes (this cache's lookups and block sharing).
+        self.prefix_cache = bool(prefix_cache)
+        self._prefix: collections.OrderedDict = collections.OrderedDict()
+        self._prefix_cap = 4
+        self._prefix_lock = threading.Lock()
         # Host mirrors of the per-slot sampling state.
         self._temps = [0.0] * slots
         self._gens: list = [None] * slots
@@ -137,8 +156,8 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
         self._wake = threading.Event()
         self._round_count = 0
         self._warmed = False
-        # Admissions by path ("paged_cold" / "paged_shared"): shows which
-        # requests mapped a shared prefix.
+        # Admissions by path (the scheduler's module docstring lists the
+        # names): shows which requests reused a prefix.
         self.admission_paths: collections.Counter = collections.Counter()
         self._thread = threading.Thread(
             target=self._run, name="continuous-batcher", daemon=True

@@ -2,11 +2,13 @@
 
 Two caches, the reference's layouts:
 
-- the dense cache ``[L, B, KH, max_seq, Dh]`` behind ``prefill``,
-  ``decode_step`` and ``generate`` (one batch, one shared position);
+- the dense cache ``[L, B, KH, max_seq, Dh]``, one row a request:
+  behind ``prefill``, ``decode_step`` and ``generate`` (one batch, one
+  shared position), and behind ``decode_step_multi`` and
+  ``extend_multi`` without page tables (every row at its own position);
 - the paged pool ``[L, NB, KH, page, Dh]`` behind ``decode_step_multi``
-  and ``extend_multi``: physical blocks shared by all rows through
-  per-row page tables, block 0 the trash block.
+  and ``extend_multi`` with page tables: physical blocks shared by all
+  rows through per-row page tables, block 0 the trash block.
 
 With ``kv_quant`` a cache holds int8 K/V plus one f32 scale per
 (layer, row or block, head, position) in ``k_s``/``v_s``.
@@ -166,11 +168,36 @@ class InferenceEngine:
         return o.reshape(B, Sq, H, cfg.d_head)
 
     @staticmethod
-    def _cache_store(arr, val, start: int, layer: int):
+    def _cache_store(arr, val, start, layer: int):
         """Write ``val`` [B, KH, Sq, *rest] into the dense cache ``arr``
-        [L, B, KH, T, *rest] at position ``start`` (a host int shared by
-        every row), in place."""
-        arr[layer, :, :, start:start + val.shape[2]] = val.to(arr.dtype)
+        [L, B, KH, T, *rest] at ``start``, in place, in the reference's
+        three write geometries:
+
+        - a host int: every row at one offset (prefill, uniform decode),
+          clamped to [0, T - Sq] as ``dynamic_update_slice`` clamps;
+        - a [B] tensor with Sq 1: one position a row (continuous
+          batching);
+        - a [B] tensor with Sq W: a window a row (``extend_multi``).
+
+        Per-row positions at or past T are dropped, as the reference's
+        scatter drops them: retired and over-budget rows keep advancing
+        past ``max_seq``.  A dropped column c is sent to c mod T, which
+        no in-range column of the row's window takes (W <= T), and
+        writes back what it read there: nothing live moves, no index
+        repeats, and the round needs no host-side test of positions."""
+        sq, T = val.shape[2], arr.shape[3]
+        if not torch.is_tensor(start):
+            s = min(max(int(start), 0), T - sq)
+            arr[layer, :, :, s:s + sq] = val.to(arr.dtype)
+            return
+        cols = start.long()[:, None] + torch.arange(sq, device=start.device)
+        rows = torch.arange(val.shape[0], device=start.device)[:, None]
+        idx = cols % T                                        # [B, Sq]
+        keep = (cols < T).reshape(*cols.shape, *([1] * (arr.dim() - 3)))
+        dest = arr[layer]
+        cur = dest[rows, :, idx]                          # [B, Sq, KH, ...]
+        dest[rows, :, idx] = torch.where(
+            keep, val.transpose(1, 2).to(arr.dtype), cur)
 
     @staticmethod
     def _paged_store(arr, val, pages, pos, page: int, layer: int):
@@ -277,13 +304,19 @@ class InferenceEngine:
 
     # -- dense cache: one batch at one shared position --------------------
     @torch.no_grad()
-    def prefill(self, params, tokens, pad_left: int = 0):
+    def prefill(self, params, tokens, pad_left: int = 0, cache=None):
         """tokens [B, S] -> (cache, last_logits [B, V]).  ``pad_left``
         leading positions are padding: excluded from attention, and RoPE
-        starts at the first real token."""
+        starts at the first real token.  ``cache``: a [L, B, KH, T, ...]
+        cache (T >= S) to zero and write into, in place of a new one of
+        ``max_seq`` positions (the batcher passes its slot's row)."""
         B, S = tokens.shape
-        cache = _empty_cache(self.cfg, B, self.max_seq, self.kv_quant,
-                             self.device)
+        if cache is None:
+            cache = _empty_cache(self.cfg, B, self.max_seq, self.kv_quant,
+                                 self.device)
+        else:
+            for arr in cache.values():
+                arr.zero_()
         x = emb_lookup(params["embed"], tokens, self.cfg.dtype)
         q_idx = self._arange(S)
         positions = (q_idx - pad_left).clamp_min(0)
@@ -318,12 +351,14 @@ class InferenceEngine:
         """One decode step where row b sits at its own position: token,
         pos, rope_pos, kv_start [B] int32.  Row b attends to slots
         [kv_start[b], pos[b]] and writes its K/V at pos[b].  ``pages``
-        [B, MP] int32 + ``page``: the paged pool; ``t_hi`` bounds the read
-        and rounds up to whole pages.  Returns (cache, logits [B, V])."""
-        self._require_paged(pages)
+        [B, MP] int32 + ``page``: the paged pool, where ``t_hi`` rounds up
+        to whole pages; without them ``cache`` is the dense [L, B, ...]
+        cache.  ``t_hi`` bounds the read only: writes target the whole
+        cache.  Returns (cache, logits [B, V])."""
         x = emb_lookup(params["embed"], token, self.cfg.dtype)[:, None]
         T = t_hi if t_hi is not None else self.max_seq
-        T = -(-T // page) * page
+        if pages is not None:
+            T = -(-T // page) * page
         t = self._arange(T)
         mask = ((t[None, :] <= pos[:, None])
                 & (t[None, :] >= kv_start[:, None]))[:, None, :]  # [B,1,T]
@@ -338,14 +373,15 @@ class InferenceEngine:
                      kv_start, t_hi=None, pages=None, page: int = 0):
         """Multi-token forward where row b writes its own window: tokens
         [B, W]; start/rope_start/kv_start [B] int32.  Query start[b] + j
-        attends to [kv_start[b], start[b] + j].  Window writes scatter
-        through the page tables (positions past the table land in the
-        trash block).  Returns (cache, logits [B, W, V])."""
-        self._require_paged(pages)
+        attends to [kv_start[b], start[b] + j].  On the paged pool window
+        writes scatter through the page tables (positions past the table
+        land in the trash block); on the dense cache positions past
+        ``max_seq`` are dropped.  Returns (cache, logits [B, W, V])."""
         B, W = tokens.shape
         q_pos = start[:, None] + self._arange(W)[None]            # [B, W]
         T = t_hi if t_hi is not None else self.max_seq
-        T = -(-T // page) * page
+        if pages is not None:
+            T = -(-T // page) * page
         t = self._arange(T)
         mask = ((t[None, None, :] <= q_pos[:, :, None])
                 & (t[None, None, :] >= kv_start[:, None, None]))  # [B,W,T]
@@ -356,14 +392,6 @@ class InferenceEngine:
             kv_start=kv_start,
         )
         return cache, logits
-
-    @staticmethod
-    def _require_paged(pages):
-        if pages is None:
-            raise NotImplementedError(
-                "per-row decode on the dense cache is not ported yet "
-                "(ROADMAP queue 1 item 4): pass pages= for the paged pool"
-            )
 
     # -- sampling ----------------------------------------------------------
     @staticmethod

@@ -1,5 +1,6 @@
 """Admission, queueing and round policy of the continuous batcher: the
-port of ``k8s_gpu_tpu/serve/scheduler.py`` for paged-pool serving.
+port of ``k8s_gpu_tpu/serve/scheduler.py`` for the dense and the paged
+pool.
 
 The scheduler thread admits requests into free slots (block planning in
 ``allocator.py``, device work in ``executor.py``), dispatches decode
@@ -14,10 +15,17 @@ bound) grows in powers of two from 256, and round lengths come from the
 fix what each step reads, so streams compare with the reference's under
 the same rounds.
 
-Not ported yet (ROADMAP queue 1): speculative rounds, the dense pool and
-its prefix-entry cache, disaggregated and precomputed admission, quiesce
-barriers and migration, deadlines, tenants, journal, metrics and
-tracing.
+Admission paths, counted by name in ``admission_paths``: ``cold`` (a
+left-padded prefill; on the paged pool its row splices into the blocks),
+``cold_fused`` (the same with the first round in one dispatch, when the
+dense batcher is idle), ``prefix_exact`` and ``prefix_suffix`` (the dense
+pool's prefix-entry cache, filled by ``precache_prefix``), and
+``paged_cold``/``paged_shared`` (the paged pool's block-sharing suffix
+extend).
+
+Not ported yet (ROADMAP queue 1): speculative rounds, roles,
+disaggregated and precomputed admission, quiesce barriers and
+migration, deadlines, tenants, journal, metrics and tracing.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from .engine import _empty_cache
 
 log = logging.getLogger("k8s_gpu_tpu_torch.serve")
 
@@ -86,10 +96,11 @@ class _Request:
     t_submit: float = 0.0
     t_first: float = 0.0
     t_last: float = 0.0
-    # Physical blocks held from admission to retirement; the first
-    # prefix_tokens // page_size are shared prefix blocks.
+    # Paged pool: physical blocks held from admission to retirement; the
+    # first prefix_tokens // page_size are shared prefix blocks.  None
+    # routes the admission through the dense-row splice (no sharing).
     blocks: list = field(default_factory=list)
-    prefix_tokens: int = 0
+    prefix_tokens: int | None = None
 
 
 class RequestHandle:
@@ -185,6 +196,70 @@ class SchedulerMixin:
         self._wake.set()
         return RequestHandle(req)
 
+    def precache_prefix(self, ids) -> None:
+        """Prefill ``ids`` once for reuse: a later prompt that starts with
+        them computes only its suffix (``prefix_suffix``), and a prompt
+        that is exactly them admits with no model forward
+        (``prefix_exact``).  Dense pool: a right-padded ``extend_multi``
+        over the power-of-two bucket on a fresh row, kept in an LRU of
+        ``_prefix_cap`` entries.  Paged pool: a throwaway one-token
+        generation, whose full prompt pages stay registered in the block
+        cache (a prefix shorter than a page warms nothing).  Raises
+        ValueError for an MoE model or an unusable length."""
+        if self.engine.cfg.num_experts > 1:
+            raise ValueError(
+                "prefix caching is unavailable for MoE models: "
+                "capacity-capped expert dispatch makes chunked prefill "
+                "diverge from the one-shot path"
+            )
+        ids = np.asarray(ids, np.int32).ravel()
+        if ids.size == 0 or ids.size > self.engine.max_seq - 8:
+            raise ValueError(f"prefix length {ids.size} unusable")
+        if self.paged:
+            if not self._thread.is_alive():
+                raise RuntimeError(
+                    "paged precache_prefix rides a throwaway generation "
+                    "- start() the batcher first"
+                )
+            self.submit(ids, max_new_tokens=1).result()
+            return
+        n = int(ids.size)
+        # The caller's (HTTP) thread: its own autograd state.
+        with torch.inference_mode():
+            zero = torch.zeros(1, dtype=torch.int32, device=self.device)
+            cache, logits = self.engine.extend_multi(
+                self.params,
+                _empty_cache(self.engine.cfg, 1, self.engine.max_seq,
+                             self.engine.kv_quant, self.device),
+                self._right_padded(ids), zero, zero, zero,
+            )
+            logits = logits[:, n - 1]
+        if self.device.type == "cuda":
+            # The scheduler reads the entry from its own thread: the row
+            # must have landed before the entry can be matched.
+            torch.cuda.current_stream(self.device).synchronize()
+        key = ids.tobytes()
+        with self._prefix_lock:
+            self._prefix[key] = {"cache": cache, "logits": logits, "n": n}
+            self._prefix.move_to_end(key)
+            while len(self._prefix) > self._prefix_cap:
+                self._prefix.popitem(last=False)
+
+    def _match_prefix(self, ids: np.ndarray):
+        """Longest cached prefix of ``ids`` (LRU-touched), or None."""
+        if not self.prefix_cache:
+            return None
+        best_key = best = None
+        with self._prefix_lock:
+            for key, entry in self._prefix.items():
+                n = entry["n"]
+                if (n <= ids.size and (best is None or n > best["n"])
+                        and ids[:n].tobytes() == key):
+                    best, best_key = entry, key
+            if best_key is not None:
+                self._prefix.move_to_end(best_key)
+        return best
+
     @property
     def inflight_requests(self) -> int:
         """Queued plus admitted-and-decoding requests (benign racy read)."""
@@ -211,25 +286,106 @@ class SchedulerMixin:
                 return i
         return -1
 
-    def _dispatch_admit(self, req: _Request, slot: int) -> tuple:
-        """Block-granular paged admission (``_paged_plan`` matched the
-        shared prefix and allocated the tail): a right-padded suffix
-        extend through the slot's page-table row."""
-        page_row = self._set_page_row(slot, req.blocks)
-        s_tok = req.prefix_tokens
+    _ENTRY_UNRESOLVED = object()
+
+    def _dispatch_admit(self, req: _Request, slot: int,
+                        entry=_ENTRY_UNRESOLVED) -> tuple:
+        """Queue one admission.  ``entry``: the prefix-entry match when the
+        caller already looked it up (the fused gate does); left unset, it
+        is resolved here."""
         n = int(req.ids.size)
-        n_real = n - s_tok
-        w = min(_suffix_bucket(n_real), self.engine.max_seq)
-        suffix = np.zeros((1, w), np.int32)
-        suffix[0, :n_real] = req.ids[s_tok:]
-        req.pos_hint = n
-        first, lp = self._admit_paged_dev(
-            torch.from_numpy(suffix).to(self.device), n_real, slot,
-            req.temperature, req.seed, s_tok, req.top_p, page_row,
+        if self.paged and req.prefix_tokens is not None:
+            # Block-granular paged admission (_paged_plan matched the
+            # shared prefix and allocated the tail): a right-padded suffix
+            # extend through the slot's page-table row.
+            page_row = self._set_page_row(slot, req.blocks)
+            s_tok = req.prefix_tokens
+            req.pos_hint = n
+            first, lp = self._admit_paged_dev(
+                self._right_padded(req.ids[s_tok:]), n - s_tok, slot,
+                req.temperature, req.seed, s_tok, req.top_p, page_row,
+            )
+            return self._seated(req, slot, first, lp,
+                                "paged_shared" if s_tok else "paged_cold")
+        if entry is self._ENTRY_UNRESOLVED:
+            entry = None if self.paged else self._match_prefix(req.ids)
+        if entry is not None and entry["n"] == n:
+            # The prompt is a cached prefix: splice + sample, no forward.
+            req.pos_hint = n
+            first, lp = self._admit_exact_dev(
+                entry, slot, req.temperature, req.seed, req.top_p)
+            path = "prefix_exact"
+        elif entry is not None and (
+            entry["n"] + _suffix_bucket(n - entry["n"])
+            <= self.engine.max_seq
+        ):
+            p = entry["n"]
+            req.pos_hint = n
+            first, lp = self._admit_prefix_dev(
+                entry, self._right_padded(req.ids[p:]), n - p, slot,
+                req.temperature, req.seed, p, req.top_p,
+            )
+            path = "prefix_suffix"
+        else:
+            padded, pad = self._left_padded(req)
+            req.pos_hint = padded.shape[1]
+            # Paged pool: the allocation (made by _paged_plan) goes into
+            # the host page table, and the prefilled row splices into it.
+            page_row = (self._set_page_row(slot, req.blocks)
+                        if self.paged else None)
+            first, lp = self._admit_dev(
+                padded, slot, req.temperature, req.seed, pad, req.top_p,
+                page_row,
+            )
+            # A matched entry whose suffix bucket overruns max_seq
+            # prefills cold but counts as a prefix hit, as in the
+            # reference.
+            path = "prefix_suffix" if entry is not None else "cold"
+        return self._seated(req, slot, first, lp, path)
+
+    def _right_padded(self, ids: np.ndarray):
+        """``ids`` right-padded to their width bucket (at most max_seq),
+        [1, W] on the device: the suffix extends' and precache's input."""
+        w = min(_suffix_bucket(int(ids.size)), self.engine.max_seq)
+        padded = np.zeros((1, w), np.int32)
+        padded[0, :ids.size] = ids
+        return torch.from_numpy(padded).to(self.device)
+
+    def _left_padded(self, req: _Request):
+        """The prompt left-padded to its bucket, [1, bucket] on the
+        device, and the pad."""
+        n = int(req.ids.size)
+        bucket = prompt_bucket(n, self.engine.max_seq)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, bucket - n:] = req.ids
+        return torch.from_numpy(padded).to(self.device), bucket - n
+
+    def _dispatch_admit_round(self, req: _Request, slot: int) -> tuple:
+        """The fused cold start: the admission and one normal round in
+        one dispatch.  The caller guarantees the dense pool, a cold prompt
+        (no prefix entry) and an idle batcher.  One round, never more: a
+        request arriving a moment later must still share the next
+        rounds."""
+        padded, pad = self._left_padded(req)
+        n_steps = self.steps_per_round
+        req.pos_hint = padded.shape[1]
+        t_hi = self._t_hi([(slot, req)], 1 + n_steps)
+        first, lp, toks, lps = self._admit_round_dev(
+            padded, slot, req.temperature, req.seed, pad, req.top_p,
+            0.0 < req.top_p < 1.0, n_steps, t_hi,
         )
+        self._seated(req, slot, first, lp, "cold_fused")
+        req.inflight_steps += n_steps
+        req.pos_hint += n_steps
+        self._round_count += 1
+        return ("admit_round", self._round_count, req, first, lp, toks, lps)
+
+    def _seated(self, req: _Request, slot: int, first, lp,
+                path: str) -> tuple:
+        """Common tail of every admission."""
         req.slot = slot
         self._active[slot] = req
-        self.admission_paths["paged_shared" if s_tok else "paged_cold"] += 1
+        self.admission_paths[path] += 1
         # The admission's first token is in flight: the budget gate must
         # count it (_process_admits releases it).
         req.inflight_steps = 1
@@ -269,7 +425,8 @@ class SchedulerMixin:
         t_hi = self._t_hi(live, n_steps)
         # The host owns the page tables; each round takes a snapshot, so a
         # retired slot reads all-trash from the next round on.
-        pages = torch.from_numpy(self._pages.copy()).to(self.device)
+        pages = (torch.from_numpy(self._pages.copy()).to(self.device)
+                 if self.paged else None)
         toks, lps = self._round_dev(use_top_p, n_steps, t_hi, pages)
         for _, r in live:
             r.inflight_steps += n_steps
@@ -318,6 +475,37 @@ class SchedulerMixin:
             if hit_eos or req.emitted >= req.max_new:
                 self._retire(req.slot)
 
+    def _process_admit_round(self, item: tuple) -> None:
+        """Consume a fused cold start: the admission's token, then the
+        round's tokens of its slot."""
+        _, _, req, first_dev, lp_dev, toks_dev, lps_dev = item
+        toks = toks_dev.cpu().numpy()                # [T, B]
+        lps = lps_dev.cpu().numpy()
+        first, lp = torch.stack([first_dev.float(), lp_dev.float()]).tolist()
+        req.inflight_steps = max(0, req.inflight_steps - 1 - toks.shape[0])
+        if self._active[req.slot] is not req:
+            return
+        first = int(first)
+        if self.eos_id >= 0 and first == self.eos_id:
+            self._retire(req.slot)
+            return
+        self._emit(req, first, lp)
+        if (req.emitted >= req.max_new
+                or self._emit_round(req, req.slot, toks, lps)):
+            self._retire(req.slot)
+
+    def _emit_round(self, req: _Request, slot: int, toks, lps) -> bool:
+        """Emit one row's tokens of a round; True once the request is done
+        (EOS or its budget)."""
+        for t in range(toks.shape[0]):
+            tok = int(toks[t, slot])
+            if self.eos_id >= 0 and tok == self.eos_id:
+                return True
+            self._emit(req, tok, float(lps[t, slot]))
+            if req.emitted >= req.max_new:
+                return True
+        return False
+
     def _drain_one(self, inflight: collections.deque) -> None:
         """Consume the next in-flight item; consecutive admissions are
         fetched together."""
@@ -328,6 +516,9 @@ class SchedulerMixin:
                 batch.append(inflight.popleft())
             self._process_admits(batch)
             return
+        if item[0] == "admit_round":
+            self._process_admit_round(item)
+            return
         _, _, live, toks_dev, lps_dev = item
         toks = toks_dev.cpu().numpy()                # [T, B]: one fetch
         lps = lps_dev.cpu().numpy()
@@ -337,17 +528,7 @@ class SchedulerMixin:
         for i, req in live:
             if self._active[i] is not req:
                 continue  # retired (or the slot re-admitted) mid-flight
-            done = False
-            for t in range(n_steps):
-                tok = int(toks[t, i])
-                if self.eos_id >= 0 and tok == self.eos_id:
-                    done = True
-                    break
-                self._emit(req, tok, float(lps[t, i]))
-                if req.emitted >= req.max_new:
-                    done = True
-                    break
-            if done:
+            if self._emit_round(req, i, toks, lps):
                 self._retire(i)
 
     def _admit_waiting(self, inflight: collections.deque) -> None:
@@ -364,7 +545,7 @@ class SchedulerMixin:
                     req = self._pending.get_nowait()
                 except queue.Empty:
                     return
-            if not self._paged_plan(req):
+            if self.paged and not self._paged_plan(req):
                 if not any(r is not None for r in self._active):
                     # Nothing holds blocks, so the request cannot fit.
                     req.aborted = True
@@ -375,7 +556,18 @@ class SchedulerMixin:
                 self._overflow.appendleft(req)
                 return
             try:
-                inflight.append(self._dispatch_admit(req, slot))
+                # An idle dense batcher fuses a cold admission with its
+                # first round.  The prefix lookup runs once and feeds
+                # both the gate and the unfused admission.
+                entry = None if self.paged else self._match_prefix(req.ids)
+                fused = (
+                    not self.paged and entry is None and not inflight
+                    and req.max_new > 1 and self._pending.empty()
+                    and not any(r is not None for r in self._active)
+                )
+                inflight.append(
+                    self._dispatch_admit_round(req, slot) if fused
+                    else self._dispatch_admit(req, slot, entry))
             except BaseException:
                 # In neither _pending nor _active: fail it here, or its
                 # caller would block forever.

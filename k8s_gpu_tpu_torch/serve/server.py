@@ -8,11 +8,15 @@ POST /generate  {"prompt": "text" | "prompt_ids": [...], "max_new_tokens": N,
                    token events then a summary; 429 + Retry-After when the
                    pending queue is full
 POST /tokenize  {"text": "..."} -> {"ids": [...], "count": n}
+POST /precache  {"prompt": "text"} -> {"cached_tokens": n}: later prompts
+                that start with it prefill only their suffix; 400 on an
+                empty prompt or an unusable length
 GET  /healthz, /readyz
 
-Requests go into one ContinuousBatcher on the paged pool.  Not ported
-yet (ROADMAP queue 1 item 5): /precache, /prefill, /admin/*, /debug/*,
-deadlines, tenants, adapters, constraints, request metrics and tracing.
+Requests go into one ContinuousBatcher: the dense KV pool by default,
+the paged pool with ``paged_blocks`` > 0.  Not ported yet (ROADMAP queue
+1 item 5): /prefill, /admin/*, /debug/*, deadlines, tenants, adapters,
+constraints, request metrics and tracing.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ RETRY_AFTER_S = 1
 class LmServer:
     """port=0 binds an ephemeral port; ``.port`` is the bound one.  The
     batcher runs on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    CPU), on the dense pool unless ``paged_blocks`` > 0."""
 
     def __init__(self, model, params, tokenizer: BpeTokenizer,
                  host: str = "127.0.0.1", port: int = 0,
@@ -89,6 +93,17 @@ class LmServer:
                     ids = outer.tokenizer.encode(text)
                     return self._json(200, {"ids": ids.tolist(),
                                             "count": int(ids.size)})
+                if self.path == "/precache":
+                    text = body.get("prompt", "")
+                    if not isinstance(text, str) or not text:
+                        return self._json(
+                            400, {"error": "prompt (string) required"})
+                    ids = outer.tokenizer.encode(text)
+                    try:
+                        outer.batcher.precache_prefix(ids)
+                    except ValueError as e:
+                        return self._json(400, {"error": str(e)})
+                    return self._json(200, {"cached_tokens": int(ids.size)})
                 return self._json(404, {"error": "not found"})
 
             def _generate(self, body):

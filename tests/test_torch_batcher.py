@@ -134,7 +134,7 @@ def test_overloaded_at_max_pending():
 
 @pytest.mark.parametrize("kw", [
     dict(draft="ngram"), dict(adapters={}), dict(constraints=object()),
-    dict(mesh=object()), dict(paged_blocks=0), dict(prefix_cache=False),
+    dict(mesh=object()),
 ])
 def test_unported_options_raise(kw):
     args = dict(slots=2, paged_blocks=BLOCKS, page_size=PAGE, device="cpu")
