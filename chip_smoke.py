@@ -54,7 +54,16 @@ Phases, each of which fails the run on any error:
    ``prefix_cache=False`` through ``ContinuousBatcher``: every admission a
    left-padded prefill spliced into blocks (the 700-token prompt decodes
    with kv_start 324), all ``cold``, the kernel counts read just around
-   the phase;
+   the phase; then (4d) the fleet contract: two ``LmServer``s, A and B,
+   on the paged pool with the paged kernel, over HTTP: A serves a
+   prompt X (a 512-token prefix and a suffix) cold and warm, X's chain
+   moves to B (``/admin/export``, ``/admin/import``), B's stream of X
+   equals A's warm one (a prefix hit; paged launches counted just around
+   it), B's re-export holds A's bytes, a 256-token stream on A cut by an
+   export resumes on B with exactly its budget, A as a prefill worker
+   (``/admin/role``, 409 while busy; ``/prefill``) hands Y to B with no
+   decode step, deadlines answer 504, and every request has one journal
+   record with its client's golden hash;
 5. a check of the output by the repo's own means: the paged-kernel engine
    against the gather engine on one prompt (finite logits that agree);
    then (5b) the 700-token prompt left-padded to 1024: its row decoded
@@ -829,10 +838,11 @@ def flagship_tokenizer(vocab_size: int):
     return BpeTokenizer(merges)
 
 
-def _post(port: int, path: str, body: dict, timeout: float = 600.0):
+def _post(port: int, path: str, body: dict, timeout: float = 600.0,
+          headers: dict | None = None):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"},
+        headers={"Content-Type": "application/json", **(headers or {})},
     )
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -841,14 +851,16 @@ def _post(port: int, path: str, body: dict, timeout: float = 600.0):
         return e.code, json.loads(e.read() or b"{}")
 
 
-def _stream(port: int, body: dict, out: dict, timeout: float = 600.0):
+def _stream(port: int, body: dict, out: dict, timeout: float = 600.0,
+            headers: dict | None = None, started=None):
     """POST /generate with "stream": true; records the ids, the client's
-    time to first token and the end time into ``out``."""
+    time to first token and the end time into ``out``.  ``started``: an
+    event set at the first token."""
     t0 = time.perf_counter()
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/generate",
         data=json.dumps(dict(body, stream=True)).encode(),
-        headers={"Content-Type": "application/json"},
+        headers={"Content-Type": "application/json", **(headers or {})},
     )
     ids, ttft, summary = [], None, None
     with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -857,6 +869,8 @@ def _stream(port: int, body: dict, out: dict, timeout: float = 600.0):
             if "id" in ev:
                 if ttft is None:
                     ttft = time.perf_counter() - t0
+                    if started is not None:
+                        started.set()
                 ids.append(ev["id"])
             else:
                 summary = ev
@@ -1207,6 +1221,304 @@ def run_unshared_paged_path(torch, seed: int, layers: int, device="cuda",
             "paged_attention_launches": launches,
             "paged_attention_fallbacks": fallbacks, "paged_blocks": n_blocks,
             "left_pad_of_700": prompt_bucket(700, cfg.max_seq) - 700}
+
+
+# -- phase 4d: the fleet contract, two replicas on the one card -------------
+
+FLEET_BLOCKS = 72
+FLEET_NEW = 32        # tokens of each X and Y request
+FLEET_STREAM = 256    # the migrating stream's budget
+FLEET_CUT_ROUND = 2   # A's round length while that stream is cut
+
+
+class _Ledger:
+    """Every request the phase sends, by replica: its trace id (sent as
+    ``traceparent``) and the ids the client received (None for
+    ``/prefill``, whose client receives a payload)."""
+
+    def __init__(self):
+        from k8s_gpu_tpu_torch.utils.tracing import (
+            SpanContext, format_traceparent, new_span_id, new_trace_id,
+        )
+
+        self._ctx = lambda: SpanContext(new_trace_id(), new_span_id())
+        self._fmt = format_traceparent
+        self.sent: dict[str, list] = {}
+
+    def headers(self, replica: str, extra: dict | None = None):
+        """Headers for one request to ``replica``, and its entry (the
+        caller fills in ``ids``)."""
+        ctx = self._ctx()
+        entry = {"trace_id": ctx.trace_id, "ids": None}
+        self.sent.setdefault(replica, []).append(entry)
+        return {"traceparent": self._fmt(ctx), **(extra or {})}, entry
+
+    def check(self, servers, golden_hash) -> dict:
+        """One journal record a request, and its golden hash that of the
+        ids the client received; no record without a request."""
+        counts = {}
+        for name, srv in servers.items():
+            recs = srv.journal.snapshot(limit=1000)
+            sent = self.sent.get(name, [])
+            if len(recs) != len(sent):
+                raise RuntimeError(f"{name}: {len(recs)} journal records "
+                                   f"for {len(sent)} requests")
+            for entry in sent:
+                mine = [r for r in recs if r["trace_id"] == entry["trace_id"]]
+                if len(mine) != 1:
+                    raise RuntimeError(f"{name}: {len(mine)} records for "
+                                       f"trace {entry['trace_id']}")
+                if (entry["ids"] is not None
+                        and mine[0]["golden_hash"]
+                        != golden_hash(entry["ids"])):
+                    raise RuntimeError(f"{name}: golden hash of trace "
+                                       f"{entry['trace_id']} is not the "
+                                       "client's stream's")
+            counts[name] = len(recs)
+        return counts
+
+
+def _fleet_stream(port, ledger, replica, body, started=None, extra=None):
+    """A traced streaming /generate; returns the client's view."""
+    headers, entry = ledger.headers(replica, extra)
+    out: dict = {}
+    _stream(port, body, out, headers=headers, started=started)
+    entry["ids"] = out["ids"]
+    return out
+
+
+def _fleet_post(port, ledger, replica, path, body, extra=None):
+    headers, entry = ledger.headers(replica, extra)
+    code, out = _post(port, path, body, headers=headers)
+    if path == "/generate":
+        entry["ids"] = out.get("ids", [])
+    return code, out
+
+
+def _admin(port, path, body):
+    """An admin call that must succeed; returns (body, ms)."""
+    t0 = time.perf_counter()
+    code, out = _post(port, path, body)
+    ms = (time.perf_counter() - t0) * 1e3
+    if code != 200:
+        raise RuntimeError(f"{path}: {code} {out}")
+    return out, ms
+
+
+def _in_background(fn, *args, **kw):
+    th = threading.Thread(target=fn, args=args, kwargs=kw)
+    th.start()
+    return th
+
+
+def _wait_inflight(srv, want_busy: bool, timeout: float = 600.0) -> None:
+    t_end = time.time() + timeout
+    while (srv.batcher.inflight_requests > 0) != want_busy:
+        if time.time() > t_end:
+            raise RuntimeError(f"{srv.name}: in-flight never "
+                               f"{'> 0' if want_busy else '0'}")
+        time.sleep(0.005)
+
+
+def _set_rounds(batcher, steps: int) -> None:
+    """A batcher's round length and its solo ladder, as its constructor
+    derives them from ``steps_per_round``.  Between requests only."""
+    batcher.steps_per_round = steps
+    batcher.solo_buckets = [steps * m for m in (1, 2, 3, 4, 6, 8)]
+
+
+def run_fleet_path(torch, seed: int, layers: int, device="cuda") -> dict:
+    """Two of the port's ``LmServer``s, A and B, on the one card, each on
+    the paged pool (72 blocks of 64, the paged kernel), driven over HTTP
+    through the reference's fleet contract: A serves X (a 512-token
+    prefix and a short suffix) cold and then warm; its chain moves to B
+    (``/admin/export`` -> ``/admin/import``: as many blocks as A
+    registered); B serves X from the moved blocks (the same stream as
+    A's warm one; a prefix hit; paged launches, counted just around this
+    request); B's re-export holds A's bytes; a 256-token stream on A is
+    cut by an export (the migrated summary) and resumed on B (the two
+    parts hold the budget); A, flipped to the prefill role (409 while a
+    request is in flight), prefills Y for B with no decode step, and
+    B's stream of Y equals A's once A is flipped back; ``x-request-
+    deadline-ms`` of 0 and a deadline too short for a queued request
+    answer 504; and each request has one journal record whose golden
+    hash is that of what its client received."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import LmServer
+    from k8s_gpu_tpu_torch.serve.journal import golden_hash
+    from k8s_gpu_tpu_torch.serve.migrate import payload_bytes
+    from k8s_gpu_tpu_torch.utils.metrics import MetricsRegistry
+
+    cfg = flagship_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    tok = flagship_tokenizer(cfg.vocab_size)
+    rng = torch.Generator().manual_seed(seed + 4)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    x, y, z = ids(512) + ids(24), ids(512) + ids(24), ids(100)
+    servers = {name: LmServer(
+        model, params, tok, slots=8, paged_blocks=FLEET_BLOCKS,
+        page_size=PAGE, attn_impl="paged_kernel", max_new_tokens_cap=256,
+        metrics=MetricsRegistry(), name=name,
+        device=device).start() for name in ("fleet-a", "fleet-b")}
+    a, b = servers["fleet-a"], servers["fleet-b"]
+    a_rounds = a.batcher.steps_per_round
+    led = _Ledger()
+    out: dict = {"gpu": gpu_line() if device != "cpu" else "cpu"}
+    try:
+        # 1. A serves X cold, then warm (a prefix hit).
+        a_cold = _fleet_stream(a.port, led, a.name,
+                               {"prompt_ids": x, "max_new_tokens": FLEET_NEW})
+        a_warm = _fleet_stream(a.port, led, a.name,
+                               {"prompt_ids": x, "max_new_tokens": FLEET_NEW})
+        if dict(a.batcher.admission_paths) != {"paged_cold": 1,
+                                               "paged_shared": 1}:
+            raise RuntimeError(f"A's admissions of X: "
+                               f"{dict(a.batcher.admission_paths)}")
+        # 2. X's chain moves from A to B.
+        payload, export_ms = _admin(a.port, "/admin/export", {})
+        registered = len(a.chain_state()["chains"])
+        moved, import_ms = _admin(b.port, "/admin/import", payload)
+        if not moved["imported"] == len(payload["blocks"]) == registered:
+            raise RuntimeError(f"imported {moved['imported']} of "
+                               f"{len(payload['blocks'])} blocks, A "
+                               f"registered {registered}")
+        # 3. B serves X from the moved blocks: A's warm stream.
+        pa.reset_counts()
+        b_warm = _fleet_stream(b.port, led, b.name,
+                               {"prompt_ids": x, "max_new_tokens": FLEET_NEW})
+        launches, fallbacks = pa.launch_count, pa.fallback_count
+        if b_warm["ids"] != a_warm["ids"]:
+            raise RuntimeError("B's stream of X is not A's warm stream")
+        if b.batcher.metrics.counter("serve_prefix_cache_hits_total") < 1:
+            raise RuntimeError("B's admission of X missed the moved chain")
+        if device != "cpu" and (launches <= 0 or fallbacks != 0):
+            raise RuntimeError(f"paged_attention launches {launches}, "
+                               f"fall-backs {fallbacks} on B")
+        # 4. B's re-export holds A's bytes.
+        again, _ = _admin(b.port, "/admin/export", {})
+        back = {e["hash"]: e["data"] for e in again["blocks"]}
+        if any(back.get(e["hash"]) != e["data"] for e in payload["blocks"]):
+            raise RuntimeError("B's re-export differs from A's payload")
+        # 6 (before 5: A's pool then holds X and the stream's page, a
+        # short export).  A 256-token stream on A, cut by an export and
+        # resumed on B.  A's default rounds (a solo row up to 64 steps,
+        # two rounds in flight) would finish the stream before the cut;
+        # rounds of 2 steps (a solo row up to 16) keep its in-flight
+        # tail short of the budget, for this step only.
+        _set_rounds(a.batcher, FLEET_CUT_ROUND)
+        started = threading.Event()
+        cut: dict = {}
+        th = _in_background(lambda: cut.update(_fleet_stream(
+            a.port, led, a.name,
+            {"prompt_ids": z, "max_new_tokens": FLEET_STREAM},
+            started=started)))
+        if not started.wait(600):
+            raise RuntimeError("the stream on A never started")
+        mid, mid_export_ms = _admin(a.port, "/admin/export", {})
+        _, mid_import_ms = _admin(b.port, "/admin/import", mid)
+        aborted, _ = _admin(a.port, "/admin/export",
+                            {"abort_live": True, "include_blocks": False})
+        th.join(600)
+        if cut.get("summary") != {"done": False, "error": "migrated",
+                                  "resume": True}:
+            raise RuntimeError(f"A's stream ended {cut.get('summary')} "
+                               f"after {len(cut.get('ids', []))} tokens")
+        rest = _fleet_stream(
+            b.port, led, b.name,
+            {"prompt_ids": z + cut["ids"],
+             "max_new_tokens": FLEET_STREAM - len(cut["ids"])},
+            extra={"x-migrated-from": a.name})
+        if (len(cut["ids"]) + len(rest["ids"]) != FLEET_STREAM
+                or not rest["summary"].get("done")
+                or aborted["aborted"] != 1):
+            raise RuntimeError(f"migrated stream: {len(cut['ids'])} + "
+                               f"{len(rest['ids'])} tokens, aborted "
+                               f"{aborted['aborted']}")
+        if b.batcher.metrics.counter("serve_resumed_requests_total") != 1:
+            raise RuntimeError("B did not count the resumed request")
+        marks = [(srv, key) for srv, key in ((a, "migrated"),
+                                             (b, "migrated_from"))
+                 if not any(key in r.get("extra", {})
+                            for r in srv.journal.snapshot(limit=100))]
+        if marks:
+            raise RuntimeError(f"no {marks[0][1]} record on "
+                               f"{marks[0][0].name}")
+        _set_rounds(a.batcher, a_rounds)
+        # 5. Disaggregated prefill: A as prefill worker for B.
+        busy = _in_background(_fleet_stream, a.port, led, a.name,
+                              {"prompt_ids": ids(48), "max_new_tokens": 64})
+        _wait_inflight(a, True)
+        code, _ = _post(a.port, "/admin/role", {"role": "prefill"})
+        busy.join(600)
+        if code != 409:
+            raise RuntimeError(f"role flip with a request in flight: {code}")
+        _wait_inflight(a, False)
+        _admin(a.port, "/admin/role", {"role": "prefill"})
+        steps = a.batcher.steps_taken
+        t0 = time.perf_counter()
+        code, pre = _fleet_post(a.port, led, a.name, "/prefill",
+                                {"prompt_ids": y})
+        if code != 200:
+            raise RuntimeError(f"/prefill: {code} {pre}")
+        handed, _ = _admin(b.port, "/admin/import", pre)
+        handover_ms = (time.perf_counter() - t0) * 1e3
+        if a.batcher.steps_taken != steps or handed["imported"] != 8:
+            raise RuntimeError(f"prefill worker took "
+                               f"{a.batcher.steps_taken - steps} decode "
+                               f"rounds; B imported {handed['imported']}")
+        b_y = _fleet_stream(b.port, led, b.name,
+                            {"prompt_ids": y, "max_new_tokens": FLEET_NEW})
+        _admin(a.port, "/admin/role", {"role": "both"})
+        a_y = _fleet_stream(a.port, led, a.name,
+                            {"prompt_ids": y, "max_new_tokens": FLEET_NEW})
+        if b_y["ids"] != a_y["ids"]:
+            raise RuntimeError("B's stream of Y is not A's")
+        # 7. Deadlines: 0 at the door; too short for a queued request.
+        code, _ = _fleet_post(b.port, led, b.name, "/generate",
+                              {"prompt_ids": z, "max_new_tokens": 8},
+                              extra={"x-request-deadline-ms": "0"})
+        if code != 504:
+            raise RuntimeError(f"deadline 0: {code}")
+        busy = _in_background(_fleet_stream, b.port, led, b.name,
+                              {"prompt_ids": ids(48), "max_new_tokens": 128})
+        _wait_inflight(b, True)
+        code, _ = _fleet_post(b.port, led, b.name, "/generate",
+                              {"prompt_ids": z, "max_new_tokens": 8},
+                              extra={"x-request-deadline-ms": "1"})
+        busy.join(600)
+        if code != 504:
+            raise RuntimeError(f"queued request past its deadline: {code}")
+        shed = [r for r in b.journal.snapshot(limit=100)
+                if r["reason"] == "deadline"]
+        if len(shed) != 2:
+            raise RuntimeError(f"{len(shed)} deadline records on B")
+        # 8. The journal: one record a request, the client's hash.
+        records = led.check(servers, golden_hash)
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    out.update({
+        "layers": layers,
+        "chain_blocks": registered,
+        "export_ms": export_ms, "import_ms": import_ms,
+        "payload_mb": len(payload_bytes(payload)) / 1e6,
+        "ttft_s_a_cold": a_cold["ttft_s"], "ttft_s_a_warm": a_warm["ttft_s"],
+        "ttft_s_b_from_moved_blocks": b_warm["ttft_s"],
+        "paged_attention_launches": launches,
+        "paged_attention_fallbacks": fallbacks,
+        "rounds": {"ttft": a_rounds, "migrating_stream": FLEET_CUT_ROUND},
+        "stream_cut_after": len(cut["ids"]),
+        "stream_export_ms": mid_export_ms, "stream_import_ms": mid_import_ms,
+        "stream_blocks": len(mid["blocks"]),
+        "prefill_handover_ms": handover_ms,
+        "journal_records": records,
+    })
+    return out
 
 
 # -- phase 5: the output against the gather read -----------------------------
@@ -1614,6 +1926,9 @@ def main(argv=None) -> int:
                                        profile=args.profile)
     print(json.dumps({"unshared_paged_path": unshared}), flush=True)
     _free(torch)
+    fleet = run_fleet_path(torch, args.seed, LAYERS)
+    print(json.dumps({"fleet_path": fleet}), flush=True)
+    _free(torch)
     outputs = check_outputs(torch, args.seed, LAYERS)
     print(json.dumps({"outputs": outputs}), flush=True)
     left_pad = check_left_pad_outputs(torch, args.seed, LAYERS)
@@ -1646,6 +1961,8 @@ def main(argv=None) -> int:
         "launches": main_path["paged_attention_launches"],
         # Phase 4c's run: the unshared paged pool (left-padded rows).
         "launches_unshared_pool": unshared["paged_attention_launches"],
+        # Phase 4d: B's request served from blocks moved from A.
+        "launches_fleet": fleet["paged_attention_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kern),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -1693,6 +2010,7 @@ def main(argv=None) -> int:
                        "flash_cases": flash, "flash_v2_cases": flash_v2,
                        "main_path": main_path, "dense_path": dense,
                        "unshared_paged_path": unshared,
+                       "fleet_path": fleet,
                        "outputs": outputs, "left_pad_outputs": left_pad,
                        "train_path": train, "train_path_v2": train_v2,
                        "train_path_gqa_v1": train_gqa_v1,

@@ -1,13 +1,16 @@
-"""Paged-KV block planning for the batcher: the port of
-``k8s_gpu_tpu/serve/allocator.py`` (``_blocks_needed``,
-``_set_page_row``, ``_paged_plan``).  Block export/import over the
-migration wire is not ported yet (ROADMAP queue 1 item 5)."""
+"""Paged-KV block planning and block migration for the batcher: the port
+of ``k8s_gpu_tpu/serve/allocator.py`` (``_blocks_needed``,
+``_set_page_row``, ``_paged_plan``, and ``migrate_export`` /
+``migrate_import``, the block plane the migration wire and the
+disaggregated prefill handover ride on)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .kv_blocks import chunk_hashes, shareable_depth
+from .migrate import from_host, to_host, wire_dtype, wire_name
 from .scheduler import _Request, prompt_bucket
 
 
@@ -76,3 +79,110 @@ class AllocatorMixin:
         for j in range(s, n // page):
             self._pool.register(req.blocks[j], hashes[j])
         return True
+
+    def _block_geometry(self) -> dict:
+        """Per cache leaf, one block's contents (``arr[:, blk]``): wire
+        dtype name and shape."""
+        out = {}
+        for name, arr in sorted(self._dev["cache"].items()):
+            out[name] = {"dtype": wire_name(arr.dtype),
+                         "shape": (int(arr.shape[0]),)
+                         + tuple(int(x) for x in arr.shape[2:])}
+        return out
+
+    def migrate_export(self, *, abort_live: bool = False,
+                       include_blocks: bool = True, hashes=None) -> dict:
+        """Snapshot every registered block (full prompt pages, content
+        final) and the live-request manifest for ``migrate.pack``.  Run it
+        under ``run_quiesced``.  One ``index_select`` per leaf and one
+        copy to the host for the whole export.  ``abort_live`` also
+        retires every live stream stamped migrated (a resumable handover:
+        the server's summary tells the client to resume elsewhere);
+        ``include_blocks=False`` skips the bodies; ``hashes`` (chain-hash
+        bytes) exports exactly those blocks, as the disaggregated prefill
+        handover does for one prompt.  ValueError on the dense pool."""
+        if not self.paged:
+            raise ValueError("block migration requires paged KV mode")
+        cache = self._dev["cache"]
+        geometry = self._block_geometry()
+        blocks: list[tuple[bytes, dict]] = []
+        if include_blocks:
+            items = self._pool.registered()
+            if hashes is not None:
+                want = set(hashes)
+                items = [(h, b) for h, b in items if h in want]
+            if items:
+                idx = torch.tensor([b for _, b in items], dtype=torch.long,
+                                   device=self.device)
+                sel = {name: to_host(arr.index_select(1, idx))
+                       for name, arr in cache.items()}
+                for j, (h, _) in enumerate(items):
+                    blocks.append((h, {
+                        name: np.ascontiguousarray(sel[name][:, j])
+                        for name in sorted(sel)}))
+        requests = [{
+            "tenant": r.tenant,
+            "trace_id": (r.trace_ctx.trace_id if r.trace_ctx is not None
+                         else ""),
+            "prompt_tokens": int(r.prompt_tokens),
+            "emitted": int(r.emitted),
+        } for r in self._active if r is not None]
+        aborted = 0
+        if abort_live:
+            for slot, r in enumerate(self._active):
+                if r is None:
+                    continue
+                r.migrated = True
+                r.aborted = True
+                self._retire(slot)
+                aborted += 1
+        return {"page_size": self.page_size, "geometry": geometry,
+                "blocks": blocks, "requests": requests, "aborted": aborted}
+
+    def migrate_import(self, parsed: dict) -> int:
+        """Splice wire blocks (``migrate.unpack``'s output) into the pool
+        through the path a retiring admission takes: alloc a block, write
+        the wire bytes, register its hash, release it to refcount 0, so
+        it parks in the LRU like a retired prompt's pages.  Run it under
+        ``run_quiesced``.  Page size and every leaf's dtype and shape are
+        checked before anything changes (ValueError).  Registered hashes
+        are skipped; a pool too full stops early (a shorter chain is still
+        a valid warm prefix).  One ``index_copy_`` per leaf.  Returns the
+        blocks spliced."""
+        if not self.paged:
+            raise ValueError("block migration requires paged KV mode")
+        if int(parsed.get("page_size", 0)) != self.page_size:
+            raise ValueError(f"wire page_size {parsed.get('page_size')} != "
+                             f"local {self.page_size}")
+        local = self._block_geometry()
+        geometry = parsed.get("geometry") or {}
+        if sorted(geometry) != sorted(local):
+            raise ValueError(f"wire cache leaves {sorted(geometry)} != "
+                             f"local {sorted(local)}")
+        for name, want in local.items():
+            g = geometry[name]
+            if (wire_dtype(g["dtype"])[0] != want["dtype"]
+                    or tuple(g["shape"]) != want["shape"]):
+                raise ValueError(f"leaf {name!r}: wire {g['dtype']}"
+                                 f"{tuple(g['shape'])} != local "
+                                 f"{want['dtype']}{want['shape']}")
+        fresh: list[tuple[bytes, int, dict]] = []
+        for h, leaves in parsed.get("blocks", []):
+            if self._pool.contains(h):
+                continue
+            got = self._pool.alloc(1)
+            if got is None:
+                break
+            fresh.append((h, got[0], leaves))
+        if fresh:
+            cache = self._dev["cache"]
+            idx = torch.tensor([b for _, b, _ in fresh], dtype=torch.long,
+                               device=self.device)
+            for name, arr in sorted(cache.items()):
+                stacked = np.stack([lv[name] for _, _, lv in fresh], axis=1)
+                arr.index_copy_(1, idx,
+                                from_host(stacked, arr.dtype).to(self.device))
+            for h, blk, _ in fresh:
+                self._pool.register(blk, h)
+                self._pool.release(blk)
+        return len(fresh)

@@ -16,7 +16,13 @@ A fixed pool of ``slots`` decode rows, on one of two KV pools:
   its table to the same blocks and computes only its suffix, and a
   partial tail block is recomputed into a private block.  Without it
   every admission is a left-padded prefill whose row splices into fresh
-  blocks.
+  blocks.  The paged pool's registered blocks export and import over
+  the reference's migration wire (``migrate_export``/``migrate_import``
+  under ``run_quiesced``).
+
+``role`` is the disaggregated-serving role: ``"prefill"`` clamps every
+budget to the admission's one token and refuses decode rounds;
+``"decode"`` and ``"both"`` serve normally.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.metrics import MetricsRegistry, global_metrics
 from .allocator import AllocatorMixin
 from .engine import InferenceEngine, _empty_cache, _empty_cache_paged
 from .executor import ExecutorMixin
+from .journal import RequestJournal
 from .kv_blocks import BlockPool
 from .scheduler import (
     Overloaded, RequestHandle, SchedulerMixin, prompt_bucket,
@@ -40,14 +48,15 @@ from .scheduler import (
 __all__ = ["ContinuousBatcher", "Overloaded", "RequestHandle",
            "prompt_bucket"]
 
-# Options of the reference batcher that this slice does not port, and the
-# ROADMAP item that will.
+# Options of the reference batcher that the port does not have yet, and
+# the ROADMAP queue 1 item that holds each.
 _NOT_PORTED = {
     "mesh": "queue 1 item 11 (parallel plane)",
     "adapters": "queue 1 item 8 (LoRA adapters)",
     "constraints": "queue 1 item 8 (constrained decoding)",
     "draft": "queue 1 item 7 (speculative decoding)",
 }
+ROLES = ("both", "prefill", "decode")
 
 
 class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
@@ -61,7 +70,10 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
     picks the paged pool; ``prefix_cache=False`` turns off both prefix
     planes (the dense entry cache and block sharing); ``max_pending`` >
     0 bounds the unadmitted queue (``submit`` raises ``Overloaded`` at
-    the bound)."""
+    the bound).  ``metrics``: the registry of the serve-plane series
+    (the process-wide one by default; give each replica its own);
+    ``role``: ``both``, ``prefill`` or ``decode``.  ``journal`` is the
+    per-request record ring."""
 
     def __init__(self, model, params, *, slots: int = 8, mesh=None,
                  max_seq: int | None = None, eos_id: int = -1,
@@ -70,7 +82,9 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
                  draft=None, kv_quant: bool = False,
                  attn_impl: str | None = None, paged_blocks: int = 0,
                  page_size: int = 64, prefix_cache: bool = True,
-                 max_pending: int = 0, device="cuda"):
+                 max_pending: int = 0,
+                 metrics: MetricsRegistry | None = None,
+                 role: str = "both", device="cuda"):
         given = {"mesh": mesh, "adapters": adapters,
                  "constraints": constraints, "draft": draft}
         for name, value in given.items():
@@ -79,6 +93,11 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
                     f"ContinuousBatcher({name}=...) is not ported yet "
                     f"(ROADMAP {_NOT_PORTED[name]})"
                 )
+        if role not in ROLES:
+            raise ValueError(f"unknown batcher role {role!r}")
+        self.role = role
+        self.metrics = metrics if metrics is not None else global_metrics
+        self.journal = RequestJournal()
         self.device = resolve_device(device)
         self.engine = InferenceEngine(
             model, max_seq=max_seq, kv_quant=kv_quant, attn_impl=attn_impl,
@@ -154,6 +173,9 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
         self._lifecycle = threading.Lock()
         self._stop = threading.Event()
         self._wake = threading.Event()
+        # Quiesce barriers (run_quiesced): thunks the scheduler runs with
+        # no round in flight; queued under _lifecycle like _pending.
+        self._barriers: queue.Queue = queue.Queue()
         self._round_count = 0
         self._warmed = False
         # Admissions by path (the scheduler's module docstring lists the

@@ -24,7 +24,16 @@ from .engine import _empty_cache, gumbel_sample, nucleus_mask
 
 
 class ExecutorMixin:
-    """Prefill/decode half of ``ContinuousBatcher``."""
+    """Prefill/decode half of ``ContinuousBatcher``; its one host-side
+    policy is the role gate."""
+
+    def _guard_decode(self) -> None:
+        """Refuse a decode round on a prefill-only executor: its
+        requests retire at admission, so reaching a round is a role
+        violation, and its pages may already have been handed over."""
+        if self.role == "prefill":
+            raise RuntimeError(
+                "prefill-only executor: decode round dispatch refused")
 
     def _first_token(self, logits, temp: float, gen, top_p: float):
         """logits [V] f32 -> (token, logprob) as 0-d device tensors: the

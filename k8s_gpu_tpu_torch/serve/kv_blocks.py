@@ -73,6 +73,27 @@ class BlockPool:
         blocks here, whether plain-free or cached)."""
         return sorted(list(self._free) + list(self._lru))
 
+    @property
+    def pinned_count(self) -> int:
+        """Blocks referenced by a live row (refcount >= 1)."""
+        return len(self._ref)
+
+    def contains(self, h: bytes) -> bool:
+        """Whether ``h`` is registered (pinned or cached): the migration
+        import's duplicate gate, read without touching refcounts or LRU
+        order."""
+        return h in self._blk_of
+
+    def registered(self) -> list[tuple[bytes, int]]:
+        """Every registered ``(hash, block)`` pair, sorted by hash: what
+        a migration export sends."""
+        return sorted(self._blk_of.items(), key=lambda kv: kv[0])
+
+    def chain_hashes(self) -> list[bytes]:
+        """Sorted registered hashes: the ``GET /debug/chains`` body the
+        gateway's owner map is rebuilt from."""
+        return sorted(self._blk_of)
+
     # -- sharing -----------------------------------------------------------
     def acquire(self, h: bytes) -> int | None:
         """Pin the block registered under ``h`` (refcount++), pulling it

@@ -15,17 +15,24 @@ bound) grows in powers of two from 256, and round lengths come from the
 fix what each step reads, so streams compare with the reference's under
 the same rounds.
 
-Admission paths, counted by name in ``admission_paths``: ``cold`` (a
-left-padded prefill; on the paged pool its row splices into the blocks),
-``cold_fused`` (the same with the first round in one dispatch, when the
-dense batcher is idle), ``prefix_exact`` and ``prefix_suffix`` (the dense
-pool's prefix-entry cache, filled by ``precache_prefix``), and
-``paged_cold``/``paged_shared`` (the paged pool's block-sharing suffix
-extend).
+Admission paths, counted by name in ``admission_paths`` and in
+``serve_admissions_total{path}``: ``cold`` (a left-padded prefill; on the
+paged pool its row splices into the blocks), ``cold_fused`` (the same
+with the first round in one dispatch, when the dense batcher is idle),
+``prefix_exact`` and ``prefix_suffix`` (the dense pool's prefix-entry
+cache, filled by ``precache_prefix``), and ``paged_cold``/``paged_shared``
+(the paged pool's block-sharing suffix extend).
 
-Not ported yet (ROADMAP queue 1): speculative rounds, roles,
-disaggregated and precomputed admission, quiesce barriers and
-migration, deadlines, tenants, journal, metrics and tracing.
+The fleet contract, as in the reference: a request may carry a deadline
+(dropped at admission or between rounds once it passes, never computed
+on), a tenant (the SLO series' label), a route stamp and the replica it
+resumed from; every terminal outcome writes one journal record; and
+``run_quiesced`` runs a thunk on the scheduler thread with no round in
+flight, the pause that block migration exports and imports through.
+
+Not ported yet (ROADMAP queue 1): speculative rounds (item 7),
+``submit_precomputed`` (item 8, with disaggregated admission) and the
+phase profiler and tracer spans (item 12).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 import collections
 import logging
 import queue
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from .engine import _empty_cache
+from .journal import PROBE_TENANT, RequestRecord, golden_hash
 
 log = logging.getLogger("k8s_gpu_tpu_torch.serve")
 
@@ -91,9 +100,15 @@ class _Request:
     # Host mirror of the row's cache position after in-flight rounds land
     # (the t_hi bucket is computed from it).
     pos_hint: int = 0
-    # True when the stream ended because the batcher stopped or failed.
+    # True when the stream ended because the batcher stopped or failed
+    # (or, with ``migrated``, because an export handed it over).
     aborted: bool = False
+    # Absolute time.monotonic() deadline (None: none).  Expired work is
+    # dropped at admission and between rounds, never computed on.
+    deadline: float | None = None
+    deadline_expired: bool = False
     t_submit: float = 0.0
+    t_admit: float = 0.0
     t_first: float = 0.0
     t_last: float = 0.0
     # Paged pool: physical blocks held from admission to retirement; the
@@ -101,6 +116,23 @@ class _Request:
     # routes the admission through the dense-row splice (no sharing).
     blocks: list = field(default_factory=list)
     prefix_tokens: int | None = None
+    # The HTTP request's trace context (``utils.tracing.SpanContext``);
+    # None for direct submits.  Its trace id goes into the journal.
+    trace_ctx: object = None
+    # SLO label of the latency, shed and token series; "default" when
+    # untagged.
+    tenant: str = "default"
+    path: str = ""           # admission path; "" when shed before it
+    prompt_tokens: int = 0
+    # Fleet evidence for the journal: the replica a front-end chose and
+    # why; a stream cut by a migration export; the replica a resumed
+    # request left.
+    route_replica: str = ""
+    route_reason: str = ""
+    migrated: bool = False
+    migrated_from: str = ""
+    # Every delivered token id: the journal's golden hash.
+    emitted_ids: list = field(default_factory=list)
 
 
 class RequestHandle:
@@ -134,6 +166,18 @@ class RequestHandle:
         return self._req.aborted
 
     @property
+    def deadline_expired(self) -> bool:
+        """True when the stream ended because its deadline passed (shed
+        at admission or cut between rounds)."""
+        return self._req.deadline_expired
+
+    @property
+    def migrated(self) -> bool:
+        """True when an export handed the stream over: the truncation is
+        resumable, not a failure."""
+        return self._req.migrated
+
+    @property
     def logprobs(self) -> list:
         """Per-token log-probabilities, parallel to result(); zeros unless
         the batcher collects them."""
@@ -159,10 +203,20 @@ class SchedulerMixin:
         self._thread.join(timeout=30)
 
     def submit(self, ids, max_new_tokens: int = 32, temperature: float = 0.0,
-               top_p: float = 0.0, seed: int = 0) -> RequestHandle:
+               top_p: float = 0.0, seed: int = 0,
+               deadline: float | None = None, tenant: str | None = None,
+               route: tuple | None = None, migrated_from: str = "",
+               trace_ctx=None) -> RequestHandle:
         """Queue a request; returns a handle streaming generated ids.
         Raises ValueError when the prompt cannot fit and ``Overloaded``
-        when ``max_pending`` is set and the queue is full."""
+        (counted and journalled as a ``queue_full`` shed) when
+        ``max_pending`` is set and the queue is full.  ``deadline``: an
+        absolute ``time.monotonic()`` instant past which the request is
+        dropped.  ``tenant`` labels its SLO series and record (None or ""
+        is ``"default"``).  ``route``: ``(replica, reason)`` from a fleet
+        front-end.  ``migrated_from``: the replica a resumed request left
+        (counted in ``serve_resumed_requests_total``).  ``trace_ctx``:
+        the HTTP request's trace context."""
         ids = np.asarray(ids, np.int32).ravel()
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -173,14 +227,28 @@ class SchedulerMixin:
                 f"max {self.engine.max_seq - 8})"
             )
         room = self.engine.max_seq - bucket
+        if self.role == "prefill":
+            # A prefill worker's budget is the one token its admission
+            # samples: the request retires at admission, no decode round
+            # runs (the executor's _guard_decode enforces it).
+            max_new_tokens = 1
         req = _Request(
             ids=ids,
             max_new=max(1, min(int(max_new_tokens), room)),
             temperature=float(temperature),
             top_p=float(top_p),
             seed=int(seed),
+            deadline=deadline,
             t_submit=time.monotonic(),
+            trace_ctx=trace_ctx,
+            tenant=str(tenant) if tenant else "default",
+            prompt_tokens=int(ids.size),
+            route_replica=str(route[0]) if route else "",
+            route_reason=str(route[1]) if route else "",
+            migrated_from=str(migrated_from or ""),
         )
+        if req.migrated_from:
+            self.metrics.inc("serve_resumed_requests_total")
         with self._lifecycle:
             if self._dead:
                 raise RuntimeError(
@@ -189,6 +257,9 @@ class SchedulerMixin:
             try:
                 self._pending.put_nowait(req)
             except queue.Full:
+                self.metrics.inc("serve_shed_total", reason="queue_full",
+                                 tenant=req.tenant)
+                self._journal(req, "queue_full")
                 raise Overloaded(
                     f"pending queue full ({self.max_pending} requests); "
                     "retry later"
@@ -260,11 +331,80 @@ class SchedulerMixin:
                 self._prefix.move_to_end(best_key)
         return best
 
+    # -- block migration (serve/migrate.py) --------------------------------
+    def run_quiesced(self, fn, timeout_s: float = 60.0):
+        """Run ``fn()`` on the scheduler thread at the next round boundary
+        with no round in flight: every in-flight item consumed and, on
+        the card, the stream synchronised, so ``fn`` may read and write
+        the pool.  Blocks for the result; ``fn``'s exception is raised
+        here and the scheduler lives on.  RuntimeError when the scheduler
+        is stopped, TimeoutError when no boundary comes in ``timeout_s``
+        (the thunk may still run later)."""
+        box = {"done": threading.Event(), "result": None, "error": None}
+        with self._lifecycle:
+            if self._dead:
+                raise RuntimeError(
+                    "batcher scheduler is stopped; restart the server"
+                )
+            self._barriers.put((fn, box))
+        self._wake.set()
+        if not box["done"].wait(timeout_s):
+            raise TimeoutError(f"scheduler did not reach a round boundary "
+                               f"in {timeout_s:.1f}s")
+        if box["error"] is not None:
+            raise box["error"]
+        return box["result"]
+
+    def _run_barriers(self, inflight: collections.deque) -> None:
+        """Scheduler thread: drain the pipeline, then run every queued
+        thunk.  A thunk's exception goes to its waiter, never up here: a
+        malformed import must not kill the scheduler."""
+        while inflight:
+            self._drain_one(inflight)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        while True:
+            try:
+                fn, box = self._barriers.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                box["result"] = fn()
+            except Exception as e:
+                box["error"] = e
+            box["done"].set()
+
+    @property
+    def steps_taken(self) -> int:
+        """Decode rounds dispatched (0 on a prefill worker)."""
+        return self._round_count
+
+    @property
+    def pending_requests(self) -> int:
+        """Queued, not yet admitted requests."""
+        return self._pending.qsize()
+
     @property
     def inflight_requests(self) -> int:
         """Queued plus admitted-and-decoding requests (benign racy read)."""
         active = sum(1 for r in self._active if r is not None)
         return self._pending.qsize() + active
+
+    @property
+    def warm_chain_hashes(self) -> list[str]:
+        """Sorted hex hashes of every registered block: the ``GET
+        /debug/chains`` body; [] on the dense pool.  A racy read of the
+        pool's registry, retried a few times and [] rather than a stall
+        behind a barrier."""
+        pool = getattr(self, "_pool", None)
+        if pool is None:
+            return []
+        for _ in range(3):
+            try:
+                return [h.hex() for h in pool.chain_hashes()]
+            except RuntimeError:
+                continue
+        return []
 
     @property
     def scheduler_alive(self) -> bool:
@@ -293,6 +433,9 @@ class SchedulerMixin:
         """Queue one admission.  ``entry``: the prefix-entry match when the
         caller already looked it up (the fused gate does); left unset, it
         is resolved here."""
+        # Queue wait ends when the scheduler commits the request to a
+        # slot, before the admission's device work.
+        req.t_admit = time.monotonic()
         n = int(req.ids.size)
         if self.paged and req.prefix_tokens is not None:
             # Block-granular paged admission (_paged_plan matched the
@@ -366,6 +509,7 @@ class SchedulerMixin:
         (no prefix entry) and an idle batcher.  One round, never more: a
         request arriving a moment later must still share the next
         rounds."""
+        req.t_admit = time.monotonic()
         padded, pad = self._left_padded(req)
         n_steps = self.steps_per_round
         req.pos_hint = padded.shape[1]
@@ -382,14 +526,35 @@ class SchedulerMixin:
 
     def _seated(self, req: _Request, slot: int, first, lp,
                 path: str) -> tuple:
-        """Common tail of every admission."""
+        """Common tail of every admission, with the reference's series:
+        admissions by path, queue wait, and one prefix-cache hit or miss
+        for each admission that consulted a prefix cache."""
         req.slot = slot
+        req.path = path
         self._active[slot] = req
         self.admission_paths[path] += 1
+        self.metrics.observe("serve_queue_wait_seconds",
+                             req.t_admit - req.t_submit)
         # The admission's first token is in flight: the budget gate must
         # count it (_process_admits releases it).
         req.inflight_steps = 1
+        self.metrics.inc("serve_admissions_total", path=path)
+        consulted = self._paged_share if self.paged else self.prefix_cache
+        if path in ("prefix_exact", "prefix_suffix", "paged_shared"):
+            self.metrics.inc("serve_prefix_cache_hits_total")
+        elif consulted and path in ("cold", "cold_fused", "paged_cold"):
+            self.metrics.inc("serve_prefix_cache_misses_total")
+        self._update_util_gauges()
         return ("admit", req, first, lp)
+
+    def _update_util_gauges(self) -> None:
+        """Live slots, and on the paged pool the blocks some live row
+        references (a shared block counts once; cached blocks are free)."""
+        live = sum(1 for r in self._active if r is not None)
+        self.metrics.set_gauge("serve_slots_active", float(live))
+        if self.paged:
+            self.metrics.set_gauge("serve_kv_blocks_used",
+                                   float(self._pool.pinned_count))
 
     def _t_hi(self, live, advance: int) -> int:
         """Attention-read bound of the next round: the live rows' largest
@@ -409,6 +574,9 @@ class SchedulerMixin:
         rem = max(rems, default=0)
         if rem <= 0:
             return None
+        # Past the budget gate a round will dispatch: the point a
+        # prefill-only executor refuses.
+        self._guard_decode()
         use_top_p = any(
             r is not None and 0.0 < r.top_p < 1.0 for r in self._active
         )
@@ -428,6 +596,8 @@ class SchedulerMixin:
         pages = (torch.from_numpy(self._pages.copy()).to(self.device)
                  if self.paged else None)
         toks, lps = self._round_dev(use_top_p, n_steps, t_hi, pages)
+        if self.paged and self.engine.attn_impl == "paged_kernel":
+            self.metrics.inc("serve_paged_kernel_rounds_total")
         for _, r in live:
             r.inflight_steps += n_steps
             r.pos_hint += n_steps
@@ -440,11 +610,16 @@ class SchedulerMixin:
         req.t_last = time.monotonic()
         if req.emitted == 1:
             req.t_first = req.t_last
+        req.emitted_ids.append(int(tok))
         req.out.put((int(tok), float(lp)))
 
     def _retire(self, slot: int) -> None:
         req = self._active[slot]
         if req is not None:
+            self._account(req)
+            # Journal before the stream closes: a caller that has its
+            # result finds its record.
+            self._journal(req, self._finish_reason(req))
             req.out.put(None)
             if req.blocks:
                 # Point the slot at the trash block and drop its block
@@ -458,6 +633,114 @@ class SchedulerMixin:
                     self._pool.release(blk)
                 req.blocks = []
         self._active[slot] = None
+        self._update_util_gauges()
+
+    def _account(self, req: _Request) -> None:
+        """The reference's retirement series.  An expired row is a shed,
+        not a completion; canary probes (the reserved tenant) stay out of
+        the latency and tenant-token series.  Each latency lands twice,
+        unlabelled and tenant-labelled; a tenant's token counters are
+        minted even at 0."""
+        probe = req.tenant == PROBE_TENANT
+        if not req.deadline_expired:
+            self.metrics.inc("serve_completions_total")
+            self.metrics.observe("serve_generated_tokens",
+                                 float(req.emitted))
+            if req.emitted >= 1 and req.t_first > 0.0 and not probe:
+                ttft = req.t_first - req.t_submit
+                self.metrics.observe("serve_ttft_seconds", ttft)
+                self.metrics.observe("serve_ttft_seconds", ttft,
+                                     tenant=req.tenant)
+            if req.emitted >= 2 and req.t_first > 0.0 and not probe:
+                gap = (req.t_last - req.t_first) / (req.emitted - 1)
+                self.metrics.observe("serve_inter_token_seconds", gap)
+                self.metrics.observe("serve_inter_token_seconds", gap,
+                                     tenant=req.tenant)
+        if not probe:
+            good = (req.emitted if not (req.deadline_expired or req.aborted)
+                    else 0)
+            self.metrics.inc("serve_tenant_tokens_total", float(req.emitted),
+                             tenant=req.tenant)
+            self.metrics.inc("serve_tenant_goodput_tokens_total",
+                             float(good), tenant=req.tenant)
+
+    @staticmethod
+    def _finish_reason(req: _Request) -> str:
+        """deadline beats aborted beats budget; a row retired early with
+        budget left stopped on EOS."""
+        if req.deadline_expired:
+            return "deadline"
+        if req.aborted:
+            return "aborted"
+        if req.emitted >= req.max_new:
+            return "budget"
+        return "eos"
+
+    def _journal(self, req: _Request, reason: str) -> None:
+        """One record per terminal outcome, with the reference's fields
+        (the replay tuple, the latency story, the fleet evidence)."""
+        self.journal.append(RequestRecord(
+            tenant=req.tenant,
+            trace_id=(req.trace_ctx.trace_id if req.trace_ctx is not None
+                      else ""),
+            reason=reason,
+            path=req.path,
+            prompt_ids=[int(t) for t in req.ids.tolist()],
+            max_new=req.max_new,
+            temperature=req.temperature,
+            top_p=req.top_p,
+            seed=req.seed,
+            deadline_s=(req.deadline - req.t_submit
+                        if req.deadline is not None else 0.0),
+            golden_hash=golden_hash(req.emitted_ids),
+            replica=req.route_replica,
+            route_reason=req.route_reason,
+            slot=req.slot,
+            prompt_tokens=req.prompt_tokens,
+            tokens=req.emitted,
+            queue_wait_s=(max(0.0, req.t_admit - req.t_submit)
+                          if req.t_admit > 0.0 else 0.0),
+            ttft_s=(max(0.0, req.t_first - req.t_submit)
+                    if req.t_first > 0.0 else 0.0),
+            tpot_s=((req.t_last - req.t_first) / (req.emitted - 1)
+                    if req.emitted >= 2 and req.t_first > 0.0 else 0.0),
+            prefix_blocks=((req.prefix_tokens or 0) // self.page_size
+                           if self.paged else 0),
+            deadline_expired=req.deadline_expired,
+            t_submit=req.t_submit,
+            t_done=time.monotonic(),
+            extra={
+                **({"probe": True} if req.tenant == PROBE_TENANT else {}),
+                **({"migrated": True} if req.migrated else {}),
+                **({"migrated_from": req.migrated_from}
+                   if req.migrated_from else {}),
+            },
+        ))
+
+    def _abort(self, req: _Request, reason: str = "aborted") -> None:
+        """End a request that holds no slot: journalled, stream closed."""
+        req.aborted = True
+        self._journal(req, reason)
+        req.out.put(None)
+
+    def _expired(self, req: _Request) -> bool:
+        """True once the request's deadline passed, marked and counted as
+        a deadline shed."""
+        if req.deadline is None or time.monotonic() <= req.deadline:
+            return False
+        req.deadline_expired = True
+        self.metrics.inc("serve_shed_total", reason="deadline",
+                         tenant=req.tenant)
+        return True
+
+    def _expire_live(self, slot: int, req: _Request) -> bool:
+        """Between rounds: retire a row whose deadline passed before its
+        fetched tokens are emitted."""
+        if not self._expired(req):
+            return False
+        req.aborted = True
+        self._retire(slot)
+        return True
 
     def _process_admits(self, items: list) -> None:
         """Consume a run of admissions with one host fetch."""
@@ -467,6 +750,8 @@ class SchedulerMixin:
         for (_, req, _, _), (first, lp) in zip(items, firsts):
             req.inflight_steps = max(0, req.inflight_steps - 1)
             if self._active[req.slot] is not req:
+                continue
+            if self._expire_live(req.slot, req):
                 continue
             first = int(first)
             hit_eos = self.eos_id >= 0 and first == self.eos_id
@@ -484,6 +769,8 @@ class SchedulerMixin:
         first, lp = torch.stack([first_dev.float(), lp_dev.float()]).tolist()
         req.inflight_steps = max(0, req.inflight_steps - 1 - toks.shape[0])
         if self._active[req.slot] is not req:
+            return
+        if self._expire_live(req.slot, req):
             return
         first = int(first)
         if self.eos_id >= 0 and first == self.eos_id:
@@ -528,6 +815,8 @@ class SchedulerMixin:
         for i, req in live:
             if self._active[i] is not req:
                 continue  # retired (or the slot re-admitted) mid-flight
+            if self._expire_live(i, req):
+                continue
             if self._emit_round(req, i, toks, lps):
                 self._retire(i)
 
@@ -545,11 +834,14 @@ class SchedulerMixin:
                     req = self._pending.get_nowait()
                 except queue.Empty:
                     return
+            # Deadline gate before any allocation or device work.
+            if self._expired(req):
+                self._abort(req, "deadline")
+                continue
             if self.paged and not self._paged_plan(req):
                 if not any(r is not None for r in self._active):
                     # Nothing holds blocks, so the request cannot fit.
-                    req.aborted = True
-                    req.out.put(None)
+                    self._abort(req, "no_capacity")
                     continue
                 # Back at the front, holding no references; the retry
                 # re-matches against the then-current cache.
@@ -562,6 +854,7 @@ class SchedulerMixin:
                 entry = None if self.paged else self._match_prefix(req.ids)
                 fused = (
                     not self.paged and entry is None and not inflight
+                    and self.role != "prefill"
                     and req.max_new > 1 and self._pending.empty()
                     and not any(r is not None for r in self._active)
                 )
@@ -571,14 +864,17 @@ class SchedulerMixin:
             except BaseException:
                 # In neither _pending nor _active: fail it here, or its
                 # caller would block forever.
-                req.aborted = True
-                req.out.put(None)
+                self._abort(req)
                 raise
 
     def _loop(self) -> None:
         inflight: collections.deque = collections.deque()
         try:
             while not self._stop.is_set():
+                # Quiesce point (run_quiesced), checked first: barriers
+                # run with the pipeline drained.
+                if not self._barriers.empty():
+                    self._run_barriers(inflight)
                 any_active = any(r is not None for r in self._active)
                 if (not any_active and self._pending.empty()
                         and not inflight and not self._overflow):
@@ -588,8 +884,11 @@ class SchedulerMixin:
                 self._admit_waiting(inflight)
                 # Keep the device busy: queue the next round before
                 # fetching the previous ones.  None means every live
-                # budget is covered in flight — consume instead.
-                if any(r is not None for r in self._active):
+                # budget is covered in flight — consume instead.  A
+                # pending barrier pauses new rounds, so a migration abort
+                # finds the stream still live.
+                if (any(r is not None for r in self._active)
+                        and self._barriers.empty()):
                     item = self._dispatch_round()
                     if item is not None:
                         inflight.append(item)
@@ -607,6 +906,16 @@ class SchedulerMixin:
             # forever, and their streams are marked aborted.
             with self._lifecycle:
                 self._dead = True
+                # Fail queued barriers under the lock that sets _dead:
+                # run_quiesced either queued before this (failed here) or
+                # sees _dead and raises.
+                while True:
+                    try:
+                        _, box = self._barriers.get_nowait()
+                    except queue.Empty:
+                        break
+                    box["error"] = RuntimeError("batcher scheduler stopped")
+                    box["done"].set()
                 waiting = [r for r in self._active if r is not None]
                 waiting += list(self._overflow)
                 self._overflow.clear()
@@ -616,5 +925,4 @@ class SchedulerMixin:
                     except queue.Empty:
                         break
                 for r in waiting:
-                    r.aborted = True
-                    r.out.put(None)
+                    self._abort(r)
