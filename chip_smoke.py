@@ -23,13 +23,20 @@ Phases, each of which fails the run on any error:
    the planner's ``tile_splits``) and the grid's splits a tile; the
    ragged, cold and ``left_pad_bf16`` cases also with poisoned trash and
    unowned blocks, ``left_pad_bf16`` being decode with every row's
-   visible range from 324 and NaN in the five blocks below it;
+   visible range from 324 and NaN in the five blocks below it; the
+   verify windows of speculative serving, ``spec_verify_k{2,4,8}_bf16``
+   (Sq = K + 1 over the paged spec cell's tables: starts 1025-1073, one
+   window across the page boundary at 1088, one row from kv_start 197)
+   and ``spec_verify_gqa_k4_bf16`` (G 4: 20 folded rows, the tensor
+   cores), with poisoned trash and unowned blocks;
    decode_bf16 timed again on three pools made anew, the yardstick's
    spread), then the three flash-attention kernels (forward, dq,
    dk/dv; in bf16 all three on the tensor cores, held with terms for
    their roundings of p and ds to bf16), each alone on the same inputs
    and together through autograd with an lse cotangent, at the flagship
-   training shape and at an odd and a non-causal one; then (3c) the three
+   training shape, at an odd and a non-causal one and at phase 4e's
+   distillation shape (one 256-token row, timed: float32 as the draft
+   trains, bf16 as the target's forward runs); then (3c) the three
    flash-v2 kernels the same way, with rope in the kernel, K/V at their
    KV heads and P = 2 query tiles a block, at the v2 training shape (q
    [24, 8, 2048, 128], k, v [24, 2, 2048, 128] bf16), the reference
@@ -63,7 +70,23 @@ Phases, each of which fails the run on any error:
    export resumes on B with exactly its budget, A as a prefill worker
    (``/admin/role``, 409 while busy; ``/prefill``) hands Y to B with no
    decode step, deadlines answer 504, and every request has one journal
-   record with its client's golden hash;
+   record with its client's golden hash; then (4e) speculative serving:
+   a draft distilled from the flagship with the reference bench's recipe
+   (2 layers at half width, float32, hard labels on the greedy trajectory
+   of one prompt, up to 1500 steps; the flash kernels launched, no plain
+   call), the dense pool's plain, spec and int8-draft batchers on four
+   160-token requests (the bench's ``spec_batcher_probe``: tokens/s,
+   acceptance, adapted K), the paged pool's plain, n-gram and
+   distilled-draft batchers on eight 48-token requests over one shared
+   1024-token prefix through the paged kernel (``cb_paged_spec``: its
+   launches exactly one a layer for every kernel admission, verify
+   sub-round and plain decode step, no fall-back), every budget met, and
+   each spec stream equal to the plain stream of the same request on the
+   same pool, or first departing where the plain logits' top-2 gap is
+   under 0.25 (bf16; the plain streams' gap distribution is printed
+   beside it) and, at float32 with a draft distilled against the float32
+   target, under 1e-4 on both pools (dense: spec and int8 draft; paged:
+   n-gram and neural);
 5. a check of the output by the repo's own means: the paged-kernel engine
    against the gather engine on one prompt (finite logits that agree);
    then (5b) the 700-token prompt left-padded to 1024: its row decoded
@@ -88,12 +111,14 @@ Phases, each of which fails the run on any error:
    float32; then (7b) the same for the v2 configuration against the same
    GQA configuration with the knobs off (v1, rope outside, K/V repeated).
 
-It prints a ``{"kernels": [...]}`` line (each flash entry also with its
+It prints a ``{"kernels": [...]}`` line (each entry names the phase
+that launches it; each flash entry also with its
 useful TFLOP/s and ``design``: ``cuda-mma`` for the tensor-core instance
 that was timed, ``cuda-fma`` for one on the CUDA cores; the paged entry
 with the decode case's design, the most splits a row tile took and the
 grid's splits a tile, and the same with the ms, bound and library ms of
-the window and cold-admission cases beside them), then as its last
+the window, cold-admission and verify cases beside them), then as its
+last
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 port beside it, it exits non-zero and prints no result.  ``--json PATH``
 also writes every measured number to PATH.
@@ -172,7 +197,8 @@ def _pa_case(torch, gen, *, B, Sq, H, KH, Dh, page, t_hi, dtype, quant,
     block 0; ``cold``: a cold admission, the window [0, Sq) in the row's
     first Sq / page blocks, trash past them and other tenants' blocks in
     the pool; ``left_pad``: ``full`` with every row's visible range
-    starting at LEFT_PAD, as a left-padded admission leaves it.  Returns
+    starting at LEFT_PAD, as a left-padded admission leaves it; ``spec``:
+    the verify windows of the paged spec cell (``spec_layout``).  Returns
     the operands and the mask of blocks some row sees: a block wholly
     below a row's kv_start is not seen."""
     MP = t_hi // page
@@ -181,7 +207,9 @@ def _pa_case(torch, gen, *, B, Sq, H, KH, Dh, page, t_hi, dtype, quant,
     pages = torch.zeros(B, MP, dtype=torch.int32)
     start = torch.zeros(B, dtype=torch.int32)
     kv_start = torch.zeros(B, dtype=torch.int32)
-    for b in range(B):
+    if layout == "spec":
+        pages, start, kv_start = spec_layout(torch, B, Sq, MP, page)
+    for b in range(B if layout != "spec" else 0):
         if layout == "cold":
             live = -(-Sq // page)
         elif layout == "ragged":
@@ -211,6 +239,37 @@ def _pa_case(torch, gen, *, B, Sq, H, KH, Dh, page, t_hi, dtype, quant,
         ops.update(k=kf.to(dtype), v=vf.to(dtype), k_scale=None,
                    v_scale=None)
     return ops, owned.to(dev)
+
+
+# The paged spec cell (bench.py:851-872): eight requests over one shared
+# 1024-token prefix (16 blocks of 64) and a one-token suffix each, 48
+# tokens each, so verify windows start at 1025-1073.
+SPEC_SHARED_PAGES = 16
+SPEC_STARTS = (1025, 1032, 1040, 1049, 1057, 1065, 1073)
+SPEC_KV_START = 197   # one row reads from 197 on (blocks 1-3 below it)
+
+
+def spec_layout(torch, B, Sq, MP, page):
+    """Page tables and positions of the verify windows of the paged spec
+    cell: every row maps the 16 shared blocks 1-16 first and two private
+    blocks after them (positions 1024-1151), trash past them; the rows'
+    windows start at SPEC_STARTS, and the eighth row's window [start,
+    start + Sq) straddles the page boundary at 1088; the fourth row's
+    visible range starts at SPEC_KV_START."""
+    pages = torch.zeros(B, MP, dtype=torch.int32)
+    start = torch.zeros(B, dtype=torch.int32)
+    kv_start = torch.zeros(B, dtype=torch.int32)
+    cross = (SPEC_SHARED_PAGES + 1) * page
+    starts = list(SPEC_STARTS) + [cross - Sq // 2 - 1]
+    for b in range(B):
+        shared = torch.arange(1, 1 + SPEC_SHARED_PAGES)
+        own = 1 + SPEC_SHARED_PAGES + 2 * b
+        pages[b, :SPEC_SHARED_PAGES] = shared
+        pages[b, SPEC_SHARED_PAGES:SPEC_SHARED_PAGES + 2] = torch.tensor(
+            [own, own + 1])
+        start[b] = starts[b % len(starts)]
+    kv_start[3 % B] = SPEC_KV_START
+    return pages, start, kv_start
 
 
 def _poisoned(ops, owned):
@@ -294,9 +353,45 @@ def _pa_library(torch, ops, *, page, t_hi):
 
 
 PA_SPREAD_RUNS = 3  # decode_bf16 timed again on pools made anew
+SPEC_KS = (2, 4, 8)  # the draft windows adaptive K picks among
 # kv_start of a 700-token prompt left-padded to its 1024 bucket (the
 # serving mix's, on the unshared paged pool): five whole pages below it.
 LEFT_PAD = 1024 - 700
+
+
+def hold_paged(torch, pa, name, out, args, kw, design):
+    """Phase 3's limits for one paged kernel output: against the plain
+    version in the kernel's own type, and (bf16) against the plain
+    version in float32 on the same values.  Returns (max_abs_err, its
+    limit, max_abs_err against float32); raises past a limit."""
+    ref = pa.paged_attention_reference(*args, **kw)
+    err = float((out.float() - ref.float()).abs().max())
+    f32 = args[0].dtype == torch.float32
+    # A window from position 0 has rows that see a few positions, so
+    # outputs the size of V (~4): one bf16 step there exceeds BF16_TOL.
+    tol = F32_TOL if f32 else max(
+        BF16_TOL, FLASH_SAME_TYPE_REL * float(ref.float().abs().max()))
+    if not err <= tol:
+        raise RuntimeError(
+            f"{name}: kernel vs plain max_abs_err {err} > {tol}")
+    if f32:
+        return err, tol, err
+    # bf16 -> f32 is exact; an int8 pool and the tables stay.  The
+    # tensor-core route also rounds p * v_scale to bf16 before P V: its
+    # limit adds that rounding's bound.
+    wide = [a.float() if a.is_floating_point() else a for a in args]
+    ref32 = pa.paged_attention_reference(*wide, **kw)
+    diff = (out.float() - ref32).abs()
+    err_f32 = float(diff.max())
+    lim = F32_REF_ATOL + F32_REF_RTOL * ref32.abs()
+    if design == "cuda-mma":
+        lim = lim + pa.reference_p_rounding(*args, **kw)
+    if not bool((diff <= lim).all()):
+        raise RuntimeError(
+            f"{name}: kernel vs float32 plain version beyond atol "
+            f"{F32_REF_ATOL} + rtol {F32_REF_RTOL} (+ the p rounding on "
+            f"the tensor cores; max abs {err_f32})")
+    return err, tol, err_f32
 
 
 def check_paged_attention(torch, seed: int) -> list[dict]:
@@ -326,6 +421,14 @@ def check_paged_attention(torch, seed: int) -> list[dict]:
         # starts at LEFT_PAD; the blocks wholly below it hold NaN.
         ("left_pad_bf16", 8, 1, 8, 8, 128, 64, 2048, bf16, False,
          "left_pad"),
+        # The verify windows of speculative serving (extend_multi at Sq =
+        # K + 1 for K = 2, 4, 8) over the paged spec cell's tables; with
+        # G = 4 and K = 4 the folded rows (20) pass 16 and take the
+        # tensor cores.
+        *[(f"spec_verify_k{k}_bf16", 8, k + 1, 8, 8, 128, 64, 2048, bf16,
+           False, "spec") for k in SPEC_KS],
+        ("spec_verify_gqa_k4_bf16", 8, 5, 32, 8, 128, 64, 2048, bf16, False,
+         "spec"),
     ]
     results = []
     for name, B, Sq, H, KH, Dh, page, t_hi, dtype, quant, layout in cases:
@@ -363,32 +466,8 @@ def check_paged_attention(torch, seed: int) -> list[dict]:
         tiles = [n for row in want for n in row]
         splits = max(tiles)
         split_hist = {str(n): tiles.count(n) for n in sorted(set(tiles))}
-        ref = pa.paged_attention_reference(*args, **kw)
-        err = float((out.float() - ref.float()).abs().max())
-        # A window from position 0 has rows that see a few positions, so
-        # outputs the size of V (~4): one bf16 step there exceeds BF16_TOL.
-        tol = F32_TOL if dtype == f32 else max(
-            BF16_TOL, FLASH_SAME_TYPE_REL * float(ref.float().abs().max()))
-        if not err <= tol:
-            raise RuntimeError(
-                f"{name}: kernel vs plain max_abs_err {err} > {tol}")
-        err_f32 = err
-        if dtype != f32:
-            # bf16 -> f32 is exact; an int8 pool and the tables stay.  The
-            # tensor-core route also rounds p * v_scale to bf16 before
-            # P V: its limit adds that rounding's bound.
-            wide = [a.float() if a.is_floating_point() else a for a in args]
-            ref32 = pa.paged_attention_reference(*wide, **kw)
-            diff = (out.float() - ref32).abs()
-            err_f32 = float(diff.max())
-            lim = F32_REF_ATOL + F32_REF_RTOL * ref32.abs()
-            if design == "cuda-mma":
-                lim = lim + pa.reference_p_rounding(*args, **kw)
-            if not bool((diff <= lim).all()):
-                raise RuntimeError(
-                    f"{name}: kernel vs float32 plain version beyond atol "
-                    f"{F32_REF_ATOL} + rtol {F32_REF_RTOL} (+ the p "
-                    f"rounding on the tensor cores; max abs {err_f32})")
+        err, tol, err_f32 = hold_paged(torch, pa, name, out, args, kw,
+                                       design)
         if layout != "full":
             bad = _poisoned(ops, owned)
             out_p = pa.paged_attention(
@@ -418,7 +497,7 @@ def check_paged_attention(torch, seed: int) -> list[dict]:
         if name == "decode_bf16":
             # The yardstick's reading moves from run to run: time kernel
             # and yardstick again, each time on a pool made anew.
-            del ops, args, out, ref
+            del ops, args, out
             spread = []
             for _ in range(PA_SPREAD_RUNS):
                 o2, _ = _pa_case(
@@ -614,6 +693,13 @@ def check_flash_attention(torch, seed: int) -> list[dict]:
         ("f32_b2", 2, 8, 8, 2048, 128, "float32", True, True, False),
         ("odd_s_bf16", 2, 8, 8, 1000, 128, "bfloat16", True, True, False),
         ("noncausal_f32", 2, 8, 8, 1000, 128, "float32", False, True, False),
+        # Phase 4e's draft distillation: the draft trains at float32 (the
+        # CUDA-core instances) and the target's forward runs bf16, both
+        # at one 256-token row (no lse cotangent: the loss reads logits).
+        ("distill_f32", 1, 8, 8, DISTILL_SEQ, 128, "float32", True, False,
+         True),
+        ("distill_bf16", 1, 8, 8, DISTILL_SEQ, 128, "bfloat16", True, False,
+         True),
     ]
     return _flash_cases(torch, seed, [(c, None) for c in cases])
 
@@ -944,13 +1030,17 @@ def _start_profile(torch):
     return prof
 
 
-def _profile_summary(torch, prof, wall_s: float) -> dict:
+def _profile_summary(torch, prof, wall_s: float, ranges=()) -> dict:
     """Device busy share and the largest items of a profiled window: the
-    kernels by device time and the host operators by self CPU time."""
+    kernels by device time and the host operators by self CPU time.
+    ``ranges``: names of ``record_function`` ranges, whose spans on the
+    device timeline are not kernels."""
     kernels, host = [], []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
+        if e.key in ranges:
+            continue
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             kernels.append((dev_us, e.key, e.count))
         else:
@@ -1521,6 +1611,413 @@ def run_fleet_path(torch, seed: int, layers: int, device="cuda") -> dict:
     return out
 
 
+# -- phase 4e: speculative serving -------------------------------------------
+
+# The reference bench's speculative probes.  spec_batcher_probe
+# (bench.py:1989-2080): a draft distilled on the serving prompt's greedy
+# trajectory, four requests of 160 tokens on the dense pool.
+# cb_paged_spec_tokens_per_s (bench.py:851-872): eight requests over one
+# shared 1024-token prefix on 49 paged blocks of 64, 48 tokens each.
+SPEC_PROMPT = [3, 5, 7, 11, 13]
+SPEC_NEW = 160
+SPEC_K = 4
+SPEC_DISTILL_STEPS = 1500
+DISTILL_SEQ = 256   # the bench's distillation length (bench.py:2011-2024)
+SPEC_PAGED_BLOCKS = 49
+SPEC_PAGED_NEW = 48
+# Greedy identity: a spec stream equals the plain stream of the same
+# request, except that it may first depart where the plain logits' top-2
+# gap is under this limit.  bf16: the verify reads a K+1 window through
+# other matrix-product shapes than decode's one row, and two such reads
+# of a bf16 model differ by up to LOGIT_TOL after 16 layers (phase 5);
+# float32: summation order only.
+BF16_TIE_GAP = 0.25
+F32_TIE_GAP = 1e-4
+
+
+def _spec_prefix(tag: int) -> list:
+    """The bench's shared 1024-token prompt (bench.py:819-821)."""
+    return [(j * 17 + tag * 131 + 3) % 120 + 2 for j in range(1024)]
+
+
+def _run_handles(b, jobs) -> list:
+    """Submit every (prompt, max_new) at once; their streams, each with
+    its budget checked."""
+    hs = [b.submit(p, max_new_tokens=n) for p, n in jobs]
+    outs = [h.result() for h in hs]
+    for h, out, (_, n) in zip(hs, outs, jobs):
+        if len(out) != n or h.aborted:
+            raise RuntimeError(f"{len(out)} of {n} tokens "
+                               f"(aborted {h.aborted})")
+    return outs
+
+
+def _best_rate(torch, sync, run_once, trials: int = 3):
+    """The bench's best-of-N tokens/s (bench.py:156): ``run_once`` returns
+    the streams; (tokens/s of the fastest trial, its streams, the trial
+    seconds)."""
+    best, outs, times = None, None, []
+    for _ in range(trials):
+        sync()
+        t0 = time.perf_counter()
+        outs = run_once()
+        sync()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        best = dt if best is None else min(best, dt)
+    return sum(len(o) for o in outs) / best, outs, times
+
+
+def _departures(torch, engine, params, jobs, plain, spec, limit) -> list:
+    """Where each spec stream first departs from the plain stream of the
+    same request, with the plain logits' top-2 gap there (the plain
+    engine's prefill over the prompt and the plain stream before it).
+    Raises when a gap is not under ``limit``."""
+    found = []
+    for i, ((prompt, _), a, b) in enumerate(zip(jobs, plain, spec)):
+        d = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None:
+            continue
+        seq = torch.tensor([list(prompt) + list(a[:d])], dtype=torch.int32,
+                           device=engine.device)
+        _, logits = engine.prefill(params, seq)
+        top = torch.topk(logits[0].float(), 2).values
+        gap = float(top[0] - top[1])
+        found.append({"request": i, "position": d, "gap": gap})
+        if not gap < limit:
+            raise RuntimeError(
+                f"request {i}: spec departs from plain at token {d}, "
+                f"where the top-2 gap {gap} is not under {limit}")
+    return found
+
+
+def _top2_gaps(torch, model, params, jobs, streams, limit) -> dict:
+    """The distribution of the plain logits' top-2 gap at every token of
+    the plain streams (the model's forward over prompt + stream), beside
+    the near-tie ``limit``: how often a departure there would pass."""
+    gaps = []
+    for prompt, stream in {(tuple(p), tuple(o))
+                           for (p, _), o in zip(jobs, streams)}:
+        seq = torch.tensor([list(prompt + stream[:-1])],
+                           dtype=torch.int64, device=model.device)
+        with torch.no_grad():
+            logits, _ = model.forward(params, seq)
+        top = torch.topk(logits[0, len(prompt) - 1:].float(), 2).values
+        gaps.append(top[:, 0] - top[:, 1])
+    g = torch.cat(gaps)
+    q = torch.quantile(g, torch.tensor([0.1, 0.5], device=g.device))
+    return {"tokens": int(g.numel()), "min": float(g.min()),
+            "p10": float(q[0]), "median": float(q[1]), "limit": limit,
+            "share_under_limit": float((g < limit).float().mean())}
+
+
+def _paged_work(b) -> dict:
+    """Device work of a paged batcher that goes through the kernel, a
+    launch a layer each: suffix-extend admissions, verify sub-rounds and
+    plain decode steps."""
+    paths = b.admission_paths
+    return {"kernel_admissions": paths["paged_cold"] + paths["paged_shared"],
+            "verify_subrounds": b.dispatched["verify_subrounds"],
+            "decode_steps": b.dispatched["decode_steps"]}
+
+
+def _spec_summary(b) -> dict:
+    st = b.spec_stats
+    return {"acceptance": st["acceptance"], "drafted": st["drafted"],
+            "accepted": st["accepted"],
+            "fallback_rounds": st["fallback_rounds"],
+            "adapted_k": b._spec_k_active,
+            "verify_subrounds": b.dispatched["verify_subrounds"],
+            "decode_steps": b.dispatched["decode_steps"]}
+
+
+def _profile_batcher(torch, b):
+    """A torch.profiler entered on ``b``'s scheduler thread, between two
+    rounds (its host ops are recorded only from the thread that enters
+    it); stop it with ``_stop_batcher_profile``."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    b.run_quiesced(prof.__enter__)
+    return prof
+
+
+def _stop_batcher_profile(b, prof) -> None:
+    # Stopping collects the whole trace on the scheduler thread: minutes
+    # for a busy run, so the barrier waits long.
+    b.run_quiesced(lambda: prof.__exit__(None, None, None), timeout_s=900)
+
+
+def _profiled_run(torch, sync, b, run_once) -> dict:
+    """One more run of ``run_once`` under a profiler on ``b``'s
+    scheduler thread: ``_spec_profile``'s summary of it."""
+    prof = _profile_batcher(torch, b)
+    sync()
+    t0 = time.perf_counter()
+    run_once()
+    sync()
+    wall = time.perf_counter() - t0
+    _stop_batcher_profile(b, prof)
+    return _spec_profile(torch, prof, wall)
+
+
+SPEC_PARTS = ("spec_draft", "spec_verify", "spec_accept")
+
+
+def _spec_profile(torch, prof, wall_s: float) -> dict:
+    """``_profile_summary`` plus each part of a spec sub-round (the
+    executor's ``spec_draft``, ``spec_verify`` and ``spec_accept``
+    ranges): the host ms inside it, the device ms of the kernels it
+    launched, and its span on the device timeline (first kernel's start
+    to last kernel's end, gaps included)."""
+    out = _profile_summary(torch, prof, wall_s, ranges=SPEC_PARTS)
+    parts = {}
+    for e in prof.key_averages():
+        if e.key not in SPEC_PARTS:
+            continue
+        dev_us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0))
+        part = parts.setdefault(e.key, {"count": 0})
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            part["device_span_ms"] = dev_us / 1e3
+        else:
+            part["count"] = e.count
+            part["host_ms"] = e.cpu_time_total / 1e3
+            part["kernel_ms"] = dev_us / 1e3
+    out["spec_parts"] = parts
+    return out
+
+
+def _paged_spec_run(torch, model, params, draft, layers, device, sync,
+                    new=SPEC_PAGED_NEW, profile=False) -> dict:
+    """cb_paged_spec_tokens_per_s's cell on the paged pool through the
+    paged kernel: a first request registers the shared chain, the eight
+    run once to warm, then three timed runs of the eight; the kernel's
+    launches are read just around each timed run and must equal one a
+    layer for every kernel admission, verify sub-round and plain decode
+    step, with no fall-back."""
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher
+
+    shared = _spec_prefix(0)
+    jobs = [(shared + [20 + i], new) for i in range(8)]
+    kw = {} if draft is None else {"draft": draft, "spec_k": SPEC_K}
+    b = ContinuousBatcher(model, params, slots=8,
+                          paged_blocks=SPEC_PAGED_BLOCKS, page_size=PAGE,
+                          attn_impl="paged_kernel", device=device,
+                          **kw).start()
+    runs = []
+    try:
+        _run_handles(b, jobs[:1])
+        _run_handles(b, jobs)
+
+        def timed():
+            w0 = _paged_work(b)
+            sync()
+            pa.reset_counts()
+            outs = _run_handles(b, jobs)
+            sync()
+            work = {k: v - w0[k] for k, v in _paged_work(b).items()}
+            want = layers * sum(work.values())
+            runs.append({**work, "launches": pa.launch_count,
+                         "fallbacks": pa.fallback_count})
+            if device != "cpu" and (pa.launch_count != want
+                                    or pa.fallback_count):
+                raise RuntimeError(
+                    f"paged launches {pa.launch_count}, fall-backs "
+                    f"{pa.fallback_count}; {layers} x {work} = {want}")
+            return outs
+
+        tps, outs, times = _best_rate(torch, sync, timed)
+        summary = _spec_summary(b) if draft is not None else {}
+        admissions = dict(b.admission_paths)
+        extra = ({"profile": _profiled_run(
+            torch, sync, b, lambda: _run_handles(b, jobs))}
+            if profile else {})
+    finally:
+        b.stop()
+    return {**extra, "tokens_per_s": tps, "trial_s": times,
+            "timed_runs": runs, "admissions": admissions, **summary,
+            "streams": outs, "jobs": jobs}
+
+
+def run_spec_path(torch, seed: int, layers: int, device="cuda",
+                  profile: bool = False,
+                  distill_steps: int = SPEC_DISTILL_STEPS,
+                  new: int = SPEC_NEW, paged_new: int = SPEC_PAGED_NEW,
+                  f32_layers: int | None = None) -> dict:
+    """Speculative serving of the flagship (bf16, random weights from
+    ``seed``): a draft distilled with the reference bench's recipe
+    (flash-kernel launches counted, 0 plain calls); the dense pool's
+    plain, spec and int8-draft batchers (four 160-token requests, the
+    bench's warm-ups, best of three); the paged pool's plain, n-gram and
+    distilled-draft batchers over a shared 1024-token prefix through the
+    paged kernel (launches exact); greedy identity of every spec stream
+    against the plain stream of the same request on the same pool, by
+    the near-tie rule, in bf16 (with the plain streams' top-2 gap
+    distribution) and then in float32 at ``f32_layers`` (default: full
+    depth) on both pools, with a draft distilled against the float32
+    target."""
+    import dataclasses
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher, distill_draft
+    from k8s_gpu_tpu_torch.serve.engine import InferenceEngine
+
+    cfg = flagship_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    sync = _syncer(torch, model.device)
+    out = {"layers": layers}
+
+    # 1. The draft, distilled as bench.py:2011-2024 does.
+    stats = {}
+    fa.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    dm, dp, loss = distill_draft(
+        model, params, steps=distill_steps,
+        seq_len=min(DISTILL_SEQ, cfg.max_seq - 8), seed=7,
+        data_temperature=0.0, hard_labels=True, prompts=[SPEC_PROMPT],
+        train_dtype=torch.float32, target_agreement=0.99, stats=stats)
+    sync()
+    out["distill"] = {
+        "seconds": time.perf_counter() - t0, "steps": stats["steps"],
+        "final_loss": loss, "agreement": stats["agreement"],
+        "flash_launches": dict(fa.launch_counts),
+        "trajectory": stats["sequences"][0],
+        "flash_plain_calls": fa.plain_count,
+        "draft": {"n_layers": dm.cfg.n_layers, "d_model": dm.cfg.d_model,
+                  "d_ff": dm.cfg.d_ff, "dtype": _type_name(dm.cfg.dtype)},
+    }
+    print(json.dumps({"spec_distill": out["distill"]}), flush=True)
+    if device != "cpu" and (min(fa.launch_counts[k] for k in FLASH_KERNELS)
+                            <= 0 or fa.plain_count):
+        raise RuntimeError(f"distillation: flash launches "
+                           f"{fa.launch_counts}, plain {fa.plain_count}")
+
+    # 2. The dense pool: spec_batcher_probe.
+    engine = InferenceEngine(model, device=model.device)
+    jobs = [(SPEC_PROMPT, new)] * 4
+    dense = {}
+    streams = {}
+    trajectory = out["distill"].pop("trajectory")[len(SPEC_PROMPT):]
+    for name, kw, warm in (("plain", {}, 1),
+                           ("spec", {"draft": (dm, dp)}, 3),
+                           ("spec_int8", {"draft": (dm, dp),
+                                          "draft_int8": True}, 3)):
+        if kw:
+            kw["spec_k"] = SPEC_K
+        b = ContinuousBatcher(model, params, slots=8, device=device,
+                              **kw).start()
+        try:
+            _run_handles(b, jobs[:1])
+            for _ in range(warm):
+                _run_handles(b, jobs)
+            tps, outs, times = _best_rate(
+                torch, sync, lambda: _run_handles(b, jobs))
+            dense[name] = {"tokens_per_s_4req": tps, "trial_s": times,
+                           **(_spec_summary(b) if kw else {})}
+            if profile and kw and not kw.get("draft_int8"):
+                dense[name]["profile"] = _profiled_run(
+                    torch, sync, b, lambda: _run_handles(b, jobs))
+        finally:
+            b.stop()
+        streams[name] = outs
+    # How far the served greedy stream follows the trajectory the draft
+    # was distilled on (the engine's one-row generate): past the first
+    # difference the draft meets contexts it never saw.
+    dense["plain"]["follows_distilled_trajectory"] = next(
+        (j for j, (x, y) in enumerate(zip(streams["plain"][0], trajectory))
+         if x != y), min(len(trajectory), new))
+    for name in ("spec", "spec_int8"):
+        dense[name]["departures"] = _departures(
+            torch, engine, params, jobs, streams["plain"], streams[name],
+            BF16_TIE_GAP)
+        dense[name]["vs_plain_x"] = (dense[name]["tokens_per_s_4req"]
+                                     / dense["plain"]["tokens_per_s_4req"])
+    dense["plain"]["top2_gaps"] = _top2_gaps(
+        torch, model, params, jobs, streams["plain"], BF16_TIE_GAP)
+    out["dense"] = dense
+    print(json.dumps({"spec_dense": dense}), flush=True)
+
+    # 3-5. The paged pool through the paged kernel.
+    paged = {}
+    for name, draft in (("plain", None), ("ngram", "ngram"),
+                        ("neural", (dm, dp))):
+        paged[name] = _paged_spec_run(torch, model, params, draft, layers,
+                                      device, sync, paged_new,
+                                      profile=profile and draft is not None)
+    for name in ("ngram", "neural"):
+        paged[name]["departures"] = _departures(
+            torch, engine, params, paged[name]["jobs"],
+            paged["plain"]["streams"], paged[name]["streams"], BF16_TIE_GAP)
+        paged[name]["vs_plain_x"] = (paged[name]["tokens_per_s"]
+                                     / paged["plain"]["tokens_per_s"])
+    paged["plain"]["top2_gaps"] = _top2_gaps(
+        torch, model, params, paged["plain"]["jobs"],
+        paged["plain"]["streams"], BF16_TIE_GAP)
+    for run in paged.values():
+        del run["streams"], run["jobs"]
+    out["paged"] = paged
+    print(json.dumps({"spec_paged": paged}), flush=True)
+    del model, params, engine
+    _free(torch)
+
+    # 6. Greedy identity at float32, with a draft distilled against the
+    #    float32 target (so that it is accepted): the dense pool's spec
+    #    and int8-draft batchers, then the paged pool.
+    f32_layers = layers if f32_layers is None else f32_layers
+    cfg32 = dataclasses.replace(flagship_config(torch, f32_layers),
+                                dtype=torch.float32)
+    model32 = TransformerLM(cfg32, device=device)
+    params32 = model32.init(seed)
+    engine32 = InferenceEngine(model32, device=model32.device)
+    draft32 = distill_draft(
+        model32, params32, steps=distill_steps,
+        seq_len=min(DISTILL_SEQ, cfg32.max_seq - 8), seed=7,
+        data_temperature=0.0, hard_labels=True, prompts=[SPEC_PROMPT],
+        train_dtype=torch.float32, target_agreement=0.99)[:2]
+    dense32, streams32 = {}, {}
+    for name, kw in (("plain", {}),
+                     ("spec", {"draft": draft32, "spec_k": SPEC_K}),
+                     ("spec_int8", {"draft": draft32, "spec_k": SPEC_K,
+                                    "draft_int8": True})):
+        b = ContinuousBatcher(model32, params32, slots=8, device=device,
+                              **kw).start()
+        try:
+            streams32[name] = _run_handles(b, jobs)
+            dense32[name] = _spec_summary(b) if kw else {}
+        finally:
+            b.stop()
+    for name in ("spec", "spec_int8"):
+        dense32[name]["departures"] = _departures(
+            torch, engine32, params32, jobs, streams32["plain"],
+            streams32[name], F32_TIE_GAP)
+    out["float32_dense"] = dense32
+    print(json.dumps({"spec_float32_dense": dense32}), flush=True)
+    f32 = {}
+    runs = {name: _paged_spec_run(torch, model32, params32, draft,
+                                  f32_layers, device, sync, paged_new)
+            for name, draft in (("plain", None), ("ngram", "ngram"),
+                                ("neural", draft32))}
+    for name in ("ngram", "neural"):
+        f32[name] = {
+            "departures": _departures(
+                torch, engine32, params32, runs[name]["jobs"],
+                runs["plain"]["streams"], runs[name]["streams"],
+                F32_TIE_GAP),
+            "acceptance": runs[name]["acceptance"],
+            "tokens_per_s": runs[name]["tokens_per_s"],
+        }
+    f32["plain_tokens_per_s"] = runs["plain"]["tokens_per_s"]
+    f32["layers"] = f32_layers
+    out["float32_paged"] = f32
+    print(json.dumps({"spec_float32_paged": f32}), flush=True)
+    return out
+
+
 # -- phase 5: the output against the gather read -----------------------------
 
 LOGIT_TOL = 0.25  # bf16 logits after 16 layers, two attention reads
@@ -1929,6 +2426,9 @@ def main(argv=None) -> int:
     fleet = run_fleet_path(torch, args.seed, LAYERS)
     print(json.dumps({"fleet_path": fleet}), flush=True)
     _free(torch)
+    spec = run_spec_path(torch, args.seed, LAYERS, profile=args.profile)
+    print(json.dumps({"spec_path": spec}), flush=True)
+    _free(torch)
     outputs = check_outputs(torch, args.seed, LAYERS)
     print(json.dumps({"outputs": outputs}), flush=True)
     left_pad = check_left_pad_outputs(torch, args.seed, LAYERS)
@@ -1953,16 +2453,23 @@ def main(argv=None) -> int:
 
     case = {r["case"]: r for r in kern}
     decode = case["decode_bf16"]
+    spec_launches = {
+        f"launches_spec_{name}": sum(r["launches"] for r in
+                                     spec["paged"][name]["timed_runs"])
+        for name in ("ngram", "neural")}
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
         "source": "k8s_gpu_tpu_torch/csrc/paged_attention.cu",
         "replaces": "k8s_gpu_tpu/ops/paged_attention.py:102",
+        "phase": "4 (paged serving); also 4c, 4d, 4e (verify windows)",
         "launches": main_path["paged_attention_launches"],
         # Phase 4c's run: the unshared paged pool (left-padded rows).
         "launches_unshared_pool": unshared["paged_attention_launches"],
         # Phase 4d: B's request served from blocks moved from A.
         "launches_fleet": fleet["paged_attention_launches"],
+        # Phase 4e: the three timed runs of the paged spec cell.
+        **spec_launches,
         "max_abs_err": max(r["max_abs_err"] for r in kern),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -1974,31 +2481,48 @@ def main(argv=None) -> int:
         # blocks the grid gave each tile.
         "splits": decode["splits"],
         "grid_splits": decode["grid_splits"],
-        # The admission windows, on the tensor cores.
+        # The admission windows, on the tensor cores, and the verify
+        # windows of speculative serving.
         **{f"{key}_{field}": case[name][field]
            for key, name in (("window", "window_bf16"),
                              ("admit_cold", "admit_cold_bf16"),
-                             ("left_pad", "left_pad_bf16"))
+                             ("left_pad", "left_pad_bf16"),
+                             *((f"verify_k{k}", f"spec_verify_k{k}_bf16")
+                               for k in SPEC_KS),
+                             ("verify_gqa_k4", "spec_verify_gqa_k4_bf16"))
            for field in ("ms", "bound_ms", "library_ms", "design",
                          "splits", "grid_splits")},
     }]}
-    for rows, top, lines, source, run in (
-            (flash, "flagship_bf16", FLASH_KERNELS, "flash_attention", train),
-            (flash_v2, "train_gqa_bf16", FLASH_V2_KERNELS,
-             "flash_attention_v2", train_v2)):
-        timed = next(r for r in rows if r["case"] == top)
+    # Phase 4e's distillation shapes, timed in phase 3b: the draft's
+    # float32 training and the target's bf16 forward.
+    distill_cases = ("distill_f32", "distill_bf16")
+    for rows, top, extra, lines, source, run, phase in (
+            (flash, "flagship_bf16", distill_cases, FLASH_KERNELS,
+             "flash_attention", train,
+             "6 (training); also 4e (draft distillation)"),
+            (flash_v2, "train_gqa_bf16", (), FLASH_V2_KERNELS,
+             "flash_attention_v2", train_v2, "6b (v2 training)")):
+        by_case = {r["case"]: r for r in rows}
+        timed = by_case[top]
         for name, line in lines.items():
+            distill = spec["distill"]["flash_launches"].get(name, 0)
             kernels["kernels"].append({
                 "name": name,
                 "route": "cuda",
                 "source": f"k8s_gpu_tpu_torch/csrc/{source}.cu",
                 "replaces": f"k8s_gpu_tpu/ops/attention.py:{line}",
+                "phase": phase,
                 "launches": run["launches"][name],
+                **({"launches_distill": distill} if distill else {}),
                 "max_abs_err": max(r["kernels"][name]["max_abs_err"]
                                    for r in rows),
                 **{key: timed["kernels"][name][key]
                    for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "tflops", "design")},
+                **{f"{case}_{field}": by_case[case]["kernels"][name][field]
+                   for case in extra
+                   for field in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "design")},
             })
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -2010,7 +2534,7 @@ def main(argv=None) -> int:
                        "flash_cases": flash, "flash_v2_cases": flash_v2,
                        "main_path": main_path, "dense_path": dense,
                        "unshared_paged_path": unshared,
-                       "fleet_path": fleet,
+                       "fleet_path": fleet, "spec_path": spec,
                        "outputs": outputs, "left_pad_outputs": left_pad,
                        "train_path": train, "train_path_v2": train_v2,
                        "train_path_gqa_v1": train_gqa_v1,

@@ -23,6 +23,11 @@ A fixed pool of ``slots`` decode rows, on one of two KV pools:
 ``role`` is the disaggregated-serving role: ``"prefill"`` clamps every
 budget to the admission's one token and refuses decode rounds;
 ``"decode"`` and ``"both"`` serve normally.
+
+``draft`` turns on speculative rounds on either pool: a ``(model,
+params)`` pair (a neural draft with its own dense cache; ``draft_int8``
+runs its products int8 x int8) or ``"ngram"`` (prompt lookup over each
+row's history).  ``spec_k`` is the first draft window; it then adapts.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from .engine import InferenceEngine, _empty_cache, _empty_cache_paged
 from .executor import ExecutorMixin
 from .journal import RequestJournal
 from .kv_blocks import BlockPool
+from .quant import quantized_bytes
 from .scheduler import (
     Overloaded, RequestHandle, SchedulerMixin, prompt_bucket,
 )
@@ -54,7 +60,6 @@ _NOT_PORTED = {
     "mesh": "queue 1 item 11 (parallel plane)",
     "adapters": "queue 1 item 8 (LoRA adapters)",
     "constraints": "queue 1 item 8 (constrained decoding)",
-    "draft": "queue 1 item 7 (speculative decoding)",
 }
 ROLES = ("both", "prefill", "decode")
 
@@ -73,20 +78,29 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
     the bound).  ``metrics``: the registry of the serve-plane series
     (the process-wide one by default; give each replica its own);
     ``role``: ``both``, ``prefill`` or ``decode``.  ``journal`` is the
-    per-request record ring."""
+    per-request record ring.  ``draft``/``spec_k``/``draft_int8``: the
+    speculative rounds (module docstring)."""
 
     def __init__(self, model, params, *, slots: int = 8, mesh=None,
                  max_seq: int | None = None, eos_id: int = -1,
                  steps_per_round: int = 8, pipeline_depth: int = 2,
                  adapters=None, constraints=None, logprobs: bool = False,
-                 draft=None, kv_quant: bool = False,
+                 draft=None, spec_k: int = 4, draft_int8: bool = False,
+                 kv_quant: bool = False,
                  attn_impl: str | None = None, paged_blocks: int = 0,
                  page_size: int = 64, prefix_cache: bool = True,
                  max_pending: int = 0,
                  metrics: MetricsRegistry | None = None,
                  role: str = "both", device="cuda"):
+        if draft is not None and constraints is not None and getattr(
+                constraints, "banked", constraints) is not None:
+            raise ValueError(
+                "speculative decoding and a ConstraintBank cannot be "
+                "combined: the DFA advances token-by-token through the "
+                "ACCEPTED prefix, which only exists after the verify"
+            )
         given = {"mesh": mesh, "adapters": adapters,
-                 "constraints": constraints, "draft": draft}
+                 "constraints": constraints}
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -103,6 +117,36 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
             model, max_seq=max_seq, kv_quant=kv_quant, attn_impl=attn_impl,
             device=self.device,
         )
+        self.draft_engine = None
+        self.draft_params = None
+        self.spec_mode = None
+        self.spec_k = max(1, int(spec_k))
+        if isinstance(draft, str):
+            if draft != "ngram":
+                raise ValueError(
+                    f"unknown draft mode {draft!r}: pass 'ngram' or a "
+                    "(draft_model, draft_params) pair"
+                )
+            self.spec_mode = "ngram"
+        elif draft is not None:
+            draft_model, draft_params = draft
+            if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    "draft and target must share a vocabulary "
+                    f"({draft_model.cfg.vocab_size} != "
+                    f"{model.cfg.vocab_size})"
+                )
+            # Same max_seq: the draft's rows line up with the target's.
+            self.draft_engine = InferenceEngine(
+                draft_model, max_seq=self.engine.max_seq,
+                int8_compute=draft_int8, device=self.device,
+            )
+            if draft_int8:
+                from .speculative import int8_draft
+
+                draft_params = int8_draft(draft_params)
+            self.draft_params = draft_params
+            self.spec_mode = "neural"
         self.params = params
         self.slots = slots
         self.eos_id = eos_id
@@ -152,6 +196,50 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
             "temps": torch.zeros(slots, **f32),
             "top_p": torch.zeros(slots, **f32),
         }
+        if self.draft_engine is not None:
+            # The draft's cache stays dense at the draft's dtype, even on
+            # a paged or int8-KV target; prev is the stream token at
+            # pos - 1 (the draft stays one position behind).
+            self._dev["d_cache"] = _empty_cache(
+                self.draft_engine.cfg, slots, max_seq, False, self.device)
+            self._dev["prev"] = torch.zeros(slots, **i32)
+        if self.spec_mode == "ngram":
+            # hist[slot, p]: the stream token at position p, -1 unwritten.
+            self._dev["hist"] = torch.full((slots, max_seq), -1, **i32)
+        # Speculative telemetry (live rows only) and adaptive K: the window
+        # resizes from the pooled rolling acceptance (_adaptive_k).
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_recent: collections.deque = collections.deque(maxlen=64)
+        self._spec_k_active = self.spec_k
+        self._spec_freeze = 0
+        # The n-gram gate (scheduler._spec_gate), under the reference's
+        # names: the acceptance floor, proposals a slot before it gates,
+        # seconds between timed rounds of each mode, the probe base while
+        # gated; then its state.
+        self.ngram_breakeven = 0.125
+        self.ngram_min_obs = 64
+        self.ngram_measure_s = 5.0
+        self.ngram_probe_s = 10.0
+        self._ngram_next_meas = {"plain": 0.0, "spec": 0.0}
+        self._ngram_timed_sched = {"plain": 0, "spec": 0}
+        self._ngram_timed_rec = {"plain": 0, "spec": 0}
+        self._ngram_probe_scale = 1
+        self._ngram_fallback_rounds = 0
+        self._gate_fallback = False
+        self._slot_spec: dict[int, collections.deque] = {}
+        self._mode_rate: dict[str, collections.deque] = {
+            "spec": collections.deque(maxlen=4),
+            "plain": collections.deque(maxlen=4),
+        }
+        if self.spec_mode == "neural":
+            # Decode streams every weight byte once a step, so an int8
+            # draft costs half a bf16 one per element.
+            self._draft_ratio = (quantized_bytes(self.draft_params)[0]
+                                 / max(1, quantized_bytes(params)[0]))
+        else:
+            # The n-gram draft has no forward: only the wider verify.
+            self._draft_ratio = 0.02
         # Dense prefix-entry cache: prompt-prefix bytes -> a prefilled
         # [L, 1, KH, max_seq, ...] row, its last logits and its length.
         # Read-only once inserted; LRU-bounded (each entry owns a row of
@@ -181,6 +269,9 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
         # Admissions by path (the scheduler's module docstring lists the
         # names): shows which requests reused a prefix.
         self.admission_paths: collections.Counter = collections.Counter()
+        # Device work dispatched: plain decode steps and speculative
+        # verify sub-rounds (each one target forward over every slot).
+        self.dispatched: collections.Counter = collections.Counter()
         self._thread = threading.Thread(
             target=self._run, name="continuous-batcher", daemon=True
         )

@@ -22,6 +22,11 @@ stream, so a write a later step reads has landed by then.
 ``t_hi`` positions of every row and runs ``_attend_cached``;
 ``"paged_kernel"`` runs the CUDA kernel of ``ops/paged_attention.py``,
 which walks the page tables itself.
+
+``int8_compute`` runs the q/k/v/o, MLP and head products of int8 ``{q,
+s}`` leaves as int8 x int8 -> int32 (``quant.int8_dot``): the
+speculative draft's engine, where quantization error moves only the
+acceptance rate.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..models.transformer import (
     TransformerLM, emb_lookup, layer_params, wt,
 )
 from ..ops.paged_attention import paged_attention
+from .quant import int8_dot
 
 
 @dataclass(frozen=True)
@@ -118,11 +124,13 @@ def _quantize_kv(x):
 
 class InferenceEngine:
     """Prefill + decode for a TransformerLM, on ``device`` (the card
-    unless the caller asks for the CPU; must match the model's)."""
+    unless the caller asks for the CPU; must match the model's).
+    ``int8_compute``: int8 x int8 products wherever a leaf is quantized
+    (a dense draft model; MoE is refused, as in the reference)."""
 
     def __init__(self, model: TransformerLM, max_seq: int | None = None,
                  kv_quant: bool = False, attn_impl: str | None = None,
-                 device="cuda"):
+                 int8_compute: bool = False, device="cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -137,6 +145,12 @@ class InferenceEngine:
             raise ValueError(
                 f"attn_impl={self.attn_impl!r} — expected 'gather' or "
                 "'paged_kernel'"
+            )
+        self.int8_compute = bool(int8_compute)
+        if self.int8_compute and self.cfg.num_experts > 1:
+            raise ValueError(
+                "int8_compute targets dense draft models - MoE dispatch "
+                "keeps the wt() dequant path"
             )
 
     def _arange(self, n):
@@ -240,9 +254,14 @@ class InferenceEngine:
         m = self.model
         dt = self.cfg.dtype
         h = m._rmsnorm(x, lp["ln1"])
-        q = torch.einsum("bsd,dhk->bshk", h, wt(lp["wq"], dt))
-        k = torch.einsum("bsd,dhk->bshk", h, wt(lp["wk"], dt))
-        v = torch.einsum("bsd,dhk->bshk", h, wt(lp["wv"], dt))
+        if self.int8_compute and isinstance(lp["wq"], dict):
+            q = int8_dot(h, lp["wq"], dt)
+            k = int8_dot(h, lp["wk"], dt)
+            v = int8_dot(h, lp["wv"], dt)
+        else:
+            q = torch.einsum("bsd,dhk->bshk", h, wt(lp["wq"], dt))
+            k = torch.einsum("bsd,dhk->bshk", h, wt(lp["wk"], dt))
+            v = torch.einsum("bsd,dhk->bshk", h, wt(lp["wv"], dt))
         q = m._rope(q, positions)
         k = m._rope(k, positions).transpose(1, 2)    # [B, KH, Sq, Dh]
         v = v.transpose(1, 2)
@@ -282,8 +301,15 @@ class InferenceEngine:
     def _block_epilogue(self, x, o, lp):
         """Attention output projection + MLP, shared by both caches."""
         m = self.model
-        x = x + torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], self.cfg.dtype))
-        return x + m._dense_mlp(m._rmsnorm(x, lp["ln2"]), lp)
+        dt = self.cfg.dtype
+        if not (self.int8_compute and isinstance(lp["wo"], dict)):
+            x = x + torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], dt))
+            return x + m._dense_mlp(m._rmsnorm(x, lp["ln2"]), lp)
+        x = x + int8_dot(o, lp["wo"], dt)
+        h2 = m._rmsnorm(x, lp["ln2"])
+        g = int8_dot(h2, lp["wi_gate"], dt)
+        u = int8_dot(h2, lp["wi_up"], dt)
+        return x + int8_dot(torch.nn.functional.silu(g) * u, lp["wo_mlp"], dt)
 
     def _run_blocks(self, params, x, cache, positions, start, mask,
                     pages=None, page: int = 0, kv_start=None):
@@ -298,6 +324,8 @@ class InferenceEngine:
     def _head(self, params, x):
         """Final RMSNorm + vocabulary projection, logits in f32."""
         x = self.model._rmsnorm(x, params["final_norm"])
+        if self.int8_compute and isinstance(params["head"], dict):
+            return int8_dot(x, params["head"], self.cfg.dtype).float()
         return torch.einsum(
             "bsd,dv->bsv", x, wt(params["head"], self.cfg.dtype)
         ).float()

@@ -1,7 +1,9 @@
 """Device work of the continuous batcher: the port of
 ``k8s_gpu_tpu/serve/executor.py`` for both pools (``_first_token``,
 ``_seat``, ``_admit_dev``, ``_admit_round_dev``, ``_admit_prefix_dev``,
-``_admit_exact_dev``, ``_admit_paged_dev``, ``_round_dev``).
+``_admit_exact_dev``, ``_admit_paged_dev``, ``_round_dev``) and the
+speculative rounds (``ngram_propose``, ``_spec_accept``,
+``_round_spec_dev``, ``_round_spec_ngram_dev``).
 
 Decode state lives on the device (``self._dev``) and is updated in place;
 nothing here waits for the device, so the scheduler can queue a round
@@ -14,13 +16,80 @@ Sampling draws from a ``torch.Generator`` per slot, seeded with the
 request's ``seed`` at admission: the same seed gives the same stream, but
 not the reference's ``jax.random`` draws, so sampled streams compare with
 the reference by distribution only.
+
+Speculative state (``ContinuousBatcher(draft=...)``): a neural draft keeps
+its own dense cache ``d_cache`` [L, slots, KH, max_seq, Dh] at the draft's
+dtype (dense even on a paged or int8-KV target) and ``prev``, the stream
+token at ``pos - 1``; the n-gram draft keeps ``hist`` [slots, max_seq],
+the stream token at each position (-1 unwritten).  Every admission path
+seats them: a cold admission prefills the draft on the same padded shape,
+every other path zeroes the draft row, and the history holds the prompt
+at its cache positions.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from .engine import _empty_cache, gumbel_sample, nucleus_mask
+from .speculative import reject_row
+
+
+def _write_dropped(hist, cols, vals) -> None:
+    """hist[b, cols[b]] = vals[b] in place, dropped where cols[b] >= S
+    (a scatter's out-of-range rule)."""
+    S = hist.shape[1]
+    at = cols.long().clamp(0, S - 1)[:, None]
+    hist.scatter_(1, at, torch.where((cols < S)[:, None],
+                                     vals[:, None].to(hist.dtype),
+                                     hist.gather(1, at)))
+
+
+def ngram_propose(hist, token, pos, k: int, m: int = 3):
+    """Prompt-lookup proposals for a batch of rows: for each row, the most
+    recent earlier position whose trailing m..1-gram matches the stream's
+    current trailing gram, and the ``k`` tokens that followed it.
+
+    ``hist`` [B, S] int32 is each row's token history (-1 unwritten) and
+    ``token`` [B] the stream token at ``pos`` [B].  The winner is the
+    argmax of ``matched_len * S + position``; no match, or a proposal
+    running into unwritten history, repeats ``token``.  Index rules are
+    the reference's: the write of ``token`` at ``pos`` is dropped past S,
+    reads clamp into [0, S), and the proposal slice reads a history
+    extended by k unwritten positions.  Proposals are hints: the verify
+    accepts or corrects each one."""
+    B, S = hist.shape
+    dev = hist.device
+    pos = pos.long()
+    token = token.to(hist.dtype)
+    hist = hist.clone()
+    _write_dropped(hist, pos, token)
+    idx = torch.arange(S, device=dev)
+    score = torch.zeros(B, S, dtype=torch.int64, device=dev)
+    run = torch.ones(B, S, dtype=torch.bool, device=dev)
+    for u in range(m):
+        shifted = torch.cat([hist.new_full((B, u + 1), -2),
+                             hist[:, :S - u - 1]], dim=1)
+        suffix = hist.gather(1, (pos - u).clamp(0, S - 1)[:, None])
+        run = run & (shifted == suffix) & (suffix >= 0)
+        score = score + run.long()
+    score = torch.where(idx[None] <= pos[:, None], score, 0)
+    j = torch.argmax(score * S + idx[None], dim=1)
+    ext = torch.cat([hist, hist.new_full((B, k), -1)], dim=1)
+    g = ext.gather(1, j[:, None] + torch.arange(k, device=dev)[None])
+    best = score.gather(1, j[:, None])
+    return torch.where((best > 0) & (g >= 0), g, token[:, None])
+
+
+def _write_window_clamped(hist, start, vals) -> None:
+    """hist[b, s:s + W] = vals[b] in place with s = start[b] clamped into
+    [0, S - W], as ``dynamic_update_slice`` clamps: a row within W of the
+    end writes backwards over older history."""
+    S, W = hist.shape[1], vals.shape[1]
+    s = start.long().clamp(0, S - W)[:, None]
+    hist.scatter_(1, s + torch.arange(W, device=hist.device)[None],
+                  vals.to(hist.dtype))
 
 
 class ExecutorMixin:
@@ -83,9 +152,22 @@ class ExecutorMixin:
             chunk = row[name][:, 0, :, :n_copy]      # [L, KH, n, ...]
             arr[:, blk, :, off] = chunk.movedim(2, 0).to(arr.dtype)
 
+    def _draft_row(self, slot: int) -> dict:
+        """The draft cache's row of ``slot`` as [L, 1, KH, max_seq, ...]
+        views."""
+        return {name: arr[:, slot:slot + 1]
+                for name, arr in self._dev["d_cache"].items()}
+
     def _seat(self, slot: int, first, pos: int, rope: int, start: int,
-              temp: float, top_p: float, gen) -> None:
-        """Seat a slot's decode state; its K/V are already in the pool."""
+              temp: float, top_p: float, gen, spec=None,
+              draft_ready: bool = False) -> None:
+        """Seat a slot's decode state; its K/V are already in the pool.
+        ``spec``: (prev, hist_row) from ``_spec_seat`` (None when spec is
+        off): the last prompt token, re-ingested at pos - 1 each spec
+        round, and the n-gram history with the prompt at its positions
+        (None for a neural draft).  The draft row is zeroed unless the
+        admission prefilled it (``draft_ready``): a previous tenant's
+        draft K/V would poison this request's proposals."""
         dev = self._dev
         dev["token"][slot] = first
         dev["pos"][slot] = pos
@@ -95,15 +177,27 @@ class ExecutorMixin:
         dev["top_p"][slot] = top_p
         self._temps[slot] = temp
         self._gens[slot] = gen
+        if spec is None:
+            return
+        prev, hist_row = spec
+        if self.draft_engine is not None:
+            if not draft_ready:
+                for arr in dev["d_cache"].values():
+                    arr[:, slot].zero_()
+            dev["prev"][slot] = prev
+        if hist_row is not None:
+            dev["hist"][slot] = hist_row
+            dev["hist"][slot, pos] = first
 
     def _admit_dev(self, padded, slot: int, temp: float, seed: int,
-                   pad: int, top_p: float, page_row=None):
+                   pad: int, top_p: float, page_row=None, spec=None):
         """Prefill one left-padded request on [1, bucket] and seat it at
         ``slot``.  Dense pool: the prefill writes the slot's row in place
         (zeroed first, as the reference's fresh row is).  Paged pool: it
         writes a row of ``bucket`` positions that splices into the
         slot's blocks.  The row's geometry is pos = bucket, rope =
-        bucket - pad, start = pad."""
+        bucket - pad, start = pad.  A neural draft is prefilled on the
+        same padded shape into its own row."""
         bucket = padded.shape[1]
         if page_row is None:
             _, last = self.engine.prefill(self.params, padded, pad,
@@ -114,9 +208,13 @@ class ExecutorMixin:
             row, last = self.engine.prefill(self.params, padded, pad,
                                             cache=row)
             self._splice_paged(row, page_row, bucket)
+        if spec is not None and self.draft_engine is not None:
+            self.draft_engine.prefill(self.draft_params, padded, pad,
+                                      cache=self._draft_row(slot))
         gen = torch.Generator(device=self.device).manual_seed(seed)
         first, lp = self._first_token(last[0], temp, gen, top_p)
-        self._seat(slot, first, bucket, bucket - pad, pad, temp, top_p, gen)
+        self._seat(slot, first, bucket, bucket - pad, pad, temp, top_p, gen,
+                   spec, draft_ready=True)
         return first, lp
 
     def _admit_round_dev(self, padded, slot: int, temp: float, seed: int,
@@ -132,7 +230,7 @@ class ExecutorMixin:
 
     def _admit_prefix_dev(self, entry: dict, suffix, n_real: int,
                           slot: int, temp: float, seed: int, base_pos: int,
-                          top_p: float):
+                          top_p: float, spec=None):
         """Admit on a cached prefix (dense pool): splice the entry's row
         into the slot, then extend it with the right-padded suffix [1, W]
         in place.  Pad K/V land past the live length, where decode
@@ -149,11 +247,11 @@ class ExecutorMixin:
         first, lp = self._first_token(logits[0, n_real - 1], temp, gen,
                                       top_p)
         pos = base_pos + n_real
-        self._seat(slot, first, pos, pos, 0, temp, top_p, gen)
+        self._seat(slot, first, pos, pos, 0, temp, top_p, gen, spec)
         return first, lp
 
     def _admit_exact_dev(self, entry: dict, slot: int, temp: float,
-                         seed: int, top_p: float):
+                         seed: int, top_p: float, spec=None):
         """Seat a prompt that is a cached prefix (dense pool): splice the
         entry's row and sample from its logits, no model forward
         (pos = rope = n, start = 0)."""
@@ -161,11 +259,12 @@ class ExecutorMixin:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         first, lp = self._first_token(entry["logits"][0], temp, gen, top_p)
         n = entry["n"]
-        self._seat(slot, first, n, n, 0, temp, top_p, gen)
+        self._seat(slot, first, n, n, 0, temp, top_p, gen, spec)
         return first, lp
 
     def _admit_paged_dev(self, suffix, n_real: int, slot: int, temp: float,
-                         seed: int, base_pos: int, top_p: float, page_row):
+                         seed: int, base_pos: int, top_p: float, page_row,
+                         spec=None):
         """Extend the slot's page-table row with the right-padded suffix
         [1, W], writing K/V straight into the pool.  ``base_pos`` tokens
         of shared prefix are already resident in the blocks the row names
@@ -183,7 +282,7 @@ class ExecutorMixin:
         first, lp = self._first_token(logits[0, n_real - 1], temp, gen,
                                       top_p)
         pos = base_pos + n_real
-        self._seat(slot, first, pos, pos, 0, temp, top_p, gen)
+        self._seat(slot, first, pos, pos, 0, temp, top_p, gen, spec)
         return first, lp
 
     @torch.no_grad()
@@ -192,10 +291,12 @@ class ExecutorMixin:
         its own cache position, RoPE position and ``kv_start``.  ``pages``
         [slots, MP]: the paged pool's tables; None on the dense pool.
         Returns (tokens [T, B] int32, logprobs [T, B] f32) on the device.
-        Rows past their budget or retired compute tokens nobody reads."""
+        Rows past their budget or retired compute tokens nobody reads.
+        An n-gram batcher's history takes each token at pos + 1 here too
+        (dropped past max_seq), so a probe after plain rounds proposes
+        from real history."""
         dev = self._dev
         token, pos, rope = dev["token"], dev["pos"], dev["rope"]
-        temps = dev["temps"]
         sampled = [i for i, t in enumerate(self._temps) if t > 0]
         rows = torch.arange(self.slots, device=self.device)
         toks, lps = [], []
@@ -206,9 +307,7 @@ class ExecutorMixin:
             )
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             if sampled:
-                scaled = logits / temps.clamp_min(1e-6)[:, None]
-                if use_top_p:
-                    scaled = nucleus_mask(scaled, dev["top_p"])
+                scaled = self._warp(logits, use_top_p)
                 for i in sampled:
                     nxt[i] = gumbel_sample(scaled[i], self._gens[i])
             if self.collect_logprobs:
@@ -216,8 +315,162 @@ class ExecutorMixin:
                 lp = lsm[rows, nxt.long()]
             else:
                 lp = torch.zeros(self.slots, device=self.device)
+            if self.spec_mode == "ngram":
+                _write_dropped(dev["hist"], pos + 1, nxt)
             toks.append(nxt)
             lps.append(lp)
             token, pos, rope = nxt, pos + 1, rope + 1
         dev.update(token=token, pos=pos, rope=rope)
         return torch.stack(toks), torch.stack(lps)
+
+    def _warp(self, logits, use_top_p: bool):
+        """Each row's sampling warp: logits [B, ..., V] over its
+        temperature, then its nucleus when any row asks for one (rows
+        whose top_p is off come back unchanged)."""
+        dev = self._dev
+        extra = (1,) * (logits.dim() - 2)
+        scaled = (logits.float()
+                  / dev["temps"].clamp_min(1e-6).view(-1, *extra, 1))
+        if use_top_p:
+            top_p = dev["top_p"].view(-1, *extra).expand(scaled.shape[:-1])
+            scaled = nucleus_mask(scaled, top_p)
+        return scaled
+
+    def _spec_accept(self, vlogits, g, q, use_top_p: bool):
+        """The verify/accept/advance math of both spec rounds.  ``vlogits``
+        [B, K+1, V]: the target's logits over each row's [token, g]
+        window; ``g`` [B, K] the proposals; ``q`` [B, K, V] the warped
+        distributions they were drawn from (a one-hot for the n-gram
+        draft), read for sampled rows only (None when there are none).
+        Greedy rows accept the longest prefix of ``g`` matching the
+        target's argmax and emit the argmax after it; sampled rows run
+        ``reject_row`` on their own generator.  Returns (e [B, K+1] the
+        emitted window, n [B] = accepted + 1, logprobs [B, K+1], a [B],
+        the next feed [B]).  ``spec_draft``, ``spec_verify`` and
+        ``spec_accept`` label a sub-round's three parts for
+        ``torch.profiler``."""
+        with record_function("spec_accept"):
+            B, K = g.shape
+            t_pred = torch.argmax(vlogits, dim=-1).to(torch.int32)
+            match = (g == t_pred[:, :K]).to(torch.int32)
+            a = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+            corr = t_pred
+            sampled = [i for i, t in enumerate(self._temps) if t > 0]
+            if sampled:
+                p = torch.softmax(self._warp(vlogits, use_top_p), dim=-1)
+                corr = t_pred.clone()
+                for i in sampled:
+                    a_i, x_i = reject_row(p[i], q[i], g[i], self._gens[i])
+                    a[i] = a_i
+                    corr[i] = x_i
+            idx = torch.arange(K + 1, device=g.device)[None]
+            base = torch.cat([g, g[:, -1:]], dim=1)
+            e = torch.where(idx < a[:, None], base, corr)
+            if self.collect_logprobs:
+                lsm = torch.log_softmax(vlogits.float(), dim=-1)
+                lp = lsm.gather(2, e.long()[..., None])[..., 0]
+            else:
+                lp = torch.zeros(B, K + 1, device=g.device)
+            new_token = e.gather(1, a.long()[:, None])[:, 0]
+            return e, a + 1, lp, a, new_token
+
+    def _verify(self, window, pos, rope, t_hi: int, pages):
+        """One target forward over every row's [token, g] window: on the
+        paged pool with ``attn_impl="paged_kernel"`` one kernel launch a
+        layer at Sq = K + 1."""
+        with record_function("spec_verify"):
+            _, vlogits = self.engine.extend_multi(
+                self.params, self._dev["cache"], window, pos, rope,
+                self._dev["start"], t_hi=t_hi, pages=pages,
+                page=self.page_size,
+            )
+        return vlogits
+
+    @torch.no_grad()
+    def _round_spec_dev(self, use_top_p: bool, n_rounds: int, t_hi: int,
+                        K: int, pages):
+        """``n_rounds`` speculative sub-rounds over every slot, each K
+        draft steps and one target verify.  Returns (toks [R, B, K+1], ns
+        [R, B], lps [R, B, K+1]): row b emitted ns[r, b] tokens in
+        sub-round r.  Greedy rows are the plain stream exactly; sampled
+        rows are exact in distribution.  Retired rows advance as garbage;
+        their writes past max_seq are dropped and nothing of them is
+        emitted."""
+        dev = self._dev
+        kv_start = dev["start"]
+        d_eng, dparams = self.draft_engine, self.draft_params
+        sampled = [i for i, t in enumerate(self._temps) if t > 0]
+        token, prev = dev["token"], dev["prev"]
+        pos, rope = dev["pos"], dev["rope"]
+        toks, ns, lps = [], [], []
+        for _ in range(n_rounds):
+            # 1. Re-ingest prev at pos - 1 (an idempotent overwrite that
+            #    also warms a zero-seated row), then K lookahead steps.
+            with record_function("spec_draft"):
+                d_eng.decode_step_multi(
+                    dparams, dev["d_cache"], prev,
+                    torch.maximum(pos - 1, kv_start),
+                    (rope - 1).clamp_min(0), kv_start, t_hi=t_hi)
+                tok, drafts, qs = token, [], []
+                for i in range(K):
+                    _, dlogits = d_eng.decode_step_multi(
+                        dparams, dev["d_cache"], tok, pos + i, rope + i,
+                        kv_start, t_hi=t_hi)
+                    tok = torch.argmax(dlogits, dim=-1).to(torch.int32)
+                    if sampled:
+                        dscaled = self._warp(dlogits, use_top_p)
+                        for r in sampled:
+                            tok[r] = gumbel_sample(dscaled[r],
+                                                   self._gens[r])
+                        qs.append(torch.softmax(dscaled, dim=-1))
+                    drafts.append(tok)
+                g = torch.stack(drafts, dim=1)                   # [B, K]
+            # 2. Verify: one target forward over the [token, g] windows.
+            window = torch.cat([token[:, None], g], dim=1)
+            vlogits = self._verify(window, pos, rope, t_hi, pages)
+            # 3. Accept or correct.
+            e, n, lp, a, token = self._spec_accept(
+                vlogits, g, torch.stack(qs, dim=1) if sampled else None,
+                use_top_p)
+            # 4. Advance: window[a] sits at the new pos - 1.
+            prev = window.gather(1, a.long()[:, None])[:, 0]
+            pos, rope = pos + n, rope + n
+            toks.append(e)
+            ns.append(n)
+            lps.append(lp)
+        dev.update(token=token, prev=prev, pos=pos, rope=rope)
+        return torch.stack(toks), torch.stack(ns), torch.stack(lps)
+
+    @torch.no_grad()
+    def _round_spec_ngram_dev(self, use_top_p: bool, n_rounds: int,
+                              t_hi: int, K: int, pages):
+        """Speculative sub-rounds with the prompt-lookup draft: proposals
+        from ``ngram_propose`` over each row's history, so a sub-round is
+        one target verify and nothing else; the accept math is
+        ``_spec_accept`` with a one-hot draft distribution.  The emitted
+        window lands in the history at pos + 1, rejected positions
+        included, clamped backwards within K + 1 of max_seq as the
+        reference's ``dynamic_update_slice``; both only change proposal
+        quality, never the stream."""
+        dev = self._dev
+        V = self.engine.cfg.vocab_size
+        sampled = [i for i, t in enumerate(self._temps) if t > 0]
+        hist = dev["hist"]
+        token, pos, rope = dev["token"], dev["pos"], dev["rope"]
+        toks, ns, lps = [], [], []
+        for _ in range(n_rounds):
+            with record_function("spec_draft"):
+                g = ngram_propose(hist, token, pos, K).to(torch.int32)
+            window = torch.cat([token[:, None], g], dim=1)
+            vlogits = self._verify(window, pos, rope, t_hi, pages)
+            q = (torch.nn.functional.one_hot(g.long(), V).float()
+                 if sampled else None)
+            e, n, lp, _, new_token = self._spec_accept(vlogits, g, q,
+                                                       use_top_p)
+            _write_window_clamped(hist, pos + 1, e)
+            token, pos, rope = new_token, pos + n, rope + n
+            toks.append(e)
+            ns.append(n)
+            lps.append(lp)
+        dev.update(token=token, pos=pos, rope=rope)
+        return torch.stack(toks), torch.stack(ns), torch.stack(lps)

@@ -30,9 +30,20 @@ resumed from; every terminal outcome writes one journal record; and
 ``run_quiesced`` runs a thunk on the scheduler thread with no round in
 flight, the pause that block migration exports and imports through.
 
-Not ported yet (ROADMAP queue 1): speculative rounds (item 7),
-``submit_precomputed`` (item 8, with disaggregated admission) and the
-phase profiler and tracer spans (item 12).
+Speculative rounds (``draft=``, as in the reference): a dispatch runs
+``n_rounds`` sub-rounds of K draft steps (none for the n-gram draft) and
+one (K+1)-wide verify.  K adapts to the measured rolling acceptance
+(``_adaptive_k``), the n-gram draft must earn its dispatches against
+timed plain rounds (``_spec_gate``), and the budget gate charges each
+spec dispatch its expected tokens while ``pos_hint`` (and so ``t_hi``)
+takes the worst case, every draft accepted: the paged kernel clamps its
+reads at ``t_hi``, so an underestimate would truncate attention.  The
+fused cold start is off in spec mode.
+
+Not ported yet (ROADMAP queue 1): ``submit_precomputed`` (item 8, with
+disaggregated admission) and the phase profiler and tracer spans (item
+12; the reference's ``spec_draft`` phase and ``speculative=True`` spans
+among them).
 """
 
 from __future__ import annotations
@@ -133,6 +144,10 @@ class _Request:
     migrated_from: str = ""
     # Every delivered token id: the journal's golden hash.
     emitted_ids: list = field(default_factory=list)
+    # Speculative evidence for the journal: proposals drafted for this
+    # row and accepted by the verify.
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
 
 class RequestHandle:
@@ -305,10 +320,9 @@ class SchedulerMixin:
                 self._right_padded(ids), zero, zero, zero,
             )
             logits = logits[:, n - 1]
-        if self.device.type == "cuda":
-            # The scheduler reads the entry from its own thread: the row
-            # must have landed before the entry can be matched.
-            torch.cuda.current_stream(self.device).synchronize()
+        # The scheduler reads the entry from its own thread: the row must
+        # have landed before the entry can be matched.
+        self._sync()
         key = ids.tobytes()
         with self._prefix_lock:
             self._prefix[key] = {"cache": cache, "logits": logits, "n": n}
@@ -361,8 +375,7 @@ class SchedulerMixin:
         malformed import must not kill the scheduler."""
         while inflight:
             self._drain_one(inflight)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        self._sync()
         while True:
             try:
                 fn, box = self._barriers.get_nowait()
@@ -407,6 +420,21 @@ class SchedulerMixin:
         return []
 
     @property
+    def spec_stats(self) -> dict:
+        """Measured speculative acceptance over live rows: drafted and
+        accepted proposals and their rate (0.0 when spec is off or nothing
+        ran); the n-gram gate's plain fall-back rounds and its evidence,
+        the best per-row tokens/s of timed spec and plain rounds."""
+        d, a = self._spec_drafted, self._spec_accepted
+        return {
+            "drafted": d, "accepted": a,
+            "acceptance": (a / d) if d else 0.0,
+            "fallback_rounds": self._ngram_fallback_rounds,
+            "gate_spec_tps": self._mode_tps("spec"),
+            "gate_plain_tps": self._mode_tps("plain"),
+        }
+
+    @property
     def scheduler_alive(self) -> bool:
         with self._lifecycle:
             dead = self._dead
@@ -425,6 +453,23 @@ class SchedulerMixin:
             if r is None:
                 return i
         return -1
+
+    def _hist_row(self, ids: np.ndarray, pos0: int):
+        """An n-gram admission's history: the prompt at its cache
+        positions [pos0 - n, pos0), -1 elsewhere; None unless the draft
+        is the n-gram one."""
+        if self.spec_mode != "ngram":
+            return None
+        h = np.full((self.engine.max_seq,), -1, np.int32)
+        h[pos0 - ids.size: pos0] = ids
+        return torch.from_numpy(h).to(self.device)
+
+    def _spec_seat(self, ids: np.ndarray, pos0: int):
+        """What a spec admission seats beside the row: (the last prompt
+        token, ``_hist_row``); None when spec is off."""
+        if self.spec_mode is None:
+            return None
+        return int(ids[-1]), self._hist_row(ids, pos0)
 
     _ENTRY_UNRESOLVED = object()
 
@@ -447,6 +492,7 @@ class SchedulerMixin:
             first, lp = self._admit_paged_dev(
                 self._right_padded(req.ids[s_tok:]), n - s_tok, slot,
                 req.temperature, req.seed, s_tok, req.top_p, page_row,
+                self._spec_seat(req.ids, n),
             )
             return self._seated(req, slot, first, lp,
                                 "paged_shared" if s_tok else "paged_cold")
@@ -456,7 +502,8 @@ class SchedulerMixin:
             # The prompt is a cached prefix: splice + sample, no forward.
             req.pos_hint = n
             first, lp = self._admit_exact_dev(
-                entry, slot, req.temperature, req.seed, req.top_p)
+                entry, slot, req.temperature, req.seed, req.top_p,
+                self._spec_seat(req.ids, n))
             path = "prefix_exact"
         elif entry is not None and (
             entry["n"] + _suffix_bucket(n - entry["n"])
@@ -467,6 +514,7 @@ class SchedulerMixin:
             first, lp = self._admit_prefix_dev(
                 entry, self._right_padded(req.ids[p:]), n - p, slot,
                 req.temperature, req.seed, p, req.top_p,
+                self._spec_seat(req.ids, n),
             )
             path = "prefix_suffix"
         else:
@@ -478,7 +526,7 @@ class SchedulerMixin:
                         if self.paged else None)
             first, lp = self._admit_dev(
                 padded, slot, req.temperature, req.seed, pad, req.top_p,
-                page_row,
+                page_row, self._spec_seat(req.ids, padded.shape[1]),
             )
             # A matched entry whose suffix bucket overruns max_seq
             # prefills cold but counts as a prefix hit, as in the
@@ -519,6 +567,7 @@ class SchedulerMixin:
             0.0 < req.top_p < 1.0, n_steps, t_hi,
         )
         self._seated(req, slot, first, lp, "cold_fused")
+        self.dispatched["decode_steps"] += n_steps
         req.inflight_steps += n_steps
         req.pos_hint += n_steps
         self._round_count += 1
@@ -566,7 +615,104 @@ class SchedulerMixin:
             t *= 2
         return min(t, self.engine.max_seq)
 
-    def _dispatch_round(self) -> tuple | None:
+    def _adaptive_k(self) -> int:
+        """The draft window from measured rolling acceptance a: a
+        sub-round emits about 1 + a(1 - a^K)/(1 - a) tokens at a cost of
+        about 1 + K r target steps (r: the draft/target byte ratio); pick
+        K in {2, 4, 8} maximizing their ratio.  Adapt only on >= 256
+        observed proposals, switch only for a > 5 % modeled win, then
+        hold for 512 proposals."""
+        drafted = sum(d for d, _ in self._spec_recent)
+        if drafted < 256 or self._spec_freeze > 0:
+            return self._spec_k_active
+        accepted = sum(a for _, a in self._spec_recent)
+        a = min(0.98, max(0.02, accepted / drafted))
+        r = self._draft_ratio
+
+        def tput(k: int) -> float:
+            expected = a * (1.0 - a ** k) / (1.0 - a)
+            return (1.0 + expected) / (1.0 + k * r)
+
+        best = max((2, 4, 8), key=tput)
+        if (best != self._spec_k_active
+                and tput(best) > 1.05 * tput(self._spec_k_active)):
+            log.info("adaptive spec_k: %d -> %d (rolling acceptance %.3f)",
+                     self._spec_k_active, best, a)
+            self._spec_k_active = best
+            self._spec_freeze = 512
+            self._spec_recent.clear()
+        return self._spec_k_active
+
+    def _mode_tps(self, mode: str) -> float:
+        """Best per-row rate in the mode's window of timed rounds."""
+        win = self._mode_rate[mode]
+        return max((t / dt for t, dt in win if dt > 0.0), default=0.0)
+
+    def _spec_gate(self, live) -> tuple[bool, str | None]:
+        """(use_spec, timed_mode) for this dispatch.  A neural draft always
+        speculates (its K adapts instead).  The n-gram draft must earn
+        its dispatches:
+
+        1. when every live slot's rolling acceptance (over at least
+           ``ngram_min_obs`` proposals) is below ``ngram_breakeven``, or
+        2. when timed spec rounds measure slower a row than timed plain
+           ones (two samples of each),
+
+        the dispatch is a plain round.  Timed rounds of each mode run
+        every ``ngram_measure_s`` seconds (the first ones at once, until
+        each mode has three); while gated the spec measurement is the
+        probe, backing off from ``ngram_probe_s`` to 8 times it."""
+        self._gate_fallback = False
+        if self.spec_mode != "ngram":
+            return True, None
+        below_floor = True
+        for i, _ in live:
+            win = self._slot_spec.get(i)
+            d = sum(x for x, _ in win) if win else 0
+            if d < self.ngram_min_obs:
+                below_floor = False
+                break
+            if sum(a for _, a in win) / d >= self.ngram_breakeven:
+                below_floor = False
+                break
+        gated = below_floor or (
+            len(self._mode_rate["spec"]) >= 2
+            and len(self._mode_rate["plain"]) >= 2
+            and self._mode_tps("spec") < self._mode_tps("plain")
+        )
+        now = time.monotonic()
+        timed = None
+        if now >= self._ngram_next_meas["spec"]:
+            timed = "spec"
+            self._ngram_timed_sched["spec"] += 1
+            if self._ngram_timed_sched["spec"] < 3:
+                pass  # bootstrap: re-time until two real samples exist
+            elif gated:
+                self._ngram_probe_scale = min(self._ngram_probe_scale * 2,
+                                              8)
+                self._ngram_next_meas["spec"] = (
+                    now + self.ngram_probe_s * self._ngram_probe_scale)
+            else:
+                self._ngram_probe_scale = 1
+                self._ngram_next_meas["spec"] = now + self.ngram_measure_s
+        elif now >= self._ngram_next_meas["plain"]:
+            timed = "plain"
+            self._ngram_timed_sched["plain"] += 1
+            if self._ngram_timed_sched["plain"] >= 3:
+                self._ngram_next_meas["plain"] = now + self.ngram_measure_s
+        if not gated:
+            self._ngram_probe_scale = 1
+        use_spec = timed == "spec" or (not gated and timed != "plain")
+        # Committed by _dispatch_round once the round really dispatches.
+        self._gate_fallback = gated and not use_spec
+        return use_spec, timed
+
+    def _sync(self) -> None:
+        """Wait for this thread's stream on the card (no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _dispatch_round(self, inflight=None) -> tuple | None:
         # Snapshot (slot, request): by the time this round is consumed the
         # slot may hold a new request, which must not get these tokens.
         live = [(i, r) for i, r in enumerate(self._active) if r is not None]
@@ -577,32 +723,114 @@ class SchedulerMixin:
         # Past the budget gate a round will dispatch: the point a
         # prefill-only executor refuses.
         self._guard_decode()
+        timed_mode = None
+        use_spec = self.spec_mode is not None
+        if use_spec:
+            use_spec, timed_mode = self._spec_gate(live)
+        if timed_mode is not None and inflight:
+            # A timed round starts on an idle device: drain first.
+            while inflight:
+                self._drain_one(inflight)
+            live = [(i, r) for i, r in enumerate(self._active)
+                    if r is not None]
+            rems = [r.max_new - r.emitted - r.inflight_steps
+                    for _, r in live]
+            rem = max(rems, default=0)
+            if rem <= 0:
+                # Never dispatched: roll its scheduling back.
+                self._ngram_next_meas[timed_mode] = 0.0
+                self._ngram_timed_sched[timed_mode] -= 1
+                if timed_mode == "spec":
+                    self._ngram_probe_scale = max(
+                        1, self._ngram_probe_scale // 2)
+                return None
+        if self._gate_fallback:
+            self._ngram_fallback_rounds += 1
+            self.metrics.inc("serve_spec_fallback_rounds_total")
+        t0 = time.monotonic()
         use_top_p = any(
             r is not None and 0.0 < r.top_p < 1.0 for r in self._active
         )
         solo = len(live) == 1 and self._pending.empty()
         shared_rem = min((x for x in rems if x > 0), default=rem)
         stable = self._pending.empty() and not solo and not self._overflow
+        # The host owns the page tables; each round takes a snapshot, so a
+        # retired slot reads all-trash from the next round on.
+        pages = (torch.from_numpy(self._pages.copy()).to(self.device)
+                 if self.paged else None)
+        if use_spec:
+            return self._dispatch_spec(live, rem, shared_rem, solo, stable,
+                                       use_top_p, timed_mode, pages, t0)
         n_steps = self.steps_per_round
-        if solo:
+        if timed_mode == "plain":
+            pass  # timed rounds keep the base length
+        elif solo:
             n_steps = next((b for b in self.solo_buckets if b >= rem),
                            self.solo_buckets[-1])
         elif stable:
             n_steps = next((b for b in self.solo_buckets if b >= shared_rem),
                            self.solo_buckets[-1])
         t_hi = self._t_hi(live, n_steps)
-        # The host owns the page tables; each round takes a snapshot, so a
-        # retired slot reads all-trash from the next round on.
-        pages = (torch.from_numpy(self._pages.copy()).to(self.device)
-                 if self.paged else None)
         toks, lps = self._round_dev(use_top_p, n_steps, t_hi, pages)
+        self.dispatched["decode_steps"] += n_steps
         if self.paged and self.engine.attn_impl == "paged_kernel":
             self.metrics.inc("serve_paged_kernel_rounds_total")
         for _, r in live:
             r.inflight_steps += n_steps
             r.pos_hint += n_steps
+        timed_dt = None
+        if timed_mode == "plain":
+            self._sync()
+            timed_dt = time.monotonic() - t0
         self._round_count += 1
-        return ("round", self._round_count, live, toks, lps)
+        return ("round", self._round_count, live, toks, lps, timed_dt)
+
+    def _dispatch_spec(self, live, rem, shared_rem, solo, stable, use_top_p,
+                       timed_mode, pages, t0) -> tuple:
+        """The spec branch of ``_dispatch_round``: K from measured
+        acceptance, sub-rounds sized for compute parity with a plain
+        round (a neural sub-round costs about 1 + K r target steps),
+        multiplied to cover the remaining budget when solo or stable."""
+        K = self._adaptive_k()
+        if self.spec_mode == "ngram":
+            base_rounds = self.steps_per_round
+        else:
+            base_rounds = max(1, int(round(
+                self.steps_per_round / (1.0 + K * self._draft_ratio))))
+        n_rounds = base_rounds
+        if timed_mode != "spec" and (solo or stable):
+            per = base_rounds * (K + 1)
+            cover = rem if solo else shared_rem
+            mult = next((m for m in (1, 2, 4) if m * per >= cover), 4)
+            n_rounds = mult * base_rounds
+        advance = n_rounds * (K + 1)
+        t_hi = self._t_hi(live, advance)
+        if self.spec_mode == "ngram":
+            toks, ns, lps = self._round_spec_ngram_dev(
+                use_top_p, n_rounds, t_hi, K, pages)
+        else:
+            toks, ns, lps = self._round_spec_dev(
+                use_top_p, n_rounds, t_hi, K, pages)
+        self.dispatched["verify_subrounds"] += n_rounds
+        if self.paged and self.engine.attn_impl == "paged_kernel":
+            self.metrics.inc("serve_paged_kernel_rounds_total")
+        # The budget gate is charged the expected tokens from rolling
+        # acceptance (a worst-case charge would stall the device between
+        # dispatches); pos_hint takes the worst case, since it sizes t_hi.
+        drafted = sum(d for d, _ in self._spec_recent)
+        a_hat = (sum(a for _, a in self._spec_recent) / drafted
+                 if drafted >= 64 else 0.5)
+        expected = max(n_rounds, int(n_rounds * (1.0 + a_hat * K)))
+        for _, r in live:
+            r.inflight_steps += expected
+            r.pos_hint += advance
+        timed_dt = None
+        if timed_mode == "spec":
+            self._sync()
+            timed_dt = time.monotonic() - t0
+        self._round_count += 1
+        return ("spec", self._round_count, live, toks, ns, lps, expected,
+                timed_dt)
 
     def _emit(self, req: _Request, tok: int, lp: float = 0.0) -> None:
         req.emitted += 1
@@ -632,6 +860,7 @@ class SchedulerMixin:
                 for blk in req.blocks:
                     self._pool.release(blk)
                 req.blocks = []
+        self._slot_spec.pop(slot, None)
         self._active[slot] = None
         self._update_util_gauges()
 
@@ -706,6 +935,8 @@ class SchedulerMixin:
                     if req.emitted >= 2 and req.t_first > 0.0 else 0.0),
             prefix_blocks=((req.prefix_tokens or 0) // self.page_size
                            if self.paged else 0),
+            spec_drafted=req.spec_drafted,
+            spec_accepted=req.spec_accepted,
             deadline_expired=req.deadline_expired,
             t_submit=req.t_submit,
             t_done=time.monotonic(),
@@ -806,12 +1037,16 @@ class SchedulerMixin:
         if item[0] == "admit_round":
             self._process_admit_round(item)
             return
-        _, _, live, toks_dev, lps_dev = item
+        if item[0] == "spec":
+            self._process_spec(item)
+            return
+        _, _, live, toks_dev, lps_dev, timed_dt = item
         toks = toks_dev.cpu().numpy()                # [T, B]: one fetch
         lps = lps_dev.cpu().numpy()
         n_steps = toks.shape[0]
         for _, req in live:
             req.inflight_steps = max(0, req.inflight_steps - n_steps)
+        e0 = {i: r.emitted for i, r in live}
         for i, req in live:
             if self._active[i] is not req:
                 continue  # retired (or the slot re-admitted) mid-flight
@@ -819,6 +1054,72 @@ class SchedulerMixin:
                 continue
             if self._emit_round(req, i, toks, lps):
                 self._retire(i)
+        if timed_dt is not None:
+            self._record_timed("plain", live, e0, timed_dt)
+
+    def _record_timed(self, mode: str, live, e0: dict, dt: float) -> None:
+        """A timed round's evidence for the n-gram gate: tokens a row that
+        emitted, over the round's wall time.  A mode's first timed round
+        is warm-up and is skipped."""
+        self._ngram_timed_rec[mode] += 1
+        deltas = [r.emitted - e0[i] for i, r in live]
+        rows = sum(1 for d in deltas if d > 0)
+        if rows and self._ngram_timed_rec[mode] > 1:
+            self._mode_rate[mode].append((sum(deltas) / rows, dt))
+
+    def _process_spec(self, item: tuple) -> None:
+        """Consume a spec dispatch: release the expected-token charge,
+        walk ``pos_hint`` back from the worst case to the real advance,
+        emit each row's accepted windows up to EOS or its budget, and
+        count drafted and accepted proposals (rows retired mid-flight
+        count nothing: their garbage sub-rounds must not steer K)."""
+        _, _, live, toks_dev, ns_dev, lps_dev, charged, timed_dt = item
+        toks = toks_dev.cpu().numpy()                # [R, B, K+1]
+        ns = ns_dev.cpu().numpy()                    # [R, B]
+        lps = lps_dev.cpu().numpy()
+        k_used = toks.shape[2] - 1
+        worst = toks.shape[0] * (k_used + 1)
+        for i, req in live:
+            req.inflight_steps = max(0, req.inflight_steps - charged)
+            req.pos_hint -= worst - int(ns[:, i].sum())
+        d0, a0 = self._spec_drafted, self._spec_accepted
+        e0 = {i: r.emitted for i, r in live}
+        for i, req in live:
+            if self._active[i] is not req:
+                continue
+            if self._expire_live(i, req):
+                continue
+            done = False
+            row_d = row_a = 0
+            for r in range(toks.shape[0]):
+                n = int(ns[r, i])
+                self._spec_drafted += k_used
+                self._spec_accepted += n - 1
+                row_d += k_used
+                row_a += n - 1
+                for t in range(n):
+                    tok = int(toks[r, i, t])
+                    if self.eos_id >= 0 and tok == self.eos_id:
+                        done = True
+                        break
+                    self._emit(req, tok, float(lps[r, i, t]))
+                    if req.emitted >= req.max_new:
+                        done = True
+                        break
+                if done:
+                    break
+            if row_d:
+                self._slot_spec.setdefault(
+                    i, collections.deque(maxlen=8)).append((row_d, row_a))
+                req.spec_drafted += row_d
+                req.spec_accepted += row_a
+            if done:
+                self._retire(i)
+        drafted_now = self._spec_drafted - d0
+        self._spec_recent.append((drafted_now, self._spec_accepted - a0))
+        self._spec_freeze = max(0, self._spec_freeze - drafted_now)
+        if timed_dt is not None:
+            self._record_timed("spec", live, e0, timed_dt)
 
     def _admit_waiting(self, inflight: collections.deque) -> None:
         """Fill free slots: block-pressure deferrals first (FIFO across the
@@ -853,7 +1154,8 @@ class SchedulerMixin:
                 # both the gate and the unfused admission.
                 entry = None if self.paged else self._match_prefix(req.ids)
                 fused = (
-                    not self.paged and entry is None and not inflight
+                    self.spec_mode is None
+                    and not self.paged and entry is None and not inflight
                     and self.role != "prefill"
                     and req.max_new > 1 and self._pending.empty()
                     and not any(r is not None for r in self._active)
@@ -889,7 +1191,7 @@ class SchedulerMixin:
                 # finds the stream still live.
                 if (any(r is not None for r in self._active)
                         and self._barriers.empty()):
-                    item = self._dispatch_round()
+                    item = self._dispatch_round(inflight)
                     if item is not None:
                         inflight.append(item)
                     elif inflight:

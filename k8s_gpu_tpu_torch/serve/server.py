@@ -83,19 +83,22 @@ class LmServer:
     CPU), on the dense pool unless ``paged_blocks`` > 0.  ``name`` is the
     replica's fleet name; ``metrics`` the registry of its serve-plane
     series; ``role`` its disaggregated role (flippable through
-    ``/admin/role`` while idle)."""
+    ``/admin/role`` while idle); ``draft`` and ``spec_k`` its
+    speculative rounds (``ContinuousBatcher``)."""
 
     def __init__(self, model, params, tokenizer: BpeTokenizer,
                  host: str = "127.0.0.1", port: int = 0,
                  max_new_tokens_cap: int = 256, slots: int = 4,
-                 eos_id: int = -1, kv_quant: bool = False,
+                 eos_id: int = -1, draft=None, spec_k: int = 4,
+                 kv_quant: bool = False,
                  attn_impl: str | None = None, paged_blocks: int = 0,
                  page_size: int = 64, max_pending: int = 64,
                  metrics=None, name: str = "", role: str = "both",
                  device="cuda"):
         self.batcher = ContinuousBatcher(
             model, params, slots=slots, eos_id=eos_id, logprobs=True,
-            kv_quant=kv_quant, attn_impl=attn_impl,
+            draft=draft, spec_k=spec_k, kv_quant=kv_quant,
+            attn_impl=attn_impl,
             paged_blocks=paged_blocks, page_size=page_size,
             max_pending=max_pending, metrics=metrics, role=role,
             device=device,

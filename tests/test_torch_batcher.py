@@ -133,8 +133,9 @@ def test_overloaded_at_max_pending():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(draft="ngram"), dict(adapters={}), dict(constraints=object()),
-    dict(mesh=object()),
+    # The draft is ported: beside it an unported option still raises.
+    dict(draft="ngram", adapters={}), dict(adapters={}),
+    dict(constraints=object()), dict(mesh=object()),
 ])
 def test_unported_options_raise(kw):
     args = dict(slots=2, paged_blocks=BLOCKS, page_size=PAGE, device="cpu")

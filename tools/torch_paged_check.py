@@ -2,7 +2,8 @@
 
     python3 tools/torch_paged_check.py [--tree DIR ...] [--serve N]
                                        [--profile] [--host] [--no-phase3]
-                                       [--ptxas] [--splits] [--json PATH]
+                                       [--ptxas] [--splits] [--verify]
+                                       [--json PATH]
 
 For each ``--tree`` (a checkout of the repo; default this one), in the
 order given and each in a process of its own, builds that tree's
@@ -23,7 +24,12 @@ and spills of every kernel instance of this checkout's source (``nvcc
 ``--splits`` times this checkout's kernel at the decode, window and
 cold-admission cases with the split count forced (1, 2, 4, 8, 16 and the
 planner's), each held against the plain version, with the splits its
-tiles took.  ``--json`` writes every number to PATH.
+tiles took.  ``--verify`` times this checkout's kernel at the verify
+windows of speculative serving (``chip_smoke.py``'s paged spec layout,
+B 8, Sq 1-9 with G 1 and Sq 1-5 with G 4), each held against the plain
+version at phase 3's limits (``chip_smoke.hold_paged``: it raises past
+one), with the folded rows, the route, the bound and gather + SDPA.
+``--json`` writes every number to PATH.
 """
 
 from __future__ import annotations
@@ -198,12 +204,52 @@ def run_splits() -> list[dict]:
     return rows
 
 
+def run_verify() -> list[dict]:
+    import torch
+
+    chip_smoke, pa = _import_tree(ROOT)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    rows = []
+    for H, sqs in ((8, range(1, 10)), (32, range(1, 6))):
+        for sq in sqs:
+            ops, _ = chip_smoke._pa_case(
+                torch, gen, B=8, Sq=sq, H=H, KH=8, Dh=128, page=64,
+                t_hi=2048, dtype=bf16, quant=False, layout="spec", dev=dev)
+            args = (ops["q"], ops["k"], ops["v"], ops["pages"],
+                    ops["start"], ops["kv_start"])
+            kw = dict(page=64, t_hi=2048)
+            out = pa.paged_attention(*args, **kw)
+            cut = pa.plan(ops["q"].shape, bf16, 8, page=64, t_hi=2048,
+                          n_sms=pa.sm_count(dev))
+            err, tol, err_f32 = chip_smoke.hold_paged(
+                torch, pa, f"verify Sq {sq} G {H // 8}", out, args, kw,
+                cut.design)
+            bound, by = chip_smoke._pa_bound(ops, page=64, t_hi=2048,
+                                             Dh=128)
+            row = {"Sq": sq, "G": H // 8, "R": sq * H // 8,
+                   "design": cut.design,
+                   "ms": chip_smoke.time_cuda(
+                       torch, lambda: pa.paged_attention(*args, **kw), 50),
+                   "library_ms": chip_smoke.time_cuda(
+                       torch, lambda: chip_smoke._pa_library(
+                           torch, ops, page=64, t_hi=2048), 30),
+                   "bound_ms": bound, "bound_by": by,
+                   "max_abs_err": err, "tol": tol,
+                   "max_abs_err_vs_f32": err_f32}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--splits", action="store_true")
+    ap.add_argument("--verify", action="store_true")
     ap.add_argument("--serve", type=int, default=0, metavar="N")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--host", action="store_true")
@@ -230,7 +276,7 @@ def main() -> int:
     if args.host:
         out["host"] = host_us(args.tree or [ROOT])
     trees = [] if args.host else args.tree or (
-        [] if args.splits or args.ptxas else [ROOT])
+        [] if args.splits or args.ptxas or args.verify else [ROOT])
     for tree in trees:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", tree,
@@ -268,6 +314,8 @@ def main() -> int:
                   flush=True)
     if args.splits:
         out["splits"] = run_splits()
+    if args.verify:
+        out["verify"] = run_verify()
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
