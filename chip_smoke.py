@@ -86,7 +86,28 @@ Phases, each of which fails the run on any error:
    under 0.25 (bf16; the plain streams' gap distribution is printed
    beside it) and, at float32 with a draft distilled against the float32
    target, under 1e-4 on both pools (dense: spec and int8 draft; paged:
-   n-gram and neural);
+   n-gram and neural); then (4f) the model lifecycle on the same
+   flagship: the bf16 params and their int8 tree through a servable
+   bundle (``export_servable_dir``/``load_servable_dir``: bit-equal
+   leaves, the same greedy stream; bytes and seconds), a LoRA fine-tune
+   (``Trainer(LoraModel(...))``, rank 8, batch 4 x 2048, flash v1 with
+   full remat: launches exactly 2/1/1 a layer and step, losses falling,
+   base leaves bit-identical), multi-LoRA serving behind ``LmServer``
+   on the paged pool with the paged kernel (that adapter, a rank-4 one
+   on wq/wv and a rank-16 one: eight requests over one 512-token
+   prefix, base rows sharing its blocks and adapter rows never, launches
+   exact, base streams equal to a bank-less server's and tokens/s beside
+   it, adapter streams against servers on the merged weights by the
+   near-tie rule in bf16 and at 1e-4 in float32, an unknown adapter
+   answering 400), regex and JSON-schema constrained decoding (the
+   bank's compile seconds and table bytes at V 16384; constrained texts
+   in their language, free streams equal to a bank-less server's,
+   launches exact) and the disaggregated prefill pool (700 and 1536
+   tokens whole, 1536 chunked by 256, an adapter request; every
+   handover ``precomputed``, launches exact, streams equal to the same
+   requests served directly by the near-tie rule, the in-flight rows
+   within their cap, and the longest gap of a 160-token stream during a
+   whole, a chunked and a co-located prefill);
 5. a check of the output by the repo's own means: the paged-kernel engine
    against the gather engine on one prompt (finite logits that agree);
    then (5b) the 700-token prompt left-padded to 1024: its row decoded
@@ -967,11 +988,15 @@ def _stream(port: int, body: dict, out: dict, timeout: float = 600.0,
 def _serve_together(port: int, jobs) -> list[dict]:
     """Stream every (prompt ids, max_new) of ``jobs`` from /generate at
     once, one client thread each."""
-    outs = [dict() for _ in jobs]
-    threads = [threading.Thread(
-        target=_stream, args=(port, {"prompt_ids": p, "max_new_tokens": n},
-                              o))
-        for (p, n), o in zip(jobs, outs)]
+    return _stream_bodies(port, [{"prompt_ids": p, "max_new_tokens": n}
+                                 for p, n in jobs])
+
+
+def _stream_bodies(port: int, bodies) -> list[dict]:
+    """Stream every /generate body at once, one client thread each."""
+    outs = [dict() for _ in bodies]
+    threads = [threading.Thread(target=_stream, args=(port, body, o))
+               for body, o in zip(bodies, outs)]
     for th in threads:
         th.start()
     for th in threads:
@@ -2018,6 +2043,720 @@ def run_spec_path(torch, seed: int, layers: int, device="cuda",
     return out
 
 
+# -- phase 4f: the model lifecycle: bundles, LoRA, constraints, disagg --------
+
+# 4f.3: the bank's three adapters (the one fine-tuned in 4f.2, rank 4 on
+# wq/wv, rank 16 on all four targets) and eight requests over one
+# 512-token prefix, two a model.  4f.4: a date and a small JSON object.
+# 4f.5: the reference bench's disagg_probe shape cut to one card
+# (bench.py:1416-1460): 700 and 1536 tokens prefilled whole, 1536 chunked
+# by 256, an adapter request, beside a 160-token stream.
+LORA_TRAIN_BATCH = 4
+LORA_TRAIN_STEPS = 4
+# The reference's lora-finetune recipe (train/registry.py:131-171).
+LORA_TRAIN = dict(warmup_steps=1, learning_rate=5e-3)
+LORA_NEW = 48
+LORA_F32_NEW = 24
+LORA_JOBS = (None, None, "ft", "ft", "r4", "r4", "r16", "r16")
+CONSTRAINT_NEW = 32
+# The constraint parser has no {n} counts (the reference's: literals,
+# classes, groups, |, *, + and ?): \d{4}-\d{2}-\d{2} spelled out.
+DATE_RE = r"\d\d\d\d-\d\d-\d\d"
+JSON_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "n": {"type": "integer"}}}
+CONSTRAINT_EOS = 0
+DISAGG_NEW = 32
+DISAGG_STREAM = 160
+DISAGG_CHUNK = 256
+
+
+def _lora_configs():
+    from k8s_gpu_tpu_torch.train import LoraConfig
+
+    return {"ft": LoraConfig(rank=8),
+            "r4": LoraConfig(rank=4, targets=("wq", "wv")),
+            "r16": LoraConfig(rank=16)}
+
+
+def _seeded_adapter(torch, params, cfg, seed: int, b_std: float = 0.02):
+    """``LoraAdapter.init`` with B drawn from ``seed`` too (B = 0 would
+    serve the base model)."""
+    from k8s_gpu_tpu_torch.train import LoraAdapter
+
+    tree = LoraAdapter(cfg).init(seed, params)
+    dev = tree["blocks"]["wq"]["a"].device
+    gen = torch.Generator(device=dev).manual_seed(seed + 1000)
+    for ab in tree["blocks"].values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen,
+                              device=dev) * b_std
+    return tree
+
+
+def _leaves_bit_equal(torch, a: dict, b: dict) -> bool:
+    from k8s_gpu_tpu_torch.serve.bundle import _flatten
+
+    fa, fb = dict(_flatten(a)), dict(_flatten(b))
+    return sorted(fa) == sorted(fb) and all(
+        fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape
+        and torch.equal(fa[k].contiguous().view(torch.uint8),
+                        fb[k].contiguous().view(torch.uint8))
+        for k in fa)
+
+
+def _bundle_case(torch, model, params, root, sync, prompt, **engine_kw):
+    """Export, load back, compare the leaves and one greedy stream."""
+    import shutil
+
+    from k8s_gpu_tpu_torch.serve import (
+        InferenceEngine, export_servable_dir, load_servable_dir,
+    )
+
+    shutil.rmtree(root, ignore_errors=True)
+    sync()
+    t0 = time.perf_counter()
+    export_servable_dir(root, model, params)
+    export_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for f in os.listdir(root))
+    t0 = time.perf_counter()
+    m2, p2, _ = load_servable_dir(root, device=model.device)
+    sync()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    if not _leaves_bit_equal(torch, p2, params):
+        raise RuntimeError(f"bundle {root}: leaves differ after a round trip")
+    x = torch.tensor([prompt], device=model.device)
+    want, got = (InferenceEngine(m, device=model.device, **engine_kw)
+                 .generate(p, x, max_new_tokens=16).tokens[0].tolist()
+                 for m, p in ((model, params), (m2, p2)))
+    if got != want:
+        raise RuntimeError(f"bundle {root}: loaded params serve {got}, "
+                           f"in-memory params {want}")
+    return {"bytes": nbytes, "export_s": export_s, "load_s": load_s,
+            "stream": got}
+
+
+def run_bundle_path(torch, model, params, sync) -> dict:
+    """4f.1: the bf16 flagship and its ``quantize_params`` tree through
+    ``export_servable_dir``/``load_servable_dir`` (under the git-ignored
+    build/chip/, removed after): bit-equal leaves, and one greedy stream
+    from the loaded params equal to the in-memory one (int8 through
+    ``int8_compute``)."""
+    from k8s_gpu_tpu_torch.serve import quantize_params
+
+    root = os.path.join(ROOT, "build", "chip", "bundles")
+    prompt = [3, 5, 7, 11, 13, 17]
+    out = {"bf16": _bundle_case(torch, model, params,
+                                os.path.join(root, "bf16"), sync, prompt)}
+    out["int8"] = _bundle_case(torch, model, quantize_params(params),
+                               os.path.join(root, "int8"), sync, prompt,
+                               int8_compute=True)
+    return out
+
+
+def run_lora_train(torch, seed: int, layers: int, params, device, sync,
+                   batch: int = LORA_TRAIN_BATCH,
+                   steps: int = LORA_TRAIN_STEPS) -> tuple[dict, dict]:
+    """4f.2: ``Trainer(LoraModel(flagship, LoraConfig(rank=8)))`` with
+    flash v1 and full remat at batch x 2048 on the frozen bf16 serving
+    weights: a warm-up step (learning rate 0), then ``steps`` timed steps
+    on the same batch.  Flash launches exactly 2 forward, 1 dq and 1
+    dk/dv a layer and step, no plain call; losses finite and falling; the
+    base leaves bit-identical afterwards.  Returns (numbers, the trained
+    adapter tree)."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.serve.bundle import _flatten
+    from k8s_gpu_tpu_torch.train import LoraModel, TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.lora import num_params
+
+    cfg = flagship_train_config(torch, layers)
+    lm = LoraModel(TransformerLM(cfg, device=device), params,
+                   _lora_configs()["ft"])
+    trainer = Trainer(lm, TrainConfig(**LORA_TRAIN), device=device)
+    trainer.init(seed + 11)
+    before = {k: v.clone() for k, v in _flatten(params)}
+    rng = torch.Generator().manual_seed(seed + 12)
+    toks = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq + 1),
+                         generator=rng).to(device)
+    x, y = toks[:, :-1], toks[:, 1:]
+    first = trainer.step(x, y)
+    sync()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    losses = [trainer.step(x, y, sync=False) for _ in range(steps)]
+    sync()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(fa.launch_counts), fa.plain_count
+    losses = [first] + [float(t) for t in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite LoRA loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"LoRA loss did not fall: {losses}")
+    now = dict(_flatten(params))
+    if any(not torch.equal(v, now[k]) for k, v in before.items()):
+        raise RuntimeError("a base leaf moved during the LoRA fine-tune")
+    if device != "cpu":
+        want = _counts(fa, {"flash_fwd": 2 * layers * steps,
+                            "flash_bwd_dq": layers * steps,
+                            "flash_bwd_dkv": layers * steps})
+        if launches != want or plain != 0:
+            raise RuntimeError(f"LoRA flash launches {launches}, plain "
+                               f"{plain}; expected {want} and 0")
+    step_s = wall / steps
+    tree = {"blocks": {k: {h: t.detach().clone() for h, t in ab.items()}
+                       for k, ab in trainer.params["blocks"].items()}}
+    return {"layers": layers, "batch": batch, "seq": cfg.max_seq,
+            "rank": 8, **LORA_TRAIN,
+            "adapter_params": num_params(trainer.params),
+            "losses": losses, "timed_steps": steps,
+            "step_ms": step_s * 1e3,
+            "tokens_per_s": batch * cfg.max_seq / step_s,
+            "launches": launches, "plain_calls": plain}, tree
+
+
+def _served_burst(torch, srv, bodies, sync, layers, device,
+                  first_alone: bool, profile: bool) -> dict:
+    """One burst of ``bodies`` through ``srv`` (the first alone when
+    ``first_alone``, so the rest may share its prefix blocks), with the
+    paged kernel's launches read just around it and held to one a layer
+    for every kernel admission and decode step, no fall-back."""
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+
+    b = srv.batcher
+    w0 = _paged_work(b)
+    paths0 = dict(b.admission_paths)
+    prof = _profile_batcher(torch, b) if profile else None
+    sync()
+    pa.reset_counts()
+    t0 = time.perf_counter()
+    outs = []
+    if first_alone:
+        outs.append({})
+        _stream(srv.port, bodies[0], outs[0])
+    outs += _stream_bodies(srv.port, bodies[len(outs):])
+    sync()
+    wall = time.perf_counter() - t0
+    launches, fallbacks = pa.launch_count, pa.fallback_count
+    if prof is not None:
+        _stop_batcher_profile(b, prof)
+    work = {k: v - w0[k] for k, v in _paged_work(b).items()}
+    want = layers * sum(work.values())
+    if device != "cpu" and (launches != want or fallbacks):
+        raise RuntimeError(f"paged launches {launches}, fall-backs "
+                           f"{fallbacks}; {layers} x {work} = {want}")
+    paths = {k: v - paths0.get(k, 0) for k, v in b.admission_paths.items()
+             if v - paths0.get(k, 0)}
+    n_tok = sum(len(o["ids"]) for o in outs)
+    out = {"outs": outs, "wall_s": wall, "generated_tokens": n_tok,
+           "tokens_per_s": n_tok / wall, **work, "launches": launches,
+           "fallbacks": fallbacks, "admissions": paths,
+           "ms_per_decode_step": wall * 1e3 / max(1, work["decode_steps"])}
+    if prof is not None:
+        out["profile"] = _kernel_profile(prof, wall)
+    return out
+
+
+def _kernel_profile(prof, wall_s: float) -> dict:
+    """Device ms and launches by kernel name, and the host's launch calls,
+    of a profiled burst (the scheduler thread's)."""
+    kernels, launch_calls = {}, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            dev_us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+            kernels[e.key[:100]] = (dev_us / 1e3, e.count)
+        elif e.key == "cudaLaunchKernel":
+            launch_calls = e.count
+    busy = sum(ms for ms, _ in kernels.values())
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall_s * 1e3),
+            "cuda_launch_calls": launch_calls, "kernels": kernels}
+
+
+def _profile_delta(with_bank: dict, without: dict, steps_with: int,
+                   steps_without: int) -> dict:
+    """Per decode step: what a banked burst's kernels add over a bank-less
+    one's, the largest first."""
+    names = set(with_bank["kernels"]) | set(without["kernels"])
+    rows = []
+    for n in names:
+        a_ms, a_n = with_bank["kernels"].get(n, (0.0, 0))
+        b_ms, b_n = without["kernels"].get(n, (0.0, 0))
+        rows.append((a_ms / steps_with - b_ms / steps_without,
+                     a_n / steps_with - b_n / steps_without, n))
+    rows.sort(reverse=True)
+    return {
+        "device_ms_per_step": (with_bank["device_busy_ms"] / steps_with,
+                               without["device_busy_ms"] / steps_without),
+        "launch_calls_per_step": (
+            with_bank["cuda_launch_calls"] / steps_with,
+            without["cuda_launch_calls"] / steps_without),
+        "largest_added": [{"kernel": n, "ms_per_step": ms,
+                           "launches_per_step": k}
+                          for ms, k, n in rows[:8]],
+    }
+
+
+def _compare_streams(torch, engine, params, jobs, ref, got, limit) -> dict:
+    """``got`` against ``ref`` (same requests): exact, or each first
+    departure at a top-2 gap of ``ref``'s model under ``limit``."""
+    return {"exact": ref == got,
+            "departures": _departures(torch, engine, params, jobs, ref, got,
+                                      limit)}
+
+
+def run_multi_lora(torch, model, params, tok, adapters, layers, device,
+                   sync, seed: int, profile: bool = False) -> dict:
+    """4f.3: ``LmServer(adapters=...)`` on the paged pool with the paged
+    kernel and prefix sharing: eight requests over one 512-token prefix,
+    two base (the first alone, so the second shares its blocks) and two
+    for each adapter, which take the unshared plan (``cold``: a
+    left-padded prefill spliced into fresh blocks, as the reference
+    plans adapter rows).  The same eight, as base requests, through a
+    bank-less server: tokens/s beside it, and the base streams equal.
+    Each adapter's streams against a bank-less batcher on its
+    ``LoraAdapter.merge``d weights by the near-tie rule; an unknown
+    adapter answers 400."""
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher, LmServer
+    from k8s_gpu_tpu_torch.serve.engine import InferenceEngine
+    from k8s_gpu_tpu_torch.train import LoraAdapter
+
+    rng = torch.Generator().manual_seed(seed + 20)
+    V = model.cfg.vocab_size
+
+    def over_a_prefix():
+        prefix = torch.randint(0, V, (512,), generator=rng).tolist()
+        return [(prefix + torch.randint(0, V, (16 + 4 * i,),
+                                        generator=rng).tolist(),
+                 LORA_NEW, name) for i, name in enumerate(LORA_JOBS)]
+
+    # A warm-up burst over another prefix leaves this one's blocks cold.
+    warm_jobs, jobs = over_a_prefix(), over_a_prefix()
+    n_blocks = 1 + 2 * sum(-(-(1024 + n) // PAGE) for _, n, _ in jobs)
+    kw = dict(slots=8, paged_blocks=n_blocks, page_size=PAGE,
+              attn_impl="paged_kernel", max_new_tokens_cap=256,
+              device=device)
+    out = {}
+    for label, bank in (("bankless", None), ("bank", adapters)):
+        srv = LmServer(model, params, tok, adapters=bank, **kw).start()
+        try:
+            def bodies(js):
+                return [{"prompt_ids": p, "max_new_tokens": n,
+                         **({"adapter": a} if bank and a else {})}
+                        for p, n, a in js]
+
+            _served_burst(torch, srv, bodies(warm_jobs), sync, layers,
+                          device, True, False)
+            burst = _served_burst(torch, srv, bodies(jobs), sync, layers,
+                                  device, True, False)
+            if profile:
+                burst["profile"] = _served_burst(
+                    torch, srv, bodies(warm_jobs), sync, layers, device,
+                    True, True)["profile"]
+            if bank:
+                code, err = _post(srv.port, "/generate", {
+                    "prompt_ids": jobs[0][0], "adapter": "nope"})
+                if code != 400 or "unknown adapter" not in err["error"]:
+                    raise RuntimeError(f"unknown adapter: {code} {err}")
+        finally:
+            srv.stop()
+        _check_budgets(burst["outs"], [n for _, n, _ in jobs])
+        out[label] = burst
+    paths = out["bank"]["admissions"]
+    n_ad = sum(1 for a in LORA_JOBS if a)
+    if paths != {"paged_cold": 1, "paged_shared": 1, "cold": n_ad}:
+        raise RuntimeError(f"banked admissions {paths}: base rows after "
+                           "the first must share, adapter rows never")
+    streams = {k: [o["ids"] for o in out[k].pop("outs")]
+               for k in ("bankless", "bank")}
+    engine = InferenceEngine(model, device=model.device)
+    base = [i for i, a in enumerate(LORA_JOBS) if a is None]
+    out["base_vs_bankless"] = _compare_streams(
+        torch, engine, params, [jobs[i][:2] for i in base],
+        [streams["bankless"][i] for i in base],
+        [streams["bank"][i] for i in base], BF16_TIE_GAP)
+    out["bank_vs_bankless_x"] = (out["bank"]["tokens_per_s"]
+                                 / out["bankless"]["tokens_per_s"])
+    out["adapters_vs_merged"] = {}
+    for name, (tree, cfg) in adapters.items():
+        merged = LoraAdapter(cfg).merge(params, tree)
+        idx = [i for i, a in enumerate(LORA_JOBS) if a == name]
+        b = ContinuousBatcher(model, merged, slots=8, paged_blocks=n_blocks,
+                              page_size=PAGE, attn_impl="paged_kernel",
+                              device=device).start()
+        try:
+            ref = _run_handles(b, [jobs[i][:2] for i in idx])
+        finally:
+            b.stop()
+        out["adapters_vs_merged"][name] = _compare_streams(
+            torch, engine, merged, [jobs[i][:2] for i in idx], ref,
+            [streams["bank"][i] for i in idx], BF16_TIE_GAP)
+        del merged
+    if profile:
+        out["bank_cost"] = _profile_delta(
+            out["bank"].pop("profile"), out["bankless"].pop("profile"),
+            out["bank"]["decode_steps"], out["bankless"]["decode_steps"])
+    return out
+
+
+def run_multi_lora_f32(torch, seed: int, layers: int, ft_tree, device,
+                       sync) -> dict:
+    """4f.3 at float32, full depth: the same bank (the fine-tuned adapter
+    and the two seeded ones, on float32 base weights) through a batcher
+    on the paged pool with the paged kernel; each adapter's streams
+    against a batcher on its merged weights, departures allowed only
+    under 1e-4."""
+    import dataclasses
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher
+    from k8s_gpu_tpu_torch.serve.engine import InferenceEngine
+    from k8s_gpu_tpu_torch.train import LoraAdapter
+
+    cfg = dataclasses.replace(flagship_config(torch, layers),
+                              dtype=torch.float32)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    cfgs = _lora_configs()
+    adapters = {"ft": (ft_tree, cfgs["ft"]),
+                "r4": (_seeded_adapter(torch, params, cfgs["r4"], seed + 21),
+                       cfgs["r4"]),
+                "r16": (_seeded_adapter(torch, params, cfgs["r16"],
+                                        seed + 22), cfgs["r16"])}
+    rng = torch.Generator().manual_seed(seed + 23)
+    prefix = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
+    jobs = [(prefix + torch.randint(0, cfg.vocab_size, (24,),
+                                    generator=rng).tolist(), LORA_F32_NEW)
+            for _ in adapters]
+    n_blocks = 1 + len(jobs) * (-(-(1024 + LORA_F32_NEW) // PAGE))
+    kw = dict(slots=4, paged_blocks=n_blocks, page_size=PAGE,
+              attn_impl="paged_kernel", device=device)
+    b = ContinuousBatcher(model, params, adapters=adapters, **kw).start()
+    try:
+        hs = [b.submit(p, max_new_tokens=n, adapter=name)
+              for (p, n), name in zip(jobs, adapters)]
+        got = [h.result() for h in hs]
+    finally:
+        b.stop()
+    engine = InferenceEngine(model, device=model.device)
+    out = {"layers": layers}
+    for (p, n), name, g in zip(jobs, adapters, got):
+        tree, c = adapters[name]
+        merged = LoraAdapter(c).merge(params, tree)
+        mb = ContinuousBatcher(model, merged, **kw).start()
+        try:
+            ref = _run_handles(mb, [(p, n)])
+        finally:
+            mb.stop()
+        out[name] = _compare_streams(torch, engine, merged, [(p, n)], ref,
+                                     [g], F32_TIE_GAP)
+    return out
+
+
+def _dfa_walk(bank, cidx: int, ids) -> tuple[int, bool]:
+    """(final state or -1, accepting) of ``ids`` through the bank's
+    tables."""
+    nxt = bank.next_state[cidx].cpu()
+    state = 0
+    for t in ids:
+        state = int(nxt[state, t])
+        if state < 0:
+            return -1, False
+    return state, bool(bank.accepting[cidx, state])
+
+
+def run_constraints(torch, model, params, tok, layers, device, sync,
+                    seed: int, profile: bool = False) -> dict:
+    """4f.4: ``LmServer(constraints={"date": ..., "json":
+    schema_to_regex(...)}, eos_id=...)`` on the paged pool with the
+    paged kernel: the bank's compile (the server's construction) and its
+    table bytes at V 16384; three requests a constraint and two free
+    ones.  Each constrained text is in its language (a full match when it
+    stopped before its budget, else a live DFA state); the free streams
+    against a bank-less server's; paged launches exact."""
+    import re
+
+    from k8s_gpu_tpu_torch.serve import LmServer, schema_to_regex
+    from k8s_gpu_tpu_torch.serve.engine import InferenceEngine
+
+    patterns = {"date": DATE_RE, "json": schema_to_regex(JSON_SCHEMA)}
+    rng = torch.Generator().manual_seed(seed + 30)
+    V = model.cfg.vocab_size
+    names = ("date",) * 3 + ("json",) * 3 + (None, None)
+    jobs = [(torch.randint(0, V, (40 + 8 * i,), generator=rng).tolist(),
+             CONSTRAINT_NEW, c) for i, c in enumerate(names)]
+    n_blocks = max(1 + model.cfg.max_seq // PAGE,
+                   1 + len(jobs) * (-(-(128 + CONSTRAINT_NEW) // PAGE)))
+    kw = dict(slots=8, paged_blocks=n_blocks, page_size=PAGE,
+              attn_impl="paged_kernel", eos_id=CONSTRAINT_EOS,
+              device=device)
+    out = {}
+    for label, cons in (("bankless", None), ("bank", patterns)):
+        t0 = time.perf_counter()
+        srv = LmServer(model, params, tok, constraints=cons, **kw)
+        build_s = time.perf_counter() - t0
+        srv.start()
+        try:
+            bodies = [{"prompt_ids": p, "max_new_tokens": n,
+                       **({"constraint": c} if cons and c else {})}
+                      for p, n, c in jobs]
+            _served_burst(torch, srv, bodies, sync, layers, device, False,
+                          False)                       # warm
+            burst = _served_burst(torch, srv, bodies, sync, layers, device,
+                                  False, profile)
+            bank = srv.batcher.cbank
+        finally:
+            srv.stop()
+        burst["server_build_s"] = build_s
+        out[label] = burst
+    out["compile_s"] = out["bank"]["server_build_s"]
+    out["table_bytes"] = bank.table_bytes
+    out["dfa_states"] = int(bank.allowed.shape[1])
+    out["vocab"] = int(bank.allowed.shape[2])
+    texts = {}
+    for (p, n, c), o in zip(jobs, out["bank"]["outs"]):
+        if not (o.get("summary") or {}).get("done"):
+            raise RuntimeError(f"constrained request failed: {o}")
+        if c is None:
+            continue
+        ids = o["ids"]
+        text = "".join(tok.decode([t]) for t in ids)
+        state, accepting = _dfa_walk(bank, bank.index(c), ids)
+        stopped = len(ids) < n
+        ok = (accepting and re.fullmatch(patterns[c], text) is not None
+              if stopped else state >= 0)
+        texts.setdefault(c, []).append({"text": text, "tokens": len(ids),
+                                        "stopped": stopped, "ok": ok})
+        if not ok:
+            raise RuntimeError(f"constraint {c}: {text!r} is not in its "
+                               f"language (state {state})")
+    out["texts"] = texts
+    free = [i for i, c in enumerate(names) if c is None]
+    streams = {k: [o["ids"] for o in out[k].pop("outs")]
+               for k in ("bankless", "bank")}
+    engine = InferenceEngine(model, device=model.device)
+    out["free_vs_bankless"] = _compare_streams(
+        torch, engine, params, [jobs[i][:2] for i in free],
+        [streams["bankless"][i] for i in free],
+        [streams["bank"][i] for i in free], BF16_TIE_GAP)
+    if profile:
+        out["bank_cost"] = _profile_delta(
+            out["bank"].pop("profile"), out["bankless"].pop("profile"),
+            out["bank"]["decode_steps"], out["bankless"]["decode_steps"])
+    return out
+
+
+def _consume_times(handle, times: list, ids: list) -> None:
+    for tok in handle:
+        times.append(time.perf_counter())
+        ids.append(tok)
+
+
+def _max_gap(times, t0: float, t1: float) -> float | None:
+    """The longest gap between consecutive tokens that overlaps [t0, t1]."""
+    gaps = [b - a for a, b in zip(times, times[1:]) if b >= t0 and a <= t1]
+    return max(gaps) if gaps else None
+
+
+def run_disagg(torch, model, params, adapters, layers, device, sync,
+               seed: int) -> dict:
+    """4f.5: ``DisaggregatedLm`` over a paged batcher with the paged
+    kernel and the adapter bank.  A 160-token request streams while a
+    1536-token prompt is prefilled whole by the pool, then again while
+    another is prefilled in chunks of 256, and, as the yardstick, while
+    a third is admitted by the batcher itself: the longest gap between
+    the stream's tokens over each prefill (a finding, not a gate; the
+    batcher runs one step a round meanwhile, as phase 4d does, so each
+    token is its own round).  Then 700 tokens whole and an adapter
+    request.  Every budget met, every handover
+    admitted ``precomputed``, paged launches exactly one a layer for each
+    kernel admission and decode step (a handover adds no kernel
+    admission), the in-flight rows within their cap; the handed-over
+    streams against the same requests served without disaggregation, by
+    the near-tie rule."""
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher, DisaggregatedLm
+    from k8s_gpu_tpu_torch.serve.engine import InferenceEngine
+    from k8s_gpu_tpu_torch.train import LoraAdapter
+
+    rng = torch.Generator().manual_seed(seed + 40)
+    V = model.cfg.vocab_size
+
+    def ids(n):
+        return torch.randint(0, V, (n,), generator=rng).tolist()
+
+    handed = [("whole_1536", ids(1536), None), ("chunked_1536", ids(1536),
+                                                 None),
+              ("whole_700", ids(700), None), ("adapter_600", ids(600),
+                                              "r16")]
+    colocated = ids(1536)
+    streams_in = [ids(64), ids(64), ids(64)]
+    n_blocks = 1 + sum(-(-(len(p) + DISAGG_NEW) // PAGE)
+                       for _, p, _ in handed) * 2 + 3 * (
+        -(-(64 + DISAGG_STREAM) // PAGE)) + 2 * (
+        -(-(1536 + DISAGG_NEW) // PAGE)) + 8
+    b = ContinuousBatcher(model, params, slots=8, adapters=adapters,
+                          paged_blocks=n_blocks, page_size=PAGE,
+                          attn_impl="paged_kernel", device=device).start()
+    whole = DisaggregatedLm(model, params, batcher=b).start()
+    chunked = DisaggregatedLm(model, params, batcher=b,
+                              chunk_tokens=DISAGG_CHUNK).start()
+    out, got = {}, {}
+    try:
+        # Warm both forms and the decode rounds on a short prompt.
+        for d in (whole, chunked):
+            d.submit(ids(300), max_new_tokens=4).result()
+        b.submit(ids(64), max_new_tokens=4).result()
+        sync()
+        w0 = _paged_work(b)
+        paths0 = dict(b.admission_paths)
+        pa.reset_counts()
+        b.steps_per_round, b.solo_buckets = 1, [1]
+        for (label, prompt), d, s_prompt in zip(
+                ((handed[0][:2]), handed[1][:2],
+                 ("colocated_1536", colocated)),
+                (whole, chunked, None), streams_in):
+            times, s_ids = [], []
+            h_s = b.submit(s_prompt, max_new_tokens=DISAGG_STREAM)
+            th = threading.Thread(target=_consume_times,
+                                  args=(h_s, times, s_ids))
+            th.start()
+            while len(times) < 8 and th.is_alive():
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            h = (b.submit(prompt, max_new_tokens=DISAGG_NEW) if d is None
+                 else d.submit(prompt, max_new_tokens=DISAGG_NEW))
+            t1 = time.perf_counter()
+            first = next(iter(h))
+            t2 = time.perf_counter()
+            got[label] = h.result()
+            th.join(timeout=600)
+            if len(s_ids) != DISAGG_STREAM or h_s.aborted:
+                raise RuntimeError(f"stream beside {label}: {len(s_ids)} "
+                                   f"of {DISAGG_STREAM} tokens")
+            step = [b_ - a for a, b_ in zip(times[1:], times[2:])]
+            out[label] = {
+                "prefill_and_handover_s": t1 - t0,
+                "handover_to_first_token_s": t2 - t1,
+                "first_token": first,
+                "stream_max_gap_s": _max_gap(times, t0, t2),
+                "stream_median_gap_s": sorted(step)[len(step) // 2],
+            }
+        _set_rounds(b, 8)
+        rest = {}
+
+        def run(label, prompt, adapter):
+            h = whole.submit(prompt, max_new_tokens=DISAGG_NEW,
+                             adapter=adapter)
+            rest[label] = h.result()
+
+        threads = [threading.Thread(target=run, args=job)
+                   for job in handed[2:]]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        got.update(rest)
+        sync()
+        launches, fallbacks = pa.launch_count, pa.fallback_count
+        work = {k: v - w0[k] for k, v in _paged_work(b).items()}
+        paths = {k: v - paths0.get(k, 0)
+                 for k, v in b.admission_paths.items()
+                 if v - paths0.get(k, 0)}
+        # The same requests served without disaggregation.
+        direct = {label: b.submit(p, max_new_tokens=DISAGG_NEW,
+                                  adapter=a).result()
+                  for label, p, a in handed}
+    finally:
+        whole.stop()
+        chunked.stop()
+        b.stop()
+    want = layers * (work["kernel_admissions"] + work["decode_steps"])
+    if device != "cpu" and (launches != want or fallbacks):
+        raise RuntimeError(f"disagg paged launches {launches}, fall-backs "
+                           f"{fallbacks}; {layers} x {work} = {want}")
+    if paths.get("precomputed") != len(handed) or work[
+            "kernel_admissions"] != len(streams_in) + 1:
+        raise RuntimeError(f"disagg admissions {paths}: every handover "
+                           "precomputed, only the streams admitted by the "
+                           "kernel")
+    for label, _, _ in handed:
+        if len(got[label]) != DISAGG_NEW:
+            raise RuntimeError(f"{label}: {len(got[label])} of "
+                               f"{DISAGG_NEW} tokens")
+    for d in (whole, chunked):
+        if d.max_inflight > d.inflight_cap:
+            raise RuntimeError(f"{d.max_inflight} rows in flight over a "
+                               f"cap of {d.inflight_cap}")
+    engine = InferenceEngine(model, device=model.device)
+    cmp = {}
+    for label, p, a in handed:
+        ps = params if a is None else LoraAdapter(adapters[a][1]).merge(
+            params, adapters[a][0])
+        cmp[label] = _compare_streams(torch, engine, ps,
+                                      [(p, DISAGG_NEW)], [direct[label]],
+                                      [got[label]], BF16_TIE_GAP)
+    out.update({"vs_direct": cmp, "admissions": paths, **work,
+                "launches": launches, "fallbacks": fallbacks,
+                "max_inflight": max(whole.max_inflight,
+                                    chunked.max_inflight),
+                "inflight_cap": whole.inflight_cap,
+                "chunk_tokens": DISAGG_CHUNK})
+    return out
+
+
+def lifecycle_launches(out: dict) -> int:
+    """The paged kernel's launches over phase 4f's counted runs."""
+    runs = [out["multi_lora"][k] for k in ("bank", "bankless")]
+    runs += [out["constraints"][k] for k in ("bank", "bankless")]
+    return sum(r["launches"] for r in runs) + out["disagg"]["launches"]
+
+
+def run_lifecycle_path(torch, seed: int, layers: int, device="cuda",
+                       profile: bool = False,
+                       train_batch: int = LORA_TRAIN_BATCH) -> dict:
+    """Phase 4f on the bf16 flagship: bundles (4f.1), the LoRA fine-tune
+    (4f.2), multi-LoRA serving in bf16 and float32 (4f.3), constrained
+    decoding (4f.4) and the disaggregated prefill pool (4f.5).  Prints
+    each part's line as it ends."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+
+    cfg = flagship_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    sync = _syncer(torch, model.device)
+    tok = flagship_tokenizer(cfg.vocab_size)
+    out = {"layers": layers}
+
+    def part(key, value):
+        out[key] = value
+        print(json.dumps({f"lifecycle_{key}": value}), flush=True)
+
+    part("bundle", run_bundle_path(torch, model, params, sync))
+    train, ft_tree = run_lora_train(torch, seed, layers, params, device,
+                                    sync, batch=train_batch)
+    part("lora_train", train)
+    cfgs = _lora_configs()
+    adapters = {"ft": (ft_tree, cfgs["ft"]),
+                "r4": (_seeded_adapter(torch, params, cfgs["r4"], seed + 21),
+                       cfgs["r4"]),
+                "r16": (_seeded_adapter(torch, params, cfgs["r16"],
+                                        seed + 22), cfgs["r16"])}
+    part("multi_lora", run_multi_lora(torch, model, params, tok, adapters,
+                                      layers, device, sync, seed, profile))
+    part("constraints", run_constraints(torch, model, params, tok, layers,
+                                        device, sync, seed, profile))
+    part("disagg", run_disagg(torch, model, params, adapters, layers,
+                              device, sync, seed))
+    del model, params, adapters
+    if device != "cpu":
+        _free(torch)
+    part("multi_lora_f32", run_multi_lora_f32(torch, seed, layers, ft_tree,
+                                              device, sync))
+    return out
+
+
 # -- phase 5: the output against the gather read -----------------------------
 
 LOGIT_TOL = 0.25  # bf16 logits after 16 layers, two attention reads
@@ -2429,6 +3168,9 @@ def main(argv=None) -> int:
     spec = run_spec_path(torch, args.seed, LAYERS, profile=args.profile)
     print(json.dumps({"spec_path": spec}), flush=True)
     _free(torch)
+    lifecycle = run_lifecycle_path(torch, args.seed, LAYERS,
+                                   profile=args.profile)
+    _free(torch)
     outputs = check_outputs(torch, args.seed, LAYERS)
     print(json.dumps({"outputs": outputs}), flush=True)
     left_pad = check_left_pad_outputs(torch, args.seed, LAYERS)
@@ -2462,7 +3204,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "k8s_gpu_tpu_torch/csrc/paged_attention.cu",
         "replaces": "k8s_gpu_tpu/ops/paged_attention.py:102",
-        "phase": "4 (paged serving); also 4c, 4d, 4e (verify windows)",
+        "phase": "4 (paged serving); also 4c, 4d, 4e (verify windows), 4f "
+                 "(adapter, constrained and handed-over rows)",
         "launches": main_path["paged_attention_launches"],
         # Phase 4c's run: the unshared paged pool (left-padded rows).
         "launches_unshared_pool": unshared["paged_attention_launches"],
@@ -2470,6 +3213,9 @@ def main(argv=None) -> int:
         "launches_fleet": fleet["paged_attention_launches"],
         # Phase 4e: the three timed runs of the paged spec cell.
         **spec_launches,
+        # Phase 4f: the multi-LoRA and constrained bursts (with their
+        # bank-less yardsticks) and the disaggregated handovers.
+        "launches_lifecycle": lifecycle_launches(lifecycle),
         "max_abs_err": max(r["max_abs_err"] for r in kern),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -2499,13 +3245,15 @@ def main(argv=None) -> int:
     for rows, top, extra, lines, source, run, phase in (
             (flash, "flagship_bf16", distill_cases, FLASH_KERNELS,
              "flash_attention", train,
-             "6 (training); also 4e (draft distillation)"),
+             "6 (training); also 4e (draft distillation), 4f (LoRA "
+             "fine-tune)"),
             (flash_v2, "train_gqa_bf16", (), FLASH_V2_KERNELS,
              "flash_attention_v2", train_v2, "6b (v2 training)")):
         by_case = {r["case"]: r for r in rows}
         timed = by_case[top]
         for name, line in lines.items():
             distill = spec["distill"]["flash_launches"].get(name, 0)
+            lora = lifecycle["lora_train"]["launches"].get(name, 0)
             kernels["kernels"].append({
                 "name": name,
                 "route": "cuda",
@@ -2514,6 +3262,7 @@ def main(argv=None) -> int:
                 "phase": phase,
                 "launches": run["launches"][name],
                 **({"launches_distill": distill} if distill else {}),
+                **({"launches_lora": lora} if lora else {}),
                 "max_abs_err": max(r["kernels"][name]["max_abs_err"]
                                    for r in rows),
                 **{key: timed["kernels"][name][key]
@@ -2535,6 +3284,7 @@ def main(argv=None) -> int:
                        "main_path": main_path, "dense_path": dense,
                        "unshared_paged_path": unshared,
                        "fleet_path": fleet, "spec_path": spec,
+                       "lifecycle_path": lifecycle,
                        "outputs": outputs, "left_pad_outputs": left_pad,
                        "train_path": train, "train_path_v2": train_v2,
                        "train_path_gqa_v1": train_gqa_v1,

@@ -35,10 +35,13 @@ class AllocatorMixin:
         return self._pool.allocatable_blocks()
 
     def _paged_plan(self, req: _Request) -> bool:
-        """Blocks for one admission, scheduler thread only.  Unshared
-        (``prefix_cache=False``): fresh blocks for the left-padded
-        bucket plus the budget, and ``req.prefix_tokens`` None, which
-        sends the admission through the dense-row splice.  Shared:
+        """Blocks for one admission, scheduler thread only.  A precomputed
+        row (a disaggregated handover): fresh blocks for its length plus
+        the budget, spliced, never shared.  Unshared
+        (``prefix_cache=False``, or an adapter row, whose K/V are not the
+        base model's): fresh blocks for the left-padded bucket plus the
+        budget, and ``req.prefix_tokens`` None, which sends the admission
+        through the dense-row splice.  Shared:
         acquires the longest chain of cached full prompt pages (at least
         one suffix token must remain so the extend yields first-token
         logits), then allocates the private tail.  Acquire before alloc:
@@ -47,8 +50,16 @@ class AllocatorMixin:
         ids and ``req.prefix_tokens`` the shared token count; False
         (block pressure) holds no references."""
         page = self.page_size
+        if req.precomputed is not None:
+            blocks = self._pool.alloc(
+                self._blocks_needed(int(req.precomputed[2]), req.max_new))
+            if blocks is None:
+                return False
+            req.blocks = blocks
+            req.prefix_tokens = None
+            return True
         n = int(req.ids.size)
-        if not self._paged_share:
+        if not (self._paged_share and req.aidx == 0):
             bucket = prompt_bucket(n, self.engine.max_seq)
             blocks = self._pool.alloc(self._blocks_needed(bucket,
                                                           req.max_new))

@@ -28,6 +28,14 @@ budget to the admission's one token and refuses decode rounds;
 params)`` pair (a neural draft with its own dense cache; ``draft_int8``
 runs its products int8 x int8) or ``"ngram"`` (prompt lookup over each
 row's history).  ``spec_k`` is the first draft window; it then adapts.
+
+``adapters`` (name -> (LoRA tree, ``LoraConfig``)) serves every adapter
+and the base model in the same rounds (``lora_bank.AdapterBank`` on the
+batcher's device; a request picks one with ``adapter=``).
+``constraints`` (a ``constrain.ConstraintBank``, moved to the batcher's
+device) masks each constrained row's tokens by its DFA state (a request
+picks one with ``constraint=``).  ``submit_precomputed`` admits a row
+prefilled elsewhere (``disagg.DisaggregatedLm``).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from .engine import InferenceEngine, _empty_cache, _empty_cache_paged
 from .executor import ExecutorMixin
 from .journal import RequestJournal
 from .kv_blocks import BlockPool
+from .lora_bank import AdapterBank
 from .quant import quantized_bytes
 from .scheduler import (
     Overloaded, RequestHandle, SchedulerMixin, prompt_bucket,
@@ -58,8 +67,6 @@ __all__ = ["ContinuousBatcher", "Overloaded", "RequestHandle",
 # the ROADMAP queue 1 item that holds each.
 _NOT_PORTED = {
     "mesh": "queue 1 item 11 (parallel plane)",
-    "adapters": "queue 1 item 8 (LoRA adapters)",
-    "constraints": "queue 1 item 8 (constrained decoding)",
 }
 ROLES = ("both", "prefill", "decode")
 
@@ -77,9 +84,11 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
     0 bounds the unadmitted queue (``submit`` raises ``Overloaded`` at
     the bound).  ``metrics``: the registry of the serve-plane series
     (the process-wide one by default; give each replica its own);
-    ``role``: ``both``, ``prefill`` or ``decode``.  ``journal`` is the
-    per-request record ring.  ``draft``/``spec_k``/``draft_int8``: the
-    speculative rounds (module docstring)."""
+    ``role``: ``both``, ``prefill`` or ``decode``.  ``journal``: the
+    per-request record ring to write (a new one when None).
+    ``draft``/``spec_k``/``draft_int8``: the speculative rounds;
+    ``adapters``, ``constraints``: the adapter and constraint banks
+    (module docstring; a bank needs ``eos_id`` >= 0)."""
 
     def __init__(self, model, params, *, slots: int = 8, mesh=None,
                  max_seq: int | None = None, eos_id: int = -1,
@@ -91,6 +100,7 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
                  page_size: int = 64, prefix_cache: bool = True,
                  max_pending: int = 0,
                  metrics: MetricsRegistry | None = None,
+                 journal: RequestJournal | None = None,
                  role: str = "both", device="cuda"):
         if draft is not None and constraints is not None and getattr(
                 constraints, "banked", constraints) is not None:
@@ -99,8 +109,7 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
                 "combined: the DFA advances token-by-token through the "
                 "ACCEPTED prefix, which only exists after the verify"
             )
-        given = {"mesh": mesh, "adapters": adapters,
-                 "constraints": constraints}
+        given = {"mesh": mesh}
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -111,12 +120,30 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
             raise ValueError(f"unknown batcher role {role!r}")
         self.role = role
         self.metrics = metrics if metrics is not None else global_metrics
-        self.journal = RequestJournal()
+        self.journal = journal if journal is not None else RequestJournal()
         self.device = resolve_device(device)
         self.engine = InferenceEngine(
             model, max_seq=max_seq, kv_quant=kv_quant, attn_impl=attn_impl,
             device=self.device,
         )
+        self.bank = AdapterBank(adapters or {}, device=self.device)
+        banked = constraints is not None and constraints.banked is not None
+        if banked and int(constraints.allowed.shape[2]) != \
+                model.cfg.vocab_size:
+            raise ValueError(
+                f"ConstraintBank built over {constraints.allowed.shape[2]} "
+                f"token strings but the model's vocab is "
+                f"{model.cfg.vocab_size}: compile the bank against this "
+                "model's tokenizer"
+            )
+        if banked and eos_id < 0:
+            # A dead-ended constrained row retires by emitting EOS.
+            raise ValueError(
+                "ContinuousBatcher with a ConstraintBank requires eos_id >= "
+                "0: a dead-ended constrained row retires by emitting EOS"
+            )
+        self.cbank = (constraints.to(self.device)
+                      if constraints is not None else None)
         self.draft_engine = None
         self.draft_params = None
         self.spec_mode = None
@@ -195,6 +222,9 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
             "start": torch.zeros(slots, **i32),    # kv_start (left pad)
             "temps": torch.zeros(slots, **f32),
             "top_p": torch.zeros(slots, **f32),
+            "aidx": torch.zeros(slots, **i32),     # adapter
+            "cidx": torch.zeros(slots, **i32),     # constraint
+            "cstate": torch.zeros(slots, **i32),   # its DFA state
         }
         if self.draft_engine is not None:
             # The draft's cache stays dense at the draft's dtype, even on

@@ -27,6 +27,13 @@ which walks the page tables itself.
 s}`` leaves as int8 x int8 -> int32 (``quant.int8_dot``): the
 speculative draft's engine, where quantization error moves only the
 acceptance rate.
+
+``adapters``/``adapter_idx`` (``prefill``, ``decode_step_multi``,
+``extend_multi``): an ``AdapterBank``'s stacked tensors and each row's
+adapter; the q/k/v deltas come from the normed block input before RoPE,
+the wo delta from the flattened attention output
+(``lora_bank.lora_delta``).  ``generate_constrained`` is the one-shot
+regex-constrained generation (``constrain.RegexConstraint``).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..models.transformer import (
     TransformerLM, emb_lookup, layer_params, wt,
 )
 from ..ops.paged_attention import paged_attention
+from .lora_bank import layer_slice, lora_delta
 from .quant import int8_dot
 
 
@@ -247,10 +255,13 @@ class InferenceEngine:
                            sel.shape[2] * sel.shape[3], *sel.shape[4:])
 
     def _block_cached(self, x, lp, cache, positions, start, mask, layer,
-                      pages=None, page: int = 0, kv_start=None):
+                      pages=None, page: int = 0, kv_start=None,
+                      lp_ad=None, adapter_idx=None):
         """One block over the query slice x [B, Sq, D], writing the
         slice's K/V into layer ``layer`` of ``cache`` at ``start`` (a host
-        int for the dense cache, a [B] tensor for the paged pool)."""
+        int for the dense cache, a [B] tensor for the paged pool).
+        ``lp_ad``: this layer's adapter bank, rows picking theirs by
+        ``adapter_idx`` [B]."""
         m = self.model
         dt = self.cfg.dtype
         h = m._rmsnorm(x, lp["ln1"])
@@ -262,6 +273,15 @@ class InferenceEngine:
             q = torch.einsum("bsd,dhk->bshk", h, wt(lp["wq"], dt))
             k = torch.einsum("bsd,dhk->bshk", h, wt(lp["wk"], dt))
             v = torch.einsum("bsd,dhk->bshk", h, wt(lp["wv"], dt))
+        if lp_ad is not None:
+            # Per-row LoRA deltas from the input the base products take.
+            def delta(name, t):
+                if name not in lp_ad:
+                    return t
+                d = lora_delta(h, lp_ad[name], adapter_idx, dt)
+                return t + d.reshape(t.shape)
+
+            q, k, v = delta("wq", q), delta("wk", k), delta("wv", v)
         q = m._rope(q, positions)
         k = m._rope(k, positions).transpose(1, 2)    # [B, KH, Sq, Dh]
         v = v.transpose(1, 2)
@@ -296,28 +316,39 @@ class InferenceEngine:
                      for name in writes}
             o = self._attend_cached(q, reads["k"], reads["v"], mask,
                                     reads.get("k_s"), reads.get("v_s"))
-        return self._block_epilogue(x, o, lp)
+        return self._block_epilogue(x, o, lp, lp_ad, adapter_idx)
 
-    def _block_epilogue(self, x, o, lp):
-        """Attention output projection + MLP, shared by both caches."""
+    def _block_epilogue(self, x, o, lp, lp_ad=None, adapter_idx=None):
+        """Attention output projection (with the row's wo delta) + MLP,
+        shared by both caches."""
         m = self.model
         dt = self.cfg.dtype
-        if not (self.int8_compute and isinstance(lp["wo"], dict)):
-            x = x + torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], dt))
+        int8 = self.int8_compute and isinstance(lp["wo"], dict)
+        if int8:
+            attn_out = int8_dot(o, lp["wo"], dt)
+        else:
+            attn_out = torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], dt))
+        if lp_ad is not None and "wo" in lp_ad:
+            o_flat = o.reshape(o.shape[0], o.shape[1], -1)
+            attn_out = attn_out + lora_delta(o_flat, lp_ad["wo"],
+                                             adapter_idx, dt)
+        x = x + attn_out
+        if not int8:
             return x + m._dense_mlp(m._rmsnorm(x, lp["ln2"]), lp)
-        x = x + int8_dot(o, lp["wo"], dt)
         h2 = m._rmsnorm(x, lp["ln2"])
         g = int8_dot(h2, lp["wi_gate"], dt)
         u = int8_dot(h2, lp["wi_up"], dt)
         return x + int8_dot(torch.nn.functional.silu(g) * u, lp["wo_mlp"], dt)
 
     def _run_blocks(self, params, x, cache, positions, start, mask,
-                    pages=None, page: int = 0, kv_start=None):
+                    pages=None, page: int = 0, kv_start=None,
+                    adapters=None, adapter_idx=None):
         for layer in range(self.cfg.n_layers):
             x = self._block_cached(
                 x, layer_params(params["blocks"], layer), cache, positions,
                 start, mask, layer, pages=pages, page=page,
-                kv_start=kv_start,
+                kv_start=kv_start, lp_ad=layer_slice(adapters, layer),
+                adapter_idx=adapter_idx,
             )
         return self._head(params, x), cache
 
@@ -332,7 +363,8 @@ class InferenceEngine:
 
     # -- dense cache: one batch at one shared position --------------------
     @torch.no_grad()
-    def prefill(self, params, tokens, pad_left: int = 0, cache=None):
+    def prefill(self, params, tokens, pad_left: int = 0, cache=None,
+                adapters=None, adapter_idx=None):
         """tokens [B, S] -> (cache, last_logits [B, V]).  ``pad_left``
         leading positions are padding: excluded from attention, and RoPE
         starts at the first real token.  ``cache``: a [L, B, KH, T, ...]
@@ -350,7 +382,9 @@ class InferenceEngine:
         positions = (q_idx - pad_left).clamp_min(0)
         t = q_idx[None, :]
         mask = ((t <= q_idx[:, None]) & (t >= pad_left)).expand(B, S, S)
-        logits, cache = self._run_blocks(params, x, cache, positions, 0, mask)
+        logits, cache = self._run_blocks(params, x, cache, positions, 0, mask,
+                                         adapters=adapters,
+                                         adapter_idx=adapter_idx)
         return cache, logits[:, -1]
 
     @torch.no_grad()
@@ -375,7 +409,8 @@ class InferenceEngine:
     # -- paged pool: every row at its own position -------------------------
     @torch.no_grad()
     def decode_step_multi(self, params, cache, token, pos, rope_pos,
-                          kv_start, t_hi=None, pages=None, page: int = 0):
+                          kv_start, t_hi=None, pages=None, page: int = 0,
+                          adapters=None, adapter_idx=None):
         """One decode step where row b sits at its own position: token,
         pos, rope_pos, kv_start [B] int32.  Row b attends to slots
         [kv_start[b], pos[b]] and writes its K/V at pos[b].  ``pages``
@@ -392,13 +427,15 @@ class InferenceEngine:
                 & (t[None, :] >= kv_start[:, None]))[:, None, :]  # [B,1,T]
         logits, cache = self._run_blocks(
             params, x, cache, rope_pos[:, None], pos, mask, pages=pages,
-            page=page, kv_start=kv_start,
+            page=page, kv_start=kv_start, adapters=adapters,
+            adapter_idx=adapter_idx,
         )
         return cache, logits[:, 0]
 
     @torch.no_grad()
     def extend_multi(self, params, cache, tokens, start, rope_start,
-                     kv_start, t_hi=None, pages=None, page: int = 0):
+                     kv_start, t_hi=None, pages=None, page: int = 0,
+                     adapters=None, adapter_idx=None):
         """Multi-token forward where row b writes its own window: tokens
         [B, W]; start/rope_start/kv_start [B] int32.  Query start[b] + j
         attends to [kv_start[b], start[b] + j].  On the paged pool window
@@ -417,7 +454,7 @@ class InferenceEngine:
         rope = rope_start[:, None] + self._arange(W)[None]
         logits, cache = self._run_blocks(
             params, x, cache, rope, start, mask, pages=pages, page=page,
-            kv_start=kv_start,
+            kv_start=kv_start, adapters=adapters, adapter_idx=adapter_idx,
         )
         return cache, logits
 
@@ -476,3 +513,72 @@ class InferenceEngine:
             lengths = lengths + valid.int()
         return DecodeOutput(tokens=torch.stack(toks, dim=1), lengths=lengths,
                             prompt_logits=last_logits)
+
+    # -- constrained generation -------------------------------------------
+    @torch.no_grad()
+    def generate_constrained(self, params, prompt, constraint, *,
+                             max_new_tokens: int = 32,
+                             sampling: SamplingConfig = SamplingConfig(),
+                             seed: int = 0, pad_left: int = 0) -> dict:
+        """Generate under a ``constrain.RegexConstraint``.  Each row
+        carries a DFA state; the state's ``allowed`` row masks the logits
+        (-inf) and the chosen token gathers its next state.  A row stops
+        at a dead end (no token keeps the string in the language) or on
+        ``sampling.eos_id``, which is not emitted and leaves the state as
+        it was: the batcher's constrained rows stop by the same rule.
+        Greedy decoding is maximal munch (it goes on from accepting
+        states that still have continuations).  Returns a dict of
+        ``tokens`` [B, max_new] (pad after a stop), ``lengths``,
+        ``prompt_logits`` and ``accepted`` [B]: whether each row stopped
+        in an accepting state."""
+        B, S = prompt.shape
+        if S + max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"prompt {S} + max_new {max_new_tokens} exceeds max_seq "
+                f"{self.max_seq}"
+            )
+        if constraint.allowed.shape[1] != self.cfg.vocab_size:
+            raise ValueError(
+                f"constraint built for vocab {constraint.allowed.shape[1]}, "
+                f"model has {self.cfg.vocab_size}"
+            )
+        dev = self.device
+        nxt_tab = torch.as_tensor(constraint.next_state, device=dev).long()
+        allow_tab = torch.as_tensor(constraint.allowed, device=dev)
+        accepting = torch.as_tensor(constraint.accepting, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        pad, eos = sampling.pad_id, sampling.eos_id
+        cache, last_logits = self.prefill(params, prompt, pad_left)
+
+        def pick(logits, st, dn):
+            mask = allow_tab[st] & ~dn[:, None]
+            any_ok = mask.any(-1)
+            masked = torch.where(mask, logits, -torch.inf)
+            # A dead row's logits are all -inf: sample from zeros there (a
+            # softmax over -inf is NaN), then pad it.
+            tok = self._sample(torch.where(any_ok[:, None], masked, 0.0),
+                               gen, sampling)
+            tok = torch.where(any_ok, tok, pad)
+            hit_eos = any_ok & ~dn & (tok == eos) if eos >= 0 else (
+                torch.zeros_like(any_ok))
+            valid = any_ok & ~dn & ~hit_eos
+            emit = torch.where(valid, tok, pad)
+            st = torch.where(valid, nxt_tab[st, emit], st)
+            return emit, valid, st, dn | ~any_ok | hit_eos
+
+        state = torch.full((B,), int(constraint.start), dtype=torch.long,
+                           device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        tok, valid, state, done = pick(last_logits, state, done)
+        toks, lengths = [tok], valid.int()
+        t_hi = min(S + max_new_tokens, self.max_seq)
+        for i in range(max_new_tokens - 1):
+            cache, logits = self.decode_step(
+                params, cache, S + i, tok, rope_pos=S + i - pad_left,
+                kv_start=pad_left, t_hi=t_hi,
+            )
+            tok, valid, state, done = pick(logits, state, done)
+            toks.append(tok)
+            lengths = lengths + valid.int()
+        return {"tokens": torch.stack(toks, dim=1), "lengths": lengths,
+                "prompt_logits": last_logits, "accepted": accepting[state]}

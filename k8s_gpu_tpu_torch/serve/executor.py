@@ -1,9 +1,9 @@
 """Device work of the continuous batcher: the port of
 ``k8s_gpu_tpu/serve/executor.py`` for both pools (``_first_token``,
-``_seat``, ``_admit_dev``, ``_admit_round_dev``, ``_admit_prefix_dev``,
-``_admit_exact_dev``, ``_admit_paged_dev``, ``_round_dev``) and the
-speculative rounds (``ngram_propose``, ``_spec_accept``,
-``_round_spec_dev``, ``_round_spec_ngram_dev``).
+``_constrained_first``, ``_seat``, ``_admit_dev``, ``_admit_round_dev``,
+``_admit_prefix_dev``, ``_admit_exact_dev``, ``_admit_paged_dev``,
+``_round_dev``) and the speculative rounds (``ngram_propose``,
+``_spec_accept``, ``_round_spec_dev``, ``_round_spec_ngram_dev``).
 
 Decode state lives on the device (``self._dev``) and is updated in place;
 nothing here waits for the device, so the scheduler can queue a round
@@ -11,6 +11,16 @@ while the previous one runs.  A row's state is its next token, its cache
 position ``pos``, its RoPE position ``rope`` and its first visible cache
 slot ``start`` (``kv_start``): a left-padded admission seats
 ``pos = bucket``, ``rope = bucket - pad``, ``start = pad``.
+
+Adapters and constraints (``ContinuousBatcher(adapters=...,
+constraints=...)``): each row also carries its adapter ``aidx`` (0 the
+base model), its constraint ``cidx`` (0 free) and its DFA state
+``cstate``.  Every forward of a row passes the bank and the rows'
+``aidx``; every token of a constrained row is taken from logits masked
+by ``allowed[cidx, cstate]``, and ``cstate`` advances by ``next[cidx,
+cstate, token]`` on the device.  A row with no allowed token (a dead
+end) emits ``eos_id`` (0 without one) with a log-prob of 0, its state
+held; the masked row is never sampled from (a softmax over -inf is NaN).
 
 Sampling draws from a ``torch.Generator`` per slot, seeded with the
 request's ``seed`` at admission: the same seed gives the same stream, but
@@ -104,18 +114,63 @@ class ExecutorMixin:
             raise RuntimeError(
                 "prefill-only executor: decode round dispatch refused")
 
-    def _first_token(self, logits, temp: float, gen, top_p: float):
+    def _first_token(self, logits, temp: float, gen, top_p: float,
+                     mask=None, dead_tok: int = 0):
         """logits [V] f32 -> (token, logprob) as 0-d device tensors: the
         argmax when ``temp`` is 0, else a draw from the temperature-scaled,
         nucleus-masked distribution.  The logprob is the chosen token's
-        under the unscaled distribution."""
+        under the unscaled (masked) distribution.  ``mask`` [V] bool:
+        disallowed logits go to -inf; with nothing allowed the token is
+        ``dead_tok`` and its logprob 0."""
+        any_ok = None
+        if mask is not None:
+            any_ok = mask.any()
+            logits = torch.where(mask, logits, -torch.inf)
         if temp > 0:
-            scaled = nucleus_mask(logits / max(temp, 1e-6), top_p)
+            # A dead row's logits are all -inf: draw from zeros instead.
+            src = logits if any_ok is None else torch.where(any_ok, logits,
+                                                            0.0)
+            scaled = nucleus_mask(src / max(temp, 1e-6), top_p)
             first = gumbel_sample(scaled, gen)
         else:
             first = torch.argmax(logits)
+        if any_ok is not None:
+            first = torch.where(any_ok, first, dead_tok)
         lp = torch.log_softmax(logits.float(), dim=-1)[first]
+        if any_ok is not None:
+            lp = torch.where(any_ok, lp, 0.0)
         return first.to(torch.int32), lp
+
+    def _ctab(self):
+        """The constraint bank when it holds real patterns, else None."""
+        cb = self.cbank
+        return cb if cb is not None and cb.banked is not None else None
+
+    def _bank_args(self, aidx):
+        """The engine's adapter keywords for rows whose adapters are
+        ``aidx`` (a [B] tensor, or a host int for one row)."""
+        if self.bank.banked is None:
+            return {}
+        if not torch.is_tensor(aidx):
+            aidx = torch.full((1,), int(aidx), dtype=torch.int32,
+                              device=self.device)
+        return {"adapters": self.bank.banked, "adapter_idx": aidx}
+
+    def _constrained_first(self, logits, temp: float, gen, top_p: float,
+                           cidx: int):
+        """First-token sampling under the constraint bank: mask at the
+        start state (0), then advance the DFA by the chosen token.
+        Returns (token, logprob, cstate); cstate is 0 without a bank."""
+        ctab = self._ctab()
+        if ctab is None:
+            first, lp = self._first_token(logits, temp, gen, top_p)
+            return first, lp, 0
+        mask = ctab.allowed[cidx, 0]
+        first, lp = self._first_token(logits, temp, gen, top_p, mask,
+                                      self.eos_id if self.eos_id >= 0 else 0)
+        cstate = torch.where(mask.any(), ctab.next_state[cidx, 0,
+                                                         first.long()], 0)
+        return first, lp, cstate.to(torch.int32)
 
     def _slot_row(self, slot: int) -> dict:
         """The dense pool's row of ``slot`` as [L, 1, KH, max_seq, ...]
@@ -160,8 +215,11 @@ class ExecutorMixin:
 
     def _seat(self, slot: int, first, pos: int, rope: int, start: int,
               temp: float, top_p: float, gen, spec=None,
-              draft_ready: bool = False) -> None:
+              draft_ready: bool = False, aidx: int = 0, cidx: int = 0,
+              cstate=0) -> None:
         """Seat a slot's decode state; its K/V are already in the pool.
+        ``aidx``, ``cidx``, ``cstate``: the row's adapter, constraint and
+        DFA state.
         ``spec``: (prev, hist_row) from ``_spec_seat`` (None when spec is
         off): the last prompt token, re-ingested at pos - 1 each spec
         round, and the n-gram history with the prompt at its positions
@@ -175,6 +233,9 @@ class ExecutorMixin:
         dev["start"][slot] = start
         dev["temps"][slot] = temp
         dev["top_p"][slot] = top_p
+        dev["aidx"][slot] = aidx
+        dev["cidx"][slot] = cidx
+        dev["cstate"][slot] = cstate
         self._temps[slot] = temp
         self._gens[slot] = gen
         if spec is None:
@@ -190,52 +251,59 @@ class ExecutorMixin:
             dev["hist"][slot, pos] = first
 
     def _admit_dev(self, padded, slot: int, temp: float, seed: int,
-                   pad: int, top_p: float, page_row=None, spec=None):
+                   pad: int, top_p: float, page_row=None, spec=None,
+                   aidx: int = 0, cidx: int = 0):
         """Prefill one left-padded request on [1, bucket] and seat it at
         ``slot``.  Dense pool: the prefill writes the slot's row in place
         (zeroed first, as the reference's fresh row is).  Paged pool: it
         writes a row of ``bucket`` positions that splices into the
         slot's blocks.  The row's geometry is pos = bucket, rope =
         bucket - pad, start = pad.  A neural draft is prefilled on the
-        same padded shape into its own row."""
+        same padded shape into its own row.  The prompt runs under the
+        row's adapter (``aidx``)."""
         bucket = padded.shape[1]
+        bank = self._bank_args(aidx)
         if page_row is None:
             _, last = self.engine.prefill(self.params, padded, pad,
-                                          cache=self._slot_row(slot))
+                                          cache=self._slot_row(slot), **bank)
         else:
             row = _empty_cache(self.engine.cfg, 1, bucket,
                                self.engine.kv_quant, self.device)
             row, last = self.engine.prefill(self.params, padded, pad,
-                                            cache=row)
+                                            cache=row, **bank)
             self._splice_paged(row, page_row, bucket)
         if spec is not None and self.draft_engine is not None:
             self.draft_engine.prefill(self.draft_params, padded, pad,
                                       cache=self._draft_row(slot))
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        first, lp = self._first_token(last[0], temp, gen, top_p)
+        first, lp, cstate = self._constrained_first(last[0], temp, gen,
+                                                    top_p, cidx)
         self._seat(slot, first, bucket, bucket - pad, pad, temp, top_p, gen,
-                   spec, draft_ready=True)
+                   spec, draft_ready=True, aidx=aidx, cidx=cidx,
+                   cstate=cstate)
         return first, lp
 
     def _admit_round_dev(self, padded, slot: int, temp: float, seed: int,
                          pad: int, top_p: float, use_top_p: bool,
-                         n_steps: int, t_hi: int):
+                         n_steps: int, t_hi: int, aidx: int = 0,
+                         cidx: int = 0):
         """The fused cold start: ``_admit_dev`` then one ``_round_dev``,
         queued back to back with no host fetch between them.  The slot's
         generator takes the admission's draw, then the round's, as on the
         unfused path, so the stream is the same."""
-        first, lp = self._admit_dev(padded, slot, temp, seed, pad, top_p)
+        first, lp = self._admit_dev(padded, slot, temp, seed, pad, top_p,
+                                    aidx=aidx, cidx=cidx)
         toks, lps = self._round_dev(use_top_p, n_steps, t_hi, None)
         return first, lp, toks, lps
 
     def _admit_prefix_dev(self, entry: dict, suffix, n_real: int,
                           slot: int, temp: float, seed: int, base_pos: int,
-                          top_p: float, spec=None):
+                          top_p: float, spec=None, cidx: int = 0):
         """Admit on a cached prefix (dense pool): splice the entry's row
         into the slot, then extend it with the right-padded suffix [1, W]
         in place.  Pad K/V land past the live length, where decode
         overwrites them and masks never read them; the entry itself is
-        left as it was."""
+        left as it was.  Entries hold base-model K/V: base rows only."""
         self._splice_dense(entry["cache"], slot)
         base = torch.full((1,), base_pos, dtype=torch.int32,
                           device=self.device)
@@ -244,27 +312,38 @@ class ExecutorMixin:
             torch.zeros_like(base),
         )
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        first, lp = self._first_token(logits[0, n_real - 1], temp, gen,
-                                      top_p)
+        first, lp, cstate = self._constrained_first(
+            logits[0, n_real - 1], temp, gen, top_p, cidx)
         pos = base_pos + n_real
-        self._seat(slot, first, pos, pos, 0, temp, top_p, gen, spec)
+        self._seat(slot, first, pos, pos, 0, temp, top_p, gen, spec,
+                   cidx=cidx, cstate=cstate)
         return first, lp
 
-    def _admit_exact_dev(self, entry: dict, slot: int, temp: float,
-                         seed: int, top_p: float, spec=None):
-        """Seat a prompt that is a cached prefix (dense pool): splice the
-        entry's row and sample from its logits, no model forward
-        (pos = rope = n, start = 0)."""
-        self._splice_dense(entry["cache"], slot)
+    def _admit_exact_dev(self, row: dict, logits, pos: int, rope: int,
+                         start: int, slot: int, temp: float, seed: int,
+                         top_p: float, spec=None, aidx: int = 0,
+                         cidx: int = 0, page_row=None):
+        """Seat a row whose K/V were computed elsewhere: splice and sample
+        from ``logits`` [1, V], no model forward.  Two callers: a prompt
+        that is a cached prefix (dense pool; pos = rope = n, start = 0)
+        and a disaggregated handover (``submit_precomputed``, either
+        pool), whose geometry comes with the row.  On the paged pool the
+        row's first ``pos`` positions splice into the blocks ``page_row``
+        names."""
+        if page_row is None:
+            self._splice_dense(row, slot)
+        else:
+            self._splice_paged(row, page_row, pos)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        first, lp = self._first_token(entry["logits"][0], temp, gen, top_p)
-        n = entry["n"]
-        self._seat(slot, first, n, n, 0, temp, top_p, gen, spec)
+        first, lp, cstate = self._constrained_first(logits[0], temp, gen,
+                                                    top_p, cidx)
+        self._seat(slot, first, pos, rope, start, temp, top_p, gen, spec,
+                   aidx=aidx, cidx=cidx, cstate=cstate)
         return first, lp
 
     def _admit_paged_dev(self, suffix, n_real: int, slot: int, temp: float,
                          seed: int, base_pos: int, top_p: float, page_row,
-                         spec=None):
+                         spec=None, cidx: int = 0):
         """Extend the slot's page-table row with the right-padded suffix
         [1, W], writing K/V straight into the pool.  ``base_pos`` tokens
         of shared prefix are already resident in the blocks the row names
@@ -279,10 +358,11 @@ class ExecutorMixin:
             torch.zeros(1, **i32), pages=page_row[None], page=self.page_size,
         )
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        first, lp = self._first_token(logits[0, n_real - 1], temp, gen,
-                                      top_p)
+        first, lp, cstate = self._constrained_first(
+            logits[0, n_real - 1], temp, gen, top_p, cidx)
         pos = base_pos + n_real
-        self._seat(slot, first, pos, pos, 0, temp, top_p, gen, spec)
+        self._seat(slot, first, pos, pos, 0, temp, top_p, gen, spec,
+                   cidx=cidx, cstate=cstate)
         return first, lp
 
     @torch.no_grad()
@@ -294,25 +374,45 @@ class ExecutorMixin:
         Rows past their budget or retired compute tokens nobody reads.
         An n-gram batcher's history takes each token at pos + 1 here too
         (dropped past max_seq), so a probe after plain rounds proposes
-        from real history."""
+        from real history.  With a constraint bank each step masks every
+        row by ``allowed[cidx, cstate]`` and advances ``cstate`` (module
+        docstring); with an adapter bank every row reads its adapter."""
         dev = self._dev
         token, pos, rope = dev["token"], dev["pos"], dev["rope"]
+        cstate, cidx = dev["cstate"], dev["cidx"].long()
+        ctab = self._ctab()
+        bank = self._bank_args(dev["aidx"])
+        dead = self.eos_id if self.eos_id >= 0 else 0
         sampled = [i for i, t in enumerate(self._temps) if t > 0]
         rows = torch.arange(self.slots, device=self.device)
         toks, lps = [], []
         for _ in range(n_steps):
             _, logits = self.engine.decode_step_multi(
                 self.params, dev["cache"], token, pos, rope, dev["start"],
-                t_hi=t_hi, pages=pages, page=self.page_size,
+                t_hi=t_hi, pages=pages, page=self.page_size, **bank,
             )
+            if ctab is not None:
+                mask = ctab.allowed[cidx, cstate.long()]          # [B, V]
+                logits = torch.where(mask, logits, -torch.inf)
+                any_ok = mask.any(-1)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             if sampled:
-                scaled = self._warp(logits, use_top_p)
+                # Dead rows draw from zeros (all -inf would give NaN).
+                src = (logits if ctab is None
+                       else torch.where(any_ok[:, None], logits, 0.0))
+                scaled = self._warp(src, use_top_p)
                 for i in sampled:
                     nxt[i] = gumbel_sample(scaled[i], self._gens[i])
+            if ctab is not None:
+                nxt = torch.where(any_ok, nxt, dead)
+                cstate = torch.where(
+                    any_ok, ctab.next_state[cidx, cstate.long(), nxt.long()],
+                    cstate)
             if self.collect_logprobs:
                 lsm = torch.log_softmax(logits.float(), dim=-1)
                 lp = lsm[rows, nxt.long()]
+                if ctab is not None:
+                    lp = torch.where(any_ok, lp, 0.0)
             else:
                 lp = torch.zeros(self.slots, device=self.device)
             if self.spec_mode == "ngram":
@@ -320,7 +420,7 @@ class ExecutorMixin:
             toks.append(nxt)
             lps.append(lp)
             token, pos, rope = nxt, pos + 1, rope + 1
-        dev.update(token=token, pos=pos, rope=rope)
+        dev.update(token=token, pos=pos, rope=rope, cstate=cstate)
         return torch.stack(toks), torch.stack(lps)
 
     def _warp(self, logits, use_top_p: bool):
@@ -382,7 +482,7 @@ class ExecutorMixin:
             _, vlogits = self.engine.extend_multi(
                 self.params, self._dev["cache"], window, pos, rope,
                 self._dev["start"], t_hi=t_hi, pages=pages,
-                page=self.page_size,
+                page=self.page_size, **self._bank_args(self._dev["aidx"]),
             )
         return vlogits
 

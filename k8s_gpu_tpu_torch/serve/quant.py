@@ -92,6 +92,26 @@ def quantize_params(params: dict, *, quantize_embed: bool = True) -> dict:
                                    matmul=name != "embed")
     return out
 
+def matmul_layout(params: dict) -> dict:
+    """A tree whose int8 matmul ``q`` leaves are laid out as
+    ``quantize_params`` lays them (``_column_major``; same values): a
+    quantized tree read from elsewhere (a bundle) then takes cuBLASLt's
+    integer product without a copy a call.  Other leaves pass as they
+    are."""
+    out = dict(params)
+    blocks = dict(params["blocks"])
+    for name, axes in _CONTRACT_AXES.items():
+        leaf = blocks.get(name)
+        if isinstance(leaf, dict):
+            blocks[name] = {"q": _column_major(leaf["q"], axes),
+                            "s": leaf["s"]}
+    out["blocks"] = blocks
+    head = params.get("head")
+    if isinstance(head, dict):
+        out["head"] = {"q": _column_major(head["q"], _TOP_LEVEL["head"]),
+                       "s": head["s"]}
+    return out
+
 
 def quantize_act(x):
     """x [..., K] -> (int8 values, f32 scale a row [...]): symmetric

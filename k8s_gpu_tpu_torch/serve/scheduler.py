@@ -21,7 +21,14 @@ paged pool its row splices into the blocks), ``cold_fused`` (the same
 with the first round in one dispatch, when the dense batcher is idle),
 ``prefix_exact`` and ``prefix_suffix`` (the dense pool's prefix-entry
 cache, filled by ``precache_prefix``), and ``paged_cold``/``paged_shared``
-(the paged pool's block-sharing suffix extend).
+(the paged pool's block-sharing suffix extend), and ``precomputed`` (a
+row prefilled elsewhere, ``submit_precomputed``: the disaggregated
+handover of ``disagg.py``, spliced with no forward).
+
+Adapter rows (``adapter=``, ``aidx`` > 0) never touch the prefix planes:
+cached entries and shared blocks hold base-model K/V, so an adapter row
+neither looks them up nor registers its blocks, and is not counted as a
+prefix hit or miss.
 
 The fleet contract, as in the reference: a request may carry a deadline
 (dropped at admission or between rounds once it passes, never computed
@@ -40,10 +47,9 @@ takes the worst case, every draft accepted: the paged kernel clamps its
 reads at ``t_hi``, so an underestimate would truncate attention.  The
 fused cold start is off in spec mode.
 
-Not ported yet (ROADMAP queue 1): ``submit_precomputed`` (item 8, with
-disaggregated admission) and the phase profiler and tracer spans (item
-12; the reference's ``spec_draft`` phase and ``speculative=True`` spans
-among them).
+Not ported yet (ROADMAP queue 1 item 12): the phase profiler and the
+tracer's spans (the reference's ``spec_draft`` phase and
+``speculative=True`` spans among them).
 """
 
 from __future__ import annotations
@@ -104,6 +110,17 @@ class _Request:
     seed: int
     out: queue.Queue = field(default_factory=queue.Queue)
     slot: int = -1
+    aidx: int = 0            # adapter bank index (0 = base model)
+    cidx: int = 0            # constraint bank index (0 = unconstrained)
+    # (row, last_logits, pos, rope, start): K/V computed by a prefill
+    # worker (disagg.py); the admission splices them, no forward.
+    precomputed: tuple | None = None
+    # Called once when the precomputed row is spliced into the pool (or
+    # the request ends before): the prefill pool's backpressure release.
+    on_admit: object = None
+    # CUDA event recorded on the submitting thread's stream after its
+    # prefill: the splice's stream waits on it (None on the CPU).
+    ready: object = None
     emitted: int = 0
     # Steps dispatched for this row but not yet consumed: no round is
     # dispatched once emitted + inflight_steps covers every live budget.
@@ -219,11 +236,13 @@ class SchedulerMixin:
 
     def submit(self, ids, max_new_tokens: int = 32, temperature: float = 0.0,
                top_p: float = 0.0, seed: int = 0,
+               adapter: str | None = None, constraint: str | None = None,
                deadline: float | None = None, tenant: str | None = None,
                route: tuple | None = None, migrated_from: str = "",
                trace_ctx=None) -> RequestHandle:
         """Queue a request; returns a handle streaming generated ids.
-        Raises ValueError when the prompt cannot fit and ``Overloaded``
+        Raises ValueError when the prompt cannot fit, KeyError for an
+        unknown ``adapter`` or ``constraint`` name and ``Overloaded``
         (counted and journalled as a ``queue_full`` shed) when
         ``max_pending`` is set and the queue is full.  ``deadline``: an
         absolute ``time.monotonic()`` instant past which the request is
@@ -232,6 +251,8 @@ class SchedulerMixin:
         front-end.  ``migrated_from``: the replica a resumed request left
         (counted in ``serve_resumed_requests_total``).  ``trace_ctx``:
         the HTTP request's trace context."""
+        aidx = self.bank.index(adapter)
+        cidx = self._constraint_index(constraint)
         ids = np.asarray(ids, np.int32).ravel()
         if ids.size == 0:
             raise ValueError("empty prompt")
@@ -253,6 +274,8 @@ class SchedulerMixin:
             temperature=float(temperature),
             top_p=float(top_p),
             seed=int(seed),
+            aidx=aidx,
+            cidx=cidx,
             deadline=deadline,
             t_submit=time.monotonic(),
             trace_ctx=trace_ctx,
@@ -264,6 +287,88 @@ class SchedulerMixin:
         )
         if req.migrated_from:
             self.metrics.inc("serve_resumed_requests_total")
+        return self._enqueue(req)
+
+    def submit_precomputed(self, row_cache, last_logits, n_tokens: int,
+                           pad: int, max_new_tokens: int = 32,
+                           temperature: float = 0.0, top_p: float = 0.0,
+                           seed: int = 0, adapter: str | None = None,
+                           on_admit=None, constraint: str | None = None,
+                           tenant: str | None = None,
+                           route: tuple | None = None) -> RequestHandle:
+        """Admit a request whose prefill ran elsewhere (``disagg.py``):
+        ``row_cache`` is a [L, 1, KH, max_seq, Dh] K/V row computed at a
+        [1, n_tokens] width with ``pad`` leading pad slots, and
+        ``last_logits`` [1, V] the logits at the last prompt position.
+        The decode side only splices and samples (path ``precomputed``).
+        Shapes are checked here, in the caller's thread (ValueError): a
+        malformed row must not reach the scheduler.  ``on_admit`` runs
+        once when the row is spliced or the request ends unseated.  On
+        the card the splice's stream waits for the work this thread
+        queued before the call (an event recorded here)."""
+        aidx = self.bank.index(adapter)
+        cidx = self._constraint_index(constraint)
+        n_tokens, pad = int(n_tokens), int(pad)
+        room = self.engine.max_seq - n_tokens
+        if room < 1:
+            raise ValueError("precomputed prompt fills max_seq")
+        cfg = self.engine.cfg
+        tmpl = _empty_cache(cfg, 1, self.engine.max_seq,
+                            self.engine.kv_quant, "meta")
+        got_keys = set(row_cache) if isinstance(row_cache, dict) else None
+        if got_keys != set(tmpl):
+            raise ValueError(
+                f"row_cache keys {got_keys} != {set(tmpl)} (was it "
+                "prefilled by an engine with a different kv_quant "
+                "setting?)"
+            )
+        for key, leaf in row_cache.items():
+            if tuple(leaf.shape) != tuple(tmpl[key].shape):
+                raise ValueError(
+                    f"row_cache[{key!r}] shape {tuple(leaf.shape)} != "
+                    f"{tuple(tmpl[key].shape)} (was it prefilled by an "
+                    "engine with a different max_seq?)"
+                )
+        if tuple(last_logits.shape) != (1, cfg.vocab_size):
+            raise ValueError(
+                f"last_logits shape {tuple(last_logits.shape)} != "
+                f"(1, {cfg.vocab_size})"
+            )
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        req = _Request(
+            ids=np.zeros(0, np.int32),
+            max_new=max(1, min(int(max_new_tokens), room)),
+            temperature=float(temperature),
+            top_p=float(top_p),
+            seed=int(seed),
+            aidx=aidx,
+            cidx=cidx,
+            precomputed=(row_cache, last_logits, n_tokens, n_tokens - pad,
+                         pad),
+            on_admit=on_admit,
+            ready=ready,
+            t_submit=time.monotonic(),
+            tenant=str(tenant) if tenant else "default",
+            prompt_tokens=n_tokens,
+            route_replica=str(route[0]) if route else "",
+            route_reason=str(route[1]) if route else "",
+        )
+        return self._enqueue(req)
+
+    def _constraint_index(self, name: str | None) -> int:
+        if name is None:
+            return 0
+        if self.cbank is None:
+            raise KeyError(
+                f"unknown constraint {name!r}; no ConstraintBank configured"
+            )
+        return self.cbank.index(name)
+
+    def _enqueue(self, req: _Request) -> RequestHandle:
+        """Put a request on the pending queue (the tail of both submits)."""
         with self._lifecycle:
             if self._dead:
                 raise RuntimeError(
@@ -482,6 +587,25 @@ class SchedulerMixin:
         # slot, before the admission's device work.
         req.t_admit = time.monotonic()
         n = int(req.ids.size)
+        if req.precomputed is not None:
+            row, logits, pos, rope, start = req.precomputed
+            req.pos_hint = pos
+            page_row = (self._set_page_row(slot, req.blocks)
+                        if self.paged else None)
+            if req.ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(req.ready)
+            spec = None
+            if self.spec_mode is not None:
+                spec = (0, self._hist_row(req.ids, pos))
+            first, lp = self._admit_exact_dev(
+                row, logits, pos, rope, start, slot, req.temperature,
+                req.seed, req.top_p, spec, aidx=req.aidx, cidx=req.cidx,
+                page_row=page_row)
+            # The row now lives in the pool: drop it and release the
+            # prefill pool's hold.
+            req.precomputed = req.ready = None
+            self._release_admit(req)
+            return self._seated(req, slot, first, lp, "precomputed")
         if self.paged and req.prefix_tokens is not None:
             # Block-granular paged admission (_paged_plan matched the
             # shared prefix and allocated the tail): a right-padded suffix
@@ -492,18 +616,19 @@ class SchedulerMixin:
             first, lp = self._admit_paged_dev(
                 self._right_padded(req.ids[s_tok:]), n - s_tok, slot,
                 req.temperature, req.seed, s_tok, req.top_p, page_row,
-                self._spec_seat(req.ids, n),
+                self._spec_seat(req.ids, n), cidx=req.cidx,
             )
             return self._seated(req, slot, first, lp,
                                 "paged_shared" if s_tok else "paged_cold")
         if entry is self._ENTRY_UNRESOLVED:
-            entry = None if self.paged else self._match_prefix(req.ids)
+            entry = self._entry_for(req)
         if entry is not None and entry["n"] == n:
             # The prompt is a cached prefix: splice + sample, no forward.
             req.pos_hint = n
             first, lp = self._admit_exact_dev(
-                entry, slot, req.temperature, req.seed, req.top_p,
-                self._spec_seat(req.ids, n))
+                entry["cache"], entry["logits"], n, n, 0, slot,
+                req.temperature, req.seed, req.top_p,
+                self._spec_seat(req.ids, n), cidx=req.cidx)
             path = "prefix_exact"
         elif entry is not None and (
             entry["n"] + _suffix_bucket(n - entry["n"])
@@ -514,7 +639,7 @@ class SchedulerMixin:
             first, lp = self._admit_prefix_dev(
                 entry, self._right_padded(req.ids[p:]), n - p, slot,
                 req.temperature, req.seed, p, req.top_p,
-                self._spec_seat(req.ids, n),
+                self._spec_seat(req.ids, n), cidx=req.cidx,
             )
             path = "prefix_suffix"
         else:
@@ -527,12 +652,27 @@ class SchedulerMixin:
             first, lp = self._admit_dev(
                 padded, slot, req.temperature, req.seed, pad, req.top_p,
                 page_row, self._spec_seat(req.ids, padded.shape[1]),
+                aidx=req.aidx, cidx=req.cidx,
             )
             # A matched entry whose suffix bucket overruns max_seq
             # prefills cold but counts as a prefix hit, as in the
             # reference.
             path = "prefix_suffix" if entry is not None else "cold"
         return self._seated(req, slot, first, lp, path)
+
+    def _entry_for(self, req: _Request):
+        """The dense prefix-entry match of a base-model prompt; None on
+        the paged pool, for an adapter row (entries hold base-model K/V)
+        and for a precomputed row."""
+        if self.paged or req.aidx != 0 or req.precomputed is not None:
+            return None
+        return self._match_prefix(req.ids)
+
+    def _release_admit(self, req: _Request) -> None:
+        """Run a request's ``on_admit`` hook once."""
+        hook, req.on_admit = req.on_admit, None
+        if hook is not None:
+            hook()
 
     def _right_padded(self, ids: np.ndarray):
         """``ids`` right-padded to their width bucket (at most max_seq),
@@ -564,7 +704,8 @@ class SchedulerMixin:
         t_hi = self._t_hi([(slot, req)], 1 + n_steps)
         first, lp, toks, lps = self._admit_round_dev(
             padded, slot, req.temperature, req.seed, pad, req.top_p,
-            0.0 < req.top_p < 1.0, n_steps, t_hi,
+            0.0 < req.top_p < 1.0, n_steps, t_hi, aidx=req.aidx,
+            cidx=req.cidx,
         )
         self._seated(req, slot, first, lp, "cold_fused")
         self.dispatched["decode_steps"] += n_steps
@@ -588,7 +729,9 @@ class SchedulerMixin:
         # count it (_process_admits releases it).
         req.inflight_steps = 1
         self.metrics.inc("serve_admissions_total", path=path)
-        consulted = self._paged_share if self.paged else self.prefix_cache
+        # Adapter and precomputed rows route around the prefix lookup.
+        consulted = req.aidx == 0 and (
+            self._paged_share if self.paged else self.prefix_cache)
         if path in ("prefix_exact", "prefix_suffix", "paged_shared"):
             self.metrics.inc("serve_prefix_cache_hits_total")
         elif consulted and path in ("cold", "cold_fused", "paged_cold"):
@@ -949,7 +1092,10 @@ class SchedulerMixin:
         ))
 
     def _abort(self, req: _Request, reason: str = "aborted") -> None:
-        """End a request that holds no slot: journalled, stream closed."""
+        """End a request that holds no slot: journalled, stream closed,
+        its ``on_admit`` hook run (a precomputed row is never seated)."""
+        self._release_admit(req)
+        req.precomputed = req.ready = None
         req.aborted = True
         self._journal(req, reason)
         req.out.put(None)
@@ -1152,9 +1298,9 @@ class SchedulerMixin:
                 # An idle dense batcher fuses a cold admission with its
                 # first round.  The prefix lookup runs once and feeds
                 # both the gate and the unfused admission.
-                entry = None if self.paged else self._match_prefix(req.ids)
+                entry = self._entry_for(req)
                 fused = (
-                    self.spec_mode is None
+                    self.spec_mode is None and req.precomputed is None
                     and not self.paged and entry is None and not inflight
                     and self.role != "prefill"
                     and req.max_new > 1 and self._pending.empty()

@@ -4,15 +4,17 @@ disaggregated-prefill gateway and replayer drive a torch replica as they
 drive a JAX one.
 
 POST /generate  {"prompt": "text" | "prompt_ids": [...], "max_new_tokens": N,
-                 "temperature", "top_p", "seed", "tenant"[, "stream": true]
-                 [, "logprobs": true]}
+                 "temperature", "top_p", "seed", "tenant", "adapter",
+                 "constraint"[, "stream": true][, "logprobs": true]}
                 -> {"text", "ids", "prompt_tokens", "generated_tokens",
                     "tokens_per_s", "trace_id"[, "logprobs"]}, or
                    newline-delimited JSON token events then a summary (a
                    stream cut by an export ends in {"done": false,
                    "error": "migrated", "resume": true}); 429 +
                    Retry-After when the pending queue is full; 504 when
-                   the deadline passes.  Headers: ``x-tenant`` (when the
+                   the deadline passes; 400 for an adapter or
+                   constraint that is not a string or not served.
+                   Headers: ``x-tenant`` (when the
                    body has no tenant), ``x-request-deadline-ms`` (a
                    relative budget; 0 or less sheds at the door),
                    ``x-route-replica``/``x-route-reason`` (a front-end's
@@ -41,10 +43,9 @@ GET  /healthz, /readyz (with ``replica``, ``inflight``, ``role``,
 Requests go into one ContinuousBatcher: the dense KV pool by default,
 the paged pool with ``paged_blocks`` > 0 (migration and ``/prefill`` need
 it).  Its ``journal`` is the record ring a ``MetricsServer`` serves at
-``/debug/requests``.  Not ported yet (ROADMAP queue 1): adapters and
-constraints (item 8), the fault sites ``migrate.export``/``import``
-(item 12), and ``/debug/requests`` and ``/debug/traces``, which the
-reference serves from its ``MetricsServer`` (item 12).
+``/debug/requests``.  Not ported yet (ROADMAP queue 1 item 12): the fault
+sites ``migrate.export``/``import``, and ``/debug/requests`` and
+``/debug/traces``, which the reference serves from its ``MetricsServer``.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ import numpy as np
 from ..data.tokenizer import BpeTokenizer
 from ..utils.tracing import request_context
 from .batcher import ContinuousBatcher
+from .constrain import ConstraintBank
 from .journal import PROBE_TENANT, RequestRecord
 from .kv_blocks import chunk_hashes, shareable_depth
 from .migrate import pack as migrate_pack
@@ -84,19 +86,31 @@ class LmServer:
     replica's fleet name; ``metrics`` the registry of its serve-plane
     series; ``role`` its disaggregated role (flippable through
     ``/admin/role`` while idle); ``draft`` and ``spec_k`` its
-    speculative rounds (``ContinuousBatcher``)."""
+    speculative rounds (``ContinuousBatcher``).  ``adapters``: name ->
+    (LoRA tree, ``LoraConfig``), picked by a request's ``"adapter"``.
+    ``constraints``: name -> regex, compiled against this tokenizer's
+    vocabulary (``tokenizer.decode([i])`` for every id) into a
+    ``ConstraintBank``, picked by a request's ``"constraint"``; give
+    ``eos_id`` with them, so dead-ended rows retire."""
 
     def __init__(self, model, params, tokenizer: BpeTokenizer,
                  host: str = "127.0.0.1", port: int = 0,
                  max_new_tokens_cap: int = 256, slots: int = 4,
-                 eos_id: int = -1, draft=None, spec_k: int = 4,
-                 kv_quant: bool = False,
+                 eos_id: int = -1, adapters: dict | None = None,
+                 constraints: dict | None = None, draft=None,
+                 spec_k: int = 4, kv_quant: bool = False,
                  attn_impl: str | None = None, paged_blocks: int = 0,
                  page_size: int = 64, max_pending: int = 64,
                  metrics=None, name: str = "", role: str = "both",
                  device="cuda"):
+        cbank = None
+        if constraints:
+            token_strings = [tokenizer.decode([i])
+                             for i in range(tokenizer.vocab_size)]
+            cbank = ConstraintBank(constraints, token_strings)
         self.batcher = ContinuousBatcher(
             model, params, slots=slots, eos_id=eos_id, logprobs=True,
+            adapters=adapters, constraints=cbank,
             draft=draft, spec_k=spec_k, kv_quant=kv_quant,
             attn_impl=attn_impl,
             paged_blocks=paged_blocks, page_size=page_size,
@@ -351,6 +365,15 @@ class LmServer:
                     seed = int(body.get("seed", 0))
                 except (TypeError, ValueError) as e:
                     return self._json(400, {"error": f"bad parameter: {e}"})
+                adapter = body.get("adapter")
+                if adapter is not None and not isinstance(adapter, str):
+                    return self._json(400,
+                                      {"error": "adapter must be a string"})
+                constraint = body.get("constraint")
+                if constraint is not None and not isinstance(constraint,
+                                                             str):
+                    return self._json(
+                        400, {"error": "constraint must be a string"})
                 # Tenant: the body's, else x-tenant; capped, it is a
                 # metric label.
                 tenant = body.get("tenant")
@@ -396,12 +419,15 @@ class LmServer:
                     handle = outer.batcher.submit(
                         ids, max_new_tokens=max(1, min(want, outer.cap)),
                         temperature=temperature, top_p=top_p, seed=seed,
+                        adapter=adapter, constraint=constraint,
                         deadline=deadline, tenant=tenant, route=route,
                         migrated_from=migrated_from,
                         trace_ctx=self.trace_ctx,
                     )
                 except ValueError as e:
                     return self._json(400, {"error": str(e)})
+                except KeyError as e:  # unknown adapter or constraint
+                    return self._json(400, {"error": e.args[0]})
                 except Overloaded as e:
                     return self._json(
                         429, {"error": str(e)},

@@ -1,0 +1,166 @@
+"""LoRA fine-tuning: the port of ``k8s_gpu_tpu/train/lora.py``.
+
+Adapters are a separate tree beside frozen base parameters: for each
+adapted leaf an ``a`` [.., fin, R] and a ``b`` [.., R, fout] (the leading
+layer axis of ``"blocks"`` leaves kept), where fin and fout flatten the
+base weight's input and output dims.  ``LoraAdapter.merge`` builds
+``W + scale * (A @ B)`` functionally inside the loss, so autograd reaches
+only the adapter leaves, through the same forward (flash attention
+kernels included) as the base model's own training step.
+
+``LoraModel`` is a drop-in model for ``train.Trainer``: ``init(seed,
+dtype)`` makes the adapter tree from an explicit ``torch.Generator`` on
+the base model's device, and ``loss`` differentiates the adapters only.
+The sharding rules of the reference (``logical_axes``) belong to the
+parallel plane, not ported yet (ROADMAP queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+# For each adaptable leaf under "blocks": how many dims after the leading
+# layer axis are the matmul's input.  wq (L, D, H, Dh) maps D -> H*Dh, wo
+# (L, H, Dh, D) maps H*Dh -> D.
+_BLOCK_TARGETS: dict[str, int] = {
+    "wq": 1, "wk": 1, "wv": 1, "wo": 2,
+    "wi_gate": 1, "wi_up": 1, "wo_mlp": 1,
+}
+# Top-level leaves: input dims, no layer axis.
+_TOP_TARGETS: dict[str, int] = {"head": 1}
+
+
+@dataclass(frozen=True)
+class LoraConfig:
+    rank: int = 8
+    alpha: float = 16.0
+    # Leaves that get adapters; the default is the attention projections.
+    targets: tuple = ("wq", "wk", "wv", "wo")
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+def _split_dims(name: str, shape: tuple, in_blocks: bool) -> tuple | None:
+    """(batch_dims, in_dims, out_dims) of an adaptable leaf, else None."""
+    table = _BLOCK_TARGETS if in_blocks else _TOP_TARGETS
+    n_in = table.get(name)
+    if n_in is None:
+        return None
+    if in_blocks:
+        return shape[:1], shape[1:1 + n_in], shape[1 + n_in:]
+    return (), shape[:n_in], shape[n_in:]
+
+
+def _shape(w) -> tuple:
+    return tuple((w["q"] if isinstance(w, dict) else w).shape)
+
+
+def _device_of(tree: dict) -> torch.device:
+    leaf = tree["blocks"]["wq"]
+    return (leaf["q"] if isinstance(leaf, dict) else leaf).device
+
+
+class LoraAdapter:
+    """Builds and merges adapters for a ``TransformerLM``-shaped tree."""
+
+    def __init__(self, cfg: LoraConfig):
+        self.cfg = cfg
+
+    def init(self, seed: int, base_params: dict,
+             dtype=torch.float32) -> dict:
+        """A ~ N(0, 0.02) and B = 0, so the delta starts at exactly zero
+        and step 0 of fine-tuning reproduces the base model.  Drawn from
+        a generator seeded with ``seed`` on the base parameters' device,
+        target by target in the base tree's order."""
+        r = self.cfg.rank
+        dev = _device_of(base_params)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+        def pair(batch, fin, fout):
+            a = torch.randn((*batch, fin, r), generator=gen, device=dev)
+            return {"a": (a * 0.02).to(dtype),
+                    "b": torch.zeros((*batch, r, fout), dtype=dtype,
+                                     device=dev)}
+
+        out: dict = {"blocks": {}}
+        for name, w in base_params["blocks"].items():
+            dims = _split_dims(name, _shape(w), in_blocks=True)
+            if dims is None or name not in self.cfg.targets:
+                continue
+            batch, din, dout = dims
+            out["blocks"][name] = pair(batch, math.prod(din),
+                                       math.prod(dout))
+        for name, w in base_params.items():
+            if name == "blocks" or not isinstance(w, (torch.Tensor, dict)):
+                continue
+            dims = _split_dims(name, _shape(w), in_blocks=False)
+            if dims is None or name not in self.cfg.targets:
+                continue
+            _, din, dout = dims
+            out[name] = pair((), math.prod(din), math.prod(dout))
+        if not out["blocks"] and len(out) == 1:
+            raise ValueError(f"no adaptable targets among {self.cfg.targets}")
+        return out
+
+    def merge(self, base_params: dict, lora_params: dict) -> dict:
+        """base + scale * (A @ B), reshaped to each leaf's shape and cast
+        to its dtype.  Functional: returns a new tree, base untouched."""
+        scale = self.cfg.scale
+        merged = dict(base_params)
+        merged["blocks"] = dict(base_params["blocks"])
+        for name, ab in lora_params.get("blocks", {}).items():
+            w = base_params["blocks"][name]
+            delta = torch.einsum("lir,lro->lio", ab["a"], ab["b"]) * scale
+            merged["blocks"][name] = w + delta.reshape(w.shape).to(w.dtype)
+        for name, ab in lora_params.items():
+            if name == "blocks":
+                continue
+            w = base_params[name]
+            delta = (ab["a"] @ ab["b"]) * scale
+            merged[name] = w + delta.reshape(w.shape).to(w.dtype)
+        return merged
+
+
+class LoraModel:
+    """A ``Trainer``-compatible view of a frozen base model: ``init``
+    makes adapter parameters, ``loss`` differentiates the adapters only
+    (the base leaves never take a gradient and stay bit-identical).
+    ``Trainer(LoraModel(model, base_params), device=...)`` fine-tunes.
+    ``logical_axes`` belongs to the mesh (ROADMAP queue 1 item 11)."""
+
+    def __init__(self, model, base_params: dict,
+                 cfg: LoraConfig | None = None):
+        self.model = model
+        self.device = model.device
+        self.base_params = base_params
+        self.cfg = cfg or LoraConfig()
+        self.adapter = LoraAdapter(self.cfg)
+
+    def init(self, seed: int = 0, dtype=torch.float32) -> dict:
+        return self.adapter.init(seed, self.base_params, dtype)
+
+    def logical_axes(self) -> dict:
+        """The adapters' sharding axes belong to the mesh."""
+        raise NotImplementedError(
+            "LoRA logical_axes belong to the mesh, not ported yet "
+            "(ROADMAP queue 1 item 11)")
+
+    def loss(self, lora_params, tokens, targets):
+        merged = self.adapter.merge(self.base_params, lora_params)
+        return self.model.loss(merged, tokens, targets)
+
+    @torch.no_grad()
+    def merged_params(self, lora_params) -> dict:
+        """Bake the adapters in (for serving or export)."""
+        return self.adapter.merge(self.base_params, lora_params)
+
+
+def num_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(num_params(v) for v in tree.values())
+    return int(tree.numel())

@@ -22,7 +22,8 @@ from k8s_gpu_tpu.serve.engine import InferenceEngine as JaxEngine
 from k8s_gpu_tpu.serve.engine import SamplingConfig as JaxSampling
 from k8s_gpu_tpu_torch.convert import params_from_numpy
 from k8s_gpu_tpu_torch.models import TransformerConfig, TransformerLM
-from k8s_gpu_tpu_torch.serve import ContinuousBatcher, Overloaded
+from k8s_gpu_tpu_torch.serve import ConstraintBank, ContinuousBatcher
+from k8s_gpu_tpu_torch.serve import Overloaded
 from k8s_gpu_tpu_torch.serve.engine import gumbel_sample, nucleus_mask
 
 # Tiny shapes: one intra-op thread keeps the suite's parallel workers
@@ -132,13 +133,33 @@ def test_overloaded_at_max_pending():
         b.submit([6])
 
 
-@pytest.mark.parametrize("kw", [
-    # The draft is ported: beside it an unported option still raises.
-    dict(draft="ngram", adapters={}), dict(adapters={}),
-    dict(constraints=object()), dict(mesh=object()),
+_TOKS = [str(i) for i in range(DIMS["vocab_size"])]
+
+
+@pytest.mark.parametrize("kw,raises", [
+    # Adapters and constraints are ported: each case holds the
+    # reference's behaviour for its arguments, and the mesh still raises.
+    pytest.param(dict(draft="ngram", eos_id=0, constraints=ConstraintBank(
+        {"d": "[0-9]+"}, _TOKS)), ValueError, id="kw0"),
+    pytest.param(dict(adapters={}), None, id="kw1"),
+    pytest.param(dict(constraints=ConstraintBank({}, _TOKS)), None,
+                 id="kw2"),
+    pytest.param(dict(mesh=object()), NotImplementedError, id="kw3"),
 ])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(kw, raises):
     args = dict(slots=2, paged_blocks=BLOCKS, page_size=PAGE, device="cpu")
     args.update(kw)
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(TM, TP, **args)
+    if raises is not None:
+        with pytest.raises(raises):
+            ContinuousBatcher(TM, TP, **args)
+        return
+    # An empty bank serves as the base model: the bank-less stream.
+    prompt, n = REQUESTS[2]
+    streams = []
+    for b in (ContinuousBatcher(TM, TP, **args), _port()):
+        b.start()
+        try:
+            streams.append(b.submit(prompt, max_new_tokens=n).result())
+        finally:
+            b.stop()
+    assert streams[0] == streams[1] and len(streams[0]) == n
