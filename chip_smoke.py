@@ -125,7 +125,24 @@ Phases, each of which fails the run on any error:
    ``flash_q_pipeline=2``), held to the same launch counts of the v2
    kernels, 3 pre-pass launches per layer and step and 0 v1 launches;
    then the same GQA configuration with the knobs off (v1 kernels, rope
-   outside, K/V repeated), timed as a yardstick of the knobs;
+   outside, K/V repeated), timed as a yardstick of the knobs; then (6c)
+   the training job at the same width, depth and batch: the ``Trainer``
+   with a ``GoodputLedger``, a ``PhaseProfiler`` and the step series
+   runs 2 steps of ``fit``, saves a checkpoint (f32 params, AdamW's
+   count and moments), takes step 3; a fresh ``Trainer`` resumes from
+   the checkpoint and takes step 3 again, equal bit for bit (loss,
+   params, moments) under ``torch.use_deterministic_algorithms``; the
+   ledger's segments are exact (init 1, compile 1, step 2, data_wait
+   3, checkpoint_save 1); the native loader gives the Python loader's
+   batches byte for byte and feeds one step; ``remat_policy=
+   "save_attn"`` beside ``"full"`` on both flash paths launches 1/1/1
+   flash kernels a layer and step (v2: and 2 pre-passes), no plain
+   call, with step ms, peak memory, and a step's loss and gradients
+   held to phase 7's bf16 limits; the registry's ``lm-train``,
+   ``lora-finetune`` and ``cnn-train`` run at the reference's defaults
+   with falling losses, ``lm-train-ckpt`` preempted at step 5 through
+   the port's ``WorkloadContext`` resumes at step 4 and ends on an
+   uninterrupted run's last loss, and ``psum-smoke`` is refused;
 7. a check of the training output by the repo's own means: the loss and
    every gradient of one step with flash attention against the same with
    plain attention, at full depth in bf16 (batch 2) and at 2 layers in
@@ -3018,6 +3035,353 @@ def run_train_path(torch, seed: int, layers: int, batch: int, steps: int,
     return result
 
 
+# -- phase 6c: the training job ---------------------------------------------
+
+# Checkpoints of phase 6c go here (git-ignored) and are deleted after.
+JOB_DIR = os.path.join(ROOT, "build", "chip", "job")
+# The registry workloads of phase 6c, at the reference's defaults.
+JOB_WORKLOADS = ("lm-train", "lora-finetune", "cnn-train")
+
+
+def _deterministic(torch, on: bool) -> None:
+    """``torch.use_deterministic_algorithms`` without the NaN fill of
+    fresh memory (a debugging aid that would cost the timed steps)."""
+    if on:
+        # cuBLAS refuses deterministic mode without a fixed workspace.
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(on)
+    torch.utils.deterministic.fill_uninitialized_memory = not on
+
+
+def _trees_equal(torch, a, b) -> bool:
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def _token_file(torch, seed: int, path: str, samples: int, seq: int,
+                vocab: int) -> str:
+    from k8s_gpu_tpu_torch.data.loader import write_tokens
+
+    gen = torch.Generator().manual_seed(seed)
+    write_tokens(path, torch.randint(0, vocab, (samples * (seq + 1),),
+                                     generator=gen).numpy())
+    return path
+
+
+def _loader_rate(loader, n: int) -> tuple[list, float]:
+    t0 = time.perf_counter()
+    out = [next(loader) for _ in range(n)]
+    return out, n / (time.perf_counter() - t0)
+
+
+def run_job_path(torch, seed: int, layers: int, batch: int, device="cuda",
+                 job_dir: str = JOB_DIR) -> dict:
+    """Phase 6c.1: the flagship ``Trainer`` with a goodput ledger, a phase
+    profiler and the step series runs 2 steps through ``fit``, saves a
+    checkpoint at step 2 and takes step 3; a fresh ``Trainer`` resumes
+    from the checkpoint and takes step 3 again, held bit for bit (loss,
+    parameters, moments) under ``torch.use_deterministic_algorithms``;
+    then the native loader against the Python one over a token file from
+    ``seed``, a native batch feeding one step of the resumed trainer."""
+    import shutil
+
+    from k8s_gpu_tpu_torch.data import native
+    from k8s_gpu_tpu_torch.data.loader import TokenLoader
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
+    from k8s_gpu_tpu_torch.utils.goodput import GoodputLedger
+    from k8s_gpu_tpu_torch.utils.metrics import MetricsRegistry, global_metrics
+    from k8s_gpu_tpu_torch.utils.profiler import PhaseProfiler
+
+    cfg = flagship_train_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    sync = _syncer(torch, model.device)
+    gen = torch.Generator().manual_seed(seed + 5)
+    toks = torch.randint(0, cfg.vocab_size, (3, batch, cfg.max_seq + 1),
+                         generator=gen)
+    batches = [(t[:, :-1], t[:, 1:]) for t in toks]    # on the host
+    reg = MetricsRegistry()
+    led = GoodputLedger(registry=reg)
+    prof = PhaseProfiler(registry=reg)
+    shutil.rmtree(job_dir, ignore_errors=True)
+    _deterministic(torch, True)
+    try:
+        fa.reset_counts()
+        first = Trainer(model, TrainConfig(warmup_steps=1), device=device,
+                        ledger=led, profiler=prof)
+        first.init(seed)
+        data = iter(batches)
+        losses = first.fit(data, 2, log_every=1)
+        ckpt, save, _ = attach_to_trainer(first, job_dir, registry=reg)
+        t0 = time.perf_counter()
+        save(2)
+        save_s = time.perf_counter() - t0
+        losses += first.fit(data, 1, log_every=1)
+        mfu = global_metrics.gauge("train_mfu")
+        ckpt_bytes = ckpt._step_bytes(2)
+        resumed = Trainer(model, TrainConfig(warmup_steps=1), device=device)
+        resumed.init(seed + 1)
+        _, _, resume = attach_to_trainer(resumed, job_dir, registry=reg)
+        sync()
+        t0 = time.perf_counter()
+        start = resume()
+        sync()
+        restore_s = time.perf_counter() - t0
+        loss3 = resumed.step(*batches[2])
+        sync()
+        launches = dict(fa.launch_counts)
+        plain = fa.plain_count
+        same = {
+            "loss": loss3 == losses[2],
+            "params": _trees_equal(torch, resumed.params, first.params),
+            "moments": all(_trees_equal(torch, resumed.opt_state[k],
+                                        first.opt_state[k])
+                           for k in ("mu", "nu")),
+            "count": resumed.opt_state["count"] == first.opt_state["count"],
+        }
+    finally:
+        _deterministic(torch, False)
+        shutil.rmtree(job_dir, ignore_errors=True)
+    snap = led.snapshot()
+    counts = {k: v["count"] for k, v in snap["segments"].items()}
+    want = {"init": 1, "compile": 1, "step": 2, "data_wait": 3,
+            "checkpoint_save": 1}
+    if counts != want:
+        raise RuntimeError(f"ledger segments {counts}, expected {want}")
+    if start != 2 or not all(same.values()):
+        raise RuntimeError(f"resumed step 3 departs from the uninterrupted "
+                           f"one: start {start}, equal {same}, losses "
+                           f"{losses} vs {loss3}")
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite job losses {losses}")
+    step_s = snap["segments"]["step"]["seconds"] / 2
+    shares = {dict(k)["phase"]: v
+              for k, v in reg.series("train_phase_share").items()}
+    phases = {ph: {"count": v["count"], "p50_ms": v["p50_s"] * 1e3}
+              for ph, v in prof.snapshot()["phases"].items()}
+    del first, resumed, ckpt
+    _free_if(torch, model.device)
+
+    # The native loader against the Python one, over one token file.
+    path = _token_file(torch, seed + 6,
+                       os.path.join(job_dir + "_tokens", "toks.bin"),
+                       samples=8 * batch, seq=cfg.max_seq,
+                       vocab=cfg.vocab_size)
+    n = 4 * 8
+    try:
+        native.load()                                   # build outside
+        with TokenLoader(path, cfg.max_seq, batch, seed=seed,
+                         backend="python") as py, \
+                TokenLoader(path, cfg.max_seq, batch, seed=seed,
+                            backend="native") as nat:
+            py_batches, py_rate = _loader_rate(py, n)
+            nat_batches, nat_rate = _loader_rate(nat, n)
+        same_bytes = all(a.tobytes() == b.tobytes()
+                         for pa, pb in zip(py_batches, nat_batches)
+                         for a, b in zip(pa, pb))
+        if not same_bytes:
+            raise RuntimeError("native batches differ from the Python ones")
+        feed = Trainer(model, TrainConfig(warmup_steps=1), device=device)
+        feed.init(seed)
+        native_loss = feed.step(*nat_batches[0])
+        if not math.isfinite(native_loss):
+            raise RuntimeError(f"non-finite loss {native_loss} from a "
+                               "native batch")
+    finally:
+        shutil.rmtree(job_dir + "_tokens", ignore_errors=True)
+    return {
+        "layers": layers, "batch": batch, "seq": cfg.max_seq,
+        "deterministic": True,
+        "losses": losses, "resumed_step3_loss": loss3, "resumed_from": start,
+        "bit_equal": same,
+        "ledger_segments": snap["segments"],
+        "goodput_ratio_total": snap["goodput_ratio_total"],
+        "residual_s": snap["residual_s"],
+        "train_phase_share": shares, "train_phases": phases,
+        "train_mfu": mfu,
+        "step_ms": step_s * 1e3,
+        "compile_step_s": snap["segments"]["compile"]["seconds"],
+        "checkpoint_bytes": ckpt_bytes,
+        "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+        "launches": launches, "plain_calls": plain,
+        "loader": {"batches": n, "python_batches_per_s": py_rate,
+                   "native_batches_per_s": nat_rate, "byte_equal": True,
+                   "native_step_loss": native_loss},
+    }
+
+
+def _free_if(torch, dev) -> None:
+    if dev.type == "cuda":
+        _free(torch)
+
+
+def run_save_attn_path(torch, seed: int, layers: int, batch: int,
+                       device="cuda", v2: bool = False) -> dict:
+    """Phase 6c.2: the flagship (``v2``: the GQA configuration with the
+    three knobs) under ``remat_policy="save_attn"`` beside ``"full"``:
+    for each, one warm-up and two timed steps on one batch (step ms, peak
+    memory, flash launches per layer and step: 1/1/1 against 2/1/1, v2
+    with 2 pre-passes against 3), then one batch-2 step's loss and
+    gradients of both on the same parameters, held to phase 7's bf16
+    limits."""
+    import dataclasses
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves
+
+    base = flagship_train_config(torch, layers, v2=v2)
+    dev = torch.device(device)
+    sync = _syncer(torch, dev)
+    gen = torch.Generator().manual_seed(seed + 7)
+    toks = torch.randint(0, base.vocab_size, (batch, base.max_seq + 1),
+                         generator=gen).to(dev)
+    x, y = toks[:, :-1], toks[:, 1:]
+    kernels = FLASH_V2_KERNELS if v2 else FLASH_KERNELS
+    out, models = {}, {}
+    timed = 2
+    for policy in ("full", "save_attn"):
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        model = models[policy] = TransformerLM(cfg, device=dev)
+        tr = Trainer(model, TrainConfig(warmup_steps=1), device=dev)
+        tr.init(seed)
+        tr.step(x, y)                                   # warm-up
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        losses = [tr.step(x, y, sync=False) for _ in range(timed)]
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.launch_counts)
+        pre = fa.prepass_counts["flash_v2_rope_split"]
+        plain = fa.plain_count
+        fwd = 2 if policy == "full" else 1
+        want = _counts(fa, {n: c * layers * timed for n, c in
+                            zip(kernels, (fwd, 1, 1))})
+        want_pre = (fwd + 1) * layers * timed if v2 else 0
+        if dev.type == "cuda" and (launches != want or plain != 0
+                                   or pre != want_pre):
+            raise RuntimeError(f"{policy}: flash launches {launches}, "
+                               f"pre-passes {pre}, plain calls {plain}; "
+                               f"expected {want}, {want_pre} and 0")
+        out[policy] = {
+            # The trainer's params, moments and step alone on the card.
+            "step_ms": wall / timed * 1e3,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                               if dev.type == "cuda" else None),
+            "losses": [float(v) for v in losses],
+            "launches": launches, "prepass_launches": pre,
+            "plain_calls": plain,
+        }
+        del tr
+        _free_if(torch, dev)
+    # One batch-2 step's gradients of both on the parameters the trainers
+    # started from (``Trainer.init(seed)`` draws ``model.init(seed)``).
+    params = models["full"].init(seed, dtype=torch.float32)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    grads = {policy: _loss_and_grads(torch, m, params, x[:2], y[:2])
+             for policy, m in models.items()}
+    (la, ga), (lb, gb) = grads["full"], grads["save_attn"]
+    rel = {n: float((b.float() - a.float()).norm() / a.float().norm())
+           for n, a, b in zip(_leaf_names(params), ga, gb)}
+    tol = TRAIN_TOL["bfloat16"]
+    if not (math.isfinite(lb) and abs(la - lb) <= tol["loss"]
+            and max(rel.values()) <= tol["grad"]):
+        raise RuntimeError(f"save_attn against full: loss {lb} vs {la}, "
+                           f"gradient rel errors {rel}")
+    out.update({"layers": layers, "batch": batch, "v2_knobs": v2,
+                "loss_full": la, "loss_save_attn": lb,
+                "grad_rel_err_max": max(rel.values()),
+                "bit_equal": la == lb and all(torch.equal(a, b)
+                                              for a, b in zip(ga, gb)),
+                "tol": tol})
+    del grads, ga, gb, params
+    _free_if(torch, dev)
+    return out
+
+
+def _preempting_context(step: int, **kw):
+    """The port's ``WorkloadContext`` with a heartbeat that raises
+    ``WorkloadInterrupted`` once, at ``step``."""
+    from k8s_gpu_tpu_torch.api import WorkloadContext, WorkloadInterrupted
+
+    class Preempting(WorkloadContext):
+        fired = False
+
+        def heartbeat(self, s):
+            super().heartbeat(s)
+            if s == step and not self.fired:
+                self.fired = True
+                raise WorkloadInterrupted(f"preempted at step {s}")
+
+    return Preempting(**kw)
+
+
+def run_registry_path(torch, device="cuda", job_dir: str = JOB_DIR) -> dict:
+    """Phase 6c.3: the registry's workloads on the card through the
+    port's ``WorkloadContext``: ``lm-train``, ``lora-finetune`` and
+    ``cnn-train`` at the reference's defaults (finite, falling losses);
+    ``lm-train-ckpt`` at interval 2 interrupted at step 5 and run again
+    (start 4, and under deterministic mode the last loss of an
+    uninterrupted run, bit for bit); ``psum-smoke`` refused."""
+    import shutil
+    import types
+
+    from k8s_gpu_tpu_torch.api import WorkloadInterrupted
+    from k8s_gpu_tpu_torch.train import get_workload
+
+    spec = types.SimpleNamespace
+    out = {}
+    for name in JOB_WORKLOADS:
+        t0 = time.perf_counter()
+        res = get_workload(name)(spec(workload_args={"device": device}), {})
+        res["seconds"] = time.perf_counter() - t0
+        if not (math.isfinite(res["first_loss"])
+                and math.isfinite(res["last_loss"])
+                and res["last_loss"] < res["first_loss"]):
+            raise RuntimeError(f"{name}: {res}")
+        out[name] = res
+    run = get_workload("lm-train-ckpt")
+    shutil.rmtree(job_dir, ignore_errors=True)
+    args = {"device": device}
+    _deterministic(torch, True)
+    try:
+        ctx = _preempting_context(5, checkpoint_dir=os.path.join(job_dir,
+                                                                  "a"),
+                                  checkpoint_interval=2)
+        try:
+            run(spec(workload_args=args), {}, ctx)
+            raise RuntimeError("lm-train-ckpt was not interrupted")
+        except WorkloadInterrupted:
+            pass
+        resumed = run(spec(workload_args=args), {}, ctx)
+        straight = run(spec(workload_args=dict(
+            args, checkpoint_dir=os.path.join(job_dir, "b"), interval=2)),
+            {})
+    finally:
+        _deterministic(torch, False)
+        shutil.rmtree(job_dir, ignore_errors=True)
+    if not (resumed["start_step"] == 4 and resumed["resumed"]
+            and resumed["last_loss"] == straight["last_loss"]):
+        raise RuntimeError(f"lm-train-ckpt resumed {resumed}, "
+                           f"uninterrupted {straight}")
+    out["lm-train-ckpt"] = {"resumed": resumed, "uninterrupted": straight}
+    try:
+        get_workload("psum-smoke")(spec(workload_args=args), {})
+        raise RuntimeError("psum-smoke ran")
+    except NotImplementedError as e:
+        out["psum-smoke"] = f"refused: {e}"
+    return out
+
+
 # -- phase 7: the training output against plain attention ---------------------
 
 # One step's loss and gradients with flash attention against the same with
@@ -3188,6 +3552,17 @@ def main(argv=None) -> int:
                                   TRAIN_STEPS, v2=True, knobs=False)
     print(json.dumps({"train_path_gqa_v1": train_gqa_v1}), flush=True)
     _free(torch)
+    job = run_job_path(torch, args.seed, LAYERS, TRAIN_BATCH)
+    print(json.dumps({"job_path": job}), flush=True)
+    _free(torch)
+    save_attn = run_save_attn_path(torch, args.seed, LAYERS, TRAIN_BATCH)
+    print(json.dumps({"save_attn_path": save_attn}), flush=True)
+    save_attn_v2 = run_save_attn_path(torch, args.seed, LAYERS, TRAIN_BATCH,
+                                      v2=True)
+    print(json.dumps({"save_attn_path_v2": save_attn_v2}), flush=True)
+    registry = run_registry_path(torch)
+    print(json.dumps({"registry_path": registry}), flush=True)
+    _free(torch)
     train_outputs = check_train_outputs(torch, args.seed, LAYERS)
     print(json.dumps({"train_outputs": train_outputs}), flush=True)
     train_v2_outputs = check_train_outputs(torch, args.seed, LAYERS, v2=True)
@@ -3242,13 +3617,14 @@ def main(argv=None) -> int:
     # Phase 4e's distillation shapes, timed in phase 3b: the draft's
     # float32 training and the target's bf16 forward.
     distill_cases = ("distill_f32", "distill_bf16")
-    for rows, top, extra, lines, source, run, phase in (
+    for rows, top, extra, lines, source, run, sa, phase in (
             (flash, "flagship_bf16", distill_cases, FLASH_KERNELS,
-             "flash_attention", train,
+             "flash_attention", train, save_attn,
              "6 (training); also 4e (draft distillation), 4f (LoRA "
-             "fine-tune)"),
+             "fine-tune), 6c (the training job, save_attn)"),
             (flash_v2, "train_gqa_bf16", (), FLASH_V2_KERNELS,
-             "flash_attention_v2", train_v2, "6b (v2 training)")):
+             "flash_attention_v2", train_v2, save_attn_v2,
+             "6b (v2 training); also 6c (save_attn)")):
         by_case = {r["case"]: r for r in rows}
         timed = by_case[top]
         for name, line in lines.items():
@@ -3261,6 +3637,11 @@ def main(argv=None) -> int:
                 "replaces": f"k8s_gpu_tpu/ops/attention.py:{line}",
                 "phase": phase,
                 "launches": run["launches"][name],
+                # Phase 6c: the job's 4 steps (v1 only) and save_attn's 2
+                # timed steps.
+                **({"launches_job": job["launches"][name]}
+                   if job["launches"].get(name) else {}),
+                "launches_save_attn": sa["save_attn"]["launches"][name],
                 **({"launches_distill": distill} if distill else {}),
                 **({"launches_lora": lora} if lora else {}),
                 "max_abs_err": max(r["kernels"][name]["max_abs_err"]
@@ -3290,6 +3671,9 @@ def main(argv=None) -> int:
                        "train_path_gqa_v1": train_gqa_v1,
                        "train_outputs": train_outputs,
                        "train_v2_outputs": train_v2_outputs,
+                       "job_path": job, "save_attn_path": save_attn,
+                       "save_attn_path_v2": save_attn_v2,
+                       "registry_path": registry,
                        "device": device,
                        **kernels}, fh, indent=1)
     print(gpu, flush=True)

@@ -1,19 +1,25 @@
-"""Tokenized-batch loader: the port's own copy of the pure-Python backend
-of ``k8s_gpu_tpu/data/loader.py``.
+"""Tokenized-batch loader: the port's counterpart of
+``k8s_gpu_tpu/data/loader.py``, its Python backend and the native C++
+prefetcher (``native/dataloader.cc``, bound in ``data/native.py``).
 
 A flat little-endian int32 token file is cut into samples of
 ``seq_len + 1`` tokens; each host reads its ``shard=(shard_id,
 num_shards)`` of them, shuffled per epoch by the splitmix64 Fisher-Yates
-permutation the reference draws, so a run gives the reference's batches
-byte for byte.  The native C++ prefetcher (``native/dataloader.cc``) is
-not ported yet (ROADMAP.md): ``backend="auto"`` is the Python backend.
+permutation the reference draws, so both backends give the reference's
+batches byte for byte.  ``backend="auto"`` takes the native library when
+it builds and loads, else Python; ``backend="native"`` raises when it
+cannot load.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 from pathlib import Path
 
 import numpy as np
+
+from . import native
 
 _MASK = (1 << 64) - 1
 
@@ -47,22 +53,27 @@ def epoch_permutation(n: int, seed: int, epoch: int) -> np.ndarray:
 
 class TokenLoader:
     """Iterates (inputs, targets) int32 batches of shape (batch, seq_len),
-    dropping the last partial batch of each epoch."""
+    dropping the last partial batch of each epoch.
+
+    ``backend``: ``"auto"`` (native when the library loads, else
+    python), ``"native"`` or ``"python"``.  The native prefetcher keeps
+    ``prefetch_depth`` batches ahead on ``n_threads`` threads."""
 
     def __init__(self, path: str | Path, seq_len: int, batch_size: int,
                  shard: tuple[int, int] = (0, 1), seed: int = 0,
-                 shuffle: bool = True, backend: str = "auto"):
-        if backend not in ("auto", "python"):
-            raise NotImplementedError(
-                f"backend {backend!r}: only the Python loader is ported "
-                "(the native prefetcher is ROADMAP.md queue 1 item 9)")
+                 shuffle: bool = True, backend: str = "auto",
+                 prefetch_depth: int = 4, n_threads: int = 2):
+        if backend not in ("auto", "native", "python"):
+            raise ValueError(f"unknown backend {backend!r}; expected "
+                             "auto|native|python")
         self.path = Path(path)
         self.seq_len = seq_len
         self.batch_size = batch_size
         self.shard_id, self.num_shards = shard
         self.seed = seed
         self.shuffle = shuffle
-        self.backend = "python"
+        self._handle = None
+        self._mm = None
         self._epoch = 0
         self._next_epoch = 0
         self._cursor = 0
@@ -75,13 +86,34 @@ class TokenLoader:
         if self.batches_per_epoch == 0:
             raise ValueError(f"shard {shard} has {self.num_local} samples < "
                              f"one batch of {batch_size}")
-        self._mm = np.memmap(self.path, dtype="<i4", mode="r")
+        if backend == "auto":
+            backend = "native" if native.available() else "python"
+        if backend == "native":
+            self._lib = native.load()
+            self._handle = self._lib.dl_open(
+                os.fsencode(str(self.path)), seq_len, batch_size,
+                self.shard_id, self.num_shards, seed, int(shuffle),
+                prefetch_depth, n_threads)
+            if not self._handle:
+                raise RuntimeError(f"dl_open failed for {self.path}")
+        else:
+            self._mm = np.memmap(self.path, dtype="<i4", mode="r")
+        self.backend = backend
 
     def __iter__(self):
         return self
 
     def __next__(self) -> tuple[np.ndarray, np.ndarray]:
         w = self.seq_len + 1
+        if self._handle is not None:
+            buf = np.empty(self.batch_size * w, dtype=np.int32)
+            epoch = self._lib.dl_next_batch(
+                self._handle, buf.ctypes.data_as(ctypes.c_void_p))
+            if epoch < 0:
+                raise StopIteration
+            self._epoch = int(epoch)
+            full = buf.reshape(self.batch_size, w)
+            return full[:, :-1].copy(), full[:, 1:].copy()
         if self._cursor == 0 and self.shuffle:
             self._perm = epoch_permutation(self.num_local, self.seed,
                                            self._next_epoch)
@@ -107,6 +139,10 @@ class TokenLoader:
         return self._epoch
 
     def close(self) -> None:
+        """Stops the native prefetch threads and unmaps the file."""
+        if self._handle is not None:
+            self._lib.dl_close(self._handle)
+            self._handle = None
         self._mm = None
 
     def __enter__(self):
@@ -114,3 +150,8 @@ class TokenLoader:
 
     def __exit__(self, *exc):
         self.close()
+
+    def __del__(self):
+        # A loader dropped without close() still stops its threads.
+        if getattr(self, "_handle", None) is not None:
+            self.close()

@@ -13,13 +13,20 @@ attention through ``ops.attention.flash_attention`` when ``use_flash``
 (the CUDA kernels on the card), or ``flash_attention_v2`` when a flash-v2
 knob is on (``flash_fuse_rope``, ``flash_kv_grouped`` with GQA,
 ``flash_q_pipeline`` > 1: rope in the kernels, K/V at their KV heads, P
-query tiles per block), and each block under ``torch.utils.checkpoint``
-when ``remat`` (the backward recomputes the block, flash forward
-included, as ``jax.checkpoint`` does).
+query tiles per block).  Under ``remat`` each block is recomputed in the
+backward.  ``remat_policy="full"`` checkpoints the whole block with
+``torch.utils.checkpoint`` (the flash forward runs again, as under
+``jax.checkpoint``).  ``"save_attn"`` runs each block as one
+``autograd.Function`` that keeps the block's input, the attention's
+output ``o`` [B, H, S, Dh] and its ``lse``, and recomputes the rest
+around ``ops.attention.attention_replay``: one flash forward, one dq and
+one dk/dv per layer and step, at about 2·B·S·D values and the lse a
+layer.  (``torch.utils.checkpoint``'s selective policies cannot keep the
+flash outputs: the kernels launch through ctypes, outside the
+dispatcher the policy watches.)
 
-Not ported yet (ROADMAP.md): MoE, ``remat_policy="save_attn"``,
-ring/ulysses attention (the sequence-sharded plane) and the pipeline
-schedules.
+Not ported yet (ROADMAP.md): MoE, ring/ulysses attention (the
+sequence-sharded plane) and the pipeline schedules.
 """
 
 from __future__ import annotations
@@ -30,7 +37,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import flash_attention, flash_attention_v2
+from ..ops.attention import (
+    attention_replay, flash_attention, flash_attention_lse,
+    flash_attention_v2, flash_attention_v2_lse, reference_attention_lse,
+)
 
 
 def wt(w, dt):
@@ -66,8 +76,9 @@ class TransformerConfig:
     # MoE is not ported: only 0 or 1 (a dense MLP) is taken.
     num_experts: int = 0
     dtype: torch.dtype = torch.bfloat16
-    # Checkpoint each block in training; "full" recomputes the whole block
-    # in the backward ("save_attn" is not ported).
+    # Recompute each block in the backward: "full" recomputes all of it,
+    # "save_attn" keeps the attention's output and lse and recomputes the
+    # rest (no second flash forward).
     remat: bool = True
     remat_policy: str = "full"
     # Flash attention (the CUDA kernels) in the training/eval forward;
@@ -112,11 +123,7 @@ class TransformerLM:
             raise NotImplementedError(
                 "MoE (num_experts > 1) is not ported yet: ROADMAP.md queue 1 "
                 "item 10")
-        if cfg.remat and cfg.remat_policy == "save_attn":
-            raise NotImplementedError(
-                'remat_policy="save_attn" is not ported yet: ROADMAP.md '
-                "queue 1 item 9")
-        if cfg.remat and cfg.remat_policy != "full":
+        if cfg.remat and cfg.remat_policy not in ("full", "save_attn"):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                              "expected 'full' or 'save_attn'")
         self.cfg = cfg
@@ -200,38 +207,69 @@ class TransformerLM:
         p = torch.softmax(s, dim=-1)
         return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
-    def _attention(self, x, lp, positions):
+    def _route(self, positions):
+        """(v2, fused rope, grouped K/V) of the training attention.
+        Flash-v2 derives rope positions from the tile it works on, so it
+        takes only the dense arange positions of one unsplit sequence."""
         cfg = self.cfg
-        dt = cfg.dtype
         grouped = cfg.flash_kv_grouped and cfg.n_heads // cfg.kv_heads > 1
-        q = torch.einsum("bsd,dhk->bshk", x, wt(lp["wq"], dt))
-        k = torch.einsum("bsd,dhk->bshk", x, wt(lp["wk"], dt))
-        v = torch.einsum("bsd,dhk->bshk", x, wt(lp["wv"], dt))
-        # Flash-v2 derives rope positions from the tile it works on, so it
-        # takes only the dense arange positions of one unsplit sequence.
         use_v2 = (cfg.use_flash and positions.ndim == 1
                   and (cfg.flash_fuse_rope or grouped
                        or cfg.flash_q_pipeline > 1))
-        fuse_rope = use_v2 and cfg.flash_fuse_rope
+        return use_v2, use_v2 and cfg.flash_fuse_rope, grouped
+
+    def _qkv(self, x, lp, positions):
+        """q [B, H, S, Dh] and k, v [B, H or KH, S, Dh] as the route's
+        attention takes them."""
+        dt = self.cfg.dtype
+        use_v2, fuse_rope, grouped = self._route(positions)
+        q = torch.einsum("bsd,dhk->bshk", x, wt(lp["wq"], dt))
+        k = torch.einsum("bsd,dhk->bshk", x, wt(lp["wk"], dt))
+        v = torch.einsum("bsd,dhk->bshk", x, wt(lp["wv"], dt))
         if not fuse_rope:
             q = self._rope(q, positions)
             k = self._rope(k, positions)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))       # [B,H,S,Dh]
         if not (use_v2 and grouped):
             k, v = self._repeat_kv(k), self._repeat_kv(v)
+        return q, k, v
+
+    def _v2_args(self, positions) -> dict:
+        cfg = self.cfg
+        return dict(rope_theta=(cfg.rope_theta if self._route(positions)[1]
+                                else None),
+                    q_pipeline=max(1, cfg.flash_q_pipeline))
+
+    def _out_proj(self, o, lp):
+        o = o.transpose(1, 2)                                   # [B,S,H,Dh]
+        return torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], self.cfg.dtype))
+
+    def _attention(self, x, lp, positions):
+        cfg = self.cfg
+        q, k, v = self._qkv(x, lp, positions)
         blocks = dict(block_q=cfg.flash_block_q or None,
                       block_k=cfg.flash_block_k or None)
-        if use_v2:
-            o = flash_attention_v2(
-                q, k, v, causal=True,
-                rope_theta=cfg.rope_theta if fuse_rope else None,
-                q_pipeline=max(1, cfg.flash_q_pipeline), **blocks)
+        if self._route(positions)[0]:
+            o = flash_attention_v2(q, k, v, causal=True,
+                                   **self._v2_args(positions), **blocks)
         elif cfg.use_flash:
             o = flash_attention(q, k, v, causal=True, **blocks)
         else:
             o = self._plain_causal_attention(q, k, v)
-        o = o.transpose(1, 2)                                   # [B,S,H,Dh]
-        return torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], dt))
+        return self._out_proj(o, lp)
+
+    def _attention_lse(self, q, k, v, positions):
+        """(o, lse) of the training attention, for ``save_attn``."""
+        cfg = self.cfg
+        blocks = dict(block_q=cfg.flash_block_q or None,
+                      block_k=cfg.flash_block_k or None)
+        if self._route(positions)[0]:
+            return flash_attention_v2_lse(q, k, v, causal=True,
+                                          **self._v2_args(positions),
+                                          **blocks)
+        if cfg.use_flash:
+            return flash_attention_lse(q, k, v, causal=True, **blocks)
+        return reference_attention_lse(q, k, v, causal=True)
 
     def _dense_mlp(self, x, lp):
         dt = self.cfg.dtype
@@ -244,6 +282,26 @@ class TransformerLM:
 
     def _block(self, x, lp, positions):
         x = x + self._attention(self._rmsnorm(x, lp["ln1"]), lp, positions)
+        return x + self._dense_mlp(self._rmsnorm(x, lp["ln2"]), lp)
+
+    def _block_saving(self, x, lp, positions):
+        """``_block`` without gradients -> (out, o, lse): the attention's
+        output and lse are what ``save_attn`` keeps."""
+        q, k, v = self._qkv(self._rmsnorm(x, lp["ln1"]), lp, positions)
+        o, lse = self._attention_lse(q, k, v, positions)
+        x = x + self._out_proj(o, lp)
+        return x + self._dense_mlp(self._rmsnorm(x, lp["ln2"]), lp), o, lse
+
+    def _block_replay(self, x, lp, positions, o, lse):
+        """``_block`` recomputed around the saved ``o`` and ``lse``: the
+        same operations, the attention by ``attention_replay``."""
+        cfg = self.cfg
+        q, k, v = self._qkv(self._rmsnorm(x, lp["ln1"]), lp, positions)
+        use_v2 = self._route(positions)[0]
+        o = attention_replay(q, k, v, o, lse, causal=True, v2=use_v2,
+                             plain=not cfg.use_flash,
+                             **(self._v2_args(positions) if use_v2 else {}))
+        x = x + self._out_proj(o, lp)
         return x + self._dense_mlp(self._rmsnorm(x, lp["ln2"]), lp)
 
     # -- forward -----------------------------------------------------------
@@ -267,7 +325,11 @@ class TransformerLM:
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in range(cfg.n_layers):
             lp = layer_params(layers, layer)
-            if remat:
+            if remat and cfg.remat_policy == "save_attn":
+                names = sorted(lp)
+                x = _SaveAttnBlock.apply(self, positions, names, x,
+                                         *(lp[n] for n in names))
+            elif remat:
                 x = checkpoint(self._block, x, lp, positions,
                                use_reentrant=False)
             else:
@@ -283,3 +345,34 @@ class TransformerLM:
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
         return nll.mean() + 0.01 * aux
+
+
+class _SaveAttnBlock(torch.autograd.Function):
+    """One block under ``remat_policy="save_attn"``: the forward runs
+    without a graph and keeps the block's input and the attention's
+    ``o`` and ``lse``; the backward recomputes the block around them
+    (``_block_replay``) and differentiates that.  Inputs: the model, the
+    positions, the layer's leaf names, x and the leaves."""
+
+    @staticmethod
+    def forward(ctx, model, positions, names, x, *leaves):
+        out, o, lse = model._block_saving(x, dict(zip(names, leaves)),
+                                          positions)
+        ctx.model, ctx.names = model, names
+        ctx.save_for_backward(x, positions, o, lse, *leaves)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        x, positions, o, lse, *leaves = ctx.saved_tensors
+        needs = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip((x, *leaves), needs)]
+            out = ctx.model._block_replay(
+                inputs[0], dict(zip(ctx.names, inputs[1:])), positions, o,
+                lse)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g_out))
+        return (None, None, None,
+                *(next(grads) if t.requires_grad else None for t in inputs))

@@ -708,6 +708,63 @@ class _FlashAttentionV2(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class _Replay(torch.autograd.Function):
+    """Attention whose forward already ran: returns the saved ``out`` as
+    the output of (q, k, v), and its backward is the flash backward from
+    the saved ``out`` and ``lse`` (the dq and dk/dv kernels, with v2's
+    pre-pass where it takes one, or their plain versions), so nothing
+    runs the forward again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, out, lse, causal, rope_theta, q_pipeline, v2,
+                kernels):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, rope_theta, q_pipeline, v2, kernels)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, rope_theta, q_pipeline, v2, kernels = ctx.args
+        g_out, delta = _delta(out, g_out, None)
+        if kernels and v2:
+            planes = _v2_planes(q, k, rope_theta, None)
+            dq = flash_v2_backward_dq(q, k, v, g_out, lse, delta, causal,
+                                      rope_theta, q_pipeline, planes)
+            dk, dv = flash_v2_backward_dkv(q, k, v, g_out, lse, delta,
+                                           causal, rope_theta, planes)
+        elif kernels:
+            dq = flash_backward_dq(q, k, v, g_out, lse, delta, causal)
+            dk, dv = flash_backward_dkv(q, k, v, g_out, lse, delta, causal)
+        elif v2:
+            dq = reference_bwd_dq_v2(q, k, v, g_out, lse, delta, causal,
+                                     rope_theta)
+            dk, dv = reference_bwd_dkv_v2(q, k, v, g_out, lse, delta, causal,
+                                          rope_theta)
+        else:
+            dq = reference_bwd_dq(q, k, v, g_out, lse, delta, causal)
+            dk, dv = reference_bwd_dkv(q, k, v, g_out, lse, delta, causal)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def attention_replay(q, k, v, out, lse, *, causal: bool = True,
+                     rope_theta: float | None = None, q_pipeline: int = 1,
+                     v2: bool = False, plain: bool = False):
+    """``out`` (from an earlier forward on the same q, k, v, with its
+    ``lse``) as a differentiable function of q, k and v: the backward of
+    ``flash_attention_lse`` (``v2``: of ``flash_attention_v2_lse`` with
+    ``rope_theta`` and ``q_pipeline``) without its forward, what
+    ``remat_policy="save_attn"`` recomputes a block around.  On CUDA
+    tensors it launches the backward kernels, unless ``plain`` (the
+    forward ran the plain attention); on the CPU it takes their plain
+    versions.  ``lse``'s cotangent is zero."""
+    kernels = q.device.type == "cuda" and not plain
+    return _Replay.apply(q, k, v, out, lse, causal,
+                         float(rope_theta) if rope_theta is not None
+                         else None, max(1, q_pipeline), v2, kernels)
+
+
 def flash_attention_lse(q, k, v, causal: bool = True,
                         block_q: int | None = None,
                         block_k: int | None = None):

@@ -15,22 +15,37 @@ out in torch on f32 master parameters:
   schedule at the step count *before* the update, so the first step of any
   ``warmup_steps > 0`` run moves nothing.
 
+The reference's telemetry rides along: an optional ``GoodputLedger``
+(``init``, the first step as ``compile``, every later step as ``step``,
+``fit``'s wait on its iterator as ``data_wait``, and a per-host
+heartbeat), a ``PhaseProfiler`` over the step's phases (``shard_batch``,
+the batch's copy to the device; ``step_dispatch``; ``loss_sync``) and
+the step series ``train_step_seconds``, ``train_last_step_seconds``,
+``train_tokens_per_second`` and ``train_mfu`` in the port's
+``global_metrics``.  ``fit`` fires the ``train.preempt`` fault site.
+
 Not ported yet (ROADMAP.md): the mesh and ``zero1`` over dp (``zero1`` is
-a no-op on one device, as in the reference), the pipeline schedules, the
-goodput ledger, the phase profiler and the metrics registry.
+a no-op on one device, as in the reference) and the pipeline schedules.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 
 import torch
 
+from ..api.workload import WorkloadInterrupted
 from ..convert import tensor_from_numpy
 from ..device import resolve_device
 from ..ops.attention import describe_train_attention
+from ..utils.faults import global_faults
+from ..utils.goodput import GoodputLedger
+from ..utils.metrics import global_metrics
+from ..utils.profiler import PhaseProfiler
 
 log = logging.getLogger("k8s_gpu_tpu_torch.train")
 
@@ -126,6 +141,18 @@ def tree_map(fn, tree: dict):
     return fn(tree)
 
 
+def tree_like(tree: dict, leaves: list):
+    """``leaves`` (in ``tree_leaves`` order) nested as ``tree`` is."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(tree)
+
+
 class AdamW:
     """The reference's ``make_optimizer``: optax
     ``chain(clip_by_global_norm, adamw(schedule, b1, b2, wd))`` on a list
@@ -155,6 +182,17 @@ class AdamW:
             u = (m / c1) / ((v / c2).sqrt() + 1e-8)
             u.add_(p, alpha=tc.weight_decay)
             p.sub_(lr * u)
+
+    def state(self, params: dict) -> dict:
+        """optax's ``ScaleByAdamState`` fields: the step ``count`` and the
+        moments ``mu`` and ``nu`` as trees shaped like ``params``."""
+        return {"count": self.count, "mu": tree_like(params, self.mu),
+                "nu": tree_like(params, self.nu)}
+
+    def load_state(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.mu = tree_leaves(state["mu"])
+        self.nu = tree_leaves(state["nu"])
 
 
 def make_train_step(loss_fn, optimizer: AdamW, accum: int = 1):
@@ -193,27 +231,68 @@ def make_train_step(loss_fn, optimizer: AdamW, accum: int = 1):
 class Trainer:
     """Drives the train step of a ``TransformerLM``-shaped model on one
     device: f32 master parameters at ``self.params`` (leaves with
-    ``requires_grad``), AdamW state, and the EMA shadow at ``self.ema``.
-    Runs on the card unless given ``device="cpu"``."""
+    ``requires_grad``), AdamW state (``self.opt_state``), and the EMA
+    shadow at ``self.ema``.  Runs on the card unless given
+    ``device="cpu"``.
+
+    ``peak_flops``: the MFU denominator (None reads the card's kind; 0.0,
+    as on the CPU, keeps ``train_mfu`` at 0).  ``profiler``: the phase
+    profiler of the step's phases (default: a fresh one over
+    ``global_metrics``).  ``ledger``: an optional ``GoodputLedger``; None
+    costs nothing."""
 
     def __init__(self, model, train_config: TrainConfig | None = None,
-                 device="cuda"):
+                 device="cuda", peak_flops: float | None = None,
+                 profiler: PhaseProfiler | None = None,
+                 ledger: GoodputLedger | None = None):
         self.device = resolve_device(device)
         if getattr(model, "device", self.device) != self.device:
             raise ValueError(f"model on {model.device}, trainer on "
                              f"{self.device}")
         self.model = model
         self.tc = train_config or TrainConfig()
+        self.peak_flops = peak_flops
+        self.profiler = (profiler if profiler is not None
+                         else PhaseProfiler())
+        self.ledger = ledger
+        rank = (torch.distributed.get_rank()
+                if torch.distributed.is_available()
+                and torch.distributed.is_initialized() else 0)
+        self._host = f"host{rank}"
+        self._steps_done = 0
+        self._n_params: int | None = None
+        self._step_ewma_s: float | None = None
         self.params = None
         self.optimizer = None
         self.ema = None
         self._step = None
+
+    def _seg(self, name: str):
+        """The ledger's segment, or nothing when no ledger rides."""
+        return (self.ledger.segment(name) if self.ledger is not None
+                else nullcontext())
+
+    @property
+    def opt_state(self) -> dict | None:
+        """AdamW's ``count``, ``mu`` and ``nu``, the moments keyed by
+        parameter path as ``params`` is (what a checkpoint holds)."""
+        if self.optimizer is None:
+            return None
+        return self.optimizer.state(self.params)
+
+    @opt_state.setter
+    def opt_state(self, state: dict) -> None:
+        self.optimizer.load_state(state)
 
     # -- setup -------------------------------------------------------------
     def init(self, seed: int = 0, params: dict | None = None) -> None:
         """Fresh f32 parameters from ``seed``, or a copy of ``params`` (a
         nested dict of tensors or numpy arrays, e.g. carried across from
         the JAX package) as f32 on the trainer's device."""
+        with self._seg("init"):
+            self._init(seed, params)
+
+    def _init(self, seed: int, params: dict | None) -> None:
         if params is None:
             params = self.model.init(seed, dtype=torch.float32)
 
@@ -242,7 +321,14 @@ class Trainer:
     def step(self, *batch, sync: bool = True):
         """One optimizer step.  ``sync=False`` returns the loss as a device
         tensor without waiting for the card, so a loop can queue steps and
-        read one loss at its log boundaries."""
+        read one loss at its log boundaries (the step's time then measures
+        the queueing).  The first step is the ledger's ``compile`` segment:
+        on the card it pays for the kernels' first load and cuBLAS's
+        heuristics."""
+        with self._seg("compile" if self._step is None else "step"):
+            return self._timed_step(*batch, sync=sync)
+
+    def _timed_step(self, *batch, sync: bool):
         if self._step is None:
             self._step = make_train_step(self.model.loss, self.optimizer,
                                          accum=self.tc.grad_accum_steps)
@@ -250,10 +336,50 @@ class Trainer:
             if cfg is not None and hasattr(cfg, "use_flash"):
                 log.info("train step attention path: %s",
                          describe_train_attention(cfg))
-        loss = self._step(self.params, *self._batch(batch))
-        if self.ema is not None:
-            self._update_ema()
-        return float(loss) if sync else loss
+        with self.profiler.phase("shard_batch"):
+            batch = self._batch(batch)
+        t0 = time.perf_counter()
+        with self.profiler.phase("step_dispatch"):
+            loss = self._step(self.params, *batch)
+            if self.ema is not None:
+                self._update_ema()
+        if sync:
+            with self.profiler.phase("loss_sync"):
+                loss = float(loss)
+        dt = time.perf_counter() - t0
+        global_metrics.observe("train_step_seconds", dt)
+        global_metrics.set_gauge("train_last_step_seconds", dt)
+        if dt > 0.0 and batch:
+            global_metrics.set_gauge("train_tokens_per_second",
+                                     float(batch[0].numel()) / dt)
+        self._update_mfu(dt, batch)
+        self.profiler.export_shares()
+        self._steps_done += 1
+        if self.ledger is not None:
+            self.ledger.heartbeat(self._host, self._steps_done, dt)
+        return loss
+
+    def _update_mfu(self, dt: float, batch: tuple) -> None:
+        """``train_mfu``: the model's analytic FLOPs a step over an EWMA of
+        the step time, against ``peak_flops``.  The first step (kernel
+        loads) seeds nothing; a model without a transformer-shaped config
+        publishes no gauge."""
+        cfg = getattr(self.model, "cfg", None)
+        if (dt <= 0.0 or not batch or cfg is None
+                or not all(hasattr(cfg, a) for a in
+                           ("max_seq", "n_heads", "d_head", "n_layers"))):
+            return
+        if self._n_params is None:
+            self._n_params = sum(p.numel() for p in tree_leaves(self.params))
+            return
+        flops = model_flops_per_step(cfg, self._n_params,
+                                     int(batch[0].shape[0]))
+        self._step_ewma_s = (dt if self._step_ewma_s is None
+                             else 0.2 * dt + 0.8 * self._step_ewma_s)
+        peak = (self.peak_flops if self.peak_flops is not None
+                else device_peak_flops())
+        mfu = flops / self._step_ewma_s / peak if peak > 0.0 else 0.0
+        global_metrics.set_gauge("train_mfu", mfu)
 
     def step_many(self, xs, ys) -> float:
         """``xs.shape[0]`` chained optimizer steps over stacked [n, B, S]
@@ -266,10 +392,24 @@ class Trainer:
     def fit(self, data_iter, steps: int, log_every: int = 10) -> list[float]:
         """Run ``steps`` optimizer steps and return ONE loss per step.  The
         loop waits for the card only at log boundaries; the other losses
-        stay device tensors until the single conversion at the end."""
+        stay device tensors until the single conversion at the end.
+
+        Each iteration fires the ``train.preempt`` fault site first: an
+        armed plan interrupts the loop as a slice preemption would, and the
+        ledger records the incident and opens ``preempted`` (the resume's
+        checkpoint restore closes it)."""
         losses = []
         for i in range(steps):
-            batch = next(data_iter)
+            try:
+                global_faults.fire("train.preempt",
+                                   error_type=WorkloadInterrupted)
+            except WorkloadInterrupted as e:
+                if self.ledger is not None:
+                    self.ledger.incident("preemption", detail=str(e))
+                    self.ledger.begin("preempted")
+                raise
+            with self._seg("data_wait"):
+                batch = next(data_iter)
             at_log = i % log_every == 0 or i == steps - 1
             loss = self.step(*batch, sync=at_log)
             losses.append(loss)

@@ -1,2 +1,3 @@
 """Pure-Python utilities of the port: its own copies of the reference's
-metrics registry and trace-context helpers."""
+metrics registry, trace-context helpers, clocks, fault injection, goodput
+ledger and phase profiler."""

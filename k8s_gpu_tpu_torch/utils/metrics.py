@@ -1,13 +1,14 @@
 """Prometheus-style metrics registry: the port's own copy of
-``k8s_gpu_tpu/utils/metrics.py`` (``Histogram``, ``MetricsRegistry`` and
-its text exposition), so the batcher mints the reference's serve-plane
-series under the reference's names and labels and the reference's
-federation collector and ``obs`` views read a torch replica's scrape as
-they read a JAX one's.
+``k8s_gpu_tpu/utils/metrics.py`` (``Histogram``, ``MetricsRegistry``, its
+text exposition and ``parse_exposition``, which reads that text back),
+so the batcher and the trainer mint the reference's series under the
+reference's names and labels and the reference's federation collector
+and ``obs`` views read a torch replica's scrape as they read a JAX one's.
 """
 
 from __future__ import annotations
 
+import re
 import threading
 from collections import defaultdict, deque
 from dataclasses import dataclass, field
@@ -101,6 +102,16 @@ class MetricsRegistry:
         with self._lock:
             self._gauges[self._key_write(name, labels)] = value
 
+    def remove_gauge(self, name: str, **labels) -> None:
+        """Delete one gauge series (a gauge of an object that is gone),
+        freeing its label set's slot unless a counter or histogram still
+        holds it."""
+        with self._lock:
+            k = self._key(name, labels)
+            self._gauges.pop(k, None)
+            if k not in self._counters and k not in self._hists:
+                self._series_seen.get(name, set()).discard(k[1])
+
     def observe(self, name: str, value: float, **labels) -> None:
         with self._lock:
             k = self._key_write(name, labels)
@@ -124,6 +135,21 @@ class MetricsRegistry:
         with self._lock:
             h = self._hists.get(self._key(name, labels))
             return h.percentile(q) if h is not None else 0.0
+
+    def series(self, name: str) -> dict[tuple, float]:
+        """Every counter and gauge series of ``name``: {labels: value}."""
+        with self._lock:
+            out = {lbls: v for (n, lbls), v in self._counters.items()
+                   if n == name}
+            out.update({lbls: v for (n, lbls), v in self._gauges.items()
+                        if n == name})
+            return out
+
+    def hist_percentiles(self, name: str, q: float) -> dict[tuple, float]:
+        """The exact q-quantile of each histogram series of ``name``."""
+        with self._lock:
+            return {lbls: h.percentile(q)
+                    for (n, lbls), h in self._hists.items() if n == name}
 
     def render(self) -> str:
         """Prometheus text exposition (the reference's subset)."""
@@ -154,11 +180,60 @@ def escape_label_value(v) -> str:
             .replace("\n", "\\n"))
 
 
+def unescape_label_value(v: str) -> str:
+    """Inverse of ``escape_label_value``; an unknown escape drops its
+    backslash."""
+    if "\\" not in v:
+        return v
+    out = []
+    i, n = 0, len(v)
+    while i < n:
+        c = v[i]
+        if c == "\\" and i + 1 < n:
+            nxt = v[i + 1]
+            out.append({"\\": "\\", '"': '"', "n": "\n"}.get(nxt, nxt))
+            i += 2
+        else:
+            out.append(c)
+            i += 1
+    return "".join(out)
+
+
 def _fmt(labels: tuple) -> str:
     if not labels:
         return ""
     return "{" + ",".join(f'{k}="{escape_label_value(v)}"'
                           for k, v in labels) + "}"
+
+
+_EXPO_LINE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$")
+# A label value is any run of characters but a bare quote or backslash,
+# or an escape pair.
+_EXPO_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_exposition(text: str) -> dict[str, dict[tuple, float]]:
+    """The text ``render`` writes, read back as {name: {labels: value}}:
+    escaped label values round-trip, ``NaN`` and ``+Inf``/``-Inf``
+    parse to floats, comments and malformed lines are skipped."""
+    out: dict[str, dict[tuple, float]] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _EXPO_LINE.match(line)
+        if m is None:
+            continue
+        name, raw_labels, raw_value = m.groups()
+        try:
+            value = float(raw_value)
+        except ValueError:
+            continue
+        labels = tuple(sorted(
+            (k, unescape_label_value(v))
+            for k, v in _EXPO_LABEL.findall(raw_labels or "")))
+        out.setdefault(name, {})[labels] = value
+    return out
 
 
 global_metrics = MetricsRegistry()

@@ -1,14 +1,19 @@
-"""The port's Python ``TokenLoader`` gives the reference's batches byte
-for byte: same permutation, shards, epoch rollover and shift."""
+"""The port's ``TokenLoader`` gives the reference's batches byte for
+byte, through its Python backend and the native prefetcher: same
+permutation, shards, epoch rollover and shift; the native tokenizer gives
+the reference's ids under both of the reference's backends."""
 
 import numpy as np
 import pytest
 
 from k8s_gpu_tpu.data import TokenLoader as JaxTokenLoader
 from k8s_gpu_tpu.data.loader import epoch_permutation as jax_permutation
+from k8s_gpu_tpu.data.tokenizer import BpeTokenizer as JaxTokenizer
+from k8s_gpu_tpu_torch.data import native
 from k8s_gpu_tpu_torch.data.loader import (
     TokenLoader, epoch_permutation, write_tokens,
 )
+from k8s_gpu_tpu_torch.data.tokenizer import BpeTokenizer
 
 SEQ, BATCH = 8, 4
 
@@ -46,7 +51,71 @@ def test_permutation_matches_reference():
 
 
 def test_native_backend_and_small_shard_raise(token_file):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TokenLoader(token_file, SEQ, BATCH, backend="native")
+    with TokenLoader(token_file, SEQ, BATCH, backend="native") as nat, \
+            TokenLoader(token_file, SEQ, BATCH, backend="python") as py:
+        assert nat.backend == "native" and py.backend == "python"
+        (nx, ny), (px, py_) = next(nat), next(py)
+        assert nx.tobytes() == px.tobytes() and ny.tobytes() == py_.tobytes()
     with pytest.raises(ValueError, match="one batch"):
         TokenLoader(token_file, SEQ, 64)
+    with pytest.raises(ValueError, match="one batch"):
+        TokenLoader(token_file, SEQ, 64, backend="native")
+
+
+@pytest.mark.parametrize("shard,shuffle,seed,threads", [
+    ((0, 1), True, 0, 1), ((1, 3), True, 7, 2), ((0, 2), False, 0, 4),
+])
+def test_native_batches_match_reference_byte_for_byte(token_file, shard,
+                                                      shuffle, seed,
+                                                      threads):
+    """The native prefetcher, on any number of threads, against the
+    reference's native and Python backends, over two epoch rollovers."""
+    kw = dict(shard=shard, seed=seed, shuffle=shuffle)
+    with JaxTokenLoader(token_file, SEQ, BATCH, backend="native", **kw) as rn, \
+            JaxTokenLoader(token_file, SEQ, BATCH, backend="python",
+                           **kw) as rp, \
+            TokenLoader(token_file, SEQ, BATCH, backend="native",
+                        n_threads=threads, **kw) as got:
+        assert got.batches_per_epoch == rp.batches_per_epoch
+        for _ in range(2 * rp.batches_per_epoch + 1):
+            (nx, ny), (px, py), (gx, gy) = next(rn), next(rp), next(got)
+            assert got.epoch == rp.epoch == rn.epoch
+            for g, r, p in ((gx, nx, px), (gy, ny, py)):
+                assert g.dtype == np.int32 and g.shape == (BATCH, SEQ)
+                assert g.tobytes() == r.tobytes() == p.tobytes()
+
+
+def test_native_unavailable_raises_and_auto_falls_back(token_file,
+                                                       monkeypatch):
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_error", "RuntimeError: g++ failed")
+    with pytest.raises(RuntimeError, match="native library unavailable"):
+        TokenLoader(token_file, SEQ, BATCH, backend="native")
+    with pytest.raises(RuntimeError, match="native library unavailable"):
+        BpeTokenizer([], backend="native")
+    with TokenLoader(token_file, SEQ, BATCH) as auto:
+        assert auto.backend == "python"
+    assert BpeTokenizer([]).backend == "python"
+
+
+TEXT = ("the quick brown fox jumps over the lazy dog; "
+        "pack my box with five dozen liquor jugs. ") * 6 + "\u00e9t\u00e9 \u2603"
+
+
+@pytest.mark.parametrize("vocab", [256, 300, 400])
+def test_native_tokenizer_ids_match_reference(vocab):
+    nat = BpeTokenizer.train(TEXT, vocab, backend="native")
+    py = BpeTokenizer.train(TEXT, vocab, backend="python")
+    ref_n = JaxTokenizer.train(TEXT, vocab, backend="native")
+    ref_p = JaxTokenizer.train(TEXT, vocab, backend="python")
+    assert nat.backend == "native" and py.backend == "python"
+    assert nat.merges == py.merges == ref_n.merges == ref_p.merges
+    probe = TEXT[7:90] + " unseen words \u2603"
+    ids = nat.encode(probe)
+    for other in (py, ref_n, ref_p):
+        assert ids.dtype == np.int32
+        assert ids.tobytes() == other.encode(probe).tobytes()
+    assert nat.decode(ids) == py.decode(ids) == probe
+    assert nat.encode("").size == 0
+    with pytest.raises(ValueError, match="outside"):
+        nat.decode([vocab + 5])

@@ -204,9 +204,133 @@ def test_flops_and_unported_options(monkeypatch):
     assert 9.8e13 < flops < 1.0e14
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerLM(TransformerConfig(**DIMS, num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(TransformerConfig(**DIMS, remat_policy="save_attn"),
+    model = TransformerLM(TransformerConfig(**DIMS, remat_policy="save_attn"),
+                          device="cpu")
+    assert model.cfg.remat_policy == "save_attn"
+    with pytest.raises(ValueError, match="remat_policy"):
+        TransformerLM(TransformerConfig(**DIMS, remat_policy="sometimes"),
                       device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(TransformerLM(TransformerConfig(**DIMS), device="cpu"))
+
+
+# -- remat_policy="save_attn" ------------------------------------------------
+
+V2_DIMS = dict(DIMS, n_kv_heads=2, d_head=16, max_seq=64)
+V2_KNOBS = dict(flash_fuse_rope=True, flash_kv_grouped=True,
+                flash_q_pipeline=2)
+
+
+def _loss_and_grads(model, params, toks):
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(True)
+    fa.reset_counts()
+    loss = model.loss(params, torch.from_numpy(toks[:, :-1]),
+                      torch.from_numpy(toks[:, 1:]))
+    loss.backward()
+    return loss.item(), [p.grad.clone() for p in leaves], fa.plain_count
+
+
+@pytest.mark.parametrize("dims,knobs", [
+    (DIMS, {}), (DIMS, dict(use_flash=False)), (V2_DIMS, V2_KNOBS),
+    (V2_DIMS, dict(flash_kv_grouped=True)),
+])
+def test_save_attn_matches_full(dims, knobs):
+    """The same loss, and gradients within 1e-6 (of each leaf's largest,
+    at least 1): the backward differentiates the saved attention output
+    with the plain versions of the dq and dk/dv kernels, where "full"
+    differentiates a recomputed plain forward.  Flash attention's plain
+    version runs once per layer instead of twice."""
+    params = TransformerLM(TransformerConfig(**dims, dtype=torch.float32),
+                           device="cpu").init(0, dtype=torch.float32)
+    toks = _tokens(9, 2, dims["max_seq"])
+    runs = {}
+    for policy in ("full", "save_attn"):
+        model = TransformerLM(TransformerConfig(
+            **dims, **knobs, remat_policy=policy, dtype=torch.float32),
+            device="cpu")
+        runs[policy] = _loss_and_grads(model, params, toks)
+    (la, ga, ca), (lb, gb, cb) = runs["full"], runs["save_attn"]
+    assert la == lb
+    flash = knobs.get("use_flash", True)
+    assert (ca, cb) == ((2 * dims["n_layers"], dims["n_layers"]) if flash
+                        else (0, 0))
+    for a, b in zip(ga, gb):
+        limit = 1e-6 * max(1.0, float(a.abs().max()))
+        assert float((a - b).abs().max()) <= limit
+
+
+@pytest.mark.parametrize("v2", [False, True])
+def test_save_attn_matches_reference(v2):
+    """Loss and gradients against the reference's ``save_attn`` (its
+    Pallas kernels through the interpreter) within ``TOL``."""
+    dims, knobs = (V2_DIMS, V2_KNOBS) if v2 else (DIMS, {})
+    blocks = dict(flash_block_q=16, flash_block_k=16) if v2 else {}
+    jm = JaxLM(JaxConfig(**dims, **knobs, **blocks, remat_policy="save_attn",
+                         dtype=jnp.float32))
+    tm = TransformerLM(TransformerConfig(**dims, **knobs,
+                                         remat_policy="save_attn",
+                                         dtype=torch.float32), device="cpu")
+    jp = jm.init(jax.random.PRNGKey(0))
+    toks = _tokens(10, 2, dims["max_seq"])
+    ref_loss, ref_grads = jax.value_and_grad(jm.loss)(
+        jp, jnp.asarray(toks[:, :-1]), jnp.asarray(toks[:, 1:]))
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    loss, grads, plain = _loss_and_grads(tm, params, toks)
+    assert plain == dims["n_layers"]
+    assert abs(loss - float(ref_loss)) < TOL
+    for g, r in zip(grads, jax.tree.leaves(ref_grads)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU "
+                    "mode (chip_smoke.py counts them on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v2", [False, True])
+def test_cuda_save_attn_launches_one_forward_per_layer(cuda, v2):
+    """bf16 on the card: one flash forward, one dq and one dk/dv launch
+    per layer (v2 with its two pre-passes, one for each direction), no
+    plain call, and the loss and gradients of "full" within phase 7's
+    bf16 limits (loss 1e-2, gradient norm 5e-2)."""
+    dims = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+                d_head=32, d_ff=256, max_seq=128)
+    knobs = dict(V2_KNOBS, n_kv_heads=2) if v2 else {}
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, 256, (2, 129), generator=gen).to(cuda)
+    params = TransformerLM(TransformerConfig(**dims, **knobs), device=cuda
+                           ).init(0, dtype=torch.float32)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    runs = {}
+    for policy in ("full", "save_attn"):
+        model = TransformerLM(TransformerConfig(**dims, **knobs,
+                                                remat_policy=policy),
+                              device=cuda)
+        leaves = tree_leaves(params)
+        fa.reset_counts()
+        loss = model.loss(params, toks[:, :-1], toks[:, 1:])
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[policy] = (loss.item(), grads, dict(fa.launch_counts),
+                        fa.prepass_counts["flash_v2_rope_split"],
+                        fa.plain_count)
+    loss, grads, launches, prepasses, plain = runs["save_attn"]
+    prefix = "flash_v2_" if v2 else "flash_"
+    want = {name: 0 for name in launches}
+    want.update({f"{prefix}fwd": 2, f"{prefix}bwd_dq": 2,
+                 f"{prefix}bwd_dkv": 2})
+    assert launches == want and plain == 0
+    assert prepasses == (4 if v2 else 0)
+    assert runs["full"][2][f"{prefix}fwd"] == 4
+    assert abs(loss - runs["full"][0]) <= 1e-2
+    for g, f in zip(grads, runs["full"][1]):
+        assert float((g - f).float().norm() / f.float().norm()) <= 5e-2
