@@ -147,7 +147,23 @@ Phases, each of which fails the run on any error:
    every gradient of one step with flash attention against the same with
    plain attention, at full depth in bf16 (batch 2) and at 2 layers in
    float32; then (7b) the same for the v2 configuration against the same
-   GQA configuration with the knobs off (v1, rope outside, K/V repeated).
+   GQA configuration with the knobs off (v1, rope outside, K/V repeated);
+8. Switch top-1 MoE at the flagship's widths (4 experts, capacity factor
+   1.25, nothing cut: 906M parameters, 302M active a token): (8a) the
+   ``Trainer`` at batch 24 x 2048 (f32 masters, bf16, flash v1, full
+   remat), one warm-up and 3 timed steps, losses finite and falling,
+   aux > 0 each step, flash launches 2/1/1 a layer and step and no
+   plain call, ``train_mfu`` over all experts (the reference's
+   convention) beside an MFU over the active parameters, the tokens
+   each layer drops at capacity, then ``save_attn`` (launches 1/1/1, its
+   losses against full's); (8b) bf16 behind ``LmServer`` on the paged
+   pool with the paged kernel (phase 4's pair and mix, every admission
+   ``cold``, launches exactly one a layer and decode step) and on the
+   dense pool at its defaults, every budget met, a repeated greedy
+   request stable, ``/precache`` refused as the reference refuses; (8c)
+   at float32 and 2 layers, greedy streams through the paged kernel
+   against the gather read's and a paged n-gram spec batcher against the
+   plain streams, under the float32 near-tie rule (1e-4).
 
 It prints a ``{"kernels": [...]}`` line (each entry names the phase
 that launches it; each flash entry also with its
@@ -946,6 +962,17 @@ def flagship_config(torch, layers: int):
     )
 
 
+def mix_blocks(cfg) -> int:
+    """Phase 4's paged pool: the TRAFFIC mix's pages at their buckets plus
+    8 (the pair's shared prefix needs few more), at least one
+    max-length request and the trash block."""
+    from k8s_gpu_tpu_torch.serve.scheduler import prompt_bucket
+
+    used = sum(-(-(prompt_bucket(p, cfg.max_seq) + n) // PAGE) * PAGE
+               for p, n in TRAFFIC)
+    return max(1 + cfg.max_seq // PAGE, used // PAGE + 8)
+
+
 def flagship_tokenizer(vocab_size: int):
     """BPE trained on the repo's README, then extended with byte-pair
     merges up to the model's vocabulary so every id a random-weight model
@@ -1060,6 +1087,9 @@ PROFILE_CLASSES = (
     ("flash_v2_bwd_dkv", ("flash_v2_bwd_dkv",)),
     ("paged_attention", ("paged_attention",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
+    # Gathers, scatters and scans: the MoE dispatch's index copies and
+    # slot cumsum, the embedding gather, the paged pool's writes.
+    ("index_scan", ("index", "scan")),
 )
 
 
@@ -1109,7 +1139,6 @@ def run_main_path(torch, seed: int, layers: int, device="cuda",
     from k8s_gpu_tpu_torch.models import TransformerLM
     from k8s_gpu_tpu_torch.ops import paged_attention as pa
     from k8s_gpu_tpu_torch.serve import LmServer
-    from k8s_gpu_tpu_torch.serve.scheduler import prompt_bucket
 
     cfg = flagship_config(torch, layers)
     model = TransformerLM(cfg, device=device)
@@ -1117,9 +1146,7 @@ def run_main_path(torch, seed: int, layers: int, device="cuda",
     sync = _syncer(torch, model.device)
     tok = flagship_tokenizer(cfg.vocab_size)
     rng = torch.Generator().manual_seed(seed)
-    used = sum(-(-(prompt_bucket(p, cfg.max_seq) + n) // PAGE) * PAGE
-               for p, n in TRAFFIC)
-    n_blocks = max(1 + cfg.max_seq // PAGE, used // PAGE + 8)
+    n_blocks = mix_blocks(cfg)
     prefix = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
     pair, mix = _serving_jobs(torch, rng, cfg.vocab_size, prefix)
 
@@ -3382,6 +3409,403 @@ def run_registry_path(torch, device="cuda", job_dir: str = JOB_DIR) -> dict:
     return out
 
 
+# -- phase 8: Switch top-1 MoE at the flagship's widths ----------------------
+
+# The repo's MoE variant, 4 experts at the default capacity factor 1.25
+# (every MoE test and dry run of the reference sets it so), at the
+# flagship's widths with nothing cut: 906,068,992 parameters, of which a
+# token runs through 302,089,216 (one expert's MLP a layer, top-1).
+MOE = dict(num_experts=4, capacity_factor=1.25)
+MOE_TRAIN_STEPS = 3    # timed steps after one warm-up step
+MOE_F32_LAYERS = 2     # the float32 identity runs
+MOE_ID_NEW = 40        # tokens each identity request generates
+
+
+def moe_active_params(cfg, n_params: int) -> int:
+    """Parameters a token runs through under top-1 routing: all but E - 1
+    of each layer's experts."""
+    return n_params - (cfg.n_layers * (cfg.num_experts - 1) * 3
+                       * cfg.d_model * cfg.d_ff)
+
+
+def _recording_aux(model) -> list:
+    """Wrap ``model.forward_train`` (an instance attribute): the aux loss of
+    every call, as a device tensor, lands in the returned list."""
+    auxes, fwd = [], model.forward_train
+
+    def recording(params, tokens):
+        logits, aux = fwd(params, tokens)
+        auxes.append(aux.detach())
+        return logits, aux
+
+    model.forward_train = recording
+    return auxes
+
+
+def _counting_drops(torch, model) -> list:
+    """Wrap ``model._moe_mlp``: each capped call (one layer of a prefill or
+    a forward) appends (the real tokens it dropped, its real tokens) as
+    device tensors; a dropped token's MLP output is exactly 0."""
+    drops, moe = [], model._moe_mlp
+
+    def counting(x, lp, full_capacity=False, token_mask=None):
+        y, aux = moe(x, lp, full_capacity=full_capacity,
+                     token_mask=token_mask)
+        if not full_capacity:
+            real = (torch.ones(x.shape[:2], dtype=torch.bool,
+                               device=x.device)
+                    if token_mask is None else token_mask)
+            drops.append((((y == 0).all(-1) & real).sum(), real.sum()))
+        return y, aux
+
+    model._moe_mlp = counting
+    return drops
+
+
+def run_moe_train_path(torch, seed: int, layers: int, batch: int,
+                       steps: int = MOE_TRAIN_STEPS, device="cuda",
+                       profile: bool = False) -> dict:
+    """Phase 8a: the MoE flagship through the ``Trainer`` (f32 masters,
+    bf16 compute, flash v1, full remat): one warm-up and ``steps`` timed
+    steps on one batch, every loss finite and falling, aux > 0 each step,
+    flash launches 2/1/1 a layer and step and no plain call; the tokens
+    each layer drops at capacity 1.25 in a forward of that batch; then
+    ``remat_policy="save_attn"``: one warm-up and one timed step, launches
+    1/1/1, its two losses against full's first two (the warm-up's rate is
+    0, so both steps see the same parameters) at phase 7's bf16 limit.
+    ``profile``: one more full-remat step under torch.profiler."""
+    import dataclasses
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.runner import (
+        device_peak_flops, model_flops_per_step, tree_leaves,
+    )
+
+    base = dataclasses.replace(flagship_train_config(torch, layers), **MOE)
+    dev = torch.device(device)
+    sync = _syncer(torch, dev)
+    gen = torch.Generator().manual_seed(seed + 11)
+    toks = torch.randint(0, base.vocab_size, (batch, base.max_seq + 1),
+                         generator=gen).to(dev)
+    x, y = toks[:, :-1], toks[:, 1:]
+    peak = device_peak_flops()
+    out = {"layers": layers, "batch": batch, "seq": base.max_seq, **MOE}
+    for policy, timed in (("full", steps), ("save_attn", 1)):
+        model = TransformerLM(dataclasses.replace(base, remat_policy=policy),
+                              device=dev)
+        auxes = _recording_aux(model)
+        tr = Trainer(model, TrainConfig(warmup_steps=1), device=dev)
+        tr.init(seed)
+        n_params = sum(p.numel() for p in tree_leaves(tr.params))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = tr.step(x, y)                     # warm-up, learning rate 0
+        warm_s = time.perf_counter() - t0
+        sync()
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        losses = [tr.step(x, y, sync=False) for _ in range(timed)]
+        sync()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(fa.launch_counts), fa.plain_count
+        losses = [first] + [float(v) for v in losses]
+        aux = [float(a) for a in auxes]
+        step_s = wall / timed
+        run = {
+            "losses": losses, "aux": aux, "warmup_step_s": warm_s,
+            "timed_steps": timed, "step_ms": step_s * 1e3,
+            "tokens_per_s": batch * base.max_seq / step_s,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                               if dev.type == "cuda" else None),
+            "launches": launches, "plain_calls": plain,
+        }
+        if policy == "full":
+            n_active = moe_active_params(base, n_params)
+            flops = model_flops_per_step(base, n_params, batch)
+            active = model_flops_per_step(base, n_active, batch)
+            drops = _counting_drops(torch, model)
+            with torch.no_grad():
+                model.forward(tr.params, x)
+            run.update({
+                "n_params": n_params, "n_active_params": n_active,
+                # The reference's convention: 6 N over all experts.
+                "model_flops_per_step": flops,
+                "train_mfu_all_experts": flops / step_s / peak if peak
+                else None,
+                # The work a token does: 6 N over the active parameters.
+                "model_flops_per_step_active": active,
+                "mfu_active_params": active / step_s / peak if peak
+                else None,
+                "tokens_dropped_per_layer": [int(d) for d, _ in drops],
+                "tokens_per_layer": batch * base.max_seq,
+            })
+            if profile:
+                prof = _start_profile(torch)
+                t1 = time.perf_counter()
+                tr.step(x, y)
+                sync()
+                prof_wall = time.perf_counter() - t1
+                prof.__exit__(None, None, None)
+                run["profile"] = _profile_summary(torch, prof, prof_wall)
+        out[policy] = run
+        fwd = 2 if policy == "full" else 1
+        want = _counts(fa, {n: c * layers * timed for n, c in
+                            zip(FLASH_KERNELS, (fwd, 1, 1))})
+        if not all(math.isfinite(v) for v in losses + aux):
+            raise RuntimeError(f"MoE {policy}: losses {losses}, aux {aux}")
+        if not min(aux) > 0.0:
+            raise RuntimeError(f"MoE {policy}: aux {aux} not positive")
+        if dev.type == "cuda" and (launches != want or plain != 0):
+            raise RuntimeError(f"MoE {policy}: flash launches {launches}, "
+                               f"plain calls {plain}; expected {want}, 0")
+        del tr, model
+        _free_if(torch, dev)
+    full, sa = out["full"], out["save_attn"]
+    if not full["losses"][-1] < full["losses"][0]:
+        raise RuntimeError(f"MoE loss did not fall: {full['losses']}")
+    tol = TRAIN_TOL["bfloat16"]["loss"]
+    gaps = [abs(a - b) for a, b in zip(sa["losses"], full["losses"])]
+    out["save_attn_loss_gaps"] = gaps
+    if not max(gaps) <= tol:
+        raise RuntimeError(f"MoE save_attn losses {sa['losses']} against "
+                           f"full's {full['losses'][:2]}: over {tol}")
+    return out
+
+
+def _moe_serve(torch, srv, jobs, repeat, sync, layers, profile=False):
+    """Phase 8b's burst on one server: the jobs together over HTTP, the
+    batcher's decode steps counted around them and the paged kernel's
+    launches with them (``profile``: the burst under torch.profiler,
+    entered on the scheduler thread); a repeated greedy request twice
+    alone; /precache refused."""
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+
+    b = srv.batcher
+    sync()
+    prof = _profile_batcher(torch, b) if profile else None
+    steps0 = b.dispatched["decode_steps"]
+    pa.reset_counts()
+    t0 = time.perf_counter()
+    outs = _serve_together(srv.port, jobs)
+    sync()
+    wall = time.perf_counter() - t0
+    launches, fallbacks = pa.launch_count, pa.fallback_count
+    steps = b.dispatched["decode_steps"] - steps0
+    extra = {}
+    if prof is not None:
+        _stop_batcher_profile(b, prof)
+        extra["profile"] = _profile_summary(torch, prof, wall)
+    _check_budgets(outs, [n for _, n in jobs])
+    again = [_post(srv.port, "/generate", repeat)[1].get("ids")
+             for _ in range(2)]
+    if again[0] != again[1] or len(again[0]) != repeat["max_new_tokens"]:
+        raise RuntimeError("a repeated greedy MoE request changed its "
+                           "stream")
+    code, body = _post(srv.port, "/precache", {"prompt": "the experts"})
+    if code != 400 or "MoE" not in body.get("error", ""):
+        raise RuntimeError(f"/precache on an MoE server gave {code} {body}")
+    return {**extra, **_burst_numbers(outs, wall), "layers": layers,
+            "admissions": dict(b.admission_paths), "decode_steps": steps,
+            "paged_attention_launches": launches,
+            "paged_attention_fallbacks": fallbacks,
+            "precache_refusal": body["error"]}
+
+
+def run_moe_serve_path(torch, seed: int, layers: int, device="cuda",
+                       profile: bool = False) -> dict:
+    """Phase 8b: the MoE flagship in bf16 behind ``LmServer``: on the
+    paged pool with the paged kernel (8 slots, phase 4's pool, pair and
+    TRAFFIC mix; every admission ``cold``: MoE shares no blocks, so
+    admissions wait for blocks that phase 4's pair shares; the kernel's
+    launches exactly one a layer and decode step, no fall-back) and on
+    the dense pool at ``LmServer``'s defaults (no paged launch).  Every
+    budget met, a repeated greedy request stable, ``/precache`` answered
+    with the reference's refusal, and the tokens each prefill dropped at
+    capacity 1.25."""
+    import dataclasses
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.serve import LmServer
+
+    cfg = dataclasses.replace(flagship_config(torch, layers), **MOE)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    sync = _syncer(torch, model.device)
+    tok = flagship_tokenizer(cfg.vocab_size)
+    rng = torch.Generator().manual_seed(seed + 13)
+    prefix = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
+    pair, mix = _serving_jobs(torch, rng, cfg.vocab_size, prefix)
+    jobs = pair + mix
+    repeat = {"prompt_ids": mix[1][0], "max_new_tokens": mix[1][1]}
+    n_blocks = mix_blocks(cfg)
+    drops = _counting_drops(torch, model)
+    out = {}
+    for pool, kw in (("paged", dict(paged_blocks=n_blocks, page_size=PAGE,
+                                    attn_impl="paged_kernel")),
+                     ("dense", {})):
+        srv = LmServer(model, params, tok, slots=8, max_new_tokens_cap=256,
+                       device=device, **kw).start()
+        try:
+            drops.clear()
+            run = _moe_serve(torch, srv, jobs, repeat, sync, layers,
+                             profile)
+        finally:
+            srv.stop()
+        # Each prefill's drops a layer, summed over the burst's prefills.
+        run["prefill_tokens_dropped_per_layer"] = [
+            sum(int(d) for d, _ in drops[i::layers]) for i in range(layers)]
+        run["prefill_tokens"] = sum(int(n) for _, n in drops[::layers])
+        out[pool] = run
+        paths, launches = run["admissions"], run["paged_attention_launches"]
+        if pool == "paged":
+            run["paged_blocks"] = n_blocks
+            if set(paths) != {"cold"}:
+                raise RuntimeError(f"MoE paged admissions {paths}: not all "
+                                   "cold")
+            want = layers * run["decode_steps"]
+            if device != "cpu" and (launches != want
+                                    or run["paged_attention_fallbacks"]):
+                raise RuntimeError(
+                    f"MoE paged launches {launches}, fall-backs "
+                    f"{run['paged_attention_fallbacks']}; {layers} x "
+                    f"{run['decode_steps']} decode steps = {want}")
+        elif launches or run["paged_attention_fallbacks"]:
+            raise RuntimeError("the MoE dense pool went through the paged "
+                               "kernel")
+    return out
+
+
+def _moe_identity_jobs(torch, rng, vocab: int) -> list:
+    """Motifs repeated so that the n-gram draft finds matches, beside
+    short and long unrepeated prompts."""
+    def ids(n):
+        return torch.randint(0, vocab, (n,), generator=rng).tolist()
+
+    return ([(ids(8) * 12, MOE_ID_NEW), (ids(16) * 20, MOE_ID_NEW),
+             (ids(5) * 7, MOE_ID_NEW)]
+            + [(ids(p), MOE_ID_NEW) for p in (33, 120, 500)])
+
+
+def _moe_departures(torch, engine, params, jobs, plain, other,
+                    limit) -> list:
+    """``_departures`` for an MoE model: the plain logits at a departure
+    come from the batcher's own computation, the capped prefill of the
+    left-padded prompt bucket, then the stream before it at full
+    capacity (``extend_multi``, which routes as decode does).  A prefill
+    over prompt and stream together would route at another capacity."""
+    from k8s_gpu_tpu_torch.serve.scheduler import prompt_bucket
+
+    dev = engine.device
+    found = []
+    for i, ((prompt, _), a, b) in enumerate(zip(jobs, plain, other)):
+        d = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None:
+            continue
+        n = len(prompt)
+        bucket = prompt_bucket(n, engine.max_seq)
+        seq = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+        seq[0, bucket - n:] = torch.tensor(prompt, dtype=torch.int32)
+        cache, logits = engine.prefill(params, seq, bucket - n)
+        if d > 0:
+            def at(v):
+                return torch.tensor([v], dtype=torch.int32, device=dev)
+
+            cache, ext = engine.extend_multi(
+                params, cache, torch.tensor([a[:d]], dtype=torch.int32,
+                                            device=dev),
+                at(bucket), at(n), at(bucket - n))
+            logits = ext[:, -1]
+        top = torch.topk(logits[0].float(), 2).values
+        gap = float(top[0] - top[1])
+        found.append({"request": i, "position": d, "gap": gap})
+        if not gap < limit:
+            raise RuntimeError(
+                f"request {i}: departs from plain at token {d}, where the "
+                f"top-2 gap {gap} is not under {limit}")
+    return found
+
+
+def run_moe_identity(torch, seed: int, layers: int = MOE_F32_LAYERS,
+                     device="cuda") -> dict:
+    """Phase 8c: the MoE flagship in float32 at ``layers`` on the paged
+    pool: greedy streams through the paged kernel against the gather
+    read's, and a paged n-gram spec batcher (speculating every round)
+    against the plain kernel streams, each first departing only where the
+    plain logits' top-2 gap is under 1e-4 (phase 4e's float32 rule); the
+    kernel batchers' launches exactly one a layer for every verify
+    sub-round and decode step."""
+    import dataclasses
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher
+    from k8s_gpu_tpu_torch.serve.engine import InferenceEngine
+    from k8s_gpu_tpu_torch.serve.scheduler import prompt_bucket
+
+    cfg = dataclasses.replace(flagship_config(torch, layers), **MOE,
+                              dtype=torch.float32)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    engine = InferenceEngine(model, device=model.device)
+    sync = _syncer(torch, model.device)
+    jobs = _moe_identity_jobs(torch, torch.Generator().manual_seed(seed + 17),
+                              cfg.vocab_size)
+    blocks = max(1 + cfg.max_seq // PAGE, 1 + sum(
+        -(-(prompt_bucket(len(p), cfg.max_seq) + n) // PAGE)
+        for p, n in jobs))
+    streams, runs = {}, {}
+    for name, impl, kw in (("gather", "gather", {}),
+                           ("kernel", "paged_kernel", {}),
+                           ("ngram", "paged_kernel",
+                            {"draft": "ngram", "spec_k": SPEC_K})):
+        b = ContinuousBatcher(model, params, slots=8, paged_blocks=blocks,
+                              page_size=PAGE, attn_impl=impl, device=device,
+                              **kw)
+        if "draft" in kw:
+            # Speculate every round: the gate's wall-clock measurements
+            # would otherwise decide.
+            b.ngram_breakeven = 0.0
+            b._ngram_next_meas = {"plain": float("inf"),
+                                  "spec": float("inf")}
+        b.start()
+        try:
+            w0 = _paged_work(b)
+            sync()
+            pa.reset_counts()
+            streams[name] = _run_handles(b, jobs)
+            sync()
+            work = {k: v - w0[k] for k, v in _paged_work(b).items()}
+            run = {**work, "launches": pa.launch_count,
+                   "fallbacks": pa.fallback_count,
+                   "admissions": dict(b.admission_paths)}
+            if "draft" in kw:
+                run.update(_spec_summary(b))
+        finally:
+            b.stop()
+        runs[name] = run
+        want = layers * sum(work.values())
+        if set(run["admissions"]) != {"cold"}:
+            raise RuntimeError(f"MoE {name}: admissions {run['admissions']}")
+        if device != "cpu" and impl == "paged_kernel" and (
+                run["launches"] != want or run["fallbacks"]):
+            raise RuntimeError(f"MoE {name}: paged launches "
+                               f"{run['launches']}, fall-backs "
+                               f"{run['fallbacks']}; {layers} x {work} = "
+                               f"{want}")
+    runs["kernel"]["departures_from_gather"] = _moe_departures(
+        torch, engine, params, jobs, streams["gather"], streams["kernel"],
+        F32_TIE_GAP)
+    runs["ngram"]["departures_from_plain"] = _moe_departures(
+        torch, engine, params, jobs, streams["kernel"], streams["ngram"],
+        F32_TIE_GAP)
+    if not runs["ngram"]["drafted"] > 0:
+        raise RuntimeError("the MoE n-gram batcher drafted nothing")
+    return {"layers": layers, "requests": len(jobs), "runs": runs}
+
+
 # -- phase 7: the training output against plain attention ---------------------
 
 # One step's loss and gradients with flash attention against the same with
@@ -3563,6 +3987,17 @@ def main(argv=None) -> int:
     registry = run_registry_path(torch)
     print(json.dumps({"registry_path": registry}), flush=True)
     _free(torch)
+    moe_train = run_moe_train_path(torch, args.seed, LAYERS, TRAIN_BATCH,
+                                   profile=args.profile)
+    print(json.dumps({"moe_train_path": moe_train, "gpu": gpu}), flush=True)
+    _free(torch)
+    moe_serve = run_moe_serve_path(torch, args.seed, LAYERS,
+                                   profile=args.profile)
+    print(json.dumps({"moe_serve_path": moe_serve, "gpu": gpu}), flush=True)
+    _free(torch)
+    moe_identity = run_moe_identity(torch, args.seed)
+    print(json.dumps({"moe_identity": moe_identity, "gpu": gpu}), flush=True)
+    _free(torch)
     train_outputs = check_train_outputs(torch, args.seed, LAYERS)
     print(json.dumps({"train_outputs": train_outputs}), flush=True)
     train_v2_outputs = check_train_outputs(torch, args.seed, LAYERS, v2=True)
@@ -3591,6 +4026,12 @@ def main(argv=None) -> int:
         # Phase 4f: the multi-LoRA and constrained bursts (with their
         # bank-less yardsticks) and the disaggregated handovers.
         "launches_lifecycle": lifecycle_launches(lifecycle),
+        # Phase 8b: the MoE flagship's paged burst; 8c: its float32
+        # plain and n-gram runs (decode steps and verify windows).
+        "launches_moe": moe_serve["paged"]["paged_attention_launches"],
+        "launches_moe_float32": sum(
+            moe_identity["runs"][name]["launches"]
+            for name in ("kernel", "ngram")),
         "max_abs_err": max(r["max_abs_err"] for r in kern),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -3621,7 +4062,8 @@ def main(argv=None) -> int:
             (flash, "flagship_bf16", distill_cases, FLASH_KERNELS,
              "flash_attention", train, save_attn,
              "6 (training); also 4e (draft distillation), 4f (LoRA "
-             "fine-tune), 6c (the training job, save_attn)"),
+             "fine-tune), 6c (the training job, save_attn), 8a (MoE "
+             "training)"),
             (flash_v2, "train_gqa_bf16", (), FLASH_V2_KERNELS,
              "flash_attention_v2", train_v2, save_attn_v2,
              "6b (v2 training); also 6c (save_attn)")):
@@ -3644,6 +4086,12 @@ def main(argv=None) -> int:
                 "launches_save_attn": sa["save_attn"]["launches"][name],
                 **({"launches_distill": distill} if distill else {}),
                 **({"launches_lora": lora} if lora else {}),
+                # Phase 8a: the MoE flagship's timed steps, full and
+                # save_attn.
+                **({"launches_moe": moe_train["full"]["launches"][name],
+                    "launches_moe_save_attn":
+                        moe_train["save_attn"]["launches"][name]}
+                   if name in FLASH_KERNELS else {}),
                 "max_abs_err": max(r["kernels"][name]["max_abs_err"]
                                    for r in rows),
                 **{key: timed["kernels"][name][key]
@@ -3674,6 +4122,9 @@ def main(argv=None) -> int:
                        "job_path": job, "save_attn_path": save_attn,
                        "save_attn_path_v2": save_attn_v2,
                        "registry_path": registry,
+                       "moe_train_path": moe_train,
+                       "moe_serve_path": moe_serve,
+                       "moe_identity": moe_identity,
                        "device": device,
                        **kernels}, fh, indent=1)
     print(gpu, flush=True)

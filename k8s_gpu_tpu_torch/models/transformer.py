@@ -25,8 +25,19 @@ layer.  (``torch.utils.checkpoint``'s selective policies cannot keep the
 flash outputs: the kernels launch through ctypes, outside the
 dispatcher the policy watches.)
 
-Not ported yet (ROADMAP.md): MoE, ring/ulysses attention (the
-sequence-sharded plane) and the pipeline schedules.
+With ``num_experts`` > 1 every block's MLP is the reference's Switch
+top-1 MoE with capacity (``_moe_mlp``).  The reference dispatches with a
+dense one-hot ``[G, E, cap]`` tensor; the port computes the same function
+by index: tokens are copied into a static ``[E, cap + 1, D]`` buffer
+whose last row a expert takes every dropped or masked token, the three
+expert products run as batched matrix products over ``[E, cap, ...]``,
+and each token gathers its expert's output back.  Shapes depend only on
+the batch, never on the routing, and nothing on the path waits for the
+card.
+
+Not ported yet (ROADMAP.md): ring/ulysses attention (the
+sequence-sharded plane), the pipeline schedules and experts over an
+``ep`` mesh axis.
 """
 
 from __future__ import annotations
@@ -73,8 +84,10 @@ class TransformerConfig:
     d_ff: int = 1376
     max_seq: int = 2048
     rope_theta: float = 10000.0
-    # MoE is not ported: only 0 or 1 (a dense MLP) is taken.
+    # MoE: 0 or 1 = dense MLP; >1 = Switch top-1 MoE in every block, each
+    # expert taking at most capacity_factor x its even share of tokens.
     num_experts: int = 0
+    capacity_factor: float = 1.25
     dtype: torch.dtype = torch.bfloat16
     # Recompute each block in the backward: "full" recomputes all of it,
     # "save_attn" keeps the attention's output and lse and recomputes the
@@ -98,6 +111,10 @@ class TransformerConfig:
     attn_impl: str = "gather"
 
     @property
+    def moe(self) -> bool:
+        return self.num_experts > 1
+
+    @property
     def kv_heads(self) -> int:
         kh = self.n_kv_heads or self.n_heads
         if self.n_heads % kh != 0:
@@ -119,10 +136,6 @@ def layer_params(blocks: dict, layer: int) -> dict:
 
 class TransformerLM:
     def __init__(self, cfg: TransformerConfig, device="cuda"):
-        if cfg.num_experts > 1:
-            raise NotImplementedError(
-                "MoE (num_experts > 1) is not ported yet: ROADMAP.md queue 1 "
-                "item 10")
         if cfg.remat and cfg.remat_policy not in ("full", "save_attn"):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                              "expected 'full' or 'save_attn'")
@@ -140,7 +153,8 @@ class TransformerLM:
         from a generator seeded with ``seed``, stored in ``dtype`` (default
         ``cfg.dtype``, what serving holds; the trainer asks for float32
         master weights, as the reference's ``init`` makes them).  Norm
-        scales stay f32, as the reference keeps them."""
+        scales stay f32, as the reference keeps them, and so does the MoE
+        router ``gate``, which routes in f32."""
         cfg = self.cfg
         dtype = cfg.dtype if dtype is None else dtype
         D, H, Dh, F, L, V = (cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff,
@@ -148,28 +162,36 @@ class TransformerLM:
         KH = cfg.kv_heads
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        def norm(shape, scale):
+        def norm(shape, scale, dt=dtype):
             x = torch.randn(shape, generator=gen, device=self.device)
-            return (x * scale).to(dtype)
+            return (x * scale).to(dt)
 
         def ones(shape):
             return torch.ones(shape, dtype=torch.float32, device=self.device)
 
+        blocks = {
+            "ln1": ones((L, D)),
+            "ln2": ones((L, D)),
+            "wq": norm((L, D, H, Dh), D ** -0.5),
+            "wk": norm((L, D, KH, Dh), D ** -0.5),
+            "wv": norm((L, D, KH, Dh), D ** -0.5),
+            "wo": norm((L, H, Dh, D), (H * Dh) ** -0.5),
+        }
+        if cfg.moe:
+            E = cfg.num_experts
+            blocks["gate"] = norm((L, D, E), D ** -0.5, torch.float32)
+            blocks["e_wi_gate"] = norm((L, E, D, F), D ** -0.5)
+            blocks["e_wi_up"] = norm((L, E, D, F), D ** -0.5)
+            blocks["e_wo"] = norm((L, E, F, D), F ** -0.5)
+        else:
+            blocks["wi_gate"] = norm((L, D, F), D ** -0.5)
+            blocks["wi_up"] = norm((L, D, F), D ** -0.5)
+            blocks["wo_mlp"] = norm((L, F, D), F ** -0.5)
         return {
             "embed": norm((V, D), 0.02),
             "final_norm": ones((D,)),
             "head": norm((D, V), D ** -0.5),
-            "blocks": {
-                "ln1": ones((L, D)),
-                "ln2": ones((L, D)),
-                "wq": norm((L, D, H, Dh), D ** -0.5),
-                "wk": norm((L, D, KH, Dh), D ** -0.5),
-                "wv": norm((L, D, KH, Dh), D ** -0.5),
-                "wo": norm((L, H, Dh, D), (H * Dh) ** -0.5),
-                "wi_gate": norm((L, D, F), D ** -0.5),
-                "wi_up": norm((L, D, F), D ** -0.5),
-                "wo_mlp": norm((L, F, D), F ** -0.5),
-            },
+            "blocks": blocks,
         }
 
     # -- building blocks ---------------------------------------------------
@@ -280,17 +302,78 @@ class TransformerLM:
             wt(lp["wo_mlp"], dt),
         )
 
+    def _moe_mlp(self, x, lp, full_capacity: bool = False,
+                 token_mask=None):
+        """Switch top-1 MoE with capacity -> (y [B, S, D] at ``dt``, aux
+        loss), the reference's function computed by index.
+
+        The B·S tokens flatten in row-major order; each goes to the argmax
+        of its router softmax (f32) and takes the next free slot of that
+        expert, so when an expert's ``cap`` slots are full the latest
+        tokens are dropped (y = 0; the residual carries them).
+        ``full_capacity`` sizes every expert for all tokens (decode and
+        verify: no request's output may depend on another's routing).
+        ``token_mask`` [B, S] bool: False tokens (padding) take no slot
+        and get y = 0, but still count in the aux loss's means, as in the
+        reference.  y is the unrenormalised top-1 probability times the
+        expert's output, in f32, cast once."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        B, S, D = x.shape
+        E = cfg.num_experts
+        G = B * S
+        cap = G if full_capacity else max(1, int(cfg.capacity_factor * G / E))
+        xt = x.reshape(G, D)
+        probs = torch.softmax(xt.float() @ lp["gate"].float(), dim=-1)
+        expert = torch.argmax(probs, dim=-1)                      # [G]
+        # The one-hot is [E, G], so the slot cumsum scans its inner axis
+        # (on an H100 a scan down G = 49,152 rows of 4 columns took 4.3 ms
+        # a call, 16 % of a training step).
+        onehot = (torch.arange(E, device=x.device)[:, None]
+                  == expert).float()                              # [E, G]
+        if token_mask is not None:
+            onehot = onehot * token_mask.reshape(1, G).float()
+        gate = (probs * onehot.t()).sum(-1)                       # [G]
+        # Each token's slot: the tokens before it routed to its expert.
+        pos = ((torch.cumsum(onehot, 1) - onehot) * onehot).sum(0).long()
+        kept = (pos < cap) & (onehot.sum(0) > 0)
+        # Dispatch: row cap of each expert is the dump of dropped and
+        # masked tokens, sliced off before the products.
+        slot = expert * (cap + 1) + torch.where(kept, pos, cap)
+        buf = xt.new_zeros(E * (cap + 1), D).index_copy(0, slot, xt)
+        h = buf.view(E, cap + 1, D)[:, :cap]
+        g = torch.bmm(h, wt(lp["e_wi_gate"], dt))
+        u = torch.bmm(h, wt(lp["e_wi_up"], dt))
+        out = torch.bmm(torch.nn.functional.silu(g) * u, wt(lp["e_wo"], dt))
+        # Combine: a dropped token reads some slot of its expert and
+        # scales it by 0.
+        back = out.reshape(E * cap, D).index_select(
+            0, expert * cap + pos.clamp(max=cap - 1))
+        y = back.float() * (gate * kept)[:, None]
+        # Switch's load-balancing loss (eq. 4).
+        aux = (onehot.mean(1) * probs.mean(0)).sum() * E
+        return y.reshape(B, S, D).to(dt), aux
+
+    def _mlp(self, x, lp):
+        """The block's second half: (x + MLP(norm(x)), the MoE aux loss,
+        or None for the dense MLP)."""
+        h = self._rmsnorm(x, lp["ln2"])
+        if self.cfg.moe:
+            y, aux = self._moe_mlp(h, lp)
+            return x + y, aux
+        return x + self._dense_mlp(h, lp), None
+
     def _block(self, x, lp, positions):
+        """-> (x, aux or None)."""
         x = x + self._attention(self._rmsnorm(x, lp["ln1"]), lp, positions)
-        return x + self._dense_mlp(self._rmsnorm(x, lp["ln2"]), lp)
+        return self._mlp(x, lp)
 
     def _block_saving(self, x, lp, positions):
-        """``_block`` without gradients -> (out, o, lse): the attention's
-        output and lse are what ``save_attn`` keeps."""
+        """``_block`` without gradients -> (out, aux, o, lse): the
+        attention's output and lse are what ``save_attn`` keeps."""
         q, k, v = self._qkv(self._rmsnorm(x, lp["ln1"]), lp, positions)
         o, lse = self._attention_lse(q, k, v, positions)
-        x = x + self._out_proj(o, lp)
-        return x + self._dense_mlp(self._rmsnorm(x, lp["ln2"]), lp), o, lse
+        return (*self._mlp(x + self._out_proj(o, lp), lp), o, lse)
 
     def _block_replay(self, x, lp, positions, o, lse):
         """``_block`` recomputed around the saved ``o`` and ``lse``: the
@@ -301,14 +384,14 @@ class TransformerLM:
         o = attention_replay(q, k, v, o, lse, causal=True, v2=use_v2,
                              plain=not cfg.use_flash,
                              **(self._v2_args(positions) if use_v2 else {}))
-        x = x + self._out_proj(o, lp)
-        return x + self._dense_mlp(self._rmsnorm(x, lp["ln2"]), lp)
+        return self._mlp(x + self._out_proj(o, lp), lp)
 
     # -- forward -----------------------------------------------------------
     @torch.no_grad()
     def forward(self, params, tokens):
-        """tokens [B, S] int -> (logits [B, S, V] f32, aux loss 0), without
-        gradients (serving, evaluation)."""
+        """tokens [B, S] int -> (logits [B, S, V] f32, aux loss: the MoE
+        layers' mean, 0 for the dense model), without gradients (serving,
+        evaluation)."""
         return self.forward_train(params, tokens)
 
     def forward_train(self, params, tokens):
@@ -323,20 +406,24 @@ class TransformerLM:
                          if isinstance(leaf, dict) else leaf.unbind(0))
                   for name, leaf in params["blocks"].items()}
         remat = cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), device=tokens.device)
         for layer in range(cfg.n_layers):
             lp = layer_params(layers, layer)
             if remat and cfg.remat_policy == "save_attn":
                 names = sorted(lp)
-                x = _SaveAttnBlock.apply(self, positions, names, x,
-                                         *(lp[n] for n in names))
+                out = _SaveAttnBlock.apply(self, positions, names, x,
+                                           *(lp[n] for n in names))
+                x, a = out if cfg.moe else (out, None)
             elif remat:
-                x = checkpoint(self._block, x, lp, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(self._block, x, lp, positions,
+                                  use_reentrant=False)
             else:
-                x = self._block(x, lp, positions)
+                x, a = self._block(x, lp, positions)
+            if a is not None:
+                aux = aux + a
         x = self._rmsnorm(x, params["final_norm"])
         logits = torch.einsum("bsd,dv->bsv", x, wt(params["head"], cfg.dtype))
-        return logits.float(), torch.zeros((), device=tokens.device)
+        return logits.float(), aux / cfg.n_layers
 
     def loss(self, params, tokens, targets):
         """Next-token cross-entropy (mean) + 0.01 x the MoE aux loss (0 for
@@ -352,27 +439,30 @@ class _SaveAttnBlock(torch.autograd.Function):
     without a graph and keeps the block's input and the attention's
     ``o`` and ``lse``; the backward recomputes the block around them
     (``_block_replay``) and differentiates that.  Inputs: the model, the
-    positions, the layer's leaf names, x and the leaves."""
+    positions, the layer's leaf names, x and the leaves.  Output: the
+    block's output, and for an MoE model also its aux loss, whose gradient
+    reaches the router through the backward."""
 
     @staticmethod
     def forward(ctx, model, positions, names, x, *leaves):
-        out, o, lse = model._block_saving(x, dict(zip(names, leaves)),
-                                          positions)
+        out, aux, o, lse = model._block_saving(x, dict(zip(names, leaves)),
+                                               positions)
         ctx.model, ctx.names = model, names
         ctx.save_for_backward(x, positions, o, lse, *leaves)
-        return out
+        return out if aux is None else (out, aux)
 
     @staticmethod
-    def backward(ctx, g_out):
+    def backward(ctx, *g_outs):
         x, positions, o, lse, *leaves = ctx.saved_tensors
         needs = ctx.needs_input_grad[3:]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n)
                       for t, n in zip((x, *leaves), needs)]
-            out = ctx.model._block_replay(
+            out, aux = ctx.model._block_replay(
                 inputs[0], dict(zip(ctx.names, inputs[1:])), positions, o,
                 lse)
+        outs = (out,) if aux is None else (out, aux)
         wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, g_out))
+        grads = iter(torch.autograd.grad(outs, wanted, g_outs))
         return (None, None, None,
                 *(next(grads) if t.requires_grad else None for t in inputs))

@@ -208,9 +208,8 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
         else:
             cache = _empty_cache(cfg, slots, max_seq, self.engine.kv_quant,
                                  self.device)
-        moe = cfg.num_experts > 1
         # Block-granular prefix sharing: base model, non-MoE only.
-        self._paged_share = self.paged and bool(prefix_cache) and not moe
+        self._paged_share = self.paged and bool(prefix_cache) and not cfg.moe
 
         i32 = dict(dtype=torch.int32, device=self.device)
         f32 = dict(dtype=torch.float32, device=self.device)

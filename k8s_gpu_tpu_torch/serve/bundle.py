@@ -17,11 +17,12 @@ leaves ride the npz as 2-byte void records (numpy has no bfloat16): the
 port views those bytes as 16-bit integers and then as ``torch.bfloat16``,
 and writes the same ``|V2`` records, which the reference views back.
 
-The reference's ``TransformerConfig`` has five fields the port's lacks
-(MoE capacity, the pipeline schedule, the sequence-parallel attention):
-each is dropped at its reference default, where it cannot change a
-one-device dense forward, and refused otherwise with the ROADMAP item
-that would port it.
+The reference's ``TransformerConfig`` has four fields the port's lacks
+(the pipeline schedule, the sequence-parallel attention): each is
+dropped at its reference default, where it cannot change a one-device
+forward, and refused otherwise with the ROADMAP item that would port
+it.  MoE bundles (``num_experts``, ``capacity_factor``, the router and
+expert leaves) cross both ways.
 
 ``export_servable``/``load_servable`` take a store (an object with the
 reference ``AssetStore``'s ``get(space, kind, id, version)`` returning an
@@ -49,7 +50,6 @@ FORMAT = "k8s-gpu-tpu-servable-v1"
 # Reference-only config fields: their reference default
 # (k8s_gpu_tpu/models/transformer.py) and the ROADMAP item that ports them.
 _REFERENCE_ONLY = {
-    "capacity_factor": (1.25, "queue 1 item 10 (MoE)"),
     "sp_attention": ("ring", "queue 1 item 11 (parallel plane)"),
     "pp_microbatches": (0, "queue 1 item 11 (parallel plane)"),
     "pp_schedule": ("1f1b", "queue 1 item 11 (parallel plane)"),

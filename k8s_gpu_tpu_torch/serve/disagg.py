@@ -19,6 +19,11 @@ Three prefill forms, as in the reference:
   page-aligned blocks;
 - a dense decode side: the left-padded prefill over the prompt's bucket.
 
+An MoE model always takes the last form, whatever ``chunk_tokens`` and
+the decode side: capped expert dispatch couples every token of a
+prefill, so only the batcher's own whole-prompt prefill drops the same
+tokens.
+
 Greedy streams equal the batcher's own (the same computation, run
 elsewhere); adapters ride through (the pool prefills with the batcher's
 bank); ``stop`` drains.  On the card the workers queue their work on the
@@ -231,10 +236,11 @@ class DisaggregatedLm:
                 try:
                     aidx = bank.index(job.adapter)
                     n = int(job.ids.size)
-                    if self.chunk_tokens:
+                    moe = self.engine.cfg.moe   # whole prompts only
+                    if self.chunk_tokens and not moe:
                         row, logits = self._prefill_chunked(job.ids, aidx)
                         n_tokens, pad = n, 0
-                    elif self.batcher.paged:
+                    elif self.batcher.paged and not moe:
                         row, logits = self._prefill_exact(job.ids, aidx)
                         n_tokens, pad = n, 0
                     else:

@@ -134,7 +134,10 @@ class InferenceEngine:
     """Prefill + decode for a TransformerLM, on ``device`` (the card
     unless the caller asks for the CPU; must match the model's).
     ``int8_compute``: int8 x int8 products wherever a leaf is quantized
-    (a dense draft model; MoE is refused, as in the reference)."""
+    (a dense draft model; MoE is refused, as in the reference: its int8
+    experts dequantize through ``wt``).  An MoE model's prefill routes at
+    the training forward's capacity; decode and ``extend_multi`` at full
+    capacity."""
 
     def __init__(self, model: TransformerLM, max_seq: int | None = None,
                  kv_quant: bool = False, attn_impl: str | None = None,
@@ -155,7 +158,7 @@ class InferenceEngine:
                 "'paged_kernel'"
             )
         self.int8_compute = bool(int8_compute)
-        if self.int8_compute and self.cfg.num_experts > 1:
+        if self.int8_compute and self.cfg.moe:
             raise ValueError(
                 "int8_compute targets dense draft models - MoE dispatch "
                 "keeps the wt() dequant path"
@@ -256,12 +259,15 @@ class InferenceEngine:
 
     def _block_cached(self, x, lp, cache, positions, start, mask, layer,
                       pages=None, page: int = 0, kv_start=None,
-                      lp_ad=None, adapter_idx=None):
+                      lp_ad=None, adapter_idx=None, moe_full_capacity=None):
         """One block over the query slice x [B, Sq, D], writing the
         slice's K/V into layer ``layer`` of ``cache`` at ``start`` (a host
         int for the dense cache, a [B] tensor for the paged pool).
         ``lp_ad``: this layer's adapter bank, rows picking theirs by
-        ``adapter_idx`` [B]."""
+        ``adapter_idx`` [B].  ``moe_full_capacity``: None = full capacity
+        only at Sq == 1 (decode); ``extend_multi`` passes True, so a
+        verify window routes experts as the width-1 decodes it stands in
+        for."""
         m = self.model
         dt = self.cfg.dtype
         h = m._rmsnorm(x, lp["ln1"])
@@ -316,11 +322,15 @@ class InferenceEngine:
                      for name in writes}
             o = self._attend_cached(q, reads["k"], reads["v"], mask,
                                     reads.get("k_s"), reads.get("v_s"))
-        return self._block_epilogue(x, o, lp, lp_ad, adapter_idx)
+        return self._block_epilogue(x, o, lp, mask, lp_ad, adapter_idx,
+                                    moe_full_capacity)
 
-    def _block_epilogue(self, x, o, lp, lp_ad=None, adapter_idx=None):
+    def _block_epilogue(self, x, o, lp, mask, lp_ad=None, adapter_idx=None,
+                        moe_full_capacity=None):
         """Attention output projection (with the row's wo delta) + MLP,
-        shared by both caches."""
+        shared by both caches.  An MoE MLP routes only query rows that
+        attend somewhere (``mask.any(-1)``): left-pad rows take no expert
+        capacity ahead of real tokens."""
         m = self.model
         dt = self.cfg.dtype
         int8 = self.int8_compute and isinstance(lp["wo"], dict)
@@ -333,22 +343,28 @@ class InferenceEngine:
             attn_out = attn_out + lora_delta(o_flat, lp_ad["wo"],
                                              adapter_idx, dt)
         x = x + attn_out
-        if not int8:
-            return x + m._dense_mlp(m._rmsnorm(x, lp["ln2"]), lp)
         h2 = m._rmsnorm(x, lp["ln2"])
+        if self.cfg.moe:
+            full = (x.shape[1] == 1 if moe_full_capacity is None
+                    else moe_full_capacity)
+            y, _ = m._moe_mlp(h2, lp, full_capacity=full,
+                              token_mask=mask.any(-1))
+            return x + y
+        if not int8:
+            return x + m._dense_mlp(h2, lp)
         g = int8_dot(h2, lp["wi_gate"], dt)
         u = int8_dot(h2, lp["wi_up"], dt)
         return x + int8_dot(torch.nn.functional.silu(g) * u, lp["wo_mlp"], dt)
 
     def _run_blocks(self, params, x, cache, positions, start, mask,
                     pages=None, page: int = 0, kv_start=None,
-                    adapters=None, adapter_idx=None):
+                    adapters=None, adapter_idx=None, moe_full_capacity=None):
         for layer in range(self.cfg.n_layers):
             x = self._block_cached(
                 x, layer_params(params["blocks"], layer), cache, positions,
                 start, mask, layer, pages=pages, page=page,
                 kv_start=kv_start, lp_ad=layer_slice(adapters, layer),
-                adapter_idx=adapter_idx,
+                adapter_idx=adapter_idx, moe_full_capacity=moe_full_capacity,
             )
         return self._head(params, x), cache
 
@@ -441,7 +457,9 @@ class InferenceEngine:
         attends to [kv_start[b], start[b] + j].  On the paged pool window
         writes scatter through the page tables (positions past the table
         land in the trash block); on the dense cache positions past
-        ``max_seq`` are dropped.  Returns (cache, logits [B, W, V])."""
+        ``max_seq`` are dropped.  An MoE model routes the window at full
+        capacity: it stands in for W width-1 decode steps, which never
+        drop a token.  Returns (cache, logits [B, W, V])."""
         B, W = tokens.shape
         q_pos = start[:, None] + self._arange(W)[None]            # [B, W]
         T = t_hi if t_hi is not None else self.max_seq
@@ -455,6 +473,7 @@ class InferenceEngine:
         logits, cache = self._run_blocks(
             params, x, cache, rope, start, mask, pages=pages, page=page,
             kv_start=kv_start, adapters=adapters, adapter_idx=adapter_idx,
+            moe_full_capacity=True,
         )
         return cache, logits
 

@@ -397,7 +397,7 @@ class SchedulerMixin:
         generation, whose full prompt pages stay registered in the block
         cache (a prefix shorter than a page warms nothing).  Raises
         ValueError for an MoE model or an unusable length."""
-        if self.engine.cfg.num_experts > 1:
+        if self.engine.cfg.moe:
             raise ValueError(
                 "prefix caching is unavailable for MoE models: "
                 "capacity-capped expert dispatch makes chunked prefill "

@@ -48,10 +48,26 @@ def _spec(**args):
     return types.SimpleNamespace(workload_args=dict(args))
 
 
+def _reference_builtins() -> list[str]:
+    """The workloads the reference registry module registers itself: other
+    test files (``tests/test_trainjob.py``) register more into it at run
+    time, in whichever worker runs them first."""
+    return sorted(n for n, fn in ref_registry._REGISTRY.items()
+                  if fn.__module__ == ref_registry.__name__)
+
+
 def test_known_workloads_equal_reference():
-    assert registry.known_workloads() == ref_registry.known_workloads()
+    assert registry.known_workloads() == _reference_builtins()
     with pytest.raises(KeyError, match="unknown workload"):
         registry.get_workload("nope")
+
+
+def test_known_workloads_ignore_names_registered_at_run_time(monkeypatch):
+    monkeypatch.setitem(ref_registry._REGISTRY, "always-fails",
+                        lambda spec, placements: None)
+    assert "always-fails" in ref_registry.known_workloads()
+    assert registry.known_workloads() == _reference_builtins()
+    assert "always-fails" not in registry.known_workloads()
 
 
 @pytest.mark.parametrize("name,args", [

@@ -202,8 +202,18 @@ def test_flops_and_unported_options(monkeypatch):
                                  max_seq=2048)
     flops = model_flops_per_step(flagship, 302_000_000, 24)
     assert 9.8e13 < flops < 1.0e14
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(TransformerConfig(**DIMS, num_experts=4), device="cpu")
+    # An MoE model constructs; its FLOPs count every expert's parameters
+    # (6 N_total, the reference's convention), not the active ones.
+    moe = TransformerLM(TransformerConfig(**DIMS, num_experts=4),
+                        device="cpu")
+    n_moe = sum(p.numel() for p in tree_leaves(moe.init(0)))
+    n_dense = sum(p.numel() for p in tree_leaves(
+        TransformerLM(TransformerConfig(**DIMS), device="cpu").init(0)))
+    assert n_moe == n_dense + DIMS["n_layers"] * (
+        3 * 3 * DIMS["d_model"] * DIMS["d_ff"] + 4 * DIMS["d_model"])
+    assert (model_flops_per_step(moe.cfg, n_moe, 2)
+            - model_flops_per_step(moe.cfg, n_dense, 2)
+            == 6.0 * (n_moe - n_dense) * 2 * DIMS["max_seq"])
     model = TransformerLM(TransformerConfig(**DIMS, remat_policy="save_attn"),
                           device="cpu")
     assert model.cfg.remat_policy == "save_attn"
