@@ -163,7 +163,30 @@ Phases, each of which fails the run on any error:
    request stable, ``/precache`` refused as the reference refuses; (8c)
    at float32 and 2 layers, greedy streams through the paged kernel
    against the gather read's and a paged n-gram spec batcher against the
-   plain streams, under the float32 near-tie rule (1e-4).
+   plain streams, under the float32 near-tie rule (1e-4);
+9. the Fin-Agent-Suite application on the card and the serving plane's
+   spans and phase profiler: (9a) a small Markdown knowledge base
+   (products, loans, cards, a FAQ; Chinese and English) ingested through
+   the port's embedder into its vector store, then 1,000,000 synthetic
+   1024-d unit rows drawn on the card from ``--seed`` (VectorDBBench's
+   1M scale at the reference schema's width), 64 queries in L2 and IP
+   each held against a float64 brute force (ids equal but for float64
+   ties under 1e-6, values within 1e-4; each marketing query's KB chunk
+   first), with the embedder's chunks/s (host hashing, device product),
+   the flush's seconds and peak, search ms p50/p99 beside its bound and
+   the resident GB; (9b) the app's HTTP server on that store with
+   ``HttpLMClient`` at the flagship's ``LmServer`` (phase 4's paged pool,
+   the paged kernel, phase 4's tokenizer): 16 ``/chat`` posts, 8 at a
+   time, half complaints (each filed in sqlite), every answer 200 with
+   its agent and a reply, paged launches > 0 and 0 fall-backs, latency
+   per agent, prompt tokens, tokens/s; (9c) 8 ``/generate`` requests with
+   a ``traceparent`` whose ``serve.queue_wait``, ``serve.prefill`` and
+   ``serve.round`` spans are read back from the port's ``MetricsServer``
+   (the rounds' tokens covering the stream), untraced submits that record
+   no ``serve.`` span, ``serve_phase_share`` on ``/metrics`` and a
+   ``utils.profiling.trace`` of two decode rounds (its file deleted
+   after); (9d) ``TorchLMClient`` at its default model answering two
+   ``/chat`` calls, greedy and sampled.
 
 It prints a ``{"kernels": [...]}`` line (each entry names the phase
 that launches it; each flash entry also with its
@@ -3133,7 +3156,7 @@ def run_job_path(torch, seed: int, layers: int, batch: int, device="cuda",
     batches = [(t[:, :-1], t[:, 1:]) for t in toks]    # on the host
     reg = MetricsRegistry()
     led = GoodputLedger(registry=reg)
-    prof = PhaseProfiler(registry=reg)
+    prof = PhaseProfiler(plane="train", registry=reg)
     shutil.rmtree(job_dir, ignore_errors=True)
     _deterministic(torch, True)
     try:
@@ -3806,6 +3829,525 @@ def run_moe_identity(torch, seed: int, layers: int = MOE_F32_LAYERS,
     return {"layers": layers, "requests": len(jobs), "runs": runs}
 
 
+# -- phase 9: the Fin-Agent-Suite on the card, and traced serving -----------
+
+# The application's knowledge base: products, loans, cards and a FAQ, in
+# Chinese and in English, each file one chunk under the 500/50 splitter
+# (the reference's), so that an agent's prompt stays far inside the
+# flagship's 2048 positions under phase 4's tokenizer, which encodes CJK
+# text nearly byte by byte.
+FIN_KB = {
+    "products/gold.md": ("# 贵金属产品\n\n我们的贵金属产品包括黄金积存和白银账户。"
+                         "黄金积存支持每日定投，起投金额为1克。"),
+    "products/gold_en.md": ("# Precious metals\n\nGold savings accounts "
+                            "support daily automatic investment from 1 "
+                            "gram."),
+    "products/loans.md": "# 贷款产品\n\n个人消费贷款年利率低至3.4%，最高额度50万元。",
+    "products/loans_en.md": ("# Loans\n\nPersonal loans have annual rates "
+                             "from 3.4 percent, up to 500,000 yuan."),
+    "products/cards.md": "# 信用卡\n\n白金信用卡首年免年费，境外消费返现1%。",
+    "products/cards_en.md": ("# Credit cards\n\nThe platinum credit card "
+                             "has no annual fee in the first year and 1% "
+                             "cashback abroad."),
+    "faq/password.md": "# 常见问题\n\n如何重置密码？请前往设置页面点击重置。",
+    "faq/password_en.md": ("# FAQ\n\nHow do I reset my password? Open "
+                           "Settings and tap Reset."),
+}
+# Marketing queries and the file whose chunk each must retrieve first
+# (cosine 0.44-0.91 on the CPU; a random unit row's is about 0.14 at best
+# among a million).
+FIN_MARKETING = [
+    ("黄金积存支持每日定投吗？起投金额是多少？", "products/gold.md"),
+    ("个人消费贷款年利率是多少，最高额度多少？", "products/loans.md"),
+    ("白金信用卡首年有年费吗？境外消费返现多少？", "products/cards.md"),
+    ("如何重置密码？在设置页面吗？", "faq/password.md"),
+    ("Do gold savings accounts support daily automatic investment?",
+     "products/gold_en.md"),
+    ("What annual rates do personal loans have?", "products/loans_en.md"),
+    ("Does the platinum credit card have an annual fee?",
+     "products/cards_en.md"),
+    ("How do I reset my password?", "faq/password_en.md"),
+]
+# Complaints (each carries one of the router's keywords) and their users.
+FIN_COMPLAINTS = [
+    ("我无法登录，人脸识别失败了，我要投诉", "user_123"),
+    ("转账失败，我很不满", "u2"),
+    ("I want to file a complaint about my card", "user_123"),
+    ("my transfer failed twice", "u9"),
+    ("手机银行登不上", "u3"),
+    ("app login issue again", "user_123"),
+    ("扣费有问题，我要投诉", "u4"),
+    ("I am unhappy with the loan fees", "u5"),
+]
+# 9a's scale: VectorDBBench's 1M cases, at the 1024 dimensions the
+# reference's schema fixes (智能风控解决方案.md:25, embed.py:24).  The rows
+# are synthetic unit vectors drawn on the card from --seed.
+FIN_ROWS = 1_000_000
+FIN_BATCH = 100_000
+FIN_QUERIES = 64
+FIN_TOP = 3
+# Exactness against float64: ids equal unless the float64 values of the
+# two ids differ by under FIN_TIE; values within FIN_VALUE_TOL (float32
+# sums of 1024 products of unit-row entries).
+FIN_TIE = 1e-6
+FIN_VALUE_TOL = 1e-4
+FIN_NEW = 128          # HttpLMClient's default budget
+FIN_TRACED = 8
+FIN_DIR = os.path.join(ROOT, "build", "chip", "finagent")
+
+
+def _write_kb(root: str) -> str:
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    for rel, text in FIN_KB.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.write(text)
+    return root
+
+
+def _exact_top(torch, emb, q, k: int, metric: str, chunk: int = 131072):
+    """float64 brute force over ``emb`` on its device, in chunks: the
+    top ``k`` ids and values of each query row (L2: distances ascending;
+    IP: scores descending)."""
+    q64 = q.double()
+    qsq = (q64 * q64).sum(-1, keepdim=True)
+    best_v = best_i = None
+    for lo in range(0, emb.shape[0], chunk):
+        e = emb[lo:lo + chunk].double()
+        dots = q64 @ e.T
+        s = dots if metric == "IP" else -(qsq - 2.0 * dots
+                                          + (e * e).sum(-1))
+        v, i = torch.topk(s, min(k, s.shape[1]), dim=-1)
+        i = i + lo
+        if best_v is not None:
+            v, j = torch.topk(torch.cat([best_v, v], -1), k, dim=-1)
+            i = torch.gather(torch.cat([best_i, i], -1), -1, j)
+        best_v, best_i = v, i
+    if metric == "L2":
+        best_v = torch.sqrt(torch.clamp(-best_v, min=0.0))
+    return best_i, best_v
+
+
+def _value64(torch, emb, q, ids, metric: str):
+    """float64 distance (L2) or score (IP) of query row q to rows ids."""
+    e = emb[ids].double()
+    q64 = q.double()
+    if metric == "IP":
+        return e @ q64
+    return torch.sqrt(((e - q64) ** 2).sum(-1))
+
+
+def run_vector_path(torch, seed: int, device="cuda", rows: int = FIN_ROWS,
+                    batch: int = FIN_BATCH, root: str = FIN_DIR):
+    """9a: the knowledge base through the embedder, ``rows`` synthetic
+    rows beside it, and FIN_QUERIES queries each metric held against a
+    float64 brute force.  Returns (numbers, store, embedder)."""
+    from k8s_gpu_tpu_torch.finagent import (
+        SqlStore, TextEmbedder, VectorStore, ingest,
+    )
+    from k8s_gpu_tpu_torch.finagent.ingest import COLLECTION_NAME
+
+    dev = torch.device(device)
+    sync = _syncer(torch, dev)
+    kb = _write_kb(os.path.join(root, "kb"))
+    embedder = TextEmbedder(seed=seed, device=device)
+    store = VectorStore(device=device)
+    t0 = time.perf_counter()
+    info = ingest(kb, store, SqlStore(), embedder=embedder)
+    sync()
+    ingest_s = time.perf_counter() - t0
+    coll = store.collection(COLLECTION_NAME)
+    chunks = list(coll._d.texts)
+    if info["num_chunks"] != len(FIN_KB) or len(chunks) != len(FIN_KB):
+        raise RuntimeError(f"ingest: {info}, {len(chunks)} chunks")
+    # The embedder's two halves over the KB's chunks: the host's hashing,
+    # then the device's product (after one warm-up call).
+    t0 = time.perf_counter()
+    feats = embedder.features(chunks)
+    host_s = time.perf_counter() - t0
+    embedder.project(feats)
+    sync()
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        embedder.project(feats)
+    sync()
+    dev_s = (time.perf_counter() - t0) / reps
+    # The synthetic rows, batch by batch on the card, then one flush.
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    for lo in range(0, rows, batch):
+        n = min(batch, rows - lo)
+        x = torch.randn(n, embedder.dim, generator=gen, device=dev)
+        x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        coll.insert([f"synthetic row {lo + i}" for i in range(n)], x)
+    del x
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    coll.flush()
+    sync()
+    flush_s = time.perf_counter() - t0
+    peak_gb = ((torch.cuda.max_memory_allocated() - base) / 1e9
+               if dev.type == "cuda" else None)
+    emb, sq = coll._d.emb, coll._d.sq
+    n_total = emb.shape[0]
+    if n_total != rows + len(FIN_KB) or coll.num_entities != n_total:
+        raise RuntimeError(f"{n_total} rows resident, "
+                           f"{coll.num_entities} entities")
+    resident_gb = (emb.numel() + sq.numel()) * 4 / 1e9
+    # Queries: the app's queries through the embedder, the rest unit rows
+    # drawn from the seed.
+    texts = [q for q, _ in FIN_MARKETING] + [q for q, _ in FIN_COMPLAINTS]
+    qs = embedder.encode_tensor(texts)
+    extra = torch.randn(FIN_QUERIES - len(texts), embedder.dim,
+                        generator=gen, device=dev)
+    qs = torch.cat([qs, extra / torch.linalg.vector_norm(
+        extra, dim=-1, keepdim=True)])
+    out = {"rows": rows, "kb_chunks": len(chunks),
+           "rows_are_synthetic": True, "ingest_s": ingest_s,
+           "embed_host_chunks_per_s": len(chunks) / host_s,
+           "embed_device_chunks_per_s": len(chunks) / dev_s,
+           "flush_s": flush_s, "flush_peak_gb": peak_gb,
+           "resident_gb": resident_gb}
+    bound_bytes = (emb.numel() + sq.numel()) * 4 + embedder.dim * 4
+    out["search_bound_ms"] = bound_bytes / HBM_BYTES_PER_S * 1e3
+    for metric in ("L2", "IP"):
+        coll.search(qs[0], limit=FIN_TOP, metric=metric)      # warm-up
+        ref_i, ref_v = _exact_top(torch, emb, qs, FIN_TOP + 1, metric)
+        ref_i, ref_v = ref_i.cpu(), ref_v.cpu()
+        times, swaps, worst = [], 0, 0.0
+        for qi in range(qs.shape[0]):
+            t0 = time.perf_counter()
+            hits = coll.search(qs[qi], limit=FIN_TOP, metric=metric)
+            times.append(time.perf_counter() - t0)
+            got = [h.id for h in hits]
+            got64 = _value64(torch, emb, qs[qi],
+                             torch.tensor(got, device=dev), metric).cpu()
+            for r, h in enumerate(hits):
+                want = float(ref_v[qi, r])
+                if got[r] != int(ref_i[qi, r]):
+                    if abs(float(got64[r]) - want) >= FIN_TIE:
+                        raise RuntimeError(
+                            f"{metric} query {qi} rank {r}: id {got[r]} "
+                            f"(float64 {float(got64[r])!r}) against "
+                            f"{int(ref_i[qi, r])} ({want!r})")
+                    swaps += 1
+                worst = max(worst, abs(h.distance - want))
+            if worst > FIN_VALUE_TOL:
+                raise RuntimeError(f"{metric} query {qi}: value off by "
+                                   f"{worst} from float64")
+            if qi < len(FIN_MARKETING):
+                want_text = FIN_KB[FIN_MARKETING[qi][1]]
+                if hits[0].text.strip() != want_text.strip():
+                    raise RuntimeError(
+                        f"{metric} query {FIN_MARKETING[qi][0]!r} found "
+                        f"{hits[0].text[:40]!r} first, not its KB chunk")
+        times.sort()
+        out[metric] = {
+            "search_ms_p50": times[len(times) // 2] * 1e3,
+            "search_ms_p99": times[min(len(times) - 1,
+                                       int(0.99 * len(times)))] * 1e3,
+            "tie_swaps": swaps, "max_value_err_vs_f64": worst,
+        }
+    return out, store, embedder
+
+
+def _post_chat(port: int, query: str, user: str, out: dict) -> None:
+    t0 = time.perf_counter()
+    code, body = _post(port, "/chat", {"query": query, "user_id": user})
+    out.update(code=code, body=body, ms=(time.perf_counter() - t0) * 1e3)
+
+
+def _metric_lines(text: str, name: str) -> dict:
+    """{label value: sample} of one labelled family of an exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{"):
+            label = line.split('="', 1)[1].split('"', 1)[0]
+            out[label] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def run_finagent_serving(torch, seed: int, layers: int, store, embedder,
+                         device="cuda", root: str = FIN_DIR) -> dict:
+    """9b and 9c: the app over HTTP on the flagship's LmServer (paged
+    pool, paged kernel), then traced /generate requests read back from
+    the port's MetricsServer, untraced submits, the phase shares and a
+    per-op trace of two decode rounds."""
+    import shutil
+
+    from k8s_gpu_tpu_torch.finagent import FinAgentApp, HttpLMClient
+    from k8s_gpu_tpu_torch.finagent import SqlStore
+    from k8s_gpu_tpu_torch.finagent.agents import (
+        COMPLAINT_AGENT, MARKETING_AGENT,
+    )
+    from k8s_gpu_tpu_torch.finagent.server import serve_background
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import LmServer
+    from k8s_gpu_tpu_torch.utils.metrics import MetricsRegistry
+    from k8s_gpu_tpu_torch.utils.obs import MetricsServer
+    from k8s_gpu_tpu_torch.utils.profiling import trace, trace_files
+    from k8s_gpu_tpu_torch.utils.tracing import (
+        SpanContext, format_traceparent, global_tracer, new_span_id,
+        new_trace_id,
+    )
+
+    cfg = flagship_config(torch, layers)
+    model = TransformerLM(cfg, device=device)
+    params = model.init(seed)
+    sync = _syncer(torch, model.device)
+    tok = flagship_tokenizer(cfg.vocab_size)
+    srv = LmServer(model, params, tok, slots=8, paged_blocks=mix_blocks(cfg),
+                   page_size=PAGE, attn_impl="paged_kernel",
+                   max_new_tokens_cap=256, metrics=MetricsRegistry(),
+                   name="finagent-lm", device=device).start()
+    obs = MetricsServer(registry=srv.batcher.metrics, journal=srv.journal,
+                        profile=srv.profiler).start()
+    sql = SqlStore()
+    app = FinAgentApp(embedder=embedder, vectors=store, sql=sql,
+                      llm=HttpLMClient(f"http://127.0.0.1:{srv.port}",
+                                       max_new_tokens=FIN_NEW,
+                                       timeout=600.0))
+    app_srv, app_port = serve_background(app)
+    out = {"layers": layers}
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{app_port}/",
+                                    timeout=60) as r:
+            status = json.loads(r.read())
+        if status != {"status": "Fin-Agent-Suite is running."}:
+            raise RuntimeError(f"/ answered {status}")
+        # 9b: 16 /chat posts, 8 at a time, marketing and complaints mixed.
+        jobs = []
+        for (mq, _), (cq, user) in zip(FIN_MARKETING, FIN_COMPLAINTS):
+            jobs += [(mq, "user_123", MARKETING_AGENT),
+                     (cq, user, COMPLAINT_AGENT)]
+        results = [dict() for _ in jobs]
+        sync()
+        pa.reset_counts()
+        j0 = srv.journal.cursor
+        t0 = time.perf_counter()
+        for lo in (0, 8):
+            threads = [_in_background(_post_chat, app_port, q, u,
+                                      results[lo + i])
+                       for i, (q, u, _) in enumerate(jobs[lo:lo + 8])]
+            for th in threads:
+                th.join(timeout=900)
+        sync()
+        wall = time.perf_counter() - t0
+        launches, fallbacks = pa.launch_count, pa.fallback_count
+        for (q, _, agent), res in zip(jobs, results):
+            body = res.get("body") or {}
+            if (res.get("code") != 200 or body.get("agent") != agent
+                    or not isinstance(body.get("response"), str)
+                    or not body["response"]):
+                raise RuntimeError(f"/chat {q!r}: {res.get('code')} "
+                                   f"{str(body)[:200]}")
+        filed = sorted((u, d) for u, _, d, _ in sql.complaints())
+        if filed != sorted((u, q) for q, u in FIN_COMPLAINTS):
+            raise RuntimeError(f"complaints filed: {filed}")
+        # The kernel runs on the card only (a CPU rehearsal skips this).
+        on_card = model.device.type == "cuda"
+        if on_card and (launches <= 0 or fallbacks != 0):
+            raise RuntimeError(f"paged_attention launches {launches}, "
+                               f"fall-backs {fallbacks} in 9b")
+        recs = srv.journal.snapshot(limit=100, since=j0)
+        if len(recs) != len(jobs):
+            raise RuntimeError(f"{len(recs)} journal records for "
+                               f"{len(jobs)} /chat posts")
+        gen_tokens = sum(r["tokens"] for r in recs)
+        by_agent = {}
+        for (_, _, agent), res in zip(jobs, results):
+            by_agent.setdefault(agent, []).append(res["ms"])
+        out["chat"] = {
+            "posts": len(jobs), "wall_s": wall,
+            "generated_tokens": gen_tokens,
+            "tokens_per_s": gen_tokens / wall,
+            "prompt_tokens": sorted(r["prompt_tokens"] for r in recs),
+            "latency_ms": {
+                "marketing" if a == MARKETING_AGENT else "complaint": {
+                    "p50": sorted(v)[len(v) // 2], "max": max(v)}
+                for a, v in by_agent.items()},
+            "paged_attention_launches": launches,
+            "paged_attention_fallbacks": fallbacks,
+        }
+        # 9c: traced /generate requests, read back from the MetricsServer.
+        pa.reset_counts()
+        ctxs = [SpanContext(new_trace_id(), new_span_id())
+                for _ in range(FIN_TRACED)]
+        gen = [dict() for _ in ctxs]
+
+        def traced(i):
+            code, body = _post(
+                srv.port, "/generate",
+                {"prompt": f"{FIN_MARKETING[i][0]} ({i})",
+                 "max_new_tokens": 48},
+                headers={"traceparent": format_traceparent(ctxs[i])})
+            gen[i].update(code=code, body=body)
+
+        threads = [_in_background(traced, i) for i in range(FIN_TRACED)]
+        for th in threads:
+            th.join(timeout=900)
+        _wait_inflight(srv, False)
+        rounds_seen = 0
+        for ctx, g in zip(ctxs, gen):
+            if g.get("code") != 200:
+                raise RuntimeError(f"traced /generate: {g}")
+            code, body = _get_json(obs.port,
+                                   f"/debug/traces?trace_id={ctx.trace_id}")
+            traces = body["traces"]
+            spans = [n for t in traces for r in t["tree"]
+                     for n in _walk_spans(r)]
+            names = [s["name"] for s in spans]
+            rounds = [s for s in spans if s["name"] == "serve.round"]
+            if ("serve.queue_wait" not in names
+                    or "serve.prefill" not in names or not rounds):
+                raise RuntimeError(f"trace {ctx.trace_id}: {names}")
+            toks = sum(s["attributes"]["tokens"] for s in rounds)
+            if toks < g["body"]["generated_tokens"] - 1:
+                raise RuntimeError(f"trace {ctx.trace_id}: rounds carry "
+                                   f"{toks} tokens of "
+                                   f"{g['body']['generated_tokens']}")
+            rounds_seen += len(rounds)
+        # Untraced: direct submits record no serve.* span.
+        global_tracer.clear()
+        rng = torch.Generator().manual_seed(seed + 19)
+        handles = [srv.batcher.submit(
+            torch.randint(0, cfg.vocab_size, (64,), generator=rng).numpy(),
+            max_new_tokens=16) for _ in range(FIN_TRACED)]
+        for h in handles:
+            if len(h.result()) != 16:
+                raise RuntimeError("an untraced request missed its budget")
+        _wait_inflight(srv, False)
+        leaked = [n["name"] for t in global_tracer.traces(limit=1000)
+                  for r in t["tree"] for n in _walk_spans(r)
+                  if n["name"].startswith("serve.")]
+        if leaked:
+            raise RuntimeError(f"untraced requests recorded {leaked}")
+        # The phase shares on /metrics.
+        srv.profiler.export_shares()
+        code, text = _get_text(obs.port, "/metrics")
+        shares = _metric_lines(text, "serve_phase_share")
+        want = {"admission", "paged_plan", "prefill_dispatch",
+                "decode_dispatch", "decode_consume", "retire", "residual"}
+        if not want <= set(shares) or sum(shares.values()) > 1.0 + 1e-9:
+            raise RuntimeError(f"serve_phase_share: {shares}")
+        # A per-op trace of two decode rounds, entered and left on the
+        # scheduler thread (torch.profiler records that thread's ops).
+        b = srv.batcher
+        tdir = os.path.join(root, "trace")
+        shutil.rmtree(tdir, ignore_errors=True)
+        solo = b.solo_buckets
+        b.solo_buckets = [b.steps_per_round]
+        try:
+            cm = trace(tdir)
+            b.run_quiesced(cm.__enter__)
+            r0 = b.steps_taken
+            h = b.submit(torch.randint(0, cfg.vocab_size, (64,),
+                                       generator=rng).numpy(),
+                         max_new_tokens=1 + 2 * b.steps_per_round)
+            h.result()
+            b.run_quiesced(lambda: cm.__exit__(None, None, None),
+                           timeout_s=600.0)
+            traced_rounds = b.steps_taken - r0
+        finally:
+            b.solo_buckets = solo
+        files = trace_files(tdir)
+        trace_bytes = sum(os.path.getsize(f) for f in files)
+        shutil.rmtree(tdir, ignore_errors=True)
+        if traced_rounds != 2 or not files or trace_bytes <= 0:
+            raise RuntimeError(f"trace of {traced_rounds} rounds: "
+                               f"{files}, {trace_bytes} bytes")
+        launches9c, fallbacks9c = pa.launch_count, pa.fallback_count
+        if on_card and (launches9c <= 0 or fallbacks9c != 0):
+            raise RuntimeError(f"paged_attention launches {launches9c}, "
+                               f"fall-backs {fallbacks9c} in 9c")
+        out["traced"] = {
+            "requests": FIN_TRACED, "round_spans": rounds_seen,
+            "phase_share": shares,
+            "trace_file_bytes": trace_bytes, "traced_rounds": traced_rounds,
+            "paged_attention_launches": launches9c,
+        }
+        out["paged_attention_launches"] = launches + launches9c
+    finally:
+        app_srv.shutdown()
+        app_srv.server_close()
+        obs.stop()
+        srv.stop()
+    return out
+
+
+def run_client_path(torch, seed: int, store, embedder, device="cuda") -> dict:
+    """9d: ``TorchLMClient`` at its default model in the app, two /chat
+    calls: greedy, then sampled."""
+    from k8s_gpu_tpu_torch.finagent import (
+        FinAgentApp, SqlStore, TorchLMClient,
+    )
+    from k8s_gpu_tpu_torch.finagent.agents import (
+        COMPLAINT_AGENT, MARKETING_AGENT,
+    )
+    from k8s_gpu_tpu_torch.finagent.server import serve_background
+
+    greedy = TorchLMClient(temperature=0.0, seed=seed, device=device)
+    sampled = TorchLMClient(model=greedy.model, params=greedy.params,
+                            seed=seed, device=device)
+    out = {}
+    for name, lm, (query, user), agent in (
+            ("greedy", greedy, (FIN_MARKETING[0][0], "user_123"),
+             MARKETING_AGENT),
+            ("sampled", sampled, FIN_COMPLAINTS[0], COMPLAINT_AGENT)):
+        app = FinAgentApp(embedder=embedder, vectors=store, sql=SqlStore(),
+                          llm=lm)
+        srv, port = serve_background(app)
+        try:
+            res = {}
+            _post_chat(port, query, user, res)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        body = res.get("body") or {}
+        if res.get("code") != 200 or body.get("agent") != agent or (
+                not isinstance(body.get("response"), str)):
+            raise RuntimeError(f"9d {name}: {res}")
+        out[name] = {"ms": res["ms"],
+                     "response_bytes": len(body["response"].encode())}
+    return out
+
+
+def _walk_spans(node):
+    yield node
+    for c in node.get("children", ()):
+        yield from _walk_spans(c)
+
+
+def _get_text(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.status, r.read().decode()
+
+
+def _get_json(port: int, path: str):
+    code, text = _get_text(port, path)
+    return code, json.loads(text)
+
+
+def run_finagent_path(torch, seed: int, layers: int, device="cuda",
+                      rows: int = FIN_ROWS, batch: int = FIN_BATCH) -> dict:
+    """Phase 9: 9a, then 9b and 9c on its store, then 9d."""
+    t0 = time.perf_counter()
+    vec, store, embedder = run_vector_path(torch, seed, device, rows, batch)
+    serving = run_finagent_serving(torch, seed, layers, store, embedder,
+                                   device)
+    client = run_client_path(torch, seed, store, embedder, device)
+    return {"vector": vec, **serving, "client": client,
+            "phase_s": time.perf_counter() - t0}
+
+
 # -- phase 7: the training output against plain attention ---------------------
 
 # One step's loss and gradients with flash attention against the same with
@@ -3998,6 +4540,9 @@ def main(argv=None) -> int:
     moe_identity = run_moe_identity(torch, args.seed)
     print(json.dumps({"moe_identity": moe_identity, "gpu": gpu}), flush=True)
     _free(torch)
+    finagent = run_finagent_path(torch, args.seed, LAYERS)
+    print(json.dumps({"finagent_path": finagent, "gpu": gpu}), flush=True)
+    _free(torch)
     train_outputs = check_train_outputs(torch, args.seed, LAYERS)
     print(json.dumps({"train_outputs": train_outputs}), flush=True)
     train_v2_outputs = check_train_outputs(torch, args.seed, LAYERS, v2=True)
@@ -4015,7 +4560,8 @@ def main(argv=None) -> int:
         "source": "k8s_gpu_tpu_torch/csrc/paged_attention.cu",
         "replaces": "k8s_gpu_tpu/ops/paged_attention.py:102",
         "phase": "4 (paged serving); also 4c, 4d, 4e (verify windows), 4f "
-                 "(adapter, constrained and handed-over rows)",
+                 "(adapter, constrained and handed-over rows), 9 (the "
+                 "Fin-Agent-Suite's /chat and traced /generate)",
         "launches": main_path["paged_attention_launches"],
         # Phase 4c's run: the unshared paged pool (left-padded rows).
         "launches_unshared_pool": unshared["paged_attention_launches"],
@@ -4032,6 +4578,9 @@ def main(argv=None) -> int:
         "launches_moe_float32": sum(
             moe_identity["runs"][name]["launches"]
             for name in ("kernel", "ngram")),
+        # Phase 9b and 9c: the application's /chat posts and the traced
+        # /generate requests.
+        "launches_finagent": finagent["paged_attention_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kern),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -4125,6 +4674,7 @@ def main(argv=None) -> int:
                        "moe_train_path": moe_train,
                        "moe_serve_path": moe_serve,
                        "moe_identity": moe_identity,
+                       "finagent_path": finagent,
                        "device": device,
                        **kernels}, fh, indent=1)
     print(gpu, flush=True)

@@ -8,6 +8,9 @@ reinterpreted as ``torch.bfloat16``, bit for bit.  int8 ``{"q", "s"}``
 leaves pass through as pairs, each half converted on its own.
 ``params_to_numpy`` goes the other way, so tests can hold parameters,
 gradients and optimizer state against the reference's.
+``embedder_from_numpy`` builds the port's ``finagent.TextEmbedder`` on
+the reference's projection (``np.asarray(embedder._proj)``): a corpus
+embedded by one package is searchable by the other only through it.
 """
 
 from __future__ import annotations
@@ -50,3 +53,15 @@ def params_to_numpy(tree):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def embedder_from_numpy(proj, device="cuda"):
+    """The port's ``TextEmbedder`` over the reference's ``[n_features,
+    dim]`` projection, on ``device``."""
+    # Lazy: the finagent package imports the serving and training planes,
+    # which import this module.
+    from .finagent.embed import TextEmbedder
+
+    n_features, dim = np.shape(proj)
+    return TextEmbedder(dim=dim, n_features=n_features, device=device,
+                        proj=tensor_from_numpy(proj, "cpu", torch.float32))

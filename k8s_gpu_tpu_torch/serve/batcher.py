@@ -36,6 +36,13 @@ batcher's device; a request picks one with ``adapter=``).
 device) masks each constrained row's tokens by its DFA state (a request
 picks one with ``constraint=``).  ``submit_precomputed`` admits a row
 prefilled elsewhere (``disagg.DisaggregatedLm``).
+
+``profiler`` (a serve-plane ``utils.profiler.PhaseProfiler``, a new one
+on ``metrics`` by default) times the scheduler thread's phases, always
+on as in the reference: the shares land in ``serve_phase_share{phase}``.
+A request that carries a trace context records its ``serve.queue_wait``,
+``serve.prefill`` and ``serve.round`` spans in
+``utils.tracing.global_tracer``.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import torch
 
 from ..device import resolve_device
 from ..utils.metrics import MetricsRegistry, global_metrics
+from ..utils.profiler import PhaseProfiler
 from .allocator import AllocatorMixin
 from .engine import InferenceEngine, _empty_cache, _empty_cache_paged
 from .executor import ExecutorMixin
@@ -86,7 +94,8 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
     (the process-wide one by default; give each replica its own);
     ``role``: ``both``, ``prefill`` or ``decode``.  ``journal``: the
     per-request record ring to write (a new one when None).
-    ``draft``/``spec_k``/``draft_int8``: the speculative rounds;
+    ``profiler``: the serve-plane phase profiler (a new one on
+    ``metrics`` when None).  ``draft``/``spec_k``/``draft_int8``: the speculative rounds;
     ``adapters``, ``constraints``: the adapter and constraint banks
     (module docstring; a bank needs ``eos_id`` >= 0)."""
 
@@ -101,6 +110,7 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
                  max_pending: int = 0,
                  metrics: MetricsRegistry | None = None,
                  journal: RequestJournal | None = None,
+                 profiler: PhaseProfiler | None = None,
                  role: str = "both", device="cuda"):
         if draft is not None and constraints is not None and getattr(
                 constraints, "banked", constraints) is not None:
@@ -121,6 +131,9 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
         self.role = role
         self.metrics = metrics if metrics is not None else global_metrics
         self.journal = journal if journal is not None else RequestJournal()
+        self.profiler = (profiler if profiler is not None
+                         else PhaseProfiler(plane="serve",
+                                            registry=self.metrics))
         self.device = resolve_device(device)
         self.engine = InferenceEngine(
             model, max_seq=max_seq, kv_quant=kv_quant, attn_impl=attn_impl,

@@ -47,9 +47,21 @@ takes the worst case, every draft accepted: the paged kernel clamps its
 reads at ``t_hi``, so an underestimate would truncate attention.  The
 fused cold start is off in spec mode.
 
-Not ported yet (ROADMAP queue 1 item 12): the phase profiler and the
-tracer's spans (the reference's ``spec_draft`` phase and
-``speculative=True`` spans among them).
+Phases and spans, as in the reference.  The scheduler thread times its
+seams on the batcher's ``profiler`` as disjoint self-time phases:
+``admission`` (pop to dispatch, with ``paged_plan`` and
+``prefill_dispatch`` nested, and the first-token fetch),
+``decode_dispatch`` (the gate, sizing and a plain round's launches, with
+``spec_draft``, a spec round's launches, nested), ``decode_consume`` and
+``spec_verify`` (a round's fetch and emission) and ``retire``.  A request
+with a trace context (the HTTP handler's span, or ``trace_ctx=``) gets
+``serve.queue_wait`` (submit to admission), ``serve.prefill`` (admission
+to its first token on the host; ``fused=True`` for the fused start) and
+one ``serve.round`` a round that emitted to it (dispatch to host, with
+its ``tokens``; ``speculative=True`` on spec rounds), each recorded with
+the request's context as explicit parent: the scheduler thread never
+reads the HTTP thread's context.  Both submits fire the ``serve.submit``
+fault site (``error``/``timeout`` only).
 """
 
 from __future__ import annotations
@@ -64,6 +76,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils.faults import global_faults
+from ..utils.tracing import global_tracer
 from .engine import _empty_cache
 from .journal import PROBE_TENANT, RequestRecord, golden_hash
 
@@ -144,8 +158,9 @@ class _Request:
     # routes the admission through the dense-row splice (no sharing).
     blocks: list = field(default_factory=list)
     prefix_tokens: int | None = None
-    # The HTTP request's trace context (``utils.tracing.SpanContext``);
-    # None for direct submits.  Its trace id goes into the journal.
+    # The request's trace context (``utils.tracing.SpanContext``): the
+    # parent of its serve.* spans, its trace id the journal's.  None
+    # (no spans) for a submit outside any span.
     trace_ctx: object = None
     # SLO label of the latency, shed and token series; "default" when
     # untagged.
@@ -250,7 +265,11 @@ class SchedulerMixin:
         is ``"default"``).  ``route``: ``(replica, reason)`` from a fleet
         front-end.  ``migrated_from``: the replica a resumed request left
         (counted in ``serve_resumed_requests_total``).  ``trace_ctx``:
-        the HTTP request's trace context."""
+        the request's trace context (default: the calling thread's
+        current span's, if any)."""
+        # error/timeout only: this site has no clock for a "slow".
+        global_faults.fire("serve.submit", error_type=RuntimeError,
+                           only=("error", "timeout"))
         aidx = self.bank.index(adapter)
         cidx = self._constraint_index(constraint)
         ids = np.asarray(ids, np.int32).ravel()
@@ -278,7 +297,8 @@ class SchedulerMixin:
             cidx=cidx,
             deadline=deadline,
             t_submit=time.monotonic(),
-            trace_ctx=trace_ctx,
+            trace_ctx=(trace_ctx if trace_ctx is not None
+                       else global_tracer.current()),
             tenant=str(tenant) if tenant else "default",
             prompt_tokens=int(ids.size),
             route_replica=str(route[0]) if route else "",
@@ -306,6 +326,8 @@ class SchedulerMixin:
         once when the row is spliced or the request ends unseated.  On
         the card the splice's stream waits for the work this thread
         queued before the call (an event recorded here)."""
+        global_faults.fire("serve.submit", error_type=RuntimeError,
+                           only=("error", "timeout"))
         aidx = self.bank.index(adapter)
         cidx = self._constraint_index(constraint)
         n_tokens, pad = int(n_tokens), int(pad)
@@ -351,6 +373,7 @@ class SchedulerMixin:
             on_admit=on_admit,
             ready=ready,
             t_submit=time.monotonic(),
+            trace_ctx=global_tracer.current(),
             tenant=str(tenant) if tenant else "default",
             prompt_tokens=n_tokens,
             route_replica=str(route[0]) if route else "",
@@ -712,7 +735,8 @@ class SchedulerMixin:
         req.inflight_steps += n_steps
         req.pos_hint += n_steps
         self._round_count += 1
-        return ("admit_round", self._round_count, req, first, lp, toks, lps)
+        return ("admit_round", self._round_count, req, first, lp, toks, lps,
+                time.monotonic())
 
     def _seated(self, req: _Request, slot: int, first, lp,
                 path: str) -> tuple:
@@ -725,6 +749,10 @@ class SchedulerMixin:
         self.admission_paths[path] += 1
         self.metrics.observe("serve_queue_wait_seconds",
                              req.t_admit - req.t_submit)
+        if req.trace_ctx is not None:
+            global_tracer.add_span(
+                "serve.queue_wait", parent=req.trace_ctx,
+                start=req.t_submit, end=req.t_admit, slot=slot, path=path)
         # The admission's first token is in flight: the budget gate must
         # count it (_process_admits releases it).
         req.inflight_steps = 1
@@ -740,13 +768,15 @@ class SchedulerMixin:
         return ("admit", req, first, lp)
 
     def _update_util_gauges(self) -> None:
-        """Live slots, and on the paged pool the blocks some live row
-        references (a shared block counts once; cached blocks are free)."""
+        """Live slots, on the paged pool the blocks some live row
+        references (a shared block counts once; cached blocks are free),
+        and the phase shares (``serve_phase_share{phase}``)."""
         live = sum(1 for r in self._active if r is not None)
         self.metrics.set_gauge("serve_slots_active", float(live))
         if self.paged:
             self.metrics.set_gauge("serve_kv_blocks_used",
                                    float(self._pool.pinned_count))
+        self.profiler.export_shares()
 
     def _t_hi(self, live, advance: int) -> int:
         """Attention-read bound of the next round: the live rows' largest
@@ -926,7 +956,7 @@ class SchedulerMixin:
             self._sync()
             timed_dt = time.monotonic() - t0
         self._round_count += 1
-        return ("round", self._round_count, live, toks, lps, timed_dt)
+        return ("round", self._round_count, live, toks, lps, t0, timed_dt)
 
     def _dispatch_spec(self, live, rem, shared_rem, solo, stable, use_top_p,
                        timed_mode, pages, t0) -> tuple:
@@ -948,12 +978,15 @@ class SchedulerMixin:
             n_rounds = mult * base_rounds
         advance = n_rounds * (K + 1)
         t_hi = self._t_hi(live, advance)
-        if self.spec_mode == "ngram":
-            toks, ns, lps = self._round_spec_ngram_dev(
-                use_top_p, n_rounds, t_hi, K, pages)
-        else:
-            toks, ns, lps = self._round_spec_dev(
-                use_top_p, n_rounds, t_hi, K, pages)
+        # The spec round's launches: nested in decode_dispatch, whose
+        # self time keeps the gate and the sizing.
+        with self.profiler.phase("spec_draft"):
+            if self.spec_mode == "ngram":
+                toks, ns, lps = self._round_spec_ngram_dev(
+                    use_top_p, n_rounds, t_hi, K, pages)
+            else:
+                toks, ns, lps = self._round_spec_dev(
+                    use_top_p, n_rounds, t_hi, K, pages)
         self.dispatched["verify_subrounds"] += n_rounds
         if self.paged and self.engine.attn_impl == "paged_kernel":
             self.metrics.inc("serve_paged_kernel_rounds_total")
@@ -973,7 +1006,7 @@ class SchedulerMixin:
             timed_dt = time.monotonic() - t0
         self._round_count += 1
         return ("spec", self._round_count, live, toks, ns, lps, expected,
-                timed_dt)
+                t0, timed_dt)
 
     def _emit(self, req: _Request, tok: int, lp: float = 0.0) -> None:
         req.emitted += 1
@@ -985,6 +1018,10 @@ class SchedulerMixin:
         req.out.put((int(tok), float(lp)))
 
     def _retire(self, slot: int) -> None:
+        with self.profiler.phase("retire"):
+            self._retire_row(slot)
+
+    def _retire_row(self, slot: int) -> None:
         req = self._active[slot]
         if req is not None:
             self._account(req)
@@ -1126,6 +1163,11 @@ class SchedulerMixin:
         ).cpu().tolist()
         for (_, req, _, _), (first, lp) in zip(items, firsts):
             req.inflight_steps = max(0, req.inflight_steps - 1)
+            if req.trace_ctx is not None:
+                # Admission dispatch to the first token on the host.
+                global_tracer.add_span(
+                    "serve.prefill", parent=req.trace_ctx,
+                    start=req.t_admit, end=time.monotonic(), slot=req.slot)
             if self._active[req.slot] is not req:
                 continue
             if self._expire_live(req.slot, req):
@@ -1140,11 +1182,16 @@ class SchedulerMixin:
     def _process_admit_round(self, item: tuple) -> None:
         """Consume a fused cold start: the admission's token, then the
         round's tokens of its slot."""
-        _, _, req, first_dev, lp_dev, toks_dev, lps_dev = item
+        _, round_id, req, first_dev, lp_dev, toks_dev, lps_dev, t_disp = item
         toks = toks_dev.cpu().numpy()                # [T, B]
         lps = lps_dev.cpu().numpy()
         first, lp = torch.stack([first_dev.float(), lp_dev.float()]).tolist()
         req.inflight_steps = max(0, req.inflight_steps - 1 - toks.shape[0])
+        if req.trace_ctx is not None:
+            # One dispatch ran the prefill and the first round.
+            global_tracer.add_span(
+                "serve.prefill", parent=req.trace_ctx, start=req.t_admit,
+                end=time.monotonic(), slot=req.slot, fused=True)
         if self._active[req.slot] is not req:
             return
         if self._expire_live(req.slot, req):
@@ -1154,8 +1201,11 @@ class SchedulerMixin:
             self._retire(req.slot)
             return
         self._emit(req, first, lp)
-        if (req.emitted >= req.max_new
-                or self._emit_round(req, req.slot, toks, lps)):
+        n0 = req.emitted
+        done = (req.emitted >= req.max_new
+                or self._emit_round(req, req.slot, toks, lps))
+        self._round_span(req, t_disp, round_id, n0)
+        if done:
             self._retire(req.slot)
 
     def _emit_round(self, req: _Request, slot: int, toks, lps) -> bool:
@@ -1170,23 +1220,44 @@ class SchedulerMixin:
                 return True
         return False
 
+    def _round_span(self, req: _Request, t_disp: float, round_id: int,
+                    n0: int, **attrs) -> None:
+        """One ``serve.round`` span a (round, traced request) that emitted
+        to it: dispatch to host, with the tokens it delivered."""
+        if req.trace_ctx is not None and req.emitted > n0:
+            global_tracer.add_span(
+                "serve.round", parent=req.trace_ctx, start=t_disp,
+                end=time.monotonic(), round=round_id,
+                tokens=req.emitted - n0, **attrs)
+
     def _drain_one(self, inflight: collections.deque) -> None:
-        """Consume the next in-flight item; consecutive admissions are
-        fetched together."""
+        """Consume the next in-flight item, in its phase: an admission's
+        first-token fetch completes ``admission`` (consecutive admissions
+        are fetched together), a spec round's fetch and walk is
+        ``spec_verify``, a plain round's ``decode_consume`` (``retire``
+        nests inside and subtracts)."""
         item = inflight.popleft()
         if item[0] == "admit":
             batch = [item]
             while inflight and inflight[0][0] == "admit":
                 batch.append(inflight.popleft())
-            self._process_admits(batch)
-            return
-        if item[0] == "admit_round":
-            self._process_admit_round(item)
-            return
-        if item[0] == "spec":
-            self._process_spec(item)
-            return
-        _, _, live, toks_dev, lps_dev, timed_dt = item
+            with self.profiler.phase("admission"):
+                self._process_admits(batch)
+        elif item[0] == "admit_round":
+            with self.profiler.phase("admission"):
+                self._process_admit_round(item)
+        elif item[0] == "spec":
+            with self.profiler.phase("spec_verify"):
+                self._process_spec(item)
+        else:
+            with self.profiler.phase("decode_consume"):
+                self._process_round(item)
+        self._update_util_gauges()
+
+    def _process_round(self, item: tuple) -> None:
+        """Consume a plain round: one fetch, each live row's tokens up to
+        EOS or its budget."""
+        _, round_id, live, toks_dev, lps_dev, t_disp, timed_dt = item
         toks = toks_dev.cpu().numpy()                # [T, B]: one fetch
         lps = lps_dev.cpu().numpy()
         n_steps = toks.shape[0]
@@ -1198,7 +1269,10 @@ class SchedulerMixin:
                 continue  # retired (or the slot re-admitted) mid-flight
             if self._expire_live(i, req):
                 continue
-            if self._emit_round(req, i, toks, lps):
+            n0 = req.emitted
+            done = self._emit_round(req, i, toks, lps)
+            self._round_span(req, t_disp, round_id, n0)
+            if done:
                 self._retire(i)
         if timed_dt is not None:
             self._record_timed("plain", live, e0, timed_dt)
@@ -1219,7 +1293,8 @@ class SchedulerMixin:
         emit each row's accepted windows up to EOS or its budget, and
         count drafted and accepted proposals (rows retired mid-flight
         count nothing: their garbage sub-rounds must not steer K)."""
-        _, _, live, toks_dev, ns_dev, lps_dev, charged, timed_dt = item
+        (_, round_id, live, toks_dev, ns_dev, lps_dev, charged, t_disp,
+         timed_dt) = item
         toks = toks_dev.cpu().numpy()                # [R, B, K+1]
         ns = ns_dev.cpu().numpy()                    # [R, B]
         lps = lps_dev.cpu().numpy()
@@ -1236,6 +1311,7 @@ class SchedulerMixin:
             if self._expire_live(i, req):
                 continue
             done = False
+            n0 = req.emitted
             row_d = row_a = 0
             for r in range(toks.shape[0]):
                 n = int(ns[r, i])
@@ -1259,6 +1335,7 @@ class SchedulerMixin:
                     i, collections.deque(maxlen=8)).append((row_d, row_a))
                 req.spec_drafted += row_d
                 req.spec_accepted += row_a
+            self._round_span(req, t_disp, round_id, n0, speculative=True)
             if done:
                 self._retire(i)
         drafted_now = self._spec_drafted - d0
@@ -1269,7 +1346,8 @@ class SchedulerMixin:
 
     def _admit_waiting(self, inflight: collections.deque) -> None:
         """Fill free slots: block-pressure deferrals first (FIFO across the
-        stall), then the pending queue."""
+        stall), then the pending queue; each admission in the
+        ``admission`` phase, pop to dispatch."""
         while True:
             slot = self._free_slot()
             if slot < 0:
@@ -1281,39 +1359,52 @@ class SchedulerMixin:
                     req = self._pending.get_nowait()
                 except queue.Empty:
                     return
-            # Deadline gate before any allocation or device work.
-            if self._expired(req):
-                self._abort(req, "deadline")
-                continue
-            if self.paged and not self._paged_plan(req):
+            with self.profiler.phase("admission"):
+                if not self._admit_one(req, slot, inflight):
+                    return
+
+    def _admit_one(self, req: _Request, slot: int,
+                   inflight: collections.deque) -> bool:
+        """Admit one popped request into ``slot``, or shed or defer it;
+        False when it was deferred for blocks (admission stops)."""
+        # Deadline gate before any allocation or device work.
+        if self._expired(req):
+            self._abort(req, "deadline")
+            return True
+        if self.paged:
+            with self.profiler.phase("paged_plan"):
+                planned = self._paged_plan(req)
+            if not planned:
                 if not any(r is not None for r in self._active):
                     # Nothing holds blocks, so the request cannot fit.
                     self._abort(req, "no_capacity")
-                    continue
+                    return True
                 # Back at the front, holding no references; the retry
                 # re-matches against the then-current cache.
                 self._overflow.appendleft(req)
-                return
-            try:
-                # An idle dense batcher fuses a cold admission with its
-                # first round.  The prefix lookup runs once and feeds
-                # both the gate and the unfused admission.
-                entry = self._entry_for(req)
-                fused = (
-                    self.spec_mode is None and req.precomputed is None
-                    and not self.paged and entry is None and not inflight
-                    and self.role != "prefill"
-                    and req.max_new > 1 and self._pending.empty()
-                    and not any(r is not None for r in self._active)
-                )
+                return False
+        try:
+            # An idle dense batcher fuses a cold admission with its first
+            # round.  The prefix lookup runs once and feeds both the gate
+            # and the unfused admission.
+            entry = self._entry_for(req)
+            fused = (
+                self.spec_mode is None and req.precomputed is None
+                and not self.paged and entry is None and not inflight
+                and self.role != "prefill"
+                and req.max_new > 1 and self._pending.empty()
+                and not any(r is not None for r in self._active)
+            )
+            with self.profiler.phase("prefill_dispatch"):
                 inflight.append(
                     self._dispatch_admit_round(req, slot) if fused
                     else self._dispatch_admit(req, slot, entry))
-            except BaseException:
-                # In neither _pending nor _active: fail it here, or its
-                # caller would block forever.
-                self._abort(req)
-                raise
+        except BaseException:
+            # In neither _pending nor _active: fail it here, or its
+            # caller would block forever.
+            self._abort(req)
+            raise
+        return True
 
     def _loop(self) -> None:
         inflight: collections.deque = collections.deque()
@@ -1326,6 +1417,8 @@ class SchedulerMixin:
                 any_active = any(r is not None for r in self._active)
                 if (not any_active and self._pending.empty()
                         and not inflight and not self._overflow):
+                    # Idle: the shares keep ageing out of the window.
+                    self._update_util_gauges()
                     self._wake.wait(timeout=0.1)
                     self._wake.clear()
                     continue
@@ -1337,7 +1430,8 @@ class SchedulerMixin:
                 # finds the stream still live.
                 if (any(r is not None for r in self._active)
                         and self._barriers.empty()):
-                    item = self._dispatch_round(inflight)
+                    with self.profiler.phase("decode_dispatch"):
+                        item = self._dispatch_round(inflight)
                     if item is not None:
                         inflight.append(item)
                     elif inflight:

@@ -42,10 +42,15 @@ GET  /healthz, /readyz (with ``replica``, ``inflight``, ``role``,
 
 Requests go into one ContinuousBatcher: the dense KV pool by default,
 the paged pool with ``paged_blocks`` > 0 (migration and ``/prefill`` need
-it).  Its ``journal`` is the record ring a ``MetricsServer`` serves at
-``/debug/requests``.  Not ported yet (ROADMAP queue 1 item 12): the fault
-sites ``migrate.export``/``import``, and ``/debug/requests`` and
-``/debug/traces``, which the reference serves from its ``MetricsServer``.
+it).  Every request but a probe runs under an ``http <METHOD> <route>``
+span (``utils.obs.RequestMetricsMixin``) that continues an inbound
+``traceparent``; a ``/generate`` request's ``serve.*`` spans parent to
+it.  ``journal`` (the batcher's record ring) and ``profiler`` (its phase
+profiler) are what a ``utils.obs.MetricsServer`` serves at
+``/debug/requests`` and ``/debug/profile``, beside the tracer's
+``/debug/traces``.  ``/admin/export`` and ``/admin/import`` fire the
+``migrate.export``/``migrate.import`` fault sites (``error``/``timeout``:
+503 + Retry-After).
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..data.tokenizer import BpeTokenizer
-from ..utils.tracing import request_context
+from ..utils.faults import global_faults
+from ..utils.obs import RequestMetricsMixin
 from .batcher import ContinuousBatcher
 from .constrain import ConstraintBank
 from .journal import PROBE_TENANT, RequestRecord
@@ -69,8 +75,6 @@ from .migrate import unpack as migrate_unpack
 from .scheduler import Overloaded
 
 RETRY_AFTER_S = 1
-# Probe routes carry a trace context only when the caller sent one.
-_TRACE_EXEMPT = ("/healthz", "/readyz")
 
 
 def _ids_ok(ids) -> bool:
@@ -118,6 +122,7 @@ class LmServer:
             device=device,
         )
         self.journal = self.batcher.journal
+        self.profiler = self.batcher.profiler
         self.tokenizer = tokenizer
         self.name = str(name)
         self.started_at = time.time()
@@ -128,17 +133,14 @@ class LmServer:
         self._migrating = False
         outer = self
 
-        class Handler(BaseHTTPRequestHandler):
-            trace_ctx = None
+        class Handler(RequestMetricsMixin, BaseHTTPRequestHandler):
+            metrics_server_label = "lm-server"
+            known_routes = ("/generate", "/tokenize", "/precache",
+                            "/prefill", "/healthz", "/readyz",
+                            "/debug/chains", "/admin/export",
+                            "/admin/import", "/admin/role")
 
-            def _context(self, path: str) -> None:
-                header = self.headers.get("traceparent")
-                self.trace_ctx = (None if path in _TRACE_EXEMPT
-                                  and not header
-                                  else request_context(header))
-
-            def do_GET(self):
-                self._context(self.path)
+            def _get(self):
                 if self.path == "/debug/chains":
                     return self._json(200, outer.chain_state())
                 if self.path == "/healthz":
@@ -153,8 +155,7 @@ class LmServer:
                     return self._json(200 if r["ready"] else 503, r)
                 return self._json(404, {"error": "not found"})
 
-            def do_POST(self):
-                self._context(self.path)
+            def _post(self):
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     body = json.loads(self.rfile.read(n) or b"{}")
@@ -287,6 +288,10 @@ class LmServer:
                 abort_live = bool(body.get("abort_live", False))
                 include_blocks = bool(body.get("include_blocks", True))
                 try:
+                    # error/timeout only: no clock here for a "slow".
+                    global_faults.fire("migrate.export",
+                                       error_type=RuntimeError,
+                                       only=("error", "timeout"))
                     outer._migrating = True
                     try:
                         snap = outer.batcher.run_quiesced(
@@ -308,6 +313,9 @@ class LmServer:
                 quiesce barrier; a malformed payload answers 400 before
                 the pool changes."""
                 try:
+                    global_faults.fire("migrate.import",
+                                       error_type=RuntimeError,
+                                       only=("error", "timeout"))
                     parsed = migrate_unpack(body)
                     n = outer.batcher.run_quiesced(
                         lambda: outer.batcher.migrate_import(parsed))
@@ -464,6 +472,7 @@ class LmServer:
                 """One {"id": ...} event per token as the batcher emits
                 it, then a summary event; the connection closes at the
                 end (no Content-Length)."""
+                self._last_code = 200
                 self.send_response(200)
                 self.send_header("Content-Type", "application/x-ndjson")
                 self.send_header("X-Accel-Buffering", "no")
@@ -514,6 +523,7 @@ class LmServer:
 
             def _json(self, code, payload, headers=None):
                 data = json.dumps(payload).encode()
+                self._last_code = code
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))

@@ -253,7 +253,7 @@ class Trainer:
         self.tc = train_config or TrainConfig()
         self.peak_flops = peak_flops
         self.profiler = (profiler if profiler is not None
-                         else PhaseProfiler())
+                         else PhaseProfiler(plane="train"))
         self.ledger = ledger
         rank = (torch.distributed.get_rank()
                 if torch.distributed.is_available()

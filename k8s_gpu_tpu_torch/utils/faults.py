@@ -8,10 +8,15 @@ lookup.  Every decision comes from a ``random.Random(seed)`` private to
 the armed site, so a (seed, call sequence) pair always injects the same
 schedule.  Kinds: ``error`` and ``timeout`` raise the site's error type;
 ``slow`` sleeps on the caller's clock (or returns the delay);
-``FaultPlan(flaky=N)`` fails the first N calls, then heals.  Each
-injection counts in ``faults_injected_total{site,kind}``.
+``FaultPlan(flaky=N)`` fails the first N calls, then heals.  A site
+may honour only some kinds (``fire(only=...)``): a decision of another
+kind is not an injection.  Each injection counts in
+``faults_injected_total{site,kind}``; ``calls``, ``injected`` and
+``sites`` report what each armed site saw.
 
-The port fires one site: ``train.preempt`` in ``Trainer.fit``.
+The port fires the reference's sites on its paths: ``train.preempt``
+in ``Trainer.fit``, ``serve.submit`` at both batcher submits, and
+``migrate.export``/``migrate.import`` at ``LmServer``'s admin routes.
 """
 
 from __future__ import annotations
@@ -92,16 +97,20 @@ class FaultInjector:
                 self._sites.pop(site, None)
 
     def fire(self, site: str, error_type: type = InjectedFault,
-             clock=None) -> float:
+             clock=None, only: tuple | None = None) -> float:
         """The choke point.  Disarmed: returns 0.0.  An armed decision
         raises ``error_type`` (``error``/``timeout``) or handles ``slow``:
         slept here on ``clock``, else returned for the caller to fold into
-        its own schedule."""
+        its own schedule.  ``only``: the kinds this site honours; another
+        kind's decision passes and is not counted as an injection."""
         with self._lock:
             st = self._sites.get(site)
             if st is None:
                 return 0.0
             kind = st.decide()
+            if kind is not None and only is not None and kind not in only:
+                st.injected -= 1
+                kind = None
             if kind is None:
                 return 0.0
             slow_s = st.plan.slow_s
@@ -119,6 +128,17 @@ class FaultInjector:
         with self._lock:
             st = self._sites.get(site)
             return st.injected if st else 0
+
+    def calls(self, site: str) -> int:
+        with self._lock:
+            st = self._sites.get(site)
+            return st.calls if st else 0
+
+    def sites(self) -> dict:
+        """site -> {calls, injected} for every armed site."""
+        with self._lock:
+            return {name: {"calls": st.calls, "injected": st.injected}
+                    for name, st in self._sites.items()}
 
 
 global_faults = FaultInjector()

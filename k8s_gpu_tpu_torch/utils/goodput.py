@@ -12,10 +12,9 @@ and ``goodput_snapshot_from_exposition`` from
   other segment's close adds to
   ``train_nonproductive_seconds_total{segment}``.
 - A bounded ring of incidents (preemption, eviction, restart, resize,
-  resume), each counted in ``train_incidents_total{kind}``.  The
-  reference stamps an incident with the active tracing span's trace id;
-  the port records no spans yet (ROADMAP queue 1 item 12), so
-  ``trace_id`` stays ``""`` unless the caller passes one.
+  resume), each counted in ``train_incidents_total{kind}`` and stamped
+  with the calling thread's active span's trace id
+  (``utils.tracing.global_tracer``) unless the caller passes one.
 - Per-host step heartbeats: the slowest host's EWMA over the median is
   ``train_step_skew_ratio``, and that host ``train_straggler_host{host}``.
 
@@ -35,6 +34,7 @@ from contextlib import contextmanager
 
 from .clock import Clock, RealClock
 from .metrics import MetricsRegistry, global_metrics, parse_exposition
+from .tracing import global_tracer
 
 # Every segment a run's wall clock is split into; ``step`` alone is
 # productive (compile and checkpoints are overhead the ratio charges).
@@ -176,11 +176,14 @@ class GoodputLedger:
     def incident(self, kind: str, detail: str = "", trace_id: str = "",
                  event: str = "") -> None:
         """Append one incident.  ``event`` names the operator Event that
-        caused it; ``trace_id`` is the caller's (the port has no span
-        tracer to read one from)."""
+        caused it; ``trace_id`` defaults to the calling thread's active
+        span's ("" outside any span)."""
         if kind not in INCIDENT_KINDS:
             raise ValueError(
                 f"unknown incident kind {kind!r}; one of {INCIDENT_KINDS}")
+        if not trace_id:
+            ctx = global_tracer.current()
+            trace_id = ctx.trace_id if ctx is not None else ""
         now = self.clock.now()
         rec = {"t": round(now, 9), "kind": kind, "detail": detail,
                "trace_id": trace_id, "event": event}

@@ -1,18 +1,24 @@
 """Phase-level time attribution for a hot loop: the port's own copy of
-``PhaseProfiler`` from ``k8s_gpu_tpu/utils/profiler.py``.
+``PhaseProfiler`` and ``profile_snapshot`` from
+``k8s_gpu_tpu/utils/profiler.py``.
 
 A per-thread phase stack records self time (entering a nested phase
 pauses the enclosing one), so the phases stay disjoint and their shares
 a partition of the wall clock, with the unattributed rest reported as
 ``residual``.  Per phase: a bounded reservoir (p50/p95), an EWMA and its
-share of a rolling window.  Samples land in ``train_phase_seconds
-{phase}`` and ``export_shares`` writes ``train_phase_share{phase}``.
-Time flows through an injected ``utils.clock.Clock``.
+share of a rolling window.  ``plane`` picks the metric families:
+``"serve"`` (the default, as in the reference) writes
+``serve_phase_seconds{phase}`` and ``export_shares`` writes
+``serve_phase_share{phase}``; ``"train"`` the ``train_`` pair.  Time
+flows through an injected ``utils.clock.Clock``.
 
-The port's ``Trainer`` times three phases: ``shard_batch`` (the batch's
-copy to the device), ``step_dispatch`` and ``loss_sync``.  The
-reference's serve plane (the batcher's ``profiler=``) is not ported
-(ROADMAP queue 1 item 12).
+The batcher's scheduler thread times the reference's serving phases
+(``admission`` with ``paged_plan`` and ``prefill_dispatch`` nested,
+``decode_dispatch`` with ``spec_draft`` nested, ``decode_consume``,
+``spec_verify``, ``retire``); the ``Trainer`` times ``shard_batch``
+(the batch's copy to the device), ``step_dispatch`` and ``loss_sync``.
+``profile_snapshot`` is the ``/debug/profile`` body, in the reference's
+shape.
 """
 
 from __future__ import annotations
@@ -48,14 +54,22 @@ class _Seg:
 
 
 class PhaseProfiler:
-    """Bounded, clock-driven accounting of the training plane's phases.
-    ``window_s`` is the share window, ``reservoir`` bounds each phase's
-    percentile reservoir and ``max_samples`` the rolling sample ring."""
+    """Bounded, clock-driven accounting of one plane's phases (``plane``:
+    ``"serve"`` or ``"train"``).  ``window_s`` is the share window,
+    ``reservoir`` bounds each phase's percentile reservoir and
+    ``max_samples`` the rolling sample ring."""
 
-    def __init__(self, registry: MetricsRegistry | None = None,
+    def __init__(self, plane: str = "serve",
+                 registry: MetricsRegistry | None = None,
                  clock: Clock | None = None, window_s: float = 60.0,
                  reservoir: int = 512, ewma_alpha: float = 0.2,
                  max_samples: int = 2048):
+        if plane not in ("serve", "train"):
+            raise ValueError(
+                f"unknown profiler plane {plane!r}: 'serve' or 'train'")
+        self.plane = plane
+        self._seconds = f"{plane}_phase_seconds"
+        self._share = f"{plane}_phase_share"
         self.registry = registry if registry is not None else global_metrics
         self.clock = clock or RealClock()
         self.window_s = max(1e-6, float(window_s))
@@ -129,7 +143,7 @@ class PhaseProfiler:
                 self._win_sums[old_name] -= old_dt
             self._window.append((now, name, dt))
             self._win_sums[name] = self._win_sums.get(name, 0.0) + dt
-        self.registry.observe("train_phase_seconds", dt, phase=name)
+        self.registry.observe(self._seconds, dt, phase=name)
 
     def _evict_locked(self, cut: float) -> None:
         while self._window and self._window[0][0] < cut:
@@ -152,13 +166,12 @@ class PhaseProfiler:
         return out, residual, span
 
     def export_shares(self) -> None:
-        """Write the shares as ``train_phase_share{phase}`` gauges,
+        """Write the shares as ``{plane}_phase_share{phase}`` gauges,
         ``phase="residual"`` included."""
         per, residual, _ = self.shares()
         for ph, v in per.items():
-            self.registry.set_gauge("train_phase_share", v, phase=ph)
-        self.registry.set_gauge("train_phase_share", residual,
-                                phase="residual")
+            self.registry.set_gauge(self._share, v, phase=ph)
+        self.registry.set_gauge(self._share, residual, phase="residual")
 
     # -- read surface ------------------------------------------------------
     @staticmethod
@@ -190,7 +203,7 @@ class PhaseProfiler:
                 "share": round(per.get(ph, 0.0), 9),
             }
         return {
-            "plane": "train",
+            "plane": self.plane,
             "now": now,
             "window_s": self.window_s,
             "span_s": round(span, 9),
@@ -198,3 +211,40 @@ class PhaseProfiler:
             "residual_share": round(residual, 9),
             "samples": samples,
         }
+
+
+def profile_snapshot(profiler: PhaseProfiler | None = None,
+                     registry: MetricsRegistry | None = None) -> dict:
+    """The ``/debug/profile`` body, in the reference's shape: the
+    profiler's snapshot, the compile telemetry families (none in the
+    port: PyTorch compiles nothing, so they read 0) and the per-axis
+    collective gauges (none on one card)."""
+    reg = registry if registry is not None else (
+        profiler.registry if profiler is not None else global_metrics)
+    snap = (profiler.snapshot() if profiler is not None else {
+        "plane": None, "now": 0.0, "window_s": 0.0, "span_s": 0.0,
+        "phases": {}, "residual_share": None, "samples": [],
+    })
+    hist = reg.histogram("xla_compile_seconds")
+    snap["compile"] = {
+        "compiles_total": reg.counter("xla_compiles_total"),
+        "compile_seconds_sum": round(hist.total, 9) if hist else 0.0,
+        "compile_p95_s": round(reg.percentile("xla_compile_seconds", 0.95),
+                               9),
+    }
+    coll: dict[str, dict] = {}
+    for lbls, v in sorted(reg.series("collective_bytes_per_second").items()):
+        axis = dict(lbls).get("axis")
+        if axis:
+            coll[axis] = {"bytes_per_second": v}
+    for lbls, q in sorted(reg.hist_percentiles("collective_seconds",
+                                               0.5).items()):
+        d = dict(lbls)
+        axis, op = d.get("axis"), d.get("op", "?")
+        if axis:
+            coll.setdefault(axis, {}).setdefault("p50_s", {})[op] = round(q,
+                                                                           9)
+    snap["collectives"] = coll
+    snap["deep_dive"] = ("per-op device timing: utils.profiling.trace / "
+                         "profile_trainer (torch.profiler Chrome trace)")
+    return snap

@@ -182,7 +182,7 @@ def test_train_preempt_chaos_walk(tmp_path):
     assert snap["open"] == "preempted"
     inc = snap["incidents"][-1]
     assert inc["kind"] == "preemption" and "train.preempt" in inc["detail"]
-    assert inc["trace_id"] == ""          # the port records no spans yet
+    assert inc["trace_id"] == ""          # fit runs under no span
     assert reg.counter("train_incidents_total", kind="preemption") == 1.0
     clk.advance(16.0)                                 # the outage
     assert led.goodput_ratio() < 0.5
@@ -206,7 +206,7 @@ def test_step_metrics_and_phase_seconds(peak):
     and tokens/s gauges; ``train_mfu`` skips the first step and reads 0
     against the CPU's zero peak; the profiler times the three phases."""
     reg = MetricsRegistry()
-    prof = PhaseProfiler(registry=reg)
+    prof = PhaseProfiler(plane="train", registry=reg)
     tr = _port_trainer(peak_flops=peak, profiler=prof)
     tr.init(0)
     before = global_metrics.histogram("train_step_seconds")

@@ -44,9 +44,9 @@ from k8s_gpu_tpu_torch.serve.journal import (
 from k8s_gpu_tpu_torch.utils.metrics import MetricsRegistry
 from k8s_gpu_tpu_torch.utils.tracing import (
     SpanContext,
+    Tracer,
     format_traceparent,
     parse_traceparent,
-    request_context,
 )
 
 # Tiny shapes: one intra-op thread keeps the suite's parallel workers
@@ -207,7 +207,9 @@ def test_journal_ring_and_cursor():
 def test_traceparent_is_the_reference_parse(header):
     mine, ref = parse_traceparent(header), jax_parse(header)
     assert (mine is None) == (ref is None)
-    ctx = request_context(header)
+    # A server span continues the inbound trace under its own span id.
+    with Tracer(registry=MetricsRegistry()).span("http", parent=mine) as sp:
+        ctx = sp.context
     if ref is not None:
         assert (mine.trace_id, mine.span_id) == (ref.trace_id, ref.span_id)
         assert format_traceparent(mine) == jax_format(ref)
