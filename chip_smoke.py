@@ -43,7 +43,10 @@ Phases, each of which fails the run on any error:
    bench's MHA A/B shape, f32, an odd S whose tiles straddle group
    members, non-causal at P = 1, and MQA (in bf16 the backward pair takes
    one rotate-and-split pre-pass, timed on its own, and is held with the
-   terms of ``reference_bwd_rounding_v2``);
+   terms of ``reference_bwd_rounding_v2``); and in both 3b and 3c phase
+   10's ring hop, a non-causal half-chunk [1, 8, 1024, 128] in bf16 with
+   an lse cotangent (``ring_hop_bf16`` on v1; ``ring_hop_gqa_bf16`` on v2
+   with 2 KV heads, rope outside, P 1), timed;
 4. the serving main path: the 302M flagship (vocab 16384, d_model 1024, 16
    layers, 8 heads of 128, d_ff 4096, max_seq 2048, bf16, random weights
    from ``--seed``) behind the port's ``LmServer`` on the paged pool with
@@ -142,7 +145,8 @@ Phases, each of which fails the run on any error:
    ``lora-finetune`` and ``cnn-train`` run at the reference's defaults
    with falling losses, ``lm-train-ckpt`` preempted at step 5 through
    the port's ``WorkloadContext`` resumes at step 4 and ends on an
-   uninterrupted run's last loss, and ``psum-smoke`` is refused;
+   uninterrupted run's last loss, ``psum-smoke`` runs on a world of one
+   and ``dist-psum-smoke`` over two gloo ranks on the card;
 7. a check of the training output by the repo's own means: the loss and
    every gradient of one step with flash attention against the same with
    plain attention, at full depth in bf16 (batch 2) and at 2 layers in
@@ -186,7 +190,29 @@ Phases, each of which fails the run on any error:
    no ``serve.`` span, ``serve_phase_share`` on ``/metrics`` and a
    ``utils.profiling.trace`` of two decode rounds (its file deleted
    after); (9d) ``TorchLMClient`` at its default model answering two
-   ``/chat`` calls, greedy and sampled.
+   ``/chat`` calls, greedy and sampled;
+10. the parallel plane (``k8s_gpu_tpu_torch/parallel``): (10a) two NCCL
+   ranks on the one card, whose refusal (or success) is printed, and
+   the NCCL ``psum_smoke`` on a world of one; (10b) which collectives
+   gloo takes on CUDA tensors as they are, each in its own two-rank
+   cluster; then four gloo ranks on the card (the port's collectives
+   copy each transfer through the host) over a dp 2 x sp 2 mesh: (10c)
+   the v2 training configuration at max_seq 4096 (the flagship's widths
+   and depth, 2 KV heads, ``flash_kv_grouped``), global batch 4 x 4096,
+   ``grad_accum_steps`` 2, ZeRO-1, through ring attention and then
+   Ulysses, a warm-up and 3 timed steps each: losses finite, falling and
+   equal on every rank, step 1 within 1e-2 of one rank's step over the
+   whole batch (the flash-v2 path, rope in the kernel), v2 launches
+   exactly 2 x calls / calls / calls a layer, microbatch and step (ring:
+   3 calls, Ulysses: 1), 0 pre-passes, 0 plain calls,
+   ``flash_fallback_total{reason="sp_fused_rope"}`` one a layer and
+   forward; step ms, tokens/s, MFU over the card (all four ranks' work
+   against one card's peak), peak memory a rank;
+   (10d) float32: ring at sp 4 and Ulysses at sp 2 (q [2, 8, 4096,
+   128], GQA) output and gradients within 1e-4 of one whole-sequence
+   flash-v2 call, and a 2-layer meshed step's loss, gradients and
+   parameters within 1e-4 of one rank's; (10e) ``per_axis_bandwidth_probe``
+   over the mesh, gloo through the host on one card (no NCCL rate).
 
 It prints a ``{"kernels": [...]}`` line (each entry names the phase
 that launches it; each flash entry also with its
@@ -777,6 +803,7 @@ def check_flash_attention(torch, seed: int) -> list[dict]:
          True),
         ("distill_bf16", 1, 8, 8, DISTILL_SEQ, 128, "bfloat16", True, False,
          True),
+        RING_HOP_V1,
     ]
     return _flash_cases(torch, seed, [(c, None) for c in cases])
 
@@ -797,7 +824,22 @@ def check_flash_v2(torch, seed: int) -> list[dict]:
         (("mqa_bf16", 2, 8, 1, 2048, 128, "bfloat16", True, True, False), 2),
     ]
     return _flash_cases(torch, seed + 5,
-                        [(c, (ROPE_THETA, p)) for c, p in cases])
+                        [(c, (ROPE_THETA, p)) for c, p in cases]
+                        + [RING_HOP_V2])
+
+
+# Phase 10's ring hops after hop 0, held in phase 3b and 3c: non-causal
+# half-chunks of S / (2 sp) rows in bf16 with an lse cotangent (the
+# merge's), matched heads on v1 and GQA on v2 (rope outside, P 1).
+RING_HOP_V1 = ("ring_hop_bf16", 1, 8, 8, 1024, 128, "bfloat16", False, True,
+               True)
+RING_HOP_V2 = (("ring_hop_gqa_bf16", 1, 8, 2, 1024, 128, "bfloat16", False,
+                True, True), (None, 1))
+
+
+def check_ring_hops(torch, seed: int) -> list[dict]:
+    """The two ring-hop cases alone (``tools/torch_parallel_check.py``)."""
+    return _flash_cases(torch, seed, [(RING_HOP_V1, None), RING_HOP_V2])
 
 
 def _flash_cases(torch, seed, cases) -> list[dict]:
@@ -924,7 +966,7 @@ def _flash_case(torch, gen, dev, name, B, H, KH, S, D, tname, causal,
     # The library call on q and k rotated beforehand (the rotation is not
     # in its time).
     qr, kr = ((fa.rope_rotate(q, v2[0]), fa.rope_rotate(k, v2[0]))
-              if v2 is not None else (q, k))
+              if v2 is not None and v2[0] is not None else (q, k))
     lib_fwd, lib_bwd = _sdpa_ms(torch, qr, kr, v, causal)
     del qr, kr
     args = {names[0]: (q, k, v), names[1]: (q, k, v, g, lse, delta),
@@ -3381,7 +3423,8 @@ def run_registry_path(torch, device="cuda", job_dir: str = JOB_DIR) -> dict:
     ``cnn-train`` at the reference's defaults (finite, falling losses);
     ``lm-train-ckpt`` at interval 2 interrupted at step 5 and run again
     (start 4, and under deterministic mode the last loss of an
-    uninterrupted run, bit for bit); ``psum-smoke`` refused."""
+    uninterrupted run, bit for bit); ``psum-smoke`` on a world of one and
+    ``dist-psum-smoke`` over two gloo ranks on the card."""
     import shutil
     import types
 
@@ -3424,11 +3467,18 @@ def run_registry_path(torch, device="cuda", job_dir: str = JOB_DIR) -> dict:
         raise RuntimeError(f"lm-train-ckpt resumed {resumed}, "
                            f"uninterrupted {straight}")
     out["lm-train-ckpt"] = {"resumed": resumed, "uninterrupted": straight}
-    try:
-        get_workload("psum-smoke")(spec(workload_args=args), {})
-        raise RuntimeError("psum-smoke ran")
-    except NotImplementedError as e:
-        out["psum-smoke"] = f"refused: {e}"
+    # The parallel plane's two: a world of one on the card, and
+    # two gloo ranks on it (NCCL refuses two ranks of one card, phase 10a).
+    out["psum-smoke"] = get_workload("psum-smoke")(spec(workload_args=args),
+                                                   {})
+    out["dist-psum-smoke"] = get_workload("dist-psum-smoke")(
+        spec(workload_args=dict(args, backend="gloo")), {})
+    if not (out["psum-smoke"]["ok"] and out["psum-smoke"]["result"] == 0.0
+            and out["dist-psum-smoke"] == {"processes": 2,
+                                           "global_devices": 4,
+                                           "psum": 6.0}):
+        raise RuntimeError(f"psum workloads: {out['psum-smoke']}, "
+                           f"{out['dist-psum-smoke']}")
     return out
 
 
@@ -3456,8 +3506,8 @@ def _recording_aux(model) -> list:
     every call, as a device tensor, lands in the returned list."""
     auxes, fwd = [], model.forward_train
 
-    def recording(params, tokens):
-        logits, aux = fwd(params, tokens)
+    def recording(params, tokens, mesh=None):
+        logits, aux = fwd(params, tokens, mesh)
         auxes.append(aux.detach())
         return logits, aux
 
@@ -4450,6 +4500,549 @@ def check_train_outputs(torch, seed: int, layers: int, device="cuda",
     return out
 
 
+# -- phase 10: the parallel plane --------------------------------------------
+
+# The headline run: the v2 training configuration (flagship widths, 2 KV
+# heads, the v2 knobs) at max_seq 4096 over a dp 2 x sp 2 mesh of four
+# ranks on the one card, global batch 4 x 4096, 2 microbatches, ZeRO-1.
+PAR_WORLD = 4
+PAR_SEQ = 4096
+PAR_SP = 2
+PAR_BATCH = 4
+PAR_ACCUM = 2
+PAR_STEPS = 3          # timed steps after the warm-up step
+# Phase 10d: float32 sp attention and the meshed step against the whole
+# sequence on one rank, relative to the largest value (phase 3's float32
+# limit).
+PAR_F32_TOL = 1e-4
+# The least share of parameters whose update 10d holds (the rest have a
+# gradient at rounding level, or none: embedding rows no token selects).
+PAR_UPDATE_SHARE = 0.5
+PAR_TIMEOUT = 400.0
+# The collectives a gloo group is asked to run on CUDA tensors as they
+# are (phase 10b): what PyTorch's gloo backend takes on the card.
+GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather",
+                 "all_to_all_single", "send_recv")
+
+
+def parallel_config(torch, layers: int, dtype=None,
+                    sp_attention: str = "ring", seq: int = PAR_SEQ):
+    import dataclasses
+
+    return dataclasses.replace(
+        flagship_train_config(torch, layers, dtype, v2=True),
+        max_seq=seq, sp_attention=sp_attention)
+
+
+def _par_tokens(torch, seed: int, cfg, batch: int = PAR_BATCH):
+    """The global batch [batch, seq + 1], the same on every rank."""
+    rng = torch.Generator().manual_seed(seed + 2)
+    return torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq + 1),
+                         generator=rng)
+
+
+def _gloo_cuda_op(op: str) -> str:
+    """One collective of two gloo ranks on CUDA tensors handed over as
+    they are; "ok" when it gives the right values."""
+    import torch
+    import torch.distributed as dist
+
+    me = dist.get_rank()
+    x = torch.full((4,), float(me + 1), device="cuda")
+    if op == "all_reduce":
+        dist.all_reduce(x)
+        want = [3.0] * 4
+    elif op == "broadcast":
+        dist.broadcast(x, src=0)
+        want = [1.0] * 4
+    elif op == "all_gather":
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x)
+        x, want = torch.cat(parts), [1.0] * 4 + [2.0] * 4
+    elif op == "all_to_all_single":
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        x, want = out, [1.0, 1.0, 2.0, 2.0]
+    else:
+        out = torch.empty_like(x)
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, 1 - me),
+                dist.P2POp(dist.irecv, out, 1 - me)]):
+            req.wait()
+        x, want = out, [float(2 - me)] * 4
+    torch.cuda.synchronize()
+    got = x.cpu().tolist()
+    return "ok" if got == want else f"wrong values {got}"
+
+
+def _last_error(e: Exception) -> str:
+    """The telling line of a failed cluster: NCCL's or gloo's own words
+    where a worker's log has them."""
+    lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+    for key in ("Duplicate GPU", "NCCL error", "Error", "error"):
+        hits = [ln for ln in lines if key in ln]
+        if hits:
+            return hits[-1][:400]
+    return lines[-1][:400] if lines else repr(e)
+
+
+def run_parallel_probes(torch) -> dict:
+    """Phase 10a-b: two NCCL ranks on the one card (NCCL's answer), the
+    NCCL psum smoke on a world of one, and which collectives gloo takes
+    on CUDA tensors as they are, each asked of its own two-rank cluster
+    (all side by side)."""
+    import functools
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+
+    import chip_smoke
+    from k8s_gpu_tpu_torch.parallel.collectives import psum_smoke
+    from k8s_gpu_tpu_torch.parallel.multihost import (
+        _free_port, spawn_local_cluster, workload_global_psum,
+    )
+
+    def cluster(fn, backend):
+        try:
+            return {"ok": True, "result": spawn_local_cluster(
+                fn, 2, timeout=120.0, device="cuda", backend=backend)}
+        except RuntimeError as e:
+            return {"ok": False, "message": _last_error(e)}
+
+    with ThreadPoolExecutor(1 + len(GLOO_CUDA_OPS)) as pool:
+        nccl = pool.submit(cluster, functools.partial(
+            workload_global_psum, device="cuda"), "nccl")
+        gloo = {op: pool.submit(cluster, functools.partial(
+            chip_smoke._gloo_cuda_op, op), "gloo") for op in GLOO_CUDA_OPS}
+        nccl_two = nccl.result()
+        gloo_ops = {op: (f.result()["result"][0] if f.result()["ok"]
+                         else f"refused: {f.result()['message']}")
+                    for op, f in gloo.items()}
+    print(json.dumps({"parallel_nccl_two_ranks": nccl_two,
+                      "gloo_cuda_ops": gloo_ops}), flush=True)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        nccl_one = psum_smoke(device="cuda")
+    finally:
+        dist.destroy_process_group()
+    if not nccl_one["ok"]:
+        raise RuntimeError(f"NCCL psum smoke on one rank: {nccl_one}")
+    return {"nccl_two_ranks": nccl_two, "nccl_psum_one_rank": nccl_one,
+            "gloo_cuda_ops": gloo_ops}
+
+
+def one_rank_reference_loss(torch, seed: int, layers: int, seq: int,
+                            device="cuda") -> dict:
+    """Phase 10c's yardstick: the first step's loss of the same
+    configuration on one rank over the whole batch, through the existing
+    flash-v2 path (rope and the P 2 pipeline in the kernels)."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = parallel_config(torch, layers, seq=seq)
+    trainer = Trainer(TransformerLM(cfg, device=device),
+                      TrainConfig(warmup_steps=1, grad_accum_steps=PAR_ACCUM),
+                      device=device)
+    trainer.init(seed)
+    toks = _par_tokens(torch, seed, cfg)
+    t0 = time.perf_counter()
+    loss = trainer.step(toks[:, :-1], toks[:, 1:])
+    wall = time.perf_counter() - t0
+    # A second step, timed: the work of the four ranks' step on one rank
+    # with the whole card and no transfer.
+    t0 = time.perf_counter()
+    trainer.step(toks[:, :-1], toks[:, 1:])
+    step_s = time.perf_counter() - t0
+    del trainer
+    _free_if(torch, torch.device(device))
+    return {"loss": loss, "first_step_s": wall, "step_ms": step_s * 1e3}
+
+
+# The port's transfers, by the name the timing below reports them under:
+# (module, attribute) of each function that moves a tensor between ranks.
+_TRANSFERS = (("collectives", "_ppermute"), ("collectives", "_all_to_all"),
+              ("runner", "all_reduce"), ("runner", "all_gather"))
+
+
+def _timing_transfers(torch, dev):
+    """Wrap the port's transfer functions so each call adds its wall
+    seconds, the card synchronized before and after (so no queued
+    compute is counted), under its name; returns (the seconds by name,
+    a function that undoes the wrapping)."""
+    from k8s_gpu_tpu_torch.parallel import collectives
+    from k8s_gpu_tpu_torch.train import runner
+
+    mods = {"collectives": collectives, "runner": runner}
+    spent: dict[str, float] = {}
+    saved = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for mod, name in _TRANSFERS:
+        fn = getattr(mods[mod], name)
+        saved.append((mods[mod], name, fn))
+
+        def timed(*a, _fn=fn, _name=name.lstrip("_"), **kw):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                sync()
+                spent[_name] = spent.get(_name, 0.0) + (time.perf_counter()
+                                                        - t0)
+
+        setattr(mods[mod], name, timed)
+    return spent, lambda: [setattr(m, n, f) for m, n, f in saved]
+
+
+def _par_train(torch, seed: int, layers: int, seq: int, mesh,
+               sp_attention: str, device) -> dict:
+    """One rank's run of phase 10c: a warm-up step (learning rate 0) and
+    PAR_STEPS timed ones on the same global batch, with this rank's flash
+    launches, plain calls and sp_fused_rope count over the timed steps."""
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves
+    from k8s_gpu_tpu_torch.utils.metrics import global_metrics
+
+    cfg = parallel_config(torch, layers, sp_attention=sp_attention, seq=seq)
+    trainer = Trainer(TransformerLM(cfg, device=device),
+                      TrainConfig(warmup_steps=1, grad_accum_steps=PAR_ACCUM,
+                                  zero1=True), device=device, mesh=mesh)
+    trainer.init(seed)
+    toks = _par_tokens(torch, seed, cfg)
+    x, y = toks[:, :-1], toks[:, 1:]
+    cuda = trainer.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = trainer.step(x, y)
+    warm_s = time.perf_counter() - t0
+    dist.barrier()
+    fa.reset_counts()
+    rope0 = global_metrics.counter("flash_fallback_total",
+                                   reason="sp_fused_rope")
+    t0 = time.perf_counter()
+    losses = [trainer.step(x, y) for _ in range(PAR_STEPS)]
+    wall = time.perf_counter() - t0
+    out = {"losses": [first] + losses, "warmup_step_s": warm_s,
+           "step_s": wall / PAR_STEPS, "launches": dict(fa.launch_counts),
+           "prepass_launches": fa.prepass_counts["flash_v2_rope_split"],
+           "plain_calls": fa.plain_count,
+           "sp_fused_rope": global_metrics.counter(
+               "flash_fallback_total", reason="sp_fused_rope") - rope0,
+           "ulysses_kv_heads": global_metrics.counter(
+               "flash_fallback_total", reason="ulysses_kv_heads"),
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if cuda else None),
+           "n_params": sum(p.numel() for p in tree_leaves(trainer.params))}
+    # One more step with every transfer timed (the card synchronized
+    # around each): where the step's wall goes.
+    spent, undo = _timing_transfers(torch, trainer.device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    try:
+        trainer.step(x, y)
+    finally:
+        undo()
+    out["timed_transfer_step_s"] = time.perf_counter() - t0
+    out["transfer_s"] = spent
+    del trainer
+    _free_if(torch, torch.device(device))
+    return out
+
+
+def _par_block(t, mesh):
+    """This rank's [B/dp, ., S/sp, .] block of a global [B, H, S, D]."""
+    from k8s_gpu_tpu_torch.parallel.mesh import axis_rank, mesh_shape
+
+    shape = mesh_shape(mesh)
+    t = t.chunk(shape["dp"], 0)[axis_rank(mesh, "dp")]
+    return t.chunk(shape["sp"], 2)[axis_rank(mesh, "sp")].contiguous()
+
+
+def _par_attention_f32(torch, seed: int, meshes: dict, seq: int,
+                       device) -> dict:
+    """Phase 10d.1: float32 ring at sp 4 and Ulysses at sp 2 (GQA, the
+    flagship's heads at 4096 tokens), output and q/k/v gradients against
+    one whole-sequence flash-v2 call on the same inputs."""
+    from k8s_gpu_tpu_torch.ops.attention import flash_attention_v2
+    from k8s_gpu_tpu_torch.parallel.ring_attention import ring_attention
+    from k8s_gpu_tpu_torch.parallel.ulysses import ulysses_attention
+
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    B, H, KH, D = 2, 8, 2, 128
+    q, k, v, g = (torch.randn(s, generator=gen, device=device)
+                  for s in ((B, H, seq, D), (B, KH, seq, D),
+                            (B, KH, seq, D), (B, H, seq, D)))
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o_ref = flash_attention_v2(qr, kr, vr, causal=True)
+    torch.autograd.backward(o_ref, g)
+    ref = {"out": o_ref.detach(), "dq": qr.grad, "dk": kr.grad,
+           "dv": vr.grad}
+    out = {}
+    for name, fn, mesh in (("ring_sp4", ring_attention, meshes["sp4"]),
+                           ("ulysses_sp2", ulysses_attention,
+                            meshes["dp2sp2"])):
+        ql, kl, vl = (_par_block(t, mesh).requires_grad_()
+                      for t in (q, k, v))
+        o = fn(ql, kl, vl, mesh)
+        torch.autograd.backward(o, _par_block(g, mesh))
+        errs = {f: _max_rel(x.detach(), _par_block(ref[f], mesh))
+                for f, x in (("out", o), ("dq", ql.grad), ("dk", kl.grad),
+                             ("dv", vl.grad))}
+        if not max(errs.values()) <= PAR_F32_TOL:
+            raise RuntimeError(f"float32 {name} vs whole-sequence flash: "
+                               f"{errs} > {PAR_F32_TOL}")
+        out[name] = errs
+    return out
+
+
+def _recording_grads(trainer) -> list:
+    """The gradients each step hands AdamW (after the mesh's
+    all-reduce), recorded as float32 copies."""
+    seen = []
+    update = trainer.optimizer.update
+
+    def record(params, grads):
+        seen.append([g.detach().float().clone() for g in grads])
+        update(params, grads)
+
+    trainer.optimizer.update = record
+    return seen
+
+
+def _update_rel_err(theta0, meshed, one, g_meshed, g_one) -> tuple:
+    """How far the meshed step's update (theta1 - theta0) is from one
+    rank's, relative to the largest update of each leaf, over the
+    elements whose update the gradients decide: AdamW's first update is
+    about lr times the sign of each gradient, so an element whose
+    gradient is within 1000x of the two sides' largest gradient
+    difference (or within 100x of AdamW's eps) may move either way and
+    is left out.  Returns (the largest error, the share of elements
+    held)."""
+    err, held, total = 0.0, 0, 0
+    for p0, pm, po, gm, go in zip(theta0, meshed, one, g_meshed, g_one):
+        noise = float((gm - go).abs().max())
+        keep = (go.abs() > 1e3 * noise) & (go.abs() > 1e-6)
+        total += keep.numel()
+        if not keep.any():
+            continue
+        held += int(keep.sum())
+        dm, do = (pm.detach() - p0)[keep], (po.detach() - p0)[keep]
+        err = max(err, float((dm - do).abs().max() / do.abs().max()))
+    return err, held / total
+
+
+def _par_step_f32(torch, seed: int, mesh, seq: int, device) -> dict:
+    """Phase 10d.2: one float32 step of 2 layers at the flagship's widths
+    over the dp x sp mesh (ring, ZeRO-1, 2 microbatches) against one
+    rank's step over the whole batch, which rank 0 computes: the loss,
+    the gradients AdamW is handed (relative to each leaf's norm) and the
+    update each parameter took (``_update_rel_err``; at a learning rate
+    of 1e-2, so that a float32 rounding of a parameter near 1 is 1e-5 of
+    the update), every one within PAR_F32_TOL.  An update the ZeRO-1
+    slices missed, took from the wrong slice of the gradient or did not
+    gather back is off by about the whole update.  Rope stays outside
+    the kernels on both sides, so they differ in summation order only.
+    Every rank's parameter checksum, which must agree, comes back too."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves
+
+    cfg = dataclasses.replace(parallel_config(torch, 2, torch.float32,
+                                              seq=seq),
+                              flash_fuse_rope=False)
+    # A cosine schedule without warm-up moves the parameters at step 1.
+    tc = dict(warmup_steps=0, schedule="cosine", decay_steps=100,
+              learning_rate=1e-2, grad_accum_steps=PAR_ACCUM)
+    toks = _par_tokens(torch, seed + 1, cfg)
+    x, y = toks[:, :-1], toks[:, 1:]
+    meshed = Trainer(TransformerLM(cfg, device=device),
+                     TrainConfig(**tc, zero1=True), device=device, mesh=mesh)
+    meshed.init(seed + 3)
+    grads = _recording_grads(meshed)
+    loss = meshed.step(x, y)
+    leaves = tree_leaves(meshed.params)
+    out = {"loss": loss,
+           "checksum": float(sum(p.double().sum() for p in leaves))}
+    if dist.get_rank() == 0:
+        one = Trainer(TransformerLM(cfg, device=device), TrainConfig(**tc),
+                      device=device)
+        one.init(seed + 3)
+        theta0 = [p.detach().clone() for p in tree_leaves(one.params)]
+        ref_grads = _recording_grads(one)
+        out["loss_one_rank"] = one.step(x, y)
+        out["loss_diff"] = abs(loss - out["loss_one_rank"])
+        out["grad_rel_err"] = max(
+            float((a - b).norm() / b.norm())
+            for a, b in zip(grads[0], ref_grads[0]))
+        out["update_rel_err"], out["update_held_share"] = _update_rel_err(
+            theta0, leaves, tree_leaves(one.params), grads[0], ref_grads[0])
+        del one, ref_grads, theta0
+    del meshed, grads
+    _free_if(torch, torch.device(device))
+    return out
+
+
+def _parallel_rank(seed: int, layers: int, seq: int, device) -> dict:
+    """What each of phase 10's four gloo ranks runs."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.parallel.collectives import (
+        per_axis_bandwidth_probe, transport,
+    )
+    from k8s_gpu_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    meshes = {"dp2sp2": build_mesh(MeshConfig(dp=2, sp=PAR_SP),
+                                   device_type=dev.type),
+              "sp4": build_mesh(MeshConfig(dp=1, sp=4),
+                                device_type=dev.type)}
+    out = {"rank": dist.get_rank(),
+           "transport": transport(meshes["dp2sp2"].get_group("sp"), dev)}
+    for sp_attention in ("ring", "ulysses"):
+        out[sp_attention] = _par_train(torch, seed, layers, seq,
+                                       meshes["dp2sp2"], sp_attention, dev)
+    out["attention_f32"] = _par_attention_f32(torch, seed, meshes, seq, dev)
+    out["step_f32"] = _par_step_f32(torch, seed, meshes["dp2sp2"], seq, dev)
+    out["bandwidth"] = per_axis_bandwidth_probe(
+        meshes["dp2sp2"], mib=64.0 if dev.type == "cuda" else 1.0, iters=3,
+        device=dev)
+    return out
+
+
+def _par_launches(fa, layers: int, calls: int) -> dict:
+    """A rank's v2 launches over the timed steps: ``calls`` flash calls
+    a layer and forward, the forward run twice (full remat), dq and
+    dk/dv once a call."""
+    fwd, dq, dkv = FLASH_V2_KERNELS
+    per = layers * PAR_ACCUM * PAR_STEPS * calls
+    return _counts(fa, {fwd: 2 * per, dq: per, dkv: per})
+
+
+def run_parallel_path(torch, seed: int, layers: int, seq: int = PAR_SEQ,
+                      device="cuda") -> dict:
+    """Phase 10: the parallel plane, four gloo ranks on the one card
+    (``device="cpu"`` with a short ``seq`` rehearses it on the CPU: the
+    plain versions, no NCCL probe, no launch counts)."""
+    import functools
+
+    import chip_smoke
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.parallel.multihost import spawn_local_cluster
+    from k8s_gpu_tpu_torch.train.runner import (
+        device_peak_flops, model_flops_per_step,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+    probes = run_parallel_probes(torch) if cuda else {}
+    ref = one_rank_reference_loss(torch, seed, layers, seq, device)
+    t0 = time.perf_counter()
+    ranks = spawn_local_cluster(
+        functools.partial(chip_smoke._parallel_rank, seed, layers, seq,
+                          device),
+        PAR_WORLD, timeout=PAR_TIMEOUT, device=device, backend="gloo")
+    cluster_s = time.perf_counter() - t0
+    cfg = parallel_config(torch, layers, seq=seq)
+    n_params = ranks[0]["ring"]["n_params"]
+    out = {"layers": layers, "world": PAR_WORLD, "mesh": {"dp": 2,
+           "sp": PAR_SP}, "global_batch": PAR_BATCH, "seq": seq,
+           "grad_accum_steps": PAR_ACCUM, "zero1": True, "n_params": n_params,
+           "transport": ranks[0]["transport"], "cluster_s": cluster_s,
+           "one_rank_step1_loss": ref["loss"],
+           "one_rank_step_ms": ref["step_ms"], **probes}
+    # The four ranks share the one card.
+    peak = device_peak_flops() if cuda else 0.0
+    flops = model_flops_per_step(cfg, n_params, PAR_BATCH)
+    for name, calls in (("ring", 1 + 2 * (PAR_SP - 1)), ("ulysses", 1)):
+        runs = [r[name] for r in ranks]
+        want = _par_launches(fa, layers, calls)
+        for r in runs:
+            if cuda and (r["launches"] != want or r["plain_calls"] != 0
+                         or r["prepass_launches"] != 0):
+                raise RuntimeError(
+                    f"phase 10 {name}: a rank launched {r['launches']}, "
+                    f"{r['prepass_launches']} pre-passes and "
+                    f"{r['plain_calls']} plain calls; expected {want}, 0, 0")
+            if (r["sp_fused_rope"] != layers * PAR_ACCUM * PAR_STEPS
+                    or r["ulysses_kv_heads"] != 0):
+                raise RuntimeError(
+                    f"phase 10 {name}: flash_fallback_total sp_fused_rope "
+                    f"{r['sp_fused_rope']}, ulysses_kv_heads "
+                    f"{r['ulysses_kv_heads']}")
+            losses = r["losses"]
+            if not all(math.isfinite(v) for v in losses):
+                raise RuntimeError(f"phase 10 {name}: losses {losses}")
+            if not all(b < a for a, b in zip(losses[1:], losses[2:])) \
+                    or not losses[-1] < losses[0]:
+                raise RuntimeError(f"phase 10 {name}: loss did not fall: "
+                                   f"{losses}")
+        if len({tuple(r["losses"]) for r in runs}) != 1:
+            raise RuntimeError(f"phase 10 {name}: ranks disagree on the "
+                               f"loss: {[r['losses'] for r in runs]}")
+        diff = abs(runs[0]["losses"][0] - ref["loss"])
+        if not diff <= TRAIN_TOL["bfloat16"]["loss"]:
+            raise RuntimeError(f"phase 10 {name}: step 1 loss "
+                               f"{runs[0]['losses'][0]} vs one rank "
+                               f"{ref['loss']}")
+        step_s = max(r["step_s"] for r in runs)
+        out[name] = {
+            "losses": runs[0]["losses"], "step1_loss_diff": diff,
+            "step_ms": step_s * 1e3,
+            "tokens_per_s": PAR_BATCH * PAR_SEQ / step_s,
+            "mfu_over_card": flops / step_s / peak if peak else None,
+            "warmup_step_s": max(r["warmup_step_s"] for r in runs),
+            "peak_memory_gb_per_rank": (max(r["peak_memory_gb"]
+                                            for r in runs) if cuda else None),
+            "launches": {k: sum(r["launches"][k] for r in runs)
+                         for k in runs[0]["launches"]},
+            "launches_per_rank_step": {k: v // PAR_STEPS for k, v in
+                                       runs[0]["launches"].items()},
+            "plain_calls": sum(r["plain_calls"] for r in runs),
+            "sp_fused_rope_per_rank": runs[0]["sp_fused_rope"],
+            "ulysses_kv_heads_per_rank": runs[0]["ulysses_kv_heads"],
+            # The extra step with each transfer timed between two
+            # synchronizations: its wall and the seconds in each kind of
+            # transfer (the most of any rank).
+            "timed_transfer_step_s": max(r["timed_transfer_step_s"]
+                                         for r in runs),
+            "transfer_s": {k: max(r["transfer_s"].get(k, 0.0) for r in runs)
+                           for k in runs[0]["transfer_s"]},
+        }
+    out["attention_f32"] = {k: max(r["attention_f32"][k][f] for r in ranks
+                                   for f in ranks[0]["attention_f32"][k])
+                            for k in ranks[0]["attention_f32"]}
+    step = [r["step_f32"] for r in ranks]
+    if len({s["checksum"] for s in step}) != 1:
+        raise RuntimeError(f"phase 10d: ranks' parameters differ: {step}")
+    if not (max(step[0][k] for k in ("loss_diff", "grad_rel_err",
+                                     "update_rel_err")) <= PAR_F32_TOL
+            and step[0]["update_held_share"] >= PAR_UPDATE_SHARE):
+        raise RuntimeError(f"phase 10d: meshed float32 step against one "
+                           f"rank's: {step[0]}")
+    out["step_f32"] = step[0]
+    out["bandwidth"] = ranks[0]["bandwidth"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4547,6 +5140,9 @@ def main(argv=None) -> int:
     print(json.dumps({"train_outputs": train_outputs}), flush=True)
     train_v2_outputs = check_train_outputs(torch, args.seed, LAYERS, v2=True)
     print(json.dumps({"train_v2_outputs": train_v2_outputs}), flush=True)
+    _free(torch)
+    parallel = run_parallel_path(torch, args.seed, LAYERS)
+    print(json.dumps({"parallel_path": parallel, "gpu": gpu}), flush=True)
 
     case = {r["case"]: r for r in kern}
     decode = case["decode_bf16"]
@@ -4605,17 +5201,19 @@ def main(argv=None) -> int:
                          "splits", "grid_splits")},
     }]}
     # Phase 4e's distillation shapes, timed in phase 3b: the draft's
-    # float32 training and the target's bf16 forward.
+    # float32 training and the target's bf16 forward; phase 10's ring
+    # hops, timed in phase 3b and 3c.
     distill_cases = ("distill_f32", "distill_bf16")
     for rows, top, extra, lines, source, run, sa, phase in (
-            (flash, "flagship_bf16", distill_cases, FLASH_KERNELS,
-             "flash_attention", train, save_attn,
+            (flash, "flagship_bf16", distill_cases + ("ring_hop_bf16",),
+             FLASH_KERNELS, "flash_attention", train, save_attn,
              "6 (training); also 4e (draft distillation), 4f (LoRA "
              "fine-tune), 6c (the training job, save_attn), 8a (MoE "
              "training)"),
-            (flash_v2, "train_gqa_bf16", (), FLASH_V2_KERNELS,
-             "flash_attention_v2", train_v2, save_attn_v2,
-             "6b (v2 training); also 6c (save_attn)")):
+            (flash_v2, "train_gqa_bf16", ("ring_hop_gqa_bf16",),
+             FLASH_V2_KERNELS, "flash_attention_v2", train_v2, save_attn_v2,
+             "6b (v2 training); also 6c (save_attn), 10 (ring and Ulysses "
+             "over dp 2 x sp 2, GQA)")):
         by_case = {r["case"]: r for r in rows}
         timed = by_case[top]
         for name, line in lines.items():
@@ -4641,6 +5239,11 @@ def main(argv=None) -> int:
                     "launches_moe_save_attn":
                         moe_train["save_attn"]["launches"][name]}
                    if name in FLASH_KERNELS else {}),
+                # Phase 10c: the four ranks' timed steps, ring and Ulysses.
+                **({f"launches_parallel_{sp}":
+                    parallel[sp]["launches"][name]
+                    for sp in ("ring", "ulysses")}
+                   if name in FLASH_V2_KERNELS else {}),
                 "max_abs_err": max(r["kernels"][name]["max_abs_err"]
                                    for r in rows),
                 **{key: timed["kernels"][name][key]
@@ -4675,6 +5278,7 @@ def main(argv=None) -> int:
                        "moe_serve_path": moe_serve,
                        "moe_identity": moe_identity,
                        "finagent_path": finagent,
+                       "parallel_path": parallel,
                        "device": device,
                        **kernels}, fh, indent=1)
     print(gpu, flush=True)

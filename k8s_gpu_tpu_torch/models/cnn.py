@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..parallel.mesh import axis_size
 
 
 @dataclass(frozen=True)
@@ -67,6 +68,14 @@ class SmallCnn:
         x = F.relu(x @ params["fc1"].to(dt))
         return (x @ params["fc2"].to(dt)).float()
 
-    def loss(self, params, images, labels):
+    def loss(self, params, images, labels, mesh=None):
+        """Mean cross-entropy of this rank's images.  On a mesh the
+        ``Trainer`` averages it over the ranks, which is the global mean
+        for a dp split; an sp axis would cut every image along H, so it
+        is refused."""
+        if axis_size(mesh, "sp") > 1:
+            raise NotImplementedError(
+                "the CNN on an sp mesh: sp cuts token sequences, and an "
+                "image cut along H is not the image; use dp")
         logp = torch.log_softmax(self.forward(params, images), dim=-1)
         return -logp.gather(-1, labels.long()[:, None]).mean()

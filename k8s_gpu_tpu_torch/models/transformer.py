@@ -35,9 +35,24 @@ and each token gathers its expert's output back.  Shapes depend only on
 the batch, never on the routing, and nothing on the path waits for the
 card.
 
-Not ported yet (ROADMAP.md): ring/ulysses attention (the
-sequence-sharded plane), the pipeline schedules and experts over an
-``ep`` mesh axis.
+On a mesh (``forward``, ``forward_train`` and ``loss`` take ``mesh=``, a
+``parallel.mesh`` mesh) the tokens are this rank's block [B/dp, S/sp].
+With sp > 1 the attention is the reference's sequence-sharded path:
+``sp_attention="ring"`` (``parallel/ring_attention.py``) or
+``"ulysses"`` (``parallel/ulysses.py``), both through the flash kernels,
+with rope outside at the block's **global** positions (rank r of sp
+holds [r S/sp, (r+1) S/sp)); grouped K/V ride the ring at their KV
+heads, and Ulysses keeps them grouped when ``ulysses_grouped_ok``
+holds, else broadcasts them.  Where the reference mints
+``flash_fallback_total`` at trace time on these paths (reason
+``sp_fused_rope`` with ``flash_fuse_rope``, ``ulysses_kv_heads``), the
+port has no trace: it counts each layer's attention each forward (the
+kernels still run on both).  ``loss`` on a mesh is the block's own mean;
+the ``Trainer`` averages it over the ranks.
+
+Not ported yet (ROADMAP.md queue 1 item 11, its second half): the tp,
+ep and pp axes (the pipeline schedules, experts over ``ep``), MoE on a
+mesh and ``save_attn`` on an sp mesh.
 """
 
 from __future__ import annotations
@@ -52,6 +67,10 @@ from ..ops.attention import (
     attention_replay, flash_attention, flash_attention_lse,
     flash_attention_v2, flash_attention_v2_lse, reference_attention_lse,
 )
+from ..parallel.mesh import NEXT_SLICE, axis_rank, axis_size, check_slice
+from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses import ulysses_attention, ulysses_grouped_ok
+from ..utils.metrics import global_metrics
 
 
 def wt(w, dt):
@@ -107,6 +126,10 @@ class TransformerConfig:
     flash_fuse_rope: bool = False
     flash_kv_grouped: bool = False
     flash_q_pipeline: int = 0
+    # The sequence-sharded attention on a mesh with sp > 1: "ring"
+    # (ppermute streaming, any head count) or "ulysses" (all-to-all head
+    # regrouping, heads divisible by sp).
+    sp_attention: str = "ring"
     # Paged-KV attention read for serving: "gather" or "paged_kernel".
     attn_impl: str = "gather"
 
@@ -194,6 +217,37 @@ class TransformerLM:
             "blocks": blocks,
         }
 
+    def logical_axes(self) -> dict:
+        """Same-shape tree of logical axis-name tuples (the "layers" axis
+        maps to 'pp' stages when pipelining): the reference's table."""
+        cfg = self.cfg
+        axes = {
+            "embed": ("vocab", "embed"),
+            "final_norm": ("embed",),
+            "head": ("embed", "vocab"),
+            "blocks": {
+                "ln1": ("stages", "embed"),
+                "ln2": ("stages", "embed"),
+                "wq": ("stages", "embed", "heads", "kv"),
+                "wk": ("stages", "embed", "heads", "kv"),
+                "wv": ("stages", "embed", "heads", "kv"),
+                "wo": ("stages", "heads", "kv", "embed"),
+            },
+        }
+        if cfg.moe:
+            axes["blocks"]["gate"] = ("stages", "embed", None)
+            axes["blocks"]["e_wi_gate"] = ("stages", "experts", "embed",
+                                           "expert_mlp")
+            axes["blocks"]["e_wi_up"] = ("stages", "experts", "embed",
+                                         "expert_mlp")
+            axes["blocks"]["e_wo"] = ("stages", "experts", "expert_mlp",
+                                      "embed")
+        else:
+            axes["blocks"]["wi_gate"] = ("stages", "embed", "mlp")
+            axes["blocks"]["wi_up"] = ("stages", "embed", "mlp")
+            axes["blocks"]["wo_mlp"] = ("stages", "mlp", "embed")
+        return axes
+
     # -- building blocks ---------------------------------------------------
     @staticmethod
     def _rmsnorm(x, scale):
@@ -229,22 +283,39 @@ class TransformerLM:
         p = torch.softmax(s, dim=-1)
         return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
-    def _route(self, positions):
+    def _route(self, positions, mesh=None):
         """(v2, fused rope, grouped K/V) of the training attention.
         Flash-v2 derives rope positions from the tile it works on, so it
-        takes only the dense arange positions of one unsplit sequence."""
+        takes only the dense arange positions of one unsplit sequence
+        (never a block of a sequence sharded over sp)."""
         cfg = self.cfg
-        grouped = cfg.flash_kv_grouped and cfg.n_heads // cfg.kv_heads > 1
+        grouped = self._grouped
         use_v2 = (cfg.use_flash and positions.ndim == 1
+                  and axis_size(mesh, "sp") == 1
                   and (cfg.flash_fuse_rope or grouped
                        or cfg.flash_q_pipeline > 1))
         return use_v2, use_v2 and cfg.flash_fuse_rope, grouped
 
-    def _qkv(self, x, lp, positions):
+    @property
+    def _grouped(self) -> bool:
+        """``flash_kv_grouped`` with real groups (KH < H)."""
+        cfg = self.cfg
+        return cfg.flash_kv_grouped and cfg.n_heads // cfg.kv_heads > 1
+
+    def _sp_grouped(self, mesh) -> bool:
+        """Whether grouped K/V stay at their KV heads on the sp path: the
+        ring takes them always, Ulysses when its all-to-all keeps each
+        query head with its KV head."""
+        cfg = self.cfg
+        if self._grouped and cfg.sp_attention == "ulysses":
+            return ulysses_grouped_ok(cfg.n_heads, cfg.kv_heads, mesh)
+        return self._grouped
+
+    def _qkv(self, x, lp, positions, mesh=None):
         """q [B, H, S, Dh] and k, v [B, H or KH, S, Dh] as the route's
         attention takes them."""
         dt = self.cfg.dtype
-        use_v2, fuse_rope, grouped = self._route(positions)
+        use_v2, fuse_rope, grouped = self._route(positions, mesh)
         q = torch.einsum("bsd,dhk->bshk", x, wt(lp["wq"], dt))
         k = torch.einsum("bsd,dhk->bshk", x, wt(lp["wk"], dt))
         v = torch.einsum("bsd,dhk->bshk", x, wt(lp["wv"], dt))
@@ -252,7 +323,9 @@ class TransformerLM:
             q = self._rope(q, positions)
             k = self._rope(k, positions)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))       # [B,H,S,Dh]
-        if not (use_v2 and grouped):
+        keep = (self._sp_grouped(mesh) if axis_size(mesh, "sp") > 1
+                else use_v2 and grouped)
+        if not keep:
             k, v = self._repeat_kv(k), self._repeat_kv(v)
         return q, k, v
 
@@ -266,12 +339,16 @@ class TransformerLM:
         o = o.transpose(1, 2)                                   # [B,S,H,Dh]
         return torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], self.cfg.dtype))
 
-    def _attention(self, x, lp, positions):
+    def _attention(self, x, lp, positions, mesh=None):
         cfg = self.cfg
-        q, k, v = self._qkv(x, lp, positions)
+        q, k, v = self._qkv(x, lp, positions, mesh)
         blocks = dict(block_q=cfg.flash_block_q or None,
                       block_k=cfg.flash_block_k or None)
-        if self._route(positions)[0]:
+        if axis_size(mesh, "sp") > 1:
+            sp_attend = {"ring": ring_attention,
+                         "ulysses": ulysses_attention}[cfg.sp_attention]
+            o = sp_attend(q, k, v, mesh, **blocks)
+        elif self._route(positions)[0]:
             o = flash_attention_v2(q, k, v, causal=True,
                                    **self._v2_args(positions), **blocks)
         elif cfg.use_flash:
@@ -363,9 +440,10 @@ class TransformerLM:
             return x + y, aux
         return x + self._dense_mlp(h, lp), None
 
-    def _block(self, x, lp, positions):
+    def _block(self, x, lp, positions, mesh=None):
         """-> (x, aux or None)."""
-        x = x + self._attention(self._rmsnorm(x, lp["ln1"]), lp, positions)
+        x = x + self._attention(self._rmsnorm(x, lp["ln1"]), lp, positions,
+                                mesh)
         return self._mlp(x, lp)
 
     def _block_saving(self, x, lp, positions):
@@ -388,19 +466,59 @@ class TransformerLM:
 
     # -- forward -----------------------------------------------------------
     @torch.no_grad()
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, mesh=None):
         """tokens [B, S] int -> (logits [B, S, V] f32, aux loss: the MoE
         layers' mean, 0 for the dense model), without gradients (serving,
-        evaluation)."""
-        return self.forward_train(params, tokens)
+        evaluation).  On a mesh, ``tokens`` is this rank's block."""
+        return self.forward_train(params, tokens, mesh)
 
-    def forward_train(self, params, tokens):
+    def _check_mesh(self, mesh) -> None:
+        """What the sequence-sharded path refuses, with the reference's
+        error for an unknown ``sp_attention``."""
+        cfg = self.cfg
+        check_slice(mesh, "TransformerLM")
+        if cfg.moe:
+            raise NotImplementedError(
+                f"MoE on a mesh: not ported yet ({NEXT_SLICE})")
+        if axis_size(mesh, "sp") == 1:
+            return
+        if cfg.sp_attention not in ("ring", "ulysses"):
+            raise ValueError(
+                f"unknown sp_attention {cfg.sp_attention!r}; "
+                "expected 'ring' or 'ulysses'")
+        if cfg.remat and cfg.remat_policy == "save_attn":
+            raise NotImplementedError(
+                "remat_policy='save_attn' on an sp mesh (the replay of a "
+                f"ring): not ported yet ({NEXT_SLICE})")
+
+    def _count_sp_fallbacks(self, mesh) -> None:
+        """The reference's ``flash_fallback_total`` on the sp path, one a
+        layer: rope kept outside the kernels, and Ulysses broadcasting
+        grouped K/V its all-to-all cannot keep paired."""
+        cfg = self.cfg
+        layers = float(cfg.n_layers)
+        if cfg.flash_fuse_rope:
+            global_metrics.inc("flash_fallback_total", layers,
+                               reason="sp_fused_rope")
+        if self._grouped and not self._sp_grouped(mesh):
+            global_metrics.inc("flash_fallback_total", layers,
+                               reason="ulysses_kv_heads")
+
+    def forward_train(self, params, tokens, mesh=None):
         """``forward`` with gradients: under grad mode each block is
         checkpointed when ``cfg.remat``.  The stacked ``[L, ...]`` leaves
         are split with ``unbind``, whose backward stacks the layers'
-        gradients in one write."""
+        gradients in one write.  On a mesh, ``tokens`` is this rank's
+        block and rope takes its global positions."""
         cfg = self.cfg
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        start = 0
+        if mesh is not None:
+            self._check_mesh(mesh)
+            start = axis_rank(mesh, "sp") * tokens.shape[1]
+            if axis_size(mesh, "sp") > 1:
+                self._count_sp_fallbacks(mesh)
+        positions = torch.arange(start, start + tokens.shape[1],
+                                 device=tokens.device)
         x = emb_lookup(params["embed"], tokens, cfg.dtype)
         layers = {name: ({k: v.unbind(0) for k, v in leaf.items()}
                          if isinstance(leaf, dict) else leaf.unbind(0))
@@ -415,20 +533,21 @@ class TransformerLM:
                                            *(lp[n] for n in names))
                 x, a = out if cfg.moe else (out, None)
             elif remat:
-                x, a = checkpoint(self._block, x, lp, positions,
+                x, a = checkpoint(self._block, x, lp, positions, mesh,
                                   use_reentrant=False)
             else:
-                x, a = self._block(x, lp, positions)
+                x, a = self._block(x, lp, positions, mesh)
             if a is not None:
                 aux = aux + a
         x = self._rmsnorm(x, params["final_norm"])
         logits = torch.einsum("bsd,dv->bsv", x, wt(params["head"], cfg.dtype))
         return logits.float(), aux / cfg.n_layers
 
-    def loss(self, params, tokens, targets):
+    def loss(self, params, tokens, targets, mesh=None):
         """Next-token cross-entropy (mean) + 0.01 x the MoE aux loss (0 for
-        the dense model), differentiable in ``params``."""
-        logits, aux = self.forward_train(params, tokens)
+        the dense model), differentiable in ``params``.  On a mesh: the
+        mean over this rank's block."""
+        logits, aux = self.forward_train(params, tokens, mesh)
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
         return nll.mean() + 0.01 * aux

@@ -346,12 +346,19 @@ def flash_v2_plan(d_head: int, dtype, q_pipeline: int = 1,
     return bq, bk, reason
 
 
-def describe_train_attention(cfg) -> str:
+def describe_train_attention(cfg, seq_sharded: bool = False) -> str:
     """One-line name of the attention path the training step of a
     ``TransformerConfig``-shaped config runs on the card, with the
-    reference's knob list for v2 (duck-typed, as the reference's)."""
+    reference's knob list for v2 (duck-typed, as the reference's).
+    ``seq_sharded``: the step runs on a mesh with sp > 1, through ring
+    attention or Ulysses (the reference's names)."""
     if not getattr(cfg, "use_flash", False):
         return "plain-causal (use_flash off)"
+    if seq_sharded:
+        sp = getattr(cfg, "sp_attention", "ring")
+        rope = bool(getattr(cfg, "flash_fuse_rope", False))
+        return f"sp-{sp}" + (" (rope outside: sp_fused_rope)" if rope
+                             else "")
     blocks = (getattr(cfg, "flash_block_q", 0) or None,
               getattr(cfg, "flash_block_k", 0) or None)
     heads = int(getattr(cfg, "n_heads", 1))

@@ -1,0 +1,35 @@
+"""The parallel plane of the port on ``torch.distributed``: the mesh, the
+sharding rules, the collectives and their probes, the multi-process
+rendezvous, zigzag ring attention and Ulysses.  The reference's exports
+but two JAX shapes: ``named_sharding`` (a JAX type) and
+``mesh_from_devices`` (a mesh here is over the world's processes, one
+device each, not over a list of devices).  The tp, ep and pp axes and
+the pipeline schedules are not ported yet (ROADMAP.md queue 1 item 11,
+its second half)."""
+
+from .mesh import MeshConfig, build_mesh, multislice_mesh
+from .sharding import ParamRules, shard_params, logical_to_spec
+from .collectives import psum_smoke, all_reduce_bandwidth_probe
+from .ulysses import ulysses_attention
+from .multihost import (
+    HostEnv,
+    initialize_from_env,
+    rendezvous_env,
+    spawn_local_cluster,
+)
+
+__all__ = [
+    "MeshConfig",
+    "build_mesh",
+    "multislice_mesh",
+    "ParamRules",
+    "shard_params",
+    "logical_to_spec",
+    "psum_smoke",
+    "all_reduce_bandwidth_probe",
+    "ulysses_attention",
+    "HostEnv",
+    "initialize_from_env",
+    "rendezvous_env",
+    "spawn_local_cluster",
+]

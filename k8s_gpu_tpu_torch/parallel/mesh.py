@@ -1,0 +1,136 @@
+"""The device mesh over ``(dp, pp, ep, sp, tp)``: the port of
+``k8s_gpu_tpu/parallel/mesh.py`` on ``torch.distributed``.
+
+One process drives one device (one rank), and a mesh is a
+``DeviceMesh`` over the initialized world, its axes named ``AXES`` in the
+reference's order (tp innermost, dp outermost).  A world of one rank
+needs no process group: ``build_mesh`` returns ``None`` there, and every
+consumer reads ``None`` as the one-device mesh, every axis of size 1.
+
+The data and sequence axes run in this slice; a mesh with tp, ep or pp
+above 1 is refused by its consumers (``check_slice``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch.distributed as dist
+
+# Canonical axis order: outermost (dp, gradient all-reduce) to innermost
+# (tp, the hottest traffic).
+AXES = ("dp", "pp", "ep", "sp", "tp")
+# The axes this slice runs above size 1.
+PORTED_AXES = ("dp", "sp")
+NEXT_SLICE = ("ROADMAP.md queue 1 item 11, its second half: tp, ep, the "
+              "pipeline schedules, serving on a mesh, meshed checkpoints")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Sizes for each logical axis; -1 on dp = absorb remaining devices."""
+
+    dp: int = -1
+    pp: int = 1
+    ep: int = 1
+    sp: int = 1
+    tp: int = 1
+
+    def resolve(self, n_devices: int) -> dict[str, int]:
+        sizes = {"dp": self.dp, "pp": self.pp, "ep": self.ep,
+                 "sp": self.sp, "tp": self.tp}
+        fixed = 1
+        for a, s in sizes.items():
+            if s != -1:
+                if s <= 0:
+                    raise ValueError(f"axis {a} size must be positive, got {s}")
+                fixed *= s
+        if n_devices % fixed != 0:
+            raise ValueError(
+                f"{n_devices} devices not divisible by fixed axes product {fixed}"
+            )
+        for a, s in sizes.items():
+            if s == -1:
+                sizes[a] = n_devices // fixed
+                fixed *= sizes[a]
+        total = 1
+        for s in sizes.values():
+            total *= s
+        if total != n_devices:
+            raise ValueError(
+                f"axis sizes {sizes} use {total} devices, have {n_devices}"
+            )
+        return sizes
+
+
+def world_size() -> int:
+    """Ranks of the initialized world (1 without a process group)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def build_mesh(config: MeshConfig | None = None,
+               n_devices: int | None = None, device_type: str = "cuda"):
+    """The training mesh over the initialized world: a ``DeviceMesh`` of
+    ``device_type`` with the canonical axis names, or ``None`` for a
+    world of one rank.  With no config everything goes to dp.
+    ``n_devices`` must equal the world size when given (a mesh spans
+    every rank).  Each axis group of more than one rank passes one
+    barrier here: NCCL requires the first call on a group to involve
+    all its ranks, and a ring's first transfer may leave some out."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    config = config or MeshConfig()
+    n = world_size()
+    if n_devices is not None and n_devices != n:
+        raise ValueError(f"want {n_devices} devices, the world has {n} ranks")
+    sizes = config.resolve(n)
+    if n == 1:
+        return None
+    mesh = init_device_mesh(device_type, tuple(sizes[a] for a in AXES),
+                            mesh_dim_names=AXES)
+    for a in AXES:
+        if sizes[a] > 1:
+            dist.barrier(group=mesh.get_group(a))
+    return mesh
+
+
+def multislice_mesh(config: MeshConfig, num_slices: int,
+                    device_type: str = "cuda"):
+    """``build_mesh`` with the multislice invariant checked first: dp
+    must span slices and every other axis stay inside one, so dp is a
+    multiple of the slice count (the reference's error)."""
+    sizes = config.resolve(world_size())
+    if sizes["dp"] % num_slices != 0:
+        raise ValueError(
+            f"dp={sizes['dp']} must be a multiple of num_slices={num_slices} "
+            "(dp is the only DCN-crossing axis)"
+        )
+    return build_mesh(config, device_type=device_type)
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """{axis: size} of a mesh (``None``: every axis 1), as the
+    reference's ``mesh.shape``."""
+    if mesh is None:
+        return {a: 1 for a in AXES}
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def axis_size(mesh, axis: str) -> int:
+    return mesh_shape(mesh).get(axis, 1)
+
+
+def axis_rank(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis`` (0 on a one-device mesh)."""
+    return 0 if mesh is None or axis_size(mesh, axis) == 1 \
+        else mesh.get_local_rank(axis)
+
+
+def check_slice(mesh, what: str) -> None:
+    """Refuse a mesh with an axis this slice does not run above 1."""
+    big = [a for a, s in mesh_shape(mesh).items()
+           if s > 1 and a not in PORTED_AXES]
+    if big:
+        raise NotImplementedError(
+            f"{what} on a mesh with {', '.join(f'{a}>1' for a in big)}: "
+            f"not ported yet ({NEXT_SLICE})")

@@ -1,0 +1,91 @@
+"""Ulysses all-to-all sequence parallelism over the ``sp`` mesh axis: the
+port of ``k8s_gpu_tpu/parallel/ulysses.py`` on ``torch.distributed``.
+
+DeepSpeed-Ulysses re-shards around attention instead of streaming K/V:
+
+    [B, H, S/P, D]  --all_to_all-->  [B, H/P, S, D]
+         (seq-sharded)                   (head-sharded, full sequence)
+
+then each rank runs one whole-sequence causal flash call for its H/P
+heads (v2 for grouped K/V, rope outside), and a second all-to-all
+restores the sequence sharding.  It needs the head count to divide by
+sp; grouped K/V also need their KV heads to (``ulysses_grouped_ok``).
+"""
+
+from __future__ import annotations
+
+from ..ops.attention import flash_attention, flash_attention_v2
+from .collectives import all_to_all
+from .mesh import mesh_shape
+
+
+def _ulysses_local(q, k, v, *, group, block_q=None, block_k=None):
+    """This rank's body: inputs are its sequence blocks [B, H, S/P, D]."""
+    def seq_to_heads(x):
+        # [B, H, S/P, D] -> [B, H/P, S, D]
+        return all_to_all(x, group, split_axis=1, concat_axis=2)
+
+    def heads_to_seq(x):
+        return all_to_all(x, group, split_axis=2, concat_axis=1)
+
+    q, k, v = seq_to_heads(q), seq_to_heads(k), seq_to_heads(v)
+    # The tiled all_to_all hands query chunk i exactly KV-head chunk i
+    # (ulysses_grouped_ok), so grouped K/V keep their pairing here.
+    if k.shape[1] != q.shape[1]:
+        o = flash_attention_v2(q, k, v, causal=True, block_q=block_q,
+                               block_k=block_k)
+    else:
+        o = flash_attention(q, k, v, causal=True, block_q=block_q,
+                            block_k=block_k)
+    return heads_to_seq(o)
+
+
+def _heads_over(mesh, head_axes) -> int:
+    shape = mesh_shape(mesh)
+    tp = 1
+    for ax in head_axes:
+        tp *= shape.get(ax, 1)
+    return tp
+
+
+def ulysses_grouped_ok(h: int, kh: int, mesh, *, axis_name: str = "sp",
+                       head_axes=("tp",)) -> bool:
+    """True when grouped K/V [B, KH, S, D] can ride ulysses' all-to-alls
+    without breaking the query<->KV head pairing: the local KV head
+    count must divide by sp.  Otherwise the model broadcasts K/V and
+    mints flash_fallback_total{reason="ulysses_kv_heads"}."""
+    if h % kh != 0:
+        return False
+    sp = mesh_shape(mesh).get(axis_name, 1)
+    tp = _heads_over(mesh, head_axes)
+    if kh % tp != 0:
+        return False
+    return (kh // tp) % sp == 0
+
+
+def ulysses_attention(q, k, v, mesh, *, axis_name: str = "sp",
+                      head_axes=("tp",), block_q: int | None = None,
+                      block_k: int | None = None):
+    """Causal self-attention with the sequence sharded over *axis_name*:
+    the same contract as ``ring_attention`` (this rank's blocks in, its
+    output block out).  The head count must divide by sp; grouped K/V
+    are taken when ``ulysses_grouped_ok`` holds."""
+    sp = mesh_shape(mesh)[axis_name]
+    tp = _heads_over(mesh, head_axes)
+    local_heads = q.shape[1] // tp
+    if local_heads % sp != 0:
+        raise ValueError(
+            f"ulysses needs local heads ({q.shape[1]}/{tp}={local_heads}) "
+            f"divisible by sp={sp}; use ring attention instead"
+        )
+    if k.shape[1] != q.shape[1] and not ulysses_grouped_ok(
+        q.shape[1], k.shape[1], mesh, axis_name=axis_name,
+        head_axes=head_axes
+    ):
+        raise ValueError(
+            f"ulysses grouped K/V needs local KV heads "
+            f"({k.shape[1]}/{tp}) divisible by sp={sp}; broadcast K/V "
+            "to the full head count first (see ulysses_grouped_ok)"
+        )
+    return _ulysses_local(q, k, v, group=mesh.get_group(axis_name),
+                          block_q=block_q, block_k=block_k)

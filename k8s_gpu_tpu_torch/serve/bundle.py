@@ -17,11 +17,11 @@ leaves ride the npz as 2-byte void records (numpy has no bfloat16): the
 port views those bytes as 16-bit integers and then as ``torch.bfloat16``,
 and writes the same ``|V2`` records, which the reference views back.
 
-The reference's ``TransformerConfig`` has four fields the port's lacks
-(the pipeline schedule, the sequence-parallel attention): each is
-dropped at its reference default, where it cannot change a one-device
-forward, and refused otherwise with the ROADMAP item that would port
-it.  MoE bundles (``num_experts``, ``capacity_factor``, the router and
+The reference's ``TransformerConfig`` has three fields the port's lacks
+(the pipeline schedule): each is dropped at its reference default, where
+it cannot change a one-device forward, and refused otherwise with the
+ROADMAP item that would port it.  ``sp_attention`` (ring or Ulysses on
+an sp mesh) crosses both ways.  MoE bundles (``num_experts``, ``capacity_factor``, the router and
 expert leaves) cross both ways.
 
 ``export_servable``/``load_servable`` take a store (an object with the
@@ -49,11 +49,11 @@ FORMAT = "k8s-gpu-tpu-servable-v1"
 
 # Reference-only config fields: their reference default
 # (k8s_gpu_tpu/models/transformer.py) and the ROADMAP item that ports them.
+_PIPELINE = "queue 1 item 11, its second half (the pipeline schedules)"
 _REFERENCE_ONLY = {
-    "sp_attention": ("ring", "queue 1 item 11 (parallel plane)"),
-    "pp_microbatches": (0, "queue 1 item 11 (parallel plane)"),
-    "pp_schedule": ("1f1b", "queue 1 item 11 (parallel plane)"),
-    "pp_virtual_stages": (1, "queue 1 item 11 (parallel plane)"),
+    "pp_microbatches": (0, _PIPELINE),
+    "pp_schedule": ("1f1b", _PIPELINE),
+    "pp_virtual_stages": (1, _PIPELINE),
 }
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}

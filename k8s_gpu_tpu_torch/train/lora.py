@@ -107,6 +107,27 @@ class LoraAdapter:
             raise ValueError(f"no adaptable targets among {self.cfg.targets}")
         return out
 
+    def logical_axes(self, base_axes: dict) -> dict:
+        """A inherits the base leaf's input axes (flattened to the first),
+        B its output axes; the rank axis is 'lora' (replicated)."""
+        out: dict = {"blocks": {}}
+        for name, axes in base_axes["blocks"].items():
+            if name not in self.cfg.targets or name not in _BLOCK_TARGETS:
+                continue
+            n_in = _BLOCK_TARGETS[name]
+            out["blocks"][name] = {
+                "a": (axes[0], axes[1], "lora"),
+                "b": (axes[0], "lora", axes[1 + n_in]),
+            }
+        for name, axes in base_axes.items():
+            if name == "blocks" or not isinstance(axes, tuple):
+                continue
+            if name not in self.cfg.targets or name not in _TOP_TARGETS:
+                continue
+            n_in = _TOP_TARGETS[name]
+            out[name] = {"a": (axes[0], "lora"), "b": ("lora", axes[n_in])}
+        return out
+
     def merge(self, base_params: dict, lora_params: dict) -> dict:
         """base + scale * (A @ B), reshaped to each leaf's shape and cast
         to its dtype.  Functional: returns a new tree, base untouched."""
@@ -130,8 +151,8 @@ class LoraModel:
     """A ``Trainer``-compatible view of a frozen base model: ``init``
     makes adapter parameters, ``loss`` differentiates the adapters only
     (the base leaves never take a gradient and stay bit-identical).
-    ``Trainer(LoraModel(model, base_params), device=...)`` fine-tunes.
-    ``logical_axes`` belongs to the mesh (ROADMAP queue 1 item 11)."""
+    ``Trainer(LoraModel(model, base_params), device=...)`` fine-tunes,
+    on a mesh too (``loss`` takes ``mesh=``)."""
 
     def __init__(self, model, base_params: dict,
                  cfg: LoraConfig | None = None):
@@ -145,14 +166,11 @@ class LoraModel:
         return self.adapter.init(seed, self.base_params, dtype)
 
     def logical_axes(self) -> dict:
-        """The adapters' sharding axes belong to the mesh."""
-        raise NotImplementedError(
-            "LoRA logical_axes belong to the mesh, not ported yet "
-            "(ROADMAP queue 1 item 11)")
+        return self.adapter.logical_axes(self.model.logical_axes())
 
-    def loss(self, lora_params, tokens, targets):
+    def loss(self, lora_params, tokens, targets, mesh=None):
         merged = self.adapter.merge(self.base_params, lora_params)
-        return self.model.loss(merged, tokens, targets)
+        return self.model.loss(merged, tokens, targets, mesh=mesh)
 
     @torch.no_grad()
     def merged_params(self, lora_params) -> dict:

@@ -4,10 +4,11 @@ port of ``k8s_gpu_tpu/train/registry.py``.
 A workload is ``fn(spec, placements)`` or ``fn(spec, placements, ctx)``
 registered by name, with the reference's six names, ``workload_args``,
 defaults and returned keys.  The port's workloads also take
-``workload_args["device"]`` (default ``"cuda"``).  ``psum-smoke`` and
-``dist-psum-smoke`` need the parallel plane, not ported yet: they stay
-registered, so ``known_workloads()`` is the reference's, and raise at
-call time.
+``workload_args["device"]`` (default ``"cuda"``).  ``psum-smoke``
+all-reduces over the world this process belongs to (a world of one
+without a process group); ``dist-psum-smoke`` spawns ``processes`` ranks
+through ``parallel.multihost`` (``workload_args["backend"]``: default
+nccl on the card, gloo on the CPU; NCCL refuses two ranks on one card).
 
 The reference draws its data with ``jax.random`` threefry keys, which
 torch does not reproduce.  Here each draw comes from a CPU
@@ -71,22 +72,43 @@ def _tokens(seed: int, shape: tuple, vocab: int, device) -> torch.Tensor:
     return torch.randint(0, vocab, shape, generator=gen).to(device)
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"workload {name!r} needs the parallel plane, not ported yet "
-        "(ROADMAP.md queue 1 item 11)")
-
-
 # -- built-ins -------------------------------------------------------------
 
 @register_workload("psum-smoke")
 def _psum_smoke(spec, placements) -> dict:
-    _not_ported("psum-smoke")
+    from ..parallel.collectives import psum_smoke
+
+    out = psum_smoke(device=spec.workload_args.get("device", "cuda"))
+    if not out["ok"]:
+        raise RuntimeError(f"psum smoke failed: {out}")
+    return out
 
 
 @register_workload("dist-psum-smoke")
 def _dist_psum(spec, placements) -> dict:
-    _not_ported("dist-psum-smoke")
+    """Multi-PROCESS psum: N ranks joined through a local coordinator
+    (parallel/multihost.py), the worker-pod rendezvous contract run for
+    real."""
+    from functools import partial
+
+    from ..parallel.multihost import spawn_local_cluster, workload_global_psum
+
+    args = spec.workload_args
+    procs = int(args.get("processes", 2))
+    devices = int(args.get("devices_per_host", 2))
+    device = args.get("device", "cuda")
+    out = spawn_local_cluster(
+        partial(workload_global_psum, devices_per_host=devices,
+                device=device),
+        num_processes=procs, device=device, backend=args.get("backend"))
+    expected = sum((i + 1) * devices for i in range(procs))
+    if any(r["sum"] != expected for r in out):
+        raise RuntimeError(f"cross-process psum mismatch: {out}")
+    return {
+        "processes": procs,
+        "global_devices": out[0]["global_devices"],
+        "psum": out[0]["sum"],
+    }
 
 
 @register_workload("cnn-train")

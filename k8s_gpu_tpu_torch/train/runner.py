@@ -1,11 +1,10 @@
-"""Training runner: the port of ``k8s_gpu_tpu/train/runner.py`` for one
-device.
+"""Training runner: the port of ``k8s_gpu_tpu/train/runner.py``.
 
 The reference jits one sharded step (optax clip -> AdamW with a warmup
-schedule) over a mesh.  Here the step runs eagerly on one card: the loss
-and its gradients by autograd (flash attention in the CUDA kernels when
-the model's ``use_flash``), then the same update optax applies, written
-out in torch on f32 master parameters:
+schedule) over a mesh.  Here the step runs eagerly, one process a
+device: the loss and its gradients by autograd (flash attention in the
+CUDA kernels when the model's ``use_flash``), then the same update optax
+applies, written out in torch on f32 master parameters:
 
 - ``clip_by_global_norm``: ``g`` where the global norm is below the limit,
   else ``g / norm * limit`` (no epsilon, unlike
@@ -24,8 +23,23 @@ the step series ``train_step_seconds``, ``train_last_step_seconds``,
 ``train_tokens_per_second`` and ``train_mfu`` in the port's
 ``global_metrics``.  ``fit`` fires the ``train.preempt`` fault site.
 
-Not ported yet (ROADMAP.md): the mesh and ``zero1`` over dp (``zero1`` is
-a no-op on one device, as in the reference) and the pipeline schedules.
+On a mesh (``Trainer(mesh=...)`` or ``mesh_config=``, over the data and
+sequence axes) every rank holds the whole parameters, takes its
+[B/dp, S/sp] block of the global batch (``shard_batch``) and runs the
+model on it; the ring's or Ulysses' backward carries each block's loss
+into the other ranks' K/V.  The gradients and the loss are then summed
+over every rank (dp x sp) in one all-reduce and divided by the rank
+count: each block's loss is its own mean, so that is the mean over the
+global token count, the reference's loss, and clipping takes the norm of
+that global gradient.  ``zero1`` shards AdamW's moments over dp along
+each leaf's largest free axis that dp divides (the reference's
+``_zero1_sharding``; a leaf with none stays replicated): each dp rank
+updates its slice and the slices are all-gathered.  On one device, or
+without a mesh, the step is exactly the one-device step.
+
+Not ported yet (ROADMAP.md queue 1 item 11, its second half): the tp,
+ep and pp axes, the pipeline schedules and checkpoints of a meshed
+trainer.
 """
 
 from __future__ import annotations
@@ -42,6 +56,12 @@ from ..api.workload import WorkloadInterrupted
 from ..convert import tensor_from_numpy
 from ..device import resolve_device
 from ..ops.attention import describe_train_attention
+from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.mesh import (
+    NEXT_SLICE, axis_rank, axis_size, build_mesh, check_slice,
+    mesh_shape,
+)
+from ..parallel.sharding import ParamRules
 from ..utils.faults import global_faults
 from ..utils.goodput import GoodputLedger
 from ..utils.metrics import global_metrics
@@ -80,6 +100,31 @@ def model_flops_per_step(cfg, n_params: int, batch: int) -> float:
     return matmul + attn
 
 
+def _check_kv_tp(cfg, mesh) -> None:
+    """GQA x tensor parallelism: the K/V head axis shards over 'tp', so
+    tp must divide kv_heads (the reference's config-level error)."""
+    tp = axis_size(mesh, "tp")
+    kh = getattr(cfg, "kv_heads", None)
+    if tp > 1 and kh is not None and kh % tp != 0:
+        raise ValueError(
+            f"n_kv_heads={kh} must be a multiple of tp={tp} (the K/V head "
+            "axis shards over 'tp'); lower tp or raise n_kv_heads"
+        )
+
+
+def zero1_dim(shape, spec, dp: int) -> int | None:
+    """The axis ZeRO-1 cuts a leaf's moments along: the largest one that
+    its spec leaves free (None) and ``dp`` divides, the first of equals;
+    None when there is none (the reference's ``_zero1_sharding``)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    best = None
+    for i, (name, dim) in enumerate(zip(spec, shape)):
+        if name is None and dim > 0 and dim % dp == 0:
+            if best is None or dim > shape[best]:
+                best = i
+    return best
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     """The reference's fields and defaults."""
@@ -91,7 +136,7 @@ class TrainConfig:
     b2: float = 0.95
     # >1: strided microbatches per optimizer step (make_train_step).
     grad_accum_steps: int = 1
-    # Optimizer state sharded over dp: a no-op on one device.
+    # AdamW's moments sharded over dp (ZeRO-1): a no-op on one device.
     zero1: bool = False
     # After warmup: "constant" or "cosine" (to lr * min_lr_frac over
     # decay_steps).
@@ -156,14 +201,29 @@ def tree_like(tree: dict, leaves: list):
 class AdamW:
     """The reference's ``make_optimizer``: optax
     ``chain(clip_by_global_norm, adamw(schedule, b1, b2, wd))`` on a list
-    of f32 parameters, updated in place."""
+    of f32 parameters, updated in place.
 
-    def __init__(self, tc: TrainConfig, params: list[torch.Tensor]):
+    ``zero``: ZeRO-1 over dp, ``(dims, dp group)`` with ``dims[i]`` the
+    axis leaf i's moments are cut along (None: kept whole).  This rank
+    then holds and updates its dp slice of each cut leaf and all-gathers
+    the slices, the same elementwise update as without ``zero``."""
+
+    def __init__(self, tc: TrainConfig, params: list[torch.Tensor],
+                 zero=None):
         self.tc = tc
         self.schedule = make_schedule(tc)
         self.count = 0
-        self.mu = [torch.zeros_like(p) for p in params]
-        self.nu = [torch.zeros_like(p) for p in params]
+        self.dims, self.group = zero or ([None] * len(params), None)
+        self.mu = [torch.zeros_like(self._mine(p, d))
+                   for p, d in zip(params, self.dims)]
+        self.nu = [torch.zeros_like(m) for m in self.mu]
+
+    def _mine(self, t, dim):
+        """This rank's dp slice of ``t`` along ``dim`` (a view), or ``t``."""
+        if dim is None:
+            return t
+        n = torch.distributed.get_world_size(self.group)
+        return t.chunk(n, dim)[torch.distributed.get_rank(self.group)]
 
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor]):
@@ -175,13 +235,17 @@ class AdamW:
         self.count += 1
         c1 = 1 - tc.b1 ** self.count
         c2 = 1 - tc.b2 ** self.count
-        for p, g, m, v in zip(params, grads, self.mu, self.nu):
+        for full, g, m, v, dim in zip(params, grads, self.mu, self.nu,
+                                      self.dims):
+            p, g = self._mine(full, dim), self._mine(g, dim)
             g = torch.where(clip, g, g / norm * tc.grad_clip)
             m.mul_(tc.b1).add_(g, alpha=1 - tc.b1)
             v.mul_(tc.b2).add_(g.square(), alpha=1 - tc.b2)
             u = (m / c1) / ((v / c2).sqrt() + 1e-8)
             u.add_(p, alpha=tc.weight_decay)
             p.sub_(lr * u)
+            if dim is not None:
+                full.copy_(torch.cat(all_gather(p, self.group), dim))
 
     def state(self, params: dict) -> dict:
         """optax's ``ScaleByAdamState`` fields: the step ``count`` and the
@@ -195,14 +259,17 @@ class AdamW:
         self.nu = tree_leaves(state["nu"])
 
 
-def make_train_step(loss_fn, optimizer: AdamW, accum: int = 1):
+def make_train_step(loss_fn, optimizer: AdamW, accum: int = 1,
+                    reduce=None):
     """loss_fn(params, *batch) -> scalar.  Returns step(params, *batch) ->
     loss (a 0-d tensor), which updates the leaves of ``params`` in place.
 
     ``accum`` > 1 splits the batch into ``accum`` STRIDED microbatches
     (rows k, k + accum, ...: the reference's reshape-and-swap), sums their
     f32 gradients and applies one update from the mean: the same step as
-    the full batch at 1/accum the activation memory."""
+    the full batch at 1/accum the activation memory.  ``reduce(loss,
+    grads) -> (loss, grads)`` runs before the update (the mesh's
+    all-reduce)."""
 
     def grads_of(params, leaves, *batch):
         loss = loss_fn(params, *batch)
@@ -222,6 +289,8 @@ def make_train_step(loss_fn, optimizer: AdamW, accum: int = 1):
                 lsum = lsum + l
             grads = [g / accum for g in gsum]
             loss = lsum / accum
+        if reduce is not None:
+            loss, grads = reduce(loss, grads)
         optimizer.update(leaves, grads)
         return loss
 
@@ -229,11 +298,15 @@ def make_train_step(loss_fn, optimizer: AdamW, accum: int = 1):
 
 
 class Trainer:
-    """Drives the train step of a ``TransformerLM``-shaped model on one
-    device: f32 master parameters at ``self.params`` (leaves with
-    ``requires_grad``), AdamW state (``self.opt_state``), and the EMA
+    """Drives the train step of a ``TransformerLM``-shaped model on this
+    process's device: f32 master parameters at ``self.params`` (leaves
+    with ``requires_grad``), AdamW state (``self.opt_state``), and the EMA
     shadow at ``self.ema``.  Runs on the card unless given
     ``device="cpu"``.
+
+    ``mesh``: a ``parallel.mesh`` mesh over the initialized world, or
+    ``mesh_config`` to build one (None on a world of one rank: the
+    one-device step).  Only dp and sp may exceed 1.
 
     ``peak_flops``: the MFU denominator (None reads the card's kind; 0.0,
     as on the CPU, keeps ``train_mfu`` at 0).  ``profiler``: the phase
@@ -244,13 +317,20 @@ class Trainer:
     def __init__(self, model, train_config: TrainConfig | None = None,
                  device="cuda", peak_flops: float | None = None,
                  profiler: PhaseProfiler | None = None,
-                 ledger: GoodputLedger | None = None):
+                 ledger: GoodputLedger | None = None, mesh=None,
+                 mesh_config=None):
         self.device = resolve_device(device)
         if getattr(model, "device", self.device) != self.device:
             raise ValueError(f"model on {model.device}, trainer on "
                              f"{self.device}")
         self.model = model
         self.tc = train_config or TrainConfig()
+        if mesh is None and mesh_config is not None:
+            mesh = build_mesh(mesh_config, device_type=self.device.type)
+        self.mesh = mesh
+        if mesh is not None:
+            _check_kv_tp(getattr(model, "cfg", None), mesh)
+            check_slice(mesh, "the Trainer")
         self.peak_flops = peak_flops
         self.profiler = (profiler if profiler is not None
                          else PhaseProfiler(plane="train"))
@@ -278,11 +358,19 @@ class Trainer:
         parameter path as ``params`` is (what a checkpoint holds)."""
         if self.optimizer is None:
             return None
+        self._no_meshed_state()
         return self.optimizer.state(self.params)
 
     @opt_state.setter
     def opt_state(self, state: dict) -> None:
+        self._no_meshed_state()
         self.optimizer.load_state(state)
+
+    def _no_meshed_state(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"the optimizer state of a meshed trainer (checkpoints): "
+                f"not ported yet ({NEXT_SLICE})")
 
     # -- setup -------------------------------------------------------------
     def init(self, seed: int = 0, params: dict | None = None) -> None:
@@ -303,13 +391,66 @@ class Trainer:
                     .requires_grad_(True))
 
         self.params = tree_map(master, params)
-        self.optimizer = AdamW(self.tc, tree_leaves(self.params))
+        self.optimizer = AdamW(self.tc, tree_leaves(self.params),
+                               self._zero1())
         self.ema = (tree_map(lambda p: p.detach().clone(), self.params)
                     if self.tc.ema_decay > 0 else None)
         self._step = None
 
-    def _batch(self, batch):
-        return tuple(torch.as_tensor(b).to(self.device) for b in batch)
+    def _zero1(self):
+        """AdamW's ``zero`` argument: each leaf's ZeRO-1 axis over dp,
+        free meaning unnamed by the leaf's logical spec (the model's
+        ``logical_axes`` under the default rules), or None without
+        ``zero1`` or a dp axis."""
+        dp = axis_size(self.mesh, "dp")
+        if not self.tc.zero1 or dp <= 1:
+            return None
+        leaves = tree_leaves(self.params)
+        if hasattr(self.model, "logical_axes"):
+            rules = ParamRules()
+            specs = [rules.spec(ax)
+                     for ax in tree_leaves(self.model.logical_axes())]
+        else:
+            specs = [()] * len(leaves)
+        return ([zero1_dim(tuple(p.shape), spec, dp)
+                 for p, spec in zip(leaves, specs)],
+                self.mesh.get_group("dp"))
+
+    def shard_batch(self, *batch):
+        """This rank's block of each global array on the trainer's
+        device: rows over dp and, for arrays of 2 or more dimensions on
+        an sp mesh, dim 1 over sp (the reference's ``P("dp", "sp")``)."""
+        out = []
+        for b in batch:
+            t = torch.as_tensor(b)
+            for dim, axis in ((0, "dp"), (1, "sp")):
+                n = axis_size(self.mesh, axis)
+                if n == 1 or t.ndim <= dim:
+                    continue
+                if t.shape[dim] % n:
+                    raise ValueError(
+                        f"dim {dim} of the batch {tuple(t.shape)} does not "
+                        f"divide over {axis}={n}")
+                t = t.chunk(n, dim)[axis_rank(self.mesh, axis)]
+            out.append(t.to(self.device))
+        return tuple(out)
+
+    def _loss(self, params, *batch):
+        if self.mesh is not None:
+            return self.model.loss(params, *batch, mesh=self.mesh)
+        return self.model.loss(params, *batch)
+
+    def _reduce(self, loss, grads):
+        """The mean over every rank of the loss and the gradients, in one
+        all-reduce (the mesh spans the world)."""
+        n = torch.distributed.get_world_size()
+        flat = torch.cat([g.float().reshape(-1) for g in grads]
+                         + [loss.float().reshape(1)])
+        all_reduce(flat)
+        flat /= n
+        grads = [f.view_as(g) for f, g in
+                 zip(flat[:-1].split([g.numel() for g in grads]), grads)]
+        return flat[-1], grads
 
     @torch.no_grad()
     def _update_ema(self) -> None:
@@ -330,14 +471,16 @@ class Trainer:
 
     def _timed_step(self, *batch, sync: bool):
         if self._step is None:
-            self._step = make_train_step(self.model.loss, self.optimizer,
-                                         accum=self.tc.grad_accum_steps)
+            self._step = make_train_step(
+                self._loss, self.optimizer, accum=self.tc.grad_accum_steps,
+                reduce=self._reduce if self.mesh is not None else None)
             cfg = getattr(self.model, "cfg", None)
             if cfg is not None and hasattr(cfg, "use_flash"):
                 log.info("train step attention path: %s",
-                         describe_train_attention(cfg))
+                         describe_train_attention(
+                             cfg, axis_size(self.mesh, "sp") > 1))
         with self.profiler.phase("shard_batch"):
-            batch = self._batch(batch)
+            batch = self.shard_batch(*batch)
         t0 = time.perf_counter()
         with self.profiler.phase("step_dispatch"):
             loss = self._step(self.params, *batch)
@@ -372,8 +515,11 @@ class Trainer:
         if self._n_params is None:
             self._n_params = sum(p.numel() for p in tree_leaves(self.params))
             return
-        flops = model_flops_per_step(cfg, self._n_params,
-                                     int(batch[0].shape[0]))
+        # A rank's share of the global step's FLOPs.
+        shape = mesh_shape(self.mesh)
+        flops = model_flops_per_step(
+            cfg, self._n_params, int(batch[0].shape[0]) * shape["dp"]
+        ) / (shape["dp"] * shape["sp"])
         self._step_ewma_s = (dt if self._step_ewma_s is None
                              else 0.2 * dt + 0.8 * self._step_ewma_s)
         peak = (self.peak_flops if self.peak_flops is not None

@@ -167,7 +167,7 @@ def test_bundle_with_tokenizer_and_versioning(tmp_path):
 @pytest.mark.parametrize("field,value,item", [
     ("pp_schedule", "gpipe", "item 11"),
     ("pp_microbatches", 4, "item 11"),
-    ("sp_attention", "ulysses", "item 11"),
+    ("pp_virtual_stages", 2, "item 11"),
 ])
 def test_non_default_reference_only_field_refused(tmp_path, field, value,
                                                   item):

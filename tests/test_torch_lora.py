@@ -14,8 +14,8 @@ from a seed) and carried across through numpy.  Tolerances:
   atol 2e-5, as ``test_torch_train.py`` holds the base model.
 
 The reference's ``test_multilora.py`` and ``test_lora.py`` cases have
-counterparts here (the mesh's ``logical_axes`` is refused: ROADMAP
-queue 1 item 11).  Reference batchers run once per module.
+counterparts here (``logical_axes`` is held against the reference in
+``test_torch_parallel.py``).  Reference batchers run once per module.
 """
 
 import json
@@ -328,8 +328,12 @@ def test_extended_targets_and_head():
                                       targets=("wq", "wi_gate", "head")))
     lora = lm.init(1)
     assert set(lora["blocks"]) == {"wq", "wi_gate"} and "head" in lora
-    with pytest.raises(NotImplementedError, match="item 11"):
-        lm.logical_axes()
+    assert lm.logical_axes() == {
+        "blocks": {"wq": {"a": ("stages", "embed", "lora"),
+                          "b": ("stages", "lora", "heads")},
+                   "wi_gate": {"a": ("stages", "embed", "lora"),
+                               "b": ("stages", "lora", "mlp")}},
+        "head": {"a": ("embed", "lora"), "b": ("lora", "vocab")}}
     merged = lm.merged_params(lora)
     for name in ("embed", "head"):
         assert merged[name].shape == TP[name].shape
