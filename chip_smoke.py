@@ -46,7 +46,10 @@ Phases, each of which fails the run on any error:
    terms of ``reference_bwd_rounding_v2``); and in both 3b and 3c phase
    10's ring hop, a non-causal half-chunk [1, 8, 1024, 128] in bf16 with
    an lse cotangent (``ring_hop_bf16`` on v1; ``ring_hop_gqa_bf16`` on v2
-   with 2 KV heads, rope outside, P 1), timed;
+   with 2 KV heads, rope outside, P 1), timed, and phase 11's calls at
+   the tp-local heads, causal bf16, timed (``tp_local_bf16``: v1 at
+   [4, 4, 2048, 128]; ``tp_local_gqa_bf16``: v2 at q [1, 4, 2048, 128],
+   k, v [1, 1, 2048, 128], rope in the kernel, P 2);
 4. the serving main path: the 302M flagship (vocab 16384, d_model 1024, 16
    layers, 8 heads of 128, d_ff 4096, max_seq 2048, bf16, random weights
    from ``--seed``) behind the port's ``LmServer`` on the paged pool with
@@ -198,7 +201,8 @@ Phases, each of which fails the run on any error:
    cluster; then four gloo ranks on the card (the port's collectives
    copy each transfer through the host) over a dp 2 x sp 2 mesh: (10c)
    the v2 training configuration at max_seq 4096 (the flagship's widths
-   and depth, 2 KV heads, ``flash_kv_grouped``), global batch 4 x 4096,
+   at 8 of its 16 layers, 2 KV heads, ``flash_kv_grouped``; the tool
+   ``tools/torch_parallel_check.py`` runs all 16), global batch 4 x 4096,
    ``grad_accum_steps`` 2, ZeRO-1, through ring attention and then
    Ulysses, a warm-up and 3 timed steps each: losses finite, falling and
    equal on every rank, step 1 within 1e-2 of one rank's step over the
@@ -212,7 +216,30 @@ Phases, each of which fails the run on any error:
    128], GQA) output and gradients within 1e-4 of one whole-sequence
    flash-v2 call, and a 2-layer meshed step's loss, gradients and
    parameters within 1e-4 of one rank's; (10e) ``per_axis_bandwidth_probe``
-   over the mesh, gloo through the host on one card (no NCCL rate).
+   over the mesh, gloo through the host on one card (no NCCL rate);
+11. the tensor and expert axes: four gloo ranks on the card again, each
+   holding its shards of the parameters (heads, F and the vocabulary
+   over tp, experts over ep), each run held against one rank's step
+   over the whole batch: (11a) the v2 training configuration over dp 2
+   x tp 2 at max_seq 2048, global batch 4 x 2048, 2 microbatches,
+   ZeRO-1, a warm-up and 3 timed steps: losses finite, falling and equal
+   on every rank, step 1 within 1e-2 of one rank's, v2 launches exactly
+   2/1/1 a layer, microbatch and step at 4 query heads and 1 KV head
+   (the forward twice under full remat), 3 rope pre-passes, 0 plain;
+   step ms, tokens/s, peak memory a rank and the seconds of an extra
+   step in each kind of transfer by mesh axis (tp all-reduces against
+   the dp gradient all-reduce); (11b) sp 2 x tp 2 at max_seq 4096,
+   global batch 2 x 4096, ring (v2, 3 calls a layer) then Ulysses (KV
+   heads / tp = 1 does not divide by sp: K/V broadcast, one v1 call a
+   layer, ``ulysses_kv_heads`` one a layer and forward), a warm-up and
+   2 timed steps each, the same checks; (11c) phase 8's MoE (4 experts,
+   capacity 1.25) over ep 2 x tp 2, max_seq 2048, global batch 4 x
+   2048: the same checks on v1's launches, and the share of
+   token-layers dropped within 0.5 % of one rank's; (11d) float32 at 2
+   layers: dp 2 x tp 2 dense, sp 2 x tp 2 ring and dp 2 x ep 2 MoE at
+   capacity 1.0 (drops > 0 and equal to one rank's), each step's loss,
+   gathered gradients and update within 1e-4 of one rank's; (11e) one
+   step on the multislice mesh, dp 2 over 2 slices x tp 2.
 
 It prints a ``{"kernels": [...]}`` line (each entry names the phase
 that launches it; each flash entry also with its
@@ -804,6 +831,7 @@ def check_flash_attention(torch, seed: int) -> list[dict]:
         ("distill_bf16", 1, 8, 8, DISTILL_SEQ, 128, "bfloat16", True, False,
          True),
         RING_HOP_V1,
+        TP_LOCAL_V1,
     ]
     return _flash_cases(torch, seed, [(c, None) for c in cases])
 
@@ -825,7 +853,7 @@ def check_flash_v2(torch, seed: int) -> list[dict]:
     ]
     return _flash_cases(torch, seed + 5,
                         [(c, (ROPE_THETA, p)) for c, p in cases]
-                        + [RING_HOP_V2])
+                        + [RING_HOP_V2, TP_LOCAL_V2])
 
 
 # Phase 10's ring hops after hop 0, held in phase 3b and 3c: non-causal
@@ -837,9 +865,23 @@ RING_HOP_V2 = (("ring_hop_gqa_bf16", 1, 8, 2, 1024, 128, "bfloat16", False,
                 True, True), (None, 1))
 
 
+# Phase 11's kernels at the tp-local heads, held in phase 3b and 3c: a
+# rank's v1 call in 11c (MoE, 8 heads over tp 2, the whole 4 x 2048
+# batch: ep replicates it) and its v2 call in 11a (8 query and 2 KV heads
+# over tp 2, one row a microbatch: 4 rows over dp 2 and 2 microbatches;
+# rope in the kernels, P 2), causal with no lse cotangent, as training
+# calls them.
+TP_LOCAL_V1 = ("tp_local_bf16", 4, 4, 4, 2048, 128, "bfloat16", True, False,
+               True)
+TP_LOCAL_V2 = (("tp_local_gqa_bf16", 1, 4, 1, 2048, 128, "bfloat16", True,
+                False, True), (ROPE_THETA, 2))
+
+
 def check_ring_hops(torch, seed: int) -> list[dict]:
-    """The two ring-hop cases alone (``tools/torch_parallel_check.py``)."""
-    return _flash_cases(torch, seed, [(RING_HOP_V1, None), RING_HOP_V2])
+    """The ring-hop and tp-local cases alone
+    (``tools/torch_parallel_check.py``)."""
+    return _flash_cases(torch, seed, [(RING_HOP_V1, None), RING_HOP_V2,
+                                      (TP_LOCAL_V1, None), TP_LOCAL_V2])
 
 
 def _flash_cases(torch, seed, cases) -> list[dict]:
@@ -3517,13 +3559,14 @@ def _recording_aux(model) -> list:
 
 def _counting_drops(torch, model) -> list:
     """Wrap ``model._moe_mlp``: each capped call (one layer of a prefill or
-    a forward) appends (the real tokens it dropped, its real tokens) as
-    device tensors; a dropped token's MLP output is exactly 0."""
+    a forward; on a mesh, of this rank's block) appends (the real tokens
+    it dropped, its real tokens) as device tensors; a dropped token's MLP
+    output is exactly 0."""
     drops, moe = [], model._moe_mlp
 
-    def counting(x, lp, full_capacity=False, token_mask=None):
+    def counting(x, lp, full_capacity=False, token_mask=None, **kw):
         y, aux = moe(x, lp, full_capacity=full_capacity,
-                     token_mask=token_mask)
+                     token_mask=token_mask, **kw)
         if not full_capacity:
             real = (torch.ones(x.shape[:2], dtype=torch.bool,
                                device=x.device)
@@ -4506,6 +4549,9 @@ def check_train_outputs(torch, seed: int, layers: int, device="cuda",
 # heads, the v2 knobs) at max_seq 4096 over a dp 2 x sp 2 mesh of four
 # ranks on the one card, global batch 4 x 4096, 2 microbatches, ZeRO-1.
 PAR_WORLD = 4
+# Phase 10 runs at half the flagship's depth within the whole script
+# (phase 11 added ~145 s; the 1200 s limit); its tool runs it at 16.
+PAR_LAYERS = 8
 PAR_SEQ = 4096
 PAR_SP = 2
 PAR_BATCH = 4
@@ -4634,22 +4680,29 @@ def run_parallel_probes(torch) -> dict:
 
 
 def one_rank_reference_loss(torch, seed: int, layers: int, seq: int,
-                            device="cuda") -> dict:
-    """Phase 10c's yardstick: the first step's loss of the same
-    configuration on one rank over the whole batch, through the existing
-    flash-v2 path (rope and the P 2 pipeline in the kernels)."""
+                            device="cuda", cfg=None, batch: int = PAR_BATCH,
+                            accum: int = PAR_ACCUM) -> dict:
+    """Phase 10c's and 11's yardstick: the first step's loss of the same
+    configuration (default: phase 10's, through the existing flash-v2
+    path, rope and the P 2 pipeline in the kernels) on one rank over the
+    whole batch; for an MoE ``cfg`` also the share of token-layers its
+    first step dropped."""
     from k8s_gpu_tpu_torch.models import TransformerLM
     from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
 
-    cfg = parallel_config(torch, layers, seq=seq)
+    cfg = cfg or parallel_config(torch, layers, seq=seq)
     trainer = Trainer(TransformerLM(cfg, device=device),
-                      TrainConfig(warmup_steps=1, grad_accum_steps=PAR_ACCUM),
+                      TrainConfig(warmup_steps=1, grad_accum_steps=accum),
                       device=device)
     trainer.init(seed)
-    toks = _par_tokens(torch, seed, cfg)
+    toks = _par_tokens(torch, seed, cfg, batch)
+    drops = _counting_drops(torch, trainer.model) if cfg.moe else None
     t0 = time.perf_counter()
     loss = trainer.step(toks[:, :-1], toks[:, 1:])
     wall = time.perf_counter() - t0
+    share = _drop_share(drops) if cfg.moe else None
+    if cfg.moe:
+        del trainer.model._moe_mlp
     # A second step, timed: the work of the four ranks' step on one rank
     # with the whole card and no transfer.
     t0 = time.perf_counter()
@@ -4657,24 +4710,55 @@ def one_rank_reference_loss(torch, seed: int, layers: int, seq: int,
     step_s = time.perf_counter() - t0
     del trainer
     _free_if(torch, torch.device(device))
-    return {"loss": loss, "first_step_s": wall, "step_ms": step_s * 1e3}
+    return {"loss": loss, "first_step_s": wall, "step_ms": step_s * 1e3,
+            **({"dropped_share": share} if cfg.moe else {})}
+
+
+def _drop_share(drops) -> float:
+    """The share of token-layers ``_counting_drops`` saw dropped."""
+    return (sum(int(d) for d, _ in drops)
+            / max(1, sum(int(n) for _, n in drops)))
 
 
 # The port's transfers, by the name the timing below reports them under:
 # (module, attribute) of each function that moves a tensor between ranks.
+# In ``collectives``, ``all_reduce`` carries copy_to, reduce_from and
+# all_reduce_sum (the tp and ep traffic) and ``all_gather`` gather_from;
+# the runner's are the gradient all-reduce, the global norm's and ZeRO-1's
+# gathers; the model's, the vocabulary's row max and the MoE slot counts.
 _TRANSFERS = (("collectives", "_ppermute"), ("collectives", "_all_to_all"),
-              ("runner", "all_reduce"), ("runner", "all_gather"))
+              ("collectives", "all_reduce"), ("collectives", "all_gather"),
+              ("runner", "all_reduce"), ("runner", "all_gather"),
+              ("transformer", "all_reduce"), ("transformer", "all_gather"))
 
 
-def _timing_transfers(torch, dev):
+def _group_labels(mesh) -> dict:
+    """{id(process group): the mesh axes it spans} for every group of
+    ``mesh`` a transfer may name."""
+    from k8s_gpu_tpu_torch.parallel.mesh import AXES, axis_group, axis_size
+
+    labels = {}
+    for axes in [(a,) for a in AXES] + [("dp", "sp"), ("ep", "tp")]:
+        group = axis_group(mesh, *axes)
+        if group is not None:
+            labels.setdefault(id(group), ",".join(
+                a for a in axes if axis_size(mesh, a) > 1))
+    return labels
+
+
+def _timing_transfers(torch, dev, mesh):
     """Wrap the port's transfer functions so each call adds its wall
     seconds, the card synchronized before and after (so no queued
-    compute is counted), under its name; returns (the seconds by name,
-    a function that undoes the wrapping)."""
+    compute is counted), under "module.name[axes]" (the mesh axes of its
+    group); returns (the seconds by name, a function that undoes the
+    wrapping)."""
+    from k8s_gpu_tpu_torch.models import transformer
     from k8s_gpu_tpu_torch.parallel import collectives
     from k8s_gpu_tpu_torch.train import runner
 
-    mods = {"collectives": collectives, "runner": runner}
+    mods = {"collectives": collectives, "runner": runner,
+            "transformer": transformer}
+    labels = _group_labels(mesh)
     spent: dict[str, float] = {}
     saved = []
 
@@ -4686,67 +4770,75 @@ def _timing_transfers(torch, dev):
         fn = getattr(mods[mod], name)
         saved.append((mods[mod], name, fn))
 
-        def timed(*a, _fn=fn, _name=name.lstrip("_"), **kw):
+        def timed(*a, _fn=fn, _name=f"{mod}.{name.lstrip('_')}", **kw):
+            group = a[1] if len(a) > 1 else kw.get("group")
+            key = f"{_name}[{labels.get(id(group), 'world')}]"
             sync()
             t0 = time.perf_counter()
             try:
                 return _fn(*a, **kw)
             finally:
                 sync()
-                spent[_name] = spent.get(_name, 0.0) + (time.perf_counter()
-                                                        - t0)
+                spent[key] = spent.get(key, 0.0) + (time.perf_counter() - t0)
 
         setattr(mods[mod], name, timed)
     return spent, lambda: [setattr(m, n, f) for m, n, f in saved]
 
 
-def _par_train(torch, seed: int, layers: int, seq: int, mesh,
-               sp_attention: str, device) -> dict:
-    """One rank's run of phase 10c: a warm-up step (learning rate 0) and
-    PAR_STEPS timed ones on the same global batch, with this rank's flash
-    launches, plain calls and sp_fused_rope count over the timed steps."""
+def _mesh_train(torch, seed: int, cfg, mesh, toks, device, *, accum: int,
+                steps: int, zero1: bool = True) -> dict:
+    """One rank's training run on ``mesh``, from the parameters of
+    ``seed``, over the global batch ``toks`` [B, S + 1]: a warm-up step
+    (learning rate 0; for an MoE model its dropped token-layers counted)
+    and ``steps`` timed ones on the same batch, with this rank's flash
+    launches, pre-passes, plain calls and fallbacks over the timed
+    steps; then one more step with every transfer timed
+    (``_timing_transfers``)."""
     import torch.distributed as dist
 
     from k8s_gpu_tpu_torch.models import TransformerLM
     from k8s_gpu_tpu_torch.ops import attention as fa
     from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
-    from k8s_gpu_tpu_torch.train.runner import tree_leaves
     from k8s_gpu_tpu_torch.utils.metrics import global_metrics
 
-    cfg = parallel_config(torch, layers, sp_attention=sp_attention, seq=seq)
     trainer = Trainer(TransformerLM(cfg, device=device),
-                      TrainConfig(warmup_steps=1, grad_accum_steps=PAR_ACCUM,
-                                  zero1=True), device=device, mesh=mesh)
+                      TrainConfig(warmup_steps=1, grad_accum_steps=accum,
+                                  zero1=zero1), device=device, mesh=mesh)
     trainer.init(seed)
-    toks = _par_tokens(torch, seed, cfg)
     x, y = toks[:, :-1], toks[:, 1:]
     cuda = trainer.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
+    drops = _counting_drops(torch, trainer.model) if cfg.moe else None
     t0 = time.perf_counter()
     first = trainer.step(x, y)
     warm_s = time.perf_counter() - t0
+    if cfg.moe:
+        del trainer.model._moe_mlp
     dist.barrier()
     fa.reset_counts()
-    rope0 = global_metrics.counter("flash_fallback_total",
-                                   reason="sp_fused_rope")
+
+    def fallbacks():
+        return {r: global_metrics.counter("flash_fallback_total", reason=r)
+                for r in ("sp_fused_rope", "ulysses_kv_heads")}
+
+    before = fallbacks()
     t0 = time.perf_counter()
-    losses = [trainer.step(x, y) for _ in range(PAR_STEPS)]
+    losses = [trainer.step(x, y) for _ in range(steps)]
     wall = time.perf_counter() - t0
     out = {"losses": [first] + losses, "warmup_step_s": warm_s,
-           "step_s": wall / PAR_STEPS, "launches": dict(fa.launch_counts),
+           "step_s": wall / steps, "launches": dict(fa.launch_counts),
            "prepass_launches": fa.prepass_counts["flash_v2_rope_split"],
            "plain_calls": fa.plain_count,
-           "sp_fused_rope": global_metrics.counter(
-               "flash_fallback_total", reason="sp_fused_rope") - rope0,
-           "ulysses_kv_heads": global_metrics.counter(
-               "flash_fallback_total", reason="ulysses_kv_heads"),
+           **{r: n - before[r] for r, n in fallbacks().items()},
            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
                               if cuda else None),
-           "n_params": sum(p.numel() for p in tree_leaves(trainer.params))}
+           "n_params": trainer.n_params()}
+    if cfg.moe:
+        out["dropped_share"] = _drop_share(drops)
     # One more step with every transfer timed (the card synchronized
     # around each): where the step's wall goes.
-    spent, undo = _timing_transfers(torch, trainer.device)
+    spent, undo = _timing_transfers(torch, trainer.device, mesh)
     dist.barrier()
     t0 = time.perf_counter()
     try:
@@ -4758,6 +4850,15 @@ def _par_train(torch, seed: int, layers: int, seq: int, mesh,
     del trainer
     _free_if(torch, torch.device(device))
     return out
+
+
+def _par_train(torch, seed: int, layers: int, seq: int, mesh,
+               sp_attention: str, device) -> dict:
+    """One rank's run of phase 10c (``_mesh_train``): PAR_STEPS timed
+    steps of the v2 configuration at ``seq`` over PAR_BATCH rows."""
+    cfg = parallel_config(torch, layers, sp_attention=sp_attention, seq=seq)
+    return _mesh_train(torch, seed, cfg, mesh, _par_tokens(torch, seed, cfg),
+                       device, accum=PAR_ACCUM, steps=PAR_STEPS)
 
 
 def _par_block(t, mesh):
@@ -4845,54 +4946,80 @@ def _update_rel_err(theta0, meshed, one, g_meshed, g_one) -> tuple:
 def _par_step_f32(torch, seed: int, mesh, seq: int, device) -> dict:
     """Phase 10d.2: one float32 step of 2 layers at the flagship's widths
     over the dp x sp mesh (ring, ZeRO-1, 2 microbatches) against one
-    rank's step over the whole batch, which rank 0 computes: the loss,
-    the gradients AdamW is handed (relative to each leaf's norm) and the
-    update each parameter took (``_update_rel_err``; at a learning rate
-    of 1e-2, so that a float32 rounding of a parameter near 1 is 1e-5 of
-    the update), every one within PAR_F32_TOL.  An update the ZeRO-1
-    slices missed, took from the wrong slice of the gradient or did not
-    gather back is off by about the whole update.  Rope stays outside
-    the kernels on both sides, so they differ in summation order only.
-    Every rank's parameter checksum, which must agree, comes back too."""
+    rank's step over the whole batch (``_meshed_step_f32``).  Rope stays
+    outside the kernels on both sides, so they differ in summation order
+    only."""
     import dataclasses
-
-    import torch.distributed as dist
-
-    from k8s_gpu_tpu_torch.models import TransformerLM
-    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
-    from k8s_gpu_tpu_torch.train.runner import tree_leaves
 
     cfg = dataclasses.replace(parallel_config(torch, 2, torch.float32,
                                               seq=seq),
                               flash_fuse_rope=False)
+    return _meshed_step_f32(torch, seed, cfg, mesh,
+                            _par_tokens(torch, seed + 1, cfg), PAR_ACCUM,
+                            device)
+
+
+def _meshed_step_f32(torch, seed: int, cfg, mesh, toks, accum: int,
+                     device) -> dict:
+    """One float32 step of ``cfg`` over ``mesh`` (ZeRO-1, ``accum``
+    microbatches) against one rank's step over the whole batch, which
+    rank 0 computes: the loss, the gradients AdamW is handed (gathered
+    over tp and ep; relative to each leaf's norm) and the update each
+    parameter took (``_update_rel_err``; at a learning rate of 1e-2, so
+    that a float32 rounding of a parameter near 1 is 1e-5 of the
+    update), every one within PAR_F32_TOL.  An update the ZeRO-1 slices
+    missed, took from the wrong slice of the gradient or did not gather
+    back is off by about the whole update.  Every rank's checksum of the
+    gathered parameters, which must agree, comes back too, and for an
+    MoE model the token-layers each side's step dropped."""
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.parallel.collectives import all_reduce
+    from k8s_gpu_tpu_torch.parallel.mesh import batch_group
+    from k8s_gpu_tpu_torch.parallel.sharding import gather_params
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves, tree_like
+
     # A cosine schedule without warm-up moves the parameters at step 1.
     tc = dict(warmup_steps=0, schedule="cosine", decay_steps=100,
-              learning_rate=1e-2, grad_accum_steps=PAR_ACCUM)
-    toks = _par_tokens(torch, seed + 1, cfg)
+              learning_rate=1e-2, grad_accum_steps=accum)
     x, y = toks[:, :-1], toks[:, 1:]
     meshed = Trainer(TransformerLM(cfg, device=device),
                      TrainConfig(**tc, zero1=True), device=device, mesh=mesh)
     meshed.init(seed + 3)
     grads = _recording_grads(meshed)
+    drops = _counting_drops(torch, meshed.model) if cfg.moe else None
     loss = meshed.step(x, y)
-    leaves = tree_leaves(meshed.params)
+    grads = tree_leaves(gather_params(tree_like(meshed.params, grads[0]),
+                                      meshed.model.logical_axes(), mesh))
+    leaves = tree_leaves(meshed.gathered_params())
     out = {"loss": loss,
            "checksum": float(sum(p.double().sum() for p in leaves))}
+    if cfg.moe:
+        # The global batch's drops: the blocks' sums over the batch group.
+        dropped = torch.tensor([float(sum(int(d) for d, _ in drops))])
+        if batch_group(mesh) is not None:
+            all_reduce(dropped, batch_group(mesh))
+        out["dropped"] = int(dropped.item())
     if dist.get_rank() == 0:
         one = Trainer(TransformerLM(cfg, device=device), TrainConfig(**tc),
                       device=device)
         one.init(seed + 3)
         theta0 = [p.detach().clone() for p in tree_leaves(one.params)]
         ref_grads = _recording_grads(one)
+        one_drops = _counting_drops(torch, one.model) if cfg.moe else None
         out["loss_one_rank"] = one.step(x, y)
         out["loss_diff"] = abs(loss - out["loss_one_rank"])
         out["grad_rel_err"] = max(
             float((a - b).norm() / b.norm())
-            for a, b in zip(grads[0], ref_grads[0]))
+            for a, b in zip(grads, ref_grads[0]))
         out["update_rel_err"], out["update_held_share"] = _update_rel_err(
-            theta0, leaves, tree_leaves(one.params), grads[0], ref_grads[0])
+            theta0, leaves, tree_leaves(one.params), grads, ref_grads[0])
+        if cfg.moe:
+            out["dropped_one_rank"] = sum(int(d) for d, _ in one_drops)
         del one, ref_grads, theta0
-    del meshed, grads
+    del meshed, grads, leaves
     _free_if(torch, torch.device(device))
     return out
 
@@ -4929,13 +5056,78 @@ def _parallel_rank(seed: int, layers: int, seq: int, device) -> dict:
     return out
 
 
-def _par_launches(fa, layers: int, calls: int) -> dict:
-    """A rank's v2 launches over the timed steps: ``calls`` flash calls
-    a layer and forward, the forward run twice (full remat), dq and
-    dk/dv once a call."""
-    fwd, dq, dkv = FLASH_V2_KERNELS
-    per = layers * PAR_ACCUM * PAR_STEPS * calls
+def _par_launches(fa, layers: int, calls: int, accum: int = PAR_ACCUM,
+                  steps: int = PAR_STEPS, kernels=FLASH_V2_KERNELS) -> dict:
+    """A rank's launches over the timed steps: ``calls`` flash calls a
+    layer and forward, the forward run twice (full remat), dq and dk/dv
+    once a call, on the ``kernels`` (v2 by default)."""
+    fwd, dq, dkv = kernels
+    per = layers * accum * steps * calls
     return _counts(fa, {fwd: 2 * per, dq: per, dkv: per})
+
+
+def _hold_mesh_run(phase: str, runs: list, launches, prepasses: int,
+                   fallbacks: dict, one_rank_loss: float, tokens: int,
+                   card_flops_s) -> dict:
+    """Hold every rank's ``_mesh_train`` run and summarize them: exact
+    flash launches (``launches``; None off the card) with ``prepasses``
+    pre-passes and no plain call, the ``fallbacks`` counts, losses
+    finite, falling and equal on every rank, step 1 within phase 7's
+    bf16 limit of one rank's whole-batch step; step ms and tokens/s the
+    slowest rank's, the MFU over the card (``card_flops_s``: the step's
+    model FLOPs over the card's peak), the transfers' seconds the most of
+    any rank's."""
+    for r in runs:
+        if launches is not None and (
+                r["launches"] != launches or r["plain_calls"] != 0
+                or r["prepass_launches"] != prepasses):
+            raise RuntimeError(
+                f"{phase}: a rank launched {r['launches']}, "
+                f"{r['prepass_launches']} pre-passes and "
+                f"{r['plain_calls']} plain calls; expected {launches}, "
+                f"{prepasses}, 0")
+        got = {k: r[k] for k in fallbacks}
+        if got != fallbacks:
+            raise RuntimeError(f"{phase}: flash_fallback_total {got}, "
+                               f"expected {fallbacks}")
+        losses = r["losses"]
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"{phase}: losses {losses}")
+        if not all(b < a for a, b in zip(losses[1:], losses[2:])) \
+                or not losses[-1] < losses[0]:
+            raise RuntimeError(f"{phase}: loss did not fall: {losses}")
+    if len({tuple(r["losses"]) for r in runs}) != 1:
+        raise RuntimeError(f"{phase}: ranks disagree on the loss: "
+                           f"{[r['losses'] for r in runs]}")
+    diff = abs(runs[0]["losses"][0] - one_rank_loss)
+    if not diff <= TRAIN_TOL["bfloat16"]["loss"]:
+        raise RuntimeError(f"{phase}: step 1 loss {runs[0]['losses'][0]} "
+                           f"vs one rank {one_rank_loss}")
+    step_s = max(r["step_s"] for r in runs)
+    peak_gb = [r["peak_memory_gb"] for r in runs]
+    return {
+        "losses": runs[0]["losses"], "step1_loss_diff": diff,
+        "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu_over_card": card_flops_s / step_s if card_flops_s else None,
+        "warmup_step_s": max(r["warmup_step_s"] for r in runs),
+        "peak_memory_gb_per_rank": (max(peak_gb) if None not in peak_gb
+                                    else None),
+        "launches": {k: sum(r["launches"][k] for r in runs)
+                     for k in runs[0]["launches"]},
+        "launches_per_rank_step": {
+            k: v // (len(runs[0]["losses"]) - 1)
+            for k, v in runs[0]["launches"].items()},
+        "plain_calls": sum(r["plain_calls"] for r in runs),
+        **{f"{k}_per_rank": runs[0][k] for k in fallbacks},
+        # The extra step with each transfer timed between two
+        # synchronizations: its wall and the seconds in each kind of
+        # transfer (the most of any rank).
+        "timed_transfer_step_s": max(r["timed_transfer_step_s"]
+                                     for r in runs),
+        "transfer_s": {k: max(r["transfer_s"].get(k, 0.0) for r in runs)
+                       for k in sorted({k for r in runs
+                                        for k in r["transfer_s"]})},
+    }
 
 
 def run_parallel_path(torch, seed: int, layers: int, seq: int = PAR_SEQ,
@@ -4973,73 +5165,257 @@ def run_parallel_path(torch, seed: int, layers: int, seq: int = PAR_SEQ,
     peak = device_peak_flops() if cuda else 0.0
     flops = model_flops_per_step(cfg, n_params, PAR_BATCH)
     for name, calls in (("ring", 1 + 2 * (PAR_SP - 1)), ("ulysses", 1)):
-        runs = [r[name] for r in ranks]
-        want = _par_launches(fa, layers, calls)
-        for r in runs:
-            if cuda and (r["launches"] != want or r["plain_calls"] != 0
-                         or r["prepass_launches"] != 0):
-                raise RuntimeError(
-                    f"phase 10 {name}: a rank launched {r['launches']}, "
-                    f"{r['prepass_launches']} pre-passes and "
-                    f"{r['plain_calls']} plain calls; expected {want}, 0, 0")
-            if (r["sp_fused_rope"] != layers * PAR_ACCUM * PAR_STEPS
-                    or r["ulysses_kv_heads"] != 0):
-                raise RuntimeError(
-                    f"phase 10 {name}: flash_fallback_total sp_fused_rope "
-                    f"{r['sp_fused_rope']}, ulysses_kv_heads "
-                    f"{r['ulysses_kv_heads']}")
-            losses = r["losses"]
-            if not all(math.isfinite(v) for v in losses):
-                raise RuntimeError(f"phase 10 {name}: losses {losses}")
-            if not all(b < a for a, b in zip(losses[1:], losses[2:])) \
-                    or not losses[-1] < losses[0]:
-                raise RuntimeError(f"phase 10 {name}: loss did not fall: "
-                                   f"{losses}")
-        if len({tuple(r["losses"]) for r in runs}) != 1:
-            raise RuntimeError(f"phase 10 {name}: ranks disagree on the "
-                               f"loss: {[r['losses'] for r in runs]}")
-        diff = abs(runs[0]["losses"][0] - ref["loss"])
-        if not diff <= TRAIN_TOL["bfloat16"]["loss"]:
-            raise RuntimeError(f"phase 10 {name}: step 1 loss "
-                               f"{runs[0]['losses'][0]} vs one rank "
-                               f"{ref['loss']}")
-        step_s = max(r["step_s"] for r in runs)
-        out[name] = {
-            "losses": runs[0]["losses"], "step1_loss_diff": diff,
-            "step_ms": step_s * 1e3,
-            "tokens_per_s": PAR_BATCH * PAR_SEQ / step_s,
-            "mfu_over_card": flops / step_s / peak if peak else None,
-            "warmup_step_s": max(r["warmup_step_s"] for r in runs),
-            "peak_memory_gb_per_rank": (max(r["peak_memory_gb"]
-                                            for r in runs) if cuda else None),
-            "launches": {k: sum(r["launches"][k] for r in runs)
-                         for k in runs[0]["launches"]},
-            "launches_per_rank_step": {k: v // PAR_STEPS for k, v in
-                                       runs[0]["launches"].items()},
-            "plain_calls": sum(r["plain_calls"] for r in runs),
-            "sp_fused_rope_per_rank": runs[0]["sp_fused_rope"],
-            "ulysses_kv_heads_per_rank": runs[0]["ulysses_kv_heads"],
-            # The extra step with each transfer timed between two
-            # synchronizations: its wall and the seconds in each kind of
-            # transfer (the most of any rank).
-            "timed_transfer_step_s": max(r["timed_transfer_step_s"]
-                                         for r in runs),
-            "transfer_s": {k: max(r["transfer_s"].get(k, 0.0) for r in runs)
-                           for k in runs[0]["transfer_s"]},
-        }
+        out[name] = _hold_mesh_run(
+            f"phase 10 {name}", [r[name] for r in ranks],
+            _par_launches(fa, layers, calls) if cuda else None, 0,
+            {"sp_fused_rope": layers * PAR_ACCUM * PAR_STEPS,
+             "ulysses_kv_heads": 0}, ref["loss"], PAR_BATCH * seq,
+            flops / peak if peak else None)
     out["attention_f32"] = {k: max(r["attention_f32"][k][f] for r in ranks
                                    for f in ranks[0]["attention_f32"][k])
                             for k in ranks[0]["attention_f32"]}
-    step = [r["step_f32"] for r in ranks]
+    out["step_f32"] = _hold_step_f32("phase 10d",
+                                     [r["step_f32"] for r in ranks])
+    out["bandwidth"] = ranks[0]["bandwidth"]
+    return out
+
+
+def _hold_step_f32(phase: str, step: list) -> dict:
+    """Hold every rank's ``_meshed_step_f32``: the ranks' gathered
+    parameters agree, and rank 0's loss, gradients and update are within
+    PAR_F32_TOL of one rank's over at least PAR_UPDATE_SHARE of the
+    elements; returns rank 0's."""
     if len({s["checksum"] for s in step}) != 1:
-        raise RuntimeError(f"phase 10d: ranks' parameters differ: {step}")
+        raise RuntimeError(f"{phase}: ranks' parameters differ: {step}")
     if not (max(step[0][k] for k in ("loss_diff", "grad_rel_err",
                                      "update_rel_err")) <= PAR_F32_TOL
             and step[0]["update_held_share"] >= PAR_UPDATE_SHARE):
-        raise RuntimeError(f"phase 10d: meshed float32 step against one "
+        raise RuntimeError(f"{phase}: meshed float32 step against one "
                            f"rank's: {step[0]}")
-    out["step_f32"] = step[0]
-    out["bandwidth"] = ranks[0]["bandwidth"]
+    return step[0]
+
+
+# -- phase 11: the tensor and expert axes -------------------------------------
+
+# Four gloo ranks on the one card again, each holding its shards.
+# 11a: the v2 training configuration over dp 2 x tp 2 at max_seq 2048,
+# global batch 4 x 2048, 2 microbatches, ZeRO-1 (the dry run's "dense
+# dp/sp/tp zero1+accum+gqa", `__graft_entry__.py:104`, without sp).
+# 11b: sp 2 x tp 2 at max_seq 4096, global batch 2 x 4096, 2
+# microbatches, ring then Ulysses ("ulysses dp/sp/tp", `:115`).  11c:
+# phase 8's MoE over ep 2 x tp 2 at max_seq 2048, global batch 4 x 2048
+# ("moe dp/ep/tp", `:109`).  11d: float32 at 2 layers against one rank.
+# 11e: one step on the multislice mesh, dp 2 over 2 slices x tp 2
+# ("multislice dcn-dp x ici-tp", `:160`).
+TP_SEQ = 2048
+TP_BATCH = 4
+TP_STEPS = 3          # 11a, 11c: timed steps after the warm-up step
+TP_SP_BATCH = 2
+TP_SP_STEPS = 2       # 11b, each attention
+TP_SLICES = 2
+# 11d's MoE at a capacity that binds (tokens are dropped), over 8 rows in
+# 2 microbatches: each dp rank's microbatch holds 2 rows, so a slot
+# counts the other dp block's tokens and its own earlier row's.
+TP_F32_MOE = dict(num_experts=4, capacity_factor=1.0)
+TP_F32_MOE_BATCH = 8
+# 11c: the share of token-layers dropped against one rank's.  ep x tp
+# replicates the batch, so the routing is one rank's but for the bf16
+# rounding of the tp partial sums (2^-8 relative), which can flip the
+# argmax of a token whose top two router probabilities are that close
+# (and then the slots after it): held within half a percent.
+TP_DROP_SHARE_TOL = 5e-3
+TP_TIMEOUT = 700.0
+TP_MESHES = {"dp2tp2": dict(dp=2, tp=2), "sp2tp2": dict(dp=1, sp=2, tp=2),
+             "ep2tp2": dict(dp=1, ep=2, tp=2), "dp2ep2": dict(dp=2, ep=2)}
+TP_PARTS = ("dense", "sp", "moe", "f32", "multislice")
+
+
+def tp_moe_config(torch, layers: int, dtype=None, seq: int = TP_SEQ,
+                  **moe):
+    """Phase 8's MoE training configuration (v1 flash, 8 heads) at
+    ``seq``; ``moe`` overrides its experts or capacity."""
+    import dataclasses
+
+    return dataclasses.replace(flagship_train_config(torch, layers, dtype),
+                               max_seq=seq, **{**MOE, **moe})
+
+
+def _tp_step_f32_cases(torch, seq: int, sp_seq: int) -> dict:
+    """11d: {name: (mesh, config, rows, microbatches)}, float32 at 2
+    layers.  The sp case keeps rope outside the kernels on both sides (as
+    10d does); the dense one fuses it on both."""
+    import dataclasses
+
+    f32 = torch.float32
+    return {
+        "dense_dp2tp2": ("dp2tp2", parallel_config(torch, 2, f32, seq=seq),
+                         TP_BATCH, PAR_ACCUM),
+        "ring_sp2tp2": ("sp2tp2", dataclasses.replace(
+            parallel_config(torch, 2, f32, seq=sp_seq),
+            flash_fuse_rope=False), TP_SP_BATCH, PAR_ACCUM),
+        "moe_dp2ep2": ("dp2ep2", tp_moe_config(torch, 2, f32, seq,
+                                               **TP_F32_MOE),
+                       TP_F32_MOE_BATCH, PAR_ACCUM),
+    }
+
+
+def _tensor_parallel_rank(seed: int, layers: int, seq: int, sp_seq: int,
+                          device, parts=TP_PARTS) -> dict:
+    """What each of phase 11's four gloo ranks runs (``parts``: which of
+    TP_PARTS)."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.parallel.mesh import (
+        MeshConfig, build_mesh, multislice_mesh,
+    )
+    from k8s_gpu_tpu_torch.parallel.multihost import workload_train_step
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    meshes = {name: build_mesh(MeshConfig(**sizes), device_type=dev.type)
+              for name, sizes in TP_MESHES.items()}
+    out = {"rank": dist.get_rank()}
+    if "dense" in parts:
+        cfg = parallel_config(torch, layers, seq=seq)
+        out["dense"] = _mesh_train(
+            torch, seed, cfg, meshes["dp2tp2"], _par_tokens(torch, seed, cfg),
+            dev, accum=PAR_ACCUM, steps=TP_STEPS)
+    if "sp" in parts:
+        for sp_attention in ("ring", "ulysses"):
+            cfg = parallel_config(torch, layers, sp_attention=sp_attention,
+                                  seq=sp_seq)
+            out[sp_attention] = _mesh_train(
+                torch, seed, cfg, meshes["sp2tp2"],
+                _par_tokens(torch, seed, cfg, TP_SP_BATCH), dev,
+                accum=PAR_ACCUM, steps=TP_SP_STEPS)
+    if "moe" in parts:
+        cfg = tp_moe_config(torch, layers, seq=seq)
+        out["moe"] = _mesh_train(
+            torch, seed, cfg, meshes["ep2tp2"],
+            _par_tokens(torch, seed, cfg, TP_BATCH), dev, accum=1,
+            steps=TP_STEPS)
+    if "f32" in parts:
+        out["f32"] = {
+            name: _meshed_step_f32(torch, seed, cfg, meshes[mesh],
+                                   _par_tokens(torch, seed + 1, cfg, rows),
+                                   accum, dev)
+            for name, (mesh, cfg, rows, accum) in _tp_step_f32_cases(
+                torch, seq, sp_seq).items()}
+    if "multislice" in parts:
+        mesh = multislice_mesh(MeshConfig(dp=2, tp=2), TP_SLICES,
+                               device_type=dev.type)
+        out["multislice"] = workload_train_step(device=dev, mesh=mesh)
+    return out
+
+
+def run_tensor_parallel_path(torch, seed: int, layers: int,
+                             seq: int = TP_SEQ, sp_seq: int = PAR_SEQ,
+                             device="cuda", parts=TP_PARTS) -> dict:
+    """Phase 11: the tensor and expert axes, four gloo ranks on the one
+    card (``device="cpu"`` with short sequences rehearses it on the CPU:
+    the plain versions, no launch counts).  Each run is held against one
+    rank's step over the whole batch, which this process computes first
+    (``one_rank_reference_loss``)."""
+    import functools
+
+    import chip_smoke
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.parallel.multihost import spawn_local_cluster
+    from k8s_gpu_tpu_torch.train.runner import (
+        device_peak_flops, model_flops_per_step,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+    peak = device_peak_flops() if cuda else 0.0
+    dense = parallel_config(torch, layers, seq=seq)
+    sp = parallel_config(torch, layers, seq=sp_seq)
+    moe = tp_moe_config(torch, layers, seq=seq)
+    refs = {}
+    if "dense" in parts:
+        refs["dense"] = one_rank_reference_loss(torch, seed, layers, seq,
+                                                device, cfg=dense)
+    if "sp" in parts:
+        refs["sp"] = one_rank_reference_loss(torch, seed, layers, sp_seq,
+                                             device, cfg=sp,
+                                             batch=TP_SP_BATCH)
+    if "moe" in parts:
+        refs["moe"] = one_rank_reference_loss(
+            torch, seed, layers, seq, device, cfg=moe, batch=TP_BATCH,
+            accum=1)
+    t0 = time.perf_counter()
+    ranks = spawn_local_cluster(
+        functools.partial(chip_smoke._tensor_parallel_rank, seed, layers,
+                          seq, sp_seq, device, parts),
+        PAR_WORLD, timeout=TP_TIMEOUT, device=device, backend="gloo")
+    out = {"layers": layers, "world": PAR_WORLD, "meshes": TP_MESHES,
+           "cluster_s": time.perf_counter() - t0,
+           "one_rank": refs}
+
+    def hold(name, key, cfg, batch, rows_seq, launches, prepasses,
+             fallbacks, ref):
+        runs = [r[key] for r in ranks]
+        flops = model_flops_per_step(cfg, runs[0]["n_params"], batch)
+        return {"n_params": runs[0]["n_params"], **_hold_mesh_run(
+            f"phase {name}", runs, launches if cuda else None, prepasses,
+            fallbacks, ref["loss"], batch * rows_seq,
+            flops / peak if peak else None)}
+
+    if "dense" in parts:
+        # v2 with rope in the kernels: a pre-pass a forward and one a
+        # backward (the dq and dk/dv kernels share it).
+        per = layers * PAR_ACCUM * TP_STEPS
+        out["dense"] = hold(
+            "11a", "dense", dense, PAR_BATCH, seq,
+            _par_launches(fa, layers, 1, PAR_ACCUM, TP_STEPS), 3 * per,
+            {"sp_fused_rope": 0, "ulysses_kv_heads": 0}, refs["dense"])
+    if "sp" in parts:
+        per = layers * PAR_ACCUM * TP_SP_STEPS
+        # The ring keeps K/V grouped (v2, 3 calls a layer at sp 2);
+        # Ulysses broadcasts them (KV heads / tp = 1 does not divide by
+        # sp) and its one call a layer takes matched heads: v1.
+        for name, launches, kv in (
+                ("ring", _par_launches(fa, layers, 3, PAR_ACCUM,
+                                       TP_SP_STEPS), 0),
+                ("ulysses", _par_launches(fa, layers, 1, PAR_ACCUM,
+                                          TP_SP_STEPS, FLASH_KERNELS),
+                 per)):
+            out[name] = hold(
+                f"11b {name}", name, sp, TP_SP_BATCH, sp_seq, launches, 0,
+                {"sp_fused_rope": per, "ulysses_kv_heads": kv}, refs["sp"])
+    if "moe" in parts:
+        out["moe"] = hold(
+            "11c", "moe", moe, TP_BATCH, seq,
+            _par_launches(fa, layers, 1, 1, TP_STEPS, FLASH_KERNELS), 0,
+            {"sp_fused_rope": 0, "ulysses_kv_heads": 0}, refs["moe"])
+        shares = {r["moe"]["dropped_share"] for r in ranks}
+        share = ranks[0]["moe"]["dropped_share"]
+        gap = abs(share - refs["moe"]["dropped_share"])
+        out["moe"].update(dropped_share=share, dropped_share_gap=gap)
+        if len(shares) != 1 or not gap <= TP_DROP_SHARE_TOL:
+            raise RuntimeError(
+                f"phase 11c: dropped shares {sorted(shares)} against one "
+                f"rank's {refs['moe']['dropped_share']}")
+    if "f32" in parts:
+        out["f32"] = {}
+        for name in ranks[0]["f32"]:
+            step = _hold_step_f32(f"phase 11d {name}",
+                                  [r["f32"][name] for r in ranks])
+            if "dropped" in step and not (
+                    step["dropped"] > 0
+                    and step["dropped"] == step["dropped_one_rank"]):
+                raise RuntimeError(
+                    f"phase 11d {name}: dropped {step['dropped']} (rank "
+                    f"0's block), one rank {step['dropped_one_rank']}")
+            out["f32"][name] = step
+    if "multislice" in parts:
+        losses = {r["multislice"]["loss"] for r in ranks}
+        if len(losses) != 1 or not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"phase 11e: multislice losses {losses}")
+        out["multislice"] = ranks[0]["multislice"]
     return out
 
 
@@ -5141,8 +5517,12 @@ def main(argv=None) -> int:
     train_v2_outputs = check_train_outputs(torch, args.seed, LAYERS, v2=True)
     print(json.dumps({"train_v2_outputs": train_v2_outputs}), flush=True)
     _free(torch)
-    parallel = run_parallel_path(torch, args.seed, LAYERS)
+    parallel = run_parallel_path(torch, args.seed, PAR_LAYERS)
     print(json.dumps({"parallel_path": parallel, "gpu": gpu}), flush=True)
+    _free(torch)
+    tensor_parallel = run_tensor_parallel_path(torch, args.seed, LAYERS)
+    print(json.dumps({"tensor_parallel_path": tensor_parallel, "gpu": gpu}),
+          flush=True)
 
     case = {r["case"]: r for r in kern}
     decode = case["decode_bf16"]
@@ -5205,15 +5585,19 @@ def main(argv=None) -> int:
     # hops, timed in phase 3b and 3c.
     distill_cases = ("distill_f32", "distill_bf16")
     for rows, top, extra, lines, source, run, sa, phase in (
-            (flash, "flagship_bf16", distill_cases + ("ring_hop_bf16",),
+            (flash, "flagship_bf16", distill_cases + ("ring_hop_bf16",
+                                                      "tp_local_bf16"),
              FLASH_KERNELS, "flash_attention", train, save_attn,
              "6 (training); also 4e (draft distillation), 4f (LoRA "
              "fine-tune), 6c (the training job, save_attn), 8a (MoE "
-             "training)"),
-            (flash_v2, "train_gqa_bf16", ("ring_hop_gqa_bf16",),
+             "training), 11 (the tp-local heads: Ulysses over sp 2 x tp "
+             "2, MoE over ep 2 x tp 2)"),
+            (flash_v2, "train_gqa_bf16", ("ring_hop_gqa_bf16",
+                                          "tp_local_gqa_bf16"),
              FLASH_V2_KERNELS, "flash_attention_v2", train_v2, save_attn_v2,
              "6b (v2 training); also 6c (save_attn), 10 (ring and Ulysses "
-             "over dp 2 x sp 2, GQA)")):
+             "over dp 2 x sp 2, GQA), 11 (the tp-local heads: dp 2 x tp 2, "
+             "the ring over sp 2 x tp 2)")):
         by_case = {r["case"]: r for r in rows}
         timed = by_case[top]
         for name, line in lines.items():
@@ -5244,6 +5628,12 @@ def main(argv=None) -> int:
                     parallel[sp]["launches"][name]
                     for sp in ("ring", "ulysses")}
                    if name in FLASH_V2_KERNELS else {}),
+                # Phase 11: the four ranks' timed steps on each mesh whose
+                # path runs this kernel.
+                **{f"launches_tensor_parallel_{key}":
+                   tensor_parallel[key]["launches"][name]
+                   for key in ("dense", "ring", "ulysses", "moe")
+                   if tensor_parallel[key]["launches"][name]},
                 "max_abs_err": max(r["kernels"][name]["max_abs_err"]
                                    for r in rows),
                 **{key: timed["kernels"][name][key]
@@ -5279,6 +5669,7 @@ def main(argv=None) -> int:
                        "moe_identity": moe_identity,
                        "finagent_path": finagent,
                        "parallel_path": parallel,
+                       "tensor_parallel_path": tensor_parallel,
                        "device": device,
                        **kernels}, fh, indent=1)
     print(gpu, flush=True)

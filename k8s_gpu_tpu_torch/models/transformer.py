@@ -48,11 +48,32 @@ holds, else broadcasts them.  Where the reference mints
 ``sp_fused_rope`` with ``flash_fuse_rope``, ``ulysses_kv_heads``), the
 port has no trace: it counts each layer's attention each forward (the
 kernels still run on both).  ``loss`` on a mesh is the block's own mean;
-the ``Trainer`` averages it over the ranks.
+the ``Trainer`` averages it over the batch group (dp x sp).
 
-Not ported yet (ROADMAP.md queue 1 item 11, its second half): the tp,
-ep and pp axes (the pipeline schedules, experts over ``ep``), MoE on a
-mesh and ``save_attn`` on an sp mesh.
+With tp > 1 the parameters are this rank's shards (``parallel.sharding``)
+and each block runs Megatron's layout of the reference's GSPMD program:
+the normed input enters through ``copy_to``, q, k and v come from the
+local ``wq``, ``wk``, ``wv`` (H/tp and KH/tp heads, through the same
+flash kernels, ring or Ulysses), ``wo``'s product is a partial sum that
+``reduce_from`` adds over tp, and the dense MLP is cut on F the same
+way.  The vocabulary is cut too: the lookup takes the ids in this
+rank's rows and sums over tp, the head gives this rank's logits
+[B, S, V/tp] (what ``forward_train`` returns), ``loss`` takes a
+vocab-parallel cross-entropy over them, and ``forward`` gathers them.
+
+MoE on a mesh routes as the reference does on its global arrays: the
+capacity is that of the microbatch's global token count, and a token's
+slot counts the tokens routed to its expert before it in the global
+row-major order, so each rank gathers the other blocks' per-row,
+per-expert counts over the batch group; the aux loss takes global
+means.  The batch is replicated over ep, as in the reference: each ep
+rank runs its E/ep experts (and tp its F/tp slice of them) on its
+block, and the selected outputs are summed over ep x tp before the
+gate scales them.
+
+Not ported yet (ROADMAP.md queue 1 item 11, its second half): the pp
+axis (the pipeline schedules) and ``save_attn`` on an sp, tp or ep mesh
+or with MoE on a mesh.
 """
 
 from __future__ import annotations
@@ -67,7 +88,14 @@ from ..ops.attention import (
     attention_replay, flash_attention, flash_attention_lse,
     flash_attention_v2, flash_attention_v2_lse, reference_attention_lse,
 )
-from ..parallel.mesh import NEXT_SLICE, axis_rank, axis_size, check_slice
+from ..parallel.collectives import (
+    all_gather, all_reduce, all_reduce_sum, copy_to, gather_from,
+    reduce_from,
+)
+from ..parallel.mesh import (
+    NEXT_SLICE, PORTED_AXES, axis_group, axis_rank, axis_size, batch_group,
+    check_slice, mesh_shape,
+)
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention, ulysses_grouped_ok
 from ..utils.metrics import global_metrics
@@ -158,6 +186,9 @@ def layer_params(blocks: dict, layer: int) -> dict:
 
 
 class TransformerLM:
+    # The mesh axes the model runs above size 1.
+    mesh_axes = PORTED_AXES
+
     def __init__(self, cfg: TransformerConfig, device="cuda"):
         if cfg.remat and cfg.remat_policy not in ("full", "save_attn"):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
@@ -340,8 +371,11 @@ class TransformerLM:
         return torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], self.cfg.dtype))
 
     def _attention(self, x, lp, positions, mesh=None):
+        """Attention of the normed input ``x``; on a tp mesh over this
+        rank's heads, summed over tp."""
         cfg = self.cfg
-        q, k, v = self._qkv(x, lp, positions, mesh)
+        tp = axis_group(mesh, "tp")
+        q, k, v = self._qkv(copy_to(x, tp), lp, positions, mesh)
         blocks = dict(block_q=cfg.flash_block_q or None,
                       block_k=cfg.flash_block_k or None)
         if axis_size(mesh, "sp") > 1:
@@ -355,7 +389,7 @@ class TransformerLM:
             o = flash_attention(q, k, v, causal=True, **blocks)
         else:
             o = self._plain_causal_attention(q, k, v)
-        return self._out_proj(o, lp)
+        return reduce_from(self._out_proj(o, lp), tp)
 
     def _attention_lse(self, q, k, v, positions):
         """(o, lse) of the training attention, for ``save_attn``."""
@@ -370,17 +404,21 @@ class TransformerLM:
             return flash_attention_lse(q, k, v, causal=True, **blocks)
         return reference_attention_lse(q, k, v, causal=True)
 
-    def _dense_mlp(self, x, lp):
+    def _dense_mlp(self, x, lp, mesh=None):
+        """The dense MLP; on a tp mesh over this rank's F/tp, summed over
+        tp."""
         dt = self.cfg.dtype
+        tp = axis_group(mesh, "tp")
+        x = copy_to(x, tp)
         g = torch.einsum("bsd,df->bsf", x, wt(lp["wi_gate"], dt))
         u = torch.einsum("bsd,df->bsf", x, wt(lp["wi_up"], dt))
-        return torch.einsum(
+        return reduce_from(torch.einsum(
             "bsf,fd->bsd", torch.nn.functional.silu(g) * u,
             wt(lp["wo_mlp"], dt),
-        )
+        ), tp)
 
     def _moe_mlp(self, x, lp, full_capacity: bool = False,
-                 token_mask=None):
+                 token_mask=None, mesh=None):
         """Switch top-1 MoE with capacity -> (y [B, S, D] at ``dt``, aux
         loss), the reference's function computed by index.
 
@@ -393,7 +431,10 @@ class TransformerLM:
         ``token_mask`` [B, S] bool: False tokens (padding) take no slot
         and get y = 0, but still count in the aux loss's means, as in the
         reference.  y is the unrenormalised top-1 probability times the
-        expert's output, in f32, cast once."""
+        expert's output, in f32, cast once.  On a mesh, ``x`` is this
+        rank's block and ``_moe_meshed`` routes it globally."""
+        if mesh is not None:
+            return self._moe_meshed(x, lp, mesh)
         cfg = self.cfg
         dt = cfg.dtype
         B, S, D = x.shape
@@ -401,16 +442,10 @@ class TransformerLM:
         G = B * S
         cap = G if full_capacity else max(1, int(cfg.capacity_factor * G / E))
         xt = x.reshape(G, D)
-        probs = torch.softmax(xt.float() @ lp["gate"].float(), dim=-1)
-        expert = torch.argmax(probs, dim=-1)                      # [G]
-        # The one-hot is [E, G], so the slot cumsum scans its inner axis
-        # (on an H100 a scan down G = 49,152 rows of 4 columns took 4.3 ms
-        # a call, 16 % of a training step).
-        onehot = (torch.arange(E, device=x.device)[:, None]
-                  == expert).float()                              # [E, G]
+        probs, expert, onehot, gate = self._route_top1(xt, lp)
         if token_mask is not None:
             onehot = onehot * token_mask.reshape(1, G).float()
-        gate = (probs * onehot.t()).sum(-1)                       # [G]
+            gate = gate * token_mask.reshape(G).float()
         # Each token's slot: the tokens before it routed to its expert.
         pos = ((torch.cumsum(onehot, 1) - onehot) * onehot).sum(0).long()
         kept = (pos < cap) & (onehot.sum(0) > 0)
@@ -418,10 +453,7 @@ class TransformerLM:
         # masked tokens, sliced off before the products.
         slot = expert * (cap + 1) + torch.where(kept, pos, cap)
         buf = xt.new_zeros(E * (cap + 1), D).index_copy(0, slot, xt)
-        h = buf.view(E, cap + 1, D)[:, :cap]
-        g = torch.bmm(h, wt(lp["e_wi_gate"], dt))
-        u = torch.bmm(h, wt(lp["e_wi_up"], dt))
-        out = torch.bmm(torch.nn.functional.silu(g) * u, wt(lp["e_wo"], dt))
+        out = self._experts(buf.view(E, cap + 1, D)[:, :cap], lp)
         # Combine: a dropped token reads some slot of its expert and
         # scales it by 0.
         back = out.reshape(E * cap, D).index_select(
@@ -431,20 +463,112 @@ class TransformerLM:
         aux = (onehot.mean(1) * probs.mean(0)).sum() * E
         return y.reshape(B, S, D).to(dt), aux
 
-    def _mlp(self, x, lp):
+    def _route_top1(self, xt, lp):
+        """The router over tokens [G, D]: (probs [G, E] f32, the argmax
+        expert [G], its one-hot laid out [E, G], the top-1 probability
+        [G])."""
+        E = self.cfg.num_experts
+        probs = torch.softmax(xt.float() @ lp["gate"].float(), dim=-1)
+        expert = torch.argmax(probs, dim=-1)                      # [G]
+        # The one-hot is [E, G], so the slot cumsum scans its inner axis
+        # (on an H100 a scan down G = 49,152 rows of 4 columns took 4.3 ms
+        # a call, 16 % of a training step).
+        onehot = (torch.arange(E, device=xt.device)[:, None]
+                  == expert).float()                              # [E, G]
+        gate = probs.gather(-1, expert[:, None])[:, 0]            # [G]
+        return probs, expert, onehot, gate
+
+    def _experts(self, h, lp):
+        """The experts' SwiGLU over their slots h [E, cap, D] (this
+        rank's experts and F slice on a mesh)."""
+        dt = self.cfg.dtype
+        g = torch.bmm(h, wt(lp["e_wi_gate"], dt))
+        u = torch.bmm(h, wt(lp["e_wi_up"], dt))
+        return torch.bmm(torch.nn.functional.silu(g) * u, wt(lp["e_wo"], dt))
+
+    def _global_slots(self, onehot, B, S, mesh):
+        """Each token's slot in the microbatch's global row-major order
+        [G_local] and the global token count.  The strided microbatches
+        of ``make_train_step`` put the dp blocks' rows one after another
+        and a row's sp blocks side by side, so a token's slot counts,
+        for its expert, every token of the dp ranks before this one, of
+        this dp rank's earlier rows (all their sp blocks), of the sp
+        blocks before this one in its row, and of its own row before it:
+        the per-row, per-expert counts of every block are gathered over
+        the batch group (no gradient) and the exclusive prefix taken."""
+        E = onehot.shape[0]
+        rows = onehot.view(E, B, S)
+        group = batch_group(mesh)
+        dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
+        counts = rows.sum(2).t().contiguous()                    # [B, E]
+        c = torch.stack([counts] if group is None
+                        else all_gather(counts, group))          # [dp*sp,B,E]
+        c = c.view(dp, sp, B, E).permute(0, 2, 1, 3).reshape(-1, E)
+        before = (torch.cumsum(c, 0) - c).view(dp, B, sp, E)
+        offset = before[axis_rank(mesh, "dp"), :, axis_rank(mesh, "sp")]
+        pos = torch.cumsum(rows, 2) - rows + offset.t()[:, :, None]
+        return (pos * rows).sum(0).reshape(-1).long(), B * S * dp * sp
+
+    def _moe_meshed(self, x, lp, mesh):
+        """``_moe_mlp`` of this rank's block on a mesh, the reference's
+        function of the global microbatch (``_global_slots``).  This rank
+        runs its ep part of the experts, each with its tp part of F, on
+        the block's kept tokens of those experts, packed in global order
+        into ``min(cap, tokens)`` rows an expert; the partial outputs are
+        summed over ep x tp (``reduce_from``) and then scaled by the
+        gate, so the router's gradient is whole on every rank.  The aux
+        loss's means are global: the block's sums are added over the
+        batch group by ``all_reduce_sum``, whose backward sums each
+        rank's share back (the ``Trainer`` averages the group's
+        gradients)."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        B, S, D = x.shape
+        E = cfg.num_experts
+        xt = x.reshape(B * S, D)
+        probs, expert, onehot, gate = self._route_top1(xt, lp)
+        pos, G = self._global_slots(onehot, B, S, mesh)
+        cap = max(1, int(cfg.capacity_factor * G / E))
+        kept = pos < cap
+        # This rank's experts, and each kept token's row among the
+        # block's kept tokens of its expert (global order within a block
+        # is its row-major order).
+        El = lp["e_wi_gate"].shape[0]
+        lo = axis_rank(mesh, "ep") * El
+        mine = kept & (expert >= lo) & (expert < lo + El)
+        own = onehot * mine.float()
+        row = ((torch.cumsum(own, 1) - own) * own).sum(0).long()
+        rows = min(cap, B * S)
+        local = (expert - lo).clamp(0, El - 1)
+        slot = local * (rows + 1) + torch.where(mine, row, rows)
+        weights = axis_group(mesh, "ep", "tp")
+        xe = copy_to(xt, weights)
+        buf = xe.new_zeros(El * (rows + 1), D).index_copy(0, slot, xe)
+        out = self._experts(buf.view(El, rows + 1, D)[:, :rows], lp)
+        back = out.reshape(El * rows, D).index_select(
+            0, local * rows + row.clamp(max=rows - 1))
+        back = reduce_from(back * mine[:, None].to(back.dtype), weights)
+        y = back.float() * (gate * kept)[:, None]
+        sums = all_reduce_sum(torch.cat([onehot.sum(1), probs.sum(0)]),
+                              batch_group(mesh))
+        aux = (sums[:E] * sums[E:]).sum() / (G * G) * E
+        return y.reshape(B, S, D).to(dt), aux
+
+    def _mlp(self, x, lp, mesh=None):
         """The block's second half: (x + MLP(norm(x)), the MoE aux loss,
         or None for the dense MLP)."""
         h = self._rmsnorm(x, lp["ln2"])
         if self.cfg.moe:
-            y, aux = self._moe_mlp(h, lp)
+            y, aux = (self._moe_mlp(h, lp) if mesh is None
+                      else self._moe_mlp(h, lp, mesh=mesh))
             return x + y, aux
-        return x + self._dense_mlp(h, lp), None
+        return x + self._dense_mlp(h, lp, mesh), None
 
     def _block(self, x, lp, positions, mesh=None):
         """-> (x, aux or None)."""
         x = x + self._attention(self._rmsnorm(x, lp["ln1"]), lp, positions,
                                 mesh)
-        return self._mlp(x, lp)
+        return self._mlp(x, lp, mesh)
 
     def _block_saving(self, x, lp, positions):
         """``_block`` without gradients -> (out, aux, o, lse): the
@@ -469,32 +593,35 @@ class TransformerLM:
     def forward(self, params, tokens, mesh=None):
         """tokens [B, S] int -> (logits [B, S, V] f32, aux loss: the MoE
         layers' mean, 0 for the dense model), without gradients (serving,
-        evaluation).  On a mesh, ``tokens`` is this rank's block."""
-        return self.forward_train(params, tokens, mesh)
+        evaluation).  On a mesh, ``tokens`` is this rank's block, and on
+        a tp mesh the ranks' vocabulary slices are gathered."""
+        logits, aux = self.forward_train(params, tokens, mesh)
+        return gather_from(logits, axis_group(mesh, "tp"), -1), aux
 
     def _check_mesh(self, mesh) -> None:
-        """What the sequence-sharded path refuses, with the reference's
-        error for an unknown ``sp_attention``."""
+        """What the meshed path refuses, with the reference's error for
+        an unknown ``sp_attention``."""
         cfg = self.cfg
         check_slice(mesh, "TransformerLM")
-        if cfg.moe:
+        shape = {a: s for a, s in mesh_shape(mesh).items() if s > 1}
+        if cfg.remat and cfg.remat_policy == "save_attn" and (
+                set(shape) - {"dp"} or cfg.moe):
             raise NotImplementedError(
-                f"MoE on a mesh: not ported yet ({NEXT_SLICE})")
-        if axis_size(mesh, "sp") == 1:
-            return
-        if cfg.sp_attention not in ("ring", "ulysses"):
+                "remat_policy='save_attn' on a mesh with "
+                f"{', '.join(f'{a}={n}' for a, n in shape.items())}"
+                f"{' and MoE' if cfg.moe else ''} (the replay would run "
+                f"the mesh's collectives): not ported yet ({NEXT_SLICE})")
+        if axis_size(mesh, "sp") > 1 and cfg.sp_attention not in (
+                "ring", "ulysses"):
             raise ValueError(
                 f"unknown sp_attention {cfg.sp_attention!r}; "
                 "expected 'ring' or 'ulysses'")
-        if cfg.remat and cfg.remat_policy == "save_attn":
-            raise NotImplementedError(
-                "remat_policy='save_attn' on an sp mesh (the replay of a "
-                f"ring): not ported yet ({NEXT_SLICE})")
 
     def _count_sp_fallbacks(self, mesh) -> None:
         """The reference's ``flash_fallback_total`` on the sp path, one a
         layer: rope kept outside the kernels, and Ulysses broadcasting
-        grouped K/V its all-to-all cannot keep paired."""
+        grouped K/V its all-to-all cannot keep paired (counted from the
+        local head counts KH/tp, as the reference does)."""
         cfg = self.cfg
         layers = float(cfg.n_layers)
         if cfg.flash_fuse_rope:
@@ -504,12 +631,26 @@ class TransformerLM:
             global_metrics.inc("flash_fallback_total", layers,
                                reason="ulysses_kv_heads")
 
+    def _embed(self, w, tokens, mesh):
+        """The embedding lookup; on a tp mesh this rank holds rows
+        [r V/tp, (r+1) V/tp): it looks up the ids among them, zeroes the
+        rest and sums over tp, where exactly one rank is non-zero."""
+        tp = axis_group(mesh, "tp")
+        if tp is None:
+            return emb_lookup(w, tokens, self.cfg.dtype)
+        rows = (w["q"] if isinstance(w, dict) else w).shape[0]
+        t = tokens.long() - axis_rank(mesh, "tp") * rows
+        inside = (t >= 0) & (t < rows)
+        x = emb_lookup(w, torch.where(inside, t, 0), self.cfg.dtype)
+        return reduce_from(x * inside[..., None].to(x.dtype), tp)
+
     def forward_train(self, params, tokens, mesh=None):
         """``forward`` with gradients: under grad mode each block is
         checkpointed when ``cfg.remat``.  The stacked ``[L, ...]`` leaves
         are split with ``unbind``, whose backward stacks the layers'
         gradients in one write.  On a mesh, ``tokens`` is this rank's
-        block and rope takes its global positions."""
+        block and rope takes its global positions; on a tp mesh the
+        logits are this rank's vocabulary slice [B, S, V/tp]."""
         cfg = self.cfg
         start = 0
         if mesh is not None:
@@ -519,7 +660,7 @@ class TransformerLM:
                 self._count_sp_fallbacks(mesh)
         positions = torch.arange(start, start + tokens.shape[1],
                                  device=tokens.device)
-        x = emb_lookup(params["embed"], tokens, cfg.dtype)
+        x = self._embed(params["embed"], tokens, mesh)
         layers = {name: ({k: v.unbind(0) for k, v in leaf.items()}
                          if isinstance(leaf, dict) else leaf.unbind(0))
                   for name, leaf in params["blocks"].items()}
@@ -539,18 +680,43 @@ class TransformerLM:
                 x, a = self._block(x, lp, positions, mesh)
             if a is not None:
                 aux = aux + a
-        x = self._rmsnorm(x, params["final_norm"])
+        x = copy_to(self._rmsnorm(x, params["final_norm"]),
+                    axis_group(mesh, "tp"))
         logits = torch.einsum("bsd,dv->bsv", x, wt(params["head"], cfg.dtype))
         return logits.float(), aux / cfg.n_layers
 
     def loss(self, params, tokens, targets, mesh=None):
         """Next-token cross-entropy (mean) + 0.01 x the MoE aux loss (0 for
         the dense model), differentiable in ``params``.  On a mesh: the
-        mean over this rank's block."""
+        mean over this rank's block; on a tp mesh through the
+        vocab-parallel cross-entropy."""
         logits, aux = self.forward_train(params, tokens, mesh)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+        tp = axis_group(mesh, "tp")
+        if tp is None:
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+        else:
+            nll = _vocab_parallel_nll(logits, targets, tp,
+                                      axis_rank(mesh, "tp"))
         return nll.mean() + 0.01 * aux
+
+
+def _vocab_parallel_nll(logits, targets, group, rank: int):
+    """-log softmax(logits)[target] from this rank's vocabulary slice
+    [B, S, V/tp] in f32, without the whole [B, S, V] on any rank: the row
+    max over tp (no gradient), then the sum of exponentials and the
+    target's shifted logit (non-zero on the rank that holds it), summed
+    over tp in one all-reduce whose backward hands each rank its own
+    part.  The reference's ``log_softmax`` and ``take_along_axis``."""
+    rows = logits.shape[-1]
+    m = all_reduce(logits.detach().amax(-1), group,
+                   op=torch.distributed.ReduceOp.MAX)
+    z = logits - m[..., None]
+    t = targets.long() - rank * rows
+    inside = (t >= 0) & (t < rows)
+    zt = z.gather(-1, torch.where(inside, t, 0)[..., None])[..., 0]
+    parts = reduce_from(torch.stack([z.exp().sum(-1), zt * inside]), group)
+    return torch.log(parts[0]) - parts[1]
 
 
 class _SaveAttnBlock(torch.autograd.Function):

@@ -3,12 +3,13 @@ sharding rules, the collectives and their probes, the multi-process
 rendezvous, zigzag ring attention and Ulysses.  The reference's exports
 but two JAX shapes: ``named_sharding`` (a JAX type) and
 ``mesh_from_devices`` (a mesh here is over the world's processes, one
-device each, not over a list of devices).  The tp, ep and pp axes and
-the pipeline schedules are not ported yet (ROADMAP.md queue 1 item 11,
-its second half)."""
+device each, not over a list of devices); ``gather_params`` is the
+port's own (a rank holds only its shards).  The pp axis and the
+pipeline schedules are not ported yet (ROADMAP.md queue 1 item 11, its
+second half)."""
 
 from .mesh import MeshConfig, build_mesh, multislice_mesh
-from .sharding import ParamRules, shard_params, logical_to_spec
+from .sharding import ParamRules, gather_params, shard_params, logical_to_spec
 from .collectives import psum_smoke, all_reduce_bandwidth_probe
 from .ulysses import ulysses_attention
 from .multihost import (
@@ -24,6 +25,7 @@ __all__ = [
     "multislice_mesh",
     "ParamRules",
     "shard_params",
+    "gather_params",
     "logical_to_spec",
     "psum_smoke",
     "all_reduce_bandwidth_probe",

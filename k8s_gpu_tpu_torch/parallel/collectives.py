@@ -3,6 +3,15 @@ runs on a fresh slice, and the differentiable ``ppermute`` and
 ``all_to_all`` that ring attention and Ulysses ride: the port of
 ``k8s_gpu_tpu/parallel/collectives.py`` on ``torch.distributed``.
 
+The tensor and expert axes ride four more differentiable collectives,
+the ones GSPMD inserts around a sharded product in the reference:
+``copy_to`` (identity, its backward sums the gradient over the group),
+``reduce_from`` (a sum, its backward the identity), ``all_reduce_sum``
+(a sum both ways, for a statistic every rank's loss takes whole while
+the trainer averages the ranks' gradients) and ``gather_from`` (a
+concatenation, its backward this rank's slice).  Each is the identity
+when given no group (an axis of size 1).
+
 Every transfer goes through the process group it is given, whatever its
 backend.  NCCL moves CUDA tensors itself.  Gloo moves host tensors, so a
 CUDA tensor on a gloo group is copied to the host here (``.cpu()``,
@@ -47,14 +56,16 @@ def _wire(t: torch.Tensor, group) -> torch.Tensor:
     return t.cpu() if _staged(t, group) else t
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place (and return it)."""
+def all_reduce(t: torch.Tensor, group=None,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``t`` over ``group`` in place (and return it): a sum, or
+    ``op``."""
     if _staged(t, group):
         host = t.detach().cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -110,7 +121,10 @@ def _all_to_all(x: torch.Tensor, group, split_axis: int,
 # Autograd runs a graph's nodes in decreasing creation order on one
 # device's thread, so every rank, having created its collectives in the
 # same order, runs their backwards in the same (reversed) order, which
-# is what keeps the backward's transfers paired across ranks.
+# is what keeps the backward's transfers paired across ranks.  Under
+# remat (torch.utils.checkpoint) a block's forward, its collectives
+# included, runs again inside the backward at the same point on every
+# rank, so the order stays the same there too.
 
 class _PPermute(torch.autograd.Function):
     @staticmethod
@@ -133,6 +147,78 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_to_all(g, *ctx.args), None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.detach().contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.detach().contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return torch.cat(all_gather(x, group), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        return g.chunk(n, dim)[me].contiguous(), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """A replicated input entering a sharded product: the identity, whose
+    backward sums the partial gradients over ``group``."""
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """A sharded product's partial sums: summed over ``group``, the
+    gradient handed back as it is (every rank's loss takes the same
+    sum, and each rank differentiates only its own part)."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A sum over ``group`` whose backward is also the sum: for
+    statistics of the whole batch that enter every rank's loss while the
+    trainer averages the ranks' gradients (the MoE aux loss over dp x
+    sp), so each rank's share of the gradient comes back from all."""
+    return x if group is None else _AllReduceSum.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in group-rank order; the
+    backward hands each rank its slice."""
+    return x if group is None else _GatherFrom.apply(x, group, dim)
 
 
 def ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:

@@ -7,12 +7,20 @@ reference's order (tp innermost, dp outermost).  A world of one rank
 needs no process group: ``build_mesh`` returns ``None`` there, and every
 consumer reads ``None`` as the one-device mesh, every axis of size 1.
 
-The data and sequence axes run in this slice; a mesh with tp, ep or pp
-above 1 is refused by its consumers (``check_slice``).
+The data, sequence, tensor and expert axes run; a mesh with pp above 1
+is refused by its consumers (``check_slice``), and so is tp or ep by the
+consumers that run only the data axes (the LoRA model, the CNN).
+
+Besides one group an axis (``mesh.get_group``), ``build_mesh`` makes the
+groups of two axes together that the training path reduces over: the
+batch group dp x sp (the ranks whose tokens differ, over which the
+gradients are averaged) and ep x tp (the ranks that share tokens and cut
+the experts' weights).  ``axis_group`` hands either out.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch.distributed as dist
@@ -20,10 +28,15 @@ import torch.distributed as dist
 # Canonical axis order: outermost (dp, gradient all-reduce) to innermost
 # (tp, the hottest traffic).
 AXES = ("dp", "pp", "ep", "sp", "tp")
-# The axes this slice runs above size 1.
-PORTED_AXES = ("dp", "sp")
-NEXT_SLICE = ("ROADMAP.md queue 1 item 11, its second half: tp, ep, the "
-              "pipeline schedules, serving on a mesh, meshed checkpoints")
+# The axes the port runs above size 1, and the data axes alone (what a
+# model that cuts no weight runs).
+PORTED_AXES = ("dp", "ep", "sp", "tp")
+DATA_AXES = ("dp", "sp")
+NEXT_SLICE = ("ROADMAP.md queue 1 item 11, its second half: the pipeline "
+              "schedules, serving on a mesh, meshed checkpoints, save_attn "
+              "on an sp, tp or ep mesh")
+# The groups of more than one axis that build_mesh makes.
+GROUPED_AXES = (("dp", "sp"), ("ep", "tp"))
 
 
 @dataclass(frozen=True)
@@ -91,7 +104,45 @@ def build_mesh(config: MeshConfig | None = None,
     for a in AXES:
         if sizes[a] > 1:
             dist.barrier(group=mesh.get_group(a))
+    # Every rank makes every group of each pair, in the same order
+    # (new_group is collective over the world).
+    mesh.port_groups = {}
+    for axes in GROUPED_AXES:
+        if all(sizes[a] > 1 for a in axes):
+            group, _ = dist.new_subgroups_by_enumeration(
+                _enumerate(mesh, axes))
+            dist.barrier(group=group)
+            mesh.port_groups[axes] = group
     return mesh
+
+
+def _enumerate(mesh, axes) -> list[list[int]]:
+    """The world's ranks in groups that differ only along ``axes``: the
+    mesh's rank grid with those axes last, one row a group."""
+    grid = mesh.mesh
+    dims = [AXES.index(a) for a in axes]
+    rest = [i for i in range(len(AXES)) if i not in dims]
+    size = math.prod(grid.shape[d] for d in dims)
+    return grid.permute(rest + dims).reshape(-1, size).tolist()
+
+
+def axis_group(mesh, *axes):
+    """This rank's process group over ``axes`` (the ranks that differ only
+    along them), or None when none of them exceeds size 1.  One axis of
+    size > 1 gives the mesh's own group; two give the group
+    ``build_mesh`` made for them (``GROUPED_AXES``)."""
+    big = tuple(a for a in AXES if a in axes and axis_size(mesh, a) > 1)
+    if not big:
+        return None
+    if len(big) == 1:
+        return mesh.get_group(big[0])
+    return mesh.port_groups[big]
+
+
+def batch_group(mesh):
+    """The ranks whose tokens differ (dp x sp): the group the gradients
+    and the loss are averaged over."""
+    return axis_group(mesh, *DATA_AXES)
 
 
 def multislice_mesh(config: MeshConfig, num_slices: int,
@@ -126,10 +177,11 @@ def axis_rank(mesh, axis: str) -> int:
         else mesh.get_local_rank(axis)
 
 
-def check_slice(mesh, what: str) -> None:
-    """Refuse a mesh with an axis this slice does not run above 1."""
+def check_slice(mesh, what: str, axes=PORTED_AXES) -> None:
+    """Refuse a mesh with an axis above 1 that ``what`` does not run
+    (``axes``: the ones it does)."""
     big = [a for a, s in mesh_shape(mesh).items()
-           if s > 1 and a not in PORTED_AXES]
+           if s > 1 and a not in axes]
     if big:
         raise NotImplementedError(
             f"{what} on a mesh with {', '.join(f'{a}>1' for a in big)}: "

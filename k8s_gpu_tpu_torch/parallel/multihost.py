@@ -94,16 +94,16 @@ def workload_global_psum(devices_per_host: int = 1, device="cuda") -> dict:
             "global_devices": dist.get_world_size() * devices_per_host}
 
 
-def workload_train_step(device="cuda") -> dict:
-    """One dp-sharded train step of a small LM over the global mesh:
-    each process's rows come from its own seed, the ``Trainer`` sums the
-    gradients over the world, and an equal loss on every process proves
-    a coherent update."""
+def workload_train_step(device="cuda", mesh=None) -> dict:
+    """One train step of a small LM over the global mesh (``mesh``, or
+    all ranks on dp): each dp block's rows come from its own seed, the
+    ``Trainer`` averages the gradients over the batch group, and an
+    equal loss on every process proves a coherent update."""
     import numpy as np
 
     from ..models import TransformerConfig, TransformerLM
     from ..train import TrainConfig, Trainer
-    from .mesh import MeshConfig
+    from .mesh import MeshConfig, axis_size
 
     dev = torch.device(device)
     model = TransformerLM(TransformerConfig(
@@ -111,12 +111,12 @@ def workload_train_step(device="cuda") -> dict:
         d_ff=64, max_seq=32, use_flash=False, dtype=torch.float32),
         device=dev)
     trainer = Trainer(model, TrainConfig(warmup_steps=1), device=dev,
-                      mesh_config=MeshConfig(dp=-1))
+                      mesh=mesh, mesh_config=MeshConfig(dp=-1))
     trainer.init(0)
     rows = np.concatenate([
         np.random.default_rng(p).integers(0, 128, size=(2, 33),
                                           dtype=np.int64)
-        for p in range(dist.get_world_size())])
+        for p in range(axis_size(trainer.mesh, "dp"))])
     loss = trainer.step(rows[:, :-1], rows[:, 1:])
     return {"loss": float(loss), "global_devices": dist.get_world_size()}
 

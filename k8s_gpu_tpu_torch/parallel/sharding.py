@@ -4,9 +4,12 @@
 Parameters carry *logical* axis names ("embed", "heads", "mlp", ...); a
 rule table maps them to mesh axes.  A spec is a tuple with one mesh-axis
 name, or ``None``, per dimension.  ``shard_params`` cuts each rank's
-local shard along the axes of size > 1; in this slice those are dp and
-sp, which no parameter rule names, so every parameter stays whole on
-every rank (the fsdp rule ``embed_fsdp`` -> dp would cut it).
+local shard along the weight axes of size > 1: ``heads``, ``mlp``,
+``vocab`` and ``expert_mlp`` over tp, ``experts`` over ep; the rank
+keeps part ``axis_rank`` of each cut, as the reference's
+``NamedSharding`` places it.  ``gather_params`` is its inverse: the
+whole tree on every rank.  Parameters cut over a data axis (the fsdp
+rule ``embed_fsdp`` -> dp) are not ported.
 """
 
 from __future__ import annotations
@@ -14,7 +17,13 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
+import torch
+
+from .collectives import all_gather
 from .mesh import axis_rank, axis_size, check_slice
+
+# The mesh axes a parameter may be cut along.
+WEIGHT_AXES = ("ep", "tp")
 
 # Default rule table: tp shards heads/mlp/vocab, ep shards experts,
 # sp shards sequence, dp shards batch.  "embed" unsharded by default
@@ -56,25 +65,57 @@ def logical_to_spec(rules: ParamRules, logical_tree) -> Any:
     return _map(rules.spec, logical_tree)
 
 
+def cut_axes(spec: tuple, mesh) -> list[tuple[int, str]]:
+    """(dimension, mesh axis) of each dimension a spec cuts on ``mesh``
+    (its axis above size 1); a cut over a data axis raises."""
+    cuts = []
+    for dim, name in enumerate(spec):
+        if name is None or axis_size(mesh, name) == 1:
+            continue
+        if name not in WEIGHT_AXES:
+            raise NotImplementedError(
+                f"parameters cut over {name} (fsdp): not ported; the "
+                f"port cuts them over {', '.join(WEIGHT_AXES)}")
+        cuts.append((dim, name))
+    return cuts
+
+
 def shard_params(params, logical_tree, mesh, rules: ParamRules | None = None):
     """Each rank's local shard of ``params``: every dimension whose spec
     names a mesh axis of size > 1 is cut into that axis's equal parts and
-    this rank keeps its own.  ``mesh`` None (one device) returns
-    ``params`` as they are."""
+    this rank keeps its own (views of ``params``).  ``mesh`` None (one
+    device) returns ``params`` as they are."""
     if mesh is None:
         return params
     check_slice(mesh, "shard_params")
     rules = rules or ParamRules()
 
     def cut(axes, t):
-        for dim, name in enumerate(rules.spec(axes)):
-            n = axis_size(mesh, name) if name is not None else 1
-            if n > 1:
-                if t.shape[dim] % n:
-                    raise ValueError(
-                        f"dim {dim} of {tuple(t.shape)} does not divide "
-                        f"over {name}={n}")
-                t = t.chunk(n, dim)[axis_rank(mesh, name)]
+        for dim, name in cut_axes(rules.spec(axes), mesh):
+            n = axis_size(mesh, name)
+            if t.shape[dim] % n:
+                raise ValueError(
+                    f"dim {dim} of {tuple(t.shape)} does not divide "
+                    f"over {name}={n}")
+            t = t.chunk(n, dim)[axis_rank(mesh, name)]
         return t
 
     return _map(cut, logical_tree, params)
+
+
+def gather_params(params, logical_tree, mesh,
+                  rules: ParamRules | None = None):
+    """The inverse of ``shard_params``: every rank's shards joined back
+    into the whole tree, on every rank (detached).  ``mesh`` None
+    returns ``params`` as they are."""
+    if mesh is None:
+        return params
+    rules = rules or ParamRules()
+
+    def join(axes, t):
+        t = t.detach()
+        for dim, name in cut_axes(rules.spec(axes), mesh):
+            t = torch.cat(all_gather(t, mesh.get_group(name)), dim)
+        return t
+
+    return _map(join, logical_tree, params)

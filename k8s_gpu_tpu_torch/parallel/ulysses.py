@@ -10,6 +10,7 @@ then each rank runs one whole-sequence causal flash call for its H/P
 heads (v2 for grouped K/V, rope outside), and a second all-to-all
 restores the sequence sharding.  It needs the head count to divide by
 sp; grouped K/V also need their KV heads to (``ulysses_grouped_ok``).
+On a tp mesh a rank holds its H/tp heads, and Ulysses regroups those.
 """
 
 from __future__ import annotations
@@ -68,23 +69,25 @@ def ulysses_attention(q, k, v, mesh, *, axis_name: str = "sp",
                       block_k: int | None = None):
     """Causal self-attention with the sequence sharded over *axis_name*:
     the same contract as ``ring_attention`` (this rank's blocks in, its
-    output block out).  The head count must divide by sp; grouped K/V
-    are taken when ``ulysses_grouped_ok`` holds."""
+    output block out).  q, k and v hold this rank's heads, the H/tp and
+    KH/tp of its place on ``head_axes``; the errors name the whole
+    counts, as the reference's do.  The local head count must divide by
+    sp; grouped K/V are taken when ``ulysses_grouped_ok`` holds."""
     sp = mesh_shape(mesh)[axis_name]
     tp = _heads_over(mesh, head_axes)
-    local_heads = q.shape[1] // tp
+    h, kh = q.shape[1] * tp, k.shape[1] * tp
+    local_heads = q.shape[1]
     if local_heads % sp != 0:
         raise ValueError(
-            f"ulysses needs local heads ({q.shape[1]}/{tp}={local_heads}) "
+            f"ulysses needs local heads ({h}/{tp}={local_heads}) "
             f"divisible by sp={sp}; use ring attention instead"
         )
-    if k.shape[1] != q.shape[1] and not ulysses_grouped_ok(
-        q.shape[1], k.shape[1], mesh, axis_name=axis_name,
-        head_axes=head_axes
+    if kh != h and not ulysses_grouped_ok(
+        h, kh, mesh, axis_name=axis_name, head_axes=head_axes
     ):
         raise ValueError(
             f"ulysses grouped K/V needs local KV heads "
-            f"({k.shape[1]}/{tp}) divisible by sp={sp}; broadcast K/V "
+            f"({kh}/{tp}) divisible by sp={sp}; broadcast K/V "
             "to the full head count first (see ulysses_grouped_ok)"
         )
     return _ulysses_local(q, k, v, group=mesh.get_group(axis_name),

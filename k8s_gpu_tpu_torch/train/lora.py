@@ -22,6 +22,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..parallel.mesh import DATA_AXES, check_slice
+
 # For each adaptable leaf under "blocks": how many dims after the leading
 # layer axis are the matmul's input.  wq (L, D, H, Dh) maps D -> H*Dh, wo
 # (L, H, Dh, D) maps H*Dh -> D.
@@ -152,7 +154,9 @@ class LoraModel:
     makes adapter parameters, ``loss`` differentiates the adapters only
     (the base leaves never take a gradient and stay bit-identical).
     ``Trainer(LoraModel(model, base_params), device=...)`` fine-tunes,
-    on a mesh too (``loss`` takes ``mesh=``)."""
+    on a mesh of the data axes too (``loss`` takes ``mesh=``); tp and ep
+    (the sharded adapter bank, LoRA training on tp) wait for a later
+    slice."""
 
     def __init__(self, model, base_params: dict,
                  cfg: LoraConfig | None = None):
@@ -169,6 +173,7 @@ class LoraModel:
         return self.adapter.logical_axes(self.model.logical_axes())
 
     def loss(self, lora_params, tokens, targets, mesh=None):
+        check_slice(mesh, "LoRA", DATA_AXES)
         merged = self.adapter.merge(self.base_params, lora_params)
         return self.model.loss(merged, tokens, targets, mesh=mesh)
 

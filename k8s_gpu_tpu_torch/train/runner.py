@@ -23,23 +23,27 @@ the step series ``train_step_seconds``, ``train_last_step_seconds``,
 ``train_tokens_per_second`` and ``train_mfu`` in the port's
 ``global_metrics``.  ``fit`` fires the ``train.preempt`` fault site.
 
-On a mesh (``Trainer(mesh=...)`` or ``mesh_config=``, over the data and
-sequence axes) every rank holds the whole parameters, takes its
-[B/dp, S/sp] block of the global batch (``shard_batch``) and runs the
-model on it; the ring's or Ulysses' backward carries each block's loss
-into the other ranks' K/V.  The gradients and the loss are then summed
-over every rank (dp x sp) in one all-reduce and divided by the rank
-count: each block's loss is its own mean, so that is the mean over the
-global token count, the reference's loss, and clipping takes the norm of
-that global gradient.  ``zero1`` shards AdamW's moments over dp along
-each leaf's largest free axis that dp divides (the reference's
-``_zero1_sharding``; a leaf with none stays replicated): each dp rank
-updates its slice and the slices are all-gathered.  On one device, or
-without a mesh, the step is exactly the one-device step.
+On a mesh (``Trainer(mesh=...)`` or ``mesh_config=``) every rank holds
+its shards of the parameters (``shard_params``: whole over dp and sp,
+cut over tp and ep as the rules say; ``gathered_params`` joins them),
+takes its [B/dp, S/sp] block of the global batch (``shard_batch``; the
+batch is replicated over tp and ep, the reference's ``P("dp", "sp")``)
+and runs the model on it; the ring's or Ulysses' backward carries each
+block's loss into the other ranks' K/V.  The gradients and the loss are
+then summed over the batch group (dp x sp) in one all-reduce and divided
+by its size: each block's loss is its own mean, so that is the mean over
+the global token count, the reference's loss.  The leaves tp and ep
+leave whole then agree on every rank.  Clipping takes the norm of the
+whole global gradient: each cut leaf's squares are summed over the axes
+that cut it, the whole leaves counted once.  ``zero1`` shards AdamW's
+moments over dp along each local leaf's largest free axis that dp
+divides (the reference's ``_zero1_sharding``; a leaf with none stays
+replicated): each dp rank updates its slice and the slices are
+all-gathered.  On one device, or without a mesh, the step is exactly the
+one-device step.
 
-Not ported yet (ROADMAP.md queue 1 item 11, its second half): the tp,
-ep and pp axes, the pipeline schedules and checkpoints of a meshed
-trainer.
+Not ported yet (ROADMAP.md queue 1 item 11, its second half): the pp
+axis, the pipeline schedules and checkpoints of a meshed trainer.
 """
 
 from __future__ import annotations
@@ -58,10 +62,12 @@ from ..device import resolve_device
 from ..ops.attention import describe_train_attention
 from ..parallel.collectives import all_gather, all_reduce
 from ..parallel.mesh import (
-    NEXT_SLICE, axis_rank, axis_size, build_mesh, check_slice,
-    mesh_shape,
+    DATA_AXES, NEXT_SLICE, axis_group, axis_rank, axis_size, batch_group,
+    build_mesh, check_slice, mesh_shape,
 )
-from ..parallel.sharding import ParamRules
+from ..parallel.sharding import (
+    ParamRules, cut_axes, gather_params, shard_params,
+)
 from ..utils.faults import global_faults
 from ..utils.goodput import GoodputLedger
 from ..utils.metrics import global_metrics
@@ -206,13 +212,18 @@ class AdamW:
     ``zero``: ZeRO-1 over dp, ``(dims, dp group)`` with ``dims[i]`` the
     axis leaf i's moments are cut along (None: kept whole).  This rank
     then holds and updates its dp slice of each cut leaf and all-gathers
-    the slices, the same elementwise update as without ``zero``."""
+    the slices, the same elementwise update as without ``zero``.
+
+    ``cut``: for each leaf, the process group its shards are cut over
+    (tp, ep or ep x tp; None for a whole leaf), so that the global norm
+    sums a cut leaf's squares over its group and a whole one once."""
 
     def __init__(self, tc: TrainConfig, params: list[torch.Tensor],
-                 zero=None):
+                 zero=None, cut=None):
         self.tc = tc
         self.schedule = make_schedule(tc)
         self.count = 0
+        self.cut = cut
         self.dims, self.group = zero or ([None] * len(params), None)
         self.mu = [torch.zeros_like(self._mine(p, d))
                    for p, d in zip(params, self.dims)]
@@ -225,11 +236,27 @@ class AdamW:
         n = torch.distributed.get_world_size(self.group)
         return t.chunk(n, dim)[torch.distributed.get_rank(self.group)]
 
+    def _global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """optax's ``global_norm`` of the whole tree: each cut leaf's
+        squares summed over its group, one all-reduce a group in the
+        order the leaves first name them (the same on every rank)."""
+        squares = [g.square().sum() for g in grads]
+        if self.cut is None or all(c is None for c in self.cut):
+            return torch.sqrt(sum(squares))
+        total = sum(s for s, c in zip(squares, self.cut) if c is None)
+        by_group: dict = {}
+        for s, c in zip(squares, self.cut):
+            if c is not None:
+                by_group.setdefault(c, []).append(s)
+        for group, part in by_group.items():
+            total = total + all_reduce(torch.stack(part).sum(), group)
+        return torch.sqrt(total)
+
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor]):
         tc = self.tc
         grads = [g.float() for g in grads]
-        norm = torch.sqrt(sum(g.square().sum() for g in grads))
+        norm = self._global_norm(grads)
         clip = norm < tc.grad_clip
         lr = self.schedule(self.count)
         self.count += 1
@@ -306,7 +333,11 @@ class Trainer:
 
     ``mesh``: a ``parallel.mesh`` mesh over the initialized world, or
     ``mesh_config`` to build one (None on a world of one rank: the
-    one-device step).  Only dp and sp may exceed 1.
+    one-device step).  The axes above 1 must be ones the model runs
+    (its ``mesh_axes``; dp and sp for a model that names none, such as
+    the LoRA model and the CNN): no model runs pp yet.  On a tp or ep
+    mesh ``self.params`` holds this rank's shards and
+    ``gathered_params()`` the whole tree.
 
     ``peak_flops``: the MFU denominator (None reads the card's kind; 0.0,
     as on the CPU, keeps ``train_mfu`` at 0).  ``profiler``: the phase
@@ -330,7 +361,8 @@ class Trainer:
         self.mesh = mesh
         if mesh is not None:
             _check_kv_tp(getattr(model, "cfg", None), mesh)
-            check_slice(mesh, "the Trainer")
+            check_slice(mesh, f"the Trainer of {type(model).__name__}",
+                        getattr(model, "mesh_axes", DATA_AXES))
         self.peak_flops = peak_flops
         self.profiler = (profiler if profiler is not None
                          else PhaseProfiler(plane="train"))
@@ -346,6 +378,8 @@ class Trainer:
         self.optimizer = None
         self.ema = None
         self._step = None
+        # Each leaf's (dimension, mesh axis) cuts, set by ``init``.
+        self.leaf_cuts: list = []
 
     def _seg(self, name: str):
         """The ledger's segment, or nothing when no ledger rides."""
@@ -387,34 +421,65 @@ class Trainer:
         def master(t):
             if not torch.is_tensor(t):
                 t = tensor_from_numpy(t, self.device)
-            return (t.detach().to(self.device, torch.float32).clone()
-                    .requires_grad_(True))
+            return t.detach().to(self.device, torch.float32)
 
-        self.params = tree_map(master, params)
+        params = tree_map(master, params)
+        specs = self._specs()
+        if specs is not None and self.mesh is not None:
+            params = shard_params(params, self.model.logical_axes(),
+                                  self.mesh)
+        self.params = tree_map(
+            lambda t: t.contiguous().clone().requires_grad_(True), params)
+        # Each leaf's cuts, (dimension, mesh axis) pairs in tree_leaves
+        # order, and the group the global norm sums its squares over.
+        specs = specs or [()] * len(tree_leaves(self.params))
+        self.leaf_cuts = [cut_axes(sp, self.mesh) for sp in specs]
+        cut = [axis_group(self.mesh, *(a for _, a in c)) if c else None
+               for c in self.leaf_cuts]
         self.optimizer = AdamW(self.tc, tree_leaves(self.params),
-                               self._zero1())
+                               self._zero1(), cut)
         self.ema = (tree_map(lambda p: p.detach().clone(), self.params)
                     if self.tc.ema_decay > 0 else None)
         self._step = None
 
+    def _specs(self) -> list | None:
+        """Each leaf's spec under the default rules (the model's
+        ``logical_axes``), in ``tree_leaves`` order; None for a model
+        without logical axes."""
+        if not hasattr(self.model, "logical_axes"):
+            return None
+        rules = ParamRules()
+        return [rules.spec(ax)
+                for ax in tree_leaves(self.model.logical_axes())]
+
     def _zero1(self):
-        """AdamW's ``zero`` argument: each leaf's ZeRO-1 axis over dp,
-        free meaning unnamed by the leaf's logical spec (the model's
-        ``logical_axes`` under the default rules), or None without
-        ``zero1`` or a dp axis."""
+        """AdamW's ``zero`` argument: each local leaf's ZeRO-1 axis over
+        dp, free meaning unnamed by the leaf's logical spec, or None
+        without ``zero1`` or a dp axis."""
         dp = axis_size(self.mesh, "dp")
         if not self.tc.zero1 or dp <= 1:
             return None
         leaves = tree_leaves(self.params)
-        if hasattr(self.model, "logical_axes"):
-            rules = ParamRules()
-            specs = [rules.spec(ax)
-                     for ax in tree_leaves(self.model.logical_axes())]
-        else:
-            specs = [()] * len(leaves)
+        specs = self._specs() or [()] * len(leaves)
         return ([zero1_dim(tuple(p.shape), spec, dp)
                  for p, spec in zip(leaves, specs)],
                 self.mesh.get_group("dp"))
+
+    def n_params(self) -> int:
+        """The whole model's parameter count: each shard's times the sizes
+        of the axes that cut it."""
+        return sum(p.numel() * math.prod(axis_size(self.mesh, a)
+                                         for _, a in cuts)
+                   for p, cuts in zip(tree_leaves(self.params),
+                                      self.leaf_cuts))
+
+    def gathered_params(self) -> dict:
+        """The whole parameter tree (detached), on every rank: this
+        rank's shards joined with the others' over tp and ep."""
+        if self.mesh is None or not hasattr(self.model, "logical_axes"):
+            return tree_map(lambda p: p.detach(), self.params)
+        return gather_params(self.params, self.model.logical_axes(),
+                             self.mesh)
 
     def shard_batch(self, *batch):
         """This rank's block of each global array on the trainer's
@@ -441,12 +506,17 @@ class Trainer:
         return self.model.loss(params, *batch)
 
     def _reduce(self, loss, grads):
-        """The mean over every rank of the loss and the gradients, in one
-        all-reduce (the mesh spans the world)."""
-        n = torch.distributed.get_world_size()
+        """The mean of the loss and the gradients over the batch group
+        (dp x sp, the ranks whose tokens differ), in one all-reduce; the
+        ranks of a tp or ep group already hold the same loss and their
+        own shards' gradients."""
+        group = batch_group(self.mesh)
+        if group is None:
+            return loss, grads
+        n = torch.distributed.get_world_size(group)
         flat = torch.cat([g.float().reshape(-1) for g in grads]
                          + [loss.float().reshape(1)])
-        all_reduce(flat)
+        all_reduce(flat, group)
         flat /= n
         grads = [f.view_as(g) for f, g in
                  zip(flat[:-1].split([g.numel() for g in grads]), grads)]
@@ -513,13 +583,14 @@ class Trainer:
                            ("max_seq", "n_heads", "d_head", "n_layers"))):
             return
         if self._n_params is None:
-            self._n_params = sum(p.numel() for p in tree_leaves(self.params))
+            self._n_params = self.n_params()
             return
-        # A rank's share of the global step's FLOPs.
+        # A rank's share of the global step's FLOPs (the mesh spans the
+        # world).
         shape = mesh_shape(self.mesh)
         flops = model_flops_per_step(
             cfg, self._n_params, int(batch[0].shape[0]) * shape["dp"]
-        ) / (shape["dp"] * shape["sp"])
+        ) / math.prod(shape.values())
         self._step_ewma_s = (dt if self._step_ewma_s is None
                              else 0.2 * dt + 0.8 * self._step_ewma_s)
         peak = (self.peak_flops if self.peak_flops is not None

@@ -1,11 +1,15 @@
 """The port's parallel plane in one process, against the JAX package: the
-mesh's sizes and errors, the sharding rules and logical axes, the zigzag
-tables, the ZeRO-1 axis, the trainer's attention path, bundles with the
-sequence-parallel field, and what this slice refuses (tp, ep and pp
-above 1, MoE and ``save_attn`` on a mesh).  A mesh with more than one
-rank needs a process group, so the meshes here are stand-ins with a
-``DeviceMesh``'s shape attributes; ``test_torch_multihost.py`` runs the
-real ones across processes.
+mesh's sizes and errors, the sharding rules and logical axes, each
+rank's shards against the reference's ``devices_indices_map``, the
+zigzag tables, the ZeRO-1 axis, the trainer's attention path, bundles
+with the sequence-parallel field, and what the port still refuses (pp
+above 1; tp and ep for the LoRA model and the CNN; ``save_attn`` on an
+sp, tp or ep mesh or with MoE on a mesh; the batcher's ``mesh=``; a
+meshed trainer's optimizer state).  A mesh with more than one rank needs
+a process group, so the meshes here are stand-ins with a
+``DeviceMesh``'s shape attributes and coordinates;
+``test_torch_multihost.py`` and ``test_torch_tensor_parallel.py`` run
+the real ones across processes.
 """
 
 from types import SimpleNamespace
@@ -23,6 +27,8 @@ from k8s_gpu_tpu.ops.attention import (
 )
 from k8s_gpu_tpu.parallel import mesh as jax_mesh_mod
 from k8s_gpu_tpu.parallel.ring_attention import _zigzag_perms as jax_perms
+from jax.sharding import NamedSharding
+
 from k8s_gpu_tpu.parallel.sharding import ParamRules as JaxRules
 from k8s_gpu_tpu.parallel.sharding import logical_to_spec as jax_to_spec
 from k8s_gpu_tpu.parallel.ulysses import ulysses_grouped_ok as jax_grouped_ok
@@ -53,11 +59,18 @@ DIMS = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, d_head=8,
 NEXT = "item 11, its second half"
 
 
-def fake_mesh(**sizes):
-    """A stand-in with a ``DeviceMesh``'s shape attributes (what the
-    port's checks read before any collective)."""
+def fake_mesh(coords=None, **sizes):
+    """A stand-in with a ``DeviceMesh``'s shape attributes, this rank's
+    ``coords`` (0 on every axis by default) and a token for each group
+    (what the port reads before any collective)."""
     shape = [sizes.get(a, 1) for a in AXES]
-    return SimpleNamespace(mesh_dim_names=AXES, mesh=np.zeros(shape))
+    coords = coords or {}
+    return SimpleNamespace(
+        mesh_dim_names=AXES, mesh=np.zeros(shape),
+        get_local_rank=lambda a: coords.get(a, 0),
+        get_group=lambda a: ("group", a),
+        port_groups={axes: ("group", axes)
+                     for axes in mesh_mod.GROUPED_AXES})
 
 
 def _jax_mesh(**sizes):
@@ -204,22 +217,90 @@ def test_sp_attention_bundle_loads(tmp_path):
     assert params["embed"].shape == (DIMS["vocab_size"], DIMS["d_model"])
 
 
-@pytest.mark.parametrize("sizes", [dict(tp=2), dict(ep=2), dict(pp=2),
-                                   dict(dp=2, tp=2)])
+@pytest.mark.parametrize("sizes", [
+    dict(tp=2), dict(ep=2), dict(pp=2), dict(dp=2, tp=2),
+    dict(dp=2, pp=2), dict(ep=2, tp=2), dict(pp=2, tp=2),
+])
 def test_meshes_beyond_dp_and_sp_name_the_next_slice(sizes):
+    """A pp axis: the Trainer, the loss and shard_params refuse it.  tp
+    and ep, which the transformer runs: the consumers not ported to them
+    refuse them (the LoRA model's Trainer and loss, the CNN's Trainer,
+    ``save_attn``, the batcher's ``mesh=``, a meshed optimizer state),
+    each naming the next slice."""
+    from k8s_gpu_tpu_torch.models.cnn import SmallCnn
+    from k8s_gpu_tpu_torch.serve.batcher import ContinuousBatcher
+
     mesh = fake_mesh(**sizes)
     tm = TransformerLM(TransformerConfig(**DIMS), device="cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
+    if "pp" in sizes:
+        with pytest.raises(NotImplementedError, match=NEXT):
+            Trainer(tm, TrainConfig(), device="cpu", mesh=mesh)
+        with pytest.raises(NotImplementedError, match=NEXT):
+            tm.loss(tm.init(0), toks, toks, mesh=mesh)
+        with pytest.raises(NotImplementedError, match=NEXT):
+            shard_params(tm.init(0), tm.logical_axes(), mesh)
+        return
+    lora = LoraModel(tm, tm.init(0), LoraConfig(rank=2))
     with pytest.raises(NotImplementedError, match=NEXT):
-        Trainer(tm, TrainConfig(), device="cpu", mesh=mesh)
+        Trainer(lora, TrainConfig(), device="cpu", mesh=mesh)
     with pytest.raises(NotImplementedError, match=NEXT):
-        tm.loss(tm.init(0), toks, toks, mesh=mesh)
+        lora.loss(lora.init(0), toks, toks, mesh=mesh)
     with pytest.raises(NotImplementedError, match=NEXT):
-        shard_params(tm.init(0), tm.logical_axes(), mesh)
+        Trainer(SmallCnn(device="cpu"), TrainConfig(), device="cpu",
+                mesh=mesh)
+    sa = TransformerLM(TransformerConfig(**DIMS, remat_policy="save_attn"),
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match=NEXT):
+        sa.loss(sa.init(0), toks, toks, mesh=mesh)
+    with pytest.raises(NotImplementedError, match=NEXT):
+        ContinuousBatcher(tm, tm.init(0), mesh=mesh, device="cpu")
+    tr = Trainer(tm, TrainConfig(), device="cpu", mesh=mesh)
+    tr.init(0)
+    with pytest.raises(NotImplementedError, match=NEXT):
+        tr.opt_state
+
+
+# Meshes of four ranks whose weights are cut, each with a model that
+# runs there (the GQA dense model; MoE with 4 experts).
+SHARD_CASES = [
+    (dict(dp=2, tp=2), dict(n_kv_heads=2)),
+    (dict(sp=2, tp=2), dict(n_kv_heads=2)),
+    (dict(ep=2, tp=2), dict(num_experts=4)),
+    (dict(dp=2, ep=2), dict(num_experts=4)),
+]
+
+
+@pytest.mark.parametrize("sizes,knobs", SHARD_CASES)
+def test_shards_match_reference_devices_indices_map(sizes, knobs):
+    """Each mesh position's shard of every leaf is the block that the
+    reference's ``NamedSharding(mesh, spec).devices_indices_map`` places
+    on the device at that position, so the shards tile the whole tree
+    (the round trip through ``gather_params`` runs across processes in
+    ``test_torch_tensor_parallel.py``)."""
+    import itertools
+
+    cfg = dict(DIMS, **knobs)
+    tm = TransformerLM(TransformerConfig(**cfg), device="cpu")
+    params = tm.init(0, dtype=torch.float32)
+    axes = tm.logical_axes()
+    jmesh = _jax_mesh(**sizes)
+    rules = JaxRules()
+    names = [a for a in AXES if a in sizes]
+    for pos in itertools.product(*(range(sizes[a]) for a in names)):
+        coords = dict(zip(names, pos))
+        local = shard_params(params, axes, fake_mesh(coords, **sizes))
+        device = jmesh.devices[tuple(coords.get(a, 0) for a in AXES)]
+        for got, whole, ax in zip(tree_leaves(local), tree_leaves(params),
+                                  tree_leaves(axes)):
+            index = NamedSharding(jmesh, rules.spec(ax)).devices_indices_map(
+                tuple(whole.shape))[device]
+            assert torch.equal(got, whole[index])
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    (dict(num_experts=4), NotImplementedError, NEXT),
+    (dict(num_experts=4, remat_policy="save_attn"), NotImplementedError,
+     NEXT),
     (dict(remat_policy="save_attn"), NotImplementedError, NEXT),
     (dict(sp_attention="striped"), ValueError,
      "unknown sp_attention 'striped'; expected 'ring' or 'ulysses'"),
@@ -277,8 +358,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_kv_heads_that_tp_does_not_divide_raise_the_reference_error():
-    """GQA x tp: the configuration error comes before the slice's
-    refusal of tp, with the reference's words."""
+    """GQA x tp: KV heads that tp does not divide raise at the Trainer,
+    before any parameter is cut, with the reference's words."""
     cfg = dict(DIMS, n_kv_heads=1)
     with pytest.raises(ValueError) as want:
         jax_check_kv_tp(JaxConfig(**cfg), _jax_mesh(tp=2))
