@@ -49,7 +49,9 @@ Phases, each of which fails the run on any error:
    with 2 KV heads, rope outside, P 1), timed, and phase 11's calls at
    the tp-local heads, causal bf16, timed (``tp_local_bf16``: v1 at
    [4, 4, 2048, 128]; ``tp_local_gqa_bf16``: v2 at q [1, 4, 2048, 128],
-   k, v [1, 1, 2048, 128], rope in the kernel, P 2);
+   k, v [1, 1, 2048, 128], rope in the kernel, P 2, also phase 12b's
+   call), and phase 12's v1 microbatch (``pp_microbatch_bf16``: [1, 8,
+   2048, 128], causal bf16, timed);
 4. the serving main path: the 302M flagship (vocab 16384, d_model 1024, 16
    layers, 8 heads of 128, d_ff 4096, max_seq 2048, bf16, random weights
    from ``--seed``) behind the port's ``LmServer`` on the paged pool with
@@ -239,7 +241,26 @@ Phases, each of which fails the run on any error:
    layers: dp 2 x tp 2 dense, sp 2 x tp 2 ring and dp 2 x ep 2 MoE at
    capacity 1.0 (drops > 0 and equal to one rank's), each step's loss,
    gathered gradients and update within 1e-4 of one rank's; (11e) one
-   step on the multislice mesh, dp 2 over 2 slices x tp 2.
+   step on the multislice mesh, dp 2 over 2 slices x tp 2;
+12. the pipeline axis: four gloo ranks on the card again, each holding
+   its stage's blocks, the embedding and the head, each run held against
+   one rank's step over the whole batch: (12a) GPipe over dp 2 x pp 2,
+   v1, global batch 4 x 2048, 2 microbatches a dp group; (12b) 1F1B over
+   pp 2 x tp 2, the v2 GQA configuration, 4 x 2048, 4 microbatches;
+   (12c) interleaved 1F1B over pp 4 with 2 virtual stages, v1, 8 x 2048,
+   8 microbatches, and classic 1F1B at pp 4 on the same batch (26 fine
+   ticks against 2 x 14), each a warm-up and 2 timed steps: losses
+   finite, falling and equal on every rank, step 1 within 1e-2 of one
+   rank's, launches exactly ``pp_launches``'s rank by rank (a 1F1B stage
+   runs a layer's forward twice a microbatch, the last virtual stage
+   once), 0 plain; step ms, tokens/s, peak memory by rank and stage, the
+   seconds of an extra step in each transfer by module and axis; 12a's
+   mesh again at 8 microbatches, 16 x 2048, one step under each
+   schedule: resident and peak GB by rank; (12d) float32 at 4 layers (8
+   interleaved): GPipe, 1F1B over pp 2 x tp 2 and interleaved 1F1B, each
+   step's loss, gathered gradients and update within 1e-4 of one rank's,
+   the gradients of the embedding, the final norm and the head the same
+   on every rank.
 
 It prints a ``{"kernels": [...]}`` line (each entry names the phase
 that launches it; each flash entry also with its
@@ -832,6 +853,7 @@ def check_flash_attention(torch, seed: int) -> list[dict]:
          True),
         RING_HOP_V1,
         TP_LOCAL_V1,
+        PP_MICROBATCH_V1,
     ]
     return _flash_cases(torch, seed, [(c, None) for c in cases])
 
@@ -877,11 +899,19 @@ TP_LOCAL_V2 = (("tp_local_gqa_bf16", 1, 4, 1, 2048, 128, "bfloat16", True,
                 False, True), (ROPE_THETA, 2))
 
 
+# Phase 12's v1 call, held in phase 3b: one row of a GPipe or 1F1B
+# microbatch (12a, 12c: the flagship's 8 heads, causal bf16, no lse
+# cotangent); 12b's v2 call is TP_LOCAL_V2's shape.
+PP_MICROBATCH_V1 = ("pp_microbatch_bf16", 1, 8, 8, 2048, 128, "bfloat16",
+                    True, False, True)
+
+
 def check_ring_hops(torch, seed: int) -> list[dict]:
-    """The ring-hop and tp-local cases alone
+    """The ring-hop, tp-local and pipeline-microbatch cases alone
     (``tools/torch_parallel_check.py``)."""
     return _flash_cases(torch, seed, [(RING_HOP_V1, None), RING_HOP_V2,
-                                      (TP_LOCAL_V1, None), TP_LOCAL_V2])
+                                      (TP_LOCAL_V1, None), TP_LOCAL_V2,
+                                      (PP_MICROBATCH_V1, None)])
 
 
 def _flash_cases(torch, seed, cases) -> list[dict]:
@@ -4725,11 +4755,14 @@ def _drop_share(drops) -> float:
 # In ``collectives``, ``all_reduce`` carries copy_to, reduce_from and
 # all_reduce_sum (the tp and ep traffic) and ``all_gather`` gather_from;
 # the runner's are the gradient all-reduce, the global norm's and ZeRO-1's
-# gathers; the model's, the vocabulary's row max and the MoE slot counts.
+# gathers; the model's, the vocabulary's row max and the MoE slot counts;
+# the pipeline's, 1F1B's one sum over pp (its hops are ``_ppermute``'s,
+# GPipe's share and input sum ``collectives.all_reduce``'s).
 _TRANSFERS = (("collectives", "_ppermute"), ("collectives", "_all_to_all"),
               ("collectives", "all_reduce"), ("collectives", "all_gather"),
               ("runner", "all_reduce"), ("runner", "all_gather"),
-              ("transformer", "all_reduce"), ("transformer", "all_gather"))
+              ("transformer", "all_reduce"), ("transformer", "all_gather"),
+              ("pipeline", "all_reduce"))
 
 
 def _group_labels(mesh) -> dict:
@@ -4738,7 +4771,8 @@ def _group_labels(mesh) -> dict:
     from k8s_gpu_tpu_torch.parallel.mesh import AXES, axis_group, axis_size
 
     labels = {}
-    for axes in [(a,) for a in AXES] + [("dp", "sp"), ("ep", "tp")]:
+    for axes in [(a,) for a in AXES] + [("dp", "sp"), ("ep", "tp"),
+                                        ("pp", "tp")]:
         group = axis_group(mesh, *axes)
         if group is not None:
             labels.setdefault(id(group), ",".join(
@@ -4753,11 +4787,11 @@ def _timing_transfers(torch, dev, mesh):
     group); returns (the seconds by name, a function that undoes the
     wrapping)."""
     from k8s_gpu_tpu_torch.models import transformer
-    from k8s_gpu_tpu_torch.parallel import collectives
+    from k8s_gpu_tpu_torch.parallel import collectives, pipeline
     from k8s_gpu_tpu_torch.train import runner
 
     mods = {"collectives": collectives, "runner": runner,
-            "transformer": transformer}
+            "transformer": transformer, "pipeline": pipeline}
     labels = _group_labels(mesh)
     spent: dict[str, float] = {}
     saved = []
@@ -4971,12 +5005,14 @@ def _meshed_step_f32(torch, seed: int, cfg, mesh, toks, accum: int,
     missed, took from the wrong slice of the gradient or did not gather
     back is off by about the whole update.  Every rank's checksum of the
     gathered parameters, which must agree, comes back too, and for an
-    MoE model the token-layers each side's step dropped."""
+    MoE model the token-layers each side's step dropped; on a pp mesh
+    also a checksum of the gathered gradients of the leaves pp leaves
+    whole, which must agree on every rank."""
     import torch.distributed as dist
 
     from k8s_gpu_tpu_torch.models import TransformerLM
     from k8s_gpu_tpu_torch.parallel.collectives import all_reduce
-    from k8s_gpu_tpu_torch.parallel.mesh import batch_group
+    from k8s_gpu_tpu_torch.parallel.mesh import axis_size, batch_group
     from k8s_gpu_tpu_torch.parallel.sharding import gather_params
     from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
     from k8s_gpu_tpu_torch.train.runner import tree_leaves, tree_like
@@ -4991,11 +5027,17 @@ def _meshed_step_f32(torch, seed: int, cfg, mesh, toks, accum: int,
     grads = _recording_grads(meshed)
     drops = _counting_drops(torch, meshed.model) if cfg.moe else None
     loss = meshed.step(x, y)
-    grads = tree_leaves(gather_params(tree_like(meshed.params, grads[0]),
-                                      meshed.model.logical_axes(), mesh))
+    grads = tree_leaves(gather_params(
+        tree_like(meshed.params, grads[0]), meshed.model.logical_axes(),
+        mesh, virtual_stages=meshed.model.virtual_stages))
     leaves = tree_leaves(meshed.gathered_params())
     out = {"loss": loss,
            "checksum": float(sum(p.double().sum() for p in leaves))}
+    if axis_size(mesh, "pp") > 1:
+        out["replicated_grad_checksum"] = [
+            float(g.double().sum()) for g, cuts in zip(grads,
+                                                       meshed.leaf_cuts)
+            if all(a != "pp" for _, a in cuts)]
     if cfg.moe:
         # The global batch's drops: the blocks' sums over the batch group.
         dropped = torch.tensor([float(sum(int(d) for d, _ in drops))])
@@ -5071,21 +5113,24 @@ def _hold_mesh_run(phase: str, runs: list, launches, prepasses: int,
                    card_flops_s) -> dict:
     """Hold every rank's ``_mesh_train`` run and summarize them: exact
     flash launches (``launches``; None off the card) with ``prepasses``
-    pre-passes and no plain call, the ``fallbacks`` counts, losses
+    pre-passes and no plain call (each one for every rank, or a list of
+    one a rank in rank order), the ``fallbacks`` counts, losses
     finite, falling and equal on every rank, step 1 within phase 7's
     bf16 limit of one rank's whole-batch step; step ms and tokens/s the
     slowest rank's, the MFU over the card (``card_flops_s``: the step's
     model FLOPs over the card's peak), the transfers' seconds the most of
     any rank's."""
-    for r in runs:
-        if launches is not None and (
-                r["launches"] != launches or r["plain_calls"] != 0
-                or r["prepass_launches"] != prepasses):
+    for i, r in enumerate(runs):
+        want = launches[i] if isinstance(launches, list) else launches
+        pre = prepasses[i] if isinstance(prepasses, list) else prepasses
+        if want is not None and (
+                r["launches"] != want or r["plain_calls"] != 0
+                or r["prepass_launches"] != pre):
             raise RuntimeError(
-                f"{phase}: a rank launched {r['launches']}, "
+                f"{phase}: rank {i} launched {r['launches']}, "
                 f"{r['prepass_launches']} pre-passes and "
-                f"{r['plain_calls']} plain calls; expected {launches}, "
-                f"{prepasses}, 0")
+                f"{r['plain_calls']} plain calls; expected {want}, "
+                f"{pre}, 0")
         got = {k: r[k] for k in fallbacks}
         if got != fallbacks:
             raise RuntimeError(f"{phase}: flash_fallback_total {got}, "
@@ -5419,6 +5464,249 @@ def run_tensor_parallel_path(torch, seed: int, layers: int,
     return out
 
 
+# -- phase 12: the pipeline axis ---------------------------------------------
+
+# Four gloo ranks on the one card again, each holding its stage's blocks.
+# 12a: GPipe over dp 2 x pp 2, v1 (8 heads), global batch 4 x 2048, M = pp
+# = 2 a dp group (the dry run's "pipeline gpipe dp/pp",
+# `__graft_entry__.py:127`).  12b: 1F1B over pp 2 x tp 2, the v2 GQA
+# configuration, 4 x 2048, M 4 ("pipeline 1f1b dp/pp/tp", `:135`, on four
+# ranks).  12c: interleaved 1F1B over pp 4 with 2 virtual stages, v1, 8 x
+# 2048, M 8 ("pipeline 1f1b-interleaved dp/pp v=2", `:146`), and classic
+# 1F1B at pp 4 beside it on the same batch.  12a's mesh again at M 8 under
+# each schedule, 16 x 2048: the peak memory a rank.  12d: float32 at 4
+# layers (8 for the interleaved case) against one rank's step.
+PP_STEPS = 2           # timed steps after the warm-up step
+PP_TIMEOUT = 700.0
+PP_MESHES = {"dp2pp2": dict(dp=2, pp=2), "pp2tp2": dict(dp=1, pp=2, tp=2),
+             "pp4": dict(dp=1, pp=4)}
+# name: (mesh, v2 configuration, schedule, microbatches, virtual stages,
+# global batch)
+PP_RUNS = {
+    "gpipe_dp2pp2": ("dp2pp2", False, "gpipe", 2, 1, 4),
+    "1f1b_pp2tp2": ("pp2tp2", True, "1f1b", 4, 1, 4),
+    "interleaved_pp4v2": ("pp4", False, "1f1b", 8, 2, 8),
+    "1f1b_pp4": ("pp4", False, "1f1b", 8, 1, 8),
+}
+PP_MEMORY = {"gpipe": ("dp2pp2", False, "gpipe", 8, 1, 16),
+             "1f1b": ("dp2pp2", False, "1f1b", 8, 1, 16)}
+PP_F32_LAYERS = 4
+PP_F32_RUNS = ("gpipe_dp2pp2", "1f1b_pp2tp2", "interleaved_pp4v2")
+PP_PARTS = (*PP_RUNS, "memory", "f32")
+
+
+def pp_config(torch, layers: int, run, dtype=None, seq: int = TP_SEQ):
+    """The flagship training configuration of a PP_RUNS entry at
+    ``seq``."""
+    import dataclasses
+
+    _, v2, schedule, microbatches, virtual, _ = run
+    return dataclasses.replace(
+        flagship_train_config(torch, layers, dtype, v2=v2), max_seq=seq,
+        pp_schedule=schedule, pp_microbatches=microbatches,
+        pp_virtual_stages=virtual)
+
+
+def pp_launches(fa, cfg, pp: int, stage: int, steps: int) -> tuple:
+    """(flash launches, rope pre-passes) of pp rank ``stage`` over
+    ``steps`` steps.  GPipe: each layer's forward twice (full remat), dq
+    and dk/dv once, a microbatch.  1F1B: the forward tick and the
+    backward tick's recompute, one forward on the last virtual stage,
+    whose forward is fused into its backward; dq and dk/dv once.  v2
+    with rope in the kernels adds one pre-pass a forward and one a
+    backward."""
+    v = cfg.pp_virtual_stages if cfg.pp_schedule == "1f1b" else 1
+    M, S = cfg.pp_microbatches, pp * v
+    lc = cfg.n_layers // S
+    if cfg.pp_schedule == "gpipe":
+        fwd = 2 * lc * v * M
+    else:
+        fwd = sum(lc * M * (1 if c * pp + stage == S - 1 else 2)
+                  for c in range(v))
+    bwd = lc * v * M
+    v2 = cfg.flash_fuse_rope or cfg.flash_kv_grouped or \
+        cfg.flash_q_pipeline > 1
+    names = FLASH_V2_KERNELS if v2 else FLASH_KERNELS
+    counts = dict(zip(names, (fwd * steps, bwd * steps, bwd * steps)))
+    prepasses = (fwd + bwd) * steps if cfg.flash_fuse_rope else 0
+    return _counts(fa, counts), prepasses
+
+
+def _pp_memory(torch, seed: int, layers: int, seq: int, mesh, run,
+               device) -> dict:
+    """One step of ``run`` (the warm-up's learning rate 0) from a fresh
+    peak: this rank's resident and peak GB, the step's seconds and the
+    most stage inputs the schedule held."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.parallel import pipeline
+    from k8s_gpu_tpu_torch.parallel.mesh import axis_rank
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = pp_config(torch, layers, run, seq=seq)
+    trainer = Trainer(TransformerLM(cfg, device=device),
+                      TrainConfig(warmup_steps=1), device=device, mesh=mesh)
+    trainer.init(seed)
+    toks = _par_tokens(torch, seed, cfg, run[5])
+    cuda = trainer.device.type == "cuda"
+    resident = None
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    loss = trainer.step(toks[:, :-1], toks[:, 1:])
+    out = {"loss": loss, "step_s": time.perf_counter() - t0,
+           "resident_gb": resident,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
+           else None,
+           "live_inputs": pipeline.schedule_stats["live_inputs"],
+           "stage": axis_rank(mesh, "pp")}
+    del trainer
+    _free_if(torch, torch.device(device))
+    return out
+
+
+def _pipeline_rank(seed: int, layers: int, seq: int, device,
+                   parts=PP_PARTS) -> dict:
+    """What each of phase 12's four gloo ranks runs (``parts``: which of
+    PP_PARTS)."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.parallel import pipeline
+    from k8s_gpu_tpu_torch.parallel.mesh import (
+        MeshConfig, axis_rank, build_mesh,
+    )
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    meshes = {name: build_mesh(MeshConfig(**sizes), device_type=dev.type)
+              for name, sizes in PP_MESHES.items()}
+    out = {"rank": dist.get_rank()}
+    for name, run in PP_RUNS.items():
+        if name not in parts:
+            continue
+        mesh, cfg = meshes[run[0]], pp_config(torch, layers, run, seq=seq)
+        res = _mesh_train(torch, seed, cfg, mesh,
+                          _par_tokens(torch, seed, cfg, run[5]), dev,
+                          accum=1, steps=PP_STEPS, zero1=False)
+        res.update(stage=axis_rank(mesh, "pp"),
+                   ticks=pipeline.schedule_stats["ticks"],
+                   live_inputs=pipeline.schedule_stats["live_inputs"])
+        out[name] = res
+    if "memory" in parts:
+        out["memory"] = {name: _pp_memory(torch, seed, layers, seq,
+                                          meshes[run[0]], run, dev)
+                         for name, run in PP_MEMORY.items()}
+    if "f32" in parts:
+        out["f32"] = {}
+        for name in PP_F32_RUNS:
+            run = PP_RUNS[name]
+            cfg = pp_config(torch, PP_F32_LAYERS * run[4], run,
+                            torch.float32, seq)
+            out["f32"][name] = _meshed_step_f32(
+                torch, seed, cfg, meshes[run[0]],
+                _par_tokens(torch, seed + 1, cfg, run[5]), 1, dev)
+    return out
+
+
+def run_pipeline_path(torch, seed: int, layers: int, seq: int = TP_SEQ,
+                      device="cuda", parts=PP_PARTS) -> dict:
+    """Phase 12: the pipeline axis, four gloo ranks on the one card
+    (``device="cpu"`` with a short ``seq`` rehearses it on the CPU: the
+    plain versions, no launch counts).  Each run is held against one rank's step over the
+    whole batch, which this process computes first
+    (``one_rank_reference_loss``); the runs' launches against
+    ``pp_launches``, rank by rank."""
+    import functools
+
+    import chip_smoke
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.parallel.multihost import spawn_local_cluster
+    from k8s_gpu_tpu_torch.parallel.pipeline import (
+        classic_ticks_fine, interleaved_ticks,
+    )
+    from k8s_gpu_tpu_torch.train.runner import (
+        device_peak_flops, model_flops_per_step,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+    peak = device_peak_flops() if cuda else 0.0
+    refs = {}
+    for name, run in PP_RUNS.items():
+        key = ("v2" if run[1] else "v1", run[5])
+        if name in parts and key not in refs:
+            refs[key] = one_rank_reference_loss(
+                torch, seed, layers, seq, device,
+                cfg=pp_config(torch, layers, run, seq=seq), batch=run[5],
+                accum=1)
+    t0 = time.perf_counter()
+    ranks = spawn_local_cluster(
+        functools.partial(chip_smoke._pipeline_rank, seed, layers, seq,
+                          device, parts),
+        PAR_WORLD, timeout=PP_TIMEOUT, device=device, backend="gloo")
+    out = {"layers": layers, "world": PAR_WORLD, "meshes": PP_MESHES,
+           "cluster_s": time.perf_counter() - t0,
+           "one_rank": {f"{v}_batch{b}": r for (v, b), r in refs.items()}}
+    for name, run in PP_RUNS.items():
+        if name not in parts:
+            continue
+        cfg = pp_config(torch, layers, run, seq=seq)
+        runs = [r[name] for r in ranks]
+        pp = PP_MESHES[run[0]]["pp"]
+        want = [pp_launches(fa, cfg, pp, r["stage"], PP_STEPS)
+                for r in runs]
+        flops = model_flops_per_step(cfg, runs[0]["n_params"], run[5])
+        held = _hold_mesh_run(
+            f"phase 12 {name}", runs, [w[0] for w in want] if cuda else None,
+            [w[1] for w in want], {"sp_fused_rope": 0, "ulysses_kv_heads": 0},
+            refs[("v2" if run[1] else "v1", run[5])]["loss"],
+            run[5] * cfg.max_seq, flops / peak if peak else None)
+        held.update(
+            n_params=runs[0]["n_params"], microbatches=run[3],
+            virtual_stages=run[4], ticks=runs[0]["ticks"],
+            stage_by_rank=[r["stage"] for r in runs],
+            live_inputs_by_rank=[r["live_inputs"] for r in runs],
+            peak_memory_gb_by_rank=[r["peak_memory_gb"] for r in runs],
+            launches_per_step_by_rank=[
+                {k: v // PP_STEPS for k, v in r["launches"].items() if v}
+                for r in runs])
+        out[name] = held
+    if "interleaved_pp4v2" in parts or "1f1b_pp4" in parts:
+        out["ticks"] = {"interleaved_ticks(8,4,2)": interleaved_ticks(8, 4, 2),
+                        "classic_ticks_fine(8,4)*2":
+                            classic_ticks_fine(8, 4) * 2}
+        print(json.dumps({"pipeline_ticks": out["ticks"]}), flush=True)
+    if "memory" in parts:
+        out["memory"] = {}
+        for name in PP_MEMORY:
+            mem = [r["memory"][name] for r in ranks]
+            losses = {m["loss"] for m in mem}
+            if len(losses) != 1 or not all(map(math.isfinite, losses)):
+                raise RuntimeError(f"phase 12 memory {name}: losses "
+                                   f"{sorted(losses)}")
+            out["memory"][name] = {
+                "loss": mem[0]["loss"],
+                "step_s": max(m["step_s"] for m in mem),
+                **{f"{k}_by_rank": [m[k] for m in mem]
+                   for k in ("stage", "resident_gb", "peak_gb",
+                             "live_inputs")}}
+    if "f32" in parts:
+        out["f32"] = {}
+        for name in ranks[0]["f32"]:
+            steps = [r["f32"][name] for r in ranks]
+            out["f32"][name] = _hold_step_f32(f"phase 12d {name}", steps)
+            sums = {tuple(st["replicated_grad_checksum"]) for st in steps}
+            if len(sums) != 1:
+                raise RuntimeError(
+                    f"phase 12d {name}: the gradients of the leaves pp "
+                    f"leaves whole differ between ranks: {sorted(sums)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5523,6 +5811,10 @@ def main(argv=None) -> int:
     tensor_parallel = run_tensor_parallel_path(torch, args.seed, LAYERS)
     print(json.dumps({"tensor_parallel_path": tensor_parallel, "gpu": gpu}),
           flush=True)
+    _free(torch)
+    pipeline_path = run_pipeline_path(torch, args.seed, LAYERS)
+    print(json.dumps({"pipeline_path": pipeline_path, "gpu": gpu}),
+          flush=True)
 
     case = {r["case"]: r for r in kern}
     decode = case["decode_bf16"]
@@ -5585,19 +5877,20 @@ def main(argv=None) -> int:
     # hops, timed in phase 3b and 3c.
     distill_cases = ("distill_f32", "distill_bf16")
     for rows, top, extra, lines, source, run, sa, phase in (
-            (flash, "flagship_bf16", distill_cases + ("ring_hop_bf16",
-                                                      "tp_local_bf16"),
+            (flash, "flagship_bf16", distill_cases + (
+                "ring_hop_bf16", "tp_local_bf16", "pp_microbatch_bf16"),
              FLASH_KERNELS, "flash_attention", train, save_attn,
              "6 (training); also 4e (draft distillation), 4f (LoRA "
              "fine-tune), 6c (the training job, save_attn), 8a (MoE "
              "training), 11 (the tp-local heads: Ulysses over sp 2 x tp "
-             "2, MoE over ep 2 x tp 2)"),
+             "2, MoE over ep 2 x tp 2), 12 (the pipeline's stages: GPipe "
+             "over dp 2 x pp 2, interleaved and classic 1F1B over pp 4)"),
             (flash_v2, "train_gqa_bf16", ("ring_hop_gqa_bf16",
                                           "tp_local_gqa_bf16"),
              FLASH_V2_KERNELS, "flash_attention_v2", train_v2, save_attn_v2,
              "6b (v2 training); also 6c (save_attn), 10 (ring and Ulysses "
              "over dp 2 x sp 2, GQA), 11 (the tp-local heads: dp 2 x tp 2, "
-             "the ring over sp 2 x tp 2)")):
+             "the ring over sp 2 x tp 2), 12 (1F1B over pp 2 x tp 2)")):
         by_case = {r["case"]: r for r in rows}
         timed = by_case[top]
         for name, line in lines.items():
@@ -5634,6 +5927,12 @@ def main(argv=None) -> int:
                    tensor_parallel[key]["launches"][name]
                    for key in ("dense", "ring", "ulysses", "moe")
                    if tensor_parallel[key]["launches"][name]},
+                # Phase 12: the four ranks' timed steps of each schedule
+                # whose stages run this kernel.
+                **{f"launches_pipeline_{key}":
+                   pipeline_path[key]["launches"][name]
+                   for key in PP_RUNS
+                   if pipeline_path[key]["launches"][name]},
                 "max_abs_err": max(r["kernels"][name]["max_abs_err"]
                                    for r in rows),
                 **{key: timed["kernels"][name][key]
@@ -5670,6 +5969,7 @@ def main(argv=None) -> int:
                        "finagent_path": finagent,
                        "parallel_path": parallel,
                        "tensor_parallel_path": tensor_parallel,
+                       "pipeline_path": pipeline_path,
                        "device": device,
                        **kernels}, fh, indent=1)
     print(gpu, flush=True)

@@ -71,9 +71,20 @@ rank runs its E/ep experts (and tp its F/tp slice of them) on its
 block, and the selected outputs are summed over ep x tp before the
 gate scales them.
 
-Not ported yet (ROADMAP.md queue 1 item 11, its second half): the pp
-axis (the pipeline schedules) and ``save_attn`` on an sp, tp or ep mesh
-or with MoE on a mesh.
+With pp > 1 the blocks run as pipeline stages (``parallel/pipeline.py``):
+``params["blocks"]`` holds this rank's stage (contiguous layers, or the
+v chunks of interleaved 1F1B, ``virtual_stages``), each stage is the
+rank's blocks through ``_block`` with the mesh (tp's collectives inside)
+at positions ``arange(S)``, and the embedding and the head run outside
+the pipeline on every pp rank.  ``forward`` and ``loss`` run GPipe's
+forward schedule (full logits on every rank, aux 0);
+``pipeline_value_and_grad`` runs 1F1B (or interleaved 1F1B) and returns
+the gradients itself, the tail (final norm, head, cross-entropy; vocab
+parallel on tp) fused into the last stage.  The pipeline composes with
+dp and tp, not with MoE or sp (``_check_pp_composition``).
+
+Not ported yet (ROADMAP.md queue 1 item 11, step 5): ``save_attn`` on an
+sp, tp, ep or pp mesh, or with MoE on a mesh.
 """
 
 from __future__ import annotations
@@ -96,6 +107,7 @@ from ..parallel.mesh import (
     NEXT_SLICE, PORTED_AXES, axis_group, axis_rank, axis_size, batch_group,
     check_slice, mesh_shape,
 )
+from ..parallel.pipeline import gpipe, interleaved_1f1b, one_f_one_b
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention, ulysses_grouped_ok
 from ..utils.metrics import global_metrics
@@ -158,6 +170,14 @@ class TransformerConfig:
     # (ppermute streaming, any head count) or "ulysses" (all-to-all head
     # regrouping, heads divisible by sp).
     sp_attention: str = "ring"
+    # The pipeline on a mesh with pp > 1: microbatches (0 = the
+    # schedule's default: pp for gpipe, 2 pp for 1f1b when the batch
+    # allows), the training schedule ("1f1b" or "gpipe"; forward-only
+    # calls always take gpipe's forward) and the virtual stages a rank
+    # holds under 1f1b (v > 1: interleaved 1F1B).
+    pp_microbatches: int = 0
+    pp_schedule: str = "1f1b"
+    pp_virtual_stages: int = 1
     # Paged-KV attention read for serving: "gather" or "paged_kernel".
     attn_impl: str = "gather"
 
@@ -650,11 +670,14 @@ class TransformerLM:
         are split with ``unbind``, whose backward stacks the layers'
         gradients in one write.  On a mesh, ``tokens`` is this rank's
         block and rope takes its global positions; on a tp mesh the
-        logits are this rank's vocabulary slice [B, S, V/tp]."""
+        logits are this rank's vocabulary slice [B, S, V/tp]; on a pp
+        mesh the blocks run GPipe's forward schedule."""
         cfg = self.cfg
         start = 0
         if mesh is not None:
             self._check_mesh(mesh)
+            if axis_size(mesh, "pp") > 1:
+                return self._forward_pipelined(params, tokens, mesh)
             start = axis_rank(mesh, "sp") * tokens.shape[1]
             if axis_size(mesh, "sp") > 1:
                 self._count_sp_fallbacks(mesh)
@@ -680,10 +703,27 @@ class TransformerLM:
                 x, a = self._block(x, lp, positions, mesh)
             if a is not None:
                 aux = aux + a
+        return self._logits(params, x, mesh), aux / cfg.n_layers
+
+    def _logits(self, params, x, mesh):
+        """The final norm and the head: f32 logits (this rank's
+        vocabulary slice on a tp mesh)."""
         x = copy_to(self._rmsnorm(x, params["final_norm"]),
                     axis_group(mesh, "tp"))
-        logits = torch.einsum("bsd,dv->bsv", x, wt(params["head"], cfg.dtype))
-        return logits.float(), aux / cfg.n_layers
+        logits = torch.einsum("bsd,dv->bsv", x,
+                              wt(params["head"], self.cfg.dtype))
+        return logits.float()
+
+    @staticmethod
+    def _nll(logits, targets, mesh):
+        """-log softmax(logits)[target] per token; on a tp mesh the
+        vocab-parallel cross-entropy over the ranks' slices."""
+        tp = axis_group(mesh, "tp")
+        if tp is None:
+            logp = torch.log_softmax(logits, dim=-1)
+            return -logp.gather(-1, targets.long()[..., None])[..., 0]
+        return _vocab_parallel_nll(logits, targets, tp,
+                                   axis_rank(mesh, "tp"))
 
     def loss(self, params, tokens, targets, mesh=None):
         """Next-token cross-entropy (mean) + 0.01 x the MoE aux loss (0 for
@@ -691,14 +731,116 @@ class TransformerLM:
         mean over this rank's block; on a tp mesh through the
         vocab-parallel cross-entropy."""
         logits, aux = self.forward_train(params, tokens, mesh)
-        tp = axis_group(mesh, "tp")
-        if tp is None:
-            logp = torch.log_softmax(logits, dim=-1)
-            nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+        return self._nll(logits, targets, mesh).mean() + 0.01 * aux
+
+    # -- the pipeline (pp > 1) ---------------------------------------------
+    @property
+    def virtual_stages(self) -> int:
+        """The chunks a pp rank holds: ``pp_virtual_stages`` under 1f1b,
+        one contiguous run of layers under gpipe."""
+        cfg = self.cfg
+        return cfg.pp_virtual_stages if cfg.pp_schedule == "1f1b" else 1
+
+    def _pp_stage_fn(self, mesh, remat: bool):
+        """One pipeline stage: ``_block`` over the leading axis of the
+        given block leaves, with ``mesh`` (tp's collectives inside the
+        stage) at positions ``arange(S)``; each block checkpointed when
+        ``remat`` (GPipe under autograd; 1F1B's backward tick is its own
+        recompute)."""
+        def stage(blocks, x):
+            positions = torch.arange(x.shape[1], device=x.device)
+            layers = {name: leaf.unbind(0) for name, leaf in blocks.items()}
+            for layer in range(next(iter(blocks.values())).shape[0]):
+                lp = layer_params(layers, layer)
+                if remat:
+                    x, _ = checkpoint(self._block, x, lp, positions, mesh,
+                                      use_reentrant=False)
+                else:
+                    x, _ = self._block(x, lp, positions, mesh)
+            return x
+
+        return stage
+
+    def _check_pp_composition(self, mesh) -> None:
+        """The pipeline composes with dp and tp only, with the reference's
+        reasons: an MoE block's expert exchange would run on every
+        microbatch tick against the pipeline ring, and ring attention's
+        lockstep K/V rotation breaks under microbatching."""
+        if self.cfg.moe:
+            raise NotImplementedError(
+                "MoE composes with ep/tp/dp, not pp — the per-block expert "
+                "all-to-all would serialize against the pipeline ring "
+                "(see _check_pp_composition docstring)"
+            )
+        if axis_size(mesh, "sp") > 1:
+            raise NotImplementedError(
+                "sequence parallelism composes with dp/tp, not pp — ring "
+                "attention's lockstep K/V rotation breaks under "
+                "microbatching (see _check_pp_composition docstring)"
+            )
+
+    def _forward_pipelined(self, params, tokens, mesh):
+        """pp > 1: the blocks as GPipe stages, the embedding and the head
+        outside the pipeline; full logits on every pp rank, aux 0."""
+        cfg = self.cfg
+        self._check_pp_composition(mesh)
+        x = self._embed(params["embed"], tokens, mesh)
+        stage = self._pp_stage_fn(mesh, cfg.remat and torch.is_grad_enabled())
+        x = gpipe(stage, params["blocks"], x, mesh,
+                  num_microbatches=cfg.pp_microbatches or None,
+                  virtual_stages=self.virtual_stages)
+        return (self._logits(params, x, mesh),
+                torch.zeros((), device=tokens.device))
+
+    def _embed_grad(self, w, tokens, dx, mesh):
+        """The embedding's f32 gradient from the pipeline's input
+        cotangent ``dx`` [B, S, D]: its scatter-add over the token ids
+        (this rank's rows on a tp mesh; other ids add 0 to row 0)."""
+        t = tokens.long()
+        if axis_group(mesh, "tp") is not None:
+            t = t - axis_rank(mesh, "tp") * w.shape[0]
+        inside = (t >= 0) & (t < w.shape[0])
+        rows = torch.where(inside, t, 0).reshape(-1)
+        vals = (dx.float() * inside[..., None]).reshape(-1, dx.shape[-1])
+        return torch.zeros(w.shape, dtype=torch.float32,
+                           device=w.device).index_put_((rows,), vals,
+                                                       accumulate=True)
+
+    def pipeline_value_and_grad(self, params, tokens, targets, mesh):
+        """(loss, gradients) of this rank's batch block through 1F1B, or
+        interleaved 1F1B with ``pp_virtual_stages`` > 1: the gradients come
+        from the schedule itself, not from autograd over the whole step.
+        ``params`` are this rank's shards (the blocks in
+        ``virtual_stages``' layout); the loss and the gradients of the
+        leaves replicated over pp (embedding, final norm, head) are the
+        same on every pp rank, the blocks' this stage's, all f32.  The
+        tail is the final norm, the head and the cross-entropy fused into
+        the last stage; the embedding's gradient is the scatter-add of
+        the pipeline's input cotangent."""
+        cfg = self.cfg
+        self._check_mesh(mesh)
+        self._check_pp_composition(mesh)
+        with torch.no_grad():
+            x = self._embed(params["embed"], tokens, mesh)
+
+        def tail_loss_fn(tail, y, tgt):
+            logits = self._logits({"final_norm": tail[0], "head": tail[1]},
+                                  y, mesh)
+            return self._nll(logits, tgt, mesh).mean()
+
+        args = (self._pp_stage_fn(mesh, False), params["blocks"],
+                (params["final_norm"], params["head"]), tail_loss_fn, x,
+                targets, mesh)
+        mb = cfg.pp_microbatches or None
+        if self.virtual_stages > 1:
+            loss, dblocks, (dnorm, dhead), dx = interleaved_1f1b(
+                *args, v=self.virtual_stages, num_microbatches=mb)
         else:
-            nll = _vocab_parallel_nll(logits, targets, tp,
-                                      axis_rank(mesh, "tp"))
-        return nll.mean() + 0.01 * aux
+            loss, dblocks, (dnorm, dhead), dx = one_f_one_b(
+                *args, num_microbatches=mb)
+        return loss, {"embed": self._embed_grad(params["embed"], tokens, dx,
+                                                mesh),
+                      "final_norm": dnorm, "head": dhead, "blocks": dblocks}
 
 
 def _vocab_parallel_nll(logits, targets, group, rank: int):

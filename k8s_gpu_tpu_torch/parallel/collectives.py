@@ -80,19 +80,21 @@ def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
 
 def _ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
     """JAX's ``ppermute``: ``perm`` holds (source, destination) pairs of
-    group ranks; a rank no pair sends to receives zeros."""
+    group ranks; a rank no pair sends to receives zeros.  A rank that
+    only receives reads nothing of ``x`` but its shape, type and
+    device."""
     me = dist.get_rank(group)
     dst = [d for s, d in perm if s == me]
     src = [s for s, d in perm if d == me]
     if dst == [me]:
         return x.clone()
-    wire = _wire(x, group)
-    recv = torch.empty_like(wire)
     ops = []
     if dst:
-        ops.append(dist.P2POp(dist.isend, wire,
+        ops.append(dist.P2POp(dist.isend, _wire(x, group),
                               dist.get_global_rank(group, dst[0]), group))
     if src:
+        recv = torch.empty(x.shape, dtype=x.dtype, device=(
+            "cpu" if _staged(x, group) else x.device))
         ops.append(dist.P2POp(dist.irecv, recv,
                               dist.get_global_rank(group, src[0]), group))
     if ops:

@@ -7,15 +7,18 @@ reference's order (tp innermost, dp outermost).  A world of one rank
 needs no process group: ``build_mesh`` returns ``None`` there, and every
 consumer reads ``None`` as the one-device mesh, every axis of size 1.
 
-The data, sequence, tensor and expert axes run; a mesh with pp above 1
-is refused by its consumers (``check_slice``), and so is tp or ep by the
-consumers that run only the data axes (the LoRA model, the CNN).
+Every axis runs in training: data, pipeline, sequence, tensor and
+expert.  A consumer refuses an axis it does not run (``check_slice``):
+the LoRA model and the CNN run only the data axes, and the pipeline
+composes with dp and tp only (``TransformerLM._check_pp_composition``).
 
 Besides one group an axis (``mesh.get_group``), ``build_mesh`` makes the
 groups of two axes together that the training path reduces over: the
 batch group dp x sp (the ranks whose tokens differ, over which the
-gradients are averaged) and ep x tp (the ranks that share tokens and cut
-the experts' weights).  ``axis_group`` hands either out.
+gradients are averaged), ep x tp (the ranks that share tokens and cut
+the experts' weights) and pp x tp (the ranks that cut a block leaf over
+stages and heads, whose squares the global norm sums).  ``axis_group``
+hands each out.
 """
 
 from __future__ import annotations
@@ -30,13 +33,12 @@ import torch.distributed as dist
 AXES = ("dp", "pp", "ep", "sp", "tp")
 # The axes the port runs above size 1, and the data axes alone (what a
 # model that cuts no weight runs).
-PORTED_AXES = ("dp", "ep", "sp", "tp")
+PORTED_AXES = ("dp", "pp", "ep", "sp", "tp")
 DATA_AXES = ("dp", "sp")
-NEXT_SLICE = ("ROADMAP.md queue 1 item 11, its second half: the pipeline "
-              "schedules, serving on a mesh, meshed checkpoints, save_attn "
-              "on an sp, tp or ep mesh")
+NEXT_SLICE = ("ROADMAP.md queue 1 item 11, steps 4-5: serving on a mesh, "
+              "checkpoints of a meshed trainer, save_attn on a mesh")
 # The groups of more than one axis that build_mesh makes.
-GROUPED_AXES = (("dp", "sp"), ("ep", "tp"))
+GROUPED_AXES = (("dp", "sp"), ("ep", "tp"), ("pp", "tp"))
 
 
 @dataclass(frozen=True)

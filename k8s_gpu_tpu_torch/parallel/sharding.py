@@ -5,11 +5,23 @@ Parameters carry *logical* axis names ("embed", "heads", "mlp", ...); a
 rule table maps them to mesh axes.  A spec is a tuple with one mesh-axis
 name, or ``None``, per dimension.  ``shard_params`` cuts each rank's
 local shard along the weight axes of size > 1: ``heads``, ``mlp``,
-``vocab`` and ``expert_mlp`` over tp, ``experts`` over ep; the rank
-keeps part ``axis_rank`` of each cut, as the reference's
-``NamedSharding`` places it.  ``gather_params`` is its inverse: the
-whole tree on every rank.  Parameters cut over a data axis (the fsdp
-rule ``embed_fsdp`` -> dp) are not ported.
+``vocab`` and ``expert_mlp`` over tp, ``experts`` over ep, ``stages``
+(a block leaf's leading ``[L]``) over pp; the rank keeps part
+``axis_rank`` of each cut, as the reference's ``NamedSharding`` places
+it.  ``gather_params`` is its inverse: the whole tree on every rank.
+Parameters cut over a data axis (the fsdp rule ``embed_fsdp`` -> dp) are
+not ported.
+
+The stages cut is contiguous (pp rank d holds layers [d L/P, (d+1) L/P),
+the reference's ``P("pp")``) unless ``virtual_stages`` v > 1: then rank
+d holds the v chunks of interleaved 1F1B, virtual stages c P + d for c <
+v, as one ``[v Lc]`` leading axis (chunk c at rows [c Lc, (c+1) Lc), Lc
+= L/(P v)).  The reference keeps the contiguous layout and reshards it
+to ``[v, P, Lc]`` inside every call of ``interleaved_1f1b``
+(``pipeline.py:426-429``), a move of every block parameter each step;
+the port's ``Trainer`` holds the interleaved layout from ``init`` on, so
+a step moves no parameter, and ``gather_params`` puts the layers back in
+``[L]`` order.
 """
 
 from __future__ import annotations
@@ -23,7 +35,7 @@ from .collectives import all_gather
 from .mesh import axis_rank, axis_size, check_slice
 
 # The mesh axes a parameter may be cut along.
-WEIGHT_AXES = ("ep", "tp")
+WEIGHT_AXES = ("pp", "ep", "tp")
 
 # Default rule table: tp shards heads/mlp/vocab, ep shards experts,
 # sp shards sequence, dp shards batch.  "embed" unsharded by default
@@ -80,42 +92,66 @@ def cut_axes(spec: tuple, mesh) -> list[tuple[int, str]]:
     return cuts
 
 
-def shard_params(params, logical_tree, mesh, rules: ParamRules | None = None):
+def _interleaved(L: int, pp: int, v: int) -> int:
+    """Layers a chunk of interleaved 1F1B (the reference's error when
+    they do not divide)."""
+    if L % (pp * v):
+        raise ValueError(f"{L} layers not divisible by {pp}·{v} chunks")
+    return L // (pp * v)
+
+
+def shard_params(params, logical_tree, mesh, rules: ParamRules | None = None,
+                 virtual_stages: int = 1):
     """Each rank's local shard of ``params``: every dimension whose spec
     names a mesh axis of size > 1 is cut into that axis's equal parts and
-    this rank keeps its own (views of ``params``).  ``mesh`` None (one
-    device) returns ``params`` as they are."""
+    this rank keeps its own (views of ``params``, but for the interleaved
+    stages cut of ``virtual_stages`` > 1).  ``mesh`` None (one device)
+    returns ``params`` as they are."""
     if mesh is None:
         return params
     check_slice(mesh, "shard_params")
     rules = rules or ParamRules()
+    v = virtual_stages
 
     def cut(axes, t):
         for dim, name in cut_axes(rules.spec(axes), mesh):
-            n = axis_size(mesh, name)
+            n, r = axis_size(mesh, name), axis_rank(mesh, name)
+            if name == "pp" and v > 1:
+                lc = _interleaved(t.shape[0], n, v)
+                t = t.reshape(v, n, lc, *t.shape[1:])[:, r].reshape(
+                    v * lc, *t.shape[1:])
+                continue
             if t.shape[dim] % n:
                 raise ValueError(
                     f"dim {dim} of {tuple(t.shape)} does not divide "
                     f"over {name}={n}")
-            t = t.chunk(n, dim)[axis_rank(mesh, name)]
+            t = t.chunk(n, dim)[r]
         return t
 
     return _map(cut, logical_tree, params)
 
 
 def gather_params(params, logical_tree, mesh,
-                  rules: ParamRules | None = None):
+                  rules: ParamRules | None = None, virtual_stages: int = 1):
     """The inverse of ``shard_params``: every rank's shards joined back
     into the whole tree, on every rank (detached).  ``mesh`` None
     returns ``params`` as they are."""
     if mesh is None:
         return params
     rules = rules or ParamRules()
+    v = virtual_stages
 
     def join(axes, t):
         t = t.detach()
         for dim, name in cut_axes(rules.spec(axes), mesh):
-            t = torch.cat(all_gather(t, mesh.get_group(name)), dim)
+            parts = all_gather(t, mesh.get_group(name))
+            if name == "pp" and v > 1:
+                # [P][v Lc, ...] -> [v, P, Lc, ...] -> [L, ...]
+                rest = t.shape[1:]
+                t = torch.stack([p.reshape(v, -1, *rest) for p in parts],
+                                1).reshape(-1, *rest)
+            else:
+                t = torch.cat(parts, dim)
         return t
 
     return _map(join, logical_tree, params)

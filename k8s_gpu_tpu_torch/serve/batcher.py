@@ -74,7 +74,7 @@ __all__ = ["ContinuousBatcher", "Overloaded", "RequestHandle",
 # Options of the reference batcher that the port does not have yet, and
 # the ROADMAP queue 1 item that holds each.
 _NOT_PORTED = {
-    "mesh": "queue 1 item 11, its second half (serving on a mesh)",
+    "mesh": "queue 1 item 11, step 4 (serving on a mesh)",
 }
 ROLES = ("both", "prefill", "decode")
 

@@ -17,12 +17,10 @@ leaves ride the npz as 2-byte void records (numpy has no bfloat16): the
 port views those bytes as 16-bit integers and then as ``torch.bfloat16``,
 and writes the same ``|V2`` records, which the reference views back.
 
-The reference's ``TransformerConfig`` has three fields the port's lacks
-(the pipeline schedule): each is dropped at its reference default, where
-it cannot change a one-device forward, and refused otherwise with the
-ROADMAP item that would port it.  ``sp_attention`` (ring or Ulysses on
-an sp mesh) crosses both ways.  MoE bundles (``num_experts``, ``capacity_factor``, the router and
-expert leaves) cross both ways.
+The pipeline fields (``pp_microbatches``, ``pp_schedule``,
+``pp_virtual_stages``), ``sp_attention`` (ring or Ulysses on an sp
+mesh) and MoE bundles (``num_experts``, ``capacity_factor``, the router
+and expert leaves) cross both ways.
 
 ``export_servable``/``load_servable`` take a store (an object with the
 reference ``AssetStore``'s ``get(space, kind, id, version)`` returning an
@@ -47,14 +45,6 @@ from .quant import matmul_layout
 
 FORMAT = "k8s-gpu-tpu-servable-v1"
 
-# Reference-only config fields: their reference default
-# (k8s_gpu_tpu/models/transformer.py) and the ROADMAP item that ports them.
-_PIPELINE = "queue 1 item 11, its second half (the pipeline schedules)"
-_REFERENCE_ONLY = {
-    "pp_microbatches": (0, _PIPELINE),
-    "pp_schedule": ("1f1b", _PIPELINE),
-    "pp_virtual_stages": (1, _PIPELINE),
-}
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
@@ -95,18 +85,10 @@ def _to_numpy(t) -> np.ndarray:
 def _config_fields(doc_cfg: dict, label: str) -> dict:
     fields = dict(doc_cfg)
     known = {f.name for f in dataclasses.fields(TransformerConfig)}
-    for name in list(fields):
-        if name in known:
-            continue
-        if name not in _REFERENCE_ONLY:
+    for name in fields:
+        if name not in known:
             raise ValueError(f"{label}: unknown TransformerConfig field "
                              f"{name!r}")
-        default, item = _REFERENCE_ONLY[name]
-        if fields[name] != default:
-            raise NotImplementedError(
-                f"{label}: {name}={fields[name]!r} is not ported yet "
-                f"(ROADMAP {item}); only its default {default!r} loads")
-        del fields[name]
     fields["dtype"] = _DTYPES[fields["dtype"]]
     return fields
 

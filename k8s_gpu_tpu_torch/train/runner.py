@@ -42,8 +42,18 @@ replicated): each dp rank updates its slice and the slices are
 all-gathered.  On one device, or without a mesh, the step is exactly the
 one-device step.
 
-Not ported yet (ROADMAP.md queue 1 item 11, its second half): the pp
-axis, the pipeline schedules and checkpoints of a meshed trainer.
+On a pp mesh each rank holds its stage's blocks (in the layout of the
+model's ``virtual_stages``) and the leaves replicated over pp whole.
+Under ``pp_schedule="gpipe"`` the step is autograd over the model's
+GPipe forward; under ``"1f1b"`` the model's ``pipeline_value_and_grad``
+hands back the loss and the gradients (``make_pipeline_train_step``),
+and accumulation is refused (the schedule already microbatches).  Either
+way the loss and the replicated leaves' gradients leave the schedule the
+same on every pp rank (summed over pp where one stage alone made them),
+and the batch group's mean follows as on any mesh.
+
+Not ported yet (ROADMAP.md queue 1 item 11, step 5): checkpoints of a
+meshed trainer.
 """
 
 from __future__ import annotations
@@ -286,6 +296,24 @@ class AdamW:
         self.nu = tree_leaves(state["nu"])
 
 
+def make_pipeline_train_step(model, optimizer: AdamW, mesh, reduce=None):
+    """The train step of a model with ``pipeline_value_and_grad`` (1F1B):
+    the gradients come from the schedule, whose forwards and backwards
+    of different microbatches interleave in one loop, not from autograd
+    of a forward.  ``reduce`` as in ``make_train_step``."""
+
+    def step(params, tokens, targets):
+        loss, grads = model.pipeline_value_and_grad(params, tokens, targets,
+                                                    mesh)
+        grads = tree_leaves(grads)
+        if reduce is not None:
+            loss, grads = reduce(loss, grads)
+        optimizer.update(tree_leaves(params), grads)
+        return loss
+
+    return step
+
+
 def make_train_step(loss_fn, optimizer: AdamW, accum: int = 1,
                     reduce=None):
     """loss_fn(params, *batch) -> scalar.  Returns step(params, *batch) ->
@@ -335,9 +363,9 @@ class Trainer:
     ``mesh_config`` to build one (None on a world of one rank: the
     one-device step).  The axes above 1 must be ones the model runs
     (its ``mesh_axes``; dp and sp for a model that names none, such as
-    the LoRA model and the CNN): no model runs pp yet.  On a tp or ep
-    mesh ``self.params`` holds this rank's shards and
-    ``gathered_params()`` the whole tree.
+    the LoRA model and the CNN).  On a tp, ep or pp mesh
+    ``self.params`` holds this rank's shards and ``gathered_params()``
+    the whole tree.
 
     ``peak_flops``: the MFU denominator (None reads the card's kind; 0.0,
     as on the CPU, keeps ``train_mfu`` at 0).  ``profiler``: the phase
@@ -427,7 +455,8 @@ class Trainer:
         specs = self._specs()
         if specs is not None and self.mesh is not None:
             params = shard_params(params, self.model.logical_axes(),
-                                  self.mesh)
+                                  self.mesh,
+                                  virtual_stages=self._virtual_stages())
         self.params = tree_map(
             lambda t: t.contiguous().clone().requires_grad_(True), params)
         # Each leaf's cuts, (dimension, mesh axis) pairs in tree_leaves
@@ -451,6 +480,10 @@ class Trainer:
         rules = ParamRules()
         return [rules.spec(ax)
                 for ax in tree_leaves(self.model.logical_axes())]
+
+    def _virtual_stages(self) -> int:
+        """The chunks of the blocks' layout on a pp mesh (the model's)."""
+        return getattr(self.model, "virtual_stages", 1)
 
     def _zero1(self):
         """AdamW's ``zero`` argument: each local leaf's ZeRO-1 axis over
@@ -479,7 +512,7 @@ class Trainer:
         if self.mesh is None or not hasattr(self.model, "logical_axes"):
             return tree_map(lambda p: p.detach(), self.params)
         return gather_params(self.params, self.model.logical_axes(),
-                             self.mesh)
+                             self.mesh, virtual_stages=self._virtual_stages())
 
     def shard_batch(self, *batch):
         """This rank's block of each global array on the trainer's
@@ -505,11 +538,39 @@ class Trainer:
             return self.model.loss(params, *batch, mesh=self.mesh)
         return self.model.loss(params, *batch)
 
+    def _use_1f1b(self) -> bool:
+        """Whether the step runs the model's 1F1B schedule: on a pp mesh
+        under ``pp_schedule="1f1b"`` (gpipe for a model that names none);
+        an unknown schedule raises, the reference's error."""
+        if axis_size(self.mesh, "pp") <= 1:
+            return False
+        sched = getattr(getattr(self.model, "cfg", None), "pp_schedule",
+                        "gpipe")
+        if sched == "1f1b":
+            return hasattr(self.model, "pipeline_value_and_grad")
+        if sched == "gpipe":
+            return False
+        raise ValueError(
+            f"unknown pp_schedule {sched!r}; expected '1f1b' or 'gpipe'")
+
+    def _make_step(self):
+        reduce = self._reduce if self.mesh is not None else None
+        if self._use_1f1b():
+            if self.tc.grad_accum_steps > 1:
+                raise ValueError(
+                    "grad_accum_steps composes with the dense/gpipe "
+                    "paths; the 1f1b schedule already microbatches — "
+                    "raise pp_microbatches instead")
+            return make_pipeline_train_step(self.model, self.optimizer,
+                                            self.mesh, reduce)
+        return make_train_step(self._loss, self.optimizer,
+                               accum=self.tc.grad_accum_steps, reduce=reduce)
+
     def _reduce(self, loss, grads):
         """The mean of the loss and the gradients over the batch group
         (dp x sp, the ranks whose tokens differ), in one all-reduce; the
-        ranks of a tp or ep group already hold the same loss and their
-        own shards' gradients."""
+        ranks of a tp, ep or pp group already hold the same loss and
+        their own shards' gradients."""
         group = batch_group(self.mesh)
         if group is None:
             return loss, grads
@@ -541,9 +602,7 @@ class Trainer:
 
     def _timed_step(self, *batch, sync: bool):
         if self._step is None:
-            self._step = make_train_step(
-                self._loss, self.optimizer, accum=self.tc.grad_accum_steps,
-                reduce=self._reduce if self.mesh is not None else None)
+            self._step = self._make_step()
             cfg = getattr(self.model, "cfg", None)
             if cfg is not None and hasattr(cfg, "use_flash"):
                 log.info("train step attention path: %s",

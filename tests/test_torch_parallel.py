@@ -56,7 +56,7 @@ torch.set_num_threads(1)
 
 DIMS = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, d_head=8,
             d_ff=64, max_seq=16)
-NEXT = "item 11, its second half"
+NEXT = "item 11, step"
 
 
 def fake_mesh(coords=None, **sizes):
@@ -199,6 +199,36 @@ def test_zero1_axis_matches_reference():
     assert got == want and None not in got
 
 
+@pytest.mark.parametrize("pp,v", [(2, 1), (2, 2), (4, 2)])
+def test_stage_cut_holds_the_virtual_stages_of_each_rank(pp, v):
+    """pp rank d holds virtual stages c P + d for c < v (interleaved
+    1F1B's chunks; v 1 is the contiguous cut), chunk c at rows [c Lc,
+    (c+1) Lc) of its blocks; the leaves pp leaves whole stay whole."""
+    L = 8
+    tm = TransformerLM(TransformerConfig(**{**DIMS, "n_layers": L}),
+                       device="cpu")
+    params = tm.init(0)
+    # Each layer's ln1 scale holds its layer index.
+    params["blocks"]["ln1"] = torch.arange(L, dtype=torch.float32)[
+        :, None].expand(L, DIMS["d_model"]).clone()
+    lc = L // (pp * v)
+    for d in range(pp):
+        local = shard_params(params, tm.logical_axes(),
+                             fake_mesh({"pp": d}, pp=pp),
+                             virtual_stages=v)
+        want = [(c * pp + d) * lc + i for c in range(v) for i in range(lc)]
+        assert local["blocks"]["ln1"][:, 0].tolist() == want
+        assert local["head"].shape == params["head"].shape
+
+
+def test_stage_cut_refuses_chunks_that_do_not_divide_the_layers():
+    tm = TransformerLM(TransformerConfig(**DIMS), device="cpu")
+    with pytest.raises(ValueError, match="2 layers not divisible by 2·2 "
+                       "chunks"):
+        shard_params(tm.init(0), tm.logical_axes(), fake_mesh(pp=2),
+                     virtual_stages=2)
+
+
 def test_shard_params_keeps_dp_and_sp_replicas_whole():
     tm = TransformerLM(TransformerConfig(**DIMS), device="cpu")
     params = tm.init(0)
@@ -222,25 +252,16 @@ def test_sp_attention_bundle_loads(tmp_path):
     dict(dp=2, pp=2), dict(ep=2, tp=2), dict(pp=2, tp=2),
 ])
 def test_meshes_beyond_dp_and_sp_name_the_next_slice(sizes):
-    """A pp axis: the Trainer, the loss and shard_params refuse it.  tp
-    and ep, which the transformer runs: the consumers not ported to them
-    refuse them (the LoRA model's Trainer and loss, the CNN's Trainer,
-    ``save_attn``, the batcher's ``mesh=``, a meshed optimizer state),
-    each naming the next slice."""
+    """tp, ep and pp, which the transformer runs: the consumers not
+    ported to them refuse them (the LoRA model's Trainer and loss, the
+    CNN's Trainer, ``save_attn``, the batcher's ``mesh=``, a meshed
+    optimizer state), each naming the next slice."""
     from k8s_gpu_tpu_torch.models.cnn import SmallCnn
     from k8s_gpu_tpu_torch.serve.batcher import ContinuousBatcher
 
     mesh = fake_mesh(**sizes)
     tm = TransformerLM(TransformerConfig(**DIMS), device="cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
-    if "pp" in sizes:
-        with pytest.raises(NotImplementedError, match=NEXT):
-            Trainer(tm, TrainConfig(), device="cpu", mesh=mesh)
-        with pytest.raises(NotImplementedError, match=NEXT):
-            tm.loss(tm.init(0), toks, toks, mesh=mesh)
-        with pytest.raises(NotImplementedError, match=NEXT):
-            shard_params(tm.init(0), tm.logical_axes(), mesh)
-        return
     lora = LoraModel(tm, tm.init(0), LoraConfig(rank=2))
     with pytest.raises(NotImplementedError, match=NEXT):
         Trainer(lora, TrainConfig(), device="cpu", mesh=mesh)
@@ -268,6 +289,8 @@ SHARD_CASES = [
     (dict(sp=2, tp=2), dict(n_kv_heads=2)),
     (dict(ep=2, tp=2), dict(num_experts=4)),
     (dict(dp=2, ep=2), dict(num_experts=4)),
+    (dict(pp=2, tp=2), dict(n_kv_heads=2)),
+    (dict(dp=2, pp=2), {}),
 ]
 
 

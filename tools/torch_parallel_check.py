@@ -6,9 +6,10 @@
 
 Builds both flash sources, runs ``chip_smoke.py``'s phase 3 cases at the
 ring's hop shape (``ring_hop_bf16``: v1, ``ring_hop_gqa_bf16``: v2 with
-GQA, both non-causal bf16 with an lse cotangent, rope outside) and at
-phase 11's tp-local heads (``tp_local_bf16``, ``tp_local_gqa_bf16``),
-then the meshes asked for (default: all), four gloo ranks on the card:
+GQA, both non-causal bf16 with an lse cotangent, rope outside), at
+phase 11's tp-local heads (``tp_local_bf16``, ``tp_local_gqa_bf16``) and
+at phase 12's v1 microbatch (``pp_microbatch_bf16``), then the meshes
+asked for (default: all), four gloo ranks on the card:
 
 - ``dp2sp2``: phase 10, NCCL's answer to two ranks on the one card, the
   NCCL psum smoke on a world of one, which collectives gloo takes on
@@ -19,7 +20,14 @@ then the meshes asked for (default: all), four gloo ranks on the card:
   configuration over dp 2 x tp 2; ring and Ulysses over sp 2 x tp 2;
   MoE over ep 2 x tp 2), each against one rank's whole-batch step;
 - ``f32``: phase 11d, the float32 steps against one rank's;
-- ``multislice``: phase 11e, one step over dp 2 (2 slices) x tp 2.
+- ``multislice``: phase 11e, one step over dp 2 (2 slices) x tp 2;
+- ``gpipe_dp2pp2``, ``1f1b_pp2tp2``, ``interleaved_pp4v2``, ``1f1b_pp4``:
+  phase 12a, 12b and 12c (GPipe over dp 2 x pp 2; 1F1B over pp 2 x tp
+  2; interleaved 1F1B with 2 virtual stages and classic 1F1B over pp 4),
+  each against one rank's whole-batch step;
+- ``pp_memory``: 12a's mesh at 8 microbatches under GPipe and 1F1B, the
+  peak memory a rank;
+- ``pp_f32``: phase 12d, the float32 steps of the three schedules.
 
 On the CPU (``--device cpu`` with a short ``--seq``) it rehearses them
 with the plain versions (no NCCL probe, no phase 3, no launch counts);
@@ -40,10 +48,12 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-# --mesh NAME -> phase 11's part.
+# --mesh NAME -> phase 11's part; phase 12's.
 TP_PARTS = {"dp2tp2": "dense", "sp2tp2": "sp", "ep2tp2": "moe",
             "f32": "f32", "multislice": "multislice"}
-MESHES = ("dp2sp2",) + tuple(TP_PARTS)
+PP_PARTS = {**{name: name for name in cs.PP_RUNS}, "pp_memory": "memory",
+            "pp_f32": "f32"}
+MESHES = ("dp2sp2",) + tuple(TP_PARTS) + tuple(PP_PARTS)
 
 
 def main(argv=None) -> int:
@@ -51,8 +61,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=cs.LAYERS)
     ap.add_argument("--seq", type=int, default=cs.PAR_SEQ,
-                    help="the sp meshes' sequence (phase 11a, 11c and "
-                         "the dp x tp float32 step take half of it)")
+                    help="the sp meshes' sequence (phase 11a, 11c, the "
+                         "dp x tp float32 step and phase 12 take half "
+                         "of it)")
     ap.add_argument("--mesh", action="append", choices=MESHES,
                     help="a mesh to run (repeatable; default: all)")
     ap.add_argument("--device", default="cuda")
@@ -90,6 +101,13 @@ def main(argv=None) -> int:
             sp_seq=args.seq, device=args.device, parts=parts)
         print(json.dumps({"tensor_parallel_path":
                           out["tensor_parallel_path"]}), flush=True)
+    parts = tuple(PP_PARTS[m] for m in meshes if m in PP_PARTS)
+    if parts:
+        out["pipeline_path"] = cs.run_pipeline_path(
+            torch, args.seed, args.layers, seq=args.seq // 2,
+            device=args.device, parts=parts)
+        print(json.dumps({"pipeline_path": out["pipeline_path"]}),
+              flush=True)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
