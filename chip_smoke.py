@@ -28,7 +28,10 @@ Phases, each of which fails the run on any error:
    (Sq = K + 1 over the paged spec cell's tables: starts 1025-1073, one
    window across the page boundary at 1088, one row from kv_start 197)
    and ``spec_verify_gqa_k4_bf16`` (G 4: 20 folded rows, the tensor
-   cores), with poisoned trash and unowned blocks;
+   cores), with poisoned trash and unowned blocks; phase 13's calls at a
+   tp rank's heads, ``tp_local_h{2,4}_{decode,verify_k4}_{bf16,int8}``
+   (B 8, H = KH = 2 or 4, decode and the verify window at K 4 over the
+   spec cell's tables);
    decode_bf16 timed again on three pools made anew, the yardstick's
    spread), then the three flash-attention kernels (forward, dq,
    dk/dv; in bf16 all three on the tensor cores, held with terms for
@@ -203,7 +206,7 @@ Phases, each of which fails the run on any error:
    cluster; then four gloo ranks on the card (the port's collectives
    copy each transfer through the host) over a dp 2 x sp 2 mesh: (10c)
    the v2 training configuration at max_seq 4096 (the flagship's widths
-   at 8 of its 16 layers, 2 KV heads, ``flash_kv_grouped``; the tool
+   at 4 of its 16 layers, 2 KV heads, ``flash_kv_grouped``; the tool
    ``tools/torch_parallel_check.py`` runs all 16), global batch 4 x 4096,
    ``grad_accum_steps`` 2, ZeRO-1, through ring attention and then
    Ulysses, a warm-up and 3 timed steps each: losses finite, falling and
@@ -260,7 +263,29 @@ Phases, each of which fails the run on any error:
    interleaved): GPipe, 1F1B over pp 2 x tp 2 and interleaved 1F1B, each
    step's loss, gathered gradients and update within 1e-4 of one rank's,
    the gradients of the embedding, the final norm and the head the same
-   on every rank.
+   on every rank;
+13. serving on a mesh: four gloo ranks on the card (``serve_ranks``),
+   each holding its shards of the flagship (16 layers, bf16, ``--seed``'s
+   weights), rank 0 the leader behind a meshed ``LmServer``'s HTTP:
+   (13a) tp 4 on the shared paged pool through the paged kernel at the
+   rank's 2 heads, phase 4's pair and the first two requests of its
+   mix, 16 tokens each, then a repeated greedy request; every budget
+   met, the pair's
+   second ``paged_shared``, paged launches on every rank exactly 16 x
+   (kernel admissions + decode steps), 0 fall-backs; tokens/s, TTFT p50
+   and max, peak GB a rank, and an extra round of 8 steps after the
+   burst with each transfer timed by axis; (13b) dp 2 x tp 2 on the
+   dense pool, 8 slots (4 a dp group), no paged launch; (13c) tp 4
+   n-gram speculation on the paged pool, launches 16 x (kernel
+   admissions + verify sub-rounds + plain steps); (13d) tp 4 with a
+   two-adapter bank beside the bank-less server: base rows after the
+   first share blocks, adapter rows ``cold``, base streams against the
+   bank-less server's; each against one rank's streams on the whole
+   weights by the near-tie rule (top-2 gap 0.25); (13e) all of them and
+   int8 KV in float32 at 2 layers under the float32 rule (1e-4), and a
+   3-step LoRA fine-tune over dp 2 x tp 2 at 4 x 2048 against one
+   rank's (losses, the step-1 gradients and update within 1e-4).
+   Phases 10, 11 and 12 run 8 of the 16 layers (``PAR_LAYERS``).
 
 It prints a ``{"kernels": [...]}`` line (each entry names the phase
 that launches it; each flash entry also with its
@@ -504,6 +529,7 @@ def _pa_library(torch, ops, *, page, t_hi):
 
 
 PA_SPREAD_RUNS = 3  # decode_bf16 timed again on pools made anew
+TP_LOCAL_HEADS = (2, 4)  # a rank's heads of 8 at tp 4 and tp 2
 SPEC_KS = (2, 4, 8)  # the draft windows adaptive K picks among
 # kv_start of a 700-token prompt left-padded to its 1024 bucket (the
 # serving mix's, on the unshared paged pool): five whole pages below it.
@@ -580,6 +606,15 @@ def check_paged_attention(torch, seed: int) -> list[dict]:
            False, "spec") for k in SPEC_KS],
         ("spec_verify_gqa_k4_bf16", 8, 5, 32, 8, 128, 64, 2048, bf16, False,
          "spec"),
+        # Phase 13's calls: a tp rank's heads of the flagship's 8 (tp 4:
+        # 2, tp 2: 4), decode and the verify window at K 4, bf16 and int8
+        # pools.
+        *[(f"tp_local_h{h}_{kind}_{kv}", 8, sq, h, h, 128, 64, 2048, bf16,
+           kv == "int8", layout)
+          for h in TP_LOCAL_HEADS
+          for kind, sq, layout in (("decode", 1, "full"),
+                                   ("verify_k4", SPEC_K + 1, "spec"))
+          for kv in ("bf16", "int8")],
     ]
     results = []
     for name, B, Sq, H, KH, Dh, page, t_hi, dtype, quant, layout in cases:
@@ -4579,8 +4614,9 @@ def check_train_outputs(torch, seed: int, layers: int, device="cuda",
 # heads, the v2 knobs) at max_seq 4096 over a dp 2 x sp 2 mesh of four
 # ranks on the one card, global batch 4 x 4096, 2 microbatches, ZeRO-1.
 PAR_WORLD = 4
-# Phase 10 runs at half the flagship's depth within the whole script
-# (phase 11 added ~145 s; the 1200 s limit); its tool runs it at 16.
+# Phases 10, 11 and 12 run at half the flagship's depth within the
+# whole script (the 1200 s limit; interleaved 1F1B over pp 4 x v 2 needs
+# 8 layers).  The tool runs them at 16.
 PAR_LAYERS = 8
 PAR_SEQ = 4096
 PAR_SP = 2
@@ -5707,6 +5743,524 @@ def run_pipeline_path(torch, seed: int, layers: int, seq: int = TP_SEQ,
     return out
 
 
+# -- phase 13: serving on a mesh ----------------------------------------------
+
+SRV_WORLD = 4
+SRV_MESHES = {"tp4": dict(dp=1, tp=4), "dp2tp2": dict(dp=2, tp=2)}
+SRV_SLOTS = 8          # 13b: 4 a dp group
+SRV_MIX = 2            # phase 4's mix jobs a burst takes after the pair
+# Tokens each request generates: a decode step over four ranks sharing
+# the card takes 0.25-0.6 s (each transfer syncs its rank's stream),
+# 40x phase 4's one-rank step, so the budgets are phase 4's cut short.
+SRV_NEW = 16
+SRV_REPEAT_NEW = 8     # the repeated greedy request of 13a and 13b
+SRV_LORA_JOBS = (None, None, "r4", "r16")
+SRV_F32_LAYERS = 2
+SRV_LORA_TRAIN_BATCH = 4
+SRV_LORA_TRAIN_STEPS = 3
+SRV_LORA_TOL = 1e-4    # phase 11d's float32 limit
+SRV_TIMED_STEPS = 8    # the extra round whose transfers are timed
+SRV_TIMED_T_HI = 1024
+SRV_TIMEOUT = 600.0
+SRV_PARTS = ("tp4_paged", "dp2tp2_dense", "tp4_ngram", "tp4_bankless",
+             "tp4_bank")
+SRV_F32_PARTS = (*SRV_PARTS, "tp4_kv_quant")
+
+
+def serving_jobs(torch, seed: int, vocab: int):
+    """Phase 4's pair over one 512-token prefix and the first SRV_MIX
+    requests of its mix (the same ids, from ``seed``), SRV_NEW tokens
+    each."""
+    rng = torch.Generator().manual_seed(seed)
+    prefix = torch.randint(0, vocab, (512,), generator=rng).tolist()
+    pair, mix = _serving_jobs(torch, rng, vocab, prefix)
+    return [(p, SRV_NEW, None) for p, _ in pair + mix[:SRV_MIX]]
+
+
+def serving_lora_jobs(torch, seed: int, vocab: int, new: int = SRV_NEW):
+    """13d: two base rows and one for each adapter over one 128-token
+    prefix (two pages: an adapter row prefills it whole)."""
+    rng = torch.Generator().manual_seed(seed + 30)
+    prefix = torch.randint(0, vocab, (128,), generator=rng).tolist()
+    return [(prefix + torch.randint(0, vocab, (16 + 4 * i,),
+                                    generator=rng).tolist(), new, name)
+            for i, name in enumerate(SRV_LORA_JOBS)]
+
+
+def serving_adapters(torch, params, seed: int) -> dict:
+    cfgs = _lora_configs()
+    return {name: (_seeded_adapter(torch, params, cfgs[name],
+                                   seed + 21 + i), cfgs[name])
+            for i, name in enumerate(("r4", "r16"))}
+
+
+def _serving_knobs(part: str, n_blocks: int) -> dict:
+    paged = dict(paged_blocks=n_blocks, page_size=PAGE,
+                 attn_impl="paged_kernel")
+    return {"tp4_paged": paged, "dp2tp2_dense": {},
+            "tp4_ngram": dict(paged, draft="ngram", spec_k=SPEC_K),
+            "tp4_kv_quant": dict(paged, kv_quant=True),
+            "tp4_bankless": paged, "tp4_bank": paged}[part]
+
+
+def _bodies(jobs, bank: bool) -> list:
+    return [{"prompt_ids": p, "max_new_tokens": n,
+             **({"adapter": a} if bank and a else {})} for p, n, a in jobs]
+
+
+def _timed_round(torch, b, mesh, dev) -> dict:
+    """Every rank in lockstep after the server stopped: one more round of
+    SRV_TIMED_STEPS decode steps over all slots (tables over the pool's
+    blocks, read bound SRV_TIMED_T_HI) with every transfer timed
+    (``_timing_transfers``: the card synchronized around each)."""
+    import torch.distributed as dist
+
+    mp = SRV_TIMED_T_HI // PAGE
+    nb = b._dev["cache"]["k"].shape[1]
+    pages = (torch.arange(b.slots * mp, dtype=torch.int32) % (nb - 1)
+             + 1).reshape(b.slots, mp).to(dev)
+    dist.barrier()
+    spent, undo = _timing_transfers(torch, dev, mesh)
+    sync = _syncer(torch, dev)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            b._round_dev(False, SRV_TIMED_STEPS, SRV_TIMED_T_HI, pages)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    return {"steps": SRV_TIMED_STEPS, "round_s": wall, "transfer_s": spent}
+
+
+def _mesh_serve(torch, mesh, model, shards, tok, jobs, part: str,
+                n_blocks: int, adapters=None, repeat: bool = True,
+                timed: bool = False) -> dict:
+    """One part of phase 13 on this rank: a meshed ``LmServer`` on its
+    ``shards``; rank 0 streams ``jobs`` over HTTP together (whichever of
+    a pair is planned first registers the prefix blocks the other
+    shares), then with ``repeat`` the last of them twice more alone,
+    SRV_REPEAT_NEW tokens (greedy: the same stream).  Every rank: its
+    paged launches and fall-backs over the server's life and its peak
+    memory; rank 0 also the streams, the burst's numbers, the admission
+    paths and the device work that goes through the kernel."""
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import LmServer
+    from k8s_gpu_tpu_torch.utils.metrics import MetricsRegistry
+
+    dev = model.device
+    cuda = dev.type == "cuda"
+    knobs = _serving_knobs(part, n_blocks)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    pa.reset_counts()
+    srv = LmServer(model, shards, tok, slots=SRV_SLOTS, mesh=mesh,
+                   max_new_tokens_cap=256, adapters=adapters, device=dev,
+                   metrics=MetricsRegistry(), **knobs).start()
+    b = srv.batcher
+    out = {}
+    if srv.port is None:
+        srv.wait()
+    else:
+        if knobs.get("draft") == "ngram":
+            # Always speculate: the gate reads the leader's clock.
+            b.ngram_breakeven = 0.0
+            b._ngram_next_meas = {"plain": float("inf"),
+                                  "spec": float("inf")}
+        try:
+            bodies = _bodies(jobs, adapters is not None)
+            before = _collective_s(b.metrics)
+            t0 = time.perf_counter()
+            outs = _stream_bodies(srv.port, bodies)
+            wall = time.perf_counter() - t0
+            # The burst's transfers alone: not the repeats' after it.
+            burst_collective_s = {
+                k: v - before.get(k, 0.0)
+                for k, v in _collective_s(b.metrics).items()}
+            _check_budgets(outs, [n for _, n, _ in jobs])
+            burst_paths = dict(b.admission_paths)
+            again = []
+            short = dict(bodies[-1], max_new_tokens=SRV_REPEAT_NEW)
+            for _ in range(2 if repeat else 0):
+                code, body = _post(srv.port, "/generate", short)
+                if code != 200:
+                    raise RuntimeError(f"{part}: repeated request {code}")
+                again.append(body["ids"])
+            if again and again[0] != again[1]:
+                raise RuntimeError(f"{part}: a repeated greedy request "
+                                   "changed its stream")
+            out.update(_burst_numbers(outs, wall))
+            out.update(streams=[o["ids"] for o in outs],
+                       admissions=burst_paths,
+                       all_admissions=dict(b.admission_paths),
+                       work=_paged_work(b), rounds=b._round_count,
+                       spec=_spec_summary(b) if b.spec_mode else None,
+                       collective_s=burst_collective_s)
+        finally:
+            srv.stop()
+    out.update(launches=pa.launch_count, fallbacks=pa.fallback_count,
+               peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                               if cuda else None))
+    if timed:
+        out["timed_round"] = _timed_round(torch, b, mesh, dev)
+    del srv, b
+    _free_if(torch, dev)
+    return out
+
+
+def _collective_s(registry) -> dict:
+    """The host seconds a meshed server's transfers took, by axis and op
+    (``collective_seconds``; ``world`` is the descriptors' broadcast)."""
+    out = {}
+    for axis in ("world", "dp", "tp"):
+        for op in ("broadcast", "psum", "all_gather"):
+            h = registry.histogram("collective_seconds", axis=axis, op=op)
+            if h is not None:
+                out[f"{axis} {op}"] = h.total
+    return out
+
+
+SRV_LORA_TARGETS = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wo_mlp")
+# A cosine schedule without warm-up moves the adapters at step 1.
+SRV_LORA_TC = dict(warmup_steps=0, schedule="cosine", decay_steps=100,
+                   learning_rate=1e-2)
+
+
+def _lora_trainer(torch, model, params, seed: int, mesh=None):
+    """13e's fine-tune: rank 8 on every block target from a seeded
+    adapter (B drawn too, so A's first gradient is not zero), recording
+    the gradients AdamW is handed."""
+    from k8s_gpu_tpu_torch.train import (
+        LoraConfig, LoraModel, TrainConfig, Trainer,
+    )
+
+    lcfg = LoraConfig(rank=8, targets=SRV_LORA_TARGETS)
+    tr = Trainer(LoraModel(model, params, lcfg), TrainConfig(**SRV_LORA_TC),
+                 device=model.device, mesh=mesh)
+    tr.init(params=_seeded_adapter(torch, params, lcfg, seed + 40))
+    return tr, _recording_grads(tr)
+
+
+def _lora_batch(torch, model, seed: int):
+    rng = torch.Generator().manual_seed(seed + 41)
+    toks = torch.randint(0, model.cfg.vocab_size,
+                         (SRV_LORA_TRAIN_BATCH, model.cfg.max_seq + 1),
+                         generator=rng).to(model.device)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _mesh_lora_train(torch, mesh, model, params, seed: int) -> dict:
+    """13e: the fine-tune over the global batch on ``mesh`` (dp 2 x tp 2)
+    and, on rank 0, one rank's over the same batch: each step's loss,
+    the step-1 gradients gathered (relative to each leaf's norm) and the
+    step-1 update (``_update_rel_err``: AdamW's first update is about lr
+    times the sign of a gradient, so elements whose gradient is noise
+    are left out), and the adapters after the last step.  Every rank:
+    its flash launches and plain calls over the meshed steps."""
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.parallel.sharding import gather_params
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves, tree_like
+
+    x, y = _lora_batch(torch, model, seed)
+    meshed, grads = _lora_trainer(torch, model, params, seed, mesh)
+    axes = meshed.model.logical_axes()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    losses = [meshed.step(x, y)]
+    wall1 = time.perf_counter() - t0
+    g1 = tree_leaves(gather_params(tree_like(meshed.params, grads[0]),
+                                   axes, mesh))
+    # Copies: the leaves no axis cuts come back as the live parameters.
+    theta1 = [p.clone() for p in tree_leaves(meshed.gathered_params())]
+    losses += [meshed.step(x, y) for _ in range(SRV_LORA_TRAIN_STEPS - 1)]
+    launches, plain = dict(fa.launch_counts), fa.plain_count
+    last = tree_leaves(meshed.gathered_params())
+    out = {"losses": losses, "step_s": wall1, "launches": launches,
+           "plain_calls": plain}
+    if dist.get_rank() == 0:
+        one, one_grads = _lora_trainer(torch, model, params, seed)
+        theta0 = [p.detach().clone() for p in tree_leaves(one.params)]
+        ref = [one.step(x, y)]
+        one1 = [p.detach().clone() for p in tree_leaves(one.params)]
+        ref += [one.step(x, y) for _ in range(SRV_LORA_TRAIN_STEPS - 1)]
+        out["one_rank_losses"] = ref
+        out["loss_diff"] = max(abs(a - b) for a, b in zip(losses, ref))
+        out["grad_rel_err"] = max(float((a - b).norm() / b.norm())
+                                  for a, b in zip(g1, one_grads[0]))
+        out["update_rel_err"], out["update_held_share"] = _update_rel_err(
+            theta0, theta1, one1, g1, one_grads[0])
+        out["adapter_max_abs_diff"] = max(
+            float((a - b.detach()).abs().max())
+            for a, b in zip(last, tree_leaves(one.params)))
+        del one, one_grads
+    del meshed, grads
+    return out
+
+
+def _serving_rank(seed: int, layers: int, device, tp4, dp2tp2) -> dict:
+    """Phase 13 on one of the four ranks (``serve_ranks`` builds both
+    meshes): 13a-13d at the flagship's widths in bf16, then 13e at
+    SRV_F32_LAYERS in float32."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.parallel.sharding import shard_params
+    from k8s_gpu_tpu_torch.train.runner import tree_map
+
+    meshes = {"tp4": tp4, "dp2tp2": dp2tp2}
+    out = {"rank": dist.get_rank()}
+    cfg = flagship_config(torch, layers)
+    tok = flagship_tokenizer(cfg.vocab_size)
+    for dtype, depth, parts in (
+            (torch.bfloat16, layers, SRV_PARTS),
+            (torch.float32, SRV_F32_LAYERS, SRV_F32_PARTS)):
+        cfg = dataclasses.replace(flagship_config(torch, depth), dtype=dtype)
+        model = TransformerLM(cfg, device=device)
+        params = model.init(seed)
+        n_blocks = mix_blocks(cfg)
+        jobs = serving_jobs(torch, seed, cfg.vocab_size)
+        ljobs = serving_lora_jobs(torch, seed, cfg.vocab_size)
+        adapters = serving_adapters(torch, params, seed)
+        # Each rank keeps its own shards only (copies; the whole tree
+        # goes, but for the float32 fine-tune's base).
+        shards = {name: tree_map(lambda t: t.clone(), shard_params(
+            params, model.logical_axes(), m)) for name, m in meshes.items()}
+        if dtype == torch.bfloat16:
+            del params
+            _free_if(torch, torch.device(device))
+        res = {}
+        for part in parts:
+            bank = part == "tp4_bank"
+            mname = "dp2tp2" if "dp2tp2" in part else "tp4"
+            res[part] = _mesh_serve(
+                torch, meshes[mname], model, shards[mname], tok,
+                ljobs if part in ("tp4_bankless", "tp4_bank") else jobs,
+                part, n_blocks, adapters=adapters if bank else None,
+                repeat=dtype == torch.bfloat16 and part in (
+                    "tp4_paged", "dp2tp2_dense"),
+                timed=dtype == torch.bfloat16 and part == "tp4_paged")
+            dist.barrier()
+        if dtype == torch.float32:
+            res["lora"] = _mesh_lora_train(torch, dp2tp2, model, params,
+                                           seed)
+        out["bf16" if dtype == torch.bfloat16 else "f32"] = res
+        del model, shards, adapters
+        params = None
+        _free_if(torch, torch.device(device))
+    return out
+
+
+def _one_rank_streams(torch, model, params, jobs, part: str, n_blocks: int,
+                      adapters=None) -> list:
+    """The same jobs through one rank's batcher on the whole weights,
+    together, as the meshed burst sent them."""
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher
+
+    knobs = _serving_knobs(part, n_blocks)
+    b = ContinuousBatcher(model, params, slots=SRV_SLOTS, adapters=adapters,
+                          device=model.device, **knobs).start()
+    try:
+        if knobs.get("draft") == "ngram":
+            b.ngram_breakeven = 0.0
+            b._ngram_next_meas = {"plain": float("inf"),
+                                  "spec": float("inf")}
+        hs = [b.submit(p, max_new_tokens=n, adapter=a if adapters else None)
+              for p, n, a in jobs]
+        return [h.result() for h in hs]
+    finally:
+        b.stop()
+
+
+def _hold_launches(phase: str, runs: list, layers: int,
+                   paged: bool) -> dict:
+    """Every rank's paged launches over the server's life against the
+    leader's kernel work (a launch a layer for each suffix-extend
+    admission, verify sub-round and plain decode step), and no fall-back
+    anywhere; a dense part launches nothing."""
+    work = runs[0]["work"]
+    want = layers * (work["kernel_admissions"] + work["verify_subrounds"]
+                     + work["decode_steps"]) if paged else 0
+    got = [r["launches"] for r in runs]
+    fb = [r["fallbacks"] for r in runs]
+    if got != [want] * len(runs) or any(fb):
+        raise RuntimeError(f"{phase}: paged launches by rank {got}, "
+                           f"fall-backs {fb}; expected {want} on each")
+    return {"launches_per_rank": want, "work": work}
+
+
+def run_mesh_serving_path(torch, seed: int, layers: int,
+                          device="cuda") -> dict:
+    """Phase 13: serving on a mesh, four gloo ranks on the one card
+    (``device="cpu"`` with one layer rehearses it on the CPU: the plain
+    versions).  13a: tp 4 on the shared paged pool through the paged
+    kernel at the rank's 2 heads, phase 4's pair and a slice of its mix
+    (SRV_NEW tokens each) over the meshed ``LmServer``'s HTTP; 13b: dp 2
+    x tp 2 on the dense pool, 8 slots (4 a dp group); 13c: tp 4 n-gram
+    speculation on the paged pool; 13d: tp 4 with a two-adapter bank
+    beside the bank-less server; 13e: all of them and int8 KV in float32
+    at SRV_F32_LAYERS, and a 3-step LoRA fine-tune over dp 2 x tp 2.
+    Each held against one rank's streams on the whole weights by the
+    near-tie rule (bf16 0.25, float32 1e-4), launches rank by rank
+    against the leader's kernel work."""
+    import dataclasses
+    import functools
+
+    import chip_smoke
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.parallel.mesh import MeshConfig
+    from k8s_gpu_tpu_torch.parallel.multihost import serve_ranks
+    from k8s_gpu_tpu_torch.serve.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    ranks = serve_ranks(
+        functools.partial(chip_smoke._serving_rank, seed, layers, device),
+        MeshConfig(**SRV_MESHES["tp4"]), MeshConfig(**SRV_MESHES["dp2tp2"]),
+        timeout=SRV_TIMEOUT, device=device, backend="gloo")
+    out = {"layers": layers, "f32_layers": SRV_F32_LAYERS,
+           "world": SRV_WORLD,
+           "meshes": SRV_MESHES, "cluster_s": time.perf_counter() - t0}
+    cuda = torch.device(device).type == "cuda"
+    for key, dtype, depth, parts, gap in (
+            ("bf16", torch.bfloat16, layers, SRV_PARTS, BF16_TIE_GAP),
+            ("f32", torch.float32, SRV_F32_LAYERS, SRV_F32_PARTS,
+             F32_TIE_GAP)):
+        cfg = dataclasses.replace(flagship_config(torch, depth),
+                                  dtype=dtype)
+        model = TransformerLM(cfg, device=device)
+        params = model.init(seed)
+        engine = InferenceEngine(model, device=model.device)
+        n_blocks = mix_blocks(cfg)
+        jobs = serving_jobs(torch, seed, cfg.vocab_size)
+        ljobs = serving_lora_jobs(torch, seed, cfg.vocab_size)
+        adapters = serving_adapters(torch, params, seed)
+        res, one = {}, {}
+        for part in parts:
+            runs = [r[key][part] for r in ranks]
+            lead = runs[0]
+            phase = f"phase 13 {key} {part}"
+            held = {k: v for k, v in lead.items()
+                    if k not in ("streams", "launches", "fallbacks",
+                                 "peak_memory_gb")}
+            held["peak_memory_gb_by_rank"] = [r["peak_memory_gb"]
+                                              for r in runs]
+            if cuda:
+                held.update(_hold_launches(phase, runs, depth,
+                                           part != "dp2tp2_dense"))
+            held["timed_round_by_rank"] = [r.get("timed_round")
+                                           for r in runs[1:]]
+            if "paged" in part or part in ("tp4_ngram", "tp4_kv_quant"):
+                if lead["admissions"].get("paged_shared", 0) < 1:
+                    raise RuntimeError(f"{phase}: no shared-prefix "
+                                       f"admission: {lead['admissions']}")
+            if part == "tp4_bank":
+                n_ad = sum(1 for a in SRV_LORA_JOBS if a)
+                if lead["admissions"] != {"paged_cold": 1,
+                                          "paged_shared": 1, "cold": n_ad}:
+                    raise RuntimeError(
+                        f"{phase}: admissions {lead['admissions']}: base "
+                        "rows after the first must share, adapter rows "
+                        "never")
+                base = [i for i, a in enumerate(SRV_LORA_JOBS) if a is None]
+                bankless = res["tp4_bankless"]["_streams"]
+                held["base_vs_bankless"] = _compare_streams(
+                    torch, engine, params, [ljobs[i][:2] for i in base],
+                    [bankless[i] for i in base],
+                    [lead["streams"][i] for i in base], gap)
+            # One rank's streams: the plain paged server for the plain,
+            # n-gram and bank-less parts (greedy streams are the plain
+            # ones), its own for the dense pool, int8 KV and the bank.
+            ref_part = {"tp4_ngram": "tp4_paged"}.get(part, part)
+            pjobs = ljobs if part in ("tp4_bankless", "tp4_bank") else jobs
+            if ref_part not in one:
+                one[ref_part] = _one_rank_streams(
+                    torch, model, params, pjobs, ref_part, n_blocks,
+                    adapters=adapters if part == "tp4_bank" else None)
+            held["vs_one_rank"] = _vs_one_rank(
+                torch, engine, params, pjobs, one[ref_part],
+                lead["streams"], gap,
+                adapters if part == "tp4_bank" else None)
+            held["_streams"] = lead["streams"]
+            res[part] = held
+        for held in res.values():
+            held.pop("_streams")
+        if key == "f32":
+            res["lora"] = _hold_mesh_lora(ranks, cuda)
+        out[key] = res
+        del model, params, engine, adapters
+        _free_if(torch, torch.device(device))
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def _vs_one_rank(torch, engine, params, jobs, ref, got, gap,
+                 adapters) -> dict:
+    """``got`` against one rank's ``ref`` by the near-tie rule, each
+    request's departure gap read on the weights it was served with (an
+    adapter row's: ``LoraAdapter.merge``d; ``adapters`` None: every row
+    base)."""
+    from k8s_gpu_tpu_torch.train import LoraAdapter
+
+    out = {"exact": ref == got, "departures": []}
+    names = [a if adapters else None for _, _, a in jobs]
+    for name in sorted(set(names), key=str):
+        idx = [i for i, a in enumerate(names) if a == name]
+        w = params
+        if name is not None:
+            tree, cfg = adapters[name]
+            w = LoraAdapter(cfg).merge(params, tree)
+        for d in _departures(torch, engine, w, [jobs[i][:2] for i in idx],
+                             [ref[i] for i in idx], [got[i] for i in idx],
+                             gap):
+            out["departures"].append(dict(d, request=idx[d["request"]]))
+    return out
+
+
+def _hold_mesh_lora(ranks, cuda: bool) -> dict:
+    """13e's fine-tune on every rank: the same losses everywhere, within
+    SRV_LORA_TOL of one rank's, and the step-1 gradients and update
+    within it too (at least half the elements held); on the card each
+    rank's flash v1 launches exact at the tp-local heads (the forward
+    twice a layer and step under full remat, dq and dk/dv once) and no
+    plain call."""
+    from k8s_gpu_tpu_torch.ops import attention as fa
+
+    lead = ranks[0]["f32"]["lora"]
+    want = _par_launches(fa, SRV_F32_LAYERS, 1, 1, SRV_LORA_TRAIN_STEPS,
+                         FLASH_KERNELS)
+    for i, r in enumerate(ranks):
+        got = r["f32"]["lora"]
+        if cuda and (got["launches"] != want or got["plain_calls"]):
+            raise RuntimeError(
+                f"phase 13e LoRA: rank {i} launched {got['launches']} and "
+                f"{got['plain_calls']} plain calls; expected {want}, 0")
+    if any(r["f32"]["lora"]["losses"] != lead["losses"] for r in ranks):
+        raise RuntimeError("phase 13e LoRA: the ranks' losses differ")
+    worst = max(lead["loss_diff"], lead["grad_rel_err"],
+                lead["update_rel_err"])
+    if not (worst <= SRV_LORA_TOL and lead["update_held_share"] >= 0.5):
+        raise RuntimeError(
+            f"phase 13e LoRA over dp 2 x tp 2 against one rank: loss "
+            f"{lead['loss_diff']}, gradients {lead['grad_rel_err']}, "
+            f"update {lead['update_rel_err']} over "
+            f"{lead['update_held_share']} of the elements; limit "
+            f"{SRV_LORA_TOL}")
+    return {**lead, "step_s": max(r["f32"]["lora"]["step_s"]
+                                  for r in ranks),
+            "launches": {k: sum(r["f32"]["lora"]["launches"][k]
+                                for r in ranks) for k in lead["launches"]},
+            "plain_calls": sum(r["f32"]["lora"]["plain_calls"]
+                               for r in ranks),
+            "batch": SRV_LORA_TRAIN_BATCH,
+            "steps": SRV_LORA_TRAIN_STEPS}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5808,12 +6362,16 @@ def main(argv=None) -> int:
     parallel = run_parallel_path(torch, args.seed, PAR_LAYERS)
     print(json.dumps({"parallel_path": parallel, "gpu": gpu}), flush=True)
     _free(torch)
-    tensor_parallel = run_tensor_parallel_path(torch, args.seed, LAYERS)
+    tensor_parallel = run_tensor_parallel_path(torch, args.seed, PAR_LAYERS)
     print(json.dumps({"tensor_parallel_path": tensor_parallel, "gpu": gpu}),
           flush=True)
     _free(torch)
-    pipeline_path = run_pipeline_path(torch, args.seed, LAYERS)
+    pipeline_path = run_pipeline_path(torch, args.seed, PAR_LAYERS)
     print(json.dumps({"pipeline_path": pipeline_path, "gpu": gpu}),
+          flush=True)
+    _free(torch)
+    mesh_serving = run_mesh_serving_path(torch, args.seed, LAYERS)
+    print(json.dumps({"mesh_serving_path": mesh_serving, "gpu": gpu}),
           flush=True)
 
     case = {r["case"]: r for r in kern}
@@ -5829,7 +6387,8 @@ def main(argv=None) -> int:
         "replaces": "k8s_gpu_tpu/ops/paged_attention.py:102",
         "phase": "4 (paged serving); also 4c, 4d, 4e (verify windows), 4f "
                  "(adapter, constrained and handed-over rows), 9 (the "
-                 "Fin-Agent-Suite's /chat and traced /generate)",
+                 "Fin-Agent-Suite's /chat and traced /generate), 13 "
+                 "(serving on a mesh: a tp rank's 2 heads)",
         "launches": main_path["paged_attention_launches"],
         # Phase 4c's run: the unshared paged pool (left-padded rows).
         "launches_unshared_pool": unshared["paged_attention_launches"],
@@ -5849,6 +6408,13 @@ def main(argv=None) -> int:
         # Phase 9b and 9c: the application's /chat posts and the traced
         # /generate requests.
         "launches_finagent": finagent["paged_attention_launches"],
+        # Phase 13: each rank's launches over each meshed paged server's
+        # life (the same on every rank), bf16 at 16 layers and float32
+        # at 2.
+        **{f"launches_mesh_serving_{key}_{part}": held["launches_per_rank"]
+           for key in ("bf16", "f32")
+           for part, held in mesh_serving[key].items()
+           if part not in ("dp2tp2_dense", "lora")},
         "max_abs_err": max(r["max_abs_err"] for r in kern),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -5871,6 +6437,12 @@ def main(argv=None) -> int:
                              ("verify_gqa_k4", "spec_verify_gqa_k4_bf16"))
            for field in ("ms", "bound_ms", "library_ms", "design",
                          "splits", "grid_splits")},
+        # Phase 13's calls at a tp rank's heads (2 at tp 4, 4 at tp 2).
+        **{f"{name}_{field}": case[name][field]
+           for name in case if name.startswith("tp_local_h")
+           for field in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "design", "splits", "grid_splits",
+                         "max_abs_err")},
     }]}
     # Phase 4e's distillation shapes, timed in phase 3b: the draft's
     # float32 training and the target's bf16 forward; phase 10's ring
@@ -5884,7 +6456,8 @@ def main(argv=None) -> int:
              "fine-tune), 6c (the training job, save_attn), 8a (MoE "
              "training), 11 (the tp-local heads: Ulysses over sp 2 x tp "
              "2, MoE over ep 2 x tp 2), 12 (the pipeline's stages: GPipe "
-             "over dp 2 x pp 2, interleaved and classic 1F1B over pp 4)"),
+             "over dp 2 x pp 2, interleaved and classic 1F1B over pp 4), "
+             "13e (the LoRA fine-tune over dp 2 x tp 2, float32)"),
             (flash_v2, "train_gqa_bf16", ("ring_hop_gqa_bf16",
                                           "tp_local_gqa_bf16"),
              FLASH_V2_KERNELS, "flash_attention_v2", train_v2, save_attn_v2,
@@ -5927,6 +6500,10 @@ def main(argv=None) -> int:
                    tensor_parallel[key]["launches"][name]
                    for key in ("dense", "ring", "ulysses", "moe")
                    if tensor_parallel[key]["launches"][name]},
+                # Phase 13e: the four ranks' LoRA steps over dp 2 x tp 2.
+                **({"launches_mesh_serving_lora":
+                    mesh_serving["f32"]["lora"]["launches"][name]}
+                   if name in FLASH_KERNELS else {}),
                 # Phase 12: the four ranks' timed steps of each schedule
                 # whose stages run this kernel.
                 **{f"launches_pipeline_{key}":
@@ -5970,6 +6547,7 @@ def main(argv=None) -> int:
                        "parallel_path": parallel,
                        "tensor_parallel_path": tensor_parallel,
                        "pipeline_path": pipeline_path,
+                       "mesh_serving_path": mesh_serving,
                        "device": device,
                        **kernels}, fh, indent=1)
     print(gpu, flush=True)

@@ -20,6 +20,14 @@ compute stays on the card and only the transport crosses the host.  The
 caller picks the backend when it joins the world (``multihost``), and
 ``transport`` names what a group does; nothing switches silently.
 
+Serving on a mesh takes ``reduce_from`` and ``gather_from`` under
+``torch.inference_mode()``, where they record no graph, plus
+``broadcast_object`` (the leader's descriptor of each device call) and
+``all_reduce``/``all_gather`` over dp (a round's tokens).  A meshed
+batcher times them (``observe_transfers``): each call's host seconds,
+the wait for the tensor's producer included, land in
+``collective_seconds{axis,op}``.
+
 The reference's ``shard_map_compat`` is a JAX shim and has no
 counterpart here.
 """
@@ -33,6 +41,25 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from .mesh import mesh_shape, world_size
+
+
+# The hook a meshed batcher installs to time its transfers: called with
+# (op, group, seconds) after each collective below; None (the default,
+# and the training plane's setting) costs one test a call.
+_observer = None
+
+
+def observe_transfers(fn) -> None:
+    """Install ``fn(op, group, seconds)`` to be called after every
+    ``all_reduce``, ``all_gather`` and ``broadcast_object`` of this
+    process (None removes it)."""
+    global _observer
+    _observer = fn
+
+
+def _observed(op: str, group, t0: float) -> None:
+    if _observer is not None:
+        _observer(op, group, time.perf_counter() - t0)
 
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -60,22 +87,39 @@ def all_reduce(t: torch.Tensor, group=None,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Reduce ``t`` over ``group`` in place (and return it): a sum, or
     ``op``."""
+    t0 = time.perf_counter()
     if _staged(t, group):
         host = t.detach().cpu()
         dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
     else:
         dist.all_reduce(t, op=op, group=group)
+    _observed("psum", group, t0)
     return t
 
 
 def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     """Every rank's ``t`` (same shape on each), in group-rank order, on
     ``t``'s device."""
+    t0 = time.perf_counter()
     wire = _wire(t, group)
     out = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, wire, group=group)
-    return [o.to(t.device) for o in out]
+    out = [o.to(t.device) for o in out]
+    _observed("all_gather", group, t0)
+    return out
+
+
+def broadcast_object(obj=None, src: int = 0, group=None):
+    """``obj`` pickled from global rank ``src`` to every rank of
+    ``group`` (the world by default); every other rank passes nothing
+    and gets the sender's object.  Tensors in it travel as they are, so
+    the sender hands over host tensors."""
+    t0 = time.perf_counter()
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    _observed("broadcast", group, t0)
+    return box[0]
 
 
 def _ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:

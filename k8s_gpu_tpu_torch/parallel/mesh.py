@@ -8,9 +8,11 @@ needs no process group: ``build_mesh`` returns ``None`` there, and every
 consumer reads ``None`` as the one-device mesh, every axis of size 1.
 
 Every axis runs in training: data, pipeline, sequence, tensor and
-expert.  A consumer refuses an axis it does not run (``check_slice``):
-the LoRA model and the CNN run only the data axes, and the pipeline
-composes with dp and tp only (``TransformerLM._check_pp_composition``).
+expert.  Serving runs dp and tp (``SERVE_AXES``), as the reference's
+meshed engine does.  A consumer refuses an axis it does not run
+(``check_slice``): the LoRA model runs the data axes and tp, the CNN
+only the data axes, and the pipeline composes with dp and tp only
+(``TransformerLM._check_pp_composition``).
 
 Besides one group an axis (``mesh.get_group``), ``build_mesh`` makes the
 groups of two axes together that the training path reduces over: the
@@ -35,8 +37,14 @@ AXES = ("dp", "pp", "ep", "sp", "tp")
 # model that cuts no weight runs).
 PORTED_AXES = ("dp", "pp", "ep", "sp", "tp")
 DATA_AXES = ("dp", "sp")
-NEXT_SLICE = ("ROADMAP.md queue 1 item 11, steps 4-5: serving on a mesh, "
-              "checkpoints of a meshed trainer, save_attn on a mesh")
+# The axes a serving mesh takes: rows over dp, heads over tp.
+SERVE_AXES = ("dp", "tp")
+NEXT_SLICE = ("ROADMAP.md queue 1 item 11, step 5: checkpoints of a meshed "
+              "trainer, save_attn on a mesh")
+# What serving on a mesh leaves out, each with its ROADMAP item.
+SERVE_NEXT = ("ROADMAP.md queue 1 item 11, step 4b: the neural draft, MoE, "
+              "int8 weights, migration and the disaggregated prefill pool "
+              "on a serving mesh")
 # The groups of more than one axis that build_mesh makes.
 GROUPED_AXES = (("dp", "sp"), ("ep", "tp"), ("pp", "tp"))
 
@@ -179,12 +187,14 @@ def axis_rank(mesh, axis: str) -> int:
         else mesh.get_local_rank(axis)
 
 
-def check_slice(mesh, what: str, axes=PORTED_AXES) -> None:
+def check_slice(mesh, what: str, axes=PORTED_AXES,
+                reason: str = "") -> None:
     """Refuse a mesh with an axis above 1 that ``what`` does not run
-    (``axes``: the ones it does)."""
+    (``axes``: the ones it does); ``reason`` says why (by default: not
+    ported yet, and the slice that holds it)."""
     big = [a for a, s in mesh_shape(mesh).items()
            if s > 1 and a not in axes]
     if big:
         raise NotImplementedError(
             f"{what} on a mesh with {', '.join(f'{a}>1' for a in big)}: "
-            f"not ported yet ({NEXT_SLICE})")
+            f"{reason or f'not ported yet ({NEXT_SLICE})'}")

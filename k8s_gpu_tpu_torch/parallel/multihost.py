@@ -14,6 +14,13 @@ collects the results.  On the card rank r drives card r mod the card
 count, so on a one-card host N ranks share it: NCCL refuses two ranks of
 one communicator on one card, gloo takes any number (``collectives``
 copies CUDA tensors through the host for it).
+
+``serve_ranks`` runs a meshed server's ranks on one host: each rank
+builds the serving meshes and calls ``fn(*meshes)``, which builds its
+``LmServer`` or ``ContinuousBatcher`` (``mesh=``) on its shards; rank 0
+drives and the others follow (``serve/meshed.py``).  In a pod of a real
+cluster the same ``fn`` runs after ``initialize_from_env`` on the mesh
+of ``mesh.build_mesh`` (or ``mesh.multislice_mesh``).
 """
 
 from __future__ import annotations
@@ -42,8 +49,9 @@ from ..utils.rendezvous import (  # noqa: F401
 )
 
 # The kernels a rank of the training path loads (built once in the
-# parent before ranks spawn on a card).
+# parent before ranks spawn on a card), and a rank of the serving path.
 TRAIN_KERNELS = ("flash_attention", "flash_attention_v2")
+SERVE_KERNELS = ("paged_attention",)
 
 
 def default_backend(device) -> str:
@@ -151,7 +159,8 @@ os.replace({out_path!r} + ".tmp", {out_path!r})
 
 
 def spawn_local_cluster(fn, num_processes: int = 2, timeout: float = 180.0,
-                        device="cuda", backend: str | None = None) -> list:
+                        device="cuda", backend: str | None = None,
+                        kernels: tuple = TRAIN_KERNELS) -> list:
     """Run ``fn()`` in *num_processes* ranks joined through a local
     coordinator, each on ``device`` (on the card: rank r drives card r
     mod the card count, so every rank card 0 on a one-card host) over
@@ -161,18 +170,18 @@ def spawn_local_cluster(fn, num_processes: int = 2, timeout: float = 180.0,
 
     One deadline covers every worker: a worker that dies fails the run
     within 10 s, one that hangs fails it at the deadline, and then every
-    worker still running is killed.  On the card the flash kernels are
-    built here first, so the ranks load them instead of building them
-    side by side."""
+    worker still running is killed.  On the card ``kernels`` (the flash
+    kernels by default) are built here first, so the ranks load them
+    instead of building them side by side."""
     device = resolve_device(device)
     backend = backend or default_backend(device)
-    if device.type == "cuda":
+    if device.type == "cuda" and kernels:
         from concurrent.futures import ThreadPoolExecutor
 
         from ..ops import _build
 
-        with ThreadPoolExecutor(len(TRAIN_KERNELS)) as pool:
-            list(pool.map(_build.load, TRAIN_KERNELS))
+        with ThreadPoolExecutor(len(kernels)) as pool:
+            list(pool.map(_build.load, kernels))
     envs = rendezvous_env(num_processes, port=_free_port())
     repo_root = str(Path(__file__).resolve().parent.parent.parent)
     with tempfile.TemporaryDirectory() as td:
@@ -221,3 +230,41 @@ def spawn_local_cluster(fn, num_processes: int = 2, timeout: float = 180.0,
                 for pid, why in failed)
             raise RuntimeError(f"multihost workers failed:\n{msgs}")
         return [pickle.loads(Path(o).read_bytes()) for o in outs]
+
+
+def _serve_rank(fn, mesh_configs, device_type: str):
+    from .mesh import build_mesh
+
+    return fn(*(build_mesh(c, device_type=device_type)
+                for c in mesh_configs))
+
+
+def serve_ranks(fn, *mesh_configs, timeout: float = 300.0, device="cuda",
+                backend: str | None = None) -> list:
+    """Run a meshed server's ranks on this host: one process a rank
+    (``spawn_local_cluster``; gloo on the CPU, by default nccl on
+    cards), each building the serving mesh of every ``MeshConfig`` given
+    (all of one size: the world's) and calling ``fn(*meshes)``; returns
+    every rank's result, by rank.  ``fn`` pickles by reference (a
+    top-level function or a ``functools.partial`` of one).  Rank 0 is
+    the leader: ``fn`` serves its requests there and stops the server,
+    which ends every other rank's loop (``LmServer.wait``)."""
+    import functools
+    import math
+
+    from .mesh import MeshConfig
+
+    sizes = set()
+    for c in mesh_configs:
+        if not isinstance(c, MeshConfig) or min(
+                c.dp, c.pp, c.ep, c.sp, c.tp) < 1:
+            raise ValueError("serve_ranks takes MeshConfigs with every "
+                             "axis size given")
+        sizes.add(math.prod((c.dp, c.pp, c.ep, c.sp, c.tp)))
+    if len(sizes) != 1:
+        raise ValueError(f"the meshes span different worlds: {sizes}")
+    return spawn_local_cluster(
+        functools.partial(_serve_rank, fn, mesh_configs,
+                          resolve_device(device).type),
+        sizes.pop(), timeout=timeout, device=device, backend=backend,
+        kernels=SERVE_KERNELS)

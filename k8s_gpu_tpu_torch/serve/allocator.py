@@ -112,6 +112,7 @@ class AllocatorMixin:
         ``include_blocks=False`` skips the bodies; ``hashes`` (chain-hash
         bytes) exports exactly those blocks, as the disaggregated prefill
         handover does for one prompt.  ValueError on the dense pool."""
+        self._refuse_on_mesh("block migration")
         if not self.paged:
             raise ValueError("block migration requires paged KV mode")
         cache = self._dev["cache"]
@@ -160,6 +161,7 @@ class AllocatorMixin:
         are skipped; a pool too full stops early (a shorter chain is still
         a valid warm prefix).  One ``index_copy_`` per leaf.  Returns the
         blocks spliced."""
+        self._refuse_on_mesh("block migration")
         if not self.paged:
             raise ValueError("block migration requires paged KV mode")
         if int(parsed.get("page_size", 0)) != self.page_size:

@@ -37,6 +37,17 @@ device) masks each constrained row's tokens by its DFA state (a request
 picks one with ``constraint=``).  ``submit_precomputed`` admits a row
 prefilled elsewhere (``disagg.DisaggregatedLm``).
 
+``mesh`` (a ``parallel.mesh`` mesh of dp and tp over the initialized
+world, one process a rank; ``params`` this rank's shards) serves on the
+mesh: heads over tp (the engine), the dense pool's rows over dp
+(``slots`` must divide over dp), the paged pool whole on every dp group.
+Global rank 0 schedules and every rank runs each device program
+(``meshed.py``); on the other ranks ``start()`` runs that loop and
+``submit`` raises.  The n-gram draft, int8 KV and the adapter bank (cut
+by the adapters' logical axes) run there; the neural draft, MoE, int8
+weights, migration and the disaggregated handover are refused
+(``_NOT_PORTED``).
+
 ``profiler`` (a serve-plane ``utils.profiler.PhaseProfiler``, a new one
 on ``metrics`` by default) times the scheduler thread's phases, always
 on as in the reference: the shares land in ``serve_phase_share{phase}``.
@@ -58,7 +69,8 @@ from ..device import resolve_device
 from ..utils.metrics import MetricsRegistry, global_metrics
 from ..utils.profiler import PhaseProfiler
 from .allocator import AllocatorMixin
-from .engine import InferenceEngine, _empty_cache, _empty_cache_paged
+from ..parallel.mesh import SERVE_NEXT, axis_rank, axis_size
+from .engine import InferenceEngine
 from .executor import ExecutorMixin
 from .journal import RequestJournal
 from .kv_blocks import BlockPool
@@ -71,10 +83,13 @@ from .scheduler import (
 __all__ = ["ContinuousBatcher", "Overloaded", "RequestHandle",
            "prompt_bucket"]
 
-# Options of the reference batcher that the port does not have yet, and
-# the ROADMAP queue 1 item that holds each.
+# What the port does not run yet with ``mesh=``, and the ROADMAP item
+# that holds each (migration and ``submit_precomputed`` refuse it too,
+# at their calls).
 _NOT_PORTED = {
-    "mesh": "queue 1 item 11, step 4 (serving on a mesh)",
+    "draft=(model, params)": SERVE_NEXT,
+    "an MoE model": SERVE_NEXT,
+    "int8 weights": SERVE_NEXT,
 }
 ROLES = ("both", "prefill", "decode")
 
@@ -119,13 +134,25 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
                 "combined: the DFA advances token-by-token through the "
                 "ACCEPTED prefix, which only exists after the verify"
             )
-        given = {"mesh": mesh}
-        for name, value in given.items():
-            if value is not None:
+        if mesh is not None:
+            refused = [what for what, on in (
+                ("draft=(model, params)",
+                 draft is not None and not isinstance(draft, str)),
+                ("an MoE model", model.cfg.moe),
+                ("int8 weights", any(isinstance(leaf, dict) for leaf in (
+                    params["embed"], params["head"],
+                    *params["blocks"].values()))),
+            ) if on]
+            if refused:
                 raise NotImplementedError(
-                    f"ContinuousBatcher({name}=...) is not ported yet "
-                    f"(ROADMAP {_NOT_PORTED[name]})"
-                )
+                    f"ContinuousBatcher(mesh=...) with {refused[0]}: not "
+                    f"ported yet ({_NOT_PORTED[refused[0]]})")
+            dp = axis_size(mesh, "dp")
+            if int(paged_blocks) <= 0 and slots % dp:
+                # The paged pool is whole on every dp group: any count.
+                raise ValueError(
+                    f"slots={slots} must divide over 'dp'={dp}: the pool "
+                    "cache's batch axis shards it")
         if role not in ROLES:
             raise ValueError(f"unknown batcher role {role!r}")
         self.role = role
@@ -137,9 +164,11 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
         self.device = resolve_device(device)
         self.engine = InferenceEngine(
             model, max_seq=max_seq, kv_quant=kv_quant, attn_impl=attn_impl,
-            device=self.device,
+            mesh=mesh, device=self.device,
         )
-        self.bank = AdapterBank(adapters or {}, device=self.device)
+        self.mesh = mesh
+        self.bank = AdapterBank(adapters or {}, device=self.device,
+                                mesh=mesh, base_axes=model.logical_axes())
         banked = constraints is not None and constraints.banked is not None
         if banked and int(constraints.allowed.shape[2]) != \
                 model.cfg.vocab_size:
@@ -199,6 +228,13 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
         self.page_size = max(8, int(page_size))
         self.paged = int(paged_blocks) > 0
         cfg, max_seq = self.engine.cfg, self.engine.max_seq
+        # This rank's rows: the dense pool's slice of them over dp, or all
+        # of them (the paged pool is whole on every dp group).
+        self._rows = slots
+        self._row0 = 0
+        if not self.paged and axis_size(mesh, "dp") > 1:
+            self._rows = slots // axis_size(mesh, "dp")
+            self._row0 = axis_rank(mesh, "dp") * self._rows
         # Block-pressure deferrals (always empty on the dense pool).
         self._overflow: collections.deque = collections.deque()
         if self.paged:
@@ -215,39 +251,37 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
             self.paged_blocks = int(paged_blocks)
             self._pool = BlockPool(self.paged_blocks)
             self._pages = np.zeros((slots, self._max_pages), np.int32)
-            cache = _empty_cache_paged(cfg, self.paged_blocks,
-                                       self.page_size, self.engine.kv_quant,
-                                       self.device)
+            cache = self.engine.empty_pool(self.paged_blocks,
+                                           self.page_size)
         else:
-            cache = _empty_cache(cfg, slots, max_seq, self.engine.kv_quant,
-                                 self.device)
+            cache = self.engine.empty_cache(self._rows)
         # Block-granular prefix sharing: base model, non-MoE only.
         self._paged_share = self.paged and bool(prefix_cache) and not cfg.moe
 
         i32 = dict(dtype=torch.int32, device=self.device)
         f32 = dict(dtype=torch.float32, device=self.device)
+        rows = self._rows
         self._dev = {
             "cache": cache,
-            "token": torch.zeros(slots, **i32),
-            "pos": torch.zeros(slots, **i32),      # cache position
-            "rope": torch.zeros(slots, **i32),     # RoPE position
-            "start": torch.zeros(slots, **i32),    # kv_start (left pad)
-            "temps": torch.zeros(slots, **f32),
-            "top_p": torch.zeros(slots, **f32),
-            "aidx": torch.zeros(slots, **i32),     # adapter
-            "cidx": torch.zeros(slots, **i32),     # constraint
-            "cstate": torch.zeros(slots, **i32),   # its DFA state
+            "token": torch.zeros(rows, **i32),
+            "pos": torch.zeros(rows, **i32),      # cache position
+            "rope": torch.zeros(rows, **i32),     # RoPE position
+            "start": torch.zeros(rows, **i32),    # kv_start (left pad)
+            "temps": torch.zeros(rows, **f32),
+            "top_p": torch.zeros(rows, **f32),
+            "aidx": torch.zeros(rows, **i32),     # adapter
+            "cidx": torch.zeros(rows, **i32),     # constraint
+            "cstate": torch.zeros(rows, **i32),   # its DFA state
         }
         if self.draft_engine is not None:
             # The draft's cache stays dense at the draft's dtype, even on
             # a paged or int8-KV target; prev is the stream token at
             # pos - 1 (the draft stays one position behind).
-            self._dev["d_cache"] = _empty_cache(
-                self.draft_engine.cfg, slots, max_seq, False, self.device)
-            self._dev["prev"] = torch.zeros(slots, **i32)
+            self._dev["d_cache"] = self.draft_engine.empty_cache(rows)
+            self._dev["prev"] = torch.zeros(rows, **i32)
         if self.spec_mode == "ngram":
             # hist[slot, p]: the stream token at position p, -1 unwritten.
-            self._dev["hist"] = torch.full((slots, max_seq), -1, **i32)
+            self._dev["hist"] = torch.full((rows, max_seq), -1, **i32)
         # Speculative telemetry (live rows only) and adaptive K: the window
         # resizes from the pooled rolling acceptance (_adaptive_k).
         self._spec_drafted = 0
@@ -291,9 +325,9 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
         self._prefix: collections.OrderedDict = collections.OrderedDict()
         self._prefix_cap = 4
         self._prefix_lock = threading.Lock()
-        # Host mirrors of the per-slot sampling state.
-        self._temps = [0.0] * slots
-        self._gens: list = [None] * slots
+        # Host mirrors of this rank's rows' sampling state.
+        self._temps = [0.0] * rows
+        self._gens: list = [None] * rows
 
         self._active: list = [None] * slots
         self.max_pending = max(0, int(max_pending))
@@ -314,6 +348,13 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
         # Device work dispatched: plain decode steps and speculative
         # verify sub-rounds (each one target forward over every slot).
         self.dispatched: collections.Counter = collections.Counter()
+        self._seam = None
+        self._thread_error = None
+        if mesh is not None:
+            from .meshed import Seam
+
+            self._seam = Seam(self, mesh)
+            self._seam.observe(self.metrics)
         self._thread = threading.Thread(
             target=self._run, name="continuous-batcher", daemon=True
         )
@@ -321,4 +362,14 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
     def _run(self) -> None:
         # Autograd state is per thread: the scheduler thread needs its own.
         with torch.inference_mode():
-            self._loop()
+            try:
+                if self.is_leader:
+                    self._loop()
+                else:
+                    self._seam.follow()
+            except BaseException as e:
+                self._thread_error = e
+                raise
+            finally:
+                if self._seam is not None:
+                    self._seam.unobserve()

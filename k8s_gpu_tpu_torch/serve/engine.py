@@ -28,6 +28,15 @@ s}`` leaves as int8 x int8 -> int32 (``quant.int8_dot``): the
 speculative draft's engine, where quantization error moves only the
 acceptance rate.
 
+On a mesh (``mesh=``, dp and tp only, as the reference's engine) the
+params are this rank's shards (``parallel.sharding.shard_params``): each
+block runs on the rank's H/tp query heads and KH/tp KV heads, its cache
+holds those KV heads, ``wo``'s and the MLP's partial sums and the
+vocabulary-parallel embedding lookup are summed over tp, and the head's
+vocabulary slices are gathered over tp in f32, so every rank of a tp
+group ends a forward with the same logits.  The engine runs whatever
+rows it is given: the batcher cuts rows over dp.
+
 ``adapters``/``adapter_idx`` (``prefill``, ``decode_step_multi``,
 ``extend_multi``): an ``AdapterBank``'s stacked tensors and each row's
 adapter; the q/k/v deltas come from the normed block input before RoPE,
@@ -43,10 +52,12 @@ from dataclasses import dataclass
 import torch
 
 from ..device import resolve_device
-from ..models.transformer import (
-    TransformerLM, emb_lookup, layer_params, wt,
-)
+from ..models.transformer import TransformerLM, layer_params, wt
 from ..ops.paged_attention import paged_attention
+from ..parallel.collectives import gather_from, reduce_from
+from ..parallel.mesh import (
+    SERVE_AXES, SERVE_NEXT, axis_group, axis_size, check_slice,
+)
 from .lora_bank import layer_slice, lora_delta
 from .quant import int8_dot
 
@@ -92,16 +103,22 @@ def gumbel_sample(logits, generator):
     return torch.argmax(logits.float() + g, dim=-1)
 
 
-def _empty_cache(cfg, batch: int, max_seq: int, kv_quant: bool, device):
-    shape = (cfg.n_layers, batch, cfg.kv_heads, max_seq, cfg.d_head)
+def _empty_cache(cfg, batch: int, max_seq: int, kv_quant: bool, device,
+                 kv_heads: int | None = None):
+    """Dense cache ``[L, batch, KH, max_seq, Dh]``; ``kv_heads``: a tp
+    rank's KH/tp (all of them by default)."""
+    shape = (cfg.n_layers, batch, kv_heads or cfg.kv_heads, max_seq,
+             cfg.d_head)
     return _zeros_cache(shape, cfg.dtype, kv_quant, device)
 
 
 def _empty_cache_paged(cfg, n_blocks: int, page: int, kv_quant: bool,
-                       device):
+                       device, kv_heads: int | None = None):
     """Paged KV pool ``[L, NB, KH, page, Dh]``; block 0 is the trash block
-    that retired rows' table entries point at."""
-    shape = (cfg.n_layers, n_blocks, cfg.kv_heads, page, cfg.d_head)
+    that retired rows' table entries point at.  ``kv_heads``: a tp rank's
+    KH/tp."""
+    shape = (cfg.n_layers, n_blocks, kv_heads or cfg.kv_heads, page,
+             cfg.d_head)
     return _zeros_cache(shape, cfg.dtype, kv_quant, device)
 
 
@@ -137,11 +154,12 @@ class InferenceEngine:
     (a dense draft model; MoE is refused, as in the reference: its int8
     experts dequantize through ``wt``).  An MoE model's prefill routes at
     the training forward's capacity; decode and ``extend_multi`` at full
-    capacity."""
+    capacity.  ``mesh``: serve over dp x tp (module docstring); MoE and
+    ``int8_compute`` are refused there."""
 
     def __init__(self, model: TransformerLM, max_seq: int | None = None,
                  kv_quant: bool = False, attn_impl: str | None = None,
-                 int8_compute: bool = False, device="cuda"):
+                 int8_compute: bool = False, mesh=None, device="cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -149,6 +167,24 @@ class InferenceEngine:
             )
         self.model = model
         self.cfg = model.cfg
+        self.mesh = mesh
+        check_slice(mesh, "serving", SERVE_AXES,
+                    reason="the reference serves on dp and tp only "
+                           "(ROADMAP.md queue 1 item 11, step 4)")
+        tp = axis_size(mesh, "tp")
+        if tp > 1 and self.cfg.kv_heads % tp != 0:
+            raise ValueError(
+                f"n_kv_heads={self.cfg.kv_heads} must be a multiple of "
+                f"tp={tp} — the KV cache's head axis shards over 'tp'"
+            )
+        if mesh is not None and (self.cfg.moe or int8_compute):
+            raise NotImplementedError(
+                f"{'MoE' if self.cfg.moe else 'int8_compute'} on a serving "
+                f"mesh: not ported yet ({SERVE_NEXT})")
+        # The group a rank's partial sums and vocabulary slices cross
+        # (None off a tp mesh), and the KV heads its cache holds.
+        self.tp_group = axis_group(mesh, "tp")
+        self.kv_heads = self.cfg.kv_heads // tp
         self.max_seq = max_seq or self.cfg.max_seq
         self.kv_quant = bool(kv_quant)
         self.attn_impl = attn_impl or self.cfg.attn_impl
@@ -167,6 +203,21 @@ class InferenceEngine:
     def _arange(self, n):
         return torch.arange(n, dtype=torch.int32, device=self.device)
 
+    def empty_cache(self, batch: int, max_seq: int | None = None):
+        """A zeroed dense cache of ``batch`` rows at this rank's KV
+        heads."""
+        return _empty_cache(self.cfg, batch, max_seq or self.max_seq,
+                            self.kv_quant, self.device, self.kv_heads)
+
+    def empty_pool(self, n_blocks: int, page: int):
+        """A zeroed paged pool at this rank's KV heads."""
+        return _empty_cache_paged(self.cfg, n_blocks, page, self.kv_quant,
+                                  self.device, self.kv_heads)
+
+    def _embed(self, params, tokens):
+        """The embedding lookup (vocabulary-parallel on a tp mesh)."""
+        return self.model._embed(params["embed"], tokens, self.mesh)
+
     # -- cache-aware blocks ------------------------------------------------
     def _attend_cached(self, q, k_cache, v_cache, kv_len_mask,
                        k_scale=None, v_scale=None):
@@ -178,7 +229,7 @@ class InferenceEngine:
             v_cache = v_cache.to(q.dtype) * v_scale[..., None].to(q.dtype)
         cfg = self.cfg
         scale = cfg.d_head ** -0.5
-        H, KH = cfg.n_heads, cfg.kv_heads
+        H, KH = q.shape[2], k_cache.shape[1]
         if H == KH:
             s = torch.einsum("bqhd,bhkd->bhqk", q, k_cache) * scale
             s = torch.where(kv_len_mask[:, None], s, -1e30)
@@ -342,7 +393,9 @@ class InferenceEngine:
             o_flat = o.reshape(o.shape[0], o.shape[1], -1)
             attn_out = attn_out + lora_delta(o_flat, lp_ad["wo"],
                                              adapter_idx, dt)
-        x = x + attn_out
+        # On a tp mesh each rank holds the partial sum of its heads (and
+        # its share of the adapter's (o A) B).
+        x = x + reduce_from(attn_out, self.tp_group)
         h2 = m._rmsnorm(x, lp["ln2"])
         if self.cfg.moe:
             full = (x.shape[1] == 1 if moe_full_capacity is None
@@ -351,7 +404,7 @@ class InferenceEngine:
                               token_mask=mask.any(-1))
             return x + y
         if not int8:
-            return x + m._dense_mlp(h2, lp)
+            return x + m._dense_mlp(h2, lp, self.mesh)
         g = int8_dot(h2, lp["wi_gate"], dt)
         u = int8_dot(h2, lp["wi_up"], dt)
         return x + int8_dot(torch.nn.functional.silu(g) * u, lp["wo_mlp"], dt)
@@ -369,13 +422,15 @@ class InferenceEngine:
         return self._head(params, x), cache
 
     def _head(self, params, x):
-        """Final RMSNorm + vocabulary projection, logits in f32."""
+        """Final RMSNorm + vocabulary projection, logits in f32 (on a tp
+        mesh the ranks' vocabulary slices gathered in f32)."""
         x = self.model._rmsnorm(x, params["final_norm"])
         if self.int8_compute and isinstance(params["head"], dict):
             return int8_dot(x, params["head"], self.cfg.dtype).float()
-        return torch.einsum(
+        logits = torch.einsum(
             "bsd,dv->bsv", x, wt(params["head"], self.cfg.dtype)
         ).float()
+        return gather_from(logits, self.tp_group, -1)
 
     # -- dense cache: one batch at one shared position --------------------
     @torch.no_grad()
@@ -388,12 +443,11 @@ class InferenceEngine:
         ``max_seq`` positions (the batcher passes its slot's row)."""
         B, S = tokens.shape
         if cache is None:
-            cache = _empty_cache(self.cfg, B, self.max_seq, self.kv_quant,
-                                 self.device)
+            cache = self.empty_cache(B)
         else:
             for arr in cache.values():
                 arr.zero_()
-        x = emb_lookup(params["embed"], tokens, self.cfg.dtype)
+        x = self._embed(params, tokens)
         q_idx = self._arange(S)
         positions = (q_idx - pad_left).clamp_min(0)
         t = q_idx[None, :]
@@ -410,7 +464,7 @@ class InferenceEngine:
         ``rope_pos`` defaults to ``pos``; slots below ``kv_start`` are
         masked; ``t_hi`` bounds the attention read."""
         B = token.shape[0]
-        x = emb_lookup(params["embed"], token, self.cfg.dtype)[:, None]
+        x = self._embed(params, token)[:, None]
         rope = pos if rope_pos is None else rope_pos
         T = t_hi if t_hi is not None else self.max_seq
         t = self._arange(T)
@@ -434,7 +488,7 @@ class InferenceEngine:
         to whole pages; without them ``cache`` is the dense [L, B, ...]
         cache.  ``t_hi`` bounds the read only: writes target the whole
         cache.  Returns (cache, logits [B, V])."""
-        x = emb_lookup(params["embed"], token, self.cfg.dtype)[:, None]
+        x = self._embed(params, token)[:, None]
         T = t_hi if t_hi is not None else self.max_seq
         if pages is not None:
             T = -(-T // page) * page
@@ -468,7 +522,7 @@ class InferenceEngine:
         t = self._arange(T)
         mask = ((t[None, None, :] <= q_pos[:, :, None])
                 & (t[None, None, :] >= kv_start[:, None, None]))  # [B,W,T]
-        x = emb_lookup(params["embed"], tokens, self.cfg.dtype)
+        x = self._embed(params, tokens)
         rope = rope_start[:, None] + self._arange(W)[None]
         logits, cache = self._run_blocks(
             params, x, cache, rope, start, mask, pages=pages, page=page,

@@ -35,6 +35,14 @@ the stream token at each position (-1 unwritten).  Every admission path
 seats them: a cold admission prefills the draft on the same padded shape,
 every other path zeroes the draft row, and the history holds the prompt
 at its cache positions.
+
+On a serving mesh every rank runs these methods on its own shards (the
+leader's descriptor of each call, ``meshed.py``).  The dense pool cuts
+its rows over dp: a rank holds the ``_rows`` slots from ``_row0`` on,
+its state arrays index them locally (``_local``), an admission to a
+slot of another dp group does nothing here, and ``meshed.py`` collects
+the first token and the rounds' tokens over dp.  The paged pool stays
+whole on every dp group, which runs every row.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from .engine import _empty_cache, gumbel_sample, nucleus_mask
+from .engine import gumbel_sample, nucleus_mask
 from .speculative import reject_row
 
 
@@ -172,10 +180,24 @@ class ExecutorMixin:
                                                          first.long()], 0)
         return first, lp, cstate.to(torch.int32)
 
+    def _local(self, slot: int):
+        """``slot``'s index among this rank's rows, or None when another
+        dp group holds it."""
+        i = slot - self._row0
+        return i if 0 <= i < self._rows else None
+
+    def _elsewhere(self):
+        """What an admission to another dp group's slot returns here: a
+        zero token and log-prob, which the dp sum over the groups
+        leaves as the owner's."""
+        return (torch.zeros((), dtype=torch.int32, device=self.device),
+                torch.zeros((), dtype=torch.float32, device=self.device))
+
     def _slot_row(self, slot: int) -> dict:
         """The dense pool's row of ``slot`` as [L, 1, KH, max_seq, ...]
         views: writes into it land in the pool."""
-        return {name: arr[:, slot:slot + 1]
+        i = self._local(slot)
+        return {name: arr[:, i:i + 1]
                 for name, arr in self._dev["cache"].items()}
 
     def _splice_dense(self, row: dict, slot: int) -> None:
@@ -184,11 +206,12 @@ class ExecutorMixin:
         does not, so the slot and the row's length are checked."""
         if not 0 <= slot < self.slots:
             raise IndexError(f"slot {slot} outside [0, {self.slots})")
+        i = self._local(slot)
         for name, arr in self._dev["cache"].items():
             if row[name].shape[3] != arr.shape[3]:
                 raise ValueError(f"row of {row[name].shape[3]} positions "
                                  f"for a pool of {arr.shape[3]}")
-            arr[:, slot:slot + 1].copy_(row[name])
+            arr[:, i:i + 1].copy_(row[name])
 
     def _splice_paged(self, row: dict, page_row, n_copy: int) -> None:
         """Scatter the first ``n_copy`` positions of a [L, 1, KH, T, ...]
@@ -210,7 +233,8 @@ class ExecutorMixin:
     def _draft_row(self, slot: int) -> dict:
         """The draft cache's row of ``slot`` as [L, 1, KH, max_seq, ...]
         views."""
-        return {name: arr[:, slot:slot + 1]
+        i = self._local(slot)
+        return {name: arr[:, i:i + 1]
                 for name, arr in self._dev["d_cache"].items()}
 
     def _seat(self, slot: int, first, pos: int, rope: int, start: int,
@@ -227,6 +251,7 @@ class ExecutorMixin:
         admission prefilled it (``draft_ready``): a previous tenant's
         draft K/V would poison this request's proposals."""
         dev = self._dev
+        slot = self._local(slot)
         dev["token"][slot] = first
         dev["pos"][slot] = pos
         dev["rope"][slot] = rope
@@ -261,14 +286,15 @@ class ExecutorMixin:
         bucket - pad, start = pad.  A neural draft is prefilled on the
         same padded shape into its own row.  The prompt runs under the
         row's adapter (``aidx``)."""
+        if self._local(slot) is None:
+            return self._elsewhere()
         bucket = padded.shape[1]
         bank = self._bank_args(aidx)
         if page_row is None:
             _, last = self.engine.prefill(self.params, padded, pad,
                                           cache=self._slot_row(slot), **bank)
         else:
-            row = _empty_cache(self.engine.cfg, 1, bucket,
-                               self.engine.kv_quant, self.device)
+            row = self.engine.empty_cache(1, bucket)
             row, last = self.engine.prefill(self.params, padded, pad,
                                             cache=row, **bank)
             self._splice_paged(row, page_row, bucket)
@@ -304,6 +330,8 @@ class ExecutorMixin:
         in place.  Pad K/V land past the live length, where decode
         overwrites them and masks never read them; the entry itself is
         left as it was.  Entries hold base-model K/V: base rows only."""
+        if self._local(slot) is None:
+            return self._elsewhere()
         self._splice_dense(entry["cache"], slot)
         base = torch.full((1,), base_pos, dtype=torch.int32,
                           device=self.device)
@@ -330,6 +358,8 @@ class ExecutorMixin:
         pool), whose geometry comes with the row.  On the paged pool the
         row's first ``pos`` positions splice into the blocks ``page_row``
         names."""
+        if self._local(slot) is None:
+            return self._elsewhere()
         if page_row is None:
             self._splice_dense(row, slot)
         else:
@@ -340,6 +370,32 @@ class ExecutorMixin:
         self._seat(slot, first, pos, rope, start, temp, top_p, gen, spec,
                    aidx=aidx, cidx=cidx, cstate=cstate)
         return first, lp
+
+    def _admit_entry_dev(self, entry: dict, slot: int, temp: float,
+                         seed: int, top_p: float, spec=None, cidx: int = 0):
+        """A prompt that is exactly a cached prefix entry (dense pool):
+        ``_admit_exact_dev`` on the entry's row and logits."""
+        n = entry["n"]
+        return self._admit_exact_dev(entry["cache"], entry["logits"], n, n,
+                                     0, slot, temp, seed, top_p, spec,
+                                     cidx=cidx)
+
+    def _prefix_dev(self, key: bytes, padded, n: int, evict=()) -> None:
+        """Prefill a prefix entry (dense pool): a right-padded
+        ``extend_multi`` over ``padded`` [1, W] on a fresh row, kept under
+        ``key`` with its logits at the last of its ``n`` tokens; the
+        entries ``evict`` names go first (the caller keeps the LRU
+        order)."""
+        zero = torch.zeros(1, dtype=torch.int32, device=self.device)
+        cache, logits = self.engine.extend_multi(
+            self.params, self.engine.empty_cache(1), padded, zero, zero,
+            zero)
+        with self._prefix_lock:
+            for old in evict:
+                self._prefix.pop(old, None)
+            self._prefix[key] = {"cache": cache, "logits": logits[:, n - 1],
+                                 "n": n, "key": key}
+            self._prefix.move_to_end(key)
 
     def _admit_paged_dev(self, suffix, n_real: int, slot: int, temp: float,
                          seed: int, base_pos: int, top_p: float, page_row,
@@ -384,7 +440,7 @@ class ExecutorMixin:
         bank = self._bank_args(dev["aidx"])
         dead = self.eos_id if self.eos_id >= 0 else 0
         sampled = [i for i, t in enumerate(self._temps) if t > 0]
-        rows = torch.arange(self.slots, device=self.device)
+        rows = torch.arange(self._rows, device=self.device)
         toks, lps = [], []
         for _ in range(n_steps):
             _, logits = self.engine.decode_step_multi(
@@ -414,7 +470,7 @@ class ExecutorMixin:
                 if ctab is not None:
                     lp = torch.where(any_ok, lp, 0.0)
             else:
-                lp = torch.zeros(self.slots, device=self.device)
+                lp = torch.zeros(self._rows, device=self.device)
             if self.spec_mode == "ngram":
                 _write_dropped(dev["hist"], pos + 1, nxt)
             toks.append(nxt)

@@ -15,6 +15,14 @@ row gathering its own adapter by index:
 
 The delta is two batched products (``torch.bmm``), as the reference's
 are ``jnp.einsum`` calls outside any kernel.
+
+On a serving mesh (``mesh=``) the bank holds this rank's slices, cut by
+the adapters' logical axes (``LoraAdapter.logical_axes``, the
+reference's): A takes the base leaf's input axes, B its output axes, the
+rank axis stays whole.  For ``wq``, ``wk`` and ``wv`` B is cut on the
+heads, so each rank's delta lands on its own heads; for ``wo`` A is cut
+on its input, so each rank adds its partial ``(o A) B`` before the tp
+sum of ``wo``'s product.
 """
 
 from __future__ import annotations
@@ -35,15 +43,25 @@ def _f32(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
+def _tensors(tree):
+    """An adapter tree with every leaf a host tensor (arrays converted)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return tree if torch.is_tensor(tree) else torch.from_numpy(_f32(tree))
+
+
 class AdapterBank:
     """``names[0]`` is always ``"__base__"`` (the zero adapter)."""
 
-    def __init__(self, adapters: dict, device="cuda"):
+    def __init__(self, adapters: dict, device="cuda", mesh=None,
+                 base_axes: dict | None = None):
         """``adapters``: name -> (lora params from ``LoraAdapter.init``,
-        its ``LoraConfig``), leaves as tensors or arrays.  Only the
-        attention projections are banked; an adapter carrying another
-        target is refused rather than served as a different model than
-        was trained."""
+        its ``LoraConfig``), leaves as tensors or arrays, whole.  Only
+        the attention projections are banked; an adapter carrying
+        another target is refused rather than served as a different
+        model than was trained.  ``mesh`` and ``base_axes`` (the base
+        model's ``logical_axes()``): keep this rank's slices (module
+        docstring)."""
         self.device = resolve_device(device)
         self.names = ["__base__"] + sorted(adapters)
         for name, (tree, _) in adapters.items():
@@ -58,6 +76,15 @@ class AdapterBank:
         if not adapters:
             self.banked = None
             return
+        if mesh is not None:
+            from ..parallel.sharding import shard_params
+            from ..train.lora import LoraAdapter
+
+            adapters = {
+                name: (shard_params(_tensors(tree),
+                                    LoraAdapter(cfg).logical_axes(base_axes),
+                                    mesh), cfg)
+                for name, (tree, cfg) in adapters.items()}
         ranks = {
             name: next(iter(tree["blocks"].values()))["a"].shape[-1]
             for name, (tree, _) in adapters.items()

@@ -62,6 +62,12 @@ its ``tokens``; ``speculative=True`` on spec rounds), each recorded with
 the request's context as explicit parent: the scheduler thread never
 reads the HTTP thread's context.  Both submits fire the ``serve.submit``
 fault site (``error``/``timeout`` only).
+
+On a serving mesh (``meshed.py``) this scheduler runs on the leader
+only, and every device program goes through ``_dev_call``, so each
+rank runs it; the dense pool's ``precache_prefix`` then runs on the
+scheduler thread (``run_quiesced``), never on the caller's, so every
+rank issues its collectives in one order.
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..parallel.mesh import SERVE_NEXT
 from ..utils.faults import global_faults
 from ..utils.tracing import global_tracer
 from .engine import _empty_cache
@@ -241,13 +248,40 @@ class SchedulerMixin:
 
     # -- public surface ----------------------------------------------------
     def start(self):
+        """Start the scheduler thread (a mesh's follower: its loop of
+        the leader's device calls)."""
         self._thread.start()
         return self
 
     def stop(self) -> None:
+        """Stop the scheduler, which on a mesh also ends every
+        follower's loop; a follower waits for that."""
+        if self._seam is not None and not self._seam.is_leader:
+            self.wait()
+            return
         self._stop.set()
         self._wake.set()
         self._thread.join(timeout=30)
+
+    def wait(self, timeout: float | None = None) -> None:
+        """Block until the scheduler thread (a follower's loop) ends; a
+        follower's loop that failed raises its error here."""
+        self._thread.join(timeout=timeout)
+        if self._thread_error is not None:
+            raise RuntimeError("batcher thread failed") from self._thread_error
+
+    @property
+    def is_leader(self) -> bool:
+        """True off a mesh and on global rank 0: the rank that takes
+        requests."""
+        return self._seam is None or self._seam.is_leader
+
+    def _dev_call(self, name: str, *args, **kw):
+        """Run the executor's device program ``name`` (on every rank of a
+        mesh, through the seam)."""
+        if self._seam is None:
+            return getattr(self, name)(*args, **kw)
+        return self._seam.call(name, args, kw)
 
     def submit(self, ids, max_new_tokens: int = 32, temperature: float = 0.0,
                top_p: float = 0.0, seed: int = 0,
@@ -328,6 +362,7 @@ class SchedulerMixin:
         queued before the call (an event recorded here)."""
         global_faults.fire("serve.submit", error_type=RuntimeError,
                            only=("error", "timeout"))
+        self._refuse_on_mesh("the disaggregated prefill handover")
         aidx = self.bank.index(adapter)
         cidx = self._constraint_index(constraint)
         n_tokens, pad = int(n_tokens), int(pad)
@@ -390,8 +425,16 @@ class SchedulerMixin:
             )
         return self.cbank.index(name)
 
+    def _refuse_on_mesh(self, what: str) -> None:
+        if self._seam is not None:
+            raise NotImplementedError(
+                f"{what} on a serving mesh: not ported yet ({SERVE_NEXT})")
+
     def _enqueue(self, req: _Request) -> RequestHandle:
         """Put a request on the pending queue (the tail of both submits)."""
+        if not self.is_leader:
+            raise RuntimeError("a follower rank takes no requests: submit "
+                               "to global rank 0")
         with self._lifecycle:
             if self._dead:
                 raise RuntimeError(
@@ -437,26 +480,25 @@ class SchedulerMixin:
                 )
             self.submit(ids, max_new_tokens=1).result()
             return
-        n = int(ids.size)
-        # The caller's (HTTP) thread: its own autograd state.
-        with torch.inference_mode():
-            zero = torch.zeros(1, dtype=torch.int32, device=self.device)
-            cache, logits = self.engine.extend_multi(
-                self.params,
-                _empty_cache(self.engine.cfg, 1, self.engine.max_seq,
-                             self.engine.kv_quant, self.device),
-                self._right_padded(ids), zero, zero, zero,
-            )
-            logits = logits[:, n - 1]
-        # The scheduler reads the entry from its own thread: the row must
-        # have landed before the entry can be matched.
-        self._sync()
+        if self._seam is None:
+            # The caller's (HTTP) thread: its own autograd state.
+            with torch.inference_mode():
+                self._precache_dense(ids)
+        else:
+            self.run_quiesced(lambda: self._precache_dense(ids))
+
+    def _precache_dense(self, ids: np.ndarray) -> None:
+        """The dense pool's precache: the entry prefilled under its key
+        (``_prefix_dev``), the LRU's evictions named in the same call;
+        synchronised, since the scheduler reads the entry from its own
+        thread and the row must have landed before it can match."""
         key = ids.tobytes()
         with self._prefix_lock:
-            self._prefix[key] = {"cache": cache, "logits": logits, "n": n}
-            self._prefix.move_to_end(key)
-            while len(self._prefix) > self._prefix_cap:
-                self._prefix.popitem(last=False)
+            keep = [k for k in self._prefix if k != key]
+            evict = keep[:max(0, len(keep) + 1 - self._prefix_cap)]
+        self._dev_call("_prefix_dev", key, self._right_padded(ids),
+                       int(ids.size), evict)
+        self._sync()
 
     def _match_prefix(self, ids: np.ndarray):
         """Longest cached prefix of ``ids`` (LRU-touched), or None."""
@@ -620,10 +662,10 @@ class SchedulerMixin:
             spec = None
             if self.spec_mode is not None:
                 spec = (0, self._hist_row(req.ids, pos))
-            first, lp = self._admit_exact_dev(
-                row, logits, pos, rope, start, slot, req.temperature,
-                req.seed, req.top_p, spec, aidx=req.aidx, cidx=req.cidx,
-                page_row=page_row)
+            first, lp = self._dev_call(
+                "_admit_exact_dev", row, logits, pos, rope, start, slot,
+                req.temperature, req.seed, req.top_p, spec, aidx=req.aidx,
+                cidx=req.cidx, page_row=page_row)
             # The row now lives in the pool: drop it and release the
             # prefill pool's hold.
             req.precomputed = req.ready = None
@@ -636,9 +678,10 @@ class SchedulerMixin:
             page_row = self._set_page_row(slot, req.blocks)
             s_tok = req.prefix_tokens
             req.pos_hint = n
-            first, lp = self._admit_paged_dev(
-                self._right_padded(req.ids[s_tok:]), n - s_tok, slot,
-                req.temperature, req.seed, s_tok, req.top_p, page_row,
+            first, lp = self._dev_call(
+                "_admit_paged_dev", self._right_padded(req.ids[s_tok:]),
+                n - s_tok, slot, req.temperature, req.seed, s_tok,
+                req.top_p, page_row,
                 self._spec_seat(req.ids, n), cidx=req.cidx,
             )
             return self._seated(req, slot, first, lp,
@@ -648,10 +691,9 @@ class SchedulerMixin:
         if entry is not None and entry["n"] == n:
             # The prompt is a cached prefix: splice + sample, no forward.
             req.pos_hint = n
-            first, lp = self._admit_exact_dev(
-                entry["cache"], entry["logits"], n, n, 0, slot,
-                req.temperature, req.seed, req.top_p,
-                self._spec_seat(req.ids, n), cidx=req.cidx)
+            first, lp = self._dev_call(
+                "_admit_entry_dev", entry, slot, req.temperature, req.seed,
+                req.top_p, self._spec_seat(req.ids, n), cidx=req.cidx)
             path = "prefix_exact"
         elif entry is not None and (
             entry["n"] + _suffix_bucket(n - entry["n"])
@@ -659,9 +701,9 @@ class SchedulerMixin:
         ):
             p = entry["n"]
             req.pos_hint = n
-            first, lp = self._admit_prefix_dev(
-                entry, self._right_padded(req.ids[p:]), n - p, slot,
-                req.temperature, req.seed, p, req.top_p,
+            first, lp = self._dev_call(
+                "_admit_prefix_dev", entry, self._right_padded(req.ids[p:]),
+                n - p, slot, req.temperature, req.seed, p, req.top_p,
                 self._spec_seat(req.ids, n), cidx=req.cidx,
             )
             path = "prefix_suffix"
@@ -672,9 +714,9 @@ class SchedulerMixin:
             # the host page table, and the prefilled row splices into it.
             page_row = (self._set_page_row(slot, req.blocks)
                         if self.paged else None)
-            first, lp = self._admit_dev(
-                padded, slot, req.temperature, req.seed, pad, req.top_p,
-                page_row, self._spec_seat(req.ids, padded.shape[1]),
+            first, lp = self._dev_call(
+                "_admit_dev", padded, slot, req.temperature, req.seed, pad,
+                req.top_p, page_row, self._spec_seat(req.ids, padded.shape[1]),
                 aidx=req.aidx, cidx=req.cidx,
             )
             # A matched entry whose suffix bucket overruns max_seq
@@ -725,9 +767,9 @@ class SchedulerMixin:
         n_steps = self.steps_per_round
         req.pos_hint = padded.shape[1]
         t_hi = self._t_hi([(slot, req)], 1 + n_steps)
-        first, lp, toks, lps = self._admit_round_dev(
-            padded, slot, req.temperature, req.seed, pad, req.top_p,
-            0.0 < req.top_p < 1.0, n_steps, t_hi, aidx=req.aidx,
+        first, lp, toks, lps = self._dev_call(
+            "_admit_round_dev", padded, slot, req.temperature, req.seed, pad,
+            req.top_p, 0.0 < req.top_p < 1.0, n_steps, t_hi, aidx=req.aidx,
             cidx=req.cidx,
         )
         self._seated(req, slot, first, lp, "cold_fused")
@@ -944,7 +986,8 @@ class SchedulerMixin:
             n_steps = next((b for b in self.solo_buckets if b >= shared_rem),
                            self.solo_buckets[-1])
         t_hi = self._t_hi(live, n_steps)
-        toks, lps = self._round_dev(use_top_p, n_steps, t_hi, pages)
+        toks, lps = self._dev_call("_round_dev", use_top_p, n_steps, t_hi,
+                                   pages)
         self.dispatched["decode_steps"] += n_steps
         if self.paged and self.engine.attn_impl == "paged_kernel":
             self.metrics.inc("serve_paged_kernel_rounds_total")
@@ -982,8 +1025,9 @@ class SchedulerMixin:
         # self time keeps the gate and the sizing.
         with self.profiler.phase("spec_draft"):
             if self.spec_mode == "ngram":
-                toks, ns, lps = self._round_spec_ngram_dev(
-                    use_top_p, n_rounds, t_hi, K, pages)
+                toks, ns, lps = self._dev_call(
+                    "_round_spec_ngram_dev", use_top_p, n_rounds, t_hi, K,
+                    pages)
             else:
                 toks, ns, lps = self._round_spec_dev(
                     use_top_p, n_rounds, t_hi, K, pages)
@@ -1444,6 +1488,13 @@ class SchedulerMixin:
         except Exception:
             log.exception("batcher scheduler died; draining requests")
         finally:
+            if self._seam is not None:
+                # End every follower's loop (the last call on this rank's
+                # collectives).
+                try:
+                    self._seam.close()
+                except Exception:
+                    log.exception("could not end the followers' loops")
             # Drain on any exit: callers must not block on .result()
             # forever, and their streams are marked aborted.
             with self._lifecycle:

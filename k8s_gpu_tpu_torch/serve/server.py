@@ -51,6 +51,13 @@ profiler) are what a ``utils.obs.MetricsServer`` serves at
 ``/debug/traces``.  ``/admin/export`` and ``/admin/import`` fire the
 ``migrate.export``/``migrate.import`` fault sites (``error``/``timeout``:
 503 + Retry-After).
+
+On a serving mesh (``mesh=``, ``params`` this rank's shards) every rank
+builds the server, but only global rank 0, the batcher's leader, binds
+the HTTP port (``port`` is None elsewhere); the other ranks' ``start()``
+runs the batcher's follower loop, and ``wait()`` or ``stop()`` there
+returns once the leader stops.  ``/admin/export``, ``/admin/import`` and
+``/prefill`` answer 501 on a mesh, naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..data.tokenizer import BpeTokenizer
+from ..parallel.mesh import SERVE_NEXT
 from ..utils.faults import global_faults
 from ..utils.obs import RequestMetricsMixin
 from .batcher import ContinuousBatcher
@@ -95,7 +103,8 @@ class LmServer:
     ``constraints``: name -> regex, compiled against this tokenizer's
     vocabulary (``tokenizer.decode([i])`` for every id) into a
     ``ConstraintBank``, picked by a request's ``"constraint"``; give
-    ``eos_id`` with them, so dead-ended rows retire."""
+    ``eos_id`` with them, so dead-ended rows retire.  ``mesh``: serve on
+    a dp x tp mesh (module docstring)."""
 
     def __init__(self, model, params, tokenizer: BpeTokenizer,
                  host: str = "127.0.0.1", port: int = 0,
@@ -106,7 +115,7 @@ class LmServer:
                  attn_impl: str | None = None, paged_blocks: int = 0,
                  page_size: int = 64, max_pending: int = 64,
                  metrics=None, name: str = "", role: str = "both",
-                 device="cuda"):
+                 mesh=None, device="cuda"):
         cbank = None
         if constraints:
             token_strings = [tokenizer.decode([i])
@@ -119,8 +128,9 @@ class LmServer:
             attn_impl=attn_impl,
             paged_blocks=paged_blocks, page_size=page_size,
             max_pending=max_pending, metrics=metrics, role=role,
-            device=device,
+            mesh=mesh, device=device,
         )
+        self.mesh = mesh
         self.journal = self.batcher.journal
         self.profiler = self.batcher.profiler
         self.tokenizer = tokenizer
@@ -194,7 +204,14 @@ class LmServer:
                     outer.batcher.precache_prefix(ids)
                 except ValueError as e:
                     return self._json(400, {"error": str(e)})
+                except (RuntimeError, TimeoutError) as e:
+                    return self._unavailable(e)
                 return self._json(200, {"cached_tokens": int(ids.size)})
+
+            def _not_on_mesh(self, what):
+                return self._json(501, {
+                    "error": f"{what} on a serving mesh: not ported yet "
+                             f"({SERVE_NEXT})"})
 
             def _unavailable(self, e):
                 return self._json(503, {"error": str(e)},
@@ -207,6 +224,8 @@ class LmServer:
                 it from the imported chain (sampling is seeded per
                 request).  No ``migrating`` latch: a per-chain export on
                 a worker the gateway routes no decode to."""
+                if outer.mesh is not None:
+                    return self._not_on_mesh("/prefill")
                 prompt_ids = body.get("prompt_ids")
                 if not _ids_ok(prompt_ids):
                     return self._json(400, {
@@ -285,6 +304,8 @@ class LmServer:
                 streams as migrated, ``include_blocks=false`` skips the
                 bodies.  400 on the dense pool, 503 when the scheduler
                 is stopped or no boundary comes."""
+                if outer.mesh is not None:
+                    return self._not_on_mesh("/admin/export")
                 abort_live = bool(body.get("abort_live", False))
                 include_blocks = bool(body.get("include_blocks", True))
                 try:
@@ -312,6 +333,8 @@ class LmServer:
                 """Splice a payload's blocks into the pool through a
                 quiesce barrier; a malformed payload answers 400 before
                 the pool changes."""
+                if outer.mesh is not None:
+                    return self._not_on_mesh("/admin/import")
                 try:
                     global_faults.fire("migrate.import",
                                        error_type=RuntimeError,
@@ -538,11 +561,15 @@ class LmServer:
             def log_message(self, *args):  # no per-request stderr
                 pass
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
-        self.port = self._httpd.server_address[1]
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, name="lm-server", daemon=True
-        )
+        self._httpd = self._thread = None
+        self.port = None
+        if self.batcher.is_leader:
+            self._httpd = ThreadingHTTPServer((host, port), Handler)
+            self.port = self._httpd.server_address[1]
+            self._thread = threading.Thread(
+                target=self._httpd.serve_forever, name="lm-server",
+                daemon=True
+            )
 
     def readiness(self) -> dict:
         """/readyz: ready when the scheduler is alive, has served a token,
@@ -578,11 +605,18 @@ class LmServer:
 
     def start(self) -> "LmServer":
         self.batcher.start()
-        self._thread.start()
+        if self._thread is not None:
+            self._thread.start()
         return self
 
+    def wait(self) -> None:
+        """Block until the batcher stops (a mesh's follower: until the
+        leader stops)."""
+        self.batcher.wait()
+
     def stop(self) -> None:
-        self._httpd.shutdown()
-        self._httpd.server_close()
-        self._thread.join(timeout=2)
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._thread.join(timeout=2)
         self.batcher.stop()

@@ -11,8 +11,14 @@ kernels included) as the base model's own training step.
 ``LoraModel`` is a drop-in model for ``train.Trainer``: ``init(seed,
 dtype)`` makes the adapter tree from an explicit ``torch.Generator`` on
 the base model's device, and ``loss`` differentiates the adapters only.
-The sharding rules of the reference (``logical_axes``) belong to the
-parallel plane, not ported yet (ROADMAP queue 1 item 11).
+
+On a mesh of dp, sp and tp (``mesh_axes``) the adapters are cut by their
+logical axes (the reference's ``logical_axes``) and the base by the
+model's: ``loss`` merges this rank's shards.  The half of an adapter
+that tp leaves whole (A of a leaf cut on its output, B of one cut on its
+input) enters the merge through ``copy_to``, so its gradient is summed
+over the tp ranks whose slices it fed, as GSPMD sums it in the
+reference.
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ..parallel.mesh import DATA_AXES, check_slice
+from ..parallel.collectives import copy_to
+from ..parallel.mesh import axis_group, check_slice
+from ..parallel.sharding import ParamRules, cut_axes, shard_params
 
 # For each adaptable leaf under "blocks": how many dims after the leading
 # layer axis are the matmul's input.  wq (L, D, H, Dh) maps D -> H*Dh, wo
@@ -130,21 +138,32 @@ class LoraAdapter:
             out[name] = {"a": (axes[0], "lora"), "b": ("lora", axes[n_in])}
         return out
 
-    def merge(self, base_params: dict, lora_params: dict) -> dict:
+    def merge(self, base_params: dict, lora_params: dict,
+              whole: dict | None = None) -> dict:
         """base + scale * (A @ B), reshaped to each leaf's shape and cast
-        to its dtype.  Functional: returns a new tree, base untouched."""
+        to its dtype.  Functional: returns a new tree, base untouched.
+        ``whole``: {(target, half): tp group} of the halves a tp mesh
+        leaves whole beside a cut partner, taken through ``copy_to``."""
         scale = self.cfg.scale
+        whole = whole or {}
+
+        def halves(name, ab):
+            return [copy_to(ab[h], whole[(name, h)]) if (name, h) in whole
+                    else ab[h] for h in ("a", "b")]
+
         merged = dict(base_params)
         merged["blocks"] = dict(base_params["blocks"])
         for name, ab in lora_params.get("blocks", {}).items():
             w = base_params["blocks"][name]
-            delta = torch.einsum("lir,lro->lio", ab["a"], ab["b"]) * scale
+            a, b = halves(name, ab)
+            delta = torch.einsum("lir,lro->lio", a, b) * scale
             merged["blocks"][name] = w + delta.reshape(w.shape).to(w.dtype)
         for name, ab in lora_params.items():
             if name == "blocks":
                 continue
             w = base_params[name]
-            delta = (ab["a"] @ ab["b"]) * scale
+            a, b = halves(name, ab)
+            delta = (a @ b) * scale
             merged[name] = w + delta.reshape(w.shape).to(w.dtype)
         return merged
 
@@ -154,9 +173,12 @@ class LoraModel:
     makes adapter parameters, ``loss`` differentiates the adapters only
     (the base leaves never take a gradient and stay bit-identical).
     ``Trainer(LoraModel(model, base_params), device=...)`` fine-tunes,
-    on a mesh of the data axes too (``loss`` takes ``mesh=``); tp and ep
-    (the sharded adapter bank, LoRA training on tp) wait for a later
-    slice."""
+    on a mesh of dp, sp and tp too (``loss`` takes ``mesh=``; ep and pp
+    are refused).  ``base_params`` is the whole tree; on a tp mesh
+    ``loss`` takes this rank's shards of it, cut once a mesh."""
+
+    # The mesh axes the fine-tune runs above size 1.
+    mesh_axes = ("dp", "sp", "tp")
 
     def __init__(self, model, base_params: dict,
                  cfg: LoraConfig | None = None):
@@ -165,6 +187,7 @@ class LoraModel:
         self.base_params = base_params
         self.cfg = cfg or LoraConfig()
         self.adapter = LoraAdapter(self.cfg)
+        self._meshed: dict = {}
 
     def init(self, seed: int = 0, dtype=torch.float32) -> dict:
         return self.adapter.init(seed, self.base_params, dtype)
@@ -172,9 +195,33 @@ class LoraModel:
     def logical_axes(self) -> dict:
         return self.adapter.logical_axes(self.model.logical_axes())
 
+    def _on_mesh(self, mesh) -> tuple:
+        """(this rank's base shards, the adapter halves ``merge`` takes
+        through ``copy_to``) on ``mesh``, made once a mesh."""
+        key = id(mesh)
+        if key not in self._meshed:
+            rules, tp = ParamRules(), axis_group(mesh, "tp")
+            whole = {}
+            base_axes = self.model.logical_axes()
+            for top, axes in self.logical_axes().items():
+                for name, ab in (axes.items() if top == "blocks"
+                                 else [(top, axes)]):
+                    for h, other in (("a", "b"), ("b", "a")):
+                        if (tp is not None
+                                and not cut_axes(rules.spec(ab[h]), mesh)
+                                and cut_axes(rules.spec(ab[other]), mesh)):
+                            whole[(name, h)] = tp
+            self._meshed[key] = (
+                shard_params(self.base_params, base_axes, mesh), whole)
+        return self._meshed[key]
+
     def loss(self, lora_params, tokens, targets, mesh=None):
-        check_slice(mesh, "LoRA", DATA_AXES)
-        merged = self.adapter.merge(self.base_params, lora_params)
+        check_slice(mesh, "LoRA", self.mesh_axes)
+        if mesh is None:
+            merged = self.adapter.merge(self.base_params, lora_params)
+        else:
+            base, whole = self._on_mesh(mesh)
+            merged = self.adapter.merge(base, lora_params, whole)
         return self.model.loss(merged, tokens, targets, mesh=mesh)
 
     @torch.no_grad()

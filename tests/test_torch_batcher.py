@@ -9,6 +9,8 @@ draws, so they are held to valid ids, the same ids for the same seed, and
 the reference's sampling distribution.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -138,13 +140,16 @@ _TOKS = [str(i) for i in range(DIMS["vocab_size"])]
 
 @pytest.mark.parametrize("kw,raises", [
     # Adapters and constraints are ported: each case holds the
-    # reference's behaviour for its arguments, and the mesh still raises.
+    # reference's behaviour for its arguments; a mesh beyond dp and tp
+    # (here ep 2) still raises.
     pytest.param(dict(draft="ngram", eos_id=0, constraints=ConstraintBank(
         {"d": "[0-9]+"}, _TOKS)), ValueError, id="kw0"),
     pytest.param(dict(adapters={}), None, id="kw1"),
     pytest.param(dict(constraints=ConstraintBank({}, _TOKS)), None,
                  id="kw2"),
-    pytest.param(dict(mesh=object()), NotImplementedError, id="kw3"),
+    pytest.param(dict(mesh=SimpleNamespace(
+        mesh_dim_names=("dp", "pp", "ep", "sp", "tp"),
+        mesh=np.zeros((1, 1, 2, 1, 1)))), NotImplementedError, id="kw3"),
 ])
 def test_unported_options_raise(kw, raises):
     args = dict(slots=2, paged_blocks=BLOCKS, page_size=PAGE, device="cpu")

@@ -294,6 +294,10 @@ def cuda():
 # (B, Sq, H, KH): R = 1 and 4 (decode route), 16 (decode route, 4-token
 # window), 80 (the window route in bf16, 16-row tiles in f32).
 ROUTE_SHAPES = [(3, 1, 8, 8), (3, 1, 8, 2), (2, 4, 8, 2), (2, 40, 4, 2)]
+# A tp rank's heads of the flagship's 8 on a serving mesh (tp 4: 2, tp 2:
+# 4) at the serving batch, decode and the verify window at K 4: fewer
+# (batch row, KV head) pairs, so the planner gives a tile more splits.
+TP_LOCAL_SHAPES = [(8, 1, 2, 2), (8, 1, 4, 4), (8, 5, 2, 2), (8, 5, 4, 4)]
 
 
 def _gpu_case(cuda, shape, kind, page, seed=0, Dh=64):
@@ -306,9 +310,9 @@ def _gpu_case(cuda, shape, kind, page, seed=0, Dh=64):
     c = _pool(np.random.default_rng(seed), B, Sq, H, KH, Dh, MP, page,
               quant=kind == "int8")
     c["pages"][1, 5:] = 0                      # row 1 owns 5 pages
-    start = [t_hi - Sq, 4 * page + page // 2 - Sq + 1, 3][:B]
-    start = [max(0, s) for s in start]
-    kv_start = [0, 3, 0][:B]
+    start = [t_hi - Sq, 4 * page + page // 2 - Sq + 1, 3]
+    start = [max(0, start[b % 3]) for b in range(B)]
+    kv_start = [(0, 3, 0)[b % 3] for b in range(B)]
     args, ks, vs = _torch(c, start, kv_start, dev=cuda)
     qt = torch.float32 if kind == "f32" else torch.bfloat16
     q, k, v = args[:3]
@@ -397,7 +401,7 @@ def test_cuda_one_split_and_many_agree(cuda, shape, kind):
 @pytest.mark.parametrize("blind", [False, True])
 @pytest.mark.parametrize("page", [16, 64])
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", ROUTE_SHAPES)
+@pytest.mark.parametrize("shape", ROUTE_SHAPES + TP_LOCAL_SHAPES)
 def test_cuda_splits_used_match_the_planner(cuda, shape, kind, page, blind):
     """The splits each tile took, as the kernel counts them, equal
     ``tile_splits`` (the Python mirror of the kernel's split_positions),

@@ -2,10 +2,10 @@
 mesh's sizes and errors, the sharding rules and logical axes, each
 rank's shards against the reference's ``devices_indices_map``, the
 zigzag tables, the ZeRO-1 axis, the trainer's attention path, bundles
-with the sequence-parallel field, and what the port still refuses (pp
-above 1; tp and ep for the LoRA model and the CNN; ``save_attn`` on an
-sp, tp or ep mesh or with MoE on a mesh; the batcher's ``mesh=``; a
-meshed trainer's optimizer state).  A mesh with more than one rank needs
+with the sequence-parallel field, and what the port still refuses (ep
+and pp for the LoRA model, tp, ep and pp for the CNN; ``save_attn`` on
+an sp, tp or ep mesh or with MoE on a mesh; serving on a mesh beyond dp
+and tp; a meshed trainer's optimizer state).  A mesh with more than one rank needs
 a process group, so the meshes here are stand-ins with a
 ``DeviceMesh``'s shape attributes and coordinates;
 ``test_torch_multihost.py`` and ``test_torch_tensor_parallel.py`` run
@@ -253,20 +253,30 @@ def test_sp_attention_bundle_loads(tmp_path):
 ])
 def test_meshes_beyond_dp_and_sp_name_the_next_slice(sizes):
     """tp, ep and pp, which the transformer runs: the consumers not
-    ported to them refuse them (the LoRA model's Trainer and loss, the
-    CNN's Trainer, ``save_attn``, the batcher's ``mesh=``, a meshed
-    optimizer state), each naming the next slice."""
+    ported to them refuse them (the LoRA model's Trainer and loss beyond
+    tp, the CNN's Trainer, ``save_attn``, the batcher's ``mesh=`` beyond
+    dp and tp, a meshed optimizer state), each naming the next slice or
+    the ROADMAP item; on dp and tp alone the LoRA model's Trainer and the
+    serving engine take the mesh."""
     from k8s_gpu_tpu_torch.models.cnn import SmallCnn
     from k8s_gpu_tpu_torch.serve.batcher import ContinuousBatcher
+    from k8s_gpu_tpu_torch.serve.engine import InferenceEngine
 
     mesh = fake_mesh(**sizes)
     tm = TransformerLM(TransformerConfig(**DIMS), device="cpu")
     toks = torch.zeros((1, 8), dtype=torch.long)
     lora = LoraModel(tm, tm.init(0), LoraConfig(rank=2))
-    with pytest.raises(NotImplementedError, match=NEXT):
+    if "ep" in sizes or "pp" in sizes:
+        with pytest.raises(NotImplementedError, match=NEXT):
+            Trainer(lora, TrainConfig(), device="cpu", mesh=mesh)
+        with pytest.raises(NotImplementedError, match=NEXT):
+            lora.loss(lora.init(0), toks, toks, mesh=mesh)
+        with pytest.raises(NotImplementedError, match=NEXT):
+            ContinuousBatcher(tm, tm.init(0), mesh=mesh, device="cpu")
+    else:
         Trainer(lora, TrainConfig(), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match=NEXT):
-        lora.loss(lora.init(0), toks, toks, mesh=mesh)
+        assert InferenceEngine(tm, mesh=mesh, device="cpu").kv_heads == (
+            DIMS["n_heads"] // sizes["tp"])
     with pytest.raises(NotImplementedError, match=NEXT):
         Trainer(SmallCnn(device="cpu"), TrainConfig(), device="cpu",
                 mesh=mesh)
@@ -274,8 +284,6 @@ def test_meshes_beyond_dp_and_sp_name_the_next_slice(sizes):
                        device="cpu")
     with pytest.raises(NotImplementedError, match=NEXT):
         sa.loss(sa.init(0), toks, toks, mesh=mesh)
-    with pytest.raises(NotImplementedError, match=NEXT):
-        ContinuousBatcher(tm, tm.init(0), mesh=mesh, device="cpu")
     tr = Trainer(tm, TrainConfig(), device="cpu", mesh=mesh)
     tr.init(0)
     with pytest.raises(NotImplementedError, match=NEXT):
