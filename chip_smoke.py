@@ -280,12 +280,34 @@ Phases, each of which fails the run on any error:
    admissions + verify sub-rounds + plain steps); (13d) tp 4 with a
    two-adapter bank beside the bank-less server: base rows after the
    first share blocks, adapter rows ``cold``, base streams against the
-   bank-less server's; each against one rank's streams on the whole
-   weights by the near-tie rule (top-2 gap 0.25); (13e) all of them and
-   int8 KV in float32 at 2 layers under the float32 rule (1e-4), and a
-   3-step LoRA fine-tune over dp 2 x tp 2 at 4 x 2048 against one
-   rank's (losses, the step-1 gradients and update within 1e-4).
-   Phases 10, 11 and 12 run 8 of the 16 layers (``PAR_LAYERS``).
+   bank-less server's; (13f) ``ContinuousBatcher(mesh=)`` on tp 4
+   paged, unshared (every admission prefills the draft row; a shared
+   one zeroes it, as the reference's executor does), with the target
+   as its own neural draft (a draft of random weights accepts nothing,
+   and then no round advances more than one token; the target's own
+   proposals are accepted, so rounds advance several tokens and carry
+   the draft's rows forward: at least one accepted token is required),
+   (13g) the same with ``draft_int8``, the
+   verify windows' launches on every rank read from the kernel
+   wrapper's count by query width, (13h) the MoE flagship (``MOE``) on
+   tp 4 paged and dp 2 x tp 2 dense, a departure passing at a logit gap
+   over the limit only where every rank's replay of the stream shows
+   a router choice unlike one rank's, each within a tie (bf16 2^-6,
+   float32 1e-5), (13i) tp 4 on int8 weights (the whole tree
+   quantized, then cut), each over the SRV_NEW_B-token jobs;
+   (13j) tp 4 paged streams the pair, /admin/export's blocks go into a
+   one-rank torch replica whose own export must be the same bytes,
+   /prefill's payload too (the replica streams the prompt over it), and
+   the replica's export comes back into a new tp 4 server with an
+   in-process prefill pool (``DisaggregatedLm``): the pair's second
+   shares the imported blocks, the mix's two are handed over
+   (``precomputed``, no kernel admission); export, /prefill and import
+   ms and MB; each against one rank's streams on the whole weights by
+   the near-tie rule (top-2 gap 0.25); (13e) all of them and int8 KV in
+   float32 at 2 layers under the float32 rule (1e-4), and a 3-step LoRA
+   fine-tune over dp 2 x tp 2 at 4 x 2048 against one rank's (losses,
+   the step-1 gradients and update within 1e-4).  Phases 10 and 11 run
+   ``PAR_LAYERS`` (4) of the 16 layers, phase 12 ``PP_LAYERS`` (8).
 
 It prints a ``{"kernels": [...]}`` line (each entry names the phase
 that launches it; each flash entry also with its
@@ -3870,36 +3892,68 @@ def _moe_identity_jobs(torch, rng, vocab: int) -> list:
             + [(ids(p), MOE_ID_NEW) for p in (33, 120, 500)])
 
 
-def _moe_departures(torch, engine, params, jobs, plain, other,
-                    limit) -> list:
-    """``_departures`` for an MoE model: the plain logits at a departure
-    come from the batcher's own computation, the capped prefill of the
-    left-padded prompt bucket, then the stream before it at full
-    capacity (``extend_multi``, which routes as decode does).  A prefill
-    over prompt and stream together would route at another capacity."""
+def _moe_forward(torch, engine, params, prompt, before) -> tuple:
+    """The batcher's own MoE computation of ``prompt`` and then the
+    stream ``before`` a token: the capped prefill of the left-padded
+    prompt bucket, then ``before`` at full capacity (``extend_multi``,
+    which routes as decode does); a prefill over both would route at
+    another capacity.  On a meshed engine every rank calls it alike.
+    Returns (the logits [V] at the last position, every layer's router
+    at every position of the prompt and ``before``: {"expert": [L, P]
+    top-1 choices, "gap": [L, P] top-2 probability gaps}, on the host)."""
     from k8s_gpu_tpu_torch.serve.scheduler import prompt_bucket
 
-    dev = engine.device
-    found = []
-    for i, ((prompt, _), a, b) in enumerate(zip(jobs, plain, other)):
-        d = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
-        if d is None:
-            continue
-        n = len(prompt)
-        bucket = prompt_bucket(n, engine.max_seq)
+    dev, model = engine.device, engine.model
+    n = len(prompt)
+    bucket = prompt_bucket(n, engine.max_seq)
+    route, probs = model._route_top1, []
+
+    def recording(xt, lp):
+        out = route(xt, lp)
+        probs.append(out[0].float())
+        return out
+
+    def at(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    model._route_top1 = recording
+    try:
         seq = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
         seq[0, bucket - n:] = torch.tensor(prompt, dtype=torch.int32)
         cache, logits = engine.prefill(params, seq, bucket - n)
-        if d > 0:
-            def at(v):
-                return torch.tensor([v], dtype=torch.int32, device=dev)
-
+        if before:
             cache, ext = engine.extend_multi(
-                params, cache, torch.tensor([a[:d]], dtype=torch.int32,
-                                            device=dev),
+                params, cache, torch.tensor([list(before)],
+                                            dtype=torch.int32, device=dev),
                 at(bucket), at(n), at(bucket - n))
             logits = ext[:, -1]
-        top = torch.topk(logits[0].float(), 2).values
+    finally:
+        del model._route_top1
+    L = engine.cfg.n_layers
+    rows = torch.stack([p[bucket - n:] for p in probs[:L]])     # [L, n, E]
+    if before:
+        rows = torch.cat([rows, torch.stack(probs[L:])], dim=1)
+    top = torch.topk(rows, 2, dim=-1)
+    return logits[0], {"expert": top.indices[..., 0].cpu(),
+                       "gap": (top.values[..., 0]
+                               - top.values[..., 1]).cpu()}
+
+
+def _first_departure(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _moe_departures(torch, engine, params, jobs, plain, other,
+                    limit) -> list:
+    """``_departures`` for an MoE model: the plain logits at a departure
+    come from the batcher's own computation (``_moe_forward``)."""
+    found = []
+    for i, ((prompt, _), a, b) in enumerate(zip(jobs, plain, other)):
+        d = _first_departure(a, b)
+        if d is None:
+            continue
+        logits, _ = _moe_forward(torch, engine, params, prompt, a[:d])
+        top = torch.topk(logits.float(), 2).values
         gap = float(top[0] - top[1])
         found.append({"request": i, "position": d, "gap": gap})
         if not gap < limit:
@@ -4614,10 +4668,11 @@ def check_train_outputs(torch, seed: int, layers: int, device="cuda",
 # heads, the v2 knobs) at max_seq 4096 over a dp 2 x sp 2 mesh of four
 # ranks on the one card, global batch 4 x 4096, 2 microbatches, ZeRO-1.
 PAR_WORLD = 4
-# Phases 10, 11 and 12 run at half the flagship's depth within the
-# whole script (the 1200 s limit; interleaved 1F1B over pp 4 x v 2 needs
-# 8 layers).  The tool runs them at 16.
-PAR_LAYERS = 8
+# Phases 10 and 11 run at a quarter of the flagship's depth and phase 12
+# at half within the whole script (the 1200 s limit; interleaved 1F1B
+# over pp 4 x v 2 needs 8 layers).  The tool runs them at 16.
+PAR_LAYERS = 4
+PP_LAYERS = 8
 PAR_SEQ = 4096
 PAR_SP = 2
 PAR_BATCH = 4
@@ -5764,7 +5819,14 @@ SRV_TIMED_T_HI = 1024
 SRV_TIMEOUT = 600.0
 SRV_PARTS = ("tp4_paged", "dp2tp2_dense", "tp4_ngram", "tp4_bankless",
              "tp4_bank")
-SRV_F32_PARTS = (*SRV_PARTS, "tp4_kv_quant")
+# 13f-13j: the drafts, MoE, int8 weights, migration and the prefill
+# pool on a mesh, their requests SRV_NEW_B tokens each (phase 4's pair
+# and the mix's first two, as 13a's).
+SRV_B_PARTS = ("tp4_neural", "tp4_neural_int8", "tp4_moe_paged",
+               "dp2tp2_moe_dense", "tp4_int8", "tp4_migrate", "tp4_disagg")
+SRV_NEW_B = 8
+SRV_F32_PARTS = (*SRV_PARTS, "tp4_kv_quant", *SRV_B_PARTS)
+SRV_PREFILL_TAIL = 100  # 13j's /prefill prompt: the pair's prefix + this
 
 
 def serving_jobs(torch, seed: int, vocab: int):
@@ -5797,10 +5859,17 @@ def serving_adapters(torch, params, seed: int) -> dict:
 def _serving_knobs(part: str, n_blocks: int) -> dict:
     paged = dict(paged_blocks=n_blocks, page_size=PAGE,
                  attn_impl="paged_kernel")
+    # Unshared: every admission is cold, so the draft row is prefilled
+    # (any other path zeroes it, as the reference's executor does).
+    spec = dict(paged, spec_k=SPEC_K, prefix_cache=False)
     return {"tp4_paged": paged, "dp2tp2_dense": {},
             "tp4_ngram": dict(paged, draft="ngram", spec_k=SPEC_K),
             "tp4_kv_quant": dict(paged, kv_quant=True),
-            "tp4_bankless": paged, "tp4_bank": paged}[part]
+            "tp4_bankless": paged, "tp4_bank": paged,
+            "tp4_neural": spec, "tp4_neural_int8": spec,
+            "tp4_moe_paged": paged, "dp2tp2_moe_dense": {},
+            "tp4_int8": paged, "tp4_migrate": paged,
+            "tp4_disagg": paged}[part]
 
 
 def _bodies(jobs, bank: bool) -> list:
@@ -5836,7 +5905,7 @@ def _timed_round(torch, b, mesh, dev) -> dict:
 
 def _mesh_serve(torch, mesh, model, shards, tok, jobs, part: str,
                 n_blocks: int, adapters=None, repeat: bool = True,
-                timed: bool = False) -> dict:
+                timed: bool = False, routes: bool = False) -> dict:
     """One part of phase 13 on this rank: a meshed ``LmServer`` on its
     ``shards``; rank 0 streams ``jobs`` over HTTP together (whichever of
     a pair is planned first registers the prefix blocks the other
@@ -5844,17 +5913,16 @@ def _mesh_serve(torch, mesh, model, shards, tok, jobs, part: str,
     SRV_REPEAT_NEW tokens (greedy: the same stream).  Every rank: its
     paged launches and fall-backs over the server's life and its peak
     memory; rank 0 also the streams, the burst's numbers, the admission
-    paths and the device work that goes through the kernel."""
+    paths and the device work that goes through the kernel.  With
+    ``routes`` (MoE) every rank then replays the leader's streams
+    (``_mesh_moe_routes``)."""
     from k8s_gpu_tpu_torch.ops import paged_attention as pa
     from k8s_gpu_tpu_torch.serve import LmServer
     from k8s_gpu_tpu_torch.utils.metrics import MetricsRegistry
 
     dev = model.device
-    cuda = dev.type == "cuda"
     knobs = _serving_knobs(part, n_blocks)
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    _reset_peak(torch, dev)
     pa.reset_counts()
     srv = LmServer(model, shards, tok, slots=SRV_SLOTS, mesh=mesh,
                    max_new_tokens_cap=256, adapters=adapters, device=dev,
@@ -5900,12 +5968,272 @@ def _mesh_serve(torch, mesh, model, shards, tok, jobs, part: str,
                        collective_s=burst_collective_s)
         finally:
             srv.stop()
-    out.update(launches=pa.launch_count, fallbacks=pa.fallback_count,
-               peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
-                               if cuda else None))
+    out.update(_rank_tail(torch, pa, dev))
     if timed:
         out["timed_round"] = _timed_round(torch, b, mesh, dev)
+    if routes:
+        out["routes"] = _mesh_moe_routes(torch, b.engine, shards, jobs,
+                                         out.get("streams"))
     del srv, b
+    _free_if(torch, dev)
+    return out
+
+
+def _mesh_moe_routes(torch, engine, shards, jobs, streams) -> list:
+    """Every rank: the leader's MoE ``streams`` (sent over the world)
+    replayed through this rank's meshed engine as the batcher computed
+    them (``_moe_forward`` of each prompt and its stream but the last
+    token): each request's routes, what 13h's near-tie witness holds
+    against one rank's."""
+    from k8s_gpu_tpu_torch.parallel.collectives import broadcast_object
+
+    streams = broadcast_object(streams)
+    with torch.inference_mode():
+        return [_moe_forward(torch, engine, shards, p, s[:-1])[1]
+                for (p, _, _), s in zip(jobs, streams)]
+
+
+def _mesh_batch(torch, mesh, model, shards, jobs, part: str,
+                n_blocks: int, **extra) -> dict:
+    """13f-13g on this rank: ``ContinuousBatcher(mesh=)`` itself (the
+    entry point that takes ``prefix_cache`` and ``draft_int8``), the
+    jobs queued on rank 0 before ``start()``; the numbers
+    ``_mesh_serve`` gives, TTFT from the start."""
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher
+    from k8s_gpu_tpu_torch.utils.metrics import MetricsRegistry
+
+    dev = model.device
+    _reset_peak(torch, dev)
+    pa.reset_counts()
+    b = ContinuousBatcher(model, shards, slots=SRV_SLOTS, mesh=mesh,
+                          device=dev, metrics=MetricsRegistry(),
+                          **_serving_knobs(part, n_blocks), **extra)
+    out = {}
+    if b.is_leader:
+        hs = [b.submit(p, max_new_tokens=n) for p, n, _ in jobs]
+        outs = [dict() for _ in hs]
+        t0 = time.perf_counter()
+        b.start()
+        threads = [threading.Thread(target=_consume, args=(h, t0, o))
+                   for h, o in zip(hs, outs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t0
+        try:
+            _check_budgets(outs, [n for _, n, _ in jobs])
+            out.update(_burst_numbers(outs, wall))
+            out.update(streams=[o["ids"] for o in outs],
+                       admissions=dict(b.admission_paths),
+                       all_admissions=dict(b.admission_paths),
+                       work=_paged_work(b), rounds=b._round_count,
+                       spec=_spec_summary(b))
+        finally:
+            b.stop()
+    else:
+        b.start().wait()
+    out.update(_rank_tail(torch, pa, dev))
+    del b
+    _free_if(torch, dev)
+    return out
+
+
+def _reset_peak(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _rank_tail(torch, pa, dev, own: int = 0) -> dict:
+    """This rank's paged launches (less ``own``: a one-rank replica's in
+    the same process) and fall-backs, and its peak memory."""
+    return {"launches": pa.launch_count - own,
+            "launches_by_width": dict(pa.launches_by_width),
+            "fallbacks": pa.fallback_count,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                               if dev.type == "cuda" else None)}
+
+
+def _timed(port: int, path: str, body: dict):
+    """(code, body, ms) of a POST."""
+    t0 = time.perf_counter()
+    code, out = _post(port, path, body)
+    return code, out, (time.perf_counter() - t0) * 1e3
+
+
+def _payload_mb(payload: dict) -> float:
+    from k8s_gpu_tpu_torch.serve.migrate import payload_bytes
+
+    return len(payload_bytes(payload)) / 1e6
+
+
+def prefill_prompt(torch, seed: int, jobs, vocab: int) -> list:
+    """13j's /prefill prompt: the pair's 512-token prefix and a tail of
+    its own."""
+    rng = torch.Generator().manual_seed(seed + 60)
+    return list(jobs[0][0][:512]) + torch.randint(
+        0, vocab, (SRV_PREFILL_TAIL,), generator=rng).tolist()
+
+
+def _ok(code: int, what: str) -> None:
+    if code != 200:
+        raise RuntimeError(f"phase 13j: {what} answered {code}")
+
+
+def _mesh_migrate(torch, mesh, model, shards, params, tok, jobs,
+                  n_blocks: int, seed: int) -> dict:
+    """13j's first half on this rank: a tp 4 paged ``LmServer`` streams
+    the pair, then rank 0 exports its blocks (/admin/export) and imports
+    them into a one-rank torch replica on the whole ``params``, whose own
+    export must be the same bytes; /prefill of a prompt over the pair's
+    prefix, its payload imported into the replica, and the prompt's
+    stream from both.  Returns the replica's export (``back``) for the
+    second half."""
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import LmServer
+    from k8s_gpu_tpu_torch.serve.migrate import payload_bytes
+    from k8s_gpu_tpu_torch.utils.metrics import MetricsRegistry
+
+    dev = model.device
+    knobs = _serving_knobs("tp4_migrate", n_blocks)
+    _reset_peak(torch, dev)
+    pa.reset_counts()
+    own = 0
+    srv = LmServer(model, shards, tok, slots=SRV_SLOTS, mesh=mesh,
+                   max_new_tokens_cap=256, device=dev,
+                   metrics=MetricsRegistry(), **knobs).start()
+    b = srv.batcher
+    out = {}
+    if srv.port is None:
+        srv.wait()
+    else:
+        try:
+            pair = jobs[:2]
+            t0 = time.perf_counter()
+            outs = _stream_bodies(srv.port, _bodies(pair, False))
+            wall = time.perf_counter() - t0
+            _check_budgets(outs, [n for _, n, _ in pair])
+            code, export, export_ms = _timed(srv.port, "/admin/export", {})
+            _ok(code, "/admin/export")
+            q = prefill_prompt(torch, seed, jobs, model.cfg.vocab_size)
+            code, pre, prefill_ms = _timed(srv.port, "/prefill",
+                                           {"prompt_ids": q})
+            _ok(code, "/prefill")
+            before = pa.launch_count
+            one = LmServer(model, params, tok, slots=SRV_SLOTS,
+                           max_new_tokens_cap=256, device=dev,
+                           metrics=MetricsRegistry(), **knobs).start()
+            try:
+                code, imp, import_ms = _timed(one.port, "/admin/import",
+                                              export)
+                _ok(code, "the replica's /admin/import")
+                code, back = _post(one.port, "/admin/export", {})
+                _ok(code, "the replica's /admin/export")
+                if payload_bytes(back) != payload_bytes(export):
+                    raise RuntimeError(
+                        "phase 13j: the one-rank replica's export of the "
+                        "mesh's blocks is not the mesh's payload")
+                code, _ = _post(one.port, "/admin/import", pre)
+                _ok(code, "the replica's /admin/import of /prefill's")
+                code, one_gen = _post(one.port, "/generate", {
+                    "prompt_ids": q, "max_new_tokens": SRV_NEW_B})
+                _ok(code, "the replica's /generate")
+                one_paths = dict(one.batcher.admission_paths)
+            finally:
+                one.stop()
+            own = pa.launch_count - before
+            code, mesh_gen = _post(srv.port, "/generate", {
+                "prompt_ids": q, "max_new_tokens": SRV_NEW_B})
+            _ok(code, "/generate after /prefill")
+            if one_paths.get("paged_shared", 0) < 1:
+                raise RuntimeError(f"phase 13j: the replica did not share "
+                                   f"the moved blocks: {one_paths}")
+            out.update(_burst_numbers(outs, wall))
+            out.update(
+                streams=[o["ids"] for o in outs],
+                prefill_streams=(one_gen["ids"], mesh_gen["ids"]),
+                prefill_job=(q, SRV_NEW_B),
+                admissions=dict(b.admission_paths),
+                all_admissions=dict(b.admission_paths),
+                work=_paged_work(b), rounds=b._round_count,
+                export_ms=export_ms, export_mb=_payload_mb(export),
+                export_blocks=len(export["blocks"]),
+                prefill_ms=prefill_ms, prefill_mb=_payload_mb(pre),
+                replica_import_ms=import_ms,
+                replica_imported=imp.get("imported"),
+                replica_paths=one_paths, byte_equal=True, back=back)
+        finally:
+            srv.stop()
+    out.update(_rank_tail(torch, pa, dev, own))
+    del srv, b
+    _free_if(torch, dev)
+    return out
+
+
+def _mesh_disagg(torch, mesh, model, shards, tok, jobs, n_blocks: int,
+                 back) -> dict:
+    """13j's second half on this rank: a new tp 4 paged ``LmServer`` with
+    an in-process prefill pool (``DisaggregatedLm``) on its batcher,
+    built on every rank before it starts.  Rank 0 imports the replica's
+    export (``back``: the blocks came home), then streams the pair's
+    second over /generate (it shares the imported prefix) while the
+    mix's two go through the pool (handovers: ``precomputed``)."""
+    from k8s_gpu_tpu_torch.ops import paged_attention as pa
+    from k8s_gpu_tpu_torch.serve import DisaggregatedLm, LmServer
+    from k8s_gpu_tpu_torch.utils.metrics import MetricsRegistry
+
+    dev = model.device
+    _reset_peak(torch, dev)
+    pa.reset_counts()
+    srv = LmServer(model, shards, tok, slots=SRV_SLOTS, mesh=mesh,
+                   max_new_tokens_cap=256, device=dev,
+                   metrics=MetricsRegistry(),
+                   **_serving_knobs("tp4_disagg", n_blocks))
+    pool = DisaggregatedLm(model, shards, batcher=srv.batcher)
+    srv.start()
+    pool.start()
+    b = srv.batcher
+    out = {}
+    if srv.port is None:
+        srv.wait()
+    else:
+        try:
+            code, imp, import_ms = _timed(srv.port, "/admin/import", back)
+            _ok(code, "/admin/import into the mesh")
+            outs = [dict() for _ in range(3)]
+            t0 = time.perf_counter()
+            http = threading.Thread(target=_stream, args=(
+                srv.port, _bodies(jobs[1:2], False)[0], outs[0]))
+            http.start()
+            hs = [pool.submit(p, max_new_tokens=n) for p, n, _ in jobs[2:4]]
+            handed_s = time.perf_counter() - t0
+            threads = [threading.Thread(target=_consume, args=(h, t0, o))
+                       for h, o in zip(hs, outs[1:])]
+            for th in threads:
+                th.start()
+            for th in [http, *threads]:
+                th.join(timeout=900)
+            wall = time.perf_counter() - t0
+            _check_budgets(outs, [n for _, n, _ in jobs[1:4]])
+            paths = dict(b.admission_paths)
+            if paths.get("precomputed") != 2 or paths.get(
+                    "paged_shared", 0) < 1:
+                raise RuntimeError(
+                    f"phase 13j: admissions {paths}: two handovers and the "
+                    "pair's second over the imported blocks expected")
+            out.update(_burst_numbers(outs, wall))
+            out.update(streams=[o["ids"] for o in outs], admissions=paths,
+                       all_admissions=paths, work=_paged_work(b),
+                       rounds=b._round_count, import_ms=import_ms,
+                       imported=imp.get("imported"), handed_over_s=handed_s,
+                       pool_max_inflight=pool.max_inflight)
+        finally:
+            pool.stop()
+            srv.stop()
+    out.update(_rank_tail(torch, pa, dev))
+    del srv, b, pool
     _free_if(torch, dev)
     return out
 
@@ -6001,57 +6329,114 @@ def _mesh_lora_train(torch, mesh, model, params, seed: int) -> dict:
     return out
 
 
+def _own_shards(model, params, mesh):
+    """This rank's shards of ``params`` as copies (the whole tree can
+    go)."""
+    from k8s_gpu_tpu_torch.parallel.sharding import shard_params
+    from k8s_gpu_tpu_torch.train.runner import tree_map
+
+    return tree_map(lambda t: t.clone(),
+                    shard_params(params, model.logical_axes(), mesh))
+
+
+def _serving_variants(torch, seed: int, model, params, meshes) -> dict:
+    """13h-13i's trees on this rank: the MoE flagship (``MOE``) and the
+    whole tree quantized, then cut; each this rank's shards."""
+    import dataclasses
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.serve.quant import (
+        quantize_params, shard_quantized,
+    )
+    from k8s_gpu_tpu_torch.train.runner import tree_map
+
+    mm = TransformerLM(dataclasses.replace(model.cfg, **MOE),
+                       device=model.device)
+    mparams = mm.init(seed)
+    return {
+        "moe": (mm, {n: _own_shards(mm, mparams, m)
+                     for n, m in meshes.items()}),
+        "int8": tree_map(lambda t: t.clone(), shard_quantized(
+            quantize_params(params), model.logical_axes(), meshes["tp4"])),
+    }
+
+
 def _serving_rank(seed: int, layers: int, device, tp4, dp2tp2) -> dict:
     """Phase 13 on one of the four ranks (``serve_ranks`` builds both
-    meshes): 13a-13d at the flagship's widths in bf16, then 13e at
-    SRV_F32_LAYERS in float32."""
+    meshes): 13a-13d and 13f-13j at the flagship's widths in bf16, then
+    13e at SRV_F32_LAYERS in float32."""
     import dataclasses
 
     import torch
     import torch.distributed as dist
 
     from k8s_gpu_tpu_torch.models import TransformerLM
-    from k8s_gpu_tpu_torch.parallel.sharding import shard_params
-    from k8s_gpu_tpu_torch.train.runner import tree_map
 
     meshes = {"tp4": tp4, "dp2tp2": dp2tp2}
     out = {"rank": dist.get_rank()}
     cfg = flagship_config(torch, layers)
     tok = flagship_tokenizer(cfg.vocab_size)
     for dtype, depth, parts in (
-            (torch.bfloat16, layers, SRV_PARTS),
+            (torch.bfloat16, layers, (*SRV_PARTS, *SRV_B_PARTS)),
             (torch.float32, SRV_F32_LAYERS, SRV_F32_PARTS)):
         cfg = dataclasses.replace(flagship_config(torch, depth), dtype=dtype)
         model = TransformerLM(cfg, device=device)
         params = model.init(seed)
         n_blocks = mix_blocks(cfg)
         jobs = serving_jobs(torch, seed, cfg.vocab_size)
+        jobs_b = [(p, SRV_NEW_B, a) for p, _, a in jobs]
         ljobs = serving_lora_jobs(torch, seed, cfg.vocab_size)
         adapters = serving_adapters(torch, params, seed)
-        # Each rank keeps its own shards only (copies; the whole tree
-        # goes, but for the float32 fine-tune's base).
-        shards = {name: tree_map(lambda t: t.clone(), shard_params(
-            params, model.logical_axes(), m)) for name, m in meshes.items()}
+        # Each rank keeps its own shards only (copies): the whole tree
+        # stays on rank 0 alone, for 13j's one-rank replica and the
+        # float32 fine-tune's base.
+        shards = {name: _own_shards(model, params, m)
+                  for name, m in meshes.items()}
+        var = _serving_variants(torch, seed, model, params, meshes)
+        # 13f-13g's draft: the target itself (module docstring).
+        draft = (model, shards["tp4"])
+        whole = params if dist.get_rank() == 0 else None
         if dtype == torch.bfloat16:
             del params
             _free_if(torch, torch.device(device))
-        res = {}
+        res, back = {}, None
         for part in parts:
             bank = part == "tp4_bank"
             mname = "dp2tp2" if "dp2tp2" in part else "tp4"
-            res[part] = _mesh_serve(
-                torch, meshes[mname], model, shards[mname], tok,
-                ljobs if part in ("tp4_bankless", "tp4_bank") else jobs,
-                part, n_blocks, adapters=adapters if bank else None,
-                repeat=dtype == torch.bfloat16 and part in (
-                    "tp4_paged", "dp2tp2_dense"),
-                timed=dtype == torch.bfloat16 and part == "tp4_paged")
+            mesh = meshes[mname]
+            m_, sh = model, shards[mname]
+            if "moe" in part:
+                m_, sh = var["moe"][0], var["moe"][1][mname]
+            elif part == "tp4_int8":
+                sh = var["int8"]
+            if "neural" in part:
+                res[part] = _mesh_batch(
+                    torch, mesh, model, sh, jobs_b, part, n_blocks,
+                    draft=draft, draft_int8=part == "tp4_neural_int8")
+            elif part == "tp4_migrate":
+                res[part] = _mesh_migrate(torch, mesh, model, sh, whole,
+                                          tok, jobs_b, n_blocks, seed)
+                back = res[part].pop("back", None)
+            elif part == "tp4_disagg":
+                res[part] = _mesh_disagg(torch, mesh, model, sh, tok,
+                                         jobs_b, n_blocks, back)
+            else:
+                res[part] = _mesh_serve(
+                    torch, mesh, m_, sh, tok,
+                    jobs_b if part in SRV_B_PARTS
+                    else ljobs if part in ("tp4_bankless", "tp4_bank")
+                    else jobs,
+                    part, n_blocks, adapters=adapters if bank else None,
+                    repeat=dtype == torch.bfloat16 and part in (
+                        "tp4_paged", "dp2tp2_dense"),
+                    timed=dtype == torch.bfloat16 and part == "tp4_paged",
+                    routes="moe" in part)
             dist.barrier()
         if dtype == torch.float32:
             res["lora"] = _mesh_lora_train(torch, dp2tp2, model, params,
                                            seed)
         out["bf16" if dtype == torch.bfloat16 else "f32"] = res
-        del model, shards, adapters
+        del model, shards, adapters, var, whole, back, draft
         params = None
         _free_if(torch, torch.device(device))
     return out
@@ -6083,16 +6468,27 @@ def _hold_launches(phase: str, runs: list, layers: int,
     """Every rank's paged launches over the server's life against the
     leader's kernel work (a launch a layer for each suffix-extend
     admission, verify sub-round and plain decode step), and no fall-back
-    anywhere; a dense part launches nothing."""
+    anywhere; a dense part launches nothing.  The verify windows' share
+    is read from the wrapper's count by query width: a verify window is
+    K + 1 wide, never 1 (a decode step) nor a power of two of at least 8
+    (an admission's suffix bucket), for every K adaptive K picks."""
     work = runs[0]["work"]
     want = layers * (work["kernel_admissions"] + work["verify_subrounds"]
                      + work["decode_steps"]) if paged else 0
+    want_verify = layers * work["verify_subrounds"] if paged else 0
     got = [r["launches"] for r in runs]
+    verify = [sum(n for w, n in r["launches_by_width"].items()
+                  if w > 1 and not (w >= 8 and w & (w - 1) == 0))
+              for r in runs]
     fb = [r["fallbacks"] for r in runs]
-    if got != [want] * len(runs) or any(fb):
-        raise RuntimeError(f"{phase}: paged launches by rank {got}, "
-                           f"fall-backs {fb}; expected {want} on each")
-    return {"launches_per_rank": want, "work": work}
+    if (got != [want] * len(runs) or verify != [want_verify] * len(runs)
+            or any(fb)):
+        raise RuntimeError(f"{phase}: paged launches by rank {got} "
+                           f"({verify} at verify widths), fall-backs "
+                           f"{fb}; expected {want} ({want_verify}) on "
+                           "each")
+    return {"launches_per_rank": want, "verify_launches_per_rank": verify[0],
+            "work": work}
 
 
 def run_mesh_serving_path(torch, seed: int, layers: int,
@@ -6104,9 +6500,12 @@ def run_mesh_serving_path(torch, seed: int, layers: int,
     (SRV_NEW tokens each) over the meshed ``LmServer``'s HTTP; 13b: dp 2
     x tp 2 on the dense pool, 8 slots (4 a dp group); 13c: tp 4 n-gram
     speculation on the paged pool; 13d: tp 4 with a two-adapter bank
-    beside the bank-less server; 13e: all of them and int8 KV in float32
-    at SRV_F32_LAYERS, and a 3-step LoRA fine-tune over dp 2 x tp 2.
-    Each held against one rank's streams on the whole weights by the
+    beside the bank-less server; 13f-13j: the neural and int8 drafts,
+    MoE on both pools, int8 weights, block migration to a one-rank
+    replica and back, /prefill and the in-process prefill pool (module
+    docstring); 13e: all of them and int8 KV in float32 at
+    SRV_F32_LAYERS, and a 3-step LoRA fine-tune over dp 2 x tp 2.  Each
+    held against one rank's streams on the whole weights by the
     near-tie rule (bf16 0.25, float32 1e-4), launches rank by rank
     against the leader's kernel work."""
     import dataclasses
@@ -6127,10 +6526,12 @@ def run_mesh_serving_path(torch, seed: int, layers: int,
            "world": SRV_WORLD,
            "meshes": SRV_MESHES, "cluster_s": time.perf_counter() - t0}
     cuda = torch.device(device).type == "cuda"
-    for key, dtype, depth, parts, gap in (
-            ("bf16", torch.bfloat16, layers, SRV_PARTS, BF16_TIE_GAP),
+    failures = []
+    for key, dtype, depth, parts, gap, tie in (
+            ("bf16", torch.bfloat16, layers, (*SRV_PARTS, *SRV_B_PARTS),
+             BF16_TIE_GAP, BF16_ROUTER_TIE),
             ("f32", torch.float32, SRV_F32_LAYERS, SRV_F32_PARTS,
-             F32_TIE_GAP)):
+             F32_TIE_GAP, F32_ROUTER_TIE)):
         cfg = dataclasses.replace(flagship_config(torch, depth),
                                   dtype=dtype)
         model = TransformerLM(cfg, device=device)
@@ -6140,6 +6541,7 @@ def run_mesh_serving_path(torch, seed: int, layers: int,
         jobs = serving_jobs(torch, seed, cfg.vocab_size)
         ljobs = serving_lora_jobs(torch, seed, cfg.vocab_size)
         adapters = serving_adapters(torch, params, seed)
+        b_ref = _BRef(torch, seed, model, params, engine, n_blocks, jobs)
         res, one = {}, {}
         for part in parts:
             runs = [r[key][part] for r in ranks]
@@ -6147,14 +6549,22 @@ def run_mesh_serving_path(torch, seed: int, layers: int,
             phase = f"phase 13 {key} {part}"
             held = {k: v for k, v in lead.items()
                     if k not in ("streams", "launches", "fallbacks",
-                                 "peak_memory_gb")}
+                                 "launches_by_width", "routes",
+                                 "peak_memory_gb", "prefill_streams",
+                                 "prefill_job")}
             held["peak_memory_gb_by_rank"] = [r["peak_memory_gb"]
                                               for r in runs]
             if cuda:
-                held.update(_hold_launches(phase, runs, depth,
-                                           part != "dp2tp2_dense"))
+                hold = (functools.partial(b_ref._held, phase)
+                        if part in SRV_B_PARTS else lambda fn, *a: fn(*a))
+                held.update(hold(_hold_launches, phase, runs, depth,
+                                 "dense" not in part))
             held["timed_round_by_rank"] = [r.get("timed_round")
                                            for r in runs[1:]]
+            if part in SRV_B_PARTS:
+                held.update(b_ref.hold(part, runs, gap, tie))
+                res[part] = held
+                continue
             if "paged" in part or part in ("tp4_ngram", "tp4_kv_quant"):
                 if lead["admissions"].get("paged_shared", 0) < 1:
                     raise RuntimeError(f"{phase}: no shared-prefix "
@@ -6189,14 +6599,159 @@ def run_mesh_serving_path(torch, seed: int, layers: int,
             held["_streams"] = lead["streams"]
             res[part] = held
         for held in res.values():
-            held.pop("_streams")
+            held.pop("_streams", None)
         if key == "f32":
             res["lora"] = _hold_mesh_lora(ranks, cuda)
         out[key] = res
-        del model, params, engine, adapters
+        failures += [f"{key} {f}" for f in b_ref.failures]
+        del model, params, engine, adapters, b_ref
         _free_if(torch, torch.device(device))
     out["phase_s"] = time.perf_counter() - t0
+    out["failures"] = failures
     return out
+
+
+class _BRef:
+    """13f-13j's yardsticks in the parent, one rank on the whole
+    weights, each made once: the plain paged streams of the SRV_NEW_B
+    jobs (a greedy stream with any draft is the plain one), the MoE
+    flagship's and the int8 tree's."""
+
+    def __init__(self, torch, seed, model, params, engine, n_blocks, jobs):
+        self.torch, self.seed = torch, seed
+        self.model, self.params, self.engine = model, params, engine
+        self.n_blocks = n_blocks
+        self.jobs = [(p, SRV_NEW_B, a) for p, _, a in jobs]
+        self._one = {}
+        self.failures = []
+
+    def _streams(self, kind: str):
+        """(engine, params, streams) of one rank's ``kind``: "plain",
+        "moe" or "int8"."""
+        import dataclasses
+
+        if kind not in self._one:
+            torch, model, params = self.torch, self.model, self.params
+            if kind == "moe":
+                from k8s_gpu_tpu_torch.models import TransformerLM
+                from k8s_gpu_tpu_torch.serve.engine import InferenceEngine
+
+                model = TransformerLM(dataclasses.replace(model.cfg, **MOE),
+                                      device=model.device)
+                params = model.init(self.seed)
+                engine = InferenceEngine(model, device=model.device)
+            else:
+                engine = self.engine
+            if kind == "int8":
+                from k8s_gpu_tpu_torch.serve.quant import quantize_params
+
+                params = quantize_params(params)
+            self._one[kind] = (engine, params, _one_rank_streams(
+                torch, model, params, self.jobs, "tp4_paged",
+                self.n_blocks))
+        return self._one[kind]
+
+    def hold(self, part: str, runs: list, gap: float, tie: float) -> dict:
+        """``part``'s checks against one rank: admissions, speculation,
+        and its streams by the near-tie rule (MoE: ``_moe_held``, with
+        the router ``tie``)."""
+        phase = f"phase 13 {part}"
+        lead = runs[0]
+        paths = lead["admissions"]
+        kind = ("moe" if "moe" in part else "int8" if part == "tp4_int8"
+                else "plain")
+        engine, params, ref = self._streams(kind)
+        idx = {"tp4_migrate": [0, 1], "tp4_disagg": [1, 2, 3]}.get(
+            part, range(len(self.jobs)))
+        jobs = [self.jobs[i] for i in idx]
+        if kind == "moe" and paths.get("paged_shared"):
+            self.failures.append(f"{phase}: MoE shares no blocks: {paths}")
+        if "neural" in part and paths != {"cold": len(jobs)}:
+            self.failures.append(f"{phase}: a draft row not prefilled: "
+                                 f"{paths}")
+        elif kind != "moe" and "neural" not in part and paths.get(
+                "paged_shared", 0) < 1:
+            self.failures.append(f"{phase}: no shared-prefix admission: "
+                                 f"{paths}")
+        if "neural" in part and not lead["spec"]["drafted"]:
+            self.failures.append(f"{phase}: nothing drafted: "
+                                 f"{lead['spec']}")
+        if part == "tp4_neural" and not lead["spec"]["accepted"]:
+            self.failures.append(f"{phase}: the target as its own draft "
+                                 f"had nothing accepted: {lead['spec']}")
+        ref = [ref[i] for i in idx]
+        if kind == "moe":
+            out = {"vs_one_rank": self._moe_held(
+                phase, engine, params, jobs, ref, lead["streams"], gap,
+                [r["routes"] for r in runs], tie)}
+        else:
+            out = {"vs_one_rank": self._held(
+                phase, _vs_one_rank, self.torch, engine, params, jobs, ref,
+                lead["streams"], gap, None)}
+        if part == "tp4_migrate":
+            replica, meshed = lead["prefill_streams"]
+            out["prefill_vs_replica"] = self._held(
+                phase, _vs_one_rank, self.torch, engine, params,
+                [(*lead["prefill_job"], None)], [replica], [meshed], gap,
+                None)
+        return out
+
+    def _held(self, phase: str, fn, *args):
+        """``fn(*args)``, a failed check kept in ``failures`` (with its
+        phase) so that every part is measured before the run fails."""
+        try:
+            return fn(*args)
+        except RuntimeError as e:
+            self.failures.append(f"{phase}: {e}")
+            return {"failed": str(e)}
+
+    def _moe_held(self, phase, engine, params, jobs, ref, got, gap,
+                  routes, tie) -> dict:
+        """The near-tie rule for MoE, each departure read on the
+        batcher's own computation (``_moe_forward``).  It passes at a
+        top-2 logit gap under ``gap``, or where some rank's router
+        (``routes``: each rank's replay of the meshed stream) chose
+        another expert than one rank's at the departing token or before
+        it, every such choice within ``tie`` of a tie in one rank's
+        router: a tp sum moves the router's input by a rounding, and a
+        flipped choice moves the logits by far more (phase 11c's dropped
+        share)."""
+        torch = self.torch
+        out = {"exact": ref == got, "departures": []}
+        for i, ((prompt, _, _), a, b) in enumerate(zip(jobs, ref, got)):
+            d = _first_departure(a, b)
+            if d is None:
+                continue
+            logits, mine = _moe_forward(torch, engine, params, prompt,
+                                        a[:d])
+            top = torch.topk(logits.float(), 2).values
+            entry = {"request": i, "position": d,
+                     "gap": float(top[0] - top[1])}
+            if not entry["gap"] < gap:
+                P = mine["expert"].shape[1]
+                flips = sorted({
+                    (layer, pos) for r in routes
+                    for layer, pos in (r[i]["expert"][:, :P]
+                                       != mine["expert"]).nonzero().tolist()})
+                entry["router_flips"] = [
+                    {"layer": layer, "position": pos,
+                     "router_gap": float(mine["gap"][layer, pos])}
+                    for layer, pos in flips]
+                if not flips or any(f["router_gap"] >= tie
+                                    for f in entry["router_flips"]):
+                    self.failures.append(
+                        f"{phase}: request {i} departs at token {d}, logit "
+                        f"gap {entry['gap']}, router choices that differ "
+                        f"from one rank's: {entry['router_flips']} (tie "
+                        f"{tie})")
+            out["departures"].append(entry)
+        return out
+
+
+# A router choice this close (top-2 probability gap) to a tie may flip
+# under a tp sum: a bf16 rounding of the router's input, or a float32 one.
+BF16_ROUTER_TIE = 2 ** -6
+F32_ROUTER_TIE = 1e-5
 
 
 def _vs_one_rank(torch, engine, params, jobs, ref, got, gap,
@@ -6366,13 +6921,15 @@ def main(argv=None) -> int:
     print(json.dumps({"tensor_parallel_path": tensor_parallel, "gpu": gpu}),
           flush=True)
     _free(torch)
-    pipeline_path = run_pipeline_path(torch, args.seed, PAR_LAYERS)
+    pipeline_path = run_pipeline_path(torch, args.seed, PP_LAYERS)
     print(json.dumps({"pipeline_path": pipeline_path, "gpu": gpu}),
           flush=True)
     _free(torch)
     mesh_serving = run_mesh_serving_path(torch, args.seed, LAYERS)
     print(json.dumps({"mesh_serving_path": mesh_serving, "gpu": gpu}),
           flush=True)
+    if mesh_serving["failures"]:
+        raise RuntimeError("phase 13: " + "; ".join(mesh_serving["failures"]))
 
     case = {r["case"]: r for r in kern}
     decode = case["decode_bf16"]
@@ -6388,7 +6945,9 @@ def main(argv=None) -> int:
         "phase": "4 (paged serving); also 4c, 4d, 4e (verify windows), 4f "
                  "(adapter, constrained and handed-over rows), 9 (the "
                  "Fin-Agent-Suite's /chat and traced /generate), 13 "
-                 "(serving on a mesh: a tp rank's 2 heads)",
+                 "(serving on a mesh: a tp rank's 2 heads; 13f-13j the "
+                 "neural and int8 drafts' verify windows, MoE, int8 "
+                 "weights, moved and handed-over rows)",
         "launches": main_path["paged_attention_launches"],
         # Phase 4c's run: the unshared paged pool (left-padded rows).
         "launches_unshared_pool": unshared["paged_attention_launches"],
@@ -6414,7 +6973,17 @@ def main(argv=None) -> int:
         **{f"launches_mesh_serving_{key}_{part}": held["launches_per_rank"]
            for key in ("bf16", "f32")
            for part, held in mesh_serving[key].items()
-           if part not in ("dp2tp2_dense", "lora")},
+           if "dense" not in part and part != "lora"},
+        # Phase 13f: the verify windows at a tp 4 rank's 2 heads under
+        # the neural draft (K 4, phase 3's tp_local_h2_verify_k4_bf16),
+        # each rank's launches at the verify widths (the wrapper's count
+        # by query width, held to one a layer and verify sub-round).
+        **{f"verify_tp4_neural_{field}":
+           case["tp_local_h2_verify_k4_bf16"][field]
+           for field in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "design")},
+        "verify_tp4_neural_launches": mesh_serving["bf16"]["tp4_neural"].get(
+            "verify_launches_per_rank"),
         "max_abs_err": max(r["max_abs_err"] for r in kern),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],

@@ -438,7 +438,7 @@ class TransformerLM:
         ), tp)
 
     def _moe_mlp(self, x, lp, full_capacity: bool = False,
-                 token_mask=None, mesh=None):
+                 token_mask=None, mesh=None, tp=None):
         """Switch top-1 MoE with capacity -> (y [B, S, D] at ``dt``, aux
         loss), the reference's function computed by index.
 
@@ -452,7 +452,10 @@ class TransformerLM:
         and get y = 0, but still count in the aux loss's means, as in the
         reference.  y is the unrenormalised top-1 probability times the
         expert's output, in f32, cast once.  On a mesh, ``x`` is this
-        rank's block and ``_moe_meshed`` routes it globally."""
+        rank's block and ``_moe_meshed`` routes it globally.  ``tp``: the
+        serving engine's tp group, ``x`` whole on each of its ranks (the
+        call's own tokens, routed alike everywhere): each rank runs its
+        F slice of every expert and the outputs are summed over it."""
         if mesh is not None:
             return self._moe_meshed(x, lp, mesh)
         cfg = self.cfg
@@ -476,8 +479,8 @@ class TransformerLM:
         out = self._experts(buf.view(E, cap + 1, D)[:, :cap], lp)
         # Combine: a dropped token reads some slot of its expert and
         # scales it by 0.
-        back = out.reshape(E * cap, D).index_select(
-            0, expert * cap + pos.clamp(max=cap - 1))
+        back = reduce_from(out.reshape(E * cap, D).index_select(
+            0, expert * cap + pos.clamp(max=cap - 1)), tp)
         y = back.float() * (gate * kept)[:, None]
         # Switch's load-balancing loss (eq. 4).
         aux = (onehot.mean(1) * probs.mean(0)).sum() * E

@@ -27,8 +27,10 @@ plain version only for CPU tensors.  On the CPU it keeps the reference's
 two geometry fall-backs, each counted in ``fallback_count``: ``t_hi``
 that is not a whole number of pages (or less than one), and a table
 narrower than ``t_hi // page``.  A CUDA launch adds one to
-``launch_count``.  A CUDA call the kernel cannot take (bad geometry
-included), or a kernel that fails to build or launch, raises.
+``launch_count`` and one to ``launches_by_width[Sq]`` (decode steps at
+1, verify windows at K + 1, admission windows at their bucket).  A
+CUDA call the kernel cannot take (bad geometry included), or a kernel
+that fails to build or launch, raises.
 """
 
 from __future__ import annotations
@@ -41,9 +43,11 @@ import torch
 
 NEG_INF = -1e30
 
-# Kernel launches and geometry fall-backs since the last reset_counts():
-# a run reads them to show which path served it.
+# Kernel launches (in all and by the query width Sq) and geometry
+# fall-backs since the last reset_counts(): a run reads them to show
+# which path served it.
 launch_count = 0
+launches_by_width: dict[int, int] = {}
 fallback_count = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -53,6 +57,7 @@ _lib = None
 def reset_counts() -> None:
     global launch_count, fallback_count
     launch_count = 0
+    launches_by_width.clear()
     fallback_count = 0
 
 
@@ -451,4 +456,6 @@ def paged_attention(q, k_pool, v_pool, pages, start, kv_start,
     out = _launch(q, k_pool, v_pool, pages, start, kv_start, page, t_hi,
                   k_scale, v_scale)
     launch_count += 1
+    width = q.shape[1]
+    launches_by_width[width] = launches_by_width.get(width, 0) + 1
     return out

@@ -41,10 +41,6 @@ DATA_AXES = ("dp", "sp")
 SERVE_AXES = ("dp", "tp")
 NEXT_SLICE = ("ROADMAP.md queue 1 item 11, step 5: checkpoints of a meshed "
               "trainer, save_attn on a mesh")
-# What serving on a mesh leaves out, each with its ROADMAP item.
-SERVE_NEXT = ("ROADMAP.md queue 1 item 11, step 4b: the neural draft, MoE, "
-              "int8 weights, migration and the disaggregated prefill pool "
-              "on a serving mesh")
 # The groups of more than one axis that build_mesh makes.
 GROUPED_AXES = (("dp", "sp"), ("ep", "tp"), ("pp", "tp"))
 

@@ -12,6 +12,18 @@ it.  ``gather_params`` is its inverse: the whole tree on every rank.
 Parameters cut over a data axis (the fsdp rule ``embed_fsdp`` -> dp) are
 not ported.
 
+An int8 leaf ``{"q", "s"}`` (``serve.quant.quantize_params``) is cut as
+two: ``q`` like the float leaf, ``s`` only along the dimensions it keeps
+(size > 1; a contraction axis's scale has size 1 and is whole on every
+rank).  Quantize the whole tree, then cut it: the scale is a max over
+the contraction axes, and ``wo`` (heads, Dh), ``wo_mlp`` (F) and
+``e_wo`` (F) contract exactly the axes tp cuts, so a rank that
+quantized its own shard would hold a scale of its own and products that
+are not the whole tree's.  ``gather_params`` joins ``s`` where ``q``
+shows it was cut; a dimension of size 1 in both shards is joined unless
+every rank holds the same scale there (then the size-1 form broadcasts
+the same values).
+
 The stages cut is contiguous (pp rank d holds layers [d L/P, (d+1) L/P),
 the reference's ``P("pp")``) unless ``virtual_stages`` v > 1: then rank
 d holds the v chunks of interleaved 1F1B, virtual stages c P + d for c <
@@ -113,8 +125,10 @@ def shard_params(params, logical_tree, mesh, rules: ParamRules | None = None,
     rules = rules or ParamRules()
     v = virtual_stages
 
-    def cut(axes, t):
+    def cut_one(axes, t, scale: bool = False):
         for dim, name in cut_axes(rules.spec(axes), mesh):
+            if scale and t.shape[dim] == 1:
+                continue
             n, r = axis_size(mesh, name), axis_rank(mesh, name)
             if name == "pp" and v > 1:
                 lc = _interleaved(t.shape[0], n, v)
@@ -127,6 +141,12 @@ def shard_params(params, logical_tree, mesh, rules: ParamRules | None = None,
                     f"over {name}={n}")
             t = t.chunk(n, dim)[r]
         return t
+
+    def cut(axes, t):
+        if isinstance(t, dict):
+            return {"q": cut_one(axes, t["q"]),
+                    "s": cut_one(axes, t["s"], scale=True)}
+        return cut_one(axes, t)
 
     return _map(cut, logical_tree, params)
 
@@ -141,10 +161,15 @@ def gather_params(params, logical_tree, mesh,
     rules = rules or ParamRules()
     v = virtual_stages
 
-    def join(axes, t):
+    def join_one(axes, t, q=None):
         t = t.detach()
         for dim, name in cut_axes(rules.spec(axes), mesh):
+            if q is not None and t.shape[dim] == 1 and q.shape[dim] > 1:
+                continue          # a contraction axis of the scale
             parts = all_gather(t, mesh.get_group(name))
+            if q is not None and t.shape[dim] == 1 and all(
+                    torch.equal(p, parts[0]) for p in parts[1:]):
+                continue          # the one rank-independent case left
             if name == "pp" and v > 1:
                 # [P][v Lc, ...] -> [v, P, Lc, ...] -> [L, ...]
                 rest = t.shape[1:]
@@ -153,5 +178,11 @@ def gather_params(params, logical_tree, mesh,
             else:
                 t = torch.cat(parts, dim)
         return t
+
+    def join(axes, t):
+        if isinstance(t, dict):
+            return {"q": join_one(axes, t["q"]),
+                    "s": join_one(axes, t["s"], t["q"])}
+        return join_one(axes, t)
 
     return _map(join, logical_tree, params)

@@ -2,13 +2,25 @@
 of ``k8s_gpu_tpu/serve/allocator.py`` (``_blocks_needed``,
 ``_set_page_row``, ``_paged_plan``, and ``migrate_export`` /
 ``migrate_import``, the block plane the migration wire and the
-disaggregated prefill handover ride on)."""
+disaggregated prefill handover ride on).
+
+On a serving mesh the wire carries whole heads, as a one-rank pool's
+blocks hold them: the export's device program (``_export_dev``, on every
+rank through the seam) gathers each block's KV heads over tp in rank
+order, and the import's (``_import_dev``) hands every rank the wire
+blocks, each writing its own heads.  The paged pool is whole on every
+dp group, so every group writes.  The host half (which blocks, the
+chain hashes, the manifest) runs on the leader only, so the payload is
+byte for byte the one a one-rank pool holding the same values sends,
+and the reference's gateway drives a meshed replica unchanged."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import axis_rank, axis_size
 from .kv_blocks import chunk_hashes, shareable_depth
 from .migrate import from_host, to_host, wire_dtype, wire_name
 from .scheduler import _Request, prompt_bucket
@@ -92,14 +104,38 @@ class AllocatorMixin:
         return True
 
     def _block_geometry(self) -> dict:
-        """Per cache leaf, one block's contents (``arr[:, blk]``): wire
-        dtype name and shape."""
+        """Per cache leaf, one block's contents (``arr[:, blk]``, whole
+        heads on a mesh): wire dtype name and shape."""
         out = {}
         for name, arr in sorted(self._dev["cache"].items()):
             out[name] = {"dtype": wire_name(arr.dtype),
-                         "shape": (int(arr.shape[0]),)
-                         + tuple(int(x) for x in arr.shape[2:])}
+                         "shape": (int(arr.shape[0]),
+                                   int(self.engine.cfg.kv_heads))
+                         + tuple(int(x) for x in arr.shape[3:])}
         return out
+
+    def _export_dev(self, blocks: list[int]) -> dict:
+        """Blocks ``blocks`` of every cache leaf, [L, n, KH, ...] with
+        whole heads (gathered over tp in rank order on a mesh)."""
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        tp = self.engine.tp_group
+        out = {}
+        for name, arr in self._dev["cache"].items():
+            sel = arr.index_select(1, idx)
+            if tp is not None:
+                sel = torch.cat(all_gather(sel, tp), dim=2)
+            out[name] = sel
+        return out
+
+    def _import_dev(self, blocks: list[int], leaves: dict) -> None:
+        """Write the wire blocks ``leaves`` (name -> host [L, n, KH, ...],
+        whole heads) into blocks ``blocks``: this rank's heads of them."""
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        tp = axis_size(self.mesh, "tp")
+        for name, arr in self._dev["cache"].items():
+            whole = from_host(leaves[name], arr.dtype)
+            mine = whole.chunk(tp, dim=2)[axis_rank(self.mesh, "tp")]
+            arr.index_copy_(1, idx, mine.to(self.device))
 
     def migrate_export(self, *, abort_live: bool = False,
                        include_blocks: bool = True, hashes=None) -> dict:
@@ -112,10 +148,8 @@ class AllocatorMixin:
         ``include_blocks=False`` skips the bodies; ``hashes`` (chain-hash
         bytes) exports exactly those blocks, as the disaggregated prefill
         handover does for one prompt.  ValueError on the dense pool."""
-        self._refuse_on_mesh("block migration")
         if not self.paged:
             raise ValueError("block migration requires paged KV mode")
-        cache = self._dev["cache"]
         geometry = self._block_geometry()
         blocks: list[tuple[bytes, dict]] = []
         if include_blocks:
@@ -124,10 +158,8 @@ class AllocatorMixin:
                 want = set(hashes)
                 items = [(h, b) for h, b in items if h in want]
             if items:
-                idx = torch.tensor([b for _, b in items], dtype=torch.long,
-                                   device=self.device)
-                sel = {name: to_host(arr.index_select(1, idx))
-                       for name, arr in cache.items()}
+                got = self._dev_call("_export_dev", [b for _, b in items])
+                sel = {name: to_host(t) for name, t in got.items()}
                 for j, (h, _) in enumerate(items):
                     blocks.append((h, {
                         name: np.ascontiguousarray(sel[name][:, j])
@@ -161,7 +193,6 @@ class AllocatorMixin:
         are skipped; a pool too full stops early (a shorter chain is still
         a valid warm prefix).  One ``index_copy_`` per leaf.  Returns the
         blocks spliced."""
-        self._refuse_on_mesh("block migration")
         if not self.paged:
             raise ValueError("block migration requires paged KV mode")
         if int(parsed.get("page_size", 0)) != self.page_size:
@@ -188,13 +219,10 @@ class AllocatorMixin:
                 break
             fresh.append((h, got[0], leaves))
         if fresh:
-            cache = self._dev["cache"]
-            idx = torch.tensor([b for _, b, _ in fresh], dtype=torch.long,
-                               device=self.device)
-            for name, arr in sorted(cache.items()):
-                stacked = np.stack([lv[name] for _, _, lv in fresh], axis=1)
-                arr.index_copy_(1, idx,
-                                from_host(stacked, arr.dtype).to(self.device))
+            self._dev_call(
+                "_import_dev", [b for _, b, _ in fresh],
+                {name: np.stack([lv[name] for _, _, lv in fresh], axis=1)
+                 for name in local})
             for h, blk, _ in fresh:
                 self._pool.register(blk, h)
                 self._pool.release(blk)

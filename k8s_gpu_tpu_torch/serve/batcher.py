@@ -43,10 +43,16 @@ mesh: heads over tp (the engine), the dense pool's rows over dp
 (``slots`` must divide over dp), the paged pool whole on every dp group.
 Global rank 0 schedules and every rank runs each device program
 (``meshed.py``); on the other ranks ``start()`` runs that loop and
-``submit`` raises.  The n-gram draft, int8 KV and the adapter bank (cut
-by the adapters' logical axes) run there; the neural draft, MoE, int8
-weights, migration and the disaggregated handover are refused
-(``_NOT_PORTED``).
+``submit`` raises.  Everything above runs there: both drafts (a neural
+draft's ``params`` are this rank's shards too, its engine on the same
+mesh, its cache rows cut over dp as the target's; ``draft_int8``
+quantizes the whole draft and cuts it), MoE, int8 weights (the whole
+tree quantized, then cut: ``quant.shard_quantized``), int8 KV, the
+adapter bank (cut by the adapters' logical axes), block migration
+(whole heads on the wire) and ``submit_precomputed``.  A mesh refuses
+what the reference refuses: an axis other than dp and tp, KV heads
+(the draft's too) that do not divide over tp, and dense-pool slots
+that do not divide over dp.
 
 ``profiler`` (a serve-plane ``utils.profiler.PhaseProfiler``, a new one
 on ``metrics`` by default) times the scheduler thread's phases, always
@@ -69,7 +75,7 @@ from ..device import resolve_device
 from ..utils.metrics import MetricsRegistry, global_metrics
 from ..utils.profiler import PhaseProfiler
 from .allocator import AllocatorMixin
-from ..parallel.mesh import SERVE_NEXT, axis_rank, axis_size
+from ..parallel.mesh import axis_rank, axis_size
 from .engine import InferenceEngine
 from .executor import ExecutorMixin
 from .journal import RequestJournal
@@ -83,14 +89,6 @@ from .scheduler import (
 __all__ = ["ContinuousBatcher", "Overloaded", "RequestHandle",
            "prompt_bucket"]
 
-# What the port does not run yet with ``mesh=``, and the ROADMAP item
-# that holds each (migration and ``submit_precomputed`` refuse it too,
-# at their calls).
-_NOT_PORTED = {
-    "draft=(model, params)": SERVE_NEXT,
-    "an MoE model": SERVE_NEXT,
-    "int8 weights": SERVE_NEXT,
-}
 ROLES = ("both", "prefill", "decode")
 
 
@@ -135,18 +133,6 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
                 "ACCEPTED prefix, which only exists after the verify"
             )
         if mesh is not None:
-            refused = [what for what, on in (
-                ("draft=(model, params)",
-                 draft is not None and not isinstance(draft, str)),
-                ("an MoE model", model.cfg.moe),
-                ("int8 weights", any(isinstance(leaf, dict) for leaf in (
-                    params["embed"], params["head"],
-                    *params["blocks"].values()))),
-            ) if on]
-            if refused:
-                raise NotImplementedError(
-                    f"ContinuousBatcher(mesh=...) with {refused[0]}: not "
-                    f"ported yet ({_NOT_PORTED[refused[0]]})")
             dp = axis_size(mesh, "dp")
             if int(paged_blocks) <= 0 and slots % dp:
                 # The paged pool is whole on every dp group: any count.
@@ -207,13 +193,14 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
                 )
             # Same max_seq: the draft's rows line up with the target's.
             self.draft_engine = InferenceEngine(
-                draft_model, max_seq=self.engine.max_seq,
+                draft_model, max_seq=self.engine.max_seq, mesh=mesh,
                 int8_compute=draft_int8, device=self.device,
             )
             if draft_int8:
                 from .speculative import int8_draft
 
-                draft_params = int8_draft(draft_params)
+                draft_params = int8_draft(
+                    draft_params, draft_model.logical_axes(), mesh)
             self.draft_params = draft_params
             self.spec_mode = "neural"
         self.params = params

@@ -31,10 +31,24 @@ device's current stream, and ``submit_precomputed`` records an event
 after it that the splice waits on, so a row is never read before its
 writes have landed.  Each row waiting for a slot pins a [L, 1, KH,
 max_seq, Dh] row of device memory; ``inflight_cap`` bounds them.
+
+On a serving mesh (the batcher's ``mesh``) every rank builds the pool,
+before the batcher starts, and its engine runs on the same mesh: every
+rank prefills its heads.  The workers run on the leader only, and each
+prefill is a seam call (``meshed.Seam``, target ``"pool"``), so it
+takes its turn with the scheduler's device calls and every rank issues
+its collectives in one order.  The row stays on each rank, its heads
+only, as a ``meshed.HeldRow`` that the handover's admission names by
+key (a handover that raises names it in a drop, so no rank keeps it).
+On the dense pool every dp group prefills the row: whichever group
+owns the slot it lands in splices it, and the prefill's expert capacity
+is the one row's, as the reference's.  ``stop`` on the leader drains
+the workers; the batcher's stop then ends every rank's loop.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from dataclasses import dataclass, field
@@ -43,7 +57,8 @@ import numpy as np
 import torch
 
 from .batcher import ContinuousBatcher, RequestHandle, prompt_bucket
-from .engine import InferenceEngine, _empty_cache
+from .engine import InferenceEngine
+from .meshed import HeldRow
 from .scheduler import _suffix_bucket
 
 
@@ -87,13 +102,22 @@ class DisaggregatedLm:
         self._held = 0
         self.max_inflight = 0
         self._held_lock = threading.Lock()
-        # The pool's own engine on the batcher's device; kv_quant follows
-        # the decode side so the row splices leaf for leaf.
+        # The pool's own engine on the batcher's device and mesh; kv_quant
+        # follows the decode side so the row splices leaf for leaf.
         self.engine = InferenceEngine(
             model, max_seq=batcher.engine.max_seq,
-            kv_quant=batcher.engine.kv_quant, device=batcher.device,
+            kv_quant=batcher.engine.kv_quant, mesh=batcher.mesh,
+            device=batcher.device,
         )
         self.device = batcher.device
+        self._seam = batcher._seam
+        self._keys = itertools.count(1)
+        if self._seam is not None:
+            if batcher._thread.is_alive():
+                raise RuntimeError(
+                    "on a serving mesh build the DisaggregatedLm on every "
+                    "rank before the batcher starts")
+            self._seam.attach("pool", self)
         self._jobs: queue.Queue = queue.Queue()
         self._dead = False
         self._lifecycle = threading.Lock()
@@ -104,8 +128,11 @@ class DisaggregatedLm:
         ]
 
     def start(self) -> "DisaggregatedLm":
-        for t in self._threads:
-            t.start()
+        """Start the workers (on a mesh the leader's only: the other
+        ranks run the pool's prefills in the batcher's loop)."""
+        if self.batcher.is_leader:
+            for t in self._threads:
+                t.start()
         return self
 
     def stop(self) -> None:
@@ -114,7 +141,8 @@ class DisaggregatedLm:
         for _ in self._threads:
             self._jobs.put(None)
         for t in self._threads:
-            t.join(timeout=10)
+            if t.is_alive():
+                t.join(timeout=10)
 
     def submit(self, ids, max_new_tokens: int = 32, temperature: float = 0.0,
                top_p: float = 0.0, seed: int = 0,
@@ -168,8 +196,7 @@ class DisaggregatedLm:
                                           device=self.device)}
 
     def _row(self):
-        return _empty_cache(self.engine.cfg, 1, self.engine.max_seq,
-                            self.engine.kv_quant, self.device)
+        return self.engine.empty_cache(1)
 
     def _zero(self):
         return torch.zeros(1, dtype=torch.int32, device=self.device)
@@ -222,6 +249,33 @@ class DisaggregatedLm:
         with torch.inference_mode():
             self._serve_jobs()
 
+    def _prefill(self, ids, aidx: int):
+        """The prefill form the decode side takes (module docstring) ->
+        (row, last_logits [1, V], n_tokens, pad)."""
+        n = int(ids.size)
+        moe = self.engine.cfg.moe   # whole prompts only
+        if self.chunk_tokens and not moe:
+            return (*self._prefill_chunked(ids, aidx), n, 0)
+        if self.batcher.paged and not moe:
+            return (*self._prefill_exact(ids, aidx), n, 0)
+        return self._prefill_left(ids, aidx)
+
+    def _prefill_dev(self, key: int, ids, aidx: int):
+        """A meshed prefill on every rank: each keeps its heads of the
+        row under ``key`` (the leader's comes back as a ``HeldRow``)."""
+        row, *rest = self._prefill(ids, aidx)
+        if not self._seam.is_leader:
+            self._seam.held[key] = row
+        return (HeldRow(row, key), *rest)
+
+    def _drop_held(self, row: HeldRow) -> None:
+        """A held row that no admission will name (the handover raised:
+        a full queue, a stopped batcher, a malformed row): every follower
+        lets its heads of it go, or they would stay on the card for
+        good."""
+        if not self._seam.closed:
+            self._seam.call("_drop_held_dev", (row,), {})
+
     def _serve_jobs(self) -> None:
         bank = self.batcher.bank
         while True:
@@ -232,20 +286,16 @@ class DisaggregatedLm:
                 # Backpressure before the prefill: no compute (and no
                 # pinned row) for a row no decode slot can take yet.
                 self._acquire()
-                released = False
+                released, row = False, None
                 try:
                     aidx = bank.index(job.adapter)
-                    n = int(job.ids.size)
-                    moe = self.engine.cfg.moe   # whole prompts only
-                    if self.chunk_tokens and not moe:
-                        row, logits = self._prefill_chunked(job.ids, aidx)
-                        n_tokens, pad = n, 0
-                    elif self.batcher.paged and not moe:
-                        row, logits = self._prefill_exact(job.ids, aidx)
-                        n_tokens, pad = n, 0
+                    if self._seam is None:
+                        row, logits, n_tokens, pad = self._prefill(job.ids,
+                                                                   aidx)
                     else:
-                        row, logits, n_tokens, pad = self._prefill_left(
-                            job.ids, aidx)
+                        row, logits, n_tokens, pad = self._seam.call(
+                            "pool._prefill_dev",
+                            (next(self._keys), job.ids, aidx), {})
                     handle = self.batcher.submit_precomputed(
                         row, logits, n_tokens, pad,
                         max_new_tokens=job.max_new,
@@ -258,5 +308,7 @@ class DisaggregatedLm:
                 finally:
                     if not released:
                         self._release()
+                        if isinstance(row, HeldRow):
+                            self._drop_held(row)
             except Exception as e:  # to the submitter; keep serving
                 job.done.put(e)

@@ -34,8 +34,15 @@ block runs on the rank's H/tp query heads and KH/tp KV heads, its cache
 holds those KV heads, ``wo``'s and the MLP's partial sums and the
 vocabulary-parallel embedding lookup are summed over tp, and the head's
 vocabulary slices are gathered over tp in f32, so every rank of a tp
-group ends a forward with the same logits.  The engine runs whatever
-rows it is given: the batcher cuts rows over dp.
+group ends a forward with the same logits.  An MoE block routes the
+call's own tokens alike on every rank (at full capacity for decode and
+verify windows, the training capacity with padding masked for a
+prefill), each rank runs its F slice of every expert, and the outputs
+are summed over tp.  Int8 weights are the whole tree's, quantized and
+then cut (``quant.shard_quantized``); ``int8_compute`` adds the int32
+partial sums of ``wo`` and ``wo_mlp`` over tp (``quant.int8_dot``).
+The engine runs whatever rows it is given: the batcher cuts rows over
+dp.
 
 ``adapters``/``adapter_idx`` (``prefill``, ``decode_step_multi``,
 ``extend_multi``): an ``AdapterBank``'s stacked tensors and each row's
@@ -55,9 +62,7 @@ from ..device import resolve_device
 from ..models.transformer import TransformerLM, layer_params, wt
 from ..ops.paged_attention import paged_attention
 from ..parallel.collectives import gather_from, reduce_from
-from ..parallel.mesh import (
-    SERVE_AXES, SERVE_NEXT, axis_group, axis_size, check_slice,
-)
+from ..parallel.mesh import SERVE_AXES, axis_group, axis_size, check_slice
 from .lora_bank import layer_slice, lora_delta
 from .quant import int8_dot
 
@@ -154,8 +159,7 @@ class InferenceEngine:
     (a dense draft model; MoE is refused, as in the reference: its int8
     experts dequantize through ``wt``).  An MoE model's prefill routes at
     the training forward's capacity; decode and ``extend_multi`` at full
-    capacity.  ``mesh``: serve over dp x tp (module docstring); MoE and
-    ``int8_compute`` are refused there."""
+    capacity.  ``mesh``: serve over dp x tp (module docstring)."""
 
     def __init__(self, model: TransformerLM, max_seq: int | None = None,
                  kv_quant: bool = False, attn_impl: str | None = None,
@@ -177,10 +181,6 @@ class InferenceEngine:
                 f"n_kv_heads={self.cfg.kv_heads} must be a multiple of "
                 f"tp={tp} — the KV cache's head axis shards over 'tp'"
             )
-        if mesh is not None and (self.cfg.moe or int8_compute):
-            raise NotImplementedError(
-                f"{'MoE' if self.cfg.moe else 'int8_compute'} on a serving "
-                f"mesh: not ported yet ({SERVE_NEXT})")
         # The group a rank's partial sums and vocabulary slices cross
         # (None off a tp mesh), and the KV heads its cache holds.
         self.tp_group = axis_group(mesh, "tp")
@@ -323,9 +323,10 @@ class InferenceEngine:
         dt = self.cfg.dtype
         h = m._rmsnorm(x, lp["ln1"])
         if self.int8_compute and isinstance(lp["wq"], dict):
-            q = int8_dot(h, lp["wq"], dt)
-            k = int8_dot(h, lp["wk"], dt)
-            v = int8_dot(h, lp["wv"], dt)
+            # Column-parallel: D is whole, the heads this rank's.
+            q = int8_dot(h, lp["wq"], dt, 1)
+            k = int8_dot(h, lp["wk"], dt, 1)
+            v = int8_dot(h, lp["wv"], dt, 1)
         else:
             q = torch.einsum("bsd,dhk->bshk", h, wt(lp["wq"], dt))
             k = torch.einsum("bsd,dhk->bshk", h, wt(lp["wk"], dt))
@@ -384,30 +385,38 @@ class InferenceEngine:
         capacity ahead of real tokens."""
         m = self.model
         dt = self.cfg.dtype
+        tp = self.tp_group
         int8 = self.int8_compute and isinstance(lp["wo"], dict)
-        if int8:
-            attn_out = int8_dot(o, lp["wo"], dt)
-        else:
-            attn_out = torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], dt))
+        # On a tp mesh each rank holds the partial sum of its heads (and
+        # its share of the adapter's (o A) B); the int8 product is whole
+        # already (its int32 sums are added over tp).
+        delta = None
         if lp_ad is not None and "wo" in lp_ad:
             o_flat = o.reshape(o.shape[0], o.shape[1], -1)
-            attn_out = attn_out + lora_delta(o_flat, lp_ad["wo"],
-                                             adapter_idx, dt)
-        # On a tp mesh each rank holds the partial sum of its heads (and
-        # its share of the adapter's (o A) B).
-        x = x + reduce_from(attn_out, self.tp_group)
+            delta = lora_delta(o_flat, lp_ad["wo"], adapter_idx, dt)
+        if int8:
+            attn_out = int8_dot(o, lp["wo"], dt, 2, tp)
+            if delta is not None:
+                attn_out = attn_out + reduce_from(delta, tp)
+        else:
+            attn_out = torch.einsum("bshk,hkd->bsd", o, wt(lp["wo"], dt))
+            if delta is not None:
+                attn_out = attn_out + delta
+            attn_out = reduce_from(attn_out, tp)
+        x = x + attn_out
         h2 = m._rmsnorm(x, lp["ln2"])
         if self.cfg.moe:
             full = (x.shape[1] == 1 if moe_full_capacity is None
                     else moe_full_capacity)
             y, _ = m._moe_mlp(h2, lp, full_capacity=full,
-                              token_mask=mask.any(-1))
+                              token_mask=mask.any(-1), tp=tp)
             return x + y
         if not int8:
             return x + m._dense_mlp(h2, lp, self.mesh)
-        g = int8_dot(h2, lp["wi_gate"], dt)
-        u = int8_dot(h2, lp["wi_up"], dt)
-        return x + int8_dot(torch.nn.functional.silu(g) * u, lp["wo_mlp"], dt)
+        g = int8_dot(h2, lp["wi_gate"], dt, 1)
+        u = int8_dot(h2, lp["wi_up"], dt, 1)
+        return x + int8_dot(torch.nn.functional.silu(g) * u, lp["wo_mlp"],
+                            dt, 1, tp)
 
     def _run_blocks(self, params, x, cache, positions, start, mask,
                     pages=None, page: int = 0, kv_start=None,
@@ -426,10 +435,11 @@ class InferenceEngine:
         mesh the ranks' vocabulary slices gathered in f32)."""
         x = self.model._rmsnorm(x, params["final_norm"])
         if self.int8_compute and isinstance(params["head"], dict):
-            return int8_dot(x, params["head"], self.cfg.dtype).float()
-        logits = torch.einsum(
-            "bsd,dv->bsv", x, wt(params["head"], self.cfg.dtype)
-        ).float()
+            logits = int8_dot(x, params["head"], self.cfg.dtype, 1).float()
+        else:
+            logits = torch.einsum(
+                "bsd,dv->bsv", x, wt(params["head"], self.cfg.dtype)
+            ).float()
         return gather_from(logits, self.tp_group, -1)
 
     # -- dense cache: one batch at one shared position --------------------

@@ -50,6 +50,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
+from ..parallel.mesh import axis_rank, axis_size
 from .engine import gumbel_sample, nucleus_mask
 from .speculative import reject_row
 
@@ -360,6 +361,7 @@ class ExecutorMixin:
         names."""
         if self._local(slot) is None:
             return self._elsewhere()
+        row = self._rank_heads(row)
         if page_row is None:
             self._splice_dense(row, slot)
         else:
@@ -370,6 +372,19 @@ class ExecutorMixin:
         self._seat(slot, first, pos, rope, start, temp, top_p, gen, spec,
                    aidx=aidx, cidx=cidx, cstate=cstate)
         return first, lp
+
+    def _rank_heads(self, row: dict) -> dict:
+        """A [L, 1, KH, ...] row at this rank's KV heads: a whole row
+        (a handover prefilled off the mesh) is cut to its tp slice."""
+        if next(iter(row.values())).shape[2] == self.engine.kv_heads:
+            return row
+        tp, r = axis_size(self.mesh, "tp"), axis_rank(self.mesh, "tp")
+        return {name: t.chunk(tp, dim=2)[r] for name, t in row.items()}
+
+    def _drop_held_dev(self, row: dict) -> None:
+        """A precomputed row that will not be seated: the call's
+        descriptor took each follower's rows of it (``meshed.HeldRow``),
+        and they go with it."""
 
     def _admit_entry_dev(self, entry: dict, slot: int, temp: float,
                          seed: int, top_p: float, spec=None, cidx: int = 0):

@@ -29,12 +29,27 @@ Sampling needs nothing more: after the tp gather the logits are the same
 bits on every rank of a tp group, and the slot's generator is seeded
 alike on each, so they draw alike.
 
+Besides the executor's programs the seam carries the pool's block
+migration (``_export_dev`` gathers each block's heads over tp, so the
+wire holds whole heads; ``_import_dev`` hands every rank the wire
+blocks and each writes its heads) and the prefills of an in-process
+prefill pool (``disagg.DisaggregatedLm`` on the same mesh, attached as
+``"pool"``).  A pool's row stays on the rank that computed it, its heads
+only: the leader's is a ``HeldRow`` that travels in a descriptor by its
+key, and each follower takes its own row of that key (``held``).  The
+pool's worker threads call the seam beside the scheduler thread, so a
+call holds a lock from its descriptor to its last collective: the
+followers run the calls one by one in the leader's order.
+
 ``close`` (the leader's scheduler thread, as it exits) sends the final
-descriptor that ends every follower's loop.  A follower whose leader
-died fails at its next collective, within the process group's timeout.
+descriptor that ends every follower's loop; a call after it raises.  A
+follower whose leader died fails at its next collective, within the
+process group's timeout.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -46,14 +61,33 @@ from ..parallel.mesh import AXES, axis_group, axis_size
 # round; the rounds' outputs, rows on dim 1.
 _ADMITS = ("_admit_dev", "_admit_prefix_dev", "_admit_exact_dev",
            "_admit_entry_dev", "_admit_paged_dev")
-_ROUNDS = ("_round_dev", "_round_spec_ngram_dev")
-_CALLS = (*_ADMITS, *_ROUNDS, "_admit_round_dev", "_prefix_dev")
+_ROUNDS = ("_round_dev", "_round_spec_dev", "_round_spec_ngram_dev")
+_RECORDED = (*_ADMITS, *_ROUNDS, "_admit_round_dev")
+_CALLS = (*_RECORDED, "_prefix_dev", "_export_dev", "_import_dev",
+          "_drop_held_dev", "pool._prefill_dev")
 
 
 class _Entry:
     """A dense prefix entry in a descriptor: its key."""
 
     def __init__(self, key: bytes):
+        self.key = key
+
+
+class _Held:
+    """A held row in a descriptor: its key."""
+
+    def __init__(self, key: int):
+        self.key = key
+
+
+class HeldRow(dict):
+    """A K/V row (a dict of cache leaves at this rank's heads) that every
+    rank of the mesh computed in one seam call and holds under ``key``:
+    a descriptor names it by the key, and each rank reads its own."""
+
+    def __init__(self, leaves: dict, key: int):
+        super().__init__(leaves)
         self.key = key
 
 
@@ -77,6 +111,17 @@ class Seam:
         # A list to keep each call's outputs in, as host tensors (None:
         # kept nowhere): what tests compare across ranks.
         self.record = None
+        # Objects besides the batcher whose programs the seam runs, by
+        # name; a follower's rows of the calls that made them, by key.
+        self.targets = {}
+        self.held = {}
+        self._lock = threading.Lock()
+        self.closed = False
+
+    def attach(self, name: str, target) -> None:
+        """Run ``name.<method>`` calls on ``target`` (the same object on
+        every rank, attached before the batcher starts)."""
+        self.targets[name] = target
 
     def observe(self, registry) -> None:
         """Time this process's transfers into ``registry``'s
@@ -96,6 +141,8 @@ class Seam:
 
     # -- descriptors -------------------------------------------------------
     def _encode(self, x):
+        if isinstance(x, HeldRow):
+            return _Held(x.key)
         if torch.is_tensor(x):
             return x.detach().cpu()
         if isinstance(x, dict) and "key" in x and "cache" in x:
@@ -111,6 +158,8 @@ class Seam:
             return x.to(self.batcher.device)
         if isinstance(x, _Entry):
             return self.batcher._prefix[x.key]
+        if isinstance(x, _Held):
+            return self.held.pop(x.key)
         if isinstance(x, (tuple, list)):
             return type(x)(self._decode(v) for v in x)
         if isinstance(x, dict):
@@ -124,9 +173,17 @@ class Seam:
         if name not in _CALLS:
             raise ValueError(f"{name} is not a device program of the "
                              "executor")
-        collectives.broadcast_object(
-            (name, self._encode(args), self._encode(kw)))
-        return self._collect(name, getattr(self.batcher, name)(*args, **kw))
+        with self._lock:
+            if self.closed:
+                raise RuntimeError("the serving mesh is closed")
+            collectives.broadcast_object(
+                (name, self._encode(args), self._encode(kw)))
+            return self._collect(name, self._method(name)(*args, **kw))
+
+    def _method(self, name: str):
+        target, _, method = name.rpartition(".")
+        return getattr(self.targets[target] if target else self.batcher,
+                       method)
 
     def follow(self) -> None:
         """A follower: run every descriptor the leader sends until the
@@ -136,18 +193,20 @@ class Seam:
             if desc is None:
                 return
             name, args, kw = desc
-            self._collect(name, getattr(self.batcher, name)(
+            self._collect(name, self._method(name)(
                 *self._decode(args), **self._decode(kw)))
 
     def close(self) -> None:
         """The leader: end every follower's loop."""
-        collectives.broadcast_object(None)
+        with self._lock:
+            self.closed = True
+            collectives.broadcast_object(None)
 
     def _collect(self, name: str, out):
         """A dense dp mesh's outputs, whole on every rank: the admission's
         (token, log-prob) summed over dp, the rounds' rows gathered."""
         group = self.dp_group
-        if name == "_prefix_dev":
+        if name not in _RECORDED:
             return out
         if group is not None:
             out = self._gather_dp(name, list(out), group)

@@ -18,9 +18,18 @@ leaf's ``q`` with that layout for every layer's [K, N] matrix: same
 shape and values, other strides.  On CPU tensors the plain version
 multiplies in int32, exact: an int8 x int8 sum over K = 4096 reaches
 6.6e7, past float32's exact 2^24.
+
+On a tp mesh the tree is quantized whole and then cut
+(``shard_quantized``).  The column-parallel products (q/k/v, the MLP's
+inputs, the head) contract D, which tp does not cut.  The row-parallel
+ones (``wo``, ``wo_mlp``) contract what it cuts: ``int8_dot(group=)``
+takes the activation's row max over tp and adds the int32 partial sums
+over it, so each rank's product is the one-rank product.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -113,12 +122,31 @@ def matmul_layout(params: dict) -> dict:
     return out
 
 
-def quantize_act(x):
+def shard_quantized(params: dict, logical_axes: dict, mesh) -> dict:
+    """This rank's shards of a quantized tree (``quantize_params`` of the
+    WHOLE tree: ``parallel.sharding`` says why the order matters), each
+    matmul ``q`` laid out again as ``quantize_params`` lays it: a cut is
+    a strided view, which cuBLASLt's integer product would copy on
+    every call."""
+    from ..parallel.sharding import shard_params
+
+    return matmul_layout(shard_params(params, logical_axes, mesh))
+
+
+def quantize_act(x, group=None):
     """x [..., K] -> (int8 values, f32 scale a row [...]): symmetric
     absmax over the contraction axis, the activation half of an int8 x
-    int8 product."""
+    int8 product.  ``group``: the ranks that each hold a slice of K (a
+    row-parallel product on a tp mesh); the row max is taken over all of
+    them, so each rank's int8 values are its slice of the whole row's."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    amax = xf.abs().amax(dim=-1)
+    if group is not None:
+        from ..parallel.collectives import all_reduce
+
+        amax = all_reduce(amax.contiguous(), group,
+                          op=torch.distributed.ReduceOp.MAX)
+    scale = amax.clamp_min(1e-8) / 127.0
     q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
     return q, scale
 
@@ -151,31 +179,32 @@ def int_mm(a, b):
     return y[:M, :N]
 
 
-def int8_dot(x, leaf, out_dtype):
+def int8_dot(x, leaf, out_dtype, contract: int, group=None):
     """True int8 matmul against a quantized leaf: quantize ``x`` a row,
     contract int8 x int8 -> int32, rescale by (activation scale x weight
     scale a channel).  ``leaf`` is a per-layer slice of the ``{"q", "s"}``
-    form whose contraction axes lead (those ``s`` keeps at 1); ``x``
-    contracts its trailing axes against them.  The output keeps x's
-    leading axes and the weight's output axes."""
+    form whose ``contract`` leading axes are contracted against ``x``'s
+    ``contract`` trailing axes (named, not read off ``s``: a tp shard may
+    hold one head).  The output keeps x's leading axes and the weight's
+    output axes.  ``group``: the tp group of a row-parallel product,
+    whose contraction axes are cut over it; the activation scale is the
+    whole row's (``quantize_act``) and the int32 partial sums are added
+    over the group before the rescale, so the output is the whole
+    product on every rank, as one rank computes it."""
     w, s = leaf["q"], leaf["s"]
-    n_c = sum(1 for i in range(w.dim()) if s.shape[i] == 1 and w.shape[i] > 1)
-    n_c = max(n_c, 1)
-    k_tot = 1
-    for d in w.shape[:n_c]:
-        k_tot *= d
-    n_x, prod = 0, 1
-    while prod < k_tot:
-        n_x += 1
-        prod *= x.shape[-n_x]
-    if prod != k_tot:
+    k_tot = math.prod(w.shape[:contract])
+    lead = x.shape[:x.dim() - contract]
+    if math.prod(x.shape[x.dim() - contract:]) != k_tot:
         raise ValueError(f"cannot contract {tuple(x.shape)} against "
                          f"{tuple(w.shape)}")
-    lead = x.shape[:-n_x]
-    xq, ax = quantize_act(x.reshape(*lead, k_tot))
-    y = int_mm(xq.reshape(-1, k_tot), w.reshape(k_tot, -1)).float()
-    y = y * ax.reshape(-1, 1) * s.reshape(1, -1)
-    return y.reshape(*lead, *w.shape[n_c:]).to(out_dtype)
+    xq, ax = quantize_act(x.reshape(*lead, k_tot), group)
+    y = int_mm(xq.reshape(-1, k_tot), w.reshape(k_tot, -1))
+    if group is not None:
+        from ..parallel.collectives import all_reduce
+
+        y = all_reduce(y.contiguous(), group)
+    y = y.float() * ax.reshape(-1, 1) * s.reshape(1, -1)
+    return y.reshape(*lead, *w.shape[contract:]).to(out_dtype)
 
 
 def quantized_bytes(params: dict) -> tuple[int, int]:

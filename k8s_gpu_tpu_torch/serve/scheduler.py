@@ -82,10 +82,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..parallel.mesh import SERVE_NEXT
 from ..utils.faults import global_faults
 from ..utils.tracing import global_tracer
 from .engine import _empty_cache
+from .meshed import HeldRow
 from .journal import PROBE_TENANT, RequestRecord, golden_hash
 
 log = logging.getLogger("k8s_gpu_tpu_torch.serve")
@@ -359,10 +359,14 @@ class SchedulerMixin:
         malformed row must not reach the scheduler.  ``on_admit`` runs
         once when the row is spliced or the request ends unseated.  On
         the card the splice's stream waits for the work this thread
-        queued before the call (an event recorded here)."""
+        queued before the call (an event recorded here).  On a serving
+        mesh the row is either a ``meshed.HeldRow`` at this rank's KV
+        heads (every rank computed its heads of it in one seam call: a
+        ``DisaggregatedLm`` on the same mesh; the admission's descriptor
+        names it, so each rank splices its own) or a whole row, which the
+        descriptor carries to every rank and each cuts to its heads."""
         global_faults.fire("serve.submit", error_type=RuntimeError,
                            only=("error", "timeout"))
-        self._refuse_on_mesh("the disaggregated prefill handover")
         aidx = self.bank.index(adapter)
         cidx = self._constraint_index(constraint)
         n_tokens, pad = int(n_tokens), int(pad)
@@ -371,7 +375,9 @@ class SchedulerMixin:
             raise ValueError("precomputed prompt fills max_seq")
         cfg = self.engine.cfg
         tmpl = _empty_cache(cfg, 1, self.engine.max_seq,
-                            self.engine.kv_quant, "meta")
+                            self.engine.kv_quant, "meta",
+                            self.engine.kv_heads
+                            if isinstance(row_cache, HeldRow) else None)
         got_keys = set(row_cache) if isinstance(row_cache, dict) else None
         if got_keys != set(tmpl):
             raise ValueError(
@@ -424,11 +430,6 @@ class SchedulerMixin:
                 f"unknown constraint {name!r}; no ConstraintBank configured"
             )
         return self.cbank.index(name)
-
-    def _refuse_on_mesh(self, what: str) -> None:
-        if self._seam is not None:
-            raise NotImplementedError(
-                f"{what} on a serving mesh: not ported yet ({SERVE_NEXT})")
 
     def _enqueue(self, req: _Request) -> RequestHandle:
         """Put a request on the pending queue (the tail of both submits)."""
@@ -1024,13 +1025,9 @@ class SchedulerMixin:
         # The spec round's launches: nested in decode_dispatch, whose
         # self time keeps the gate and the sizing.
         with self.profiler.phase("spec_draft"):
-            if self.spec_mode == "ngram":
-                toks, ns, lps = self._dev_call(
-                    "_round_spec_ngram_dev", use_top_p, n_rounds, t_hi, K,
-                    pages)
-            else:
-                toks, ns, lps = self._round_spec_dev(
-                    use_top_p, n_rounds, t_hi, K, pages)
+            toks, ns, lps = self._dev_call(
+                "_round_spec_ngram_dev" if self.spec_mode == "ngram"
+                else "_round_spec_dev", use_top_p, n_rounds, t_hi, K, pages)
         self.dispatched["verify_subrounds"] += n_rounds
         if self.paged and self.engine.attn_impl == "paged_kernel":
             self.metrics.inc("serve_paged_kernel_rounds_total")
@@ -1174,8 +1171,12 @@ class SchedulerMixin:
 
     def _abort(self, req: _Request, reason: str = "aborted") -> None:
         """End a request that holds no slot: journalled, stream closed,
-        its ``on_admit`` hook run (a precomputed row is never seated)."""
+        its ``on_admit`` hook run (a precomputed row is never seated; on
+        a live mesh every follower lets its heads of the row go)."""
         self._release_admit(req)
+        if (req.precomputed is not None and self._seam is not None
+                and not self._seam.closed):
+            self._dev_call("_drop_held_dev", req.precomputed[0])
         req.precomputed = req.ready = None
         req.aborted = True
         self._journal(req, reason)

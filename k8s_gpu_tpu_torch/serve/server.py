@@ -56,8 +56,9 @@ On a serving mesh (``mesh=``, ``params`` this rank's shards) every rank
 builds the server, but only global rank 0, the batcher's leader, binds
 the HTTP port (``port`` is None elsewhere); the other ranks' ``start()``
 runs the batcher's follower loop, and ``wait()`` or ``stop()`` there
-returns once the leader stops.  ``/admin/export``, ``/admin/import`` and
-``/prefill`` answer 501 on a mesh, naming the ROADMAP item.
+returns once the leader stops.  Every route answers there as on one
+rank: ``/admin/export`` and ``/prefill`` send whole heads (the seam
+gathers them over tp), ``/admin/import`` hands every rank its heads.
 """
 
 from __future__ import annotations
@@ -71,7 +72,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..data.tokenizer import BpeTokenizer
-from ..parallel.mesh import SERVE_NEXT
 from ..utils.faults import global_faults
 from ..utils.obs import RequestMetricsMixin
 from .batcher import ContinuousBatcher
@@ -208,11 +208,6 @@ class LmServer:
                     return self._unavailable(e)
                 return self._json(200, {"cached_tokens": int(ids.size)})
 
-            def _not_on_mesh(self, what):
-                return self._json(501, {
-                    "error": f"{what} on a serving mesh: not ported yet "
-                             f"({SERVE_NEXT})"})
-
             def _unavailable(self, e):
                 return self._json(503, {"error": str(e)},
                                   headers={"Retry-After": str(RETRY_AFTER_S)})
@@ -224,8 +219,6 @@ class LmServer:
                 it from the imported chain (sampling is seeded per
                 request).  No ``migrating`` latch: a per-chain export on
                 a worker the gateway routes no decode to."""
-                if outer.mesh is not None:
-                    return self._not_on_mesh("/prefill")
                 prompt_ids = body.get("prompt_ids")
                 if not _ids_ok(prompt_ids):
                     return self._json(400, {
@@ -304,8 +297,6 @@ class LmServer:
                 streams as migrated, ``include_blocks=false`` skips the
                 bodies.  400 on the dense pool, 503 when the scheduler
                 is stopped or no boundary comes."""
-                if outer.mesh is not None:
-                    return self._not_on_mesh("/admin/export")
                 abort_live = bool(body.get("abort_live", False))
                 include_blocks = bool(body.get("include_blocks", True))
                 try:
@@ -333,8 +324,6 @@ class LmServer:
                 """Splice a payload's blocks into the pool through a
                 quiesce barrier; a malformed payload answers 400 before
                 the pool changes."""
-                if outer.mesh is not None:
-                    return self._not_on_mesh("/admin/import")
                 try:
                     global_faults.fire("migrate.import",
                                        error_type=RuntimeError,

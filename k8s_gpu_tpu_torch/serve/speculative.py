@@ -97,15 +97,24 @@ def rejection_sample(p, q, g, generators):
     return a, torch.stack([x for _, x in pairs])
 
 
-def int8_draft(draft_params):
+def int8_draft(draft_params, logical_axes=None, mesh=None):
     """A draft param tree for int8 compute (``draft_int8=True``): weights
     int8 with per-channel scales, consumed by an
     ``InferenceEngine(int8_compute=True)``.  Safe for the draft only:
     the acceptance test is exact for any q, so quantization moves the
-    acceptance rate, never the stream; the target keeps its dtype."""
-    from .quant import quantize_params
+    acceptance rate, never the stream; the target keeps its dtype.  On a
+    mesh ``draft_params`` are this rank's shards (cut by
+    ``logical_axes``): they are gathered, the whole draft is quantized,
+    and it is cut again (``quant.shard_quantized``), so every rank holds
+    the scales of the whole tree."""
+    from .quant import quantize_params, shard_quantized
 
-    return quantize_params(draft_params)
+    if mesh is None:
+        return quantize_params(draft_params)
+    from ..parallel.sharding import gather_params
+
+    whole = gather_params(draft_params, logical_axes, mesh)
+    return shard_quantized(quantize_params(whole), logical_axes, mesh)
 
 
 def distill_draft(target_model, tparams, draft_cfg=None, *, steps: int = 200,

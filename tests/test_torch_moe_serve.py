@@ -112,9 +112,9 @@ def _count_drops(monkeypatch) -> list:
     """Real tokens each capped MoE call of the port dropped."""
     drops, moe = [], TM._moe_mlp
 
-    def counting(x, lp, full_capacity=False, token_mask=None):
+    def counting(x, lp, full_capacity=False, token_mask=None, **kw):
         y, aux = moe(x, lp, full_capacity=full_capacity,
-                     token_mask=token_mask)
+                     token_mask=token_mask, **kw)
         if not full_capacity:
             live = (torch.ones(x.shape[:2], dtype=torch.bool)
                     if token_mask is None else token_mask)

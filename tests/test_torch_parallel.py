@@ -238,6 +238,64 @@ def test_shard_params_keeps_dp_and_sp_replicas_whole():
         assert a.shape == b.shape
 
 
+def _leaves(tree):
+    """A tree's tensors in a fixed order, an int8 leaf's q before s."""
+    if torch.is_tensor(tree):
+        return [tree]
+    return [t for k in sorted(tree) for t in _leaves(tree[k])]
+
+
+# (leaf, dimension tp cuts, whether its scale keeps that dimension).
+INT8_CUTS = (("wq", 2, True), ("wo", 1, False), ("wi_gate", 2, True),
+             ("wo_mlp", 1, False))
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_int8_tree_is_quantized_whole_then_cut(monkeypatch, moe):
+    """``shard_params`` of the whole quantized tree at tp 4 (one head a
+    rank): ``q`` is the whole ``q``'s cut, ``s`` is cut only where it
+    keeps the dimension (size-1 scale dims stay whole), ``gather_params``
+    (its all-gather stood in by the four ranks' shards) gives back the
+    whole quantized tree, and quantizing a rank's float shard instead
+    gives ``wo`` (and the experts' ``e_wo``) other scales: the reason
+    for the order."""
+    from k8s_gpu_tpu_torch.parallel import sharding
+    from k8s_gpu_tpu_torch.serve.quant import quantize_params
+
+    tm = TransformerLM(TransformerConfig(**DIMS, num_experts=4 if moe
+                                         else 0), device="cpu")
+    whole = tm.init(0, dtype=torch.float32)
+    axes = tm.logical_axes()
+    quant = quantize_params(whole)
+    tp = 4
+    meshes = [fake_mesh({"tp": r}, tp=tp) for r in range(tp)]
+    shards = [shard_params(quant, axes, m) for m in meshes]
+    cuts = ((("e_wi_gate", 3, True), ("e_wo", 2, False)) if moe
+            else INT8_CUTS)
+    for r, sh in enumerate(shards):
+        for name, dim, kept in cuts:
+            got, want = sh["blocks"][name], quant["blocks"][name]
+            assert torch.equal(got["q"], want["q"].chunk(tp, dim)[r])
+            assert torch.equal(got["s"], want["s"].chunk(tp, dim)[r]
+                               if kept else want["s"])
+        for name, dim in (("head", 1), ("embed", 0)):
+            for part in ("q", "s"):
+                assert torch.equal(sh[name][part],
+                                   quant[name][part].chunk(tp, dim)[r])
+    parts = {(t.data_ptr(), tuple(t.shape), t.stride()): list(ts)
+             for ts in zip(*(_leaves(sh) for sh in shards))
+             for t in ts[:1]}
+    monkeypatch.setattr(sharding, "all_gather", lambda t, group: parts[
+        (t.data_ptr(), tuple(t.shape), t.stride())])
+    back = sharding.gather_params(shards[0], axes, meshes[0])
+    for a, b in zip(_leaves(back), _leaves(quant), strict=True):
+        assert torch.equal(a, b)
+    name = "e_wo" if moe else "wo"
+    own = [quantize_params(shard_params(whole, axes, m))["blocks"][name]["s"]
+           for m in meshes]
+    assert not all(torch.equal(s, quant["blocks"][name]["s"]) for s in own)
+
+
 def test_sp_attention_bundle_loads(tmp_path):
     store = AssetStore(tmp_path)
     jm = JaxLM(JaxConfig(**DIMS, sp_attention="ulysses", dtype=jnp.float32))

@@ -125,7 +125,8 @@ def test_int8_dot_matches_reference(leaf, shape):
         tl = {k: v[1] for k, v in tq["blocks"][leaf].items()}
     x = np.random.default_rng(1).normal(size=shape).astype(np.float32)
     ref = np.asarray(jax_quant.int8_dot(jnp.asarray(x), jl, jnp.float32))
-    got = quant.int8_dot(torch.from_numpy(x), tl, torch.float32)
+    contract = 2 if leaf == "wo" else 1      # wo contracts H and Dh
+    got = quant.int8_dot(torch.from_numpy(x), tl, torch.float32, contract)
     assert tuple(got.shape) == ref.shape
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-7)
 
@@ -143,7 +144,7 @@ def test_plain_integer_product_is_exact_past_float32():
     assert int(y[0, 0]) == want and int(y[2, 15]) == want
     x = torch.full((2, 4096), 0.5)
     leaf = {"q": b, "s": torch.ones(1, 16)}
-    out = quant.int8_dot(x, leaf, torch.float32)
+    out = quant.int8_dot(x, leaf, torch.float32, 1)
     assert float(out[0, 0]) == pytest.approx(want * 0.5 / 127, rel=1e-7)
 
 
@@ -205,8 +206,8 @@ def test_cuda_int8_dot_matches_the_plain_version(cuda):
     leaf = quant.quantize_params(tp)["blocks"]["wq"]
     leaf = {k: v[0] for k, v in leaf.items()}
     x = torch.randn(8, 1, 32, generator=torch.Generator().manual_seed(3))
-    ref = quant.int8_dot(x, leaf, torch.float32)
+    ref = quant.int8_dot(x, leaf, torch.float32, 1)
     got = quant.int8_dot(x.to(cuda), {k: tensor_from_numpy(v.numpy(), cuda)
                                       for k, v in leaf.items()},
-                         torch.float32)
+                         torch.float32, 1)
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=1e-7)

@@ -9,10 +9,18 @@ requests before ``start()`` (so no admission of them is solo), collects
 their streams and stops, which ends the other ranks' loops.  Every rank
 records what each device call returned (``Seam.record``), so the test
 holds every rank's tokens equal.  ``run_all`` returns, per case and
-rank, the streams, the records, the admission paths and, for the pool
-cases, this rank's slice of the pool; then the engine's ``generate``,
-a 3-step LoRA fine-tune over dp 2 x tp 2, a meshed ``LmServer`` over
-HTTP, and the refusals' messages.
+rank, the streams, the records, the admission paths, the speculative
+counts and, for the pool cases, this rank's slice of the pool; then the
+engine's ``generate`` (plain, MoE, int8 weights, ``int8_compute``), a
+3-step LoRA fine-tune over dp 2 x tp 2, a meshed ``LmServer`` over
+HTTP, and the refusals' messages.  The neural cases serve with a tiny
+draft, the MoE cases the MoE model, ``tp4_int8_weights`` the whole tree
+quantized and then cut, and ``tp4_disagg`` takes its requests through a
+meshed ``DisaggregatedLm`` and the first again as a whole row prefilled
+off the mesh, then one more handover that the full pending queue
+refuses (no rank may keep its row); ``tp4_paged_kernel`` also exports
+its blocks and imports them into a new meshed batcher, which serves a
+prompt over the imported prefix.
 """
 
 from __future__ import annotations
@@ -40,6 +48,14 @@ REQUESTS = [
 # One sampled request: every rank must draw the same stream.
 SAMPLED = ([4, 5], 6, 0.9, 7)
 PAGED = dict(paged_blocks=BLOCKS, page_size=PAGE)
+KERNEL = dict(PAGED, attn_impl="paged_kernel")
+# The neural draft: the target's first layer, embedding and head (so it
+# agrees with the target often enough to accept), KV heads over tp 4.
+DRAFT_DIMS = dict(DIMS, n_layers=1)
+MOE = dict(num_experts=4, capacity_factor=1.25)
+SPEC_K = 3
+# A prompt over the two pages of _PREFIX that the import brings back.
+AFTER_IMPORT = (_PREFIX + [19, 3], 5)
 # (name, mesh, batcher knobs, sampled request too, pool kept)
 CASES = (
     ("tp4_paged_gather", "tp4", dict(PAGED, attn_impl="gather"), True,
@@ -57,6 +73,15 @@ CASES = (
                                  kv_quant=True), False, False),
     ("tp4_adapters", "tp4", dict(PAGED, attn_impl="paged_kernel"), False,
      False),
+    # Unshared, so every admission prefills the draft as the dense
+    # pool's cold ones do, and both neural cases draft alike.
+    ("tp4_neural", "tp4", dict(KERNEL, prefix_cache=False, spec_k=SPEC_K),
+     False, False),
+    ("dp2tp2_neural_dense", "dp2tp2", dict(spec_k=SPEC_K), False, False),
+    ("tp4_moe_paged", "tp4", KERNEL, False, False),
+    ("dp2tp2_moe_dense", "dp2tp2", {}, False, False),
+    ("tp4_int8_weights", "tp4", KERNEL, False, False),
+    ("tp4_disagg", "tp4", KERNEL, False, False),
 )
 ADAPTER = "ft"
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "wi_gate", "wo_mlp", "head")
@@ -67,17 +92,18 @@ GEN_PROMPT_SHAPE, GEN_NEW = (2, 7), 5
 
 
 def make_inputs(seed: int, params: dict, adapter: dict,
-                lora_start: dict, lora_grad_start: dict) -> dict:
+                lora_start: dict, lora_grad_start: dict, draft: dict,
+                moe: dict) -> dict:
     """Every input of the run from ``seed``; the trees come from the JAX
     package's inits as numpy: the base ``params``, the served
-    ``adapter`` (B drawn non-zero), the fine-tune's ``lora_start`` and
-    the tree the gradients are taken at (B drawn non-zero, so every
-    half has a gradient)."""
+    ``adapter`` (B drawn non-zero), the fine-tune's ``lora_start``, the
+    tree the gradients are taken at (B drawn non-zero, so every half has
+    a gradient), the neural ``draft`` and the ``moe`` model's."""
     rng = np.random.default_rng(seed)
     v = DIMS["vocab_size"]
     return dict(
         params=params, adapter=adapter, lora_start=lora_start,
-        lora_grad_start=lora_grad_start,
+        lora_grad_start=lora_grad_start, draft=draft, moe=moe,
         gen_prompt=rng.integers(0, v, GEN_PROMPT_SHAPE).astype(np.int32),
         lora_tokens=rng.integers(0, v, (LORA_STEPS, LORA_BATCH,
                                         LORA_SEQ + 1)).astype(np.int32))
@@ -104,48 +130,175 @@ def _numpy(x):
     return x.numpy().copy() if torch.is_tensor(x) else x
 
 
-def _model(**knobs):
+def _model(dims=DIMS, **knobs):
     import torch
 
     from k8s_gpu_tpu_torch.models import TransformerConfig, TransformerLM
 
-    return TransformerLM(TransformerConfig(**DIMS, **knobs,
+    return TransformerLM(TransformerConfig(**dims, **knobs,
                                            dtype=torch.float32),
                          device="cpu")
 
 
-def _serve(model, params, mesh, name, knobs, adapters=None) -> dict:
+def _shards(model, params, mesh, int8: bool = False):
+    """This rank's shards of ``params`` (``int8``: of the whole tree
+    quantized)."""
+    from k8s_gpu_tpu_torch.parallel.sharding import shard_params
+    from k8s_gpu_tpu_torch.serve.quant import (
+        quantize_params, shard_quantized,
+    )
+
+    if int8:
+        return shard_quantized(quantize_params(params), model.logical_axes(),
+                               mesh)
+    return shard_params(params, model.logical_axes(), mesh)
+
+
+def _case_model(name, inp):
+    """(model, whole params, knobs) a case serves beyond its own."""
+    from k8s_gpu_tpu_torch.convert import params_from_numpy
+
+    if "moe" in name:
+        return _model(**MOE), params_from_numpy(inp["moe"], "cpu"), {}
+    model, params = _model(), params_from_numpy(inp["params"], "cpu")
+    if "neural" in name:
+        dm = _model(DRAFT_DIMS)
+        return model, params, {"draft": (dm, params_from_numpy(
+            inp["draft"], "cpu"))}
+    return model, params, {}
+
+
+def _serve(mesh, name, knobs, inp, adapters=None) -> dict:
     """One batcher case on this rank (module docstring)."""
     import torch.distributed as dist
 
-    from k8s_gpu_tpu_torch.parallel.sharding import shard_params
-    from k8s_gpu_tpu_torch.serve import ContinuousBatcher
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher, DisaggregatedLm
 
-    shards = shard_params(params, model.logical_axes(), mesh)
+    model, params, extra = _case_model(name, inp)
+    if "draft" in extra:
+        dm, dp = extra["draft"]
+        extra["draft"] = (dm, _shards(dm, dp, mesh))
+    shards = _shards(model, params, mesh, int8="int8" in name)
+    if "disagg" in name:
+        # The pool's handovers and the whole row fill the pending queue:
+        # one more handover is refused after every rank prefilled it.
+        extra["max_pending"] = len(requests_of(name)) + 1
     b = ContinuousBatcher(model, shards, mesh=mesh, adapters=adapters,
                           eos_id=-1, device="cpu", **{"slots": SLOTS,
-                                                      **knobs})
+                                                      **knobs, **extra})
+    # Every handover is held before start(): one row a request.
+    pool = (DisaggregatedLm(model, shards, batcher=b,
+                            inflight_cap=len(requests_of(name)) + 1).start()
+            if "disagg" in name else None)
     b._seam.record = []
     if knobs.get("draft") == "ngram":
         # Always speculate: the gate reads the leader's clock.
         b.ngram_breakeven = 0.0
         b._ngram_next_meas = {"plain": float("inf"), "spec": float("inf")}
-    streams = None
+    streams = spec = export = refused = None
     if b.is_leader:
-        handles = [b.submit(p, max_new_tokens=n, temperature=t, seed=s,
-                            adapter=a)
-                   for p, n, t, s, a in requests_of(name)]
+        if pool is not None:
+            # Each handover is queued before start(), as the others, and
+            # the first request again as a whole row.
+            handles = [pool.submit(p, max_new_tokens=n)
+                       for p, n, _, _, _ in requests_of(name)]
+            handles.append(_whole_row(b, model, params, *REQUESTS[0]))
+            refused = _refused_handover(pool, *REQUESTS[1])
+        else:
+            handles = [b.submit(p, max_new_tokens=n, temperature=t, seed=s,
+                                adapter=a)
+                       for p, n, t, s, a in requests_of(name)]
         b.start()
         streams = [h.result() for h in handles]
+        st = b.spec_stats
+        spec = (st["drafted"], st["accepted"])
+        if name == "tp4_paged_kernel":
+            export = _export(b)
+        if pool is not None:
+            pool.stop()
         b.stop()
     else:
         b.start().wait()
     dist.barrier()
-    return {"streams": streams, "record": [_numpy(r)
-                                           for r in b._seam.record],
-            "paths": dict(b.admission_paths),
-            "pool": {k: v.numpy().copy() for k, v in
-                     b._dev["cache"].items()}}
+    out = {"streams": streams, "spec": spec, "refused": refused,
+           "held": len(b._seam.held),
+           "record": [_numpy(r) for r in b._seam.record],
+           "paths": dict(b.admission_paths),
+           "pool": {k: v.numpy().copy() for k, v in
+                    b._dev["cache"].items()}}
+    if name == "tp4_paged_kernel":
+        out["export"] = export
+        out["import"] = _import(model, shards, mesh, knobs, export)
+    return out
+
+
+def _whole_row(b, model, params, prompt, new):
+    """``prompt`` handed over as a whole row (every KV head), prefilled
+    off the mesh by a one-rank engine in the paged side's form (one
+    right-padded extend over the bucket): each rank splices its heads."""
+    import torch
+
+    from k8s_gpu_tpu_torch.serve import InferenceEngine
+    from k8s_gpu_tpu_torch.serve.scheduler import _suffix_bucket
+
+    eng = InferenceEngine(model, max_seq=b.engine.max_seq, device="cpu")
+    n = len(prompt)
+    ids = torch.zeros((1, min(_suffix_bucket(n), eng.max_seq)),
+                      dtype=torch.int32)
+    ids[0, :n] = torch.tensor(prompt)
+    zero = torch.zeros(1, dtype=torch.int32)
+    row = eng.empty_cache(1)
+    _, logits = eng.extend_multi(params, row, ids, zero, zero, zero)
+    return b.submit_precomputed(row, logits[:, n - 1], n, 0,
+                                max_new_tokens=new)
+
+
+def _refused_handover(pool, prompt, new) -> str:
+    """A handover the full pending queue refuses (``Overloaded``) after
+    every rank held its heads of the row: the error's name."""
+    try:
+        pool.submit(prompt, max_new_tokens=new)
+    except Exception as e:
+        return type(e).__name__
+    return "admitted"
+
+
+def _export(b) -> dict:
+    """The leader's export of every registered block: the payload's
+    canonical bytes and each chain hash's block id."""
+    from k8s_gpu_tpu_torch.serve.migrate import pack, payload_bytes
+
+    snap = b.run_quiesced(b.migrate_export)
+    return {"payload": payload_bytes(pack(snap)),
+            "blocks": {h.hex(): blk for h, blk in b._pool.registered()}}
+
+
+def _import(model, shards, mesh, knobs, export) -> dict:
+    """A new meshed batcher on every rank: the leader imports the export
+    and serves AFTER_IMPORT over the imported prefix."""
+    import json
+
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.serve import ContinuousBatcher
+    from k8s_gpu_tpu_torch.serve.migrate import unpack
+
+    b = ContinuousBatcher(model, shards, mesh=mesh, eos_id=-1, device="cpu",
+                          **{"slots": SLOTS, **knobs})
+    out = None
+    if b.is_leader:
+        b.start()
+        parsed = unpack(json.loads(export["payload"]))
+        n = b.run_quiesced(lambda: b.migrate_import(parsed))
+        p, new = AFTER_IMPORT
+        out = {"imported": n,
+               "stream": b.submit(p, max_new_tokens=new).result(),
+               "paths": dict(b.admission_paths)}
+        b.stop()
+    else:
+        b.start().wait()
+    dist.barrier()
+    return out
 
 
 def _post(port: int, path: str, body: dict):
@@ -162,7 +315,7 @@ def _post(port: int, path: str, body: dict):
 def _server(model, params, mesh) -> dict:
     """A meshed ``LmServer`` on the dense pool over dp 2 x tp 2: HTTP on
     rank 0 only; /precache, then the requests (the first streamed), then
-    the three routes a mesh refuses."""
+    the block routes (``_routes``)."""
     from k8s_gpu_tpu_torch.data.tokenizer import BpeTokenizer
     from k8s_gpu_tpu_torch.parallel.sharding import shard_params
     from k8s_gpu_tpu_torch.serve import LmServer
@@ -173,7 +326,7 @@ def _server(model, params, mesh) -> dict:
     if srv.port is None:
         srv.wait()
         return {"port": None}
-    out = {"port": srv.port, "streams": [], "refused": {}}
+    out = {"port": srv.port, "streams": []}
     try:
         code, body = _post(srv.port, "/precache", {"prompt": "(%)+"})
         out["precache"] = (code, json.loads(body))
@@ -188,25 +341,48 @@ def _server(model, params, mesh) -> dict:
         code, body = _post(srv.port, "/generate",
                            {"prompt": "(%)+*", "max_new_tokens": 3})
         out["after_precache"] = (code, json.loads(body)["ids"])
-        for path in ("/admin/export", "/admin/import", "/prefill"):
-            code, body = _post(srv.port, path, {"prompt_ids": [1, 2]})
-            out["refused"][path] = (code, json.loads(body)["error"])
+        out["routes"] = _routes(srv.port)
         out["paths"] = dict(srv.batcher.admission_paths)
     finally:
         srv.stop()
     return out
 
 
-def _generate(model, params, mesh, prompt) -> np.ndarray:
+ROUTES = ("/admin/export", "/admin/import", "/prefill")
+
+
+def _routes(port: int) -> dict:
+    """What the block routes answer a short prompt: (code, body)."""
+    out = {}
+    for path in ROUTES:
+        code, body = _post(port, path, {"prompt_ids": [1, 2]})
+        out[path] = (code, json.loads(body))
+    return out
+
+
+# The engine's generate on tp 4: name -> (model knobs, int8 weights,
+# int8_compute).
+GENERATE = {"plain": ({}, False, False), "moe": (MOE, False, False),
+            "int8": ({}, True, False), "int8_compute": ({}, True, True)}
+
+
+def _generate(mesh, inp) -> dict:
+    """Each ``GENERATE`` engine's (tokens, prompt logits) on every
+    rank."""
     import torch
 
-    from k8s_gpu_tpu_torch.parallel.sharding import shard_params
     from k8s_gpu_tpu_torch.serve import InferenceEngine
 
-    eng = InferenceEngine(model, mesh=mesh, device="cpu")
-    out = eng.generate(shard_params(params, model.logical_axes(), mesh),
-                       torch.from_numpy(prompt), max_new_tokens=GEN_NEW)
-    return out.tokens.numpy()
+    out = {}
+    for name, (knobs, int8, compute) in GENERATE.items():
+        model, params, _ = _case_model("moe" if knobs else name, inp)
+        eng = InferenceEngine(model, mesh=mesh, int8_compute=compute,
+                              device="cpu")
+        got = eng.generate(_shards(model, params, mesh, int8),
+                           torch.from_numpy(inp["gen_prompt"]),
+                           max_new_tokens=GEN_NEW)
+        out[name] = (got.tokens.numpy(), got.prompt_logits.numpy())
+    return out
 
 
 def _lora(model, params, mesh, inp) -> dict:
@@ -259,8 +435,6 @@ def _lora_grads(lm, mesh, inp) -> dict:
 def _refusals(meshes, params) -> dict:
     """Each refusal's (exception type, message), or None when nothing
     was raised."""
-    import torch
-
     from k8s_gpu_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from k8s_gpu_tpu_torch.parallel.sharding import shard_params
     from k8s_gpu_tpu_torch.serve import ContinuousBatcher, InferenceEngine
@@ -278,22 +452,12 @@ def _refusals(meshes, params) -> dict:
     out = {
         "kv_heads": caught(lambda: InferenceEngine(
             _model(n_kv_heads=2), mesh=tp4, device="cpu")),
+        "draft_kv_heads": caught(lambda: ContinuousBatcher(
+            model, shards, mesh=tp4, draft=(_model(n_kv_heads=2), shards),
+            device="cpu")),
         "slots": caught(lambda: ContinuousBatcher(
             model, params, slots=3, mesh=dp2tp2, device="cpu")),
-        "moe": caught(lambda: ContinuousBatcher(
-            _model(num_experts=4), params, mesh=tp4, device="cpu")),
-        "draft": caught(lambda: ContinuousBatcher(
-            model, shards, mesh=tp4, draft=(model, shards), device="cpu")),
-        "int8": caught(lambda: ContinuousBatcher(
-            model, dict(shards, head={"q": shards["head"],
-                                      "s": shards["head"]}),
-            mesh=tp4, device="cpu")),
     }
-    b = ContinuousBatcher(model, shards, slots=SLOTS, mesh=tp4,
-                          **PAGED, device="cpu")
-    out["export"] = caught(lambda: b.migrate_export())
-    out["precomputed"] = caught(lambda: b.submit_precomputed(
-        {}, torch.zeros(1, DIMS["vocab_size"]), 4, 0))
     for axis in ("sp", "ep", "pp"):
         mesh = build_mesh(MeshConfig(dp=1, tp=2, **{axis: 2}),
                           device_type="cpu")
@@ -324,12 +488,11 @@ def run_all(inp: dict) -> dict:
            "coords": {name: {a: axis_rank(m, a) for a in ("dp", "tp")}
                       for name, m in meshes.items()}}
     for name, mesh_name, knobs, _, _ in CASES:
-        out[name] = _serve(model, params, meshes[mesh_name], name, knobs,
+        out[name] = _serve(meshes[mesh_name], name, knobs, inp,
                            adapters if name == "tp4_adapters" else None)
     out["server"] = _server(model, params, meshes["dp2tp2"])
     dist.barrier()
-    out["generate"] = _generate(model, params, meshes["tp4"],
-                                inp["gen_prompt"])
+    out["generate"] = _generate(meshes["tp4"], inp)
     out["lora"] = _lora(model, params, meshes["dp2tp2"], inp)
     out["refusals"] = _refusals(meshes, params)
     return out
