@@ -308,6 +308,28 @@ Phases, each of which fails the run on any error:
    fine-tune over dp 2 x tp 2 at 4 x 2048 against one rank's (losses,
    the step-1 gradients and update within 1e-4).  Phases 10 and 11 run
    ``PAR_LAYERS`` (4) of the 16 layers, phase 12 ``PP_LAYERS`` (8).
+14. The state of a meshed trainer and ``save_attn`` on every mesh: four
+   gloo ranks on the card at the flagship's widths, ``STATE_LAYERS`` (2)
+   deep, sequences of 1024.  (14a) dp 2 x tp 2 (v2, ZeRO-1, an EMA) trains 2
+   steps and saves through ``attach_to_trainer`` (one writer, the
+   one-device files at the whole tree's shapes), then takes step 3; the
+   checkpoint resumes onto pp 2 x tp 2 (1F1B) and, in this process,
+   onto the card alone: the restored parameters, moments, EMA and count
+   bit for bit the saved ones (integer fingerprints), step 3's loss
+   within 2.4e-4 of the uninterrupted one on pp 2 x tp 2 and within
+   1e-3 on the card alone (no tp: other bf16 sums), and within 1e-5 at
+   float32 (a small configuration, 2 layers,
+   sequences of 256); save and restore
+   seconds, bytes, GB/s.  (14b) ``save_attn`` beside full remat on dp 2
+   x tp 2, sp 2 x tp 2 (ring, Ulysses), ep 2 x tp 2 MoE and pp 2 x tp 2
+   (1F1B): a rank's flash launches in one step exactly
+   ``save_attn_launches`` (the forward once a layer and microbatch under
+   ``save_attn``, twice under full but on 1F1B's last stage), 0 plain
+   calls, the counted step's gradients within ``SAVE_ATTN_GRAD_TOL`` of
+   full's by leaf, step-1 losses and the loss after one update within
+   phase 7's bf16 limit of full's, peak GB a rank under each.  (14c) the CNN over
+   dp 2 x tp 2 and a rank-8 LoRA over dp 2 x pp 2 (GPipe): a step each
+   against one rank's.
 
 It prints a ``{"kernels": [...]}`` line (each entry names the phase
 that launches it; each flash entry also with its
@@ -6816,6 +6838,497 @@ def _hold_mesh_lora(ranks, cuda: bool) -> dict:
             "steps": SRV_LORA_TRAIN_STEPS}
 
 
+# -- phase 14: the state of a meshed trainer, save_attn on every mesh ---------
+
+# Four gloo ranks on the one card at the flagship's widths and PAR_LAYERS
+# depth, sequences of STATE_SEQ (half of 2048: the whole script's time
+# limit).  14a: dp 2 x tp 2 (phase 11a's v2 configuration) with ZeRO-1
+# and an EMA trains STATE_STEPS steps, saves, and takes one more step;
+# the checkpoint resumes onto pp 2 x tp 2 (1F1B) and, in this process,
+# onto the card alone; each takes that step again.  The same at float32,
+# 2 layers and STATE_F32_SEQ.  14b: save_attn beside full remat on each
+# mesh of SAVE_ATTN_RUNS.  14c: the CNN over dp 2 x tp 2 and the LoRA
+# model over dp 2 x pp 2 (GPipe), a step each.
+STATE_SEQ = 1024
+# Within the whole script phase 14 runs 2 layers: with it at PAR_LAYERS
+# (4) the script took 1058.8 s of its 1200 s limit on an H100 (PERF.md).
+STATE_LAYERS = 2
+STATE_BATCH = 4
+STATE_STEPS = 2
+# 14a's float32 run: a small configuration of the same shape (GQA with
+# the v2 knobs, 2 layers), 256-token rows.
+STATE_F32 = dict(vocab_size=4096, d_model=512, n_heads=4, n_kv_heads=2,
+                 d_ff=1024)
+STATE_F32_LAYERS = 2
+STATE_F32_SEQ = 256
+# The resumed step's loss against the uninterrupted one, the restored
+# state being bit for bit the saved one: on pp 2 x tp 2, the same tp
+# layout, bf16 within 2.4e-4 (the gap phase 11 measured on an H100
+# between a tp 2 layout and one rank at step 1; 14b's step-1 losses
+# too); on the card alone, a layout without tp whose bf16 sums differ
+# (1.4e-4 to 3.6e-4 at 2 and 4 layers on an H100, PERF.md), within
+# 1e-3; float32 within phase 7's limit.
+STATE_TOL = 2.4e-4
+STATE_LAYOUT_TOL = 1e-3
+STATE_F32_TOL = TRAIN_TOL["float32"]["loss"]
+# 14b: the counted step's gradients under save_attn against full
+# remat's, the worst leaf's relative error on any rank: 0.0 on every
+# mesh but the ring, whose replay differentiates through the final lse
+# where full remat differentiates each hop's merge (9.0e-3 in bf16 on
+# an H100, PERF.md); a replay that doubles the ring's dK reads 1.16.
+SAVE_ATTN_GRAD_TOL = 2e-2
+STATE_EMA = 0.99
+STATE_TIMEOUT = 500.0
+STATE_DIR = os.path.join(ROOT, "build", "chip", "state")
+STATE_MESHES = {"dp2tp2": dict(dp=2, tp=2), "pp2tp2": dict(dp=1, pp=2, tp=2),
+                "sp2tp2": dict(dp=1, sp=2, tp=2),
+                "ep2tp2": dict(dp=1, ep=2, tp=2),
+                "dp2pp2": dict(dp=2, pp=2)}
+# name: (mesh, configuration, global batch): phase 11's and 12b's.
+SAVE_ATTN_RUNS = {
+    "dp2tp2": ("dp2tp2", "v2", STATE_BATCH),
+    "sp2tp2_ring": ("sp2tp2", "ring", TP_SP_BATCH),
+    "sp2tp2_ulysses": ("sp2tp2", "ulysses", TP_SP_BATCH),
+    "ep2tp2_moe": ("ep2tp2", "moe", STATE_BATCH),
+    "1f1b_pp2tp2": ("pp2tp2", "1f1b", STATE_BATCH),
+}
+STATE_PARTS = ("checkpoint", "save_attn", "consumers")
+CNN_BATCH = 64
+STATE_LORA_RANK = 8
+
+
+def state_config(torch, layers: int, kind: str, dtype=None,
+                 seq: int = STATE_SEQ):
+    """The configuration of a phase 14 run: phase 11a's v2 ("v2", also
+    14a's), 11b's ring or Ulysses, 11c's MoE, or 12b's 1F1B; "f32",
+    14a's small float32 one."""
+    import dataclasses
+
+    if kind == "f32":
+        return dataclasses.replace(
+            parallel_config(torch, layers, torch.float32, seq=seq),
+            **STATE_F32)
+    if kind in ("v2", "ring", "ulysses"):
+        return parallel_config(torch, layers, dtype, seq=seq,
+                               sp_attention="ring" if kind == "v2"
+                               else kind)
+    if kind == "moe":
+        return tp_moe_config(torch, layers, dtype, seq)
+    return pp_config(torch, layers, PP_RUNS["1f1b_pp2tp2"], dtype, seq)
+
+
+def save_attn_launches(fa, cfg, kind: str, pp_stage: int = 0) -> tuple:
+    """(flash launches, rope pre-passes) a rank makes in one step under
+    ``cfg``'s remat policy, written before the first run: each attention
+    call's forward once a layer and microbatch under save_attn (twice
+    under full remat, but 1F1B's last stage, whose forward is fused into
+    its backward tick), dq and dk/dv once.  Calls a layer: the ring at sp
+    2 makes 3 (hop 0, and hop 1's two visible blocks), the rest 1.
+    Kernels: v2 for the GQA configurations whose K/V stay grouped (v2,
+    the ring, 1F1B), v1 for Ulysses (K/V broadcast) and the MoE model.
+    Pre-passes: with rope in the kernels (never on sp, where rope is
+    outside) one a forward and one a backward."""
+    layers, micro = cfg.n_layers, 1
+    last = False
+    if kind == "1f1b":
+        layers //= 2
+        micro = cfg.pp_microbatches
+        last = pp_stage == 1
+    calls = 3 if kind == "ring" else 1
+    per = layers * micro * calls
+    fwd = per if cfg.remat_policy == "save_attn" or last else 2 * per
+    names = FLASH_V2_KERNELS if kind in ("v2", "ring", "1f1b") \
+        else FLASH_KERNELS
+    pre = fwd + per if cfg.flash_fuse_rope and kind in ("v2", "1f1b") \
+        else 0
+    return _counts(fa, dict(zip(names, (fwd, per, per)))), pre
+
+
+def _fingerprint(torch, tree) -> list:
+    """Each float32 leaf's bits summed as integers, plain and weighted by
+    position (mod 2^64): the same for trees equal bit for bit, whatever
+    the device or the order of the sum."""
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves
+
+    out = []
+    for t in tree_leaves(tree):
+        bits = t.detach().contiguous().view(torch.int32).reshape(-1).long()
+        weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append((int(bits.sum()), int((bits * weight).sum())))
+    return out
+
+
+def _state_prints(torch, trainer) -> dict:
+    """Fingerprints of a trainer's whole parameters, moments and EMA
+    (collectives on a mesh)."""
+    opt = trainer.opt_state
+    return {"params": _fingerprint(torch, trainer.gathered_params()),
+            "mu": _fingerprint(torch, opt["mu"]),
+            "nu": _fingerprint(torch, opt["nu"]),
+            "ema": _fingerprint(torch, trainer.gathered_ema()),
+            "count": opt["count"]}
+
+
+def _state_checkpoint(torch, seed: int, cfg, meshes, dev, root: str,
+                      batch: int) -> dict:
+    """14a on one rank: dp 2 x tp 2 trains, saves and steps on; then the
+    checkpoint resumes onto pp 2 x tp 2 and steps again."""
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
+
+    tc = TrainConfig(warmup_steps=1, zero1=True, ema_decay=STATE_EMA)
+    toks = _par_tokens(torch, seed, cfg, batch)
+    x, y = toks[:, :-1], toks[:, 1:]
+    tr = Trainer(TransformerLM(cfg, device=dev), tc, device=dev,
+                 mesh=meshes["dp2tp2"])
+    tr.init(seed)
+    losses = [tr.step(x, y) for _ in range(STATE_STEPS)]
+    ckpt, save, _ = attach_to_trainer(tr, root)
+    saved = _state_prints(torch, tr)
+    _syncer(torch, dev)()
+    dist.barrier()
+    t0 = time.perf_counter()
+    save(STATE_STEPS)
+    save_s = time.perf_counter() - t0
+    nbytes = ckpt._step_bytes(STATE_STEPS)
+    losses.append(tr.step(x, y))
+    del tr, ckpt
+    _free_if(torch, dev)
+    tr = Trainer(TransformerLM(cfg, device=dev), tc, device=dev,
+                 mesh=meshes["pp2tp2"])
+    tr.init(seed + 1)
+    _syncer(torch, dev)()
+    dist.barrier()
+    t0 = time.perf_counter()
+    step = attach_to_trainer(tr, root)[2]()
+    _syncer(torch, dev)()
+    restore_s = time.perf_counter() - t0
+    restored = _state_prints(torch, tr)
+    resumed = tr.step(x, y)
+    del tr
+    _free_if(torch, dev)
+    return {"losses": losses, "save_s": save_s, "bytes": nbytes,
+            "step": step, "restore_s": restore_s, "resumed_loss": resumed,
+            "state_equal": restored == saved, "saved_prints": saved}
+
+
+def _state_save_attn(torch, seed: int, cfg, kind: str, mesh, dev,
+                     batch: int) -> dict:
+    """14b on one rank: a warm-up step (learning rate 0) and one counted
+    step from a fresh peak, then the loss after that step's update (a
+    forward without gradients).  The gradients the counted step hands
+    AdamW (this rank's shards) come back on the host under ``grads``:
+    its update is about lr times their sign, so the losses alone would
+    not show a replay that scales dK/dV or loses part of a hop's dq."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.parallel.mesh import axis_rank
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+
+    tr = Trainer(TransformerLM(cfg, device=dev), TrainConfig(warmup_steps=1),
+                 device=dev, mesh=mesh)
+    tr.init(seed)
+    toks = _par_tokens(torch, seed, cfg, batch)
+    x, y = tr.shard_batch(toks[:, :-1], toks[:, 1:])
+    first = tr.step(toks[:, :-1], toks[:, 1:])
+    seen = _recording_grads(tr)
+    _syncer(torch, dev)()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    tr.step(toks[:, :-1], toks[:, 1:])
+    step_s = time.perf_counter() - t0
+    out = {"first_loss": first, "step_s": step_s,
+           "launches": dict(fa.launch_counts),
+           "prepass_launches": fa.prepass_counts["flash_v2_rope_split"],
+           "plain_calls": fa.plain_count,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if dev.type == "cuda" else None),
+           "stage": axis_rank(mesh, "pp"),
+           "grads": [g.cpu() for g in seen[0]]}
+    with torch.no_grad():
+        loss = tr.model.loss(tr.params, x, y, mesh=mesh)
+        out["updated_loss"] = float(tr._reduce(loss, [])[0])
+    del tr, seen
+    _free_if(torch, dev)
+    return out
+
+
+def _state_consumers(torch, seed: int, layers: int, seq: int, meshes,
+                     dev) -> dict:
+    """14c on one rank: one step of the CNN over dp 2 x tp 2 and of the
+    LoRA model over dp 2 x pp 2 (GPipe)."""
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves
+
+    out = {}
+    for name, (model, params, batch) in _consumer_models(
+            torch, seed, layers, seq, dev).items():
+        tr = _consumer_trainer(torch, model, params, dev,
+                               meshes["dp2tp2" if name == "cnn"
+                                      else "dp2pp2"])
+        out[name] = {"loss": tr.step(*batch),
+                     "shapes": [tuple(t.shape)
+                                for t in tree_leaves(tr.params)]}
+        del tr
+        _free_if(torch, dev)
+    return out
+
+
+def _consumer_models(torch, seed: int, layers: int, seq: int, dev) -> dict:
+    """{name: (model, starting parameters, global batch)} of 14c: the
+    reference's CNN (bf16) on CNN_BATCH images, and a rank-8 LoRA on the
+    flagship's attention (v1, GPipe's M 2) over STATE_BATCH rows."""
+    import dataclasses
+
+    from k8s_gpu_tpu_torch.models import CnnConfig, SmallCnn, TransformerLM
+    from k8s_gpu_tpu_torch.train import LoraConfig, LoraModel
+
+    gen = torch.Generator().manual_seed(seed + 11)
+    cnn = SmallCnn(CnnConfig(), device=dev)
+    images = torch.randn((CNN_BATCH, 28, 28, 1), generator=gen)
+    labels = torch.randint(0, 10, (CNN_BATCH,), generator=gen)
+    cfg = dataclasses.replace(flagship_train_config(torch, layers),
+                              max_seq=seq, pp_schedule="gpipe")
+    base_model = TransformerLM(cfg, device=dev)
+    base = base_model.init(seed)
+    lora = LoraModel(base_model, base, LoraConfig(rank=STATE_LORA_RANK))
+    adapters = lora.init(seed + 1)
+    draw = torch.Generator(device=dev).manual_seed(seed + 2)
+    for ab in adapters["blocks"].values():      # B = 0 would train nothing
+        ab["b"].normal_(0.0, 0.02, generator=draw)
+    toks = _par_tokens(torch, seed, cfg, STATE_BATCH)
+    return {"cnn": (cnn, cnn.init(seed), (images, labels)),
+            "lora": (lora, adapters, (toks[:, :-1], toks[:, 1:]))}
+
+
+def _consumer_trainer(torch, model, params, dev, mesh=None):
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+
+    tr = Trainer(model, TrainConfig(warmup_steps=1), device=dev, mesh=mesh)
+    tr.init(params=params)
+    return tr
+
+
+def _state_rank(seed: int, layers: int, seq: int, device, root: str,
+                parts=STATE_PARTS) -> dict:
+    """What each of phase 14's four gloo ranks runs (``parts``: which of
+    STATE_PARTS)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    meshes = {name: build_mesh(MeshConfig(**sizes), device_type=dev.type)
+              for name, sizes in STATE_MESHES.items()}
+    out = {"rank": dist.get_rank()}
+    if "checkpoint" in parts:
+        out["checkpoint"] = _state_checkpoint(
+            torch, seed, state_config(torch, layers, "v2", seq=seq), meshes,
+            dev, os.path.join(root, "bf16"), STATE_BATCH)
+        out["checkpoint_f32"] = _state_checkpoint(
+            torch, seed, state_config(torch, STATE_F32_LAYERS, "f32",
+                                      seq=STATE_F32_SEQ),
+            meshes, dev, os.path.join(root, "f32"), STATE_BATCH)
+    if "save_attn" in parts:
+        for name, (mesh, kind, batch) in SAVE_ATTN_RUNS.items():
+            grads = {}
+            for policy in ("full", "save_attn"):
+                cfg = dataclasses.replace(
+                    state_config(torch, layers, kind, seq=seq),
+                    remat_policy=policy)
+                run = _state_save_attn(torch, seed, cfg, kind, meshes[mesh],
+                                       dev, batch)
+                grads[policy] = run.pop("grads")
+                out[f"{name}_{policy}"] = run
+            # Each leaf's gradient under save_attn against full remat's,
+            # relative to its norm (the shards this rank holds).
+            out[f"{name}_grad_rel_err"] = max(
+                float((a.double() - b.double()).norm()
+                      / b.double().norm().clamp_min(1e-30))
+                for a, b in zip(grads["save_attn"], grads["full"]))
+            del grads
+    if "consumers" in parts:
+        out["consumers"] = _state_consumers(torch, seed, layers, seq,
+                                            meshes, dev)
+    return out
+
+
+def _one_card_resume(torch, cfg, dev, root: str, batch: int, seed: int):
+    """14a's resume onto the card alone: (step, restore s, fingerprints
+    equal to the saved ones' on the mesh?, the resumed step's loss)."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
+
+    tr = Trainer(TransformerLM(cfg, device=dev),
+                 TrainConfig(warmup_steps=1, zero1=True,
+                             ema_decay=STATE_EMA), device=dev)
+    tr.init(seed + 2)
+    _syncer(torch, dev)()
+    t0 = time.perf_counter()
+    step = attach_to_trainer(tr, root)[2]()
+    _syncer(torch, dev)()
+    restore_s = time.perf_counter() - t0
+    prints = _state_prints(torch, tr)
+    toks = _par_tokens(torch, seed, cfg, batch)
+    loss = tr.step(toks[:, :-1], toks[:, 1:])
+    del tr
+    _free_if(torch, dev)
+    return step, restore_s, prints, loss
+
+
+def run_state_path(torch, seed: int, layers: int, seq: int = STATE_SEQ,
+                   device="cuda", parts=STATE_PARTS) -> dict:
+    """Phase 14: a meshed trainer's checkpoints across meshes,
+    ``save_attn`` on every mesh, and the CNN and LoRA model on the axes
+    the reference trains them on; four gloo ranks on the one card
+    (``device="cpu"`` with a short ``seq`` rehearses it on the CPU: the
+    plain versions, no launch counts or memory)."""
+    import dataclasses
+    import functools
+    import shutil
+
+    import chip_smoke
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.parallel.multihost import spawn_local_cluster
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    shutil.rmtree(STATE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = spawn_local_cluster(
+        functools.partial(chip_smoke._state_rank, seed, layers, seq, device,
+                          STATE_DIR, parts),
+        PAR_WORLD, timeout=STATE_TIMEOUT, device=device, backend="gloo")
+    out = {"layers": layers, "seq": seq, "world": PAR_WORLD,
+           "meshes": STATE_MESHES, "cluster_s": time.perf_counter() - t0}
+    failures = []
+    if "checkpoint" in parts:
+        for key, cfg, tols, sub in (
+                ("checkpoint", state_config(torch, layers, "v2", seq=seq),
+                 (STATE_TOL, STATE_LAYOUT_TOL), "bf16"),
+                ("checkpoint_f32", state_config(
+                    torch, STATE_F32_LAYERS, "f32", seq=STATE_F32_SEQ),
+                 (STATE_F32_TOL, STATE_F32_TOL), "f32")):
+            runs = [r[key] for r in ranks]
+            step, one_s, prints, one_loss = _one_card_resume(
+                torch, cfg, dev, os.path.join(STATE_DIR, sub), STATE_BATCH,
+                seed)
+            first = runs[0]
+            want = first["losses"][-1]
+            held = {
+                "losses": first["losses"], "bytes": first["bytes"],
+                "save_s": max(r["save_s"] for r in runs),
+                "restore_s_pp2tp2": max(r["restore_s"] for r in runs),
+                "restore_s_one_card": one_s,
+                "resumed_loss_pp2tp2": first["resumed_loss"],
+                "resumed_loss_one_card": one_loss,
+                "gap_pp2tp2": abs(first["resumed_loss"] - want),
+                "gap_one_card": abs(one_loss - want),
+                "tol_pp2tp2": tols[0], "tol_one_card": tols[1]}
+            held["save_gb_per_s"] = first["bytes"] / held["save_s"] / 1e9
+            held["restore_gb_per_s_pp2tp2"] = (
+                first["bytes"] / held["restore_s_pp2tp2"] / 1e9)
+            held["restore_gb_per_s_one_card"] = first["bytes"] / one_s / 1e9
+            if len({tuple(r["losses"]) for r in runs}) != 1 or len(
+                    {r["resumed_loss"] for r in runs}) != 1:
+                failures.append(f"14a {sub}: ranks disagree")
+            if not all(r["state_equal"] and r["step"] == STATE_STEPS
+                       for r in runs) or step != STATE_STEPS \
+                    or prints != first["saved_prints"]:
+                failures.append(f"14a {sub}: the resumed state differs "
+                                "from the saved one")
+            if not all(math.isfinite(v) for v in first["losses"]):
+                failures.append(f"14a {sub}: losses {first['losses']}")
+            for where in ("pp2tp2", "one_card"):
+                if not held[f"gap_{where}"] <= held[f"tol_{where}"]:
+                    failures.append(
+                        f"14a {sub} {where}: resumed loss "
+                        f"{held[f'resumed_loss_{where}']} vs {want}")
+            out[key] = held
+            print(json.dumps({f"state_{key}": held}), flush=True)
+    if "save_attn" in parts:
+        out["save_attn"] = {}
+        for name, (mesh, kind, batch) in SAVE_ATTN_RUNS.items():
+            base = state_config(torch, layers, kind, seq=seq)
+            held = {}
+            for policy in ("full", "save_attn"):
+                cfg = dataclasses.replace(base, remat_policy=policy)
+                runs = [r[f"{name}_{policy}"] for r in ranks]
+                if len({r["updated_loss"] for r in runs}) != 1:
+                    failures.append(f"14b {name} {policy}: ranks disagree")
+                for i, r in enumerate(runs):
+                    want, pre = save_attn_launches(fa, cfg, kind,
+                                                   r["stage"])
+                    if cuda and (r["launches"] != want
+                                 or r["prepass_launches"] != pre
+                                 or r["plain_calls"]):
+                        failures.append(
+                            f"14b {name} {policy}: rank {i} launched "
+                            f"{r['launches']}, {r['prepass_launches']} "
+                            f"pre-passes, {r['plain_calls']} plain; "
+                            f"expected {want}, {pre}, 0")
+                held[policy] = {
+                    "first_loss": runs[0]["first_loss"],
+                    "updated_loss": runs[0]["updated_loss"],
+                    "step_s": max(r["step_s"] for r in runs),
+                    "peak_memory_gb_by_rank": [r["peak_memory_gb"]
+                                               for r in runs],
+                    "launches_by_rank": [
+                        {k: v for k, v in r["launches"].items() if v}
+                        for r in runs],
+                    "prepasses_by_rank": [r["prepass_launches"]
+                                          for r in runs]}
+            gap = abs(held["save_attn"]["first_loss"]
+                      - held["full"]["first_loss"])
+            held["first_loss_gap"] = gap
+            if not gap <= STATE_TOL:
+                failures.append(f"14b {name}: step-1 loss gap {gap}")
+            rel = [r[f"{name}_grad_rel_err"] for r in ranks]
+            held["grad_rel_err_by_rank"] = rel
+            if not max(rel) <= SAVE_ATTN_GRAD_TOL:
+                failures.append(f"14b {name}: counted step's gradients "
+                                f"{rel} from full remat's by leaf")
+            # After one update: the ring's replay sums its blocks'
+            # gradients in another order than autograd through the hops.
+            upd = abs(held["save_attn"]["updated_loss"]
+                      - held["full"]["updated_loss"])
+            held["updated_loss_gap"] = upd
+            if not upd <= TRAIN_TOL["bfloat16"]["loss"]:
+                failures.append(f"14b {name}: updated loss gap {upd}")
+            out["save_attn"][name] = held
+    if "consumers" in parts:
+        out["consumers"] = {}
+        for name, (model, params, batch) in _consumer_models(
+                torch, seed, layers, seq, dev).items():
+            tr = _consumer_trainer(torch, model, params, dev)
+            want = tr.step(*batch)
+            del tr
+            _free_if(torch, dev)
+            got = [r["consumers"][name]["loss"] for r in ranks]
+            gap = max(abs(g - want) for g in got)
+            out["consumers"][name] = {
+                "loss": got[0], "one_rank_loss": want, "gap": gap,
+                "shapes_rank0": ranks[0]["consumers"][name]["shapes"]}
+            if len(set(got)) != 1 or not gap <= TRAIN_TOL["bfloat16"]["loss"]:
+                failures.append(f"14c {name}: losses {got} vs one rank's "
+                                f"{want}")
+    shutil.rmtree(STATE_DIR, ignore_errors=True)
+    out["failures"] = failures
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6930,6 +7443,11 @@ def main(argv=None) -> int:
           flush=True)
     if mesh_serving["failures"]:
         raise RuntimeError("phase 13: " + "; ".join(mesh_serving["failures"]))
+    _free(torch)
+    state = run_state_path(torch, args.seed, STATE_LAYERS)
+    print(json.dumps({"state_path": state, "gpu": gpu}), flush=True)
+    if state["failures"]:
+        raise RuntimeError("phase 14: " + "; ".join(state["failures"]))
 
     case = {r["case"]: r for r in kern}
     decode = case["decode_bf16"]
@@ -7026,13 +7544,19 @@ def main(argv=None) -> int:
              "training), 11 (the tp-local heads: Ulysses over sp 2 x tp "
              "2, MoE over ep 2 x tp 2), 12 (the pipeline's stages: GPipe "
              "over dp 2 x pp 2, interleaved and classic 1F1B over pp 4), "
-             "13e (the LoRA fine-tune over dp 2 x tp 2, float32)"),
+             "13e (the LoRA fine-tune over dp 2 x tp 2, float32), 14b "
+             "(save_attn and full on the tp-local heads: Ulysses over sp "
+             "2 x tp 2, MoE over ep 2 x tp 2), 14c (the LoRA model over "
+             "dp 2 x pp 2)"),
             (flash_v2, "train_gqa_bf16", ("ring_hop_gqa_bf16",
                                           "tp_local_gqa_bf16"),
              FLASH_V2_KERNELS, "flash_attention_v2", train_v2, save_attn_v2,
              "6b (v2 training); also 6c (save_attn), 10 (ring and Ulysses "
              "over dp 2 x sp 2, GQA), 11 (the tp-local heads: dp 2 x tp 2, "
-             "the ring over sp 2 x tp 2), 12 (1F1B over pp 2 x tp 2)")):
+             "the ring over sp 2 x tp 2), 12 (1F1B over pp 2 x tp 2), 14a "
+             "(dp 2 x tp 2 and its resumes onto pp 2 x tp 2 and the card "
+             "alone), 14b (save_attn and full: dp 2 x tp 2, the ring's "
+             "replay over sp 2 x tp 2, 1F1B over pp 2 x tp 2)")):
         by_case = {r["case"]: r for r in rows}
         timed = by_case[top]
         for name, line in lines.items():
@@ -7079,6 +7603,13 @@ def main(argv=None) -> int:
                    pipeline_path[key]["launches"][name]
                    for key in PP_RUNS
                    if pipeline_path[key]["launches"][name]},
+                # Phase 14b: the four ranks' counted step on each mesh
+                # whose path runs this kernel, under each remat policy.
+                **{f"launches_state_{key}_{policy}": n
+                   for key, held in state["save_attn"].items()
+                   for policy in ("full", "save_attn")
+                   for n in [sum(r.get(name, 0) for r in
+                                 held[policy]["launches_by_rank"])] if n},
                 "max_abs_err": max(r["kernels"][name]["max_abs_err"]
                                    for r in rows),
                 **{key: timed["kernels"][name][key]
@@ -7117,6 +7648,7 @@ def main(argv=None) -> int:
                        "tensor_parallel_path": tensor_parallel,
                        "pipeline_path": pipeline_path,
                        "mesh_serving_path": mesh_serving,
+                       "state_path": state,
                        "device": device,
                        **kernels}, fh, indent=1)
     print(gpu, flush=True)

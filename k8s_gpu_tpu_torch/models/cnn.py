@@ -7,6 +7,16 @@ the JAX package leaf for leaf.  The forward turns them to torch's NCHW
 and OIHW at the call and flattens the pooled features in NHWC order, as
 the reference does.  The convolutions run in plain torch (cuDNN on the
 card): the reference computes them outside any Pallas kernel.
+
+On a mesh the model trains wherever the reference's ``Trainer`` trains
+it.  Its logical axes are the reference's: ``fc1`` is cut over tp on
+its output (column-parallel, the features entering through
+``copy_to``) and ``fc2`` on its input (row-parallel, the logits summed
+over tp by ``reduce_from``); nothing is cut over ep or pp, whose ranks
+compute the same step.  On sp the ``Trainer`` lays each image out over
+sp along H, as the reference's ``P("dp", "sp")`` does, and the loss
+gathers it back: every rank of an sp group computes the whole images
+of its dp block, as GSPMD does for the reference.
 """
 
 from __future__ import annotations
@@ -17,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..parallel.mesh import axis_size
+from ..parallel.collectives import all_gather, copy_to, reduce_from
+from ..parallel.mesh import axis_group
 
 
 @dataclass(frozen=True)
@@ -54,8 +65,19 @@ class SmallCnn:
             "fc2": he((cfg.d_hidden, cfg.num_classes), cfg.d_hidden),
         }
 
-    def forward(self, params, images):
-        """images [B, H, W, 1] -> logits [B, classes] f32."""
+    def logical_axes(self) -> dict:
+        """The reference's table: the hidden layer's width over "mlp"."""
+        return {
+            "conv1": (None, None, None, None),
+            "conv2": (None, None, None, None),
+            "fc1": (None, "mlp"),
+            "fc2": ("mlp", None),
+        }
+
+    def forward(self, params, images, mesh=None):
+        """images [B, H, W, 1] -> logits [B, classes] f32.  On a tp mesh
+        ``params`` are this rank's shards (``fc1``'s columns, ``fc2``'s
+        rows) and the logits are summed over tp."""
         dt = self.cfg.dtype
         x = images.to(dt).permute(0, 3, 1, 2)                  # NCHW
 
@@ -65,17 +87,17 @@ class SmallCnn:
         x = F.max_pool2d(F.relu(conv(x, params["conv1"])), 2)
         x = F.max_pool2d(F.relu(conv(x, params["conv2"])), 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)      # NHWC order
-        x = F.relu(x @ params["fc1"].to(dt))
-        return (x @ params["fc2"].to(dt)).float()
+        tp = axis_group(mesh, "tp")
+        x = F.relu(copy_to(x, tp) @ params["fc1"].to(dt))
+        return reduce_from(x @ params["fc2"].to(dt), tp).float()
 
     def loss(self, params, images, labels, mesh=None):
         """Mean cross-entropy of this rank's images.  On a mesh the
-        ``Trainer`` averages it over the ranks, which is the global mean
-        for a dp split; an sp axis would cut every image along H, so it
-        is refused."""
-        if axis_size(mesh, "sp") > 1:
-            raise NotImplementedError(
-                "the CNN on an sp mesh: sp cuts token sequences, and an "
-                "image cut along H is not the image; use dp")
-        logp = torch.log_softmax(self.forward(params, images), dim=-1)
+        ``Trainer`` averages it over the batch group, which is the
+        global mean; on sp the rank's H block of each image is gathered
+        into the whole image first (module docstring)."""
+        sp = axis_group(mesh, "sp")
+        if sp is not None:
+            images = torch.cat(all_gather(images, sp), 1)
+        logp = torch.log_softmax(self.forward(params, images, mesh), dim=-1)
         return -logp.gather(-1, labels.long()[:, None]).mean()

@@ -83,8 +83,22 @@ the gradients itself, the tail (final norm, head, cross-entropy; vocab
 parallel on tp) fused into the last stage.  The pipeline composes with
 dp and tp, not with MoE or sp (``_check_pp_composition``).
 
-Not ported yet (ROADMAP.md queue 1 item 11, step 5): ``save_attn`` on an
-sp, tp, ep or pp mesh, or with MoE on a mesh.
+``save_attn`` runs on every mesh, as the reference's ``_remat_wrap``
+does (one policy for the dense forward and the pipeline stage).  A
+block keeps its input and what its attention made, and its backward
+replays the rest of the block, its collectives included, in the same
+order on every rank: on tp the one-device replay at the rank's heads
+between ``copy_to`` and ``reduce_from``; on sp the ring's merged output
+and lse of each zigzag half, whose backward rotates K/V once more
+through the flash backward kernels (``ring_attention_replay``), or the
+rank's heads' output and lse after Ulysses' all-to-all
+(``ulysses_attention_replay``); with MoE the router, the slots and the
+sums over ep x tp and over the batch group run again.  Under GPipe each
+block of a stage is one ``_SaveAttnBlock``.  Under 1F1B the forward
+tick keeps, beside the stage's input, each layer's attention output and
+lse (``_pp_saving_fn``), and the backward tick recomputes the stage
+with a graph around them (``_block_replay``): one flash forward a layer
+and microbatch where full remat runs two, the backward pair as before.
 """
 
 from __future__ import annotations
@@ -103,13 +117,15 @@ from ..parallel.collectives import (
     all_gather, all_reduce, all_reduce_sum, copy_to, gather_from,
     reduce_from,
 )
-from ..parallel.mesh import (
-    NEXT_SLICE, PORTED_AXES, axis_group, axis_rank, axis_size, batch_group,
-    check_slice, mesh_shape,
-)
+from ..parallel.mesh import axis_group, axis_rank, axis_size, batch_group
 from ..parallel.pipeline import gpipe, interleaved_1f1b, one_f_one_b
-from ..parallel.ring_attention import ring_attention
-from ..parallel.ulysses import ulysses_attention, ulysses_grouped_ok
+from ..parallel.ring_attention import (
+    ring_attention, ring_attention_replay, ring_attention_saving,
+)
+from ..parallel.ulysses import (
+    ulysses_attention, ulysses_attention_replay, ulysses_attention_saving,
+    ulysses_grouped_ok,
+)
 from ..utils.metrics import global_metrics
 
 
@@ -206,9 +222,6 @@ def layer_params(blocks: dict, layer: int) -> dict:
 
 
 class TransformerLM:
-    # The mesh axes the model runs above size 1.
-    mesh_axes = PORTED_AXES
-
     def __init__(self, cfg: TransformerConfig, device="cuda"):
         if cfg.remat and cfg.remat_policy not in ("full", "save_attn"):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
@@ -412,7 +425,8 @@ class TransformerLM:
         return reduce_from(self._out_proj(o, lp), tp)
 
     def _attention_lse(self, q, k, v, positions):
-        """(o, lse) of the training attention, for ``save_attn``."""
+        """(o, lse) of the one-sequence training attention, for
+        ``save_attn``."""
         cfg = self.cfg
         blocks = dict(block_q=cfg.flash_block_q or None,
                       block_k=cfg.flash_block_k or None)
@@ -593,23 +607,55 @@ class TransformerLM:
                                 mesh)
         return self._mlp(x, lp, mesh)
 
-    def _block_saving(self, x, lp, positions):
-        """``_block`` without gradients -> (out, aux, o, lse): the
-        attention's output and lse are what ``save_attn`` keeps."""
-        q, k, v = self._qkv(self._rmsnorm(x, lp["ln1"]), lp, positions)
-        o, lse = self._attention_lse(q, k, v, positions)
-        return (*self._mlp(x + self._out_proj(o, lp), lp), o, lse)
-
-    def _block_replay(self, x, lp, positions, o, lse):
-        """``_block`` recomputed around the saved ``o`` and ``lse``: the
-        same operations, the attention by ``attention_replay``."""
+    def _block_saving(self, x, lp, positions, mesh=None):
+        """``_block`` without gradients -> (out, aux, kept): ``kept`` is
+        what ``save_attn`` keeps of the attention, (o, lse) of this
+        rank's heads, or on an sp mesh what the ring's or Ulysses'
+        replay takes."""
         cfg = self.cfg
-        q, k, v = self._qkv(self._rmsnorm(x, lp["ln1"]), lp, positions)
-        use_v2 = self._route(positions)[0]
-        o = attention_replay(q, k, v, o, lse, causal=True, v2=use_v2,
-                             plain=not cfg.use_flash,
-                             **(self._v2_args(positions) if use_v2 else {}))
-        return self._mlp(x + self._out_proj(o, lp), lp)
+        tp = axis_group(mesh, "tp")
+        q, k, v = self._qkv(copy_to(self._rmsnorm(x, lp["ln1"]), tp), lp,
+                            positions, mesh)
+        if axis_size(mesh, "sp") > 1:
+            saving = {"ring": ring_attention_saving,
+                      "ulysses": ulysses_attention_saving}[cfg.sp_attention]
+            o, kept = saving(q, k, v, mesh,
+                             block_q=cfg.flash_block_q or None,
+                             block_k=cfg.flash_block_k or None)
+        else:
+            o, lse = self._attention_lse(q, k, v, positions)
+            kept = (o, lse)
+        x = x + reduce_from(self._out_proj(o, lp), tp)
+        return (*self._mlp(x, lp, mesh), kept)
+
+    def _block_replay(self, x, lp, positions, kept, mesh=None):
+        """``_block`` recomputed around what ``_block_saving`` kept: the
+        same operations and collectives, the attention by
+        ``attention_replay`` (the ring's or Ulysses' replay on sp)."""
+        cfg = self.cfg
+        tp = axis_group(mesh, "tp")
+        q, k, v = self._qkv(copy_to(self._rmsnorm(x, lp["ln1"]), tp), lp,
+                            positions, mesh)
+        if axis_size(mesh, "sp") > 1:
+            replay = {"ring": ring_attention_replay,
+                      "ulysses": ulysses_attention_replay}[cfg.sp_attention]
+            o = replay(q, k, v, kept, mesh)
+        else:
+            use_v2 = self._route(positions)[0]
+            o = attention_replay(
+                q, k, v, *kept, causal=True, v2=use_v2,
+                plain=not cfg.use_flash,
+                **(self._v2_args(positions) if use_v2 else {}))
+        x = x + reduce_from(self._out_proj(o, lp), tp)
+        return self._mlp(x, lp, mesh)
+
+    def _save_attn_block(self, x, lp, positions, mesh):
+        """One block under ``save_attn`` with autograd -> (x, aux or
+        None)."""
+        names = sorted(lp)
+        out = _SaveAttnBlock.apply(self, positions, mesh, names, x,
+                                   *(lp[n] for n in names))
+        return out if self.cfg.moe else (out, None)
 
     # -- forward -----------------------------------------------------------
     @torch.no_grad()
@@ -622,18 +668,8 @@ class TransformerLM:
         return gather_from(logits, axis_group(mesh, "tp"), -1), aux
 
     def _check_mesh(self, mesh) -> None:
-        """What the meshed path refuses, with the reference's error for
-        an unknown ``sp_attention``."""
+        """The reference's error for an unknown ``sp_attention``."""
         cfg = self.cfg
-        check_slice(mesh, "TransformerLM")
-        shape = {a: s for a, s in mesh_shape(mesh).items() if s > 1}
-        if cfg.remat and cfg.remat_policy == "save_attn" and (
-                set(shape) - {"dp"} or cfg.moe):
-            raise NotImplementedError(
-                "remat_policy='save_attn' on a mesh with "
-                f"{', '.join(f'{a}={n}' for a, n in shape.items())}"
-                f"{' and MoE' if cfg.moe else ''} (the replay would run "
-                f"the mesh's collectives): not ported yet ({NEXT_SLICE})")
         if axis_size(mesh, "sp") > 1 and cfg.sp_attention not in (
                 "ring", "ulysses"):
             raise ValueError(
@@ -695,10 +731,7 @@ class TransformerLM:
         for layer in range(cfg.n_layers):
             lp = layer_params(layers, layer)
             if remat and cfg.remat_policy == "save_attn":
-                names = sorted(lp)
-                out = _SaveAttnBlock.apply(self, positions, names, x,
-                                           *(lp[n] for n in names))
-                x, a = out if cfg.moe else (out, None)
+                x, a = self._save_attn_block(x, lp, positions, mesh)
             elif remat:
                 x, a = checkpoint(self._block, x, lp, positions, mesh,
                                   use_reentrant=False)
@@ -747,15 +780,24 @@ class TransformerLM:
     def _pp_stage_fn(self, mesh, remat: bool):
         """One pipeline stage: ``_block`` over the leading axis of the
         given block leaves, with ``mesh`` (tp's collectives inside the
-        stage) at positions ``arange(S)``; each block checkpointed when
-        ``remat`` (GPipe under autograd; 1F1B's backward tick is its own
-        recompute)."""
-        def stage(blocks, x):
+        stage) at positions ``arange(S)``; each block under the remat
+        policy when ``remat`` (GPipe under autograd; 1F1B's backward tick
+        is its own recompute).  ``kept``: what ``_pp_saving_fn`` kept of
+        each layer's attention, which the blocks then replay around
+        (1F1B's backward tick under ``save_attn``)."""
+        save_attn = remat and self.cfg.remat_policy == "save_attn"
+
+        def stage(blocks, x, kept=None):
             positions = torch.arange(x.shape[1], device=x.device)
             layers = {name: leaf.unbind(0) for name, leaf in blocks.items()}
             for layer in range(next(iter(blocks.values())).shape[0]):
                 lp = layer_params(layers, layer)
-                if remat:
+                if kept is not None:
+                    x, _ = self._block_replay(x, lp, positions, kept[layer],
+                                              mesh)
+                elif save_attn:
+                    x, _ = self._save_attn_block(x, lp, positions, mesh)
+                elif remat:
                     x, _ = checkpoint(self._block, x, lp, positions, mesh,
                                       use_reentrant=False)
                 else:
@@ -763,6 +805,23 @@ class TransformerLM:
             return x
 
         return stage
+
+    def _pp_saving_fn(self, mesh):
+        """1F1B's forward tick under ``save_attn``: the stage without a
+        graph -> (its output, each layer's kept attention), which the
+        backward tick's stage replays around."""
+        @torch.no_grad()
+        def saving(blocks, x):
+            positions = torch.arange(x.shape[1], device=x.device)
+            layers = {name: leaf.unbind(0) for name, leaf in blocks.items()}
+            kept = []
+            for layer in range(next(iter(blocks.values())).shape[0]):
+                x, _, k = self._block_saving(
+                    x, layer_params(layers, layer), positions, mesh)
+                kept.append(k)
+            return x, kept
+
+        return saving
 
     def _check_pp_composition(self, mesh) -> None:
         """The pipeline composes with dp and tp only, with the reference's
@@ -834,13 +893,14 @@ class TransformerLM:
         args = (self._pp_stage_fn(mesh, False), params["blocks"],
                 (params["final_norm"], params["head"]), tail_loss_fn, x,
                 targets, mesh)
-        mb = cfg.pp_microbatches or None
+        kw = dict(num_microbatches=cfg.pp_microbatches or None,
+                  saving_fn=(self._pp_saving_fn(mesh) if cfg.remat
+                             and cfg.remat_policy == "save_attn" else None))
         if self.virtual_stages > 1:
             loss, dblocks, (dnorm, dhead), dx = interleaved_1f1b(
-                *args, v=self.virtual_stages, num_microbatches=mb)
+                *args, v=self.virtual_stages, **kw)
         else:
-            loss, dblocks, (dnorm, dhead), dx = one_f_one_b(
-                *args, num_microbatches=mb)
+            loss, dblocks, (dnorm, dhead), dx = one_f_one_b(*args, **kw)
         return loss, {"embed": self._embed_grad(params["embed"], tokens, dx,
                                                 mesh),
                       "final_norm": dnorm, "head": dhead, "blocks": dblocks}
@@ -866,33 +926,36 @@ def _vocab_parallel_nll(logits, targets, group, rank: int):
 
 class _SaveAttnBlock(torch.autograd.Function):
     """One block under ``remat_policy="save_attn"``: the forward runs
-    without a graph and keeps the block's input and the attention's
-    ``o`` and ``lse``; the backward recomputes the block around them
-    (``_block_replay``) and differentiates that.  Inputs: the model, the
-    positions, the layer's leaf names, x and the leaves.  Output: the
-    block's output, and for an MoE model also its aux loss, whose gradient
-    reaches the router through the backward."""
+    without a graph and keeps the block's input and what its attention
+    made (``_block_saving``); the backward recomputes the block around
+    them (``_block_replay``, the mesh's collectives included) and
+    differentiates that.  Inputs: the model, the positions, the mesh, the
+    layer's leaf names, x and the leaves.  Output: the block's output,
+    and for an MoE model also its aux loss, whose gradient reaches the
+    router through the backward."""
 
     @staticmethod
-    def forward(ctx, model, positions, names, x, *leaves):
-        out, aux, o, lse = model._block_saving(x, dict(zip(names, leaves)),
-                                               positions)
-        ctx.model, ctx.names = model, names
-        ctx.save_for_backward(x, positions, o, lse, *leaves)
+    def forward(ctx, model, positions, mesh, names, x, *leaves):
+        out, aux, kept = model._block_saving(x, dict(zip(names, leaves)),
+                                             positions, mesh)
+        ctx.model, ctx.mesh, ctx.names = model, mesh, names
+        ctx.n_kept = len(kept)
+        ctx.save_for_backward(x, positions, *kept, *leaves)
         return out if aux is None else (out, aux)
 
     @staticmethod
     def backward(ctx, *g_outs):
-        x, positions, o, lse, *leaves = ctx.saved_tensors
-        needs = ctx.needs_input_grad[3:]
+        x, positions, *rest = ctx.saved_tensors
+        kept, leaves = tuple(rest[:ctx.n_kept]), rest[ctx.n_kept:]
+        needs = ctx.needs_input_grad[4:]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n)
                       for t, n in zip((x, *leaves), needs)]
             out, aux = ctx.model._block_replay(
-                inputs[0], dict(zip(ctx.names, inputs[1:])), positions, o,
-                lse)
+                inputs[0], dict(zip(ctx.names, inputs[1:])), positions,
+                kept, ctx.mesh)
         outs = (out,) if aux is None else (out, aux)
         wanted = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad(outs, wanted, g_outs))
-        return (None, None, None,
+        return (None, None, None, None,
                 *(next(grads) if t.requires_grad else None for t in inputs))

@@ -735,24 +735,47 @@ class _Replay(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         causal, rope_theta, q_pipeline, v2, kernels = ctx.args
         g_out, delta = _delta(out, g_out, None)
-        if kernels and v2:
-            planes = _v2_planes(q, k, rope_theta, None)
-            dq = flash_v2_backward_dq(q, k, v, g_out, lse, delta, causal,
-                                      rope_theta, q_pipeline, planes)
-            dk, dv = flash_v2_backward_dkv(q, k, v, g_out, lse, delta,
-                                           causal, rope_theta, planes)
-        elif kernels:
-            dq = flash_backward_dq(q, k, v, g_out, lse, delta, causal)
-            dk, dv = flash_backward_dkv(q, k, v, g_out, lse, delta, causal)
-        elif v2:
-            dq = reference_bwd_dq_v2(q, k, v, g_out, lse, delta, causal,
-                                     rope_theta)
-            dk, dv = reference_bwd_dkv_v2(q, k, v, g_out, lse, delta, causal,
-                                          rope_theta)
-        else:
-            dq = reference_bwd_dq(q, k, v, g_out, lse, delta, causal)
-            dk, dv = reference_bwd_dkv(q, k, v, g_out, lse, delta, causal)
+        dq, dk, dv = _backward(q, k, v, g_out, lse, delta, causal,
+                               rope_theta, q_pipeline, v2, kernels)
         return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _backward(q, k, v, dout, lse, delta, causal, rope_theta, q_pipeline,
+              v2: bool, kernels: bool):
+    """(dq, dk, dv) from the forward's residuals: the dq and dk/dv
+    kernels (v2's with its pre-pass where it takes one), or their plain
+    versions."""
+    if kernels and v2:
+        planes = _v2_planes(q, k, rope_theta, None)
+        dq = flash_v2_backward_dq(q, k, v, dout, lse, delta, causal,
+                                  rope_theta, q_pipeline, planes)
+        dk, dv = flash_v2_backward_dkv(q, k, v, dout, lse, delta, causal,
+                                       rope_theta, planes)
+    elif kernels:
+        dq = flash_backward_dq(q, k, v, dout, lse, delta, causal)
+        dk, dv = flash_backward_dkv(q, k, v, dout, lse, delta, causal)
+    elif v2:
+        dq = reference_bwd_dq_v2(q, k, v, dout, lse, delta, causal,
+                                 rope_theta)
+        dk, dv = reference_bwd_dkv_v2(q, k, v, dout, lse, delta, causal,
+                                      rope_theta)
+    else:
+        dq = reference_bwd_dq(q, k, v, dout, lse, delta, causal)
+        dk, dv = reference_bwd_dkv(q, k, v, dout, lse, delta, causal)
+    return dq, dk, dv
+
+
+def hop_backward(q, k, v, dout, lse, delta, causal: bool):
+    """One block of a ring's backward: (dq, dk, dv) of the block q x k, v
+    from the whole row's ``lse`` and ``delta`` (the merged output's, so
+    the block's probabilities are the whole row's), through the dq and
+    dk/dv kernels on CUDA tensors (v2's, rope outside, for grouped K/V
+    at fewer heads than q) and their plain versions on the CPU.  No
+    forward runs."""
+    q, k, v, dout, lse, delta = (t.contiguous() for t in
+                                 (q, k, v, dout, lse, delta))
+    return _backward(q, k, v, dout, lse, delta, causal, None, 1,
+                     k.shape[1] != q.shape[1], q.device.type == "cuda")
 
 
 def attention_replay(q, k, v, out, lse, *, causal: bool = True,

@@ -168,9 +168,13 @@ def _all_to_all(x: torch.Tensor, group, split_axis: int,
 # device's thread, so every rank, having created its collectives in the
 # same order, runs their backwards in the same (reversed) order, which
 # is what keeps the backward's transfers paired across ranks.  Under
-# remat (torch.utils.checkpoint) a block's forward, its collectives
+# remat (torch.utils.checkpoint, or ``save_attn``'s replay of a block
+# around its kept attention) a block's forward, its collectives
 # included, runs again inside the backward at the same point on every
-# rank, so the order stays the same there too.
+# rank, so the order stays the same there too; the ring's replay posts
+# its hops (``_ppermute``) in its own backward, in the forward's order.
+# Autograd prunes what leads to no input it is asked for, so a hop whose
+# peer waits must lead to one on every rank (``pipeline._Anchor``).
 
 class _PPermute(torch.autograd.Function):
     @staticmethod

@@ -8,10 +8,11 @@ needs no process group: ``build_mesh`` returns ``None`` there, and every
 consumer reads ``None`` as the one-device mesh, every axis of size 1.
 
 Every axis runs in training: data, pipeline, sequence, tensor and
-expert.  Serving runs dp and tp (``SERVE_AXES``), as the reference's
-meshed engine does.  A consumer refuses an axis it does not run
-(``check_slice``): the LoRA model runs the data axes and tp, the CNN
-only the data axes, and the pipeline composes with dp and tp only
+expert, for every model the ``Trainer`` takes (the transformer, its LoRA
+view and the CNN), as in the reference.  Serving runs dp and tp
+(``SERVE_AXES``), as the reference's meshed engine does.  A consumer
+refuses an axis it does not run (``check_slice``, with the reference's
+reason): serving beyond dp and tp, and the pipeline beyond dp and tp
 (``TransformerLM._check_pp_composition``).
 
 Besides one group an axis (``mesh.get_group``), ``build_mesh`` makes the
@@ -33,14 +34,10 @@ import torch.distributed as dist
 # Canonical axis order: outermost (dp, gradient all-reduce) to innermost
 # (tp, the hottest traffic).
 AXES = ("dp", "pp", "ep", "sp", "tp")
-# The axes the port runs above size 1, and the data axes alone (what a
-# model that cuts no weight runs).
-PORTED_AXES = ("dp", "pp", "ep", "sp", "tp")
+# The data axes: the ranks whose tokens differ.
 DATA_AXES = ("dp", "sp")
 # The axes a serving mesh takes: rows over dp, heads over tp.
 SERVE_AXES = ("dp", "tp")
-NEXT_SLICE = ("ROADMAP.md queue 1 item 11, step 5: checkpoints of a meshed "
-              "trainer, save_attn on a mesh")
 # The groups of more than one axis that build_mesh makes.
 GROUPED_AXES = (("dp", "sp"), ("ep", "tp"), ("pp", "tp"))
 
@@ -183,14 +180,13 @@ def axis_rank(mesh, axis: str) -> int:
         else mesh.get_local_rank(axis)
 
 
-def check_slice(mesh, what: str, axes=PORTED_AXES,
-                reason: str = "") -> None:
+def check_slice(mesh, what: str, axes, reason: str) -> None:
     """Refuse a mesh with an axis above 1 that ``what`` does not run
-    (``axes``: the ones it does); ``reason`` says why (by default: not
-    ported yet, and the slice that holds it)."""
+    (``axes``: the ones it does); ``reason`` says why, in the
+    reference's words."""
     big = [a for a, s in mesh_shape(mesh).items()
            if s > 1 and a not in axes]
     if big:
         raise NotImplementedError(
             f"{what} on a mesh with {', '.join(f'{a}>1' for a in big)}: "
-            f"{reason or f'not ported yet ({NEXT_SLICE})'}")
+            f"{reason}")

@@ -34,7 +34,11 @@ the stage from that input under ``torch.enable_grad()`` and
 differentiate it with the received cotangent: that recompute is the
 remat (no ``checkpoint`` inside it, so a block runs two forwards per
 microbatch, one on the last virtual stage, where F is fused into B with
-the tail).  At most 2 S - 1 stage inputs are live, the reference's ring.
+the tail).  With a ``saving_fn`` (the model's ``save_attn``) the forward
+tick also keeps what ``saving_fn`` returns beside the input, and the
+backward tick's ``stage_fn`` takes it: the stage is recomputed around
+it (the attention's forward is not run again).  At most 2 S - 1 stage
+inputs are live, the reference's ring.
 Gradients accumulate in the ``.grad`` of leaves made once a call, in the
 parameters' type (the ``Trainer``'s f32 masters), and leave as f32.
 
@@ -190,6 +194,20 @@ class _Tie(torch.autograd.Function):
                      for s, dt, dev in ctx.shapes))
 
 
+class _Anchor(torch.autograd.Function):
+    """``y`` itself, tied to ``params`` so that a graph through it leads to
+    them; their gradient from it is none."""
+
+    @staticmethod
+    def forward(ctx, y, *params):
+        ctx.n = len(params)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(None,) * ctx.n)
+
+
 # -- GPipe -------------------------------------------------------------------
 
 def gpipe(stage_fn, stage_params, x, mesh, num_microbatches: int | None = None,
@@ -233,9 +251,14 @@ def gpipe(stage_fn, stage_params, x, mesh, num_microbatches: int | None = None,
         perm = _fwd_perm(i, M, pp, v)
         if any(d in p for p in perm):
             # A rank that only receives hands over a template that leads
-            # to a parameter (x), so the hop's backward runs.
-            got = collectives.ppermute(out if out is not None else xm[0],
-                                       group, perm)
+            # to the stage's parameters, so the hop's backward runs even
+            # where the caller differentiates those alone (a LoRA model's
+            # adapters: autograd prunes what leads to no input it asks
+            # for).
+            got = collectives.ppermute(
+                out if out is not None
+                else _Anchor.apply(xm[0], *stage_params.values()),
+                group, perm)
             if any(dst == d for _, dst in perm):
                 recv = got
             else:
@@ -248,7 +271,8 @@ def gpipe(stage_fn, stage_params, x, mesh, num_microbatches: int | None = None,
 # -- 1F1B and interleaved 1F1B -----------------------------------------------
 
 def _one_f_one_b(stage_fn, stage_params, tail_params, tail_loss_fn, x,
-                 targets, mesh, v: int, num_microbatches, axis_name):
+                 targets, mesh, v: int, num_microbatches, axis_name,
+                 saving_fn=None):
     pp = axis_size(mesh, axis_name)
     S = pp * v
     group = mesh.get_group(axis_name)
@@ -279,13 +303,18 @@ def _one_f_one_b(stage_fn, stage_params, tail_params, tail_loss_fn, x,
         if f is not None:
             c, j = f
             inp = xm[j] if d == 0 and c == 0 else fwd_recv
-            store[(c, j)] = inp
+            store[(c, j)] = (inp, None)
             live = max(live, len(store))
             if c * pp + d != S - 1:
                 # The last virtual stage runs its forward fused into its
                 # backward, in the same tick.
                 with torch.no_grad():
-                    out = stage_fn(_chunk(stage_params, c, lc), inp)
+                    if saving_fn is None:
+                        out = stage_fn(_chunk(stage_params, c, lc), inp)
+                    else:
+                        out, kept = saving_fn(_chunk(stage_params, c, lc),
+                                              inp)
+                        store[(c, j)] = (inp, kept)
         fwd_recv = _hop(out, group, _fwd_perm(i, M, pp, v), d)
         # ---- backward: one chunk, recomputed from its input --------------
         b = decode_bwd(i, d, M, pp, v)
@@ -294,9 +323,10 @@ def _one_f_one_b(stage_fn, stage_params, tail_params, tail_loss_fn, x,
             c, j = b
             s = c * pp + d
             with torch.enable_grad():
-                a = store.pop((c, j)).detach().requires_grad_()
+                a, kept = store.pop((c, j))
+                a = a.detach().requires_grad_()
                 p = chunks[c]
-                y = stage_fn(p, a)
+                y = stage_fn(p, a) if kept is None else stage_fn(p, a, kept)
                 if s == S - 1:
                     loss_j = tail_loss_fn(tail, y, tm[j])
                     torch.autograd.backward(loss_j / M,
@@ -333,7 +363,7 @@ def _one_f_one_b(stage_fn, stage_params, tail_params, tail_loss_fn, x,
 
 def one_f_one_b(stage_fn, stage_params, tail_params, tail_loss_fn, x, targets,
                 mesh, num_microbatches: int | None = None,
-                axis_name: str = "pp"):
+                axis_name: str = "pp", saving_fn=None):
     """1F1B: the loss and the gradients in one pass of the tick table,
     each microbatch's backward as soon as its forward clears the pipe,
     at most 2 P - 1 stage inputs live (GPipe's autograd holds M + P - 1).
@@ -346,20 +376,25 @@ def one_f_one_b(stage_fn, stage_params, tail_params, tail_loss_fn, x, targets,
       cross-entropy);
     stage_params: this rank's contiguous block leaves [L/P, ...];
     tail_params: a sequence of the tail's leaves (replicated over pp);
-    x, targets: this rank's batch block, the same on every pp rank.
+    x, targets: this rank's batch block, the same on every pp rank;
+    saving_fn(params_slice, act[mb, ...]) -> (act[mb, ...], kept): the
+      forward tick's stage when the backward tick's recompute takes
+      what it kept, ``stage_fn(params_slice, act, kept)`` (None: the
+      forward tick runs ``stage_fn`` and keeps only its input).
     Returns (loss, d_stage_params, d_tail_params, dx): the block's mean
     loss, the tail's gradients and the input's cotangent, each the same
     on every pp rank (summed over pp), and this stage's f32 gradients."""
     if axis_size(mesh, axis_name) == 1:
         raise ValueError("one_f_one_b needs pp > 1; use the plain path")
     return _one_f_one_b(stage_fn, stage_params, tail_params, tail_loss_fn,
-                        x, targets, mesh, 1, num_microbatches, axis_name)
+                        x, targets, mesh, 1, num_microbatches, axis_name,
+                        saving_fn)
 
 
 def interleaved_1f1b(stage_fn, stage_params, tail_params, tail_loss_fn, x,
                      targets, mesh, v: int,
                      num_microbatches: int | None = None,
-                     axis_name: str = "pp"):
+                     axis_name: str = "pp", saving_fn=None):
     """Interleaved 1F1B: each rank holds ``v`` non-contiguous chunks of
     L/(P v) layers (virtual stages c P + d), and a microbatch visits
     every rank v times, wrapping from P - 1 to 0 between chunks.  A fine
@@ -383,4 +418,5 @@ def interleaved_1f1b(stage_fn, stage_params, tail_params, tail_loss_fn, x,
         raise ValueError(f"{local * pp} layers not divisible by {pp}·{v} "
                          "chunks")
     return _one_f_one_b(stage_fn, stage_params, tail_params, tail_loss_fn,
-                        x, targets, mesh, v, num_microbatches, axis_name)
+                        x, targets, mesh, v, num_microbatches, axis_name,
+                        saving_fn)

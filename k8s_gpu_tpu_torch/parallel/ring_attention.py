@@ -25,14 +25,28 @@ flash functions (with a non-zero lse cotangent) and the differentiable
 ppermute.  On the CPU the hops take the plain versions, as every path
 of the port does; on the card a hop the kernels do not take raises,
 where the reference demotes to its einsum oracle.
+
+Under ``remat_policy="save_attn"`` the model keeps what the forward
+made (``ring_attention_saving``: the merged output and lse of each
+zigzag half) and its backward replays the ring around them
+(``ring_attention_replay``): the zigzag moves of q, k and v run again,
+but no hop's forward does.  The backward (``_RingReplay``) starts from
+delta = rowsum(dO * O) of each half and rotates K/V around the ring
+once more; each hop runs the flash backward kernels
+(``ops.attention.hop_backward``) on the visible blocks against the
+*final* lse, so a block's probabilities are the whole row's, and the
+dK/dV accumulated for the K/V a rank holds travel with them, reaching
+their owner after one last hop.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.attention import flash_attention_lse, flash_attention_v2_lse
-from .collectives import ppermute
+from ..ops.attention import (
+    _delta, flash_attention_lse, flash_attention_v2_lse, hop_backward,
+)
+from .collectives import _ppermute, ppermute
 from .mesh import axis_rank, axis_size
 
 NEG_INF = -1e30
@@ -91,17 +105,24 @@ def _fold(acc, block):
     return o * w_old[..., None] + bo * w_blk[..., None], lse_new
 
 
-def _ring_attention_local(q, k, v, *, group, n: int, my: int,
-                          block_q=None, block_k=None):
-    """This rank's body: q, k, v its contiguous blocks [B, H, S/sp, D]."""
-    if n == 1:
-        return _block_attend(q, k, v, True, block_q, block_k)[0].to(q.dtype)
+def _zigzag_qkv(q, k, v, group, n: int, my: int):
+    """q, k and v's zigzag halves: (q_lo, q_hi, k_lo, k_hi, v_lo, v_hi)."""
     c = q.shape[-2]
     if c % 2:
         raise ValueError(f"local seq {c} must be even for zigzag ring")
-    q_lo, q_hi = _to_zigzag(q, group, n, my)
-    k_lo, k_hi = _to_zigzag(k, group, n, my)
-    v_lo, v_hi = _to_zigzag(v, group, n, my)
+    return (*_to_zigzag(q, group, n, my), *_to_zigzag(k, group, n, my),
+            *_to_zigzag(v, group, n, my))
+
+
+def _ring_attention_local(q, k, v, *, group, n: int, my: int,
+                          block_q=None, block_k=None, keep: bool = False):
+    """This rank's body: q, k, v its contiguous blocks [B, H, S/sp, D].
+    ``keep``: also return (o_lo, o_hi, lse_lo, lse_hi), each half's
+    merged output (in q's type) and lse."""
+    if n == 1:
+        return _block_attend(q, k, v, True, block_q, block_k)[0].to(q.dtype)
+    q_lo, q_hi, k_lo, k_hi, v_lo, v_hi = _zigzag_qkv(q, k, v, group, n, my)
+    c = q.shape[-2]
 
     # Hop 0 (local): causal over the [lo; hi] pair.  Chunk `my` precedes
     # chunk `2n-1-my` on every rank, so hi -> lo is visible, lo -> hi not.
@@ -130,8 +151,73 @@ def _ring_attention_local(q, k, v, *, group, n: int, my: int,
             acc_hi = _fold(acc_hi, _block_attend(q_hi, kh, vh, False,
                                                  block_q, block_k))
     # Cast before the transfer: the same values, half the bytes in bf16.
-    return _from_zigzag(acc_lo[0].to(q.dtype), acc_hi[0].to(q.dtype),
-                        group, n, my)
+    o_lo, o_hi = acc_lo[0].to(q.dtype), acc_hi[0].to(q.dtype)
+    o = _from_zigzag(o_lo, o_hi, group, n, my)
+    return (o, (o_lo, o_hi, acc_lo[1], acc_hi[1])) if keep else o
+
+
+class _RingReplay(torch.autograd.Function):
+    """The zigzag halves' saved outputs as a function of q, k and v's
+    halves; the backward is the ring's flash backward (module
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, q_lo, q_hi, k_lo, k_hi, v_lo, v_hi, o_lo, o_hi, lse_lo,
+                lse_hi, group, n, my):
+        ctx.save_for_backward(q_lo, q_hi, k_lo, k_hi, v_lo, v_hi, o_lo,
+                              o_hi, lse_lo, lse_hi)
+        ctx.ring = (group, n, my)
+        return o_lo.view_as(o_lo), o_hi.view_as(o_hi)
+
+    @staticmethod
+    def backward(ctx, g_lo, g_hi):
+        (q_lo, q_hi, k_lo, k_hi, v_lo, v_hi, o_lo, o_hi, lse_lo,
+         lse_hi) = ctx.saved_tensors
+        group, n, my = ctx.ring
+        # dO and delta = rowsum(dO * O) of each half; the lse is not an
+        # output of the block, so it has no cotangent.
+        g_lo, d_lo = _delta(o_lo, g_lo, None)
+        g_hi, d_hi = _delta(o_hi, g_hi, None)
+        half = q_lo.shape[-2]
+
+        def cat(a, b, dim=-2):
+            return torch.cat([a, b], dim)
+
+        # Hop 0: the causal [lo; hi] pair against the rank's own K/V.
+        dq, dk, dv = hop_backward(
+            cat(q_lo, q_hi), cat(k_lo, k_hi), cat(v_lo, v_hi),
+            cat(g_lo, g_hi), cat(lse_lo, lse_hi, -1), cat(d_lo, d_hi, -1),
+            True)
+        dq_lo, dq_hi = dq[..., :half, :].float(), dq[..., half:, :].float()
+        # dK/dV of the K/V this rank holds, [k_lo, k_hi, v_lo, v_hi].
+        dkv = torch.stack([dk[..., :half, :], dk[..., half:, :],
+                           dv[..., :half, :], dv[..., half:, :]]).float()
+        kv = torch.stack([k_lo, k_hi, v_lo, v_hi])
+        perm = [(i, (i + 1) % n) for i in range(n)]
+        for step in range(1, n):
+            kv = _ppermute(kv, group, perm)
+            dkv = _ppermute(dkv, group, perm)
+            kl, kh, vl, vh = kv.unbind(0)
+            src = (my - step) % n
+            # q_hi x k_lo: always fully visible; then the visible one of
+            # (q_lo x k_lo) / (q_hi x k_hi).
+            blocks = [(q_hi, kl, vl, g_hi, lse_hi, d_hi, 1, 0)]
+            if src < my:
+                blocks.append((q_lo, kl, vl, g_lo, lse_lo, d_lo, 0, 0))
+            else:
+                blocks.append((q_hi, kh, vh, g_hi, lse_hi, d_hi, 1, 1))
+            for bq_, bk_, bv_, bg, blse, bd, qi, ki in blocks:
+                bq, bk, bv = hop_backward(bq_, bk_, bv_, bg, blse, bd, False)
+                (dq_hi if qi else dq_lo).add_(bq.float())
+                dkv[ki] += bk.float()
+                dkv[2 + ki] += bv.float()
+        # The accumulator held now is the K/V of rank my + 1: one more
+        # hop takes every rank's home.
+        dk_lo, dk_hi, dv_lo, dv_hi = _ppermute(dkv, group, perm).unbind(0)
+        return (dq_lo.to(q_lo.dtype), dq_hi.to(q_hi.dtype),
+                dk_lo.to(k_lo.dtype), dk_hi.to(k_hi.dtype),
+                dv_lo.to(v_lo.dtype), dv_hi.to(v_hi.dtype),
+                None, None, None, None, None, None, None)
 
 
 def ring_attention(q, k, v, mesh, *, axis_name: str = "sp",
@@ -147,6 +233,31 @@ def ring_attention(q, k, v, mesh, *, axis_name: str = "sp",
     return _ring_attention_local(
         q, k, v, group=mesh.get_group(axis_name) if n > 1 else None, n=n,
         my=axis_rank(mesh, axis_name), block_q=block_q, block_k=block_k)
+
+
+def ring_attention_saving(q, k, v, mesh, *, axis_name: str = "sp",
+                          block_q: int | None = None,
+                          block_k: int | None = None):
+    """``ring_attention`` without a graph -> (this rank's output block,
+    what ``ring_attention_replay`` replays around: each zigzag half's
+    merged output and lse)."""
+    with torch.no_grad():
+        return _ring_attention_local(
+            q, k, v, group=mesh.get_group(axis_name),
+            n=axis_size(mesh, axis_name), my=axis_rank(mesh, axis_name),
+            block_q=block_q, block_k=block_k, keep=True)
+
+
+def ring_attention_replay(q, k, v, saved, mesh, *, axis_name: str = "sp"):
+    """``ring_attention``'s output block as a differentiable function of
+    q, k and v, from what ``ring_attention_saving`` kept on the same
+    inputs: the zigzag moves run again, no hop's forward does, and the
+    backward runs the ring's flash backward (module docstring)."""
+    group = mesh.get_group(axis_name)
+    n, my = axis_size(mesh, axis_name), axis_rank(mesh, axis_name)
+    o_lo, o_hi = _RingReplay.apply(*_zigzag_qkv(q, k, v, group, n, my),
+                                   *saved, group, n, my)
+    return _from_zigzag(o_lo, o_hi, group, n, my)
 
 
 def plain_causal_attention(q, k, v):

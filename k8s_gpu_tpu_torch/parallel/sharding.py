@@ -44,7 +44,7 @@ from typing import Any
 import torch
 
 from .collectives import all_gather
-from .mesh import axis_rank, axis_size, check_slice
+from .mesh import axis_rank, axis_size
 
 # The mesh axes a parameter may be cut along.
 WEIGHT_AXES = ("pp", "ep", "tp")
@@ -121,7 +121,6 @@ def shard_params(params, logical_tree, mesh, rules: ParamRules | None = None,
     returns ``params`` as they are."""
     if mesh is None:
         return params
-    check_slice(mesh, "shard_params")
     rules = rules or ParamRules()
     v = virtual_stages
 

@@ -11,34 +11,53 @@ heads (v2 for grouped K/V, rope outside), and a second all-to-all
 restores the sequence sharding.  It needs the head count to divide by
 sp; grouped K/V also need their KV heads to (``ulysses_grouped_ok``).
 On a tp mesh a rank holds its H/tp heads, and Ulysses regroups those.
+
+Under ``remat_policy="save_attn"`` the model keeps the rank's own heads'
+output and lse after the first all-to-all (``ulysses_attention_saving``)
+and its backward replays around them (``ulysses_attention_replay``):
+the all-to-alls run again, the flash forward does not, and the
+backward runs the flash backward kernels on those heads between the
+all-to-alls in reverse.
 """
 
 from __future__ import annotations
 
-from ..ops.attention import flash_attention, flash_attention_v2
+import torch
+
+from ..ops.attention import (
+    attention_replay, flash_attention_lse, flash_attention_v2_lse,
+)
 from .collectives import all_to_all
 from .mesh import mesh_shape
 
 
-def _ulysses_local(q, k, v, *, group, block_q=None, block_k=None):
-    """This rank's body: inputs are its sequence blocks [B, H, S/P, D]."""
-    def seq_to_heads(x):
-        # [B, H, S/P, D] -> [B, H/P, S, D]
-        return all_to_all(x, group, split_axis=1, concat_axis=2)
+def _seq_to_heads(x, group):
+    # [B, H, S/P, D] -> [B, H/P, S, D]
+    return all_to_all(x, group, split_axis=1, concat_axis=2)
 
-    def heads_to_seq(x):
-        return all_to_all(x, group, split_axis=2, concat_axis=1)
 
-    q, k, v = seq_to_heads(q), seq_to_heads(k), seq_to_heads(v)
-    # The tiled all_to_all hands query chunk i exactly KV-head chunk i
-    # (ulysses_grouped_ok), so grouped K/V keep their pairing here.
+def _heads_to_seq(x, group):
+    return all_to_all(x, group, split_axis=2, concat_axis=1)
+
+
+def _attend_heads(q, k, v, block_q, block_k):
+    """(out, lse) of this rank's heads over the whole sequence.  The
+    tiled all_to_all hands query chunk i exactly KV-head chunk i
+    (ulysses_grouped_ok), so grouped K/V keep their pairing here."""
     if k.shape[1] != q.shape[1]:
-        o = flash_attention_v2(q, k, v, causal=True, block_q=block_q,
-                               block_k=block_k)
-    else:
-        o = flash_attention(q, k, v, causal=True, block_q=block_q,
-                            block_k=block_k)
-    return heads_to_seq(o)
+        return flash_attention_v2_lse(q, k, v, causal=True, block_q=block_q,
+                                      block_k=block_k)
+    return flash_attention_lse(q, k, v, True, block_q, block_k)
+
+
+def _ulysses_local(q, k, v, *, group, block_q=None, block_k=None,
+                   keep: bool = False):
+    """This rank's body: inputs are its sequence blocks [B, H, S/P, D].
+    ``keep``: also return (out, lse) of its heads."""
+    q, k, v = (_seq_to_heads(t, group) for t in (q, k, v))
+    o, lse = _attend_heads(q, k, v, block_q, block_k)
+    out = _heads_to_seq(o, group)
+    return (out, (o, lse)) if keep else out
 
 
 def _heads_over(mesh, head_axes) -> int:
@@ -73,6 +92,37 @@ def ulysses_attention(q, k, v, mesh, *, axis_name: str = "sp",
     KH/tp of its place on ``head_axes``; the errors name the whole
     counts, as the reference's do.  The local head count must divide by
     sp; grouped K/V are taken when ``ulysses_grouped_ok`` holds."""
+    _check_heads(q, k, mesh, axis_name, head_axes)
+    return _ulysses_local(q, k, v, group=mesh.get_group(axis_name),
+                          block_q=block_q, block_k=block_k)
+
+
+def ulysses_attention_saving(q, k, v, mesh, *, axis_name: str = "sp",
+                             head_axes=("tp",), block_q: int | None = None,
+                             block_k: int | None = None):
+    """``ulysses_attention`` without a graph -> (this rank's output
+    block, its heads' (out, lse), what ``ulysses_attention_replay``
+    replays around)."""
+    _check_heads(q, k, mesh, axis_name, head_axes)
+    with torch.no_grad():
+        return _ulysses_local(q, k, v, group=mesh.get_group(axis_name),
+                              block_q=block_q, block_k=block_k, keep=True)
+
+
+def ulysses_attention_replay(q, k, v, saved, mesh, *, axis_name: str = "sp"):
+    """``ulysses_attention``'s output block as a differentiable function
+    of q, k and v, from what ``ulysses_attention_saving`` kept on the
+    same inputs: the all-to-alls run again, the flash forward does not
+    (module docstring)."""
+    group = mesh.get_group(axis_name)
+    q, k, v = (_seq_to_heads(t, group) for t in (q, k, v))
+    o = attention_replay(q, k, v, *saved, causal=True,
+                         v2=k.shape[1] != q.shape[1])
+    return _heads_to_seq(o, group)
+
+
+def _check_heads(q, k, mesh, axis_name, head_axes) -> None:
+    """The reference's errors for head counts Ulysses cannot regroup."""
     sp = mesh_shape(mesh)[axis_name]
     tp = _heads_over(mesh, head_axes)
     h, kh = q.shape[1] * tp, k.shape[1] * tp
@@ -90,5 +140,3 @@ def ulysses_attention(q, k, v, mesh, *, axis_name: str = "sp",
             f"({kh}/{tp}) divisible by sp={sp}; broadcast K/V "
             "to the full head count first (see ulysses_grouped_ok)"
         )
-    return _ulysses_local(q, k, v, group=mesh.get_group(axis_name),
-                          block_q=block_q, block_k=block_k)

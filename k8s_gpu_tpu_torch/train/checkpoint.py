@@ -16,6 +16,17 @@ maps every tensor onto the device (and type) of the trees it is given.
 Telemetry under the reference's names: ``train_checkpoint_seconds{op}``,
 ``train_checkpoint_bytes`` and ``train_checkpoint_failures_total{op}``,
 timed on an injected clock.
+
+A meshed trainer saves the same layout, with global shapes: every rank
+gathers the whole trees (``Trainer.gathered_params``, ``opt_state``,
+``gathered_ema``), rank 0 of the world writes them, and every rank
+waits for it (``distributed=True``).  ``latest_step`` is rank 0's, given
+to every rank; ``restore`` reads the whole leaves on every rank and the
+trainer cuts them onto its own layout (``Trainer.load_gathered_state``).
+So a checkpoint resumes onto any mesh, one device included, whatever
+wrote it, as the reference's restore onto the trainer's shardings does.
+One writer suits a model whose whole state one host holds; a file of
+shards a rank, in Orbax's style, waits for a model that outgrows it.
 """
 
 from __future__ import annotations
@@ -27,10 +38,10 @@ from contextlib import nullcontext
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..utils.clock import Clock, RealClock
 from ..utils.metrics import MetricsRegistry, global_metrics
-from .runner import tree_map
 
 log = logging.getLogger("k8s_gpu_tpu_torch.train.checkpoint")
 
@@ -78,16 +89,38 @@ class CheckpointManager:
     """Step directories with retention and telemetry: every save and
     restore lands in ``train_checkpoint_seconds{op}`` (and the failure
     counter when it raises), the step's size in
-    ``train_checkpoint_bytes``."""
+    ``train_checkpoint_bytes``.
+
+    ``distributed``: every rank of the initialized world holds a manager
+    over the same directory (a meshed trainer's): rank 0 writes, every
+    rank waits for the write and learns its outcome, and
+    ``latest_step`` is rank 0's.  Each call is then a collective."""
 
     def __init__(self, directory: str | Path, max_to_keep: int = 3,
                  clock: Clock | None = None,
-                 registry: MetricsRegistry | None = None):
+                 registry: MetricsRegistry | None = None,
+                 distributed: bool = False):
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max(1, int(max_to_keep))
         self.clock = clock or RealClock()
         self.registry = registry if registry is not None else global_metrics
+        self.distributed = distributed and dist.is_initialized()
+        self.writer = not self.distributed or dist.get_rank() == 0
+
+    def _settle(self, error: Exception | None) -> None:
+        """Raise ``error``; when ``distributed``, every rank first learns
+        every rank's outcome, so all raise if any failed."""
+        if self.distributed:
+            errors = [None] * dist.get_world_size()
+            dist.all_gather_object(errors, None if error is None
+                                   else f"{type(error).__name__}: {error}")
+            failed = [(r, e) for r, e in enumerate(errors) if e is not None]
+            if failed and error is None:
+                raise RuntimeError(f"checkpoint failed on rank "
+                                   f"{failed[0][0]}: {failed[0][1]}")
+        if error is not None:
+            raise error
 
     def _step_dir(self, step: int) -> Path:
         return self.directory / str(int(step))
@@ -104,8 +137,15 @@ class CheckpointManager:
                       if p.name.isdigit() and p.is_dir())
 
     def latest_step(self) -> int | None:
-        steps = self.all_steps()
-        return steps[-1] if steps else None
+        """The newest complete step (rank 0's view, on every rank, when
+        ``distributed``)."""
+        steps = self.all_steps() if self.writer else None
+        latest = steps[-1] if steps else None
+        if self.distributed:
+            box = [latest]
+            dist.broadcast_object_list(box, src=0)
+            latest = box[0]
+        return latest
 
     def _save(self, step: int, params, opt_state, ema) -> None:
         tmp = self.directory / f".tmp-{int(step)}-{os.getpid()}"
@@ -126,9 +166,17 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(old), ignore_errors=True)
 
     def save(self, step: int, params, opt_state, ema=None) -> None:
+        """Write a step's whole trees (only rank 0's are written when
+        ``distributed``; every rank waits for the write)."""
         t0 = self.clock.now()
         try:
-            self._save(step, params, opt_state, ema)
+            error = None
+            try:
+                if self.writer:
+                    self._save(step, params, opt_state, ema)
+            except Exception as e:
+                error = e
+            self._settle(error)
         except Exception:
             self.registry.inc("train_checkpoint_failures_total", op="save")
             raise
@@ -145,10 +193,13 @@ class CheckpointManager:
     def restore(self, params_like, opt_state_like, step: int | None = None,
                 ema_like=None):
         """Restore onto the structure, devices and types of the ``*_like``
-        trees (a freshly initialised trainer's state).  Returns (params,
-        opt_state, step), or with ``ema_like`` (params, opt_state, ema,
-        step), ema None when the checkpoint has none (the caller then
-        seeds it from the restored params, not from the fresh init)."""
+        trees (a freshly initialised trainer's state; on a mesh its
+        ``checkpoint_like``).  Returns (params, opt_state, step), or with
+        ``ema_like`` (params, opt_state, ema, step), ema None when the
+        checkpoint has none (the caller then seeds it from the restored
+        params, not from the fresh init).  When ``distributed`` every
+        rank reads the step rank 0 names, and learns whether any rank
+        failed."""
         step = self.latest_step() if step is None else int(step)
         if step is None or not self._step_dir(step).is_dir():
             raise FileNotFoundError(
@@ -158,16 +209,21 @@ class CheckpointManager:
         device = _device_of(params_like)
         t0 = self.clock.now()
         try:
-            params = _onto(self._load(step, "params.pt", device),
-                           params_like, "params")
-            raw = self._load(step, "opt_state.pt", device)
-            opt_state = {
-                "count": int(raw["count"]),
-                "mu": _onto(raw["mu"], opt_state_like["mu"], "mu"),
-                "nu": _onto(raw["nu"], opt_state_like["nu"], "nu"),
-            }
-            ema = (_onto(self._load(step, "ema.pt", device), ema_like, "ema")
-                   if want_ema else None)
+            error = None
+            try:
+                params = _onto(self._load(step, "params.pt", device),
+                               params_like, "params")
+                raw = self._load(step, "opt_state.pt", device)
+                opt_state = {
+                    "count": int(raw["count"]),
+                    "mu": _onto(raw["mu"], opt_state_like["mu"], "mu"),
+                    "nu": _onto(raw["nu"], opt_state_like["nu"], "nu"),
+                }
+                ema = (_onto(self._load(step, "ema.pt", device), ema_like,
+                             "ema") if want_ema else None)
+            except Exception as e:
+                error = e
+            self._settle(error)
         except Exception:
             self.registry.inc("train_checkpoint_failures_total",
                               op="restore")
@@ -204,9 +260,11 @@ def attach_to_trainer(trainer, directory: str | Path, max_to_keep: int = 3,
     """(ckpt, save(step), resume() -> step) bound to a ``Trainer``'s
     params, optimizer state and EMA.  With a goodput ledger on the
     trainer, every save and restore is its ``checkpoint_save`` /
-    ``checkpoint_restore`` segment."""
+    ``checkpoint_restore`` segment.  A meshed trainer's save and resume
+    are collectives: every rank calls them (module docstring)."""
+    meshed = getattr(trainer, "mesh", None) is not None
     ckpt = CheckpointManager(directory, max_to_keep=max_to_keep, clock=clock,
-                             registry=registry)
+                             registry=registry, distributed=meshed)
 
     def _seg(name: str):
         ledger = getattr(trainer, "ledger", None)
@@ -214,22 +272,21 @@ def attach_to_trainer(trainer, directory: str | Path, max_to_keep: int = 3,
 
     def save(step: int) -> None:
         with _seg("checkpoint_save"):
-            ckpt.save(step, trainer.params, trainer.opt_state,
-                      ema=trainer.ema)
+            ckpt.save(step, trainer.gathered_params(), trainer.opt_state,
+                      ema=trainer.gathered_ema())
 
     def _resume() -> int:
+        like = trainer.checkpoint_like()
+        opt_like = {"count": 0, "mu": like, "nu": like}
         if trainer.ema is not None:
             params, opt_state, ema, step = ckpt.restore(
-                trainer.params, trainer.opt_state, ema_like=trainer.ema)
-            # A checkpoint without an EMA seeds the shadow from the
-            # restored params, not from the fresh init's.
-            trainer.ema = ema if ema is not None else tree_map(
-                lambda p: p.detach().clone(), params)
+                like, opt_like, ema_like=like)
         else:
-            params, opt_state, step = ckpt.restore(trainer.params,
-                                                   trainer.opt_state)
-        trainer.params = params
-        trainer.opt_state = opt_state
+            (params, opt_state, step), ema = ckpt.restore(
+                like, opt_like), None
+        # A checkpoint without an EMA seeds the shadow from the restored
+        # params, not from the fresh init's (``load_gathered_state``).
+        trainer.load_gathered_state(params, opt_state, ema)
         return step
 
     def resume() -> int:

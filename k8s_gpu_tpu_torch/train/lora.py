@@ -12,13 +12,17 @@ kernels included) as the base model's own training step.
 dtype)`` makes the adapter tree from an explicit ``torch.Generator`` on
 the base model's device, and ``loss`` differentiates the adapters only.
 
-On a mesh of dp, sp and tp (``mesh_axes``) the adapters are cut by their
-logical axes (the reference's ``logical_axes``) and the base by the
-model's: ``loss`` merges this rank's shards.  The half of an adapter
-that tp leaves whole (A of a leaf cut on its output, B of one cut on its
-input) enters the merge through ``copy_to``, so its gradient is summed
-over the tp ranks whose slices it fed, as GSPMD sums it in the
-reference.
+On a mesh the adapters are cut by their logical axes (the reference's
+``logical_axes``: each inherits its base leaf's axes, ``"stages"``
+included) and the base by the model's: ``loss`` merges this rank's
+shards.  The half of an adapter that tp leaves whole (A of a leaf cut on
+its output, B of one cut on its input) enters the merge through
+``copy_to``, so its gradient is summed over the tp ranks whose slices it
+fed, as GSPMD sums it in the reference.  On a pp mesh a rank holds its
+stage's adapters, and the model has no 1F1B of its own, so the
+``Trainer`` trains it through the base model's GPipe forward, as the
+reference's does; on ep the base's experts are cut and the adapters
+(on the attention and dense leaves) are whole.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from dataclasses import dataclass
 import torch
 
 from ..parallel.collectives import copy_to
-from ..parallel.mesh import axis_group, check_slice
+from ..parallel.mesh import axis_group
 from ..parallel.sharding import ParamRules, cut_axes, shard_params
 
 # For each adaptable leaf under "blocks": how many dims after the leading
@@ -173,12 +177,9 @@ class LoraModel:
     makes adapter parameters, ``loss`` differentiates the adapters only
     (the base leaves never take a gradient and stay bit-identical).
     ``Trainer(LoraModel(model, base_params), device=...)`` fine-tunes,
-    on a mesh of dp, sp and tp too (``loss`` takes ``mesh=``; ep and pp
-    are refused).  ``base_params`` is the whole tree; on a tp mesh
-    ``loss`` takes this rank's shards of it, cut once a mesh."""
-
-    # The mesh axes the fine-tune runs above size 1.
-    mesh_axes = ("dp", "sp", "tp")
+    on a mesh too (``loss`` takes ``mesh=``).  ``base_params`` is the
+    whole tree; on a mesh that cuts it ``loss`` takes this rank's shards
+    of it, cut once a mesh."""
 
     def __init__(self, model, base_params: dict,
                  cfg: LoraConfig | None = None):
@@ -195,28 +196,38 @@ class LoraModel:
     def logical_axes(self) -> dict:
         return self.adapter.logical_axes(self.model.logical_axes())
 
+    @property
+    def virtual_stages(self) -> int:
+        """The base model's stage layout on a pp mesh, which the
+        adapters' ``"stages"`` cut follows."""
+        return getattr(self.model, "virtual_stages", 1)
+
     def _on_mesh(self, mesh) -> tuple:
         """(this rank's base shards, the adapter halves ``merge`` takes
         through ``copy_to``) on ``mesh``, made once a mesh."""
         key = id(mesh)
         if key not in self._meshed:
             rules, tp = ParamRules(), axis_group(mesh, "tp")
+
+            def on_tp(axes) -> bool:
+                return any(a == "tp" for _, a in
+                           cut_axes(rules.spec(axes), mesh))
+
             whole = {}
-            base_axes = self.model.logical_axes()
             for top, axes in self.logical_axes().items():
                 for name, ab in (axes.items() if top == "blocks"
                                  else [(top, axes)]):
                     for h, other in (("a", "b"), ("b", "a")):
-                        if (tp is not None
-                                and not cut_axes(rules.spec(ab[h]), mesh)
-                                and cut_axes(rules.spec(ab[other]), mesh)):
+                        if (tp is not None and not on_tp(ab[h])
+                                and on_tp(ab[other])):
                             whole[(name, h)] = tp
             self._meshed[key] = (
-                shard_params(self.base_params, base_axes, mesh), whole)
+                shard_params(self.base_params, self.model.logical_axes(),
+                             mesh, virtual_stages=self.virtual_stages),
+                whole)
         return self._meshed[key]
 
     def loss(self, lora_params, tokens, targets, mesh=None):
-        check_slice(mesh, "LoRA", self.mesh_axes)
         if mesh is None:
             merged = self.adapter.merge(self.base_params, lora_params)
         else:

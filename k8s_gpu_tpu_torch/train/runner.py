@@ -52,8 +52,16 @@ way the loss and the replicated leaves' gradients leave the schedule the
 same on every pp rank (summed over pp where one stage alone made them),
 and the batch group's mean follows as on any mesh.
 
-Not ported yet (ROADMAP.md queue 1 item 11, step 5): checkpoints of a
-meshed trainer.
+The state of a meshed trainer reads and loads whole, as the reference's
+global arrays do: ``opt_state`` gives AdamW's ``count`` and moments as
+the whole tree (ZeRO-1's dp slices joined along their axis, the tp, ep
+and pp shards as ``gather_params`` joins the parameters, interleaved
+stages back in layer order), and takes a whole tree, keeping this
+rank's shards and dp slice; ``gathered_ema`` and ``load_gathered_state``
+do the same for the EMA and the parameters.  Reading is a collective:
+every rank calls it, in the same order.  So a checkpoint
+(``train/checkpoint.py``) holds the one-device layout whatever the mesh
+that wrote it, and resumes onto any other.
 """
 
 from __future__ import annotations
@@ -72,8 +80,7 @@ from ..device import resolve_device
 from ..ops.attention import describe_train_attention
 from ..parallel.collectives import all_gather, all_reduce
 from ..parallel.mesh import (
-    DATA_AXES, NEXT_SLICE, axis_group, axis_rank, axis_size, batch_group,
-    build_mesh, check_slice, mesh_shape,
+    axis_group, axis_rank, axis_size, batch_group, build_mesh, mesh_shape,
 )
 from ..parallel.sharding import (
     ParamRules, cut_axes, gather_params, shard_params,
@@ -291,9 +298,24 @@ class AdamW:
                 "nu": tree_like(params, self.nu)}
 
     def load_state(self, state: dict) -> None:
+        """Take ``state`` (moments shaped like the parameters); under
+        ``zero`` this rank keeps its dp slice of each cut leaf."""
         self.count = int(state["count"])
-        self.mu = tree_leaves(state["mu"])
-        self.nu = tree_leaves(state["nu"])
+        self.mu, self.nu = (
+            [t if d is None else self._mine(t, d).clone()
+             for t, d in zip(tree_leaves(state[k]), self.dims)]
+            for k in ("mu", "nu"))
+
+    def whole_moments(self) -> tuple[list, list]:
+        """(mu, nu) at the parameters' shapes: the dp slices of each cut
+        leaf all-gathered and joined along its axis (a collective of the
+        dp group under ``zero``)."""
+        def join(t, dim):
+            return t if dim is None else torch.cat(
+                all_gather(t, self.group), dim)
+
+        return ([join(t, d) for t, d in zip(self.mu, self.dims)],
+                [join(t, d) for t, d in zip(self.nu, self.dims)])
 
 
 def make_pipeline_train_step(model, optimizer: AdamW, mesh, reduce=None):
@@ -361,9 +383,8 @@ class Trainer:
 
     ``mesh``: a ``parallel.mesh`` mesh over the initialized world, or
     ``mesh_config`` to build one (None on a world of one rank: the
-    one-device step).  The axes above 1 must be ones the model runs
-    (its ``mesh_axes``; dp and sp for a model that names none, such as
-    the LoRA model and the CNN).  On a tp, ep or pp mesh
+    one-device step).  On a mesh that cuts the model's leaves (its ``logical_axes``: tp, ep
+    and pp for the transformer and its LoRA view, tp for the CNN)
     ``self.params`` holds this rank's shards and ``gathered_params()``
     the whole tree.
 
@@ -389,8 +410,6 @@ class Trainer:
         self.mesh = mesh
         if mesh is not None:
             _check_kv_tp(getattr(model, "cfg", None), mesh)
-            check_slice(mesh, f"the Trainer of {type(model).__name__}",
-                        getattr(model, "mesh_axes", DATA_AXES))
         self.peak_flops = peak_flops
         self.profiler = (profiler if profiler is not None
                          else PhaseProfiler(plane="train"))
@@ -417,22 +436,25 @@ class Trainer:
     @property
     def opt_state(self) -> dict | None:
         """AdamW's ``count``, ``mu`` and ``nu``, the moments keyed by
-        parameter path as ``params`` is (what a checkpoint holds)."""
+        parameter path as ``params`` is (what a checkpoint holds).  On a
+        mesh the moments are the whole tree's, on every rank (a
+        collective: every rank reads it)."""
         if self.optimizer is None:
             return None
-        self._no_meshed_state()
-        return self.optimizer.state(self.params)
+        if self.mesh is None:
+            return self.optimizer.state(self.params)
+        mu, nu = self.optimizer.whole_moments()
+        return {"count": self.optimizer.count,
+                "mu": self._gather(tree_like(self.params, mu)),
+                "nu": self._gather(tree_like(self.params, nu))}
 
     @opt_state.setter
     def opt_state(self, state: dict) -> None:
-        self._no_meshed_state()
-        self.optimizer.load_state(state)
-
-    def _no_meshed_state(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"the optimizer state of a meshed trainer (checkpoints): "
-                f"not ported yet ({NEXT_SLICE})")
+        """Load a whole state (a mesh's rank keeps its shards and its dp
+        slice of the moments)."""
+        self.optimizer.load_state({"count": state["count"],
+                                   "mu": self._cut(state["mu"]),
+                                   "nu": self._cut(state["nu"])})
 
     # -- setup -------------------------------------------------------------
     def init(self, seed: int = 0, params: dict | None = None) -> None:
@@ -506,13 +528,65 @@ class Trainer:
                    for p, cuts in zip(tree_leaves(self.params),
                                       self.leaf_cuts))
 
+    def _gather(self, tree: dict) -> dict:
+        """A tree shaped like this rank's parameters joined into the
+        whole (detached), on every rank."""
+        if self.mesh is None or not hasattr(self.model, "logical_axes"):
+            return tree_map(lambda p: p.detach(), tree)
+        return gather_params(tree, self.model.logical_axes(), self.mesh,
+                             virtual_stages=self._virtual_stages())
+
+    def _cut(self, tree: dict) -> dict:
+        """This rank's shards of a whole tree, f32 on the trainer's
+        device (copies: nothing keeps the whole tree alive)."""
+        if self.mesh is not None and hasattr(self.model, "logical_axes"):
+            tree = shard_params(tree, self.model.logical_axes(), self.mesh,
+                                virtual_stages=self._virtual_stages())
+        return tree_map(lambda t: t.detach().to(
+            self.device, torch.float32).contiguous().clone(), tree)
+
     def gathered_params(self) -> dict:
         """The whole parameter tree (detached), on every rank: this
-        rank's shards joined with the others' over tp and ep."""
-        if self.mesh is None or not hasattr(self.model, "logical_axes"):
-            return tree_map(lambda p: p.detach(), self.params)
-        return gather_params(self.params, self.model.logical_axes(),
-                             self.mesh, virtual_stages=self._virtual_stages())
+        rank's shards joined with the others' over tp, ep and pp."""
+        return self._gather(self.params)
+
+    def gathered_ema(self) -> dict | None:
+        """The whole EMA shadow (None without one), as
+        ``gathered_params``."""
+        return None if self.ema is None else self._gather(self.ema)
+
+    def checkpoint_like(self) -> dict:
+        """What a restore checks a checkpoint's parameter leaves against
+        and maps them onto: the parameters themselves on one device; on
+        a mesh, empty host tensors of the whole tree's shapes (no
+        gather), which ``load_gathered_state`` then cuts."""
+        if self.mesh is None:
+            return self.params
+
+        def whole(p, cuts):
+            shape = list(p.shape)
+            for dim, axis in cuts:
+                shape[dim] *= axis_size(self.mesh, axis)
+            return torch.empty(shape, dtype=torch.float32)
+
+        return tree_like(self.params, [
+            whole(p, c) for p, c in zip(tree_leaves(self.params),
+                                        self.leaf_cuts)])
+
+    def load_gathered_state(self, params: dict, opt_state: dict | None = None,
+                            ema: dict | None = None) -> None:
+        """Take whole trees (a checkpoint's): this rank keeps its shards
+        of the parameters and of ``ema`` and its slice of
+        ``opt_state``'s moments.  Without ``ema`` a trainer that keeps
+        one seeds it from ``params``."""
+        self.params = tree_map(lambda t: t.requires_grad_(True),
+                               self._cut(params))
+        if opt_state is not None:
+            self.opt_state = opt_state
+        if self.ema is not None:
+            self.ema = (self._cut(ema) if ema is not None
+                        else tree_map(lambda p: p.detach().clone(),
+                                      self.params))
 
     def shard_batch(self, *batch):
         """This rank's block of each global array on the trainer's

@@ -263,7 +263,7 @@ def test_resumed_trajectory_matches_reference(tmp_path):
 
 
 def test_ema_restore_and_pre_ema_reseed(tmp_path):
-    """An EMA checkpoint restores the shadow; a checkpoint without one
+    """An EMA checkpoint restores the shadow (detached); a checkpoint without one
     seeds the shadow from the restored params, not the fresh init's."""
     toks = _tokens(3, seed=2)
     tr = _trainer(ema_decay=0.5)
@@ -272,6 +272,7 @@ def test_ema_restore_and_pre_ema_reseed(tmp_path):
     back = _trainer(seed=4, ema_decay=0.5)
     attach_to_trainer(back, tmp_path / "ema")[2]()
     assert _equal(back.ema, tr.ema) and not _equal(back.ema, back.params)
+    assert not any(e.requires_grad for e in tree_leaves(back.ema))
 
     plain = _trainer()
     _steps(plain, toks)
@@ -283,6 +284,7 @@ def test_ema_restore_and_pre_ema_reseed(tmp_path):
                                                      plain.params)
     assert not all(torch.equal(a, b) for a, b in
                    zip(fresh, tree_leaves(back.ema)))
+    assert not any(e.requires_grad for e in tree_leaves(back.ema))
 
 
 @pytest.fixture

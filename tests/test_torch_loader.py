@@ -3,10 +3,13 @@ byte, through its Python backend and the native prefetcher: same
 permutation, shards, epoch rollover and shift; the native tokenizer gives
 the reference's ids under both of the reference's backends."""
 
+import time
+
 import numpy as np
 import pytest
 
 from k8s_gpu_tpu.data import TokenLoader as JaxTokenLoader
+from k8s_gpu_tpu.data import loader as jax_loader
 from k8s_gpu_tpu.data.loader import epoch_permutation as jax_permutation
 from k8s_gpu_tpu.data.tokenizer import BpeTokenizer as JaxTokenizer
 from k8s_gpu_tpu_torch.data import native
@@ -16,6 +19,29 @@ from k8s_gpu_tpu_torch.data.loader import (
 from k8s_gpu_tpu_torch.data.tokenizer import BpeTokenizer
 
 SEQ, BATCH = 8, 4
+# How long a test waits for the reference's native library to load.
+NATIVE_WAIT_S = 120.0
+
+
+@pytest.fixture(scope="module")
+def reference_native():
+    """The reference's native library, loaded.  Each test process builds
+    it with ``make`` at first use, and ``make`` links straight onto
+    ``native/build/libk8sgputpu.so``: a process that arrives while
+    another is linking finds a fresh, half-written file, ``make`` does
+    nothing, the load fails and the reference caches the failure for the
+    life of the process.  So retry the load, clearing that cache between
+    tries, until it succeeds or ``NATIVE_WAIT_S`` runs out."""
+    deadline = time.monotonic() + NATIVE_WAIT_S
+    while True:
+        lib = jax_loader._load_native()
+        if lib is not None:
+            return lib
+        if time.monotonic() > deadline:
+            pytest.fail("the reference's native library did not load within "
+                        f"{NATIVE_WAIT_S:.0f} s (make -C native failed?)")
+        jax_loader._lib_tried = False
+        time.sleep(0.5)
 
 
 @pytest.fixture
@@ -65,7 +91,8 @@ def test_native_backend_and_small_shard_raise(token_file):
 @pytest.mark.parametrize("shard,shuffle,seed,threads", [
     ((0, 1), True, 0, 1), ((1, 3), True, 7, 2), ((0, 2), False, 0, 4),
 ])
-def test_native_batches_match_reference_byte_for_byte(token_file, shard,
+def test_native_batches_match_reference_byte_for_byte(reference_native,
+                                                      token_file, shard,
                                                       shuffle, seed,
                                                       threads):
     """The native prefetcher, on any number of threads, against the
@@ -103,7 +130,7 @@ TEXT = ("the quick brown fox jumps over the lazy dog; "
 
 
 @pytest.mark.parametrize("vocab", [256, 300, 400])
-def test_native_tokenizer_ids_match_reference(vocab):
+def test_native_tokenizer_ids_match_reference(reference_native, vocab):
     nat = BpeTokenizer.train(TEXT, vocab, backend="native")
     py = BpeTokenizer.train(TEXT, vocab, backend="python")
     ref_n = JaxTokenizer.train(TEXT, vocab, backend="native")

@@ -2,10 +2,10 @@
 mesh's sizes and errors, the sharding rules and logical axes, each
 rank's shards against the reference's ``devices_indices_map``, the
 zigzag tables, the ZeRO-1 axis, the trainer's attention path, bundles
-with the sequence-parallel field, and what the port still refuses (ep
-and pp for the LoRA model, tp, ep and pp for the CNN; ``save_attn`` on
-an sp, tp or ep mesh or with MoE on a mesh; serving on a mesh beyond dp
-and tp; a meshed trainer's optimizer state).  A mesh with more than one rank needs
+with the sequence-parallel field, the consumers that take every axis
+(the LoRA model and the CNN, a meshed trainer's state) and what the
+port still refuses, as the reference does (serving on a mesh beyond dp
+and tp; Ulysses' and the ring's shapes).  A mesh with more than one rank needs
 a process group, so the meshes here are stand-ins with a
 ``DeviceMesh``'s shape attributes and coordinates;
 ``test_torch_multihost.py`` and ``test_torch_tensor_parallel.py`` run
@@ -56,7 +56,6 @@ torch.set_num_threads(1)
 
 DIMS = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, d_head=8,
             d_ff=64, max_seq=16)
-NEXT = "item 11, step"
 
 
 def fake_mesh(coords=None, **sizes):
@@ -310,42 +309,42 @@ def test_sp_attention_bundle_loads(tmp_path):
     dict(dp=2, pp=2), dict(ep=2, tp=2), dict(pp=2, tp=2),
 ])
 def test_meshes_beyond_dp_and_sp_name_the_next_slice(sizes):
-    """tp, ep and pp, which the transformer runs: the consumers not
-    ported to them refuse them (the LoRA model's Trainer and loss beyond
-    tp, the CNN's Trainer, ``save_attn``, the batcher's ``mesh=`` beyond
-    dp and tp, a meshed optimizer state), each naming the next slice or
-    the ROADMAP item; on dp and tp alone the LoRA model's Trainer and the
-    serving engine take the mesh."""
-    from k8s_gpu_tpu_torch.models.cnn import SmallCnn
+    """tp, ep and pp, which the transformer runs: every consumer of the
+    training plane takes them now and no refusal names a next slice.
+    The LoRA model's and the CNN's Trainers cut their leaves by their
+    logical axes (the adapters over stages and heads, the CNN's hidden
+    layer over tp), and a meshed trainer's checkpoint template has the
+    whole tree's shapes without a gather.  Serving beyond dp and tp
+    still refuses, with the reference's reason; on dp and tp alone the
+    serving engine takes the mesh."""
+    from k8s_gpu_tpu_torch.models.cnn import CnnConfig, SmallCnn
     from k8s_gpu_tpu_torch.serve.batcher import ContinuousBatcher
     from k8s_gpu_tpu_torch.serve.engine import InferenceEngine
 
     mesh = fake_mesh(**sizes)
+    tp, pp = sizes.get("tp", 1), sizes.get("pp", 1)
     tm = TransformerLM(TransformerConfig(**DIMS), device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
     lora = LoraModel(tm, tm.init(0), LoraConfig(rank=2))
+    tr = Trainer(lora, TrainConfig(), device="cpu", mesh=mesh)
+    tr.init(0)
+    assert tuple(tr.params["blocks"]["wq"]["b"].shape) == (
+        DIMS["n_layers"] // pp, 2, DIMS["n_heads"] * DIMS["d_head"] // tp)
+    cnn = Trainer(SmallCnn(CnnConfig(dtype=torch.float32), device="cpu"),
+                  TrainConfig(), device="cpu", mesh=mesh)
+    cnn.init(0)
+    assert cnn.params["fc1"].shape[1] == CnnConfig().d_hidden // tp
     if "ep" in sizes or "pp" in sizes:
-        with pytest.raises(NotImplementedError, match=NEXT):
-            Trainer(lora, TrainConfig(), device="cpu", mesh=mesh)
-        with pytest.raises(NotImplementedError, match=NEXT):
-            lora.loss(lora.init(0), toks, toks, mesh=mesh)
-        with pytest.raises(NotImplementedError, match=NEXT):
+        with pytest.raises(NotImplementedError,
+                           match="the reference serves on dp and tp"):
             ContinuousBatcher(tm, tm.init(0), mesh=mesh, device="cpu")
     else:
-        Trainer(lora, TrainConfig(), device="cpu", mesh=mesh)
         assert InferenceEngine(tm, mesh=mesh, device="cpu").kv_heads == (
             DIMS["n_heads"] // sizes["tp"])
-    with pytest.raises(NotImplementedError, match=NEXT):
-        Trainer(SmallCnn(device="cpu"), TrainConfig(), device="cpu",
-                mesh=mesh)
-    sa = TransformerLM(TransformerConfig(**DIMS, remat_policy="save_attn"),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match=NEXT):
-        sa.loss(sa.init(0), toks, toks, mesh=mesh)
     tr = Trainer(tm, TrainConfig(), device="cpu", mesh=mesh)
     tr.init(0)
-    with pytest.raises(NotImplementedError, match=NEXT):
-        tr.opt_state
+    whole = tm.init(0, dtype=torch.float32)
+    assert [t.shape for t in tree_leaves(tr.checkpoint_like())] == [
+        t.shape for t in tree_leaves(whole)]
 
 
 # Meshes of four ranks whose weights are cut, each with a model that
@@ -387,26 +386,56 @@ def test_shards_match_reference_devices_indices_map(sizes, knobs):
             assert torch.equal(got, whole[index])
 
 
-@pytest.mark.parametrize("kw,error,match", [
-    (dict(num_experts=4, remat_policy="save_attn"), NotImplementedError,
-     NEXT),
-    (dict(remat_policy="save_attn"), NotImplementedError, NEXT),
-    (dict(sp_attention="striped"), ValueError,
+@pytest.mark.parametrize("kw,seq,error,match", [
+    (dict(sp_attention="ulysses", n_heads=3, n_kv_heads=3), 8, ValueError,
+     "ulysses needs local heads (3/1=3) divisible by sp=2; use ring "
+     "attention instead"),
+    (dict(remat_policy="save_attn"), 7, ValueError,
+     "local seq 7 must be even for zigzag ring"),
+    (dict(sp_attention="striped"), 8, ValueError,
      "unknown sp_attention 'striped'; expected 'ring' or 'ulysses'"),
 ])
-def test_sp_mesh_refusals(kw, error, match):
-    tm = TransformerLM(TransformerConfig(**DIMS, **kw), device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(error, match=match):
+def test_sp_mesh_refusals(kw, seq, error, match):
+    """What an sp mesh refuses is the reference's: heads Ulysses cannot
+    regroup, a block the zigzag ring cannot halve (under ``save_attn``
+    too), an unknown ``sp_attention``; each raises before any transfer."""
+    import re
+
+    tm = TransformerLM(TransformerConfig(**{**DIMS, **kw}), device="cpu")
+    toks = torch.zeros((1, seq), dtype=torch.long)
+    with pytest.raises(error, match=re.escape(match)):
         tm.loss(tm.init(0), toks, toks, mesh=fake_mesh(dp=2, sp=2))
 
 
 def test_meshed_trainer_keeps_no_checkpointable_state():
-    tr = Trainer(TransformerLM(TransformerConfig(**DIMS), device="cpu"),
-                 TrainConfig(), device="cpu", mesh=fake_mesh(dp=2))
-    tr.init(0)
-    with pytest.raises(NotImplementedError, match=NEXT):
-        tr.opt_state
+    """On a mesh that cuts nothing (dp alone, no ZeRO-1) a trainer's
+    state is every rank's whole state: ``opt_state`` reads it without a
+    collective and equals a one-device trainer's, its checkpoint
+    template is host memory of the same shapes, and loading whole trees
+    gives back the same parameters."""
+    toks = np.random.default_rng(0).integers(0, 64, (4, 17))
+    trainers = []
+    for mesh in (None, fake_mesh(dp=2)):
+        tr = Trainer(TransformerLM(TransformerConfig(
+            **DIMS, dtype=torch.float32), device="cpu"),
+            TrainConfig(warmup_steps=1, learning_rate=1e-3), device="cpu",
+            mesh=mesh)
+        tr.init(0)
+        trainers.append(tr)
+    one, meshed = trainers
+    one.step(toks[:, :-1], toks[:, 1:])
+    state = one.opt_state
+    meshed.load_gathered_state(one.gathered_params(), state)
+    assert meshed.opt_state["count"] == state["count"] == 1
+    for key in ("mu", "nu"):
+        for a, b in zip(tree_leaves(meshed.opt_state[key]),
+                        tree_leaves(state[key])):
+            assert torch.equal(a, b)
+    like = meshed.checkpoint_like()
+    for a, b in zip(tree_leaves(like), tree_leaves(one.params)):
+        assert a.device.type == "cpu" and a.shape == b.shape
+    for a, b in zip(tree_leaves(meshed.params), tree_leaves(one.params)):
+        assert torch.equal(a, b) and a.requires_grad
 
 
 def test_mesh_config_on_one_rank_is_the_one_device_step():
@@ -485,18 +514,24 @@ def test_ring_on_one_sp_rank_goes_through_the_flash_wrapper(kv_heads, mesh):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
 
 
-def test_cnn_loss_takes_a_dp_mesh_and_refuses_sp():
+def test_cnn_loss_takes_a_dp_mesh_and_refuses_sp(monkeypatch):
     """The Trainer hands every model's loss its mesh: the CNN's loss is
-    unchanged over dp and refuses sp, which would cut its images."""
-    from k8s_gpu_tpu_torch.models.cnn import SmallCnn
+    unchanged over dp, and on sp, where the Trainer hands a rank its H
+    block of each image, the loss gathers the whole images back (the
+    reference computes every image whole): given its half and the
+    group's halves, a rank's loss is the whole images' loss."""
+    from k8s_gpu_tpu_torch.models import cnn
 
-    model = SmallCnn(device="cpu")
+    model = cnn.SmallCnn(device="cpu")
     params = model.init(0)
     images = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 28, 28, 1), dtype=np.float32))
     labels = torch.tensor([1, 3])
     dp = fake_mesh(dp=2)
-    assert torch.equal(model.loss(params, images, labels, mesh=dp),
-                       model.loss(params, images, labels))
-    with pytest.raises(NotImplementedError, match="sp mesh"):
-        model.loss(params, images, labels, mesh=fake_mesh(dp=1, sp=2))
+    whole = model.loss(params, images, labels)
+    assert torch.equal(model.loss(params, images, labels, mesh=dp), whole)
+    halves = list(images.chunk(2, 1))
+    monkeypatch.setattr(cnn, "all_gather", lambda t, group: (
+        [t, halves[1]] if group == ("group", "sp") else None))
+    got = model.loss(params, halves[0], labels, mesh=fake_mesh(dp=1, sp=2))
+    assert torch.equal(got, whole)
