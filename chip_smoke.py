@@ -265,18 +265,18 @@ Phases, each of which fails the run on any error:
    the gradients of the embedding, the final norm and the head the same
    on every rank;
 13. serving on a mesh: four gloo ranks on the card (``serve_ranks``),
-   each holding its shards of the flagship (16 layers, bf16, ``--seed``'s
-   weights), rank 0 the leader behind a meshed ``LmServer``'s HTTP:
+   each holding its shards of the flagship (``SRV_LAYERS``, 8 of its 16
+   layers, bf16, ``--seed``'s weights), rank 0 the leader behind a meshed ``LmServer``'s HTTP:
    (13a) tp 4 on the shared paged pool through the paged kernel at the
    rank's 2 heads, phase 4's pair and the first two requests of its
    mix, 16 tokens each, then a repeated greedy request; every budget
    met, the pair's
-   second ``paged_shared``, paged launches on every rank exactly 16 x
+   second ``paged_shared``, paged launches on every rank exactly 8 x
    (kernel admissions + decode steps), 0 fall-backs; tokens/s, TTFT p50
    and max, peak GB a rank, and an extra round of 8 steps after the
    burst with each transfer timed by axis; (13b) dp 2 x tp 2 on the
    dense pool, 8 slots (4 a dp group), no paged launch; (13c) tp 4
-   n-gram speculation on the paged pool, launches 16 x (kernel
+   n-gram speculation on the paged pool, launches 8 x (kernel
    admissions + verify sub-rounds + plain steps); (13d) tp 4 with a
    two-adapter bank beside the bank-less server: base rows after the
    first share blocks, adapter rows ``cold``, base streams against the
@@ -307,7 +307,8 @@ Phases, each of which fails the run on any error:
    float32 at 2 layers under the float32 rule (1e-4), and a 3-step LoRA
    fine-tune over dp 2 x tp 2 at 4 x 2048 against one rank's (losses,
    the step-1 gradients and update within 1e-4).  Phases 10 and 11 run
-   ``PAR_LAYERS`` (4) of the 16 layers, phase 12 ``PP_LAYERS`` (8).
+   ``PAR_LAYERS`` (4) of the 16 layers, phase 12 ``PP_LAYERS`` (8),
+   phase 13's bf16 parts ``SRV_LAYERS`` (8).
 14. The state of a meshed trainer and ``save_attn`` on every mesh: four
    gloo ranks on the card at the flagship's widths, ``STATE_LAYERS`` (2)
    deep, sequences of 1024.  (14a) dp 2 x tp 2 (v2, ZeRO-1, an EMA) trains 2
@@ -329,7 +330,15 @@ Phases, each of which fails the run on any error:
    full's by leaf, step-1 losses and the loss after one update within
    phase 7's bf16 limit of full's, peak GB a rank under each.  (14c) the CNN over
    dp 2 x tp 2 and a rank-8 LoRA over dp 2 x pp 2 (GPipe): a step each
-   against one rank's.
+   against one rank's.  (14d) fsdp: 14a's model on dp 2 x tp 2 with
+   ``"embed"`` cut over dp (``Trainer(rules=)``, an EMA, no ZeRO-1)
+   beside the default rules: each rank's flash launches in the counted
+   step those of the default rules and ``save_attn_launches``, 0 plain;
+   step-1 losses equal, the loss after one update within 2.4e-4 (the
+   float32 twin within 1e-5); each rank's bytes at rest exactly half the
+   default's, beside 14a's under ZeRO-1, and its peak GB; a checkpoint
+   saved under fsdp restored onto the card alone bit for bit, the next
+   step within 1e-3; fsdp with ZeRO-1 refused at ``init``.
 
 It prints a ``{"kernels": [...]}`` line (each entry names the phase
 that launches it; each flash entry also with its
@@ -5833,6 +5842,10 @@ SRV_NEW = 16
 SRV_REPEAT_NEW = 8     # the repeated greedy request of 13a and 13b
 SRV_LORA_JOBS = (None, None, "r4", "r16")
 SRV_F32_LAYERS = 2
+# Within the whole script phase 13's bf16 parts (13a-13d and 13f-13j,
+# one model) run half the flagship's depth: with them at 16 layers the
+# script took 1030.5 s of its 1200 s limit on an H100 (PERF.md).
+SRV_LAYERS = 8
 SRV_LORA_TRAIN_BATCH = 4
 SRV_LORA_TRAIN_STEPS = 3
 SRV_LORA_TOL = 1e-4    # phase 11d's float32 limit
@@ -6848,7 +6861,8 @@ def _hold_mesh_lora(ranks, cuda: bool) -> dict:
 # onto the card alone; each takes that step again.  The same at float32,
 # 2 layers and STATE_F32_SEQ.  14b: save_attn beside full remat on each
 # mesh of SAVE_ATTN_RUNS.  14c: the CNN over dp 2 x tp 2 and the LoRA
-# model over dp 2 x pp 2 (GPipe), a step each.
+# model over dp 2 x pp 2 (GPipe), a step each.  14d: 14a's model and
+# mesh under the fsdp rule table (STATE_FSDP) beside the default rules.
 STATE_SEQ = 1024
 # Within the whole script phase 14 runs 2 layers: with it at PAR_LAYERS
 # (4) the script took 1058.8 s of its 1200 s limit on an H100 (PERF.md).
@@ -6892,7 +6906,9 @@ SAVE_ATTN_RUNS = {
     "ep2tp2_moe": ("ep2tp2", "moe", STATE_BATCH),
     "1f1b_pp2tp2": ("pp2tp2", "1f1b", STATE_BATCH),
 }
-STATE_PARTS = ("checkpoint", "save_attn", "consumers")
+STATE_PARTS = ("checkpoint", "save_attn", "consumers", "fsdp")
+# 14d's rule table over the defaults: the reference's fsdp switch.
+STATE_FSDP = {"embed": "dp"}
 CNN_BATCH = 64
 STATE_LORA_RANK = 8
 
@@ -6986,6 +7002,7 @@ def _state_checkpoint(torch, seed: int, cfg, meshes, dev, root: str,
                  mesh=meshes["dp2tp2"])
     tr.init(seed)
     losses = [tr.step(x, y) for _ in range(STATE_STEPS)]
+    rest = _rest_bytes(tr)
     ckpt, save, _ = attach_to_trainer(tr, root)
     saved = _state_prints(torch, tr)
     _syncer(torch, dev)()
@@ -7012,7 +7029,73 @@ def _state_checkpoint(torch, seed: int, cfg, meshes, dev, root: str,
     _free_if(torch, dev)
     return {"losses": losses, "save_s": save_s, "bytes": nbytes,
             "step": step, "restore_s": restore_s, "resumed_loss": resumed,
-            "state_equal": restored == saved, "saved_prints": saved}
+            "state_equal": restored == saved, "saved_prints": saved,
+            "rest_bytes": rest}
+
+
+def _rest_bytes(trainer) -> int:
+    """The bytes a rank holds between steps: its parameters, AdamW's
+    moments and the EMA."""
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves
+
+    held = (tree_leaves(trainer.params) + trainer.optimizer.mu
+            + trainer.optimizer.nu
+            + (tree_leaves(trainer.ema) if trainer.ema is not None else []))
+    return sum(t.numel() * t.element_size() for t in held)
+
+
+def _state_fsdp(torch, seed: int, cfg, mesh, dev, batch: int, table=None,
+                root: str | None = None) -> dict:
+    """14d on one rank: STATE_STEPS steps of 14a's model (an EMA, no
+    ZeRO-1) under the default rules plus ``table``, the last one counted
+    (flash launches, peak GB, seconds), then one more (the first that
+    follows an update at a learning rate above 0); with ``root`` the
+    state is saved there before it, and ZeRO-1 under ``table`` is tried
+    at ``init``."""
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.ops import attention as fa
+    from k8s_gpu_tpu_torch.parallel.sharding import DEFAULT_RULES, ParamRules
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
+
+    rules = ParamRules({**DEFAULT_RULES, **(table or {})})
+    toks = _par_tokens(torch, seed, cfg, batch)
+    x, y = toks[:, :-1], toks[:, 1:]
+    tr = Trainer(TransformerLM(cfg, device=dev),
+                 TrainConfig(warmup_steps=1, ema_decay=STATE_EMA),
+                 device=dev, mesh=mesh, rules=rules)
+    tr.init(seed)
+    losses = [tr.step(x, y) for _ in range(STATE_STEPS - 1)]
+    _syncer(torch, dev)()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    losses.append(tr.step(x, y))
+    out = {"losses": losses, "step_s": time.perf_counter() - t0,
+           "launches": dict(fa.launch_counts),
+           "prepass_launches": fa.prepass_counts["flash_v2_rope_split"],
+           "plain_calls": fa.plain_count,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if dev.type == "cuda" else None),
+           "rest_bytes": _rest_bytes(tr),
+           "embed_shape": tuple(tr.params["embed"].shape)}
+    if root is not None:
+        out["saved_prints"] = _state_prints(torch, tr)
+        attach_to_trainer(tr, root)[1](STATE_STEPS)
+    losses.append(tr.step(x, y))
+    del tr
+    _free_if(torch, dev)
+    if root is not None:
+        try:
+            Trainer(TransformerLM(cfg, device=dev),
+                    TrainConfig(warmup_steps=1, zero1=True), device=dev,
+                    mesh=mesh, rules=rules).init(seed)
+            out["zero1_refusal"] = None
+        except ValueError as e:
+            out["zero1_refusal"] = str(e)
+        _free_if(torch, dev)
+    return out
 
 
 def _state_save_attn(torch, seed: int, cfg, kind: str, mesh, dev,
@@ -7161,18 +7244,29 @@ def _state_rank(seed: int, layers: int, seq: int, device, root: str,
     if "consumers" in parts:
         out["consumers"] = _state_consumers(torch, seed, layers, seq,
                                             meshes, dev)
+    if "fsdp" in parts:
+        for key, cfg in (("", state_config(torch, layers, "v2", seq=seq)),
+                         ("_f32", state_config(torch, STATE_F32_LAYERS,
+                                               "f32", seq=STATE_F32_SEQ))):
+            out[f"fsdp_default{key}"] = _state_fsdp(
+                torch, seed, cfg, meshes["dp2tp2"], dev, STATE_BATCH)
+            out[f"fsdp{key}"] = _state_fsdp(
+                torch, seed, cfg, meshes["dp2tp2"], dev, STATE_BATCH,
+                STATE_FSDP, os.path.join(root, f"fsdp{key}") if not key
+                else None)
     return out
 
 
-def _one_card_resume(torch, cfg, dev, root: str, batch: int, seed: int):
-    """14a's resume onto the card alone: (step, restore s, fingerprints
-    equal to the saved ones' on the mesh?, the resumed step's loss)."""
+def _one_card_resume(torch, cfg, dev, root: str, batch: int, seed: int,
+                     zero1: bool = True):
+    """14a's (and 14d's) resume onto the card alone: (step, restore s,
+    the restored state's fingerprints, the resumed step's loss)."""
     from k8s_gpu_tpu_torch.models import TransformerLM
     from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
     from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
 
     tr = Trainer(TransformerLM(cfg, device=dev),
-                 TrainConfig(warmup_steps=1, zero1=True,
+                 TrainConfig(warmup_steps=1, zero1=zero1,
                              ema_decay=STATE_EMA), device=dev)
     tr.init(seed + 2)
     _syncer(torch, dev)()
@@ -7236,7 +7330,8 @@ def run_state_path(torch, seed: int, layers: int, seq: int = STATE_SEQ,
                 "resumed_loss_one_card": one_loss,
                 "gap_pp2tp2": abs(first["resumed_loss"] - want),
                 "gap_one_card": abs(one_loss - want),
-                "tol_pp2tp2": tols[0], "tol_one_card": tols[1]}
+                "tol_pp2tp2": tols[0], "tol_one_card": tols[1],
+                "rest_bytes": first["rest_bytes"]}
             held["save_gb_per_s"] = first["bytes"] / held["save_s"] / 1e9
             held["restore_gb_per_s_pp2tp2"] = (
                 first["bytes"] / held["restore_s_pp2tp2"] / 1e9)
@@ -7324,9 +7419,93 @@ def run_state_path(torch, seed: int, layers: int, seq: int = STATE_SEQ,
             if len(set(got)) != 1 or not gap <= TRAIN_TOL["bfloat16"]["loss"]:
                 failures.append(f"14c {name}: losses {got} vs one rank's "
                                 f"{want}")
+    if "fsdp" in parts:
+        out["fsdp"] = _hold_fsdp(torch, seed, layers, seq, dev, ranks,
+                                 out.get("checkpoint"), failures)
+        print(json.dumps({"state_fsdp": out["fsdp"]}), flush=True)
     shutil.rmtree(STATE_DIR, ignore_errors=True)
     out["failures"] = failures
     return out
+
+
+def _hold_fsdp(torch, seed: int, layers: int, seq: int, dev, ranks,
+               checkpoint, failures: list) -> dict:
+    """14d's checks over the ranks' runs; the fsdp checkpoint resumes
+    onto the card alone here."""
+    from k8s_gpu_tpu_torch.ops import attention as fa
+
+    cuda = dev.type == "cuda"
+    cfg = state_config(torch, layers, "v2", seq=seq)
+    want_launches, want_pre = save_attn_launches(fa, cfg, "v2")
+    held = {}
+    for key, tol in (("", STATE_TOL), ("_f32", STATE_F32_TOL)):
+        runs = [r[f"fsdp{key}"] for r in ranks]
+        base = [r[f"fsdp_default{key}"] for r in ranks]
+        if len({tuple(r["losses"]) for r in runs}) != 1:
+            failures.append(f"14d{key}: ranks disagree")
+        gaps = [abs(a - b) for a, b in zip(runs[0]["losses"],
+                                           base[0]["losses"])]
+        held[f"losses{key}"] = runs[0]["losses"]
+        held[f"default_losses{key}"] = base[0]["losses"]
+        held[f"loss_gaps{key}"] = gaps
+        held[f"tol{key}"] = tol
+        if not all(math.isfinite(v) for v in runs[0]["losses"]) \
+                or not max(gaps) <= tol:
+            failures.append(f"14d{key}: losses {runs[0]['losses']} vs the "
+                            f"default rules' {base[0]['losses']}")
+        rest = [r["rest_bytes"] for r in runs]
+        held[f"rest_bytes_by_rank{key}"] = rest
+        held[f"default_rest_bytes_by_rank{key}"] = [b["rest_bytes"]
+                                                    for b in base]
+        # Every leaf of the transformer names "embed": fsdp halves all.
+        if [2 * b for b in rest] != [b["rest_bytes"] for b in base]:
+            failures.append(f"14d{key}: bytes at rest {rest}, not half the "
+                            "default rules'")
+        if key:
+            continue
+        held["rest_ratio"] = rest[0] / base[0]["rest_bytes"]
+        if checkpoint is not None:
+            held["zero1_rest_bytes"] = checkpoint["rest_bytes"]
+            held["rest_ratio_to_zero1"] = rest[0] / checkpoint["rest_bytes"]
+        held["embed_shape"] = runs[0]["embed_shape"]
+        held["step_s"] = max(r["step_s"] for r in runs)
+        held["default_step_s"] = max(b["step_s"] for b in base)
+        held["peak_memory_gb_by_rank"] = [r["peak_memory_gb"] for r in runs]
+        held["default_peak_memory_gb_by_rank"] = [b["peak_memory_gb"]
+                                                  for b in base]
+        held["launches_by_rank"] = [{k: v for k, v in r["launches"].items()
+                                     if v} for r in runs]
+        held["prepasses_by_rank"] = [r["prepass_launches"] for r in runs]
+        for i, (r, b) in enumerate(zip(runs, base)):
+            if cuda and (r["launches"] != want_launches
+                         or r["launches"] != b["launches"]
+                         or r["prepass_launches"] != want_pre
+                         or r["plain_calls"] or b["plain_calls"]):
+                failures.append(
+                    f"14d: rank {i} launched {r['launches']}, "
+                    f"{r['prepass_launches']} pre-passes, "
+                    f"{r['plain_calls']} plain (default rules "
+                    f"{b['launches']}); expected {want_launches}, "
+                    f"{want_pre}, 0")
+        refusals = [r["zero1_refusal"] for r in runs]
+        held["zero1_refusal"] = refusals[0]
+        if not all(m and "duplicate entries for `dp`" in m
+                   for m in refusals):
+            failures.append(f"14d: fsdp with ZeRO-1 not refused: {refusals}")
+        step, restore_s, prints, loss = _one_card_resume(
+            torch, cfg, dev, os.path.join(STATE_DIR, "fsdp"), STATE_BATCH,
+            seed, zero1=False)
+        want = runs[0]["losses"][-1]
+        held.update(restore_s_one_card=restore_s, next_loss=want,
+                    resumed_loss_one_card=loss,
+                    gap_one_card=abs(loss - want),
+                    tol_one_card=STATE_LAYOUT_TOL)
+        if step != STATE_STEPS or prints != runs[0]["saved_prints"]:
+            failures.append("14d: the state restored onto the card alone "
+                            "differs from the saved one")
+        if not abs(loss - want) <= STATE_LAYOUT_TOL:
+            failures.append(f"14d: resumed loss {loss} vs {want}")
+    return held
 
 
 def main(argv=None) -> int:
@@ -7438,7 +7617,7 @@ def main(argv=None) -> int:
     print(json.dumps({"pipeline_path": pipeline_path, "gpu": gpu}),
           flush=True)
     _free(torch)
-    mesh_serving = run_mesh_serving_path(torch, args.seed, LAYERS)
+    mesh_serving = run_mesh_serving_path(torch, args.seed, SRV_LAYERS)
     print(json.dumps({"mesh_serving_path": mesh_serving, "gpu": gpu}),
           flush=True)
     if mesh_serving["failures"]:
@@ -7556,7 +7735,8 @@ def main(argv=None) -> int:
              "the ring over sp 2 x tp 2), 12 (1F1B over pp 2 x tp 2), 14a "
              "(dp 2 x tp 2 and its resumes onto pp 2 x tp 2 and the card "
              "alone), 14b (save_attn and full: dp 2 x tp 2, the ring's "
-             "replay over sp 2 x tp 2, 1F1B over pp 2 x tp 2)")):
+             "replay over sp 2 x tp 2, 1F1B over pp 2 x tp 2), 14d (fsdp "
+             "over dp 2 x tp 2)")):
         by_case = {r["case"]: r for r in rows}
         timed = by_case[top]
         for name, line in lines.items():
@@ -7610,6 +7790,10 @@ def main(argv=None) -> int:
                    for policy in ("full", "save_attn")
                    for n in [sum(r.get(name, 0) for r in
                                  held[policy]["launches_by_rank"])] if n},
+                # Phase 14d: the four ranks' counted fsdp step.
+                **{"launches_state_fsdp": n for n in [sum(
+                    r.get(name, 0)
+                    for r in state["fsdp"]["launches_by_rank"])] if n},
                 "max_abs_err": max(r["kernels"][name]["max_abs_err"]
                                    for r in rows),
                 **{key: timed["kernels"][name][key]

@@ -28,6 +28,10 @@ batcher times them (``observe_transfers``): each call's host seconds,
 the wait for the tensor's producer included, land in
 ``collective_seconds{axis,op}``.
 
+A trainer's parameters cut over a data axis (fsdp) take
+``reduce_scatter``: each gradient summed over the axis, every rank
+keeping its own part.
+
 The reference's ``shard_map_compat`` is a JAX shim and has no
 counterpart here.
 """
@@ -51,8 +55,8 @@ _observer = None
 
 def observe_transfers(fn) -> None:
     """Install ``fn(op, group, seconds)`` to be called after every
-    ``all_reduce``, ``all_gather`` and ``broadcast_object`` of this
-    process (None removes it)."""
+    ``all_reduce``, ``all_gather``, ``reduce_scatter`` and
+    ``broadcast_object`` of this process (None removes it)."""
     global _observer
     _observer = fn
 
@@ -107,6 +111,25 @@ def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     dist.all_gather(out, wire, group=group)
     out = [o.to(t.device) for o in out]
     _observed("all_gather", group, t0)
+    return out
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group``, cut into the group's
+    equal parts along ``dim``: this rank's part (``t.chunk``'s, in
+    group-rank order), on ``t``'s device.  Gloo takes a CUDA tensor
+    through the host, as ``all_reduce`` does."""
+    t0 = time.perf_counter()
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"does not divide by {n}")
+    wire = _wire(t.detach().movedim(dim, 0), group)
+    out = torch.empty((wire.shape[0] // n, *wire.shape[1:]),
+                      dtype=wire.dtype, device=wire.device)
+    dist.reduce_scatter_tensor(out, wire, group=group)
+    out = out.to(t.device).movedim(0, dim).contiguous()
+    _observed("reduce_scatter", group, t0)
     return out
 
 

@@ -21,7 +21,8 @@ batch group dp x sp (the ranks whose tokens differ, over which the
 gradients are averaged), ep x tp (the ranks that share tokens and cut
 the experts' weights) and pp x tp (the ranks that cut a block leaf over
 stages and heads, whose squares the global norm sums).  ``axis_group``
-hands each out.
+hands each out; ``axis_groups`` reduces over any other set of axes one
+axis at a time (a leaf cut over dp and tp under fsdp).
 """
 
 from __future__ import annotations
@@ -140,6 +141,17 @@ def axis_group(mesh, *axes):
     if len(big) == 1:
         return mesh.get_group(big[0])
     return mesh.port_groups[big]
+
+
+def axis_groups(mesh, *axes) -> tuple:
+    """Process groups whose reductions in turn reduce over ``axes``:
+    ``axis_group``'s one group where it has one (one axis above size 1,
+    or a pair ``build_mesh`` made), else one group an axis above size 1;
+    () when none exceeds size 1."""
+    big = tuple(a for a in AXES if a in axes and axis_size(mesh, a) > 1)
+    if len(big) <= 1 or big in mesh.port_groups:
+        return (axis_group(mesh, *big),) if big else ()
+    return tuple(mesh.get_group(a) for a in big)
 
 
 def batch_group(mesh):

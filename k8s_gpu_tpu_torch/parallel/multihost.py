@@ -125,6 +125,7 @@ def workload_train_step(device="cuda", mesh=None) -> dict:
         np.random.default_rng(p).integers(0, 128, size=(2, 33),
                                           dtype=np.int64)
         for p in range(axis_size(trainer.mesh, "dp"))])
+    trainer.batch_specs = (("dp",), ("dp",))
     loss = trainer.step(rows[:, :-1], rows[:, 1:])
     return {"loss": float(loss), "global_devices": dist.get_world_size()}
 

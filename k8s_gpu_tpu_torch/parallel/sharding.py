@@ -4,13 +4,22 @@
 Parameters carry *logical* axis names ("embed", "heads", "mlp", ...); a
 rule table maps them to mesh axes.  A spec is a tuple with one mesh-axis
 name, or ``None``, per dimension.  ``shard_params`` cuts each rank's
-local shard along the weight axes of size > 1: ``heads``, ``mlp``,
-``vocab`` and ``expert_mlp`` over tp, ``experts`` over ep, ``stages``
-(a block leaf's leading ``[L]``) over pp; the rank keeps part
-``axis_rank`` of each cut, as the reference's ``NamedSharding`` places
-it.  ``gather_params`` is its inverse: the whole tree on every rank.
-Parameters cut over a data axis (the fsdp rule ``embed_fsdp`` -> dp) are
-not ported.
+local shard along the mesh axes of size > 1 its spec names: under the
+default rules the weight axes, ``heads``, ``mlp``, ``vocab`` and
+``expert_mlp`` over tp, ``experts`` over ep, ``stages`` (a block leaf's
+leading ``[L]``) over pp; the rank keeps part ``axis_rank`` of each cut,
+as the reference's ``NamedSharding`` places it.  ``gather_params`` is
+its inverse: the whole tree on every rank.
+
+A rule table may also cut parameters over the data axes dp and sp
+(fsdp: the reference turns it on by mapping "embed" to "dp").  An entry
+that names several axes, such as ``("dp", "sp")`` or ``("tp", "dp")``,
+cuts its dimension into their product's parts, major to minor: rank
+(d, s) keeps part d·sp + s of ``("dp", "sp")``, as the reference's
+``NamedSharding`` places it.  The port trains the tables that move only
+the data axes (``check_rules``): once a leaf's data cuts are joined, it
+is in the default rules' layout, which the model's tp, ep and pp code
+assumes.
 
 An int8 leaf ``{"q", "s"}`` (``serve.quant.quantize_params``) is cut as
 two: ``q`` like the float leaf, ``s`` only along the dimensions it keeps
@@ -44,10 +53,7 @@ from typing import Any
 import torch
 
 from .collectives import all_gather
-from .mesh import axis_rank, axis_size
-
-# The mesh axes a parameter may be cut along.
-WEIGHT_AXES = ("pp", "ep", "tp")
+from .mesh import AXES, DATA_AXES, axis_rank, axis_size
 
 # Default rule table: tp shards heads/mlp/vocab, ep shards experts,
 # sp shards sequence, dp shards batch.  "embed" unsharded by default
@@ -76,6 +82,13 @@ class ParamRules:
         return tuple(self.rules.get(ax, None) for ax in logical_axes)
 
 
+def entry_axes(entry) -> tuple:
+    """The mesh axes of one spec entry, major to minor: () for None."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
 def _map(fn, tree, *rest):
     """``fn`` over the axis tuples of a logical tree (and the matching
     leaves of ``rest``), keeping the tree's nesting."""
@@ -90,18 +103,53 @@ def logical_to_spec(rules: ParamRules, logical_tree) -> Any:
 
 
 def cut_axes(spec: tuple, mesh) -> list[tuple[int, str]]:
-    """(dimension, mesh axis) of each dimension a spec cuts on ``mesh``
-    (its axis above size 1); a cut over a data axis raises."""
-    cuts = []
-    for dim, name in enumerate(spec):
-        if name is None or axis_size(mesh, name) == 1:
-            continue
-        if name not in WEIGHT_AXES:
-            raise NotImplementedError(
-                f"parameters cut over {name} (fsdp): not ported; the "
-                f"port cuts them over {', '.join(WEIGHT_AXES)}")
-        cuts.append((dim, name))
+    """(dimension, mesh axis) of each cut a spec makes on ``mesh`` (its
+    axes above size 1), in dimension order and, within a dimension,
+    major to minor.  A name that is no mesh axis, or a mesh axis named
+    twice, raises, as the reference's ``NamedSharding`` does."""
+    cuts, seen = [], set()
+    for dim, entry in enumerate(spec):
+        for name in entry_axes(entry):
+            if name not in AXES:
+                raise ValueError(f"spec {spec} names {name!r}, not an "
+                                 f"axis of the mesh {AXES}")
+            if name in seen:
+                raise ValueError(f"spec {spec} has duplicate entries for "
+                                 f"`{name}`")
+            seen.add(name)
+            if axis_size(mesh, name) > 1:
+                cuts.append((dim, name))
     return cuts
+
+
+def check_rules(rules: ParamRules, mesh, logical_tree) -> None:
+    """Refuse a rule table the port does not train on ``mesh``: one that
+    moves a weight axis (a logical axis of ``logical_tree`` whose mesh
+    axes above size 1 differ from the default's once dp and sp are
+    struck out), or that names a data axis before a weight axis in one
+    entry (the rank's part of a dimension would then not lie inside its
+    default block).  The reference runs such tables; the port's tp, ep
+    and pp code assumes the default layout."""
+    used: set = set()
+    _map(lambda axes: used.update(axes), logical_tree)
+    for ax in sorted((a for a in used if a is not None), key=str):
+        got = tuple(n for n in entry_axes(rules.rules.get(ax))
+                    if axis_size(mesh, n) > 1)
+        want = tuple(n for n in entry_axes(DEFAULT_RULES.get(ax))
+                     if axis_size(mesh, n) > 1 and n not in DATA_AXES)
+        weights = tuple(n for n in got if n not in DATA_AXES)
+        if weights != want:
+            raise NotImplementedError(
+                f"rules map {ax!r} to {rules.rules.get(ax)!r} where the "
+                f"default maps it to {DEFAULT_RULES.get(ax)!r}: a table "
+                f"that moves a weight axis is not ported; the port's "
+                f"tables differ from the default only in the data axes "
+                f"{', '.join(DATA_AXES)}")
+        if got != weights + tuple(n for n in got if n in DATA_AXES):
+            raise NotImplementedError(
+                f"rules map {ax!r} to {rules.rules.get(ax)!r}: a data "
+                f"axis before the weight axis {weights[0]!r} in one entry "
+                f"is not ported; name the data axes after it")
 
 
 def _interleaved(L: int, pp: int, v: int) -> int:
@@ -162,7 +210,8 @@ def gather_params(params, logical_tree, mesh,
 
     def join_one(axes, t, q=None):
         t = t.detach()
-        for dim, name in cut_axes(rules.spec(axes), mesh):
+        # Minor cuts first: a dimension's parts rejoin block by block.
+        for dim, name in reversed(cut_axes(rules.spec(axes), mesh)):
             if q is not None and t.shape[dim] == 1 and q.shape[dim] > 1:
                 continue          # a contraction axis of the scale
             parts = all_gather(t, mesh.get_group(name))

@@ -204,7 +204,10 @@ class LoraModel:
 
     def _on_mesh(self, mesh) -> tuple:
         """(this rank's base shards, the adapter halves ``merge`` takes
-        through ``copy_to``) on ``mesh``, made once a mesh."""
+        through ``copy_to``) on ``mesh``, made once a mesh.  Both follow
+        the default rules: the frozen base keeps their layout, and the
+        ``Trainer`` hands ``loss`` adapters in it whatever its own rules
+        (a leaf it cuts over dp or sp comes joined over them)."""
         key = id(mesh)
         if key not in self._meshed:
             rules, tp = ParamRules(), axis_group(mesh, "tp")

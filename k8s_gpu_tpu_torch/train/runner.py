@@ -52,6 +52,19 @@ way the loss and the replicated leaves' gradients leave the schedule the
 same on every pp rank (summed over pp where one stage alone made them),
 and the batch group's mean follows as on any mesh.
 
+``Trainer(rules=...)`` lays the leaves out by a rule table of its own.
+Mapping a logical axis to dp or sp (fsdp: ``"embed": "dp"``, or a tuple
+``("dp", "sp")``) cuts those leaves over the data axes too, so a rank
+holds only its slice of them, of their moments and of their EMA between
+steps.  Once a step (before any accumulated microbatch, or the
+schedule) each such leaf is all-gathered into a temporary leaf whole
+over dp and sp, the step runs unchanged on those, and ``_reduce``
+reduce-scatters their gradients back to the rank's slice; AdamW updates
+the slices.  ZeRO-1 under fsdp raises at ``init``, as the reference's
+duplicate ``dp`` does; a table that moves a weight axis raises there
+too (``check_rules``).  Gathering a layer at a time, ahead of its use
+(ZeRO-3 proper), is not done: the whole tree is gathered at once.
+
 The state of a meshed trainer reads and loads whole, as the reference's
 global arrays do: ``opt_state`` gives AdamW's ``count`` and moments as
 the whole tree (ZeRO-1's dp slices joined along their axis, the tp, ep
@@ -78,12 +91,14 @@ from ..api.workload import WorkloadInterrupted
 from ..convert import tensor_from_numpy
 from ..device import resolve_device
 from ..ops.attention import describe_train_attention
-from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.collectives import all_gather, all_reduce, reduce_scatter
 from ..parallel.mesh import (
-    axis_group, axis_rank, axis_size, batch_group, build_mesh, mesh_shape,
+    AXES, DATA_AXES, axis_group, axis_groups, axis_rank, axis_size,
+    batch_group, build_mesh, mesh_shape,
 )
 from ..parallel.sharding import (
-    ParamRules, cut_axes, gather_params, shard_params,
+    ParamRules, check_rules, cut_axes, entry_axes, gather_params,
+    shard_params,
 )
 from ..utils.faults import global_faults
 from ..utils.goodput import GoodputLedger
@@ -203,6 +218,14 @@ def tree_leaves(tree: dict) -> list[torch.Tensor]:
     return [tree]
 
 
+def tree_paths(tree: dict, prefix: str = "") -> list[str]:
+    """The "/"-joined key path of each tensor, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in tree_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
 def tree_map(fn, tree: dict):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -231,9 +254,10 @@ class AdamW:
     then holds and updates its dp slice of each cut leaf and all-gathers
     the slices, the same elementwise update as without ``zero``.
 
-    ``cut``: for each leaf, the process group its shards are cut over
-    (tp, ep or ep x tp; None for a whole leaf), so that the global norm
-    sums a cut leaf's squares over its group and a whole one once."""
+    ``cut``: for each leaf, the process groups its shards are cut over
+    (``axis_groups``: tp, ep x tp, dp and tp in turn, ...; empty for a
+    whole leaf), so that the global norm sums a cut leaf's squares over
+    them and a whole one once."""
 
     def __init__(self, tc: TrainConfig, params: list[torch.Tensor],
                  zero=None, cut=None):
@@ -258,15 +282,18 @@ class AdamW:
         squares summed over its group, one all-reduce a group in the
         order the leaves first name them (the same on every rank)."""
         squares = [g.square().sum() for g in grads]
-        if self.cut is None or all(c is None for c in self.cut):
+        if self.cut is None or not any(self.cut):
             return torch.sqrt(sum(squares))
-        total = sum(s for s, c in zip(squares, self.cut) if c is None)
-        by_group: dict = {}
+        total = sum(s for s, c in zip(squares, self.cut) if not c)
+        by_groups: dict = {}
         for s, c in zip(squares, self.cut):
-            if c is not None:
-                by_group.setdefault(c, []).append(s)
-        for group, part in by_group.items():
-            total = total + all_reduce(torch.stack(part).sum(), group)
+            if c:
+                by_groups.setdefault(c, []).append(s)
+        for groups, part in by_groups.items():
+            part = torch.stack(part).sum()
+            for group in groups:
+                all_reduce(part, group)
+            total = total + part
         return torch.sqrt(total)
 
     @torch.no_grad()
@@ -318,14 +345,23 @@ class AdamW:
                 [join(t, d) for t, d in zip(self.nu, self.dims)])
 
 
-def make_pipeline_train_step(model, optimizer: AdamW, mesh, reduce=None):
+def _unflatten(grads: list, idx: list, flat: torch.Tensor) -> None:
+    """Put ``flat``'s consecutive parts back at ``grads[i]`` for i in
+    ``idx``, each at its old shape."""
+    for i, f in zip(idx, flat.split([grads[i].numel() for i in idx])):
+        grads[i] = f.view_as(grads[i])
+
+
+def make_pipeline_train_step(model, optimizer: AdamW, mesh, reduce=None,
+                             gather=None):
     """The train step of a model with ``pipeline_value_and_grad`` (1F1B):
     the gradients come from the schedule, whose forwards and backwards
     of different microbatches interleave in one loop, not from autograd
-    of a forward.  ``reduce`` as in ``make_train_step``."""
+    of a forward.  ``reduce`` and ``gather`` as in ``make_train_step``."""
 
     def step(params, tokens, targets):
-        loss, grads = model.pipeline_value_and_grad(params, tokens, targets,
+        work = params if gather is None else gather(params)
+        loss, grads = model.pipeline_value_and_grad(work, tokens, targets,
                                                     mesh)
         grads = tree_leaves(grads)
         if reduce is not None:
@@ -337,7 +373,7 @@ def make_pipeline_train_step(model, optimizer: AdamW, mesh, reduce=None):
 
 
 def make_train_step(loss_fn, optimizer: AdamW, accum: int = 1,
-                    reduce=None):
+                    reduce=None, gather=None):
     """loss_fn(params, *batch) -> scalar.  Returns step(params, *batch) ->
     loss (a 0-d tensor), which updates the leaves of ``params`` in place.
 
@@ -346,21 +382,24 @@ def make_train_step(loss_fn, optimizer: AdamW, accum: int = 1,
     f32 gradients and applies one update from the mean: the same step as
     the full batch at 1/accum the activation memory.  ``reduce(loss,
     grads) -> (loss, grads)`` runs before the update (the mesh's
-    all-reduce)."""
+    all-reduce).  ``gather(params)``: the tree the loss differentiates,
+    made once a step (fsdp's leaves joined over the data axes), whose
+    gradients ``reduce`` brings back to the shapes of ``params``."""
 
     def grads_of(params, leaves, *batch):
         loss = loss_fn(params, *batch)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def step(params, *batch):
-        leaves = tree_leaves(params)
+        work = params if gather is None else gather(params)
+        leaves = tree_leaves(work)
         if accum == 1:
-            loss, grads = grads_of(params, leaves, *batch)
+            loss, grads = grads_of(work, leaves, *batch)
         else:
             gsum, lsum = None, 0.0
             for k in range(accum):
                 mb = tuple(b[k::accum] for b in batch)
-                l, g = grads_of(params, leaves, *mb)
+                l, g = grads_of(work, leaves, *mb)
                 g = [x.float() for x in g]
                 gsum = g if gsum is None else [a + x for a, x in zip(gsum, g)]
                 lsum = lsum + l
@@ -368,7 +407,7 @@ def make_train_step(loss_fn, optimizer: AdamW, accum: int = 1,
             loss = lsum / accum
         if reduce is not None:
             loss, grads = reduce(loss, grads)
-        optimizer.update(leaves, grads)
+        optimizer.update(tree_leaves(params), grads)
         return loss
 
     return step
@@ -388,6 +427,13 @@ class Trainer:
     ``self.params`` holds this rank's shards and ``gathered_params()``
     the whole tree.
 
+    ``rules``: the ``ParamRules`` that lay the leaves out (the default
+    table when None); a table may cut them over dp and sp too (fsdp,
+    ``check_rules``).  ``batch_specs``: one spec a batch array (tuples of
+    mesh axes, such as ``("dp",)``), or None to infer them; both stay
+    public attributes, as the reference's, and ``batch_specs`` may be set
+    after construction.
+
     ``peak_flops``: the MFU denominator (None reads the card's kind; 0.0,
     as on the CPU, keeps ``train_mfu`` at 0).  ``profiler``: the phase
     profiler of the step's phases (default: a fresh one over
@@ -398,7 +444,8 @@ class Trainer:
                  device="cuda", peak_flops: float | None = None,
                  profiler: PhaseProfiler | None = None,
                  ledger: GoodputLedger | None = None, mesh=None,
-                 mesh_config=None):
+                 mesh_config=None, rules: ParamRules | None = None,
+                 batch_specs: tuple | None = None):
         self.device = resolve_device(device)
         if getattr(model, "device", self.device) != self.device:
             raise ValueError(f"model on {model.device}, trainer on "
@@ -410,6 +457,10 @@ class Trainer:
         self.mesh = mesh
         if mesh is not None:
             _check_kv_tp(getattr(model, "cfg", None), mesh)
+        self.rules = rules or ParamRules()
+        # Batch layout: explicit specs, or inferred per array in
+        # shard_batch (rows over dp, dim 1 over sp on an sp mesh).
+        self.batch_specs = batch_specs
         self.peak_flops = peak_flops
         self.profiler = (profiler if profiler is not None
                          else PhaseProfiler(plane="train"))
@@ -425,8 +476,10 @@ class Trainer:
         self.optimizer = None
         self.ema = None
         self._step = None
-        # Each leaf's (dimension, mesh axis) cuts, set by ``init``.
+        # Each leaf's (dimension, mesh axis) cuts, and those over the
+        # data axes (fsdp's), set by ``init``.
         self.leaf_cuts: list = []
+        self.data_cuts: list = []
 
     def _seg(self, name: str):
         """The ledger's segment, or nothing when no ledger rides."""
@@ -476,16 +529,19 @@ class Trainer:
         params = tree_map(master, params)
         specs = self._specs()
         if specs is not None and self.mesh is not None:
+            check_rules(self.rules, self.mesh, self.model.logical_axes())
             params = shard_params(params, self.model.logical_axes(),
-                                  self.mesh,
+                                  self.mesh, self.rules,
                                   virtual_stages=self._virtual_stages())
         self.params = tree_map(
             lambda t: t.contiguous().clone().requires_grad_(True), params)
         # Each leaf's cuts, (dimension, mesh axis) pairs in tree_leaves
-        # order, and the group the global norm sums its squares over.
+        # order, and the groups the global norm sums its squares over.
         specs = specs or [()] * len(tree_leaves(self.params))
         self.leaf_cuts = [cut_axes(sp, self.mesh) for sp in specs]
-        cut = [axis_group(self.mesh, *(a for _, a in c)) if c else None
+        self.data_cuts = [[(d, a) for d, a in c if a in DATA_AXES]
+                          for c in self.leaf_cuts]
+        cut = [axis_groups(self.mesh, *(a for _, a in c))
                for c in self.leaf_cuts]
         self.optimizer = AdamW(self.tc, tree_leaves(self.params),
                                self._zero1(), cut)
@@ -494,13 +550,12 @@ class Trainer:
         self._step = None
 
     def _specs(self) -> list | None:
-        """Each leaf's spec under the default rules (the model's
+        """Each leaf's spec under ``rules`` (the model's
         ``logical_axes``), in ``tree_leaves`` order; None for a model
         without logical axes."""
         if not hasattr(self.model, "logical_axes"):
             return None
-        rules = ParamRules()
-        return [rules.spec(ax)
+        return [self.rules.spec(ax)
                 for ax in tree_leaves(self.model.logical_axes())]
 
     def _virtual_stages(self) -> int:
@@ -510,15 +565,26 @@ class Trainer:
     def _zero1(self):
         """AdamW's ``zero`` argument: each local leaf's ZeRO-1 axis over
         dp, free meaning unnamed by the leaf's logical spec, or None
-        without ``zero1`` or a dp axis."""
+        without ``zero1`` or a dp axis.  A leaf whose spec already cuts
+        it over dp and that ZeRO-1 would cut again raises, as the
+        reference's ``DuplicateSpecError`` does at ``init``."""
         dp = axis_size(self.mesh, "dp")
         if not self.tc.zero1 or dp <= 1:
             return None
         leaves = tree_leaves(self.params)
         specs = self._specs() or [()] * len(leaves)
-        return ([zero1_dim(tuple(p.shape), spec, dp)
-                 for p, spec in zip(leaves, specs)],
-                self.mesh.get_group("dp"))
+        dims = [zero1_dim(tuple(p.shape), spec, dp)
+                for p, spec in zip(leaves, specs)]
+        for path, p, spec, dim in zip(tree_paths(self.params), leaves, specs,
+                                      dims):
+            if dim is not None and any("dp" in entry_axes(e) for e in spec):
+                moments = list(spec) + [None] * (p.ndim - len(spec))
+                moments[dim] = "dp"
+                raise ValueError(
+                    f"zero1 on {path}: PartitionSpec{tuple(moments)} has "
+                    f"duplicate entries for `dp` (the rules cut it over dp "
+                    f"already); turn zero1 off under fsdp")
+        return dims, self.mesh.get_group("dp")
 
     def n_params(self) -> int:
         """The whole model's parameter count: each shard's times the sizes
@@ -534,6 +600,7 @@ class Trainer:
         if self.mesh is None or not hasattr(self.model, "logical_axes"):
             return tree_map(lambda p: p.detach(), tree)
         return gather_params(tree, self.model.logical_axes(), self.mesh,
+                             self.rules,
                              virtual_stages=self._virtual_stages())
 
     def _cut(self, tree: dict) -> dict:
@@ -541,13 +608,15 @@ class Trainer:
         device (copies: nothing keeps the whole tree alive)."""
         if self.mesh is not None and hasattr(self.model, "logical_axes"):
             tree = shard_params(tree, self.model.logical_axes(), self.mesh,
+                                self.rules,
                                 virtual_stages=self._virtual_stages())
         return tree_map(lambda t: t.detach().to(
             self.device, torch.float32).contiguous().clone(), tree)
 
     def gathered_params(self) -> dict:
         """The whole parameter tree (detached), on every rank: this
-        rank's shards joined with the others' over tp, ep and pp."""
+        rank's shards joined with the others' over every axis that cuts
+        them."""
         return self._gather(self.params)
 
     def gathered_ema(self) -> dict | None:
@@ -588,16 +657,48 @@ class Trainer:
                         else tree_map(lambda p: p.detach().clone(),
                                       self.params))
 
+    def _check_batch_spec(self, spec: tuple, shape: tuple) -> bool:
+        """Raise where the reference's ``device_put`` of an array of
+        ``shape`` under ``spec`` raises (more entries than dimensions, a
+        name that is no mesh axis, a dimension its axes do not divide);
+        return whether the spec cuts the rows over dp."""
+        if len(spec) > len(shape):
+            raise ValueError(f"batch spec {spec} has more entries than "
+                             f"the array {shape} has dimensions")
+        for dim, entry in enumerate(spec):
+            names = entry_axes(entry)
+            for name in names:
+                if name not in AXES:
+                    raise ValueError(f"batch spec {spec} names {name!r}, "
+                                     f"not an axis of the mesh {AXES}")
+            n = math.prod(axis_size(self.mesh, a) for a in names)
+            if shape[dim] % n:
+                raise ValueError(f"dim {dim} of the batch {shape} does not "
+                                 f"divide over {names} of size {n}")
+        return bool(spec) and "dp" in entry_axes(spec[0])
+
     def shard_batch(self, *batch):
         """This rank's block of each global array on the trainer's
         device: rows over dp and, for arrays of 2 or more dimensions on
-        an sp mesh, dim 1 over sp (the reference's ``P("dp", "sp")``)."""
+        an sp mesh, dim 1 over sp (the reference's ``P("dp", "sp")``).
+        ``batch_specs`` decide the placement and never the result, as in
+        the reference: a spec is checked as its ``device_put`` checks
+        it, then the array takes the layout the model needs, but for a
+        spec that leaves the rows whole (``()``), whose rows every dp
+        rank then takes (the batch group's mean is the same)."""
+        specs = self.batch_specs
+        if specs is not None and len(specs) != len(batch):
+            raise ValueError(f"{len(specs)} batch specs for {len(batch)} "
+                             "arrays")
         out = []
-        for b in batch:
+        for i, b in enumerate(batch):
             t = torch.as_tensor(b)
+            rows = (True if specs is None
+                    else self._check_batch_spec(tuple(specs[i]),
+                                                tuple(t.shape)))
             for dim, axis in ((0, "dp"), (1, "sp")):
                 n = axis_size(self.mesh, axis)
-                if n == 1 or t.ndim <= dim:
+                if n == 1 or t.ndim <= dim or (dim == 0 and not rows):
                     continue
                 if t.shape[dim] % n:
                     raise ValueError(
@@ -629,6 +730,7 @@ class Trainer:
 
     def _make_step(self):
         reduce = self._reduce if self.mesh is not None else None
+        gather = self._whole_over_data if any(self.data_cuts) else None
         if self._use_1f1b():
             if self.tc.grad_accum_steps > 1:
                 raise ValueError(
@@ -636,26 +738,66 @@ class Trainer:
                     "paths; the 1f1b schedule already microbatches — "
                     "raise pp_microbatches instead")
             return make_pipeline_train_step(self.model, self.optimizer,
-                                            self.mesh, reduce)
+                                            self.mesh, reduce, gather)
         return make_train_step(self._loss, self.optimizer,
-                               accum=self.tc.grad_accum_steps, reduce=reduce)
+                               accum=self.tc.grad_accum_steps, reduce=reduce,
+                               gather=gather)
+
+    def _whole_over_data(self, params: dict) -> dict:
+        """The tree a fsdp step differentiates: each leaf cut over a data
+        axis all-gathered over it (minor cuts first) into a fresh leaf,
+        whole over dp and sp and still cut over pp, ep and tp as the
+        model expects; the other leaves as they are.  Made once a step
+        (accumulated microbatches share it) and dropped after it."""
+        leaves = []
+        for p, cuts in zip(tree_leaves(params), self.data_cuts):
+            if cuts:
+                for dim, axis in reversed(cuts):
+                    p = torch.cat(all_gather(p, self.mesh.get_group(axis)),
+                                  dim)
+                p.requires_grad_(True)
+            leaves.append(p)
+        return tree_like(params, leaves)
 
     def _reduce(self, loss, grads):
         """The mean of the loss and the gradients over the batch group
-        (dp x sp, the ranks whose tokens differ), in one all-reduce; the
-        ranks of a tp, ep or pp group already hold the same loss and
-        their own shards' gradients."""
+        (dp x sp, the ranks whose tokens differ); the ranks of a tp, ep
+        or pp group already hold the same loss and their own shards'
+        gradients.  The whole leaves' gradients and the loss go in one
+        all-reduce.  A fsdp leaf's gradient (of the leaf made whole over
+        its data axes) is reduce-scattered over those axes, major first,
+        to this rank's slice, then all-reduced over the batch axes that
+        leave it whole, one all-reduce for the leaves alike.  Empty
+        ``grads``: the loss alone."""
         group = batch_group(self.mesh)
         if group is None:
             return loss, grads
         n = torch.distributed.get_world_size(group)
-        flat = torch.cat([g.float().reshape(-1) for g in grads]
+        grads = [g.float() for g in grads]
+        data = self.data_cuts if grads else []
+        whole = [i for i, c in enumerate(data) if not c]
+        by_rest: dict = {}
+        for i, cuts in enumerate(data):
+            if not cuts:
+                continue
+            for dim, axis in cuts:
+                grads[i] = reduce_scatter(grads[i],
+                                          self.mesh.get_group(axis), dim)
+            cut = {a for _, a in cuts}
+            rest = axis_group(self.mesh,
+                              *(a for a in DATA_AXES if a not in cut))
+            by_rest.setdefault(rest, []).append(i)
+        flat = torch.cat([grads[i].reshape(-1) for i in whole]
                          + [loss.float().reshape(1)])
         all_reduce(flat, group)
-        flat /= n
-        grads = [f.view_as(g) for f, g in
-                 zip(flat[:-1].split([g.numel() for g in grads]), grads)]
-        return flat[-1], grads
+        loss = flat[-1] / n
+        _unflatten(grads, whole, flat[:-1] / n)
+        for rest, idx in by_rest.items():
+            flat = torch.cat([grads[i].reshape(-1) for i in idx])
+            if rest is not None:
+                all_reduce(flat, rest)
+            _unflatten(grads, idx, flat / n)
+        return loss, grads
 
     @torch.no_grad()
     def _update_ema(self) -> None:
@@ -682,6 +824,7 @@ class Trainer:
                 log.info("train step attention path: %s",
                          describe_train_attention(
                              cfg, axis_size(self.mesh, "sp") > 1))
+        rows = len(batch[0]) if batch else 0
         with self.profiler.phase("shard_batch"):
             batch = self.shard_batch(*batch)
         t0 = time.perf_counter()
@@ -698,20 +841,20 @@ class Trainer:
         if dt > 0.0 and batch:
             global_metrics.set_gauge("train_tokens_per_second",
                                      float(batch[0].numel()) / dt)
-        self._update_mfu(dt, batch)
+        self._update_mfu(dt, rows)
         self.profiler.export_shares()
         self._steps_done += 1
         if self.ledger is not None:
             self.ledger.heartbeat(self._host, self._steps_done, dt)
         return loss
 
-    def _update_mfu(self, dt: float, batch: tuple) -> None:
-        """``train_mfu``: the model's analytic FLOPs a step over an EWMA of
-        the step time, against ``peak_flops``.  The first step (kernel
-        loads) seeds nothing; a model without a transformer-shaped config
-        publishes no gauge."""
+    def _update_mfu(self, dt: float, rows: int) -> None:
+        """``train_mfu``: the model's analytic FLOPs a step (``rows``: the
+        global batch's) over an EWMA of the step time, against
+        ``peak_flops``.  The first step (kernel loads) seeds nothing; a
+        model without a transformer-shaped config publishes no gauge."""
         cfg = getattr(self.model, "cfg", None)
-        if (dt <= 0.0 or not batch or cfg is None
+        if (dt <= 0.0 or not rows or cfg is None
                 or not all(hasattr(cfg, a) for a in
                            ("max_seq", "n_heads", "d_head", "n_layers"))):
             return
@@ -721,9 +864,8 @@ class Trainer:
         # A rank's share of the global step's FLOPs (the mesh spans the
         # world).
         shape = mesh_shape(self.mesh)
-        flops = model_flops_per_step(
-            cfg, self._n_params, int(batch[0].shape[0]) * shape["dp"]
-        ) / math.prod(shape.values())
+        flops = model_flops_per_step(cfg, self._n_params, rows
+                                     ) / math.prod(shape.values())
         self._step_ewma_s = (dt if self._step_ewma_s is None
                              else 0.2 * dt + 0.8 * self._step_ewma_s)
         peak = (self.peak_flops if self.peak_flops is not None

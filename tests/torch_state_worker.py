@@ -12,6 +12,14 @@ resumed onto pp 2 x tp 2 and onto one device for 2 more steps; a
 one-device checkpoint resumed onto dp 2 x tp 2; the CNN and the LoRA
 model on the meshes the reference trains them on, with their gathered
 optimizer state; and the messages of the refusals that remain.
+
+Then the rule tables that cut parameters over the data axes (fsdp):
+each ``FSDP_CASES`` case trains 3 steps under one remat policy and
+returns, beside what a transformer case returns, the local shapes of
+its parameters, moments and EMA; the ``fsdp_dp2tp2`` checkpoint resumes
+onto default-rules pp 2 x tp 2 and one device; the LoRA model trains
+under the fsdp table; ``BATCH_SPEC_CASES`` train with ``batch_specs``;
+``FSDP_REFUSALS`` record what ``init`` raises, or the losses.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ MESHES = {"dp2tp2": dict(dp=2, tp=2), "sp2tp2": dict(dp=1, sp=2, tp=2),
           "ep2tp2": dict(dp=1, ep=2, tp=2), "pp2tp2": dict(dp=1, pp=2, tp=2),
           "pp4": dict(dp=1, pp=4), "dp2ep2": dict(dp=2, ep=2),
           "dp2pp2": dict(dp=2, pp=2), "dp2sp2": dict(dp=2, sp=2),
-          "pp2sp2": dict(dp=1, pp=2, sp=2)}
+          "pp2sp2": dict(dp=1, pp=2, sp=2), "dp4": dict(dp=4)}
 # (name, mesh, model knobs, train knobs): each runs under save_attn and
 # under full remat.  dp2tp2 keeps an EMA and ZeRO-1's moments, and its
 # checkpoint after step 3 is what the resumes start from.
@@ -62,6 +70,33 @@ REFUSALS = (
     ("save_attn_moe_pp", "dp2pp2", dict(MOE, remat_policy="save_attn")),
     ("save_attn_sp_pp", "pp2sp2", dict(remat_policy="save_attn")),
 )
+# Rule tables that cut parameters over the data axes (fsdp): each is
+# applied over the reference's DEFAULT_RULES.
+FSDP = {"embed": "dp"}
+FSDP_SP = {"embed": ("dp", "sp")}
+# (name, mesh, model knobs, train knobs, rules, remat policy)
+FSDP_CASES = (
+    ("fsdp_dp2tp2", "dp2tp2", GQA, dict(ema_decay=0.9), FSDP, "full"),
+    ("fsdp_dp4", "dp4", {}, {}, FSDP, "full"),
+    ("fsdp_dp2sp2_ring", "dp2sp2", GQA, {}, FSDP_SP, "save_attn"),
+    ("fsdp_1f1b_dp2pp2", "dp2pp2", {}, {}, FSDP, "full"),
+    ("fsdp_dp2ep2_moe", "dp2ep2", MOE, {}, FSDP, "full"),
+)
+FSDP_CKPT_CASE = "fsdp_dp2tp2"
+LORA_FSDP_CASE = ("lora_fsdp_dp2pp2", "dp2pp2", dict(pp_schedule="gpipe"))
+# (name, mesh, model ("cnn" or transformer knobs), rules, batch specs):
+# the CNN's specs are set after construction, as the reference's
+# multihost step sets them.
+BATCH_SPEC_CASES = (
+    ("cnn_dp4_specs", "dp4", "cnn", {}, (("dp",), ("dp",))),
+    ("replicated_dp4", "dp4", {}, FSDP, ((), ())),
+)
+# (name, mesh, train knobs, rules): fsdp with ZeRO-1 raises in both
+# packages; a table that moves a weight axis raises in the port only.
+FSDP_REFUSALS = (
+    ("fsdp_zero1", "dp2tp2", dict(zero1=True), FSDP),
+    ("mlp_whole", "dp2tp2", {}, {"mlp": None}),
+)
 TRAIN = dict(warmup_steps=1, learning_rate=1e-3)
 GLOBAL_BATCH, STEPS, RESUMED_STEPS = 4, 3, 2
 
@@ -76,7 +111,8 @@ def make_inputs(seed: int, params: dict, ckpt_dir: str) -> dict:
     toks = {name: rng.integers(0, DIMS["vocab_size"],
                                (steps, GLOBAL_BATCH, DIMS["max_seq"] + 1)
                                ).astype(np.int32)
-            for name, *_ in CASES + LORA_CASES}
+            for name, *_ in (CASES + LORA_CASES + FSDP_CASES
+                             + (LORA_FSDP_CASE,) + BATCH_SPEC_CASES)}
     hw = CNN["in_hw"]
     images = rng.normal(size=(STEPS, GLOBAL_BATCH, hw, hw, 1)).astype(
         np.float32)
@@ -268,6 +304,130 @@ def _refusals(inp, meshes) -> dict:
     return out
 
 
+def _rules(table: dict):
+    from k8s_gpu_tpu_torch.parallel.sharding import DEFAULT_RULES, ParamRules
+
+    return ParamRules({**DEFAULT_RULES, **table})
+
+
+def _local_shapes(tr) -> dict:
+    """The shapes this rank holds between steps: parameters, AdamW's
+    moments and the EMA, by leaf path."""
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves, tree_paths
+
+    paths = tree_paths(tr.params)
+    out = {"params": dict(zip(paths, (tuple(t.shape)
+                                      for t in tree_leaves(tr.params)))),
+           "mu": dict(zip(paths, (tuple(t.shape) for t in tr.optimizer.mu))),
+           "nu": dict(zip(paths, (tuple(t.shape) for t in tr.optimizer.nu)))}
+    if tr.ema is not None:
+        out["ema"] = dict(zip(paths, (tuple(t.shape)
+                                      for t in tree_leaves(tr.ema))))
+    return out
+
+
+def _fsdp_cases(inp, meshes) -> dict:
+    """Each FSDP_CASES case's 3 steps (the checkpoint case saved after
+    them), then that checkpoint resumed onto each of RESUMES under the
+    default rules for RESUMED_STEPS more."""
+    import os
+
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.convert import params_to_numpy
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
+
+    root = os.path.join(inp["ckpt_dir"], "fsdp")
+    out = {}
+    for name, mesh_name, knobs, train, table, policy in FSDP_CASES:
+        tr = Trainer(_model(knobs, policy), TrainConfig(**TRAIN, **train),
+                     device="cpu", mesh=meshes[mesh_name],
+                     rules=_rules(table))
+        tr.init(params=inp["params"][name])
+        losses = _steps(tr, inp["tokens"][name][:STEPS])
+        out[name] = {"losses": losses, "shapes": _local_shapes(tr),
+                     "params": params_to_numpy(tr.gathered_params()),
+                     **_state(tr)}
+        if name == FSDP_CKPT_CASE:
+            attach_to_trainer(tr, root)[1](STEPS)
+    _, _, knobs, train, _, _ = next(c for c in FSDP_CASES
+                                    if c[0] == FSDP_CKPT_CASE)
+    toks = inp["tokens"][FSDP_CKPT_CASE][STEPS:]
+    for where in RESUMES:
+        if where == "one" and dist.get_rank() != 0:
+            continue
+        tr = Trainer(_model(knobs), TrainConfig(**TRAIN, **train),
+                     device="cpu", mesh=meshes.get(where))
+        tr.init(seed=3)
+        step = attach_to_trainer(tr, root)[2]()
+        losses = _steps(tr, toks)
+        out[("resumed", where)] = {
+            "step": step, "losses": losses,
+            "params": params_to_numpy(tr.gathered_params()), **_state(tr)}
+    return out
+
+
+def _fsdp_consumers(inp, meshes) -> dict:
+    """The LoRA model under the fsdp table, and BATCH_SPEC_CASES."""
+    import torch
+
+    from k8s_gpu_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from k8s_gpu_tpu_torch.models import CnnConfig, SmallCnn
+    from k8s_gpu_tpu_torch.train import (
+        LoraConfig, LoraModel, TrainConfig, Trainer,
+    )
+
+    name, mesh_name, knobs = LORA_FSDP_CASE
+    base, adapters = inp["params"][name]
+    model = LoraModel(_model(knobs, "full"), params_from_numpy(base, "cpu"),
+                      LoraConfig(**LORA))
+    tr = Trainer(model, TrainConfig(**TRAIN), device="cpu",
+                 mesh=meshes[mesh_name], rules=_rules(FSDP))
+    tr.init(params=adapters)
+    out = {name: {"losses": _steps(tr, inp["tokens"][name][:STEPS]),
+                  "params": params_to_numpy(tr.gathered_params()),
+                  "shapes": _local_shapes(tr), **_state(tr)}}
+    for name, mesh_name, model, table, specs in BATCH_SPEC_CASES:
+        if model == "cnn":
+            tr = Trainer(SmallCnn(CnnConfig(**CNN, dtype=torch.float32),
+                                  device="cpu"), TrainConfig(**TRAIN),
+                         device="cpu", mesh=meshes[mesh_name],
+                         rules=_rules(table))
+            tr.init(params=inp["params"]["cnn"])
+            tr.batch_specs = specs
+            batches = list(zip(inp["images"], inp["labels"]))
+            losses = [tr.step(x, y) for x, y in batches]
+        else:
+            tr = Trainer(_model(model, "full"), TrainConfig(**TRAIN),
+                         device="cpu", mesh=meshes[mesh_name],
+                         rules=_rules(table), batch_specs=specs)
+            tr.init(params=inp["params"][name])
+            batches = [(t[:, :-1], t[:, 1:])
+                       for t in inp["tokens"][name][:STEPS]]
+            losses = [tr.step(x, y) for x, y in batches]
+        out[name] = {"losses": losses,
+                     "params": params_to_numpy(tr.gathered_params()),
+                     "rows": [len(b) for b in tr.shard_batch(*batches[0])]}
+    return out
+
+
+def _fsdp_refusals(inp, meshes) -> dict:
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+
+    out = {}
+    for name, mesh_name, train, table in FSDP_REFUSALS:
+        try:
+            tr = Trainer(_model({}, "full"), TrainConfig(**TRAIN, **train),
+                         device="cpu", mesh=meshes[mesh_name],
+                         rules=_rules(table))
+            tr.init(0)
+            out[name] = None
+        except (NotImplementedError, ValueError) as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
 def run_all(inp: dict) -> dict:
     import torch
     import torch.distributed as dist
@@ -283,4 +443,7 @@ def run_all(inp: dict) -> dict:
             "one_to_mesh": _one_device_to_mesh(inp, meshes["dp2tp2"]),
             "cnn": _cnn_cases(inp, meshes),
             "lora": _lora_cases(inp, meshes),
-            "refusals": _refusals(inp, meshes)}
+            "refusals": _refusals(inp, meshes),
+            "fsdp": _fsdp_cases(inp, meshes),
+            "fsdp_consumers": _fsdp_consumers(inp, meshes),
+            "fsdp_refusals": _fsdp_refusals(inp, meshes)}
