@@ -8,7 +8,10 @@ Phases, each of which fails the run on any error:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the port's CUDA kernels from ``k8s_gpu_tpu_torch/csrc`` with
-   ``nvcc``, one process per source, side by side;
+   ``nvcc``, one process per source, side by side, under the compile
+   telemetry (``utils.compat.install_compile_telemetry``): a
+   ``compile_telemetry`` line prints ``xla_compiles_total`` and
+   ``xla_compile_seconds`` after the builds, and again at the end;
 3. each kernel against its plain version at the shapes its main path
    gives it, in float32 and bf16 and with an int8 pool (a bf16 or int8
    run is also held against the plain version in float32 on the same
@@ -63,6 +66,8 @@ Phases, each of which fails the run on any error:
    prefix.  Every request must return its budget of tokens, a repeated
    greedy request the same stream, and the kernel counts are read just
    around this phase: every kernel of the path launched, no fall-back;
+   after the pair's first request the burst builds no kernel library
+   (``xla_compiles_total`` does not move);
    then (4b) the same flagship behind ``LmServer`` with its defaults, the
    dense KV pool (the reference's default deployment): a solo request
    (the fused cold start), ``/precache`` of a 512-token prefix, then the
@@ -312,15 +317,18 @@ Phases, each of which fails the run on any error:
 14. The state of a meshed trainer and ``save_attn`` on every mesh: four
    gloo ranks on the card at the flagship's widths, ``STATE_LAYERS`` (2)
    deep, sequences of 1024.  (14a) dp 2 x tp 2 (v2, ZeRO-1, an EMA) trains 2
-   steps and saves through ``attach_to_trainer`` (one writer, the
-   one-device files at the whole tree's shapes), then takes step 3; the
-   checkpoint resumes onto pp 2 x tp 2 (1F1B) and, in this process,
-   onto the card alone: the restored parameters, moments, EMA and count
-   bit for bit the saved ones (integer fingerprints), step 3's loss
-   within 2.4e-4 of the uninterrupted one on pp 2 x tp 2 and within
-   1e-3 on the card alone (no tp: other bf16 sums), and within 1e-5 at
-   float32 (a small configuration, 2 layers,
-   sequences of 256); save and restore
+   steps and saves through ``attach_to_trainer`` shard-wise (each rank
+   its blocks, each block once, and a manifest), then takes step 3; the
+   checkpoint resumes onto pp 2 x tp 2 (1F1B), onto dp 4 under the fsdp
+   table and, in this process, onto the card alone: the restored
+   parameters, moments, EMA and count bit for bit the saved ones
+   (integer fingerprints), step 3's loss within 2.4e-4 of the
+   uninterrupted one on pp 2 x tp 2 and within 1e-3 on dp 4 and the
+   card alone (no tp: other bf16 sums), and within 1e-5 at float32 (a
+   small configuration, 2 layers, sequences of 256); each rank's bytes
+   written and its device peak over the save (at most 0.01 GB above
+   what it held before), the stored elements those of the whole trees,
+   save and restore
    seconds, bytes, GB/s.  (14b) ``save_attn`` beside full remat on dp 2
    x tp 2, sp 2 x tp 2 (ring, Ulysses), ep 2 x tp 2 MoE and pp 2 x tp 2
    (1F1B): a rank's flash launches in one step exactly
@@ -337,8 +345,16 @@ Phases, each of which fails the run on any error:
    step-1 losses equal, the loss after one update within 2.4e-4 (the
    float32 twin within 1e-5); each rank's bytes at rest exactly half the
    default's, beside 14a's under ZeRO-1, and its peak GB; a checkpoint
-   saved under fsdp restored onto the card alone bit for bit, the next
-   step within 1e-3; fsdp with ZeRO-1 refused at ``init``.
+   saved under fsdp (shard-wise, as 14a's) restored onto the card alone
+   bit for bit, the next step within 1e-3; fsdp with ZeRO-1 refused at
+   ``init``.  (14e) a table that moves a weight axis, ``"mlp": None``
+   (the MLP whole on every tp rank), on dp 2 x tp 2 beside the default
+   rules: launches as 14d's, 0 plain; losses within 1e-2 (the float32
+   twin within 1e-5); in both, the whole parameters, moments and EMA
+   after the counted step within 1e-5 of the default's (each leaf's gap
+   over its largest element); each rank's bytes at rest those the
+   table's specs give; its checkpoint restored onto the default table
+   bit for bit, the next step within 2.4e-4.
 
 It prints a ``{"kernels": [...]}`` line (each entry names the phase
 that launches it; each flash entry also with its
@@ -1364,6 +1380,7 @@ def run_main_path(torch, seed: int, layers: int, device="cuda",
     from k8s_gpu_tpu_torch.models import TransformerLM
     from k8s_gpu_tpu_torch.ops import paged_attention as pa
     from k8s_gpu_tpu_torch.serve import LmServer
+    from k8s_gpu_tpu_torch.utils.compat import xla_compile_count
 
     cfg = flagship_config(torch, layers)
     model = TransformerLM(cfg, device=device)
@@ -1391,10 +1408,13 @@ def run_main_path(torch, seed: int, layers: int, device="cuda",
         first = {}
         _stream(srv.port, {"prompt_ids": pair[0][0],
                            "max_new_tokens": pair[0][1]}, first)
+        # After that warm-up the burst builds no kernel library.
+        compiles = xla_compile_count()
         jobs = mix + [pair[1]]
         outs = _serve_together(srv.port, jobs)
         sync()
         wall = time.perf_counter() - t0
+        compiles = xla_compile_count() - compiles
         launches, fallbacks = pa.launch_count, pa.fallback_count
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -1432,9 +1452,12 @@ def run_main_path(torch, seed: int, layers: int, device="cuda",
     if launches <= 0 or fallbacks != 0:
         raise RuntimeError(f"paged_attention launches {launches}, "
                            f"fall-backs {fallbacks} on the main path")
+    if compiles:
+        raise RuntimeError(f"the steady burst built {compiles} kernel "
+                           "libraries (xla_compiles_total)")
     extra = {"profile": profiled} if profile else {}
     return {**extra, **_burst_numbers(outs, wall),
-        "layers": layers,
+        "layers": layers, "burst_compiles": compiles,
         "rounds": rounds, "admissions": admissions,
         "repeat_common_prefix_with_mix": common,
         "paged_attention_launches": launches,
@@ -6897,7 +6920,7 @@ STATE_DIR = os.path.join(ROOT, "build", "chip", "state")
 STATE_MESHES = {"dp2tp2": dict(dp=2, tp=2), "pp2tp2": dict(dp=1, pp=2, tp=2),
                 "sp2tp2": dict(dp=1, sp=2, tp=2),
                 "ep2tp2": dict(dp=1, ep=2, tp=2),
-                "dp2pp2": dict(dp=2, pp=2)}
+                "dp2pp2": dict(dp=2, pp=2), "dp4": dict(dp=4)}
 # name: (mesh, configuration, global batch): phase 11's and 12b's.
 SAVE_ATTN_RUNS = {
     "dp2tp2": ("dp2tp2", "v2", STATE_BATCH),
@@ -6906,9 +6929,28 @@ SAVE_ATTN_RUNS = {
     "ep2tp2_moe": ("ep2tp2", "moe", STATE_BATCH),
     "1f1b_pp2tp2": ("pp2tp2", "1f1b", STATE_BATCH),
 }
-STATE_PARTS = ("checkpoint", "save_attn", "consumers", "fsdp")
+STATE_PARTS = ("checkpoint", "save_attn", "consumers", "fsdp", "moved")
 # 14d's rule table over the defaults: the reference's fsdp switch.
 STATE_FSDP = {"embed": "dp"}
+# 14a's resumes on a mesh: (mesh, rules over the defaults).  dp 4 under
+# fsdp has no tp, so its bf16 sums differ from dp 2 x tp 2's as the card
+# alone's do: it is held within STATE_LAYOUT_TOL.
+STATE_RESUMES = {"pp2tp2": ("pp2tp2", {}), "fsdp_dp4": ("dp4", STATE_FSDP)}
+# 14e's table: the MLP whole on every tp rank (a weight axis moved).
+STATE_MOVED = {"mlp": None}
+# 14e's losses against the default table's: bf16 phase 7's limit, the
+# float32 twin 1e-5 (the two differ only in the global norm's order of
+# sums).
+STATE_MOVED_TOL = {"": TRAIN_TOL["bfloat16"]["loss"], "_f32": 1e-5}
+# 14e's whole parameters, moments and EMA after the counted step against
+# the default table's, each leaf's largest gap over its largest element:
+# the two tables' gradients agree before the clip, and only the global
+# norm's order of sums differs, a few float32 ulps.  A gradient scaled or
+# summed wrongly moves the moments by its factor.
+STATE_MOVED_STATE_TOL = 1e-5
+# A shard-wise save copies each block to the host: a rank's device peak
+# over the save may rise by the allocator's rounding, not by a tree.
+SAVE_PEAK_SLACK_GB = 0.01
 CNN_BATCH = 64
 STATE_LORA_RANK = 8
 
@@ -6985,15 +7027,117 @@ def _state_prints(torch, trainer) -> dict:
             "count": opt["count"]}
 
 
-def _state_checkpoint(torch, seed: int, cfg, meshes, dev, root: str,
-                      batch: int) -> dict:
-    """14a on one rank: dp 2 x tp 2 trains, saves and steps on; then the
-    checkpoint resumes onto pp 2 x tp 2 and steps again."""
+def _state_trees(torch, trainer) -> dict | None:
+    """A trainer's whole parameters, moments and EMA as host leaves by
+    kind (collectives on a mesh), kept by rank 0 alone (None on the
+    others)."""
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves
+
+    opt = trainer.opt_state
+    trees = {"params": trainer.gathered_params(), "mu": opt["mu"],
+             "nu": opt["nu"], "ema": trainer.gathered_ema()}
+    if dist.get_rank():
+        return None
+    # Copies: on the CPU a leaf may be the trainer's own tensor, which
+    # the next step updates in place.
+    return {kind: [t.detach().to("cpu", copy=True)
+                   for t in tree_leaves(tree)]
+            for kind, tree in trees.items()}
+
+
+def _state_gaps(torch, want: dict, got: dict) -> dict:
+    """For each kind of ``_state_trees``: the largest leaf's max |got -
+    want| over its max |want|, and whether every leaf is equal bit for
+    bit."""
+    out = {}
+    for kind, leaves in want.items():
+        pairs = list(zip(leaves, got[kind]))
+        out[kind] = {
+            "rel_err": max(float((g - w).abs().max()
+                                 / w.abs().max().clamp_min(1e-30))
+                           for w, g in pairs),
+            "bit_equal": all(torch.equal(w, g) for w, g in pairs)}
+    return out
+
+
+def _measured_save(torch, dev, trainer, root: str, step: int) -> dict:
+    """A shard-wise save of ``trainer`` (a collective): seconds, the bytes
+    this rank wrote, the step's bytes, this rank's device peak during
+    the save over what it held just before (None on the CPU), and, read
+    from the manifest, the elements the step's blocks store against the
+    whole trees'."""
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
+
+    ckpt, save, _ = attach_to_trainer(trainer, root)
+    _syncer(torch, dev)()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    dist.barrier()
+    t0 = time.perf_counter()
+    save(step)
+    out = {"save_s": time.perf_counter() - t0,
+           "save_peak_over_gb": ((torch.cuda.max_memory_allocated() - before)
+                                 / 1e9 if dev.type == "cuda" else None)}
+    step_dir = os.path.join(root, str(step))
+    mine = os.path.join(step_dir, f"rank{dist.get_rank()}.pt")
+    out["bytes_written"] = os.path.getsize(mine) if os.path.exists(mine) \
+        else 0
+    out["bytes"] = ckpt._step_bytes(step)
+    with open(os.path.join(step_dir, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    out["stored_elements"] = sum(
+        math.prod(sum(b - a for a, b in runs) for runs in held)
+        for blocks in manifest["files"].values() for held in blocks.values())
+    out["whole_elements"] = sum(
+        math.prod(meta["shape"]) for leaves in manifest["leaves"].values()
+        for meta in leaves.values())
+    out["files"] = sorted(manifest["files"])
+    return out
+
+
+def _measured_resume(torch, dev, cfg, tc, mesh, rules, root: str, seed: int,
+                     toks) -> dict:
+    """A fresh trainer of ``cfg`` (init ``seed``) on ``mesh`` under
+    ``rules`` resumed from ``root``'s latest step: step, restore seconds,
+    the restored state's fingerprints, the loss of a step on ``toks``."""
     import torch.distributed as dist
 
     from k8s_gpu_tpu_torch.models import TransformerLM
-    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train import Trainer
     from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
+
+    tr = Trainer(TransformerLM(cfg, device=dev), tc, device=dev, mesh=mesh,
+                 rules=rules)
+    tr.init(seed)
+    _syncer(torch, dev)()
+    if mesh is not None:
+        dist.barrier()
+    t0 = time.perf_counter()
+    step = attach_to_trainer(tr, root)[2]()
+    _syncer(torch, dev)()
+    out = {"step": step, "restore_s": time.perf_counter() - t0,
+           "prints": _state_prints(torch, tr)}
+    out["loss"] = tr.step(toks[:, :-1], toks[:, 1:])
+    del tr
+    _free_if(torch, dev)
+    return out
+
+
+def _state_checkpoint(torch, seed: int, cfg, meshes, dev, root: str,
+                      batch: int) -> dict:
+    """14a on one rank: dp 2 x tp 2 trains, saves shard-wise and steps
+    on; then the checkpoint resumes onto each of STATE_RESUMES and steps
+    again."""
+    import dataclasses
+
+    from k8s_gpu_tpu_torch.models import TransformerLM
+    from k8s_gpu_tpu_torch.parallel.sharding import DEFAULT_RULES, ParamRules
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
 
     tc = TrainConfig(warmup_steps=1, zero1=True, ema_decay=STATE_EMA)
     toks = _par_tokens(torch, seed, cfg, batch)
@@ -7003,34 +7147,21 @@ def _state_checkpoint(torch, seed: int, cfg, meshes, dev, root: str,
     tr.init(seed)
     losses = [tr.step(x, y) for _ in range(STATE_STEPS)]
     rest = _rest_bytes(tr)
-    ckpt, save, _ = attach_to_trainer(tr, root)
     saved = _state_prints(torch, tr)
-    _syncer(torch, dev)()
-    dist.barrier()
-    t0 = time.perf_counter()
-    save(STATE_STEPS)
-    save_s = time.perf_counter() - t0
-    nbytes = ckpt._step_bytes(STATE_STEPS)
+    out = _measured_save(torch, dev, tr, root, STATE_STEPS)
     losses.append(tr.step(x, y))
-    del tr, ckpt
-    _free_if(torch, dev)
-    tr = Trainer(TransformerLM(cfg, device=dev), tc, device=dev,
-                 mesh=meshes["pp2tp2"])
-    tr.init(seed + 1)
-    _syncer(torch, dev)()
-    dist.barrier()
-    t0 = time.perf_counter()
-    step = attach_to_trainer(tr, root)[2]()
-    _syncer(torch, dev)()
-    restore_s = time.perf_counter() - t0
-    restored = _state_prints(torch, tr)
-    resumed = tr.step(x, y)
     del tr
     _free_if(torch, dev)
-    return {"losses": losses, "save_s": save_s, "bytes": nbytes,
-            "step": step, "restore_s": restore_s, "resumed_loss": resumed,
-            "state_equal": restored == saved, "saved_prints": saved,
-            "rest_bytes": rest}
+    out.update(losses=losses, saved_prints=saved, rest_bytes=rest,
+               resumes={})
+    for where, (mesh, table) in STATE_RESUMES.items():
+        got = _measured_resume(
+            torch, dev, cfg, dataclasses.replace(tc, zero1=not table),
+            meshes[mesh], ParamRules({**DEFAULT_RULES, **table}), root,
+            seed + 1, toks)
+        got["state_equal"] = got.pop("prints") == saved
+        out["resumes"][where] = got
+    return out
 
 
 def _rest_bytes(trainer) -> int:
@@ -7045,25 +7176,29 @@ def _rest_bytes(trainer) -> int:
 
 
 def _state_fsdp(torch, seed: int, cfg, mesh, dev, batch: int, table=None,
-                root: str | None = None) -> dict:
-    """14d on one rank: STATE_STEPS steps of 14a's model (an EMA, no
-    ZeRO-1) under the default rules plus ``table``, the last one counted
-    (flash launches, peak GB, seconds), then one more (the first that
-    follows an update at a learning rate above 0); with ``root`` the
-    state is saved there before it, and ZeRO-1 under ``table`` is tried
-    at ``init``."""
+                root: str | None = None, zero1_check: bool = False,
+                resume_onto=None, trees: list | None = None) -> dict:
+    """14d and 14e on one rank: STATE_STEPS steps of 14a's model (an EMA,
+    no ZeRO-1) under the default rules plus ``table``, the last one
+    counted (flash launches, peak GB, seconds), then one more (the first
+    that follows an update at a learning rate above 0).  With ``root``
+    the state is saved there shard-wise before it (``_measured_save``);
+    ``zero1_check``: ZeRO-1 under ``table`` is tried at ``init``;
+    ``resume_onto``: (mesh, table) a fresh trainer resumes that save
+    onto, taking the same step; ``trees``: the state after the counted
+    step is appended to it (``_state_trees``)."""
     from k8s_gpu_tpu_torch.models import TransformerLM
     from k8s_gpu_tpu_torch.ops import attention as fa
     from k8s_gpu_tpu_torch.parallel.sharding import DEFAULT_RULES, ParamRules
     from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
-    from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
+    from k8s_gpu_tpu_torch.train.runner import tree_paths
 
     rules = ParamRules({**DEFAULT_RULES, **(table or {})})
     toks = _par_tokens(torch, seed, cfg, batch)
     x, y = toks[:, :-1], toks[:, 1:]
-    tr = Trainer(TransformerLM(cfg, device=dev),
-                 TrainConfig(warmup_steps=1, ema_decay=STATE_EMA),
-                 device=dev, mesh=mesh, rules=rules)
+    tc = TrainConfig(warmup_steps=1, ema_decay=STATE_EMA)
+    tr = Trainer(TransformerLM(cfg, device=dev), tc, device=dev, mesh=mesh,
+                 rules=rules)
     tr.init(seed)
     losses = [tr.step(x, y) for _ in range(STATE_STEPS - 1)]
     _syncer(torch, dev)()
@@ -7079,14 +7214,22 @@ def _state_fsdp(torch, seed: int, cfg, mesh, dev, batch: int, table=None,
            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
                               if dev.type == "cuda" else None),
            "rest_bytes": _rest_bytes(tr),
-           "embed_shape": tuple(tr.params["embed"].shape)}
+           "embed_shape": tuple(tr.params["embed"].shape),
+           "leaves": {p: {"shape": list(sh), "spec": [
+               list(e) if isinstance(e, tuple) else e for e in sp]}
+               for p, sh, sp in zip(tree_paths(tr.params), tr.shapes,
+                                    tr._specs())},
+           "moved": [p for p, m in zip(tree_paths(tr.params), tr.moved)
+                     if m is not None]}
+    if trees is not None:
+        trees.append(_state_trees(torch, tr))
     if root is not None:
         out["saved_prints"] = _state_prints(torch, tr)
-        attach_to_trainer(tr, root)[1](STATE_STEPS)
+        out["save"] = _measured_save(torch, dev, tr, root, STATE_STEPS)
     losses.append(tr.step(x, y))
     del tr
     _free_if(torch, dev)
-    if root is not None:
+    if zero1_check:
         try:
             Trainer(TransformerLM(cfg, device=dev),
                     TrainConfig(warmup_steps=1, zero1=True), device=dev,
@@ -7095,6 +7238,14 @@ def _state_fsdp(torch, seed: int, cfg, mesh, dev, batch: int, table=None,
         except ValueError as e:
             out["zero1_refusal"] = str(e)
         _free_if(torch, dev)
+    if resume_onto is not None:
+        onto, onto_table = resume_onto
+        got = _measured_resume(
+            torch, dev, cfg, tc, onto,
+            ParamRules({**DEFAULT_RULES, **onto_table}), root, seed + 3,
+            toks)
+        got["state_equal"] = got.pop("prints") == out["saved_prints"]
+        out["resumed"] = got
     return out
 
 
@@ -7244,42 +7395,41 @@ def _state_rank(seed: int, layers: int, seq: int, device, root: str,
     if "consumers" in parts:
         out["consumers"] = _state_consumers(torch, seed, layers, seq,
                                             meshes, dev)
-    if "fsdp" in parts:
-        for key, cfg in (("", state_config(torch, layers, "v2", seq=seq)),
-                         ("_f32", state_config(torch, STATE_F32_LAYERS,
-                                               "f32", seq=STATE_F32_SEQ))):
+    for key, cfg in (("", state_config(torch, layers, "v2", seq=seq)),
+                     ("_f32", state_config(torch, STATE_F32_LAYERS, "f32",
+                                           seq=STATE_F32_SEQ))):
+        held = [] if "moved" in parts else None
+        if "fsdp" in parts or "moved" in parts:
             out[f"fsdp_default{key}"] = _state_fsdp(
-                torch, seed, cfg, meshes["dp2tp2"], dev, STATE_BATCH)
+                torch, seed, cfg, meshes["dp2tp2"], dev, STATE_BATCH,
+                trees=held)
+        if "fsdp" in parts:
             out[f"fsdp{key}"] = _state_fsdp(
                 torch, seed, cfg, meshes["dp2tp2"], dev, STATE_BATCH,
                 STATE_FSDP, os.path.join(root, f"fsdp{key}") if not key
-                else None)
+                else None, zero1_check=not key)
+        if "moved" in parts:
+            out[f"moved{key}"] = _state_fsdp(
+                torch, seed, cfg, meshes["dp2tp2"], dev, STATE_BATCH,
+                STATE_MOVED, None if key else os.path.join(root, "moved"),
+                resume_onto=None if key else (meshes["dp2tp2"], {}),
+                trees=held)
+            if held[0] is not None:
+                out[f"moved{key}"]["state_gaps"] = _state_gaps(torch, *held)
+            del held
     return out
 
 
 def _one_card_resume(torch, cfg, dev, root: str, batch: int, seed: int,
-                     zero1: bool = True):
-    """14a's (and 14d's) resume onto the card alone: (step, restore s,
-    the restored state's fingerprints, the resumed step's loss)."""
-    from k8s_gpu_tpu_torch.models import TransformerLM
-    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
-    from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
+                     zero1: bool = True) -> dict:
+    """14a's (and 14d's) resume onto the card alone (``_measured_resume``
+    without a mesh, the next step on the batch of ``seed``)."""
+    from k8s_gpu_tpu_torch.train import TrainConfig
 
-    tr = Trainer(TransformerLM(cfg, device=dev),
-                 TrainConfig(warmup_steps=1, zero1=zero1,
-                             ema_decay=STATE_EMA), device=dev)
-    tr.init(seed + 2)
-    _syncer(torch, dev)()
-    t0 = time.perf_counter()
-    step = attach_to_trainer(tr, root)[2]()
-    _syncer(torch, dev)()
-    restore_s = time.perf_counter() - t0
-    prints = _state_prints(torch, tr)
-    toks = _par_tokens(torch, seed, cfg, batch)
-    loss = tr.step(toks[:, :-1], toks[:, 1:])
-    del tr
-    _free_if(torch, dev)
-    return step, restore_s, prints, loss
+    return _measured_resume(
+        torch, dev, cfg, TrainConfig(warmup_steps=1, zero1=zero1,
+                                     ema_decay=STATE_EMA),
+        None, None, root, seed + 2, _par_tokens(torch, seed, cfg, batch))
 
 
 def run_state_path(torch, seed: int, layers: int, seq: int = STATE_SEQ,
@@ -7315,44 +7465,10 @@ def run_state_path(torch, seed: int, layers: int, seq: int = STATE_SEQ,
                 ("checkpoint_f32", state_config(
                     torch, STATE_F32_LAYERS, "f32", seq=STATE_F32_SEQ),
                  (STATE_F32_TOL, STATE_F32_TOL), "f32")):
-            runs = [r[key] for r in ranks]
-            step, one_s, prints, one_loss = _one_card_resume(
-                torch, cfg, dev, os.path.join(STATE_DIR, sub), STATE_BATCH,
-                seed)
-            first = runs[0]
-            want = first["losses"][-1]
-            held = {
-                "losses": first["losses"], "bytes": first["bytes"],
-                "save_s": max(r["save_s"] for r in runs),
-                "restore_s_pp2tp2": max(r["restore_s"] for r in runs),
-                "restore_s_one_card": one_s,
-                "resumed_loss_pp2tp2": first["resumed_loss"],
-                "resumed_loss_one_card": one_loss,
-                "gap_pp2tp2": abs(first["resumed_loss"] - want),
-                "gap_one_card": abs(one_loss - want),
-                "tol_pp2tp2": tols[0], "tol_one_card": tols[1],
-                "rest_bytes": first["rest_bytes"]}
-            held["save_gb_per_s"] = first["bytes"] / held["save_s"] / 1e9
-            held["restore_gb_per_s_pp2tp2"] = (
-                first["bytes"] / held["restore_s_pp2tp2"] / 1e9)
-            held["restore_gb_per_s_one_card"] = first["bytes"] / one_s / 1e9
-            if len({tuple(r["losses"]) for r in runs}) != 1 or len(
-                    {r["resumed_loss"] for r in runs}) != 1:
-                failures.append(f"14a {sub}: ranks disagree")
-            if not all(r["state_equal"] and r["step"] == STATE_STEPS
-                       for r in runs) or step != STATE_STEPS \
-                    or prints != first["saved_prints"]:
-                failures.append(f"14a {sub}: the resumed state differs "
-                                "from the saved one")
-            if not all(math.isfinite(v) for v in first["losses"]):
-                failures.append(f"14a {sub}: losses {first['losses']}")
-            for where in ("pp2tp2", "one_card"):
-                if not held[f"gap_{where}"] <= held[f"tol_{where}"]:
-                    failures.append(
-                        f"14a {sub} {where}: resumed loss "
-                        f"{held[f'resumed_loss_{where}']} vs {want}")
-            out[key] = held
-            print(json.dumps({f"state_{key}": held}), flush=True)
+            out[key] = _hold_checkpoint(
+                torch, seed, cfg, dev, [r[key] for r in ranks], tols,
+                os.path.join(STATE_DIR, sub), f"14a {sub}", failures)
+            print(json.dumps({f"state_{key}": out[key]}), flush=True)
     if "save_attn" in parts:
         out["save_attn"] = {}
         for name, (mesh, kind, batch) in SAVE_ATTN_RUNS.items():
@@ -7423,9 +7539,94 @@ def run_state_path(torch, seed: int, layers: int, seq: int = STATE_SEQ,
         out["fsdp"] = _hold_fsdp(torch, seed, layers, seq, dev, ranks,
                                  out.get("checkpoint"), failures)
         print(json.dumps({"state_fsdp": out["fsdp"]}), flush=True)
+    if "moved" in parts:
+        out["moved"] = _hold_moved(
+            torch, state_config(torch, layers, "v2", seq=seq), dev, ranks,
+            failures)
+        print(json.dumps({"state_moved": out["moved"]}), flush=True)
     shutil.rmtree(STATE_DIR, ignore_errors=True)
     out["failures"] = failures
     return out
+
+
+def _saves(runs) -> dict:
+    """What a shard-wise save's ranks measured (``_measured_save``): each
+    rank's bytes written and device peak over the save, the step's
+    bytes, the slowest rank's seconds, and the elements stored against
+    the whole trees'."""
+    first = runs[0]
+    return {"bytes_written_by_rank": [r["bytes_written"] for r in runs],
+            "bytes": first["bytes"], "files": first["files"],
+            "save_s": max(r["save_s"] for r in runs),
+            "save_gb_per_s": first["bytes"] / max(r["save_s"]
+                                                  for r in runs) / 1e9,
+            "save_peak_over_gb_by_rank": [r["save_peak_over_gb"]
+                                          for r in runs],
+            "stored_elements": first["stored_elements"],
+            "whole_elements": first["whole_elements"]}
+
+
+def _check_save(held: dict, what: str, failures: list) -> None:
+    """A shard-wise save holds each block once (its blocks' elements are
+    the whole trees'), the ranks' files add up to the step's bytes but
+    the manifest, and no rank's device peak rose over the save by more
+    than SAVE_PEAK_SLACK_GB."""
+    if held["stored_elements"] != held["whole_elements"]:
+        failures.append(f"{what}: the save stored {held['stored_elements']} "
+                        f"elements of {held['whole_elements']}")
+    if sum(held["bytes_written_by_rank"]) > held["bytes"]:
+        failures.append(f"{what}: ranks wrote "
+                        f"{held['bytes_written_by_rank']}, the step holds "
+                        f"{held['bytes']}")
+    peaks = [p for p in held["save_peak_over_gb_by_rank"] if p is not None]
+    if peaks and max(peaks) > SAVE_PEAK_SLACK_GB:
+        failures.append(f"{what}: device peak rose {peaks} GB over the save")
+
+
+def _hold_checkpoint(torch, seed: int, cfg, dev, runs, tols, root: str,
+                     what: str, failures: list) -> dict:
+    """14a's checks over the ranks' runs; the checkpoint also resumes onto
+    the card alone here."""
+    first = runs[0]
+    want = first["losses"][-1]
+    one = _one_card_resume(torch, cfg, dev, root, STATE_BATCH, seed)
+    held = {"losses": first["losses"], **_saves(runs),
+            "rest_bytes": first["rest_bytes"],
+            "restore_s_one_card": one["restore_s"],
+            "resumed_loss_one_card": one["loss"],
+            "gap_one_card": abs(one["loss"] - want),
+            "tol_one_card": tols[1]}
+    held["restore_gb_per_s_one_card"] = (first["bytes"] / one["restore_s"]
+                                         / 1e9)
+    _check_save(held, what, failures)
+    if len({tuple(r["losses"]) for r in runs}) != 1:
+        failures.append(f"{what}: ranks disagree")
+    if not all(math.isfinite(v) for v in first["losses"]):
+        failures.append(f"{what}: losses {first['losses']}")
+    if one["step"] != STATE_STEPS or one["prints"] != first["saved_prints"]:
+        failures.append(f"{what} one_card: the resumed state differs from "
+                        "the saved one")
+    if not held["gap_one_card"] <= tols[1]:
+        failures.append(f"{what} one_card: resumed loss {one['loss']} vs "
+                        f"{want}")
+    for where in STATE_RESUMES:
+        got = [r["resumes"][where] for r in runs]
+        tol = tols[0] if where == "pp2tp2" else tols[1]
+        loss = got[0]["loss"]
+        held.update({f"restore_s_{where}": max(g["restore_s"] for g in got),
+                     f"resumed_loss_{where}": loss,
+                     f"gap_{where}": abs(loss - want), f"tol_{where}": tol})
+        held[f"restore_gb_per_s_{where}"] = (
+            first["bytes"] / held[f"restore_s_{where}"] / 1e9)
+        if len({g["loss"] for g in got}) != 1:
+            failures.append(f"{what} {where}: ranks disagree")
+        if not all(g["state_equal"] and g["step"] == STATE_STEPS
+                   for g in got):
+            failures.append(f"{what} {where}: the resumed state differs "
+                            "from the saved one")
+        if not abs(loss - want) <= tol:
+            failures.append(f"{what} {where}: resumed loss {loss} vs {want}")
+    return held
 
 
 def _hold_fsdp(torch, seed: int, layers: int, seq: int, dev, ranks,
@@ -7492,19 +7693,115 @@ def _hold_fsdp(torch, seed: int, layers: int, seq: int, dev, ranks,
         if not all(m and "duplicate entries for `dp`" in m
                    for m in refusals):
             failures.append(f"14d: fsdp with ZeRO-1 not refused: {refusals}")
-        step, restore_s, prints, loss = _one_card_resume(
-            torch, cfg, dev, os.path.join(STATE_DIR, "fsdp"), STATE_BATCH,
-            seed, zero1=False)
+        held["save"] = _saves([r["save"] for r in runs])
+        _check_save(held["save"], "14d", failures)
+        one = _one_card_resume(torch, cfg, dev,
+                               os.path.join(STATE_DIR, "fsdp"), STATE_BATCH,
+                               seed, zero1=False)
         want = runs[0]["losses"][-1]
-        held.update(restore_s_one_card=restore_s, next_loss=want,
+        loss = one["loss"]
+        held.update(restore_s_one_card=one["restore_s"], next_loss=want,
                     resumed_loss_one_card=loss,
                     gap_one_card=abs(loss - want),
                     tol_one_card=STATE_LAYOUT_TOL)
-        if step != STATE_STEPS or prints != runs[0]["saved_prints"]:
+        if one["step"] != STATE_STEPS \
+                or one["prints"] != runs[0]["saved_prints"]:
             failures.append("14d: the state restored onto the card alone "
                             "differs from the saved one")
         if not abs(loss - want) <= STATE_LAYOUT_TOL:
             failures.append(f"14d: resumed loss {loss} vs {want}")
+    return held
+
+
+def _table_rest_bytes(leaves: dict, sizes: dict, kinds: int) -> int:
+    """The bytes a rank holds at rest of ``kinds`` float32 copies of each
+    leaf (parameters, moments, EMA) when its spec cuts each dimension
+    into the product of its mesh axes' sizes: counted from the whole
+    shapes and the specs alone."""
+    total = 0
+    for leaf in leaves.values():
+        n = math.prod(leaf["shape"])
+        for entry in leaf["spec"]:
+            names = entry if isinstance(entry, list) else [entry]
+            n //= math.prod(sizes.get(a, 1) for a in names if a)
+        total += n
+    return 4 * kinds * total
+
+
+def _hold_moved(torch, cfg, dev, ranks, failures: list) -> dict:
+    """14e's checks: the table that moves the MLP off tp against the
+    default table on the same mesh."""
+    from k8s_gpu_tpu_torch.ops import attention as fa
+
+    cuda = dev.type == "cuda"
+    want_launches, want_pre = save_attn_launches(fa, cfg, "v2")
+    sizes = STATE_MESHES["dp2tp2"]
+    held = {}
+    for key, tol in STATE_MOVED_TOL.items():
+        runs = [r[f"moved{key}"] for r in ranks]
+        base = [r[f"fsdp_default{key}"] for r in ranks]
+        gaps = [abs(a - b) for a, b in zip(runs[0]["losses"],
+                                           base[0]["losses"])]
+        held.update({f"losses{key}": runs[0]["losses"],
+                     f"default_losses{key}": base[0]["losses"],
+                     f"loss_gaps{key}": gaps, f"tol{key}": tol,
+                     f"moved{key}": runs[0]["moved"]})
+        if len({tuple(r["losses"]) for r in runs}) != 1:
+            failures.append(f"14e{key}: ranks disagree")
+        # The state after the counted step, gathered whole (rank 0's).
+        state_gaps = runs[0]["state_gaps"]
+        held[f"state_gaps{key}"] = state_gaps
+        held["state_tol"] = STATE_MOVED_STATE_TOL
+        if not all(g["rel_err"] <= STATE_MOVED_STATE_TOL
+                   for g in state_gaps.values()):
+            failures.append(f"14e{key}: parameters, moments or EMA "
+                            f"{state_gaps} from the default table's")
+        if not all(math.isfinite(v) for v in runs[0]["losses"]) \
+                or not max(gaps) <= tol:
+            failures.append(f"14e{key}: losses {runs[0]['losses']} vs the "
+                            f"default table's {base[0]['losses']}")
+        rest = [r["rest_bytes"] for r in runs]
+        want_rest = _table_rest_bytes(runs[0]["leaves"], sizes, 4)
+        held[f"rest_bytes_by_rank{key}"] = rest
+        held[f"table_rest_bytes{key}"] = want_rest
+        held[f"default_rest_bytes_by_rank{key}"] = [b["rest_bytes"]
+                                                    for b in base]
+        if rest != [want_rest] * len(rest) or not runs[0]["moved"]:
+            failures.append(f"14e{key}: bytes at rest {rest}, the table "
+                            f"says {want_rest}; moved {runs[0]['moved']}")
+        if key:
+            continue
+        held["step_s"] = max(r["step_s"] for r in runs)
+        held["default_step_s"] = max(b["step_s"] for b in base)
+        held["peak_memory_gb_by_rank"] = [r["peak_memory_gb"] for r in runs]
+        held["launches_by_rank"] = [{k: v for k, v in r["launches"].items()
+                                     if v} for r in runs]
+        for i, (r, b) in enumerate(zip(runs, base)):
+            if cuda and (r["launches"] != want_launches
+                         or r["launches"] != b["launches"]
+                         or r["prepass_launches"] != want_pre
+                         or r["plain_calls"]):
+                failures.append(
+                    f"14e: rank {i} launched {r['launches']}, "
+                    f"{r['prepass_launches']} pre-passes, "
+                    f"{r['plain_calls']} plain (default table "
+                    f"{b['launches']}); expected {want_launches}, "
+                    f"{want_pre}, 0")
+        held["save"] = _saves([r["save"] for r in runs])
+        _check_save(held["save"], "14e", failures)
+        got = [r["resumed"] for r in runs]
+        want = runs[0]["losses"][-1]
+        held.update(restore_s_default=max(g["restore_s"] for g in got),
+                    resumed_loss_default=got[0]["loss"],
+                    gap_default=abs(got[0]["loss"] - want),
+                    tol_default=STATE_TOL)
+        if not all(g["state_equal"] and g["step"] == STATE_STEPS
+                   for g in got):
+            failures.append("14e: the state restored onto the default "
+                            "table differs from the saved one")
+        if len({g["loss"] for g in got}) != 1 \
+                or not abs(got[0]["loss"] - want) <= STATE_TOL:
+            failures.append(f"14e: resumed loss {got[0]['loss']} vs {want}")
     return held
 
 
@@ -7527,14 +7824,23 @@ def main(argv=None) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from k8s_gpu_tpu_torch.ops import _build
+    from k8s_gpu_tpu_torch.utils.compat import install_compile_telemetry
+    from k8s_gpu_tpu_torch.utils.metrics import global_metrics
 
     gpu = gpu_line()
     print(gpu, flush=True)
+    install_compile_telemetry()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         list(pool.map(_build.load, KERNEL_SOURCES))
     build_s = time.perf_counter() - t0
     print(f"built {', '.join(KERNEL_SOURCES)} in {build_s:.1f} s", flush=True)
+    hist = global_metrics.histogram("xla_compile_seconds")
+    compiles = {"xla_compiles_total":
+                global_metrics.counter("xla_compiles_total"),
+                "xla_compile_seconds": hist.total if hist else 0.0,
+                "build_s": build_s}
+    print(json.dumps({"compile_telemetry": compiles}), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kern = check_paged_attention(torch, args.seed)
@@ -7625,6 +7931,13 @@ def main(argv=None) -> int:
     _free(torch)
     state = run_state_path(torch, args.seed, STATE_LAYERS)
     print(json.dumps({"state_path": state, "gpu": gpu}), flush=True)
+    hist = global_metrics.histogram("xla_compile_seconds")
+    compiles.update(
+        xla_compiles_total_at_end=global_metrics.counter(
+            "xla_compiles_total"),
+        xla_compile_seconds_at_end=hist.total if hist else 0.0,
+        burst_compiles=main_path["burst_compiles"])
+    print(json.dumps({"compile_telemetry": compiles}), flush=True)
     if state["failures"]:
         raise RuntimeError("phase 14: " + "; ".join(state["failures"]))
 
@@ -7790,10 +8103,11 @@ def main(argv=None) -> int:
                    for policy in ("full", "save_attn")
                    for n in [sum(r.get(name, 0) for r in
                                  held[policy]["launches_by_rank"])] if n},
-                # Phase 14d: the four ranks' counted fsdp step.
-                **{"launches_state_fsdp": n for n in [sum(
-                    r.get(name, 0)
-                    for r in state["fsdp"]["launches_by_rank"])] if n},
+                # Phase 14d: the four ranks' counted fsdp step; 14e: their
+                # counted step under the moved table.
+                **{f"launches_state_{key}": n for key in ("fsdp", "moved")
+                   for n in [sum(r.get(name, 0) for r in
+                                 state[key]["launches_by_rank"])] if n},
                 "max_abs_err": max(r["kernels"][name]["max_abs_err"]
                                    for r in rows),
                 **{key: timed["kernels"][name][key]
@@ -7810,7 +8124,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as fh:
-            json.dump({"gpu": gpu, "build_s": build_s, "kernel_cases": kern,
+            json.dump({"gpu": gpu, "build_s": build_s,
+                       "compile_telemetry": compiles, "kernel_cases": kern,
                        "flash_cases": flash, "flash_v2_cases": flash_v2,
                        "main_path": main_path, "dense_path": dense,
                        "unshared_paged_path": unshared,

@@ -5,7 +5,9 @@ Every ``csrc/*.cu`` file is one kernel library with a plain C interface
 a library for ``sm_90a`` at first use into ``build/torch_kernels/`` at
 the root of the checkout, under a name that carries a hash of its
 source and of the ``csrc`` headers it includes, so an edited source or
-header never loads a stale build.
+header never loads a stale build.  Each build that runs (not a library
+already built) is reported to the build listeners with its seconds:
+``utils/compat.py install_compile_telemetry`` counts them.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine that has no ``nvcc``.
@@ -20,6 +22,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -31,6 +34,12 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_listeners: list = []
+
+
+def add_build_listener(fn) -> None:
+    """Call ``fn(name, seconds)`` after every library ``nvcc`` builds."""
+    _listeners.append(fn)
 
 
 def _nvcc() -> str:
@@ -65,6 +74,7 @@ def _build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(
         f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
@@ -74,6 +84,9 @@ def _build(name: str) -> Path:
             f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, lib)
+    seconds = time.perf_counter() - t0
+    for fn in list(_listeners):
+        fn(name, seconds)
     return lib
 
 

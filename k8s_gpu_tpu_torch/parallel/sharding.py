@@ -12,14 +12,17 @@ as the reference's ``NamedSharding`` places it.  ``gather_params`` is
 its inverse: the whole tree on every rank.
 
 A rule table may also cut parameters over the data axes dp and sp
-(fsdp: the reference turns it on by mapping "embed" to "dp").  An entry
-that names several axes, such as ``("dp", "sp")`` or ``("tp", "dp")``,
-cuts its dimension into their product's parts, major to minor: rank
-(d, s) keeps part d·sp + s of ``("dp", "sp")``, as the reference's
-``NamedSharding`` places it.  The port trains the tables that move only
-the data axes (``check_rules``): once a leaf's data cuts are joined, it
-is in the default rules' layout, which the model's tp, ep and pp code
-assumes.
+(fsdp: the reference turns it on by mapping "embed" to "dp"), or move a
+weight axis (``"mlp": None`` leaves the MLP whole on every tp rank).  An
+entry that names several axes, such as ``("dp", "sp")`` or ``("tp",
+"dp")``, cuts its dimension into their product's parts, major to minor:
+rank (d, s) keeps part d·sp + s of ``("dp", "sp")``, as the reference's
+``NamedSharding`` places it.  Every such table rests as it says; the
+model computes in the default rules' layout of the weight axes
+(``compute_spec``), and the ``Trainer`` re-cuts the leaves whose layouts
+differ once a step.  ``block_ranges`` names the indices of the whole
+leaf a rank's block holds, which a shard-wise checkpoint writes and
+reads.
 
 An int8 leaf ``{"q", "s"}`` (``serve.quant.quantize_params``) is cut as
 two: ``q`` like the float leaf, ``s`` only along the dimensions it keeps
@@ -122,34 +125,21 @@ def cut_axes(spec: tuple, mesh) -> list[tuple[int, str]]:
     return cuts
 
 
+def compute_spec(logical_axes: tuple) -> tuple:
+    """The spec a leaf of ``logical_axes`` is computed in, whatever the
+    table it rests under: the default rules' weight axes (pp, ep, tp),
+    the data axes struck out."""
+    return tuple(None if e in DATA_AXES else e
+                 for e in (DEFAULT_RULES.get(ax) for ax in logical_axes))
+
+
 def check_rules(rules: ParamRules, mesh, logical_tree) -> None:
-    """Refuse a rule table the port does not train on ``mesh``: one that
-    moves a weight axis (a logical axis of ``logical_tree`` whose mesh
-    axes above size 1 differ from the default's once dp and sp are
-    struck out), or that names a data axis before a weight axis in one
-    entry (the rank's part of a dimension would then not lie inside its
-    default block).  The reference runs such tables; the port's tp, ep
-    and pp code assumes the default layout."""
-    used: set = set()
-    _map(lambda axes: used.update(axes), logical_tree)
-    for ax in sorted((a for a in used if a is not None), key=str):
-        got = tuple(n for n in entry_axes(rules.rules.get(ax))
-                    if axis_size(mesh, n) > 1)
-        want = tuple(n for n in entry_axes(DEFAULT_RULES.get(ax))
-                     if axis_size(mesh, n) > 1 and n not in DATA_AXES)
-        weights = tuple(n for n in got if n not in DATA_AXES)
-        if weights != want:
-            raise NotImplementedError(
-                f"rules map {ax!r} to {rules.rules.get(ax)!r} where the "
-                f"default maps it to {DEFAULT_RULES.get(ax)!r}: a table "
-                f"that moves a weight axis is not ported; the port's "
-                f"tables differ from the default only in the data axes "
-                f"{', '.join(DATA_AXES)}")
-        if got != weights + tuple(n for n in got if n in DATA_AXES):
-            raise NotImplementedError(
-                f"rules map {ax!r} to {rules.rules.get(ax)!r}: a data "
-                f"axis before the weight axis {weights[0]!r} in one entry "
-                f"is not ported; name the data axes after it")
+    """Raise where the reference's ``NamedSharding`` of a leaf under
+    ``rules`` raises: a spec that names an axis the mesh lacks, or one
+    mesh axis twice.  Any other table trains (``mesh`` None: one device,
+    no layout)."""
+    if mesh is not None:
+        _map(lambda axes: cut_axes(rules.spec(axes), mesh), logical_tree)
 
 
 def _interleaved(L: int, pp: int, v: int) -> int:
@@ -160,40 +150,114 @@ def _interleaved(L: int, pp: int, v: int) -> int:
     return L // (pp * v)
 
 
+def cut_leaf(t, spec: tuple, mesh, virtual_stages: int = 1,
+             scale: bool = False):
+    """This rank's block of the whole leaf ``t`` under ``spec``: each
+    dimension a mesh axis above size 1 cuts is cut into that axis's
+    equal parts, major to minor, and this rank keeps its own (views of
+    ``t``, but for the interleaved stages cut).  ``scale``: an int8
+    leaf's scale, whole along its dimensions of size 1."""
+    v = virtual_stages
+    for dim, name in cut_axes(spec, mesh):
+        if scale and t.shape[dim] == 1:
+            continue
+        n, r = axis_size(mesh, name), axis_rank(mesh, name)
+        if name == "pp" and v > 1:
+            lc = _interleaved(t.shape[0], n, v)
+            t = t.reshape(v, n, lc, *t.shape[1:])[:, r].reshape(
+                v * lc, *t.shape[1:])
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(
+                f"dim {dim} of {tuple(t.shape)} does not divide "
+                f"over {name}={n}")
+        t = t.chunk(n, dim)[r]
+    return t
+
+
+def join_leaf(t, spec: tuple, mesh, virtual_stages: int = 1, q=None):
+    """The inverse of ``cut_leaf``: the ranks' blocks all-gathered over
+    each axis that cuts them, minor cuts first, into the whole leaf on
+    every rank (detached).  ``q``: the int8 values whose scale ``t``
+    is."""
+    t = t.detach()
+    v = virtual_stages
+    for dim, name in reversed(cut_axes(spec, mesh)):
+        if q is not None and t.shape[dim] == 1 and q.shape[dim] > 1:
+            continue          # a contraction axis of the scale
+        parts = all_gather(t, mesh.get_group(name))
+        if q is not None and t.shape[dim] == 1 and all(
+                torch.equal(p, parts[0]) for p in parts[1:]):
+            continue          # the one rank-independent case left
+        if name == "pp" and v > 1:
+            # [P][v Lc, ...] -> [v, P, Lc, ...] -> [L, ...]
+            rest = t.shape[1:]
+            t = torch.stack([p.reshape(v, -1, *rest) for p in parts],
+                            1).reshape(-1, *rest)
+        else:
+            t = torch.cat(parts, dim)
+    return t
+
+
+def _take(ranges: list, lo: int, hi: int) -> list:
+    """Positions [lo, hi) of the index sequence ``ranges`` spells (its
+    [start, stop) runs in order), as runs, adjacent ones merged."""
+    out, pos = [], 0
+    for a, b in ranges:
+        s, e = max(lo, pos), min(hi, pos + b - a)
+        if s < e:
+            first, last = a + s - pos, a + e - pos
+            if out and out[-1][1] == first:
+                out[-1] = (out[-1][0], last)
+            else:
+                out.append((first, last))
+        pos += b - a
+    return out
+
+
+def chunk_ranges(ranges: list, n: int, r: int) -> list:
+    """Part ``r`` of ``n`` equal parts of the index sequence ``ranges``
+    (what ``t.chunk(n, dim)[r]`` keeps of it)."""
+    size = sum(b - a for a, b in ranges) // n
+    return _take(ranges, r * size, (r + 1) * size)
+
+
+def block_ranges(shape, spec: tuple, mesh, virtual_stages: int = 1) -> list:
+    """Which indices of a whole leaf of ``shape`` this rank's block under
+    ``spec`` holds (``cut_leaf``'s): per dimension a list of [start,
+    stop) runs, in the block's order.  A dimension is one run but under
+    the interleaved stages cut, whose v chunks are v runs."""
+    ranges = [[(0, int(s))] for s in shape]
+    if mesh is None:
+        return ranges
+    v = virtual_stages
+    for dim, name in cut_axes(spec, mesh):
+        n, r = axis_size(mesh, name), axis_rank(mesh, name)
+        if name == "pp" and v > 1:
+            lc = _interleaved(sum(b - a for a, b in ranges[dim]), n, v)
+            ranges[dim] = [run for c in range(v) for run in _take(
+                ranges[dim], (c * n + r) * lc, (c * n + r + 1) * lc)]
+        else:
+            ranges[dim] = chunk_ranges(ranges[dim], n, r)
+    return ranges
+
+
 def shard_params(params, logical_tree, mesh, rules: ParamRules | None = None,
                  virtual_stages: int = 1):
-    """Each rank's local shard of ``params``: every dimension whose spec
-    names a mesh axis of size > 1 is cut into that axis's equal parts and
-    this rank keeps its own (views of ``params``, but for the interleaved
-    stages cut of ``virtual_stages`` > 1).  ``mesh`` None (one device)
-    returns ``params`` as they are."""
+    """Each rank's local shard of ``params`` (``cut_leaf`` of every leaf
+    under its spec).  ``mesh`` None (one device) returns ``params`` as
+    they are."""
     if mesh is None:
         return params
     rules = rules or ParamRules()
     v = virtual_stages
 
-    def cut_one(axes, t, scale: bool = False):
-        for dim, name in cut_axes(rules.spec(axes), mesh):
-            if scale and t.shape[dim] == 1:
-                continue
-            n, r = axis_size(mesh, name), axis_rank(mesh, name)
-            if name == "pp" and v > 1:
-                lc = _interleaved(t.shape[0], n, v)
-                t = t.reshape(v, n, lc, *t.shape[1:])[:, r].reshape(
-                    v * lc, *t.shape[1:])
-                continue
-            if t.shape[dim] % n:
-                raise ValueError(
-                    f"dim {dim} of {tuple(t.shape)} does not divide "
-                    f"over {name}={n}")
-            t = t.chunk(n, dim)[r]
-        return t
-
     def cut(axes, t):
+        spec = rules.spec(axes)
         if isinstance(t, dict):
-            return {"q": cut_one(axes, t["q"]),
-                    "s": cut_one(axes, t["s"], scale=True)}
-        return cut_one(axes, t)
+            return {"q": cut_leaf(t["q"], spec, mesh, v),
+                    "s": cut_leaf(t["s"], spec, mesh, v, scale=True)}
+        return cut_leaf(t, spec, mesh, v)
 
     return _map(cut, logical_tree, params)
 
@@ -208,29 +272,11 @@ def gather_params(params, logical_tree, mesh,
     rules = rules or ParamRules()
     v = virtual_stages
 
-    def join_one(axes, t, q=None):
-        t = t.detach()
-        # Minor cuts first: a dimension's parts rejoin block by block.
-        for dim, name in reversed(cut_axes(rules.spec(axes), mesh)):
-            if q is not None and t.shape[dim] == 1 and q.shape[dim] > 1:
-                continue          # a contraction axis of the scale
-            parts = all_gather(t, mesh.get_group(name))
-            if q is not None and t.shape[dim] == 1 and all(
-                    torch.equal(p, parts[0]) for p in parts[1:]):
-                continue          # the one rank-independent case left
-            if name == "pp" and v > 1:
-                # [P][v Lc, ...] -> [v, P, Lc, ...] -> [L, ...]
-                rest = t.shape[1:]
-                t = torch.stack([p.reshape(v, -1, *rest) for p in parts],
-                                1).reshape(-1, *rest)
-            else:
-                t = torch.cat(parts, dim)
-        return t
-
     def join(axes, t):
+        spec = rules.spec(axes)
         if isinstance(t, dict):
-            return {"q": join_one(axes, t["q"]),
-                    "s": join_one(axes, t["s"], t["q"])}
-        return join_one(axes, t)
+            return {"q": join_leaf(t["q"], spec, mesh, v),
+                    "s": join_leaf(t["s"], spec, mesh, v, t["q"])}
+        return join_leaf(t, spec, mesh, v)
 
     return _map(join, logical_tree, params)

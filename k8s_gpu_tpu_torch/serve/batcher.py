@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.compat import install_compile_telemetry
 from ..utils.metrics import MetricsRegistry, global_metrics
 from ..utils.profiler import PhaseProfiler
 from .allocator import AllocatorMixin
@@ -147,6 +148,10 @@ class ContinuousBatcher(SchedulerMixin, AllocatorMixin, ExecutorMixin):
         self.profiler = (profiler if profiler is not None
                          else PhaseProfiler(plane="serve",
                                             registry=self.metrics))
+        # A kernel library built mid-serving stalls every row:
+        # xla_compiles_total / xla_compile_seconds make it a live rate
+        # CompileStorm pages on.
+        install_compile_telemetry()
         self.device = resolve_device(device)
         self.engine = InferenceEngine(
             model, max_seq=max_seq, kv_quant=kv_quant, attn_impl=attn_impl,

@@ -52,18 +52,30 @@ way the loss and the replicated leaves' gradients leave the schedule the
 same on every pp rank (summed over pp where one stage alone made them),
 and the batch group's mean follows as on any mesh.
 
-``Trainer(rules=...)`` lays the leaves out by a rule table of its own.
-Mapping a logical axis to dp or sp (fsdp: ``"embed": "dp"``, or a tuple
-``("dp", "sp")``) cuts those leaves over the data axes too, so a rank
-holds only its slice of them, of their moments and of their EMA between
-steps.  Once a step (before any accumulated microbatch, or the
-schedule) each such leaf is all-gathered into a temporary leaf whole
-over dp and sp, the step runs unchanged on those, and ``_reduce``
-reduce-scatters their gradients back to the rank's slice; AdamW updates
-the slices.  ZeRO-1 under fsdp raises at ``init``, as the reference's
-duplicate ``dp`` does; a table that moves a weight axis raises there
-too (``check_rules``).  Gathering a layer at a time, ahead of its use
-(ZeRO-3 proper), is not done: the whole tree is gathered at once.
+``Trainer(rules=...)`` lays the leaves out by a rule table of its own:
+a rank holds the block of each leaf, of its moments and of its EMA that
+the table gives it, between steps.  The model computes in the default
+rules' layout of the weight axes (``sharding.compute_spec``: tp, ep and
+pp), so once a step (before any accumulated microbatch, or the
+schedule) a leaf that rests otherwise is re-cut into a temporary leaf
+in that layout, the step runs unchanged on those, and ``_reduce``
+brings their gradients back to the rank's block; AdamW and the EMA
+update the blocks.  Two kinds of leaf differ:
+- cut over the data axes after its weight axes (fsdp: ``"embed":
+  "dp"``, a tuple ``("dp", "sp")``, ``("tp", "dp")``): all-gathered over
+  the data axes, its gradient reduce-scattered back to the rank's slice;
+- any other layout (a table that moves a weight axis, ``"mlp": None``,
+  or names a data axis before it, ``("dp", "tp")``): all-gathered whole
+  over the axes that cut it at rest, then cut to this rank's compute
+  block; its gradient, summed over the batch axes with the whole
+  leaves', is all-gathered whole over the compute layout's axes and cut
+  to the rank's block.  A leaf the table leaves whole over tp is then
+  updated alike on every tp rank: the same gradient, the same moments.
+ZeRO-1 cuts the blocks' moments as the reference's ``_zero1_sharding``
+does, and raises at ``init`` where a leaf is cut over dp already, as the
+reference's duplicate ``dp`` does.  Gathering a layer at a time, ahead
+of its use (ZeRO-3 proper), is not done: the whole tree is gathered at
+once.
 
 The state of a meshed trainer reads and loads whole, as the reference's
 global arrays do: ``opt_state`` gives AdamW's ``count`` and moments as
@@ -72,9 +84,10 @@ and pp shards as ``gather_params`` joins the parameters, interleaved
 stages back in layer order), and takes a whole tree, keeping this
 rank's shards and dp slice; ``gathered_ema`` and ``load_gathered_state``
 do the same for the EMA and the parameters.  Reading is a collective:
-every rank calls it, in the same order.  So a checkpoint
-(``train/checkpoint.py``) holds the one-device layout whatever the mesh
-that wrote it, and resumes onto any other.
+every rank calls it, in the same order.  A checkpoint reads the state
+where it rests instead (``shard_state``: each block with the indices of
+the whole leaf it holds), so it moves no tensor between ranks
+(``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -97,9 +110,10 @@ from ..parallel.mesh import (
     batch_group, build_mesh, mesh_shape,
 )
 from ..parallel.sharding import (
-    ParamRules, check_rules, cut_axes, entry_axes, gather_params,
-    shard_params,
+    ParamRules, block_ranges, check_rules, chunk_ranges, compute_spec,
+    cut_axes, cut_leaf, entry_axes, gather_params, join_leaf, shard_params,
 )
+from ..utils.compat import install_compile_telemetry
 from ..utils.faults import global_faults
 from ..utils.goodput import GoodputLedger
 from ..utils.metrics import global_metrics
@@ -428,11 +442,11 @@ class Trainer:
     the whole tree.
 
     ``rules``: the ``ParamRules`` that lay the leaves out (the default
-    table when None); a table may cut them over dp and sp too (fsdp,
-    ``check_rules``).  ``batch_specs``: one spec a batch array (tuples of
-    mesh axes, such as ``("dp",)``), or None to infer them; both stay
-    public attributes, as the reference's, and ``batch_specs`` may be set
-    after construction.
+    table when None): any table the reference's ``NamedSharding`` takes,
+    over the data axes too (fsdp) or moving a weight axis.
+    ``batch_specs``: one spec a batch array (tuples of mesh axes, such as
+    ``("dp",)``), or None to infer them; both stay public attributes, as
+    the reference's, and ``batch_specs`` may be set after construction.
 
     ``peak_flops``: the MFU denominator (None reads the card's kind; 0.0,
     as on the CPU, keeps ``train_mfu`` at 0).  ``profiler``: the phase
@@ -465,6 +479,7 @@ class Trainer:
         self.profiler = (profiler if profiler is not None
                          else PhaseProfiler(plane="train"))
         self.ledger = ledger
+        install_compile_telemetry()
         rank = (torch.distributed.get_rank()
                 if torch.distributed.is_available()
                 and torch.distributed.is_initialized() else 0)
@@ -476,10 +491,14 @@ class Trainer:
         self.optimizer = None
         self.ema = None
         self._step = None
-        # Each leaf's (dimension, mesh axis) cuts, and those over the
-        # data axes (fsdp's), set by ``init``.
+        # Set by ``init``, one entry a leaf in tree_leaves order: its
+        # whole shape; its (dimension, mesh axis) cuts at rest; those over
+        # the data axes of a leaf that rests as fsdp's; the (rest,
+        # compute) specs of one that rests in another layout, else None.
+        self.shapes: list = []
         self.leaf_cuts: list = []
         self.data_cuts: list = []
+        self.moved: list = []
 
     def _seg(self, name: str):
         """The ledger's segment, or nothing when no ledger rides."""
@@ -527,6 +546,7 @@ class Trainer:
             return t.detach().to(self.device, torch.float32)
 
         params = tree_map(master, params)
+        self.shapes = [tuple(t.shape) for t in tree_leaves(params)]
         specs = self._specs()
         if specs is not None and self.mesh is not None:
             check_rules(self.rules, self.mesh, self.model.logical_axes())
@@ -535,12 +555,8 @@ class Trainer:
                                   virtual_stages=self._virtual_stages())
         self.params = tree_map(
             lambda t: t.contiguous().clone().requires_grad_(True), params)
-        # Each leaf's cuts, (dimension, mesh axis) pairs in tree_leaves
-        # order, and the groups the global norm sums its squares over.
-        specs = specs or [()] * len(tree_leaves(self.params))
-        self.leaf_cuts = [cut_axes(sp, self.mesh) for sp in specs]
-        self.data_cuts = [[(d, a) for d, a in c if a in DATA_AXES]
-                          for c in self.leaf_cuts]
+        self._layouts(specs or [()] * len(self.shapes))
+        # The groups the global norm sums each leaf's squares over.
         cut = [axis_groups(self.mesh, *(a for _, a in c))
                for c in self.leaf_cuts]
         self.optimizer = AdamW(self.tc, tree_leaves(self.params),
@@ -548,6 +564,34 @@ class Trainer:
         self.ema = (tree_map(lambda p: p.detach().clone(), self.params)
                     if self.tc.ema_decay > 0 else None)
         self._step = None
+
+    def _layouts(self, specs: list) -> None:
+        """Each leaf's cuts at rest under ``specs`` and how the step
+        brings it to the compute layout: as it is, over its data axes
+        (``data_cuts``), or whole and cut again (``moved``)."""
+        axes = (tree_leaves(self.model.logical_axes())
+                if hasattr(self.model, "logical_axes") else [()] * len(specs))
+        self.leaf_cuts = [cut_axes(sp, self.mesh) for sp in specs]
+        self.data_cuts, self.moved = [], []
+        for spec, ax, cuts in zip(specs, axes, self.leaf_cuts):
+            data = [(d, a) for d, a in cuts if a in DATA_AXES]
+            weights = [c for c in cuts if c not in data]
+            compute = compute_spec(ax)
+            # fsdp's leaf: its weight cuts the compute layout's, each
+            # dimension's data axes minor to them.
+            if weights == cut_axes(compute, self.mesh) \
+                    and self._data_minor(cuts):
+                self.data_cuts.append(data)
+                self.moved.append(None)
+            else:
+                self.data_cuts.append([])
+                self.moved.append((spec, compute))
+
+    @staticmethod
+    def _data_minor(cuts: list) -> bool:
+        """Whether no weight axis follows a data axis on one dimension."""
+        return not any(d == d2 and a in DATA_AXES and b not in DATA_AXES
+                       for (d, a), (d2, b) in zip(cuts, cuts[1:]))
 
     def _specs(self) -> list | None:
         """Each leaf's spec under ``rules`` (the model's
@@ -657,6 +701,51 @@ class Trainer:
                         else tree_map(lambda p: p.detach().clone(),
                                       self.params))
 
+    def shard_state(self) -> dict:
+        """This rank's state where it rests, for a shard-wise checkpoint:
+        ``count`` (AdamW's), ``layout`` (the mesh's axis sizes, the rule
+        table and the virtual stages) and ``blocks[kind][path]`` for
+        kind params, mu, nu and, with an EMA, ema: ``(tensor, ranges,
+        whole shape)``, the tensor this rank holds (the trainer's own, so
+        a restore fills it in place) and ``block_ranges``' indices of
+        the whole leaf it holds; the moments' cut along ZeRO-1's axis
+        too.  Reads nothing from the other ranks."""
+        v = self._virtual_stages()
+        specs = self._specs() or [()] * len(self.shapes)
+        dp, me = axis_size(self.mesh, "dp"), axis_rank(self.mesh, "dp")
+        ema = tree_leaves(self.ema) if self.ema is not None else None
+        blocks = {k: {} for k in ("params", "mu", "nu")
+                  + (("ema",) if ema is not None else ())}
+        for i, (path, p, spec, shape) in enumerate(zip(
+                tree_paths(self.params), tree_leaves(self.params), specs,
+                self.shapes)):
+            ranges = block_ranges(shape, spec, self.mesh, v)
+            blocks["params"][path] = (p, ranges, shape)
+            if ema is not None:
+                blocks["ema"][path] = (ema[i], ranges, shape)
+            dim = self.optimizer.dims[i]
+            if dim is not None:
+                ranges = list(ranges)
+                ranges[dim] = chunk_ranges(ranges[dim], dp, me)
+            blocks["mu"][path] = (self.optimizer.mu[i], ranges, shape)
+            blocks["nu"][path] = (self.optimizer.nu[i], ranges, shape)
+        rules = [[k, list(e) if isinstance(e, (tuple, list)) else e]
+                 for k, e in self.rules.rules.items()]
+        return {"count": self.optimizer.count, "blocks": blocks,
+                "layout": {"mesh": mesh_shape(self.mesh), "rules": rules,
+                           "virtual_stages": v}}
+
+    @torch.no_grad()
+    def load_shard_state(self, count: int, ema: bool) -> None:
+        """After a restore has filled ``shard_state()``'s tensors in
+        place: AdamW's ``count``, and, when the checkpoint held no EMA
+        (``ema`` False), the shadow seeded from the restored
+        parameters."""
+        self.optimizer.count = int(count)
+        if self.ema is not None and not ema:
+            for e, p in zip(tree_leaves(self.ema), tree_leaves(self.params)):
+                e.copy_(p)
+
     def _check_batch_spec(self, spec: tuple, shape: tuple) -> bool:
         """Raise where the reference's ``device_put`` of an array of
         ``shape`` under ``spec`` raises (more entries than dimensions, a
@@ -730,7 +819,8 @@ class Trainer:
 
     def _make_step(self):
         reduce = self._reduce if self.mesh is not None else None
-        gather = self._whole_over_data if any(self.data_cuts) else None
+        gather = (self._to_compute if any(self.data_cuts) or any(self.moved)
+                  else None)
         if self._use_1f1b():
             if self.tc.grad_accum_steps > 1:
                 raise ValueError(
@@ -743,15 +833,23 @@ class Trainer:
                                accum=self.tc.grad_accum_steps, reduce=reduce,
                                gather=gather)
 
-    def _whole_over_data(self, params: dict) -> dict:
-        """The tree a fsdp step differentiates: each leaf cut over a data
-        axis all-gathered over it (minor cuts first) into a fresh leaf,
-        whole over dp and sp and still cut over pp, ep and tp as the
-        model expects; the other leaves as they are.  Made once a step
-        (accumulated microbatches share it) and dropped after it."""
+    def _to_compute(self, params: dict) -> dict:
+        """The tree a step differentiates, in the compute layout: each
+        fsdp leaf all-gathered over its data axes (minor cuts first) into
+        a fresh leaf, whole over dp and sp and still cut over pp, ep and
+        tp as the model expects; each moved leaf all-gathered whole and
+        cut to this rank's compute block; the other leaves as they are.
+        Made once a step (accumulated microbatches share it) and dropped
+        after it."""
         leaves = []
-        for p, cuts in zip(tree_leaves(params), self.data_cuts):
-            if cuts:
+        v = self._virtual_stages()
+        for p, cuts, moved in zip(tree_leaves(params), self.data_cuts,
+                                  self.moved):
+            if moved is not None:
+                rest, compute = moved
+                p = cut_leaf(join_leaf(p, rest, self.mesh, v), compute,
+                             self.mesh, v).clone().requires_grad_(True)
+            elif cuts:
                 for dim, axis in reversed(cuts):
                     p = torch.cat(all_gather(p, self.mesh.get_group(axis)),
                                   dim)
@@ -761,14 +859,28 @@ class Trainer:
 
     def _reduce(self, loss, grads):
         """The mean of the loss and the gradients over the batch group
+        (``_batch_mean``), then each moved leaf's gradient, of its
+        compute block, all-gathered whole over the compute layout's
+        axes and cut to this rank's block at rest."""
+        loss, grads = self._batch_mean(loss, grads)
+        if grads and any(self.moved):
+            v = self._virtual_stages()
+            grads = [g if m is None else cut_leaf(
+                join_leaf(g, m[1], self.mesh, v), m[0], self.mesh, v)
+                for g, m in zip(grads, self.moved)]
+        return loss, grads
+
+    def _batch_mean(self, loss, grads):
+        """The mean of the loss and the gradients over the batch group
         (dp x sp, the ranks whose tokens differ); the ranks of a tp, ep
         or pp group already hold the same loss and their own shards'
-        gradients.  The whole leaves' gradients and the loss go in one
-        all-reduce.  A fsdp leaf's gradient (of the leaf made whole over
-        its data axes) is reduce-scattered over those axes, major first,
-        to this rank's slice, then all-reduced over the batch axes that
-        leave it whole, one all-reduce for the leaves alike.  Empty
-        ``grads``: the loss alone."""
+        gradients.  The whole leaves' gradients (a moved leaf's, of its
+        compute block, among them) and the loss go in one all-reduce.  A
+        fsdp leaf's gradient (of the leaf made whole over its data axes)
+        is reduce-scattered over those axes, major first, to this rank's
+        slice, then all-reduced over the batch axes that leave it whole,
+        one all-reduce for the leaves alike.  Empty ``grads``: the loss
+        alone."""
         group = batch_group(self.mesh)
         if group is None:
             return loss, grads

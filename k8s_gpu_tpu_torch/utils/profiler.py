@@ -216,9 +216,9 @@ class PhaseProfiler:
 def profile_snapshot(profiler: PhaseProfiler | None = None,
                      registry: MetricsRegistry | None = None) -> dict:
     """The ``/debug/profile`` body, in the reference's shape: the
-    profiler's snapshot, the compile telemetry families (none in the
-    port: PyTorch compiles nothing, so they read 0) and the per-axis
-    collective gauges (none on one card)."""
+    profiler's snapshot, the compile telemetry families (the kernel
+    libraries ``nvcc`` built, ``utils.compat.install_compile_telemetry``)
+    and the per-axis collective gauges (none on one card)."""
     reg = registry if registry is not None else (
         profiler.registry if profiler is not None else global_metrics)
     snap = (profiler.snapshot() if profiler is not None else {

@@ -160,7 +160,7 @@ def test_telemetry_segments_and_failures(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="disk full"):
         save(2)
     assert reg.counter("train_checkpoint_failures_total", op="save") == 1.0
-    monkeypatch.setattr(ckpt, "_load", disk_full)
+    monkeypatch.setattr(ck, "_Reader", disk_full)
     with pytest.raises(RuntimeError, match="disk full"):
         resume()
     assert reg.counter("train_checkpoint_failures_total",

@@ -2,10 +2,13 @@
 process, against the JAX package: each mesh position's shard under such
 a table against the reference's ``devices_indices_map``, a tuple
 ``("dp", "sp")`` cut's round trip through ``gather_params`` (its
-all-gathers run by four threads standing in for the ranks), which tables
-the port refuses (``check_rules``) and which specs (``cut_axes``), the
-``Trainer``'s refusal of ZeRO-1 under fsdp, and its ``batch_specs``.
-``test_torch_mesh_state.py`` trains these tables across processes.
+all-gathers run by four threads standing in for the ranks), tables that
+move a weight axis (at rest as the reference places them, computed in
+the default layout), which tables and specs raise (``check_rules``,
+``cut_axes``) where the reference's ``NamedSharding`` raises, the
+indices ``block_ranges`` names, the ``Trainer``'s refusal of ZeRO-1
+under fsdp, and its ``batch_specs``.  ``test_torch_mesh_state.py``
+trains these tables across processes.
 """
 
 import itertools
@@ -28,7 +31,8 @@ from k8s_gpu_tpu_torch.parallel import mesh as mesh_mod
 from k8s_gpu_tpu_torch.parallel import sharding
 from k8s_gpu_tpu_torch.parallel.mesh import AXES
 from k8s_gpu_tpu_torch.parallel.sharding import (
-    DEFAULT_RULES, ParamRules, check_rules, cut_axes, shard_params,
+    DEFAULT_RULES, ParamRules, block_ranges, check_rules, compute_spec,
+    cut_axes, cut_leaf, shard_params,
 )
 from k8s_gpu_tpu_torch.train import LoraConfig, LoraModel, TrainConfig, Trainer
 from k8s_gpu_tpu_torch.train.runner import tree_leaves, tree_paths
@@ -164,40 +168,118 @@ def test_tuple_cut_round_trips_through_gather_params(monkeypatch):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("sizes,table,match", [
-    (dict(dp=2, tp=2), {"mlp": None},
-     "rules map 'mlp' to None where the default maps it to 'tp'"),
+MLP = {"blocks/wi_gate", "blocks/wi_up", "blocks/wo_mlp"}
+
+
+@pytest.mark.parametrize("sizes,table,moved", [
+    (dict(dp=2, tp=2), {"mlp": None}, MLP),
     (dict(dp=2, tp=2), {"heads": "dp"},
-     "rules map 'heads' to 'dp' where the default maps it to 'tp'"),
+     {"blocks/wq", "blocks/wk", "blocks/wv", "blocks/wo"}),
     (dict(dp=2, ep=2), {"experts": None},
-     "rules map 'experts' to None where the default maps it to 'ep'"),
-    (dict(dp=2, pp=2), {"embed": "pp"},
-     "rules map 'embed' to 'pp' where the default maps it to None"),
-    (dict(dp=2, tp=2), {"mlp": ("dp", "tp")},
-     "a data axis before the weight axis 'tp' in one entry"),
+     {"blocks/e_wi_gate", "blocks/e_wi_up", "blocks/e_wo"}),
+    (dict(dp=2, pp=2), {"embed": "pp"}, None),     # pp twice in a spec
+    (dict(dp=2, tp=2), {"mlp": ("dp", "tp")}, MLP),
 ])
-def test_tables_that_move_a_weight_axis_raise(sizes, table, match):
-    """A table the reference runs but the port does not: a weight axis
-    moved, or a data axis before the weight axis in one entry; the error
-    names the logical axis and what it moved."""
-    tm = TransformerLM(TransformerConfig(**DIMS, num_experts=4
-                                         if "ep" in sizes else 0),
+def test_tables_that_move_a_weight_axis_raise(sizes, table, moved):
+    """Tables the port once refused.  Where the reference's
+    ``NamedSharding`` takes every leaf's spec, the port takes the table
+    too: each mesh position rests on the block the reference places
+    there, the ``Trainer`` re-cuts exactly the leaves the table moves
+    (``moved``), and each such leaf's compute block is its shard under
+    the default rules.  Where a spec names a mesh axis twice
+    (``"embed": "pp"`` beside the stages), both raise."""
+    moe = "ep" in sizes
+    tm = TransformerLM(TransformerConfig(**DIMS, num_experts=4 if moe
+                                         else 0, dtype=torch.float32),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        check_rules(_rules(table), fake_mesh(**sizes), tm.logical_axes())
+    params = tm.init(0, dtype=torch.float32)
+    axes = tm.logical_axes()
+    jmesh = _jax_mesh(**sizes)
+    jrules = JaxRules({**JAX_DEFAULT_RULES, **table})
+    if moved is None:
+        with pytest.raises(Exception, match="duplicate entries for `pp`"):
+            for whole, ax in zip(tree_leaves(params), tree_leaves(axes)):
+                NamedSharding(jmesh, jrules.spec(ax)).devices_indices_map(
+                    tuple(whole.shape))
+        with pytest.raises(ValueError, match="duplicate entries for `pp`"):
+            check_rules(_rules(table), fake_mesh(**sizes), axes)
+        return
+    names = [a for a in AXES if a in sizes]
+    for pos in itertools.product(*(range(sizes[a]) for a in names)):
+        coords = dict(zip(names, pos))
+        mesh = fake_mesh(coords, **sizes)
+        check_rules(_rules(table), mesh, axes)
+        local = shard_params(params, axes, mesh, _rules(table))
+        default = shard_params(params, axes, mesh)
+        device = jmesh.devices[tuple(coords.get(a, 0) for a in AXES)]
+        for got, whole, ax, want in zip(tree_leaves(local),
+                                        tree_leaves(params),
+                                        tree_leaves(axes),
+                                        tree_leaves(default)):
+            index = NamedSharding(jmesh, jrules.spec(ax)).devices_indices_map(
+                tuple(whole.shape))[device]
+            assert torch.equal(got, whole[index])
+            assert torch.equal(cut_leaf(whole, compute_spec(ax), mesh), want)
+        tr = Trainer(tm, TrainConfig(warmup_steps=1), device="cpu",
+                     mesh=mesh, rules=_rules(table))
+        tr.init(params=params)
+        got = {p for p, m in zip(tree_paths(tr.params), tr.moved)
+               if m is not None}
+        assert got == moved and not any(tr.data_cuts)
+
+
+def _indexed(whole, ranges):
+    """The block of ``whole`` that ``ranges`` (runs per dimension) name."""
+    index = [torch.cat([torch.arange(a, b) for a, b in runs])
+             for runs in ranges]
+    return whole[np.ix_(*index)]
+
+
+@pytest.mark.parametrize("sizes,knobs,table,v", [
+    (dict(dp=2, tp=2), dict(n_kv_heads=2), {}, 1),
+    (dict(dp=2, sp=2), {}, {"embed": ("sp", "dp")}, 1),
+    (dict(dp=2, tp=2), {}, {"mlp": ("dp", "tp"), "vocab": None}, 1),
+    (dict(dp=2, tp=2), {}, {"mlp": ("tp", "dp")}, 1),
+    (dict(pp=2, tp=2), dict(n_layers=4), {}, 2),
+    (dict(pp=2, dp=2), dict(n_layers=8), {"embed": "dp"}, 2),
+])
+def test_block_ranges_name_the_shard(sizes, knobs, table, v):
+    """At every mesh position each leaf's ``block_ranges`` index the
+    whole leaf into exactly the block ``shard_params`` keeps, the
+    interleaved stages cut (v chunks of layers, so v runs) included."""
+    tm = TransformerLM(TransformerConfig(**dict(DIMS, **knobs)),
+                       device="cpu")
+    params = tm.init(0, dtype=torch.float32)
+    axes, rules = tm.logical_axes(), _rules(table)
+    names = [a for a in AXES if a in sizes]
+    for pos in itertools.product(*(range(sizes[a]) for a in names)):
+        mesh = fake_mesh(dict(zip(names, pos)), **sizes)
+        local = shard_params(params, axes, mesh, rules, virtual_stages=v)
+        for got, whole, ax in zip(tree_leaves(local), tree_leaves(params),
+                                  tree_leaves(axes)):
+            ranges = block_ranges(whole.shape, rules.spec(ax), mesh, v)
+            assert torch.equal(_indexed(whole, ranges), got)
+            if v > 1 and ax[0] == "stages":
+                assert len(ranges[0]) == v
 
 
 @pytest.mark.parametrize("sizes,table", [
     (dict(dp=4), {"mlp": None}),        # tp is 1: nothing moves
     (dict(dp=2, tp=2), {"embed": "dp"}),
-    (dict(dp=2, sp=2), {"embed": ("sp", "dp"), "kv": "sp"}),
+    (dict(dp=2, sp=2), {"embed": "dp", "kv": "sp"}),
     (dict(dp=2, tp=2), {"mlp": ("tp", "dp")}),
     (None, {"mlp": None, "heads": "dp"}),  # one device: no layout
 ])
 def test_tables_that_move_only_data_axes_pass(sizes, table):
+    """Tables that cut only over the data axes, or move nothing on this
+    mesh: ``check_rules`` takes them and the ``Trainer`` re-cuts no leaf
+    whole (fsdp's gathers over the data axes alone, as before)."""
     tm = TransformerLM(TransformerConfig(**DIMS), device="cpu")
     mesh = fake_mesh(**sizes) if sizes else None
     check_rules(_rules(table), mesh, tm.logical_axes())
+    tr = _trainer(mesh, _rules(table))
+    tr.init(0)
+    assert not any(tr.moved)
 
 
 @pytest.mark.parametrize("spec,match", [
@@ -208,6 +290,23 @@ def test_tables_that_move_only_data_axes_pass(sizes, table):
 def test_cut_axes_refuses_what_named_sharding_refuses(spec, match):
     with pytest.raises(ValueError, match=match):
         cut_axes(spec, fake_mesh(dp=2, tp=2))
+
+
+def test_check_rules_raises_where_named_sharding_raises():
+    """``"embed": ("sp", "dp")`` beside ``"kv": "sp"`` names sp twice in
+    the attention leaves' specs: the reference's ``NamedSharding``
+    raises, and so does ``check_rules``, naming the spec."""
+    table = {"embed": ("sp", "dp"), "kv": "sp"}
+    tm = TransformerLM(TransformerConfig(**DIMS), device="cpu")
+    jrules = JaxRules({**JAX_DEFAULT_RULES, **table})
+    jmesh = _jax_mesh(dp=2, sp=2)
+    with pytest.raises(Exception, match="duplicate entries for `sp`"):
+        NamedSharding(jmesh, jrules.spec(
+            tm.logical_axes()["blocks"]["wk"])).devices_indices_map(
+                (2, 32, 4, 8))
+    with pytest.raises(ValueError, match=r"spec \('pp', \('sp', 'dp'\), "
+                       r"'tp', 'sp'\) has duplicate entries for `sp`"):
+        check_rules(_rules(table), fake_mesh(dp=2, sp=2), tm.logical_axes())
 
 
 def test_cut_axes_lists_a_tuple_major_first():

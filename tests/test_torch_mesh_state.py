@@ -13,22 +13,30 @@ interleaved 1F1B over pp 2 x tp 2, interleaved 1F1B over pp 4), held
 within 1e-5 against the JAX ``save_attn`` Trainer and against the port's
 own full-remat run; the gathered optimizer state too, on every case,
 the CNN's and LoRA's included.
-The dp 2 x tp 2 run's checkpoint resumes onto pp 2 x tp 2 and onto one
-device, and 2 more steps equal the JAX Trainer's uninterrupted 5; a
-one-device checkpoint resumes onto dp 2 x tp 2.
+The dp 2 x tp 2 run's checkpoint is written shard-wise (each block
+once, by the lowest rank that holds it; its files assemble into the
+whole trees bit for bit) and resumes onto pp 2 x tp 2, onto dp 4 under
+the fsdp table and onto one device, and 2 more steps equal the JAX
+Trainer's uninterrupted 5; a one-device checkpoint resumes onto dp 2 x
+tp 2.  No save or resume calls a collective that moves a tensor, and a
+save that fails on one rank leaves ``latest_step`` where it was.
 
 Rule tables that cut parameters over the data axes (fsdp, ``"embed"``
 on dp or on ``("dp", "sp")``) train against the JAX ``Trainer`` given
 the same rules: dp 2 x tp 2 with an EMA, dp 4, the ring over dp 2 x sp
 2 under ``save_attn``, 1F1B over dp 2 x pp 2, MoE over dp 2 x ep 2 and
 LoRA over dp 2 x pp 2; each rank holds only its slices between steps;
-the fsdp checkpoint resumes under the default rules.  ``batch_specs``
+the fsdp checkpoint resumes onto the same targets.  ``batch_specs``
 (set after construction, and replicated) give the reference's losses.
-fsdp with ZeRO-1 raises in both packages; a table that moves a weight
-axis raises in the port, while the reference trains it.
+Tables that move a weight axis (``"mlp": None`` with ZeRO-1 and an EMA,
+``"experts": None``, ``"vocab": None``) or name a data axis before it
+(``("dp", "tp")``) train against the JAX ``Trainer`` too, and the last
+one's checkpoint resumes under the default rules.  ZeRO-1 over a leaf
+the rules cut over dp raises in both packages.
 """
 
 import functools
+import json
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -51,7 +59,9 @@ from k8s_gpu_tpu.train import TrainConfig as JaxTrainConfig
 from k8s_gpu_tpu.train import Trainer as JaxTrainer
 from k8s_gpu_tpu.train.lora import LoraConfig as JaxLoraConfig
 from k8s_gpu_tpu.train.lora import LoraModel as JaxLoraModel
+from k8s_gpu_tpu_torch.convert import params_to_numpy
 from k8s_gpu_tpu_torch.parallel.multihost import spawn_local_cluster
+from k8s_gpu_tpu_torch.train.checkpoint import CheckpointManager
 
 TOL = 1e-5
 WORKERS = 4
@@ -186,6 +196,30 @@ def _fsdp_reference(inp, cnn, lora_model) -> dict:
     return ref
 
 
+def _moved_reference(inp) -> dict:
+    """The JAX side of the moved-table cases, in a thread of its own:
+    each JAX Trainer given the case's rules and the port's starting
+    parameters; the checkpoint case's 2 more steps."""
+    ref = {}
+    for name, mesh_name, knobs, train, table, _ in W.MOVED_CASES:
+        jtr = JaxTrainer(_jax_model(knobs, True), mesh=_jax_mesh(mesh_name),
+                         train_config=JaxTrainConfig(**W.TRAIN, **train),
+                         rules=_jax_rules(table))
+        jtr.init(jax.random.PRNGKey(0))
+        _started(jtr, inp["params"][name])
+        toks = inp["tokens"][name]
+        ref[name] = {"losses": _jax_steps(jtr, toks[:W.STEPS]),
+                     "params": _numpy(jtr.params), **_adam(jtr.opt_state),
+                     "ema": _numpy(jtr.ema)}
+        if name == W.MOVED_CKPT_CASE:
+            more = _jax_steps(jtr, toks[W.STEPS:])
+            ref["moved_resumed"] = {"losses": more,
+                                    "params": _numpy(jtr.params),
+                                    **_adam(jtr.opt_state),
+                                    "ema": _numpy(jtr.ema)}
+    return ref
+
+
 def _refusal(mesh_name, knobs, toks):
     try:
         jtr = JaxTrainer(_jax_model(knobs, True), mesh=_jax_mesh(mesh_name),
@@ -200,8 +234,9 @@ def _refusal(mesh_name, knobs, toks):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(every rank's results, the JAX package's results): the cluster
-    runs in a thread, and the JAX side of the fsdp cases in another,
-    while JAX trains the other cases here."""
+    runs in a thread, and the JAX side of the fsdp cases and of the
+    moved-table cases in two others, while JAX trains the other cases
+    here."""
     jax_trainers, params = {}, {}
     for name, mesh_name, knobs, train in W.CASES:
         jtr = JaxTrainer(_jax_model(knobs, name in PP_CASES),
@@ -222,7 +257,7 @@ def runs(tmp_path_factory):
                           base, JaxLoraConfig(**W.LORA))
         lora_models[name] = lm
         params[name] = (_numpy(base), _adapters(lm))
-    for name, _, knobs, *_ in W.FSDP_CASES:
+    for name, _, knobs, *_ in W.FSDP_CASES + W.MOVED_CASES:
         params[name] = _numpy(_jax_model(knobs, True).init(
             jax.random.PRNGKey(0)))
     name, mesh_name, knobs = W.LORA_FSDP_CASE
@@ -237,7 +272,7 @@ def runs(tmp_path_factory):
             _jax_model(model, True).init(jax.random.PRNGKey(0))))
     inp = W.make_inputs(0, params, str(tmp_path_factory.mktemp("ckpt")))
     tests_dir = os.path.dirname(os.path.abspath(__file__))
-    with pytest.MonkeyPatch.context() as mp, ThreadPoolExecutor(2) as pool:
+    with pytest.MonkeyPatch.context() as mp, ThreadPoolExecutor(3) as pool:
         mp.setenv("PYTHONPATH", os.pathsep.join(
             [tests_dir, os.environ.get("PYTHONPATH", "")]))
         ranks = pool.submit(spawn_local_cluster,
@@ -245,6 +280,7 @@ def runs(tmp_path_factory):
                             timeout=600.0, device="cpu")
         fsdp = pool.submit(_fsdp_reference, inp, cnn,
                            lora_models[W.LORA_FSDP_CASE[0]])
+        moved = pool.submit(_moved_reference, inp)
         ref = {}
         for name, *_ in W.CASES:
             jtr = jax_trainers[name]
@@ -284,6 +320,7 @@ def runs(tmp_path_factory):
         ref["refusals"] = {name: _refusal(mesh_name, knobs, toks)
                            for name, mesh_name, knobs in W.REFUSALS}
         ref.update(fsdp.result())
+        ref.update(moved.result())
         return ranks.result(), ref, inp
 
 
@@ -411,21 +448,129 @@ def test_meshed_ema_matches_reference(runs):
             "ema"], ref[W.CKPT_CASE]["ema"])
 
 
+def _indices(runs) -> np.ndarray:
+    """The indices [start, stop) runs spell, in order."""
+    return np.concatenate([np.arange(a, b) for a, b in runs])
+
+
 def test_meshed_checkpoint_keeps_the_one_device_layout(runs):
-    """The dp 2 x tp 2 checkpoint holds the one-device files, keyed by
-    path, at the whole tree's shapes, written once."""
-    _, ref, inp = runs
+    """(Named for the layout it had.)  The dp 2 x tp 2 checkpoint is
+    written shard-wise: rank files and a manifest of the mesh, the
+    count and each leaf's whole shape, with no temporary directory
+    left.  Every element of every leaf of the parameters, both moments
+    and the EMA lies in exactly one block of one file, so the files hold
+    one copy of the state; assembled on one device they are the ranks'
+    gathered trees bit for bit."""
+    ranks, _, inp = runs
     root = os.path.join(inp["ckpt_dir"], str(W.STEPS))
-    assert sorted(os.listdir(root)) == ["ema.pt", "opt_state.pt",
-                                        "params.pt"]
     assert not [p for p in os.listdir(inp["ckpt_dir"])
                 if p.startswith(".tmp")]
-    flat = torch.load(os.path.join(root, "params.pt"), weights_only=True)
-    want = ref[W.CKPT_CASE]["params"]
-    assert flat["blocks/wq"].shape == want["blocks"]["wq"].shape
-    assert flat["embed"].shape == want["embed"].shape
-    opt = torch.load(os.path.join(root, "opt_state.pt"), weights_only=True)
-    assert opt["count"] == W.STEPS and set(opt["mu"]) == set(flat)
+    with open(os.path.join(root, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    assert manifest["count"] == W.STEPS
+    assert {a: n for a, n in manifest["mesh"].items() if n > 1} == \
+        W.MESHES[W.CKPT_CASE]
+    assert sorted(os.listdir(root)) == sorted(["manifest.json",
+                                               *manifest["files"]])
+    assert set(manifest["leaves"]) == {"params", "mu", "nu", "ema"}
+    stored = 0
+    for name, blocks in manifest["files"].items():
+        flat = torch.load(os.path.join(root, name), weights_only=True)
+        assert set(flat) == set(blocks)
+        for key, held in blocks.items():
+            assert tuple(flat[key].shape) == tuple(
+                sum(b - a for a, b in r) for r in held)
+            stored += flat[key].numel()
+    whole = 0
+    for kind, leaves in manifest["leaves"].items():
+        for path, meta in leaves.items():
+            seen = np.zeros(meta["shape"], dtype=np.int64)
+            for blocks in manifest["files"].values():
+                held = blocks.get(f"{kind}/{path}")
+                if held is not None:
+                    seen[np.ix_(*(_indices(r) for r in held))] += 1
+            assert (seen == 1).all(), f"{kind}/{path}"
+            whole += seen.size
+    assert stored == whole
+    _assert_assembles(inp["ckpt_dir"],
+                      ranks[0]["cases"][(W.CKPT_CASE, "save_attn")])
+
+
+def _assert_assembles(directory, want):
+    """Step STEPS under ``directory``, assembled on one device
+    (``CheckpointManager.restore``), is a run's gathered parameters,
+    moments and EMA bit for bit."""
+    like = jax.tree.map(lambda a: torch.empty(a.shape), want["params"])
+    ema_like = like if want["state"]["ema"] is not None else None
+    out = CheckpointManager(directory).restore(
+        like, {"mu": like, "nu": like}, step=W.STEPS, ema_like=ema_like)
+    params, opt, step = out[0], out[1], out[-1]
+    assert step == W.STEPS and opt["count"] == W.STEPS
+    pairs = [(params, want["params"]), (opt["mu"], want["state"]["mu"]),
+             (opt["nu"], want["state"]["nu"])]
+    if ema_like is not None:
+        pairs.append((out[2], want["state"]["ema"]))
+    for got, expect in pairs:
+        got = params_to_numpy(got)
+        assert jax.tree.structure(got) == jax.tree.structure(expect)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(expect)):
+            assert np.array_equal(g, w)
+
+
+def test_interleaved_checkpoint_holds_runs_of_layers(runs):
+    """The interleaved 1F1B run (pp 2 x tp 2, 2 virtual stages a rank)
+    saves shard-wise: a pp rank's block of a stacked leaf is two runs of
+    layers (virtual stages d and 2 + d), and the files assemble into the
+    ranks' gathered trees bit for bit."""
+    ranks, _, inp = runs
+    directory = os.path.join(inp["ckpt_dir"], "interleaved")
+    with open(os.path.join(directory, str(W.STEPS), "manifest.json")) as fh:
+        manifest = json.load(fh)
+    assert manifest["virtual_stages"] == 2
+    layers = next(c for c in W.CASES
+                  if c[0] == W.INTERLEAVED_CKPT_CASE)[2]["n_layers"]
+    lc = layers // 4
+    runs_of = sorted(tuple(map(tuple, blocks["params/blocks/wq"][0]))
+                     for blocks in manifest["files"].values()
+                     if "params/blocks/wq" in blocks)
+    assert runs_of == [((0, lc), (2 * lc, 3 * lc))] * 2 + [
+        ((lc, 2 * lc), (3 * lc, 4 * lc))] * 2
+    _assert_assembles(directory,
+                      ranks[0]["cases"][(W.INTERLEAVED_CKPT_CASE,
+                                         "save_attn")])
+
+
+def test_save_and_restore_move_no_tensor_bytes(runs):
+    """No save or resume of a meshed checkpoint (dp 2 x tp 2 with ZeRO-1
+    and an EMA, the moved table's) calls a collective of
+    torch.distributed that moves a tensor: only small objects cross
+    between ranks.  The counting sees a gather of the same trainer's
+    parameters, so it would see one in a save."""
+    ranks, _, _ = runs
+    for r in ranks:
+        run = r["cases"][(W.CKPT_CASE, "save_attn")]
+        assert run["save_calls"] == {}
+        assert sum(run["gather_calls"].values()) > 0
+        assert r["moved"]["save_calls"] == {}
+        assert r["moved"]["resumed"]["calls"] == {}
+        for where, got in r["resumes"].items():
+            assert got["calls"] == {}, where
+
+
+def test_failed_rank_leaves_latest_step(runs):
+    """A save whose write raises on rank 1 raises on every rank (rank 1
+    its own error, the others naming rank 1), commits nothing and leaves
+    no temporary directory: ``latest_step`` stays the last good step."""
+    ranks, _, inp = runs
+    for r in ranks:
+        got = r["cases"][(W.CKPT_CASE, "save_attn")]["failed_save"]
+        want = ("OSError: disk full on rank 1" if r["rank"] == 1
+                else "RuntimeError: checkpoint failed on rank 1")
+        assert got["raised"] is not None and got["raised"].startswith(want)
+        assert got["latest"] == W.STEPS
+        assert W.FAILED_STEP not in got["steps"]
+    assert not os.path.exists(os.path.join(inp["ckpt_dir"],
+                                           f".tmp-{W.FAILED_STEP}"))
 
 
 @pytest.mark.parametrize("where", W.RESUMES)
@@ -457,6 +602,20 @@ def test_restore_onto_sharded_mesh(runs):
     for r in ranks:
         assert r["one_to_mesh"]["step"] == 5
         assert abs(r["one_to_mesh"]["got_loss"] - want) < TOL
+
+
+def test_one_device_checkpoint_resumes_shard_wise_onto_mesh(runs):
+    """The one-device files resumed through a meshed ``attach_to_trainer``
+    (each rank reads only its runs of them, no tensor collective): the
+    next step's loss is the one-device trainer's and the whole-tree
+    restore's, on every rank."""
+    ranks, _, _ = runs
+    want = ranks[0]["one_to_mesh"]["want_loss"]
+    for r in ranks:
+        got = r["one_to_mesh"]
+        assert got["attach_step"] == 5 and got["attach_calls"] == {}
+        assert got["attach_loss"] == got["got_loss"]
+        assert abs(got["attach_loss"] - want) < TOL
 
 
 @pytest.mark.parametrize("mesh_name", W.CNN_MESHES)
@@ -658,13 +817,116 @@ def test_fsdp_with_zero1_raises_in_both_packages(runs):
 
 
 def test_table_moving_a_weight_axis_raises_in_the_port_only(runs):
-    """``"mlp": None`` on dp 2 x tp 2 leaves the MLP whole over tp: the
-    reference trains it (finite losses), the port's ``init`` refuses it
-    naming the axis, on every rank (ROADMAP queue 1 item 11, step 8)."""
+    """(Named when the port refused the table.)  ``"mlp": None`` on dp 2
+    x tp 2 leaves the MLP whole on every tp rank; with ZeRO-1 and an EMA
+    it trains in both packages alike: every rank's losses, gathered
+    parameters, moments and EMA within 1e-5 of the JAX Trainer's."""
     ranks, ref, _ = runs
-    losses = ref["fsdp_refusals"]["mlp_whole"]
-    assert isinstance(losses, list) and np.isfinite(losses).all()
+    want = ref["mlp_whole"]
+    assert np.isfinite(want["losses"]).all()
     for r in ranks:
-        kind, msg = r["fsdp_refusals"]["mlp_whole"]
-        assert kind == "NotImplementedError"
-        assert "rules map 'mlp' to None" in msg
+        got = r["moved"]["mlp_whole"]
+        np.testing.assert_allclose(got["losses"], want["losses"], atol=TOL)
+        _assert_tree_close(got["params"], want["params"])
+        _assert_moments_close(got, want)
+        _assert_tree_close(got["ema"], want["ema"])
+
+
+# The leaves each MOVED_CASES table re-cuts once a step.
+MOVED_LEAVES = {
+    "mlp_whole": {"blocks/wi_gate", "blocks/wi_up", "blocks/wo_mlp"},
+    "moved_mlp_dp_tp": {"blocks/wi_gate", "blocks/wi_up", "blocks/wo_mlp"},
+    "moved_experts_whole": {"blocks/e_wi_gate", "blocks/e_wi_up",
+                            "blocks/e_wo"},
+    "moved_vocab_whole": {"embed", "head"},
+}
+
+
+@pytest.mark.parametrize("case", W.MOVED_CASES, ids=lambda c: c[0])
+def test_moved_table_matches_reference(runs, case):
+    """A table that moves a weight axis, or names dp before tp: every
+    rank's losses, gathered parameters, optimizer state and EMA after 3
+    steps within 1e-5 of the JAX Trainer given the same rules, and the
+    port re-cuts exactly the leaves whose layout differs."""
+    ranks, ref, _ = runs
+    name, _, _, train, _, _ = case
+    want = ref[name]
+    for r in ranks:
+        got = r["moved"][name]
+        np.testing.assert_allclose(got["losses"], want["losses"], atol=TOL)
+        _assert_tree_close(got["params"], want["params"])
+        _assert_moments_close(got, want)
+        if train.get("ema_decay"):
+            _assert_tree_close(got["ema"], want["ema"])
+        assert set(got["moved"]) == MOVED_LEAVES[name]
+
+
+@pytest.mark.parametrize("case", W.MOVED_CASES, ids=lambda c: c[0])
+def test_moved_table_ranks_hold_their_blocks(runs, case):
+    """Between steps each rank holds the block of every leaf the table
+    gives it (parameters, moments, EMA): the reference's shapes, the MLP
+    whole over tp under ``"mlp": None``."""
+    ranks, ref, _ = runs
+    name, mesh_name, knobs, train, table, _ = case
+    sizes = W.MESHES[mesh_name]
+    axes = _jax_model(knobs).logical_axes()
+    want = _local_shapes(ref[name]["params"], axes, table, sizes)
+    for r in ranks:
+        shapes = r["moved"][name]["shapes"]
+        assert shapes["params"] == want
+        if not train.get("zero1"):
+            assert shapes["mu"] == shapes["nu"] == want
+        if "ema" in shapes:
+            assert shapes["ema"] == want
+    if name == "mlp_whole":
+        assert want["blocks/wi_up"][2] == W.DIMS["d_ff"]
+
+
+def test_moved_table_replicas_stay_equal(runs):
+    """Under ``"mlp": None`` the MLP rests whole on every rank: its
+    parameters and EMA are equal on all four after 3 steps, and ZeRO-1's
+    moment slices on the ranks of one dp coordinate."""
+    ranks, _, _ = runs
+    held = [r["moved"]["mlp_whole"] for r in ranks]
+    for kind in ("params", "ema", "mu", "nu"):
+        for path in W.MLP_LEAVES:
+            for h in held[1:]:
+                if kind in ("mu", "nu") and \
+                        h["coords"]["dp"] != held[0]["coords"]["dp"]:
+                    continue
+                assert np.array_equal(h["held"][kind][path],
+                                      held[0]["held"][kind][path]), (
+                    kind, path)
+
+
+def test_moved_checkpoint_resumes_under_default_rules(runs):
+    """The ``("dp", "tp")`` table's checkpoint after step 3, resumed on dp
+    2 x tp 2 under the default rules over a fresh init: 2 more steps give
+    the JAX Trainer's uninterrupted steps 4 and 5 under the moved table:
+    losses, parameters, moments, count and EMA."""
+    ranks, ref, _ = runs
+    want = ref["moved_resumed"]
+    for r in ranks:
+        got = r["moved"]["resumed"]
+        assert got["step"] == W.STEPS
+        np.testing.assert_allclose(got["losses"], want["losses"], atol=TOL)
+        _assert_tree_close(got["params"], want["params"])
+        assert got["count"] == want["count"] == W.STEPS + W.RESUMED_STEPS
+        for key in ("mu", "nu", "ema"):
+            _assert_tree_close(got[key], want[key])
+
+
+def test_moved_table_with_zero1_raises_in_both_packages(runs):
+    """ZeRO-1 under ``"mlp": ("dp", "tp")``: the reference's ``init``
+    raises ``DuplicateSpecError`` for the first MLP leaf, and the port's
+    a ValueError naming it and the same spec, on every rank."""
+    ranks, ref, _ = runs
+    kind, msg = ref["fsdp_refusals"]["moved_zero1"]
+    assert kind == "DuplicateSpecError"
+    spec = msg[msg.index("PartitionSpec("):msg.index(" has duplicate")]
+    for r in ranks:
+        got = r["fsdp_refusals"]["moved_zero1"]
+        assert got is not None and got[0] == "ValueError"
+        assert "zero1 on blocks/wi_gate" in got[1]
+        assert spec.replace("PartitionSpec", "") in got[1].replace(
+            "PartitionSpec", "")

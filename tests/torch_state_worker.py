@@ -17,9 +17,16 @@ Then the rule tables that cut parameters over the data axes (fsdp):
 each ``FSDP_CASES`` case trains 3 steps under one remat policy and
 returns, beside what a transformer case returns, the local shapes of
 its parameters, moments and EMA; the ``fsdp_dp2tp2`` checkpoint resumes
-onto default-rules pp 2 x tp 2 and one device; the LoRA model trains
-under the fsdp table; ``BATCH_SPEC_CASES`` train with ``batch_specs``;
-``FSDP_REFUSALS`` record what ``init`` raises, or the losses.
+onto each of ``RESUMES``; the LoRA model trains under the fsdp table;
+``BATCH_SPEC_CASES`` train with ``batch_specs``; ``FSDP_REFUSALS``
+record what ``init`` raises.  ``MOVED_CASES`` train tables that move a
+weight axis the same way, and the ``moved_mlp_dp_tp`` checkpoint
+resumes under the default rules.
+
+The checkpoints are shard-wise: each save and resume runs under a count
+of the tensor collectives (``_counted``), the ``dp2tp2`` one's files
+are read back in the test process, and a save that fails on one rank
+must leave ``latest_step`` where it was.
 """
 
 from __future__ import annotations
@@ -54,9 +61,14 @@ POLICIES = ("save_attn", "full")
 # The cases whose gathered optimizer state is held after 3 steps: all
 # (the moments hold the gradients, which AdamW's update barely shows).
 OPT_STATE_CASES = tuple(name for name, *_ in CASES)
-# Where the dp2tp2 checkpoint resumes ("one": one device, no mesh).
-RESUMES = ("pp2tp2", "one")
+# Where the dp2tp2 and fsdp_dp2tp2 checkpoints resume: (mesh, rules over
+# the defaults); "one": one device, no mesh.
+RESUME_TARGETS = {"pp2tp2": ("pp2tp2", {}), "fsdp_dp4": ("dp4", {"embed": "dp"}),
+                  "one": (None, {})}
+RESUMES = tuple(RESUME_TARGETS)
 CKPT_CASE = "dp2tp2"
+# Saved shard-wise too: a pp rank's layers are v runs of the stack.
+INTERLEAVED_CKPT_CASE = "interleaved_pp2tp2"
 CNN = dict(c1=4, c2=8, d_hidden=16, in_hw=8)
 CNN_MESHES = ("dp2tp2", "dp2ep2", "dp2pp2", "dp2sp2")
 LORA = dict(rank=4)
@@ -91,12 +103,32 @@ BATCH_SPEC_CASES = (
     ("cnn_dp4_specs", "dp4", "cnn", {}, (("dp",), ("dp",))),
     ("replicated_dp4", "dp4", {}, FSDP, ((), ())),
 )
-# (name, mesh, train knobs, rules): fsdp with ZeRO-1 raises in both
-# packages; a table that moves a weight axis raises in the port only.
+# (name, mesh, train knobs, rules): ZeRO-1 over a leaf the rules cut
+# over dp already raises in both packages, under fsdp and under a table
+# that names dp before tp.
 FSDP_REFUSALS = (
     ("fsdp_zero1", "dp2tp2", dict(zero1=True), FSDP),
-    ("mlp_whole", "dp2tp2", {}, {"mlp": None}),
+    ("moved_zero1", "dp2tp2", dict(zero1=True), {"mlp": ("dp", "tp")}),
 )
+# Tables that move a weight axis, or name a data axis before it: (name,
+# mesh, model knobs, train knobs, rules, remat policy).  mlp_whole keeps
+# the MLP whole on every tp rank (with ZeRO-1 and an EMA, which update it
+# alike on each); the moved_mlp_dp_tp checkpoint resumes under the
+# default rules.
+MOVED_CASES = (
+    ("mlp_whole", "dp2tp2", {}, dict(zero1=True, ema_decay=0.9),
+     {"mlp": None}, "full"),
+    ("moved_mlp_dp_tp", "dp2tp2", GQA, dict(ema_decay=0.9),
+     {"mlp": ("dp", "tp")}, "full"),
+    ("moved_experts_whole", "dp2ep2", MOE, {}, {"experts": None}, "full"),
+    ("moved_vocab_whole", "dp2tp2", {}, {}, {"vocab": None}, "save_attn"),
+)
+MOVED_CKPT_CASE = "moved_mlp_dp_tp"
+# The leaves mlp_whole leaves whole over tp, which every rank then holds
+# alike.
+MLP_LEAVES = ("blocks/wi_gate", "blocks/wi_up", "blocks/wo_mlp")
+# The step a save that fails on rank 1 tries to write.
+FAILED_STEP = 99
 TRAIN = dict(warmup_steps=1, learning_rate=1e-3)
 GLOBAL_BATCH, STEPS, RESUMED_STEPS = 4, 3, 2
 
@@ -112,7 +144,8 @@ def make_inputs(seed: int, params: dict, ckpt_dir: str) -> dict:
                                (steps, GLOBAL_BATCH, DIMS["max_seq"] + 1)
                                ).astype(np.int32)
             for name, *_ in (CASES + LORA_CASES + FSDP_CASES
-                             + (LORA_FSDP_CASE,) + BATCH_SPEC_CASES)}
+                             + (LORA_FSDP_CASE,) + BATCH_SPEC_CASES
+                             + MOVED_CASES)}
     hw = CNN["in_hw"]
     images = rng.normal(size=(STEPS, GLOBAL_BATCH, hw, hw, 1)).astype(
         np.float32)
@@ -146,7 +179,67 @@ def _steps(tr, toks) -> list:
     return [tr.step(t[:, :-1], t[:, 1:]) for t in toks]
 
 
+# The collectives of torch.distributed that move a tensor's bytes, which
+# parallel/collectives.py calls (the object collectives a checkpoint
+# exchanges its small records through call torch's own, not these).
+TENSOR_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+                      "reduce_scatter_tensor", "all_to_all_single",
+                      "broadcast", "batch_isend_irecv")
+
+
+def _counted(fn):
+    """(fn(), the calls of each tensor collective it made)."""
+    import torch.distributed as dist
+
+    calls = {}
+    real = {name: getattr(dist, name) for name in TENSOR_COLLECTIVES}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return real[name](*args, **kwargs)
+        return call
+
+    try:
+        for name in TENSOR_COLLECTIVES:
+            setattr(dist, name, counting(name))
+        out = fn()
+    finally:
+        for name, f in real.items():
+            setattr(dist, name, f)
+    return out, calls
+
+
+def _failed_save(tr, root) -> dict:
+    """A save whose write raises on rank 1: what every rank raises, and
+    the steps every rank then sees."""
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.train import checkpoint as ck
+
+    real = ck._write
+
+    def dies(obj, path):
+        if dist.get_rank() == 1:
+            raise OSError("disk full on rank 1")
+        real(obj, path)
+
+    ckpt, save, _ = ck.attach_to_trainer(tr, root)
+    ck._write = dies
+    try:
+        save(FAILED_STEP)
+        raised = None
+    except Exception as e:
+        raised = f"{type(e).__name__}: {e}"
+    finally:
+        ck._write = real
+    return {"raised": raised, "latest": ckpt.latest_step(),
+            "steps": ckpt.all_steps()}
+
+
 def _transformer_cases(inp, meshes) -> dict:
+    import os
+
     from k8s_gpu_tpu_torch.convert import params_to_numpy
     from k8s_gpu_tpu_torch.ops import attention as fa
     from k8s_gpu_tpu_torch.parallel.mesh import axis_rank
@@ -175,8 +268,15 @@ def _transformer_cases(inp, meshes) -> dict:
             if policy == "save_attn" and (name in OPT_STATE_CASES
                                           or name == CKPT_CASE):
                 run["state"] = _state(tr)
+            if policy == "save_attn" and name == INTERLEAVED_CKPT_CASE:
+                attach_to_trainer(tr, os.path.join(
+                    inp["ckpt_dir"], "interleaved"))[1](STEPS)
             if policy == "save_attn" and name == CKPT_CASE:
-                attach_to_trainer(tr, inp["ckpt_dir"])[1](STEPS)
+                save = attach_to_trainer(tr, inp["ckpt_dir"])[1]
+                run["save_calls"] = _counted(lambda: save(STEPS))[1]
+                # The counting's positive control: a gather moves bytes.
+                run["gather_calls"] = _counted(tr.gathered_params)[1]
+                run["failed_save"] = _failed_save(tr, inp["ckpt_dir"])
             out[(name, policy)] = run
     return out
 
@@ -184,40 +284,57 @@ def _transformer_cases(inp, meshes) -> dict:
 def _resumes(inp, meshes) -> dict:
     """The CKPT_CASE checkpoint resumed onto each of RESUMES from a fresh
     init of other parameters, then RESUMED_STEPS more steps."""
-    import torch.distributed as dist
-
     from k8s_gpu_tpu_torch.convert import params_to_numpy
-    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
     from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
 
     _, _, knobs, train = next(c for c in CASES if c[0] == CKPT_CASE)
     toks = inp["tokens"][CKPT_CASE][STEPS:]
     out = {}
     for where in RESUMES:
-        if where == "one" and dist.get_rank() != 0:
+        tr = _resume_target(where, knobs, train, meshes, seed=7)
+        if tr is None:
             continue
-        tr = Trainer(_model(knobs), TrainConfig(**TRAIN, **train),
-                     device="cpu", mesh=meshes.get(where))
-        tr.init(seed=7)
-        step = attach_to_trainer(tr, inp["ckpt_dir"])[2]()
+        resume = attach_to_trainer(tr, inp["ckpt_dir"])[2]
+        step, calls = _counted(resume)
         losses = _steps(tr, toks)
-        out[where] = {"step": step, "losses": losses,
+        out[where] = {"step": step, "losses": losses, "calls": calls,
                       "params": params_to_numpy(tr.gathered_params()),
                       **_state(tr)}
     return out
+
+
+def _resume_target(where, knobs, train, meshes, seed):
+    """A fresh trainer of RESUME_TARGETS[where] (None on the ranks but 0
+    for one device); ZeRO-1 off under fsdp, which refuses it."""
+    import torch.distributed as dist
+
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+
+    mesh_name, table = RESUME_TARGETS[where]
+    if mesh_name is None and dist.get_rank() != 0:
+        return None
+    train = dict(train, zero1=False) if table else train
+    tr = Trainer(_model(knobs), TrainConfig(**TRAIN, **train), device="cpu",
+                 mesh=meshes.get(mesh_name), rules=_rules(table))
+    tr.init(seed=seed)
+    return tr
 
 
 def _one_device_to_mesh(inp, mesh) -> dict:
     """The counterpart of the reference's ``test_restore_onto_sharded_
     mesh``: rank 0 trains one step on one device and saves it; every rank
     restores it onto dp 2 x tp 2 (over a fresh init of other parameters)
-    and takes the next step, which rank 0 also takes on one device."""
+    and takes the next step, which rank 0 also takes on one device; then
+    a meshed ``attach_to_trainer`` resumes the same files shard-wise and
+    takes that step again."""
     import os
 
     import torch.distributed as dist
 
     from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
-    from k8s_gpu_tpu_torch.train.checkpoint import CheckpointManager
+    from k8s_gpu_tpu_torch.train.checkpoint import (
+        CheckpointManager, attach_to_trainer,
+    )
 
     _, _, knobs, _ = next(c for c in CASES if c[0] == CKPT_CASE)
     toks = inp["tokens"][CKPT_CASE]
@@ -240,6 +357,14 @@ def _one_device_to_mesh(inp, mesh) -> dict:
     t2.load_gathered_state(params, opt_state)
     out["step"] = step
     out["got_loss"] = _steps(t2, toks[1:2])[0]
+    # The same one-device files through a meshed attach_to_trainer: each
+    # rank reads its own runs of them.
+    t3 = Trainer(_model(knobs), TrainConfig(**TRAIN), device="cpu",
+                 mesh=mesh)
+    t3.init(seed=43)
+    out["attach_step"], out["attach_calls"] = _counted(
+        attach_to_trainer(t3, root)[2])
+    out["attach_loss"] = _steps(t3, toks[1:2])[0]
     return out
 
 
@@ -328,11 +453,9 @@ def _local_shapes(tr) -> dict:
 
 def _fsdp_cases(inp, meshes) -> dict:
     """Each FSDP_CASES case's 3 steps (the checkpoint case saved after
-    them), then that checkpoint resumed onto each of RESUMES under the
-    default rules for RESUMED_STEPS more."""
+    them), then that checkpoint resumed onto each of RESUMES for
+    RESUMED_STEPS more."""
     import os
-
-    import torch.distributed as dist
 
     from k8s_gpu_tpu_torch.convert import params_to_numpy
     from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
@@ -355,11 +478,9 @@ def _fsdp_cases(inp, meshes) -> dict:
                                     if c[0] == FSDP_CKPT_CASE)
     toks = inp["tokens"][FSDP_CKPT_CASE][STEPS:]
     for where in RESUMES:
-        if where == "one" and dist.get_rank() != 0:
+        tr = _resume_target(where, knobs, train, meshes, seed=3)
+        if tr is None:
             continue
-        tr = Trainer(_model(knobs), TrainConfig(**TRAIN, **train),
-                     device="cpu", mesh=meshes.get(where))
-        tr.init(seed=3)
         step = attach_to_trainer(tr, root)[2]()
         losses = _steps(tr, toks)
         out[("resumed", where)] = {
@@ -428,6 +549,58 @@ def _fsdp_refusals(inp, meshes) -> dict:
     return out
 
 
+def _moved_cases(inp, meshes) -> dict:
+    """Each MOVED_CASES case's 3 steps: what a fsdp case returns, and for
+    mlp_whole each rank's blocks of MLP_LEAVES (parameters, moments,
+    EMA); the MOVED_CKPT_CASE checkpoint, saved after them, resumed onto
+    dp 2 x tp 2 under the default rules for RESUMED_STEPS more."""
+    import os
+
+    from k8s_gpu_tpu_torch.convert import params_to_numpy
+    from k8s_gpu_tpu_torch.parallel.mesh import axis_rank
+    from k8s_gpu_tpu_torch.train import TrainConfig, Trainer
+    from k8s_gpu_tpu_torch.train.checkpoint import attach_to_trainer
+    from k8s_gpu_tpu_torch.train.runner import tree_leaves, tree_paths
+
+    root = os.path.join(inp["ckpt_dir"], "moved")
+    out = {}
+    for name, mesh_name, knobs, train, table, policy in MOVED_CASES:
+        tr = Trainer(_model(knobs, policy), TrainConfig(**TRAIN, **train),
+                     device="cpu", mesh=meshes[mesh_name],
+                     rules=_rules(table))
+        tr.init(params=inp["params"][name])
+        losses = _steps(tr, inp["tokens"][name][:STEPS])
+        paths = tree_paths(tr.params)
+        out[name] = {"losses": losses, "shapes": _local_shapes(tr),
+                     "params": params_to_numpy(tr.gathered_params()),
+                     "moved": [p for p, m in zip(paths, tr.moved)
+                               if m is not None], **_state(tr)}
+        if name == "mlp_whole":
+            out[name]["coords"] = {a: axis_rank(tr.mesh, a)
+                                   for a in ("dp", "tp")}
+            held = {"params": tree_leaves(tr.params), "ema":
+                    tree_leaves(tr.ema), "mu": tr.optimizer.mu,
+                    "nu": tr.optimizer.nu}
+            out[name]["held"] = {
+                kind: {p: t.detach().numpy().copy()
+                       for p, t in zip(paths, leaves) if p in MLP_LEAVES}
+                for kind, leaves in held.items()}
+        if name == MOVED_CKPT_CASE:
+            save = attach_to_trainer(tr, root)[1]
+            out["save_calls"] = _counted(lambda: save(STEPS))[1]
+    _, mesh_name, knobs, train, _, _ = next(c for c in MOVED_CASES
+                                            if c[0] == MOVED_CKPT_CASE)
+    tr = Trainer(_model(knobs), TrainConfig(**TRAIN, **train), device="cpu",
+                 mesh=meshes[mesh_name])
+    tr.init(seed=5)
+    step, calls = _counted(attach_to_trainer(tr, root)[2])
+    losses = _steps(tr, inp["tokens"][MOVED_CKPT_CASE][STEPS:])
+    out["resumed"] = {"step": step, "losses": losses, "calls": calls,
+                      "params": params_to_numpy(tr.gathered_params()),
+                      **_state(tr)}
+    return out
+
+
 def run_all(inp: dict) -> dict:
     import torch
     import torch.distributed as dist
@@ -446,4 +619,5 @@ def run_all(inp: dict) -> dict:
             "refusals": _refusals(inp, meshes),
             "fsdp": _fsdp_cases(inp, meshes),
             "fsdp_consumers": _fsdp_consumers(inp, meshes),
-            "fsdp_refusals": _fsdp_refusals(inp, meshes)}
+            "fsdp_refusals": _fsdp_refusals(inp, meshes),
+            "moved": _moved_cases(inp, meshes)}
